@@ -1,0 +1,212 @@
+"""Paged attention: attention of q rows over the paged KV cache.
+
+Port of ``paddle_tpu/ops/paged_attention.py``. The continuous-batching
+engine (serving/generation.py) stores each slot's KV rows in
+non-contiguous fixed-size pages (ops/paged_kv.py). This module attends q
+rows to that paged cache three ways:
+
+ - ``paged_flash_decode``: the hand-written Hopper kernel
+   (``csrc/paged_decode.cu``), replacing the Pallas TPU kernel
+   ``_paged_decode_kernel``. It reads each page straight out of the pool
+   through the page table and never materializes the gathered cache;
+ - ``paged_decode_reference``: its plain PyTorch twin, the same
+   arithmetic (per-page online softmax, p rounded to V's dtype before
+   p.V) in ordinary tensor ops;
+ - ``paged_attention_fallback``: the reference's gather-then-softmax
+   path, op for op (kept for parity with the reference's own fallback).
+
+``paged_attention`` dispatches on the tensor's device: a CPU tensor runs
+the twin, a CUDA tensor launches the kernel (or the wrapper raises), and
+anything else raises. There is no silent fallback on the card.
+
+Differences from the TPU kernel's gate (``paged_attention_available``):
+the TPU limits its kernel to T <= 128 q rows (its 128-row q tile) and to
+page sizes that are multiples of 128, so on the TPU an engine prefill
+(``prefill_width`` rows, default ``max_seq_len``) took the gather
+fallback. This kernel tiles q rows in 64-row blocks and takes every T, so
+on the card every attention call of the engine, prefill and decode, is a
+kernel launch. Any page size whose score tile fits in shared memory
+(64 x page_size f32 beside the q and K/V tiles) is taken. Head dims are
+64, 128 and 256 (one template instance each), dtypes float32 and
+bfloat16; the pool must have q's dtype.
+
+``pos`` is a PER-SLOT [B] int32 vector (slots decode at different depths);
+q row j of slot b attends virtual positions <= pos[b] + j. Inference only.
+"""
+import ctypes
+import math
+
+import torch
+
+from . import _build
+from .flash_attention import _EPS, _NEG_INF, repeat_kv
+from .paged_kv import gather_virtual
+from .weight_only import is_weight_only
+
+HEAD_DIMS = (64, 128, 256)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib = None
+
+
+def _kernel_lib():
+    global _lib
+    if _lib is None:
+        lib = _build.load('paged_decode')
+        lib.paged_decode.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib.paged_decode.restype = ctypes.c_int
+        lib.paged_decode_error_string.argtypes = [ctypes.c_int]
+        lib.paged_decode_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def paged_decode_reference(q, k_pages, v_pages, page_table, pos):
+    """Plain PyTorch twin of the kernel (and of the TPU's
+    ``_paged_decode_kernel``): pages are visited in order, each slot
+    stops at its last needed page ``min(ceil((pos+T)/ps), P_max)``, and
+    the online-softmax state (m, l, acc) is updated once per page in f32.
+    Scores are f32 dots times 1/sqrt(D), masked with -1e30; l sums the
+    unrounded p, while p.V uses p rounded to V's dtype.
+
+    q: [B, T, H, D]; pages [N, page_size, H_kv, D]; page_table [B, P_max]
+    int; pos [B] int -> [B, T, H, D] in q's dtype."""
+    b, t, h, d = q.shape
+    _, ps, h_kv, _ = k_pages.shape
+    p_max = int(page_table.shape[1])
+    g = h // h_kv
+    dev = q.device
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float().permute(0, 2, 1, 3)                        # [B,H,T,D]
+    pos_l = pos.to(dev).long()
+    table = page_table.to(dev).long()
+    needed = torch.clamp((pos_l + t + ps - 1) // ps, max=p_max)   # [B]
+    q_pos = pos_l[:, None, None, None] + torch.arange(
+        t, device=dev)[None, None, :, None]                   # [B,1,T,1]
+    acc = torch.zeros((b, h, t, d), dtype=torch.float32, device=dev)
+    m = torch.full((b, h, t, 1), _NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, t, 1), dtype=torch.float32, device=dev)
+    for p in range(int(needed.max())):
+        pid = table[:, p]
+        kb = k_pages[pid].float().permute(0, 2, 1, 3)        # [B,Hkv,ps,D]
+        vb = v_pages[pid].permute(0, 2, 1, 3)
+        if g > 1:
+            kb = torch.repeat_interleave(kb, g, dim=1)
+            vb = torch.repeat_interleave(vb, g, dim=1)
+        s = (qf @ kb.transpose(-1, -2)) * scale               # [B,H,T,ps]
+        k_pos = p * ps + torch.arange(ps, device=dev)
+        s = torch.where(k_pos <= q_pos, s, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        pr = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l_new = l * alpha + pr.sum(dim=-1, keepdim=True)
+        acc_new = acc * alpha + pr.to(vb.dtype).float() @ vb.float()
+        live = (p < needed)[:, None, None, None]
+        acc = torch.where(live, acc_new, acc)
+        m = torch.where(live, m_new, m)
+        l = torch.where(live, l_new, l)
+    out = acc / torch.clamp(l, min=_EPS)
+    return out.to(q.dtype).permute(0, 2, 1, 3)
+
+
+def _check_kernel_args(q, k_pages, v_pages, page_table, pos):
+    if q.device.type != 'cuda':
+        raise ValueError(f'paged_flash_decode needs CUDA tensors, q is on '
+                         f'{q.device}')
+    for name, x in (('k_pages', k_pages), ('v_pages', v_pages),
+                    ('page_table', page_table), ('pos', pos)):
+        if x.device != q.device:
+            raise ValueError(f'{name} is on {x.device}, q on {q.device}')
+    if q.dim() != 4 or k_pages.dim() != 4:
+        raise ValueError('q must be [B,T,H,D] and pages [N,page_size,H_kv,D]')
+    b, t, h, d = q.shape
+    n, ps, h_kv, dk = k_pages.shape
+    if tuple(v_pages.shape) != tuple(k_pages.shape):
+        raise ValueError('k_pages and v_pages differ in shape')
+    if dk != d or d not in HEAD_DIMS:
+        raise ValueError(f'head_dim {d} (pages {dk}) not in {HEAD_DIMS}')
+    if h_kv == 0 or h % h_kv:
+        raise ValueError(f'kv heads {h_kv} must divide q heads {h}')
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f'q dtype {q.dtype} not in float32/bfloat16')
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise ValueError('the pools must have q\'s dtype')
+    if (page_table.dtype != torch.int32 or page_table.dim() != 2
+            or page_table.shape[0] != b):
+        raise ValueError('page_table must be int32 [B, P_max]')
+    if pos.dtype != torch.int32 or tuple(pos.shape) != (b,):
+        raise ValueError('pos must be int32 [B]')
+    for name, x in (('q', q), ('k_pages', k_pages), ('v_pages', v_pages),
+                    ('page_table', page_table), ('pos', pos)):
+        if not x.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+    for name, x in (('q', q), ('k_pages', k_pages), ('v_pages', v_pages)):
+        if x.data_ptr() % 16:
+            raise ValueError(f'{name} must be 16-byte aligned')
+
+
+def paged_flash_decode(q, k_pages, v_pages, page_table, pos):
+    """The Hopper kernel. q: [B,T,H,D]; pages [N, page_size, H_kv, D]
+    (one layer of the pool, read in place); page_table [B, P_max] int32;
+    pos [B] int32 -> [B,T,H,D]. Launches on the current stream without
+    synchronising; raises on arguments the kernel does not take and on a
+    refused launch. ``paged_flash_decode.launches`` counts launches."""
+    _check_kernel_args(q, k_pages, v_pages, page_table, pos)
+    lib = _kernel_lib()
+    b, t, h, d = q.shape
+    _, ps, h_kv, _ = k_pages.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.paged_decode(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            b, t, h, h_kv, d, ps, int(page_table.shape[1]),
+            _DTYPE_CODE[q.dtype], stream)
+    if err != 0:
+        msg = lib.paged_decode_error_string(err).decode()
+        raise RuntimeError(f'paged_decode launch failed ({err}): {msg}')
+    paged_flash_decode.launches += 1
+    return out
+
+
+paged_flash_decode.launches = 0
+
+
+def paged_attention_fallback(q, k_pages, v_pages, page_table, pos, cdt):
+    """The reference's gather path, op for op: gather each slot's virtual
+    dense cache through the page table, then einsum in the compute dtype,
+    f32 masked softmax, cast back."""
+    kc = gather_virtual(k_pages, page_table)
+    vc = gather_virtual(v_pages, page_table)
+    kc, vc = repeat_kv(kc, vc, int(q.shape[2]))
+    B, T = q.shape[:2]
+    S = kc.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum('bqhd,bkhd->bhqk', q, kc) * scale          # [B,H,T,S]
+    q_pos = (pos.long()[:, None, None]
+             + torch.arange(T, device=q.device)[None, :, None])  # [B,T,1]
+    k_pos = torch.arange(S, device=q.device)[None, None, :]      # [1,1,S]
+    mask = (k_pos <= q_pos)[:, None]                             # [B,1,T,S]
+    s = torch.where(mask, s.float(), _NEG_INF)
+    p = torch.softmax(s, dim=-1).to(cdt)
+    return torch.einsum('bhqk,bkhd->bqhd', p, vc)
+
+
+def paged_attention(q, k_pages, v_pages, page_table, pos):
+    """Attention over a paged KV pool, dispatched on q's device: the plain
+    twin for a CPU tensor, the Hopper kernel for a CUDA tensor.
+
+    q: [B, T, H, D]; pools: [N, page_size, H_kv, D]; page_table: [B, P_max]
+    int32; pos: [B] int32 (first q row's absolute position per slot)
+    -> [B, T, H, D]."""
+    if is_weight_only(k_pages):
+        raise NotImplementedError(
+            'int8 KV page banks are not ported yet (ROADMAP Queue 1 '
+            'item 3, kernel 7: _paged_decode_kernel_int8)')
+    if q.device.type == 'cpu':
+        return paged_decode_reference(q, k_pages, v_pages, page_table, pos)
+    if q.device.type == 'cuda':
+        return paged_flash_decode(q, k_pages, v_pages, page_table, pos)
+    raise ValueError(f'paged_attention runs on cuda or cpu, not {q.device}')

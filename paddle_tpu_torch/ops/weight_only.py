@@ -1,0 +1,41 @@
+"""Weight helpers shared by every weight consumer of the GPT serving path.
+
+Port of ``paddle_tpu/ops/weight_only.py:53-124`` for raw float weights.
+A weight is a raw tensor (``[in, out]`` for matmuls, ``[V, H]`` for the
+tied embedding) kept in the parameter dtype; each helper casts it to the
+compute dtype before the product, exactly as the reference does
+(``y @ w.astype(cdt)``). A caller may hand in weights already cast to the
+compute dtype (the engine keeps such a copy, made once at load): the
+``.to`` is then a no-op and the numbers are the same.
+
+The int8 weight-only form ``{'int8', 'scale'}`` is not ported yet and
+raises (ROADMAP Queue 1, "Low precision": ``precision='int8_wo'``).
+"""
+
+_INT8_TODO = ('int8 weight-only weights ({"int8", "scale"}) are not ported '
+              'yet (ROADMAP Queue 1, "Low precision": int8_wo)')
+
+
+def is_weight_only(w):
+    return isinstance(w, dict) and 'int8' in w and 'scale' in w
+
+
+def _raw(w):
+    if is_weight_only(w):
+        raise NotImplementedError(_INT8_TODO)
+    return w
+
+
+def wo_matmul(y, w, cdt):
+    """``y @ w`` for a raw ``[in, out]`` weight, cast to ``cdt`` first."""
+    return y @ _raw(w).to(cdt)
+
+
+def wo_take(w, idx):
+    """Row gather (embedding lookup) from a raw ``[V, H]`` table."""
+    return _raw(w)[idx]
+
+
+def wo_lm_head(x, wte, cdt):
+    """Tied LM head ``x @ wte.T`` for a raw embedding table."""
+    return x @ _raw(wte).to(cdt).T

@@ -1,0 +1,105 @@
+"""Rules the PyTorch/CUDA port keeps: it imports neither JAX nor the JAX
+package, its entry points refuse to run on a machine without a card
+unless the CPU is asked for, and chip_smoke.py reports nothing without a
+card or without the port beside it."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import paddle_tpu_torch
+from paddle_tpu_torch.models import gpt as tgpt
+from paddle_tpu_torch.serving import GenerationEngine
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / 'paddle_tpu_torch'
+FORBIDDEN = ('jax', 'jaxlib', 'paddle_tpu')
+
+
+def _imports(path):
+    """Absolute module names imported by one source file."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ''
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, 'attr', getattr(node.func, 'id', ''))
+              in ('import_module', '__import__') and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def _forbidden(name):
+    top = name.split('.')[0]
+    return top in FORBIDDEN
+
+
+@pytest.mark.parametrize('path', sorted(PORT.rglob('*.py')) +
+                         [ROOT / 'chip_smoke.py'],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = [n for n in _imports(path) if _forbidden(n)]
+    assert not bad, f'{path.relative_to(ROOT)} imports {bad}'
+
+
+def test_the_scan_sees_forbidden_imports(tmp_path):
+    f = tmp_path / 'probe.py'
+    f.write_text('import jax.numpy as jnp\nfrom paddle_tpu.ops import x\n'
+                 'import importlib\n'
+                 'importlib.import_module("paddle_tpu.ops")\n'
+                 'from . import paged_kv\nimport paddle_tpu_torch\n')
+    found = [n for n in _imports(f) if _forbidden(n)]
+    assert found == ['jax.numpy', 'paddle_tpu.ops', 'paddle_tpu.ops']
+
+
+def _tiny():
+    cfg = tgpt.GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                         num_heads=2, max_seq_len=16, dtype='float32')
+    return tgpt.init_params(cfg, torch.Generator().manual_seed(0),
+                            'cpu'), cfg
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    params, cfg = _tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GenerationEngine(params, cfg)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        paddle_tpu_torch.resolve_device()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        paddle_tpu_torch.resolve_device('cuda:0')
+    assert paddle_tpu_torch.resolve_device('cpu') == torch.device('cpu')
+    eng = GenerationEngine(params, cfg, device='cpu', autostart=False)
+    assert eng.device == torch.device('cpu')
+    eng.shutdown()
+
+
+def _smoke(cwd, env):
+    return subprocess.run([sys.executable, 'chip_smoke.py'], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_chip_smoke_fails_without_card_or_port(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='')
+    env.pop('PYTHONPATH', None)
+    for cwd in (ROOT, tmp_path):
+        if cwd == tmp_path:
+            shutil.copy(ROOT / 'chip_smoke.py', tmp_path / 'chip_smoke.py')
+        proc = _smoke(cwd, env)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+def test_kernel_source_exports_the_c_entry_point():
+    src = (PORT / 'csrc' / 'paged_decode.cu').read_text()
+    assert 'extern "C"' in src and 'int paged_decode(' in src
+    assert 'cudaGetLastError()' in src
