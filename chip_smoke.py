@@ -6,13 +6,16 @@
 Phases, all of them on every run, in order; any failure raises and exits
 non-zero:
  1. the card: nvidia-smi name and power limit, torch's device name/count;
- 2. build every kernel of the serving path from the sources in the
-    checkout (nvcc, sm_90a) and print the build time and ptxas report;
+ 2. build every kernel of the port from the sources in the checkout, one
+    nvcc (sm_90a) for each source, all started together; print the build
+    time and ptxas report;
  3. each kernel against its plain PyTorch twin on the card, at the shapes
-    the engine gives it (decode T=1 at ragged positions, prefill T=1024),
-    plus GQA, float32 and other head-dim cases; max abs error against the
-    stated tolerance (scaled to each output row's size in bfloat16),
-    kernel / plain / library times and the bound;
+    its main path gives it, plus GQA, float32 and other head-dim cases;
+    max abs error against the stated tolerance (scaled to each output
+    row's size in bfloat16), kernel / plain / library times and the bound:
+    paged_decode (the engine's decode T=1 at ragged positions, prefill
+    T=1024), flash_decode and flash_decode_int8 (generate()'s decode step
+    and prefill), flash_fwd (forward() over [8, 1024]);
  4. the serving path at full width: the bench GPT (vocab 32768, hidden
     1024, 24 layers, 16 heads, bf16, random weights from a seed) in
     GenerationEngine(num_slots=8, page_size=128) answering 8 greedy
@@ -20,9 +23,21 @@ non-zero:
     before and read just after, and must equal 24 x (prefills + steps);
  5. card against CPU at reduced depth (hidden 1024, 2 layers, float32), the
     engine at its default 1024-row prefill on both: prefill logits agree
-    and greedy streams are equal.
-Then one line of kernel records (JSON), and the last line
-``{"ok": true, "device": {...}}``.
+    and greedy streams are equal;
+ 6. dense generate() at full width: the same bench GPT, 8 prompts of 128
+    tokens (numpy seed), 128 greedy tokens, once with the bf16 cache and
+    once with the int8 cache; tokens/s, prefill ms, mean step ms, a
+    profiled window of decode steps; launches == 24 x 128 per run, and the
+    int8 run's prefill logits within cosine 0.999 of the bf16 run's;
+ 7. forward() on [8, 1024] (flash_fwd launches == 24), then generate() on
+    8 prompts of 1000 tokens with 32 new: 25 cached tokens and 7 on the
+    sliding window (flash_decode 24 x 25, flash_fwd 24 x 7 launches);
+ 8. card against CPU at 2 layers in float32: greedy generate() streams
+    equal on the dense, int8 and window-crossing paths, forward() logits
+    within 1e-3.
+Every launch counter is set to 0 just before each main-path run (phases 4,
+6 and 7) and read just after. Then one line of kernel records (JSON), and
+the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the rest of the repository beside it, it
 exits non-zero and prints no result.
@@ -54,6 +69,21 @@ LAYERS = 24                        # timing rotates over one pool per layer,
                                    # pages cold in L2)
 
 
+SOURCES = ('paged_decode', 'flash_decode', 'flash_fwd')
+SOURCE_OF = {   # kernel -> its source; kernels 4 and 5 share one
+    'paged_decode': 'paddle_tpu_torch/csrc/paged_decode.cu',
+    'flash_decode': 'paddle_tpu_torch/csrc/flash_decode.cu',
+    'flash_decode_int8': 'paddle_tpu_torch/csrc/flash_decode.cu',
+    'flash_fwd': 'paddle_tpu_torch/csrc/flash_fwd.cu',
+}
+REPLACES = {    # the TPU kernel each one ports
+    'paged_decode': 'paddle_tpu/ops/paged_attention.py:70',
+    'flash_decode': 'paddle_tpu/ops/flash_attention.py:825',
+    'flash_decode_int8': 'paddle_tpu/ops/flash_attention.py:861',
+    'flash_fwd': 'paddle_tpu/ops/flash_attention.py:236',
+}
+
+
 def card_line():
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -75,6 +105,29 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters, warmup=3):
+    """Mean device time of fn(i) over ``iters`` calls: the summed duration
+    of every kernel and copy the calls put on the card, from
+    torch.profiler's CUDA activity. Unlike CUDA events around back-to-back
+    calls it leaves out the gaps while the host prepares the next launch,
+    which for a kernel of tens of microseconds can take longer than the
+    kernel itself."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in p.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError('the profiler saw no device time')
+    return us / 1e3 / iters
 
 
 # ---------------------------------------------------------------------------
@@ -120,8 +173,14 @@ def bound(c):
     for p0 in c['pos'].tolist():
         vis = sum(min(p0 + j + 1, cap) for j in range(t))
         ops += 4 * d * h * vis
+    return bound_of(nbytes, ops, q.dtype)
+
+
+def bound_of(nbytes, ops, dtype):
+    """(ms, 'bytes' or 'operations', bytes, ops): the larger of bytes / HBM
+    rate and operations / peak rate for the dtype."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[q.dtype] * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops
             else 'operations', nbytes, ops)
 
@@ -146,7 +205,7 @@ def sdpa_ms(c, iters):
         t, device='cuda')[None, :, None]
     mask = (torch.arange(s, device='cuda')[None, None, :] <= qpos)[:, None]
     qt = q.permute(0, 2, 1, 3).contiguous()
-    return cuda_ms(lambda i: F.scaled_dot_product_attention(
+    return device_ms(lambda i: F.scaled_dot_product_attention(
         qt, ks[i % rot], vs[i % rot], attn_mask=mask), iters)
 
 
@@ -156,6 +215,51 @@ def kernel_err(got, want):
     d = (got.float() - want.float()).abs().amax(-1)
     scale = want.float().abs().amax(-1)
     return d.max().item(), (d / scale).max().item()
+
+
+def hold_kernel(kname, name, kernel, call, twin, tol, timing=None,
+                lse=False):
+    """Hold one kernel call against its twin on the same inputs, and on a
+    main-path shape (``timing``: dict of ``iters``, ``bound`` as
+    ``bound_of`` returns it, ``library(iters)``) time it. ``call(i)`` and
+    ``twin(i)`` run on the inputs of layer i; with ``lse`` they return
+    (out, lse). The launches made here only compare and time, so the
+    kernel's counter is put back. Raises when the two disagree."""
+    before = kernel.launches
+    got = call(0)
+    torch.cuda.synchronize()
+    want = twin(0)
+    rec = {}
+    if lse:
+        (got, got_lse), (want, want_lse) = got, want
+        rec['lse_err'] = (got_lse - want_lse).abs().max().item()
+    err, rel = kernel_err(got, want)
+    rec.update(max_abs_err=err, max_row_rel_err=rel, tol=tol)
+    if timing:
+        it = timing['iters']
+        b_ms, b_by, nbytes, ops = timing['bound']
+        rec.update(ms=device_ms(call, it), ms_events=cuda_ms(call, it),
+                   plain_ms=cuda_ms(twin, max(4, it // 10), warmup=1),
+                   library_ms=timing['library'](it), bound_ms=b_ms,
+                   bound_by=b_by, bytes=nbytes, ops=ops)
+    kernel.launches = before
+    ok = math.isfinite(err) and rel <= tol
+    extra = ''
+    if lse:
+        ok = ok and rec['lse_err'] <= LSE_TOL
+        extra = f'; lse {rec["lse_err"]:.3e} (tol {LSE_TOL:g})'
+    if timing:
+        extra += (f'; kernel {rec["ms"]:.4f} ms (events '
+                  f'{rec["ms_events"]:.4f}), plain {rec["plain_ms"]:.4f} ms,'
+                  f' sdpa {rec["library_ms"]:.4f} ms, bound '
+                  f'{rec["bound_ms"]:.4f} ms ({rec["bound_by"]})')
+    print(f'  kernel {kname} {name}: max_abs_err {err:.3e}, row-scaled '
+          f'{rel:.3e} (tol {tol:g}) {"OK" if ok else "FAIL"}{extra}',
+          flush=True)
+    if not ok:
+        raise AssertionError(f'{kname} {name}: kernel and twin differ '
+                             f'({rec})')
+    return rec
 
 
 def kernel_cases(pa, timed_iters):
@@ -184,35 +288,197 @@ def kernel_cases(pa, timed_iters):
         c = make_case(**kw)
         args = lambda i: (c['q'], c['k'][i % LAYERS], c['v'][i % LAYERS],  # noqa: E731
                           c['table'], c['pos'])
-        before = pa.paged_flash_decode.launches
-        got = pa.paged_flash_decode(*args(0))
-        torch.cuda.synchronize()
-        want = pa.paged_decode_reference(*args(0))
-        err, rel = kernel_err(got, want)
-        tol = TOL[kw['dtype']]
-        ok = math.isfinite(err) and rel <= tol
-        rec = {'max_abs_err': err, 'max_row_rel_err': rel, 'tol': tol}
-        if engine_shape:
-            b_ms, b_by, nbytes, ops = bound(c)
-            rec.update(
-                ms=cuda_ms(lambda i: pa.paged_flash_decode(*args(i)),
-                           timed_iters),
-                plain_ms=cuda_ms(lambda i: pa.paged_decode_reference(
-                    *args(i)), max(4, timed_iters // 10), warmup=1),
-                library_ms=sdpa_ms(c, timed_iters),
-                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=ops)
-        # launches made here only compare and time: not the main path's
-        pa.paged_flash_decode.launches = before
-        print(f'  kernel paged_decode {name}: max_abs_err {err:.3e}, '
-              f'row-scaled {rel:.3e} (tol {tol:g}) {"OK" if ok else "FAIL"}'
-              + (f'; kernel {rec["ms"]:.4f} ms, plain {rec["plain_ms"]:.4f}'
-                 f' ms, sdpa {rec["library_ms"]:.4f} ms, bound '
-                 f'{rec["bound_ms"]:.4f} ms ({rec["bound_by"]})'
-                 if engine_shape else ''), flush=True)
-        if not ok:
-            raise AssertionError(f'paged_decode {name}: kernel and twin '
-                                 f'differ by {rel} of a row > {tol}')
-        results[name] = rec
+        timing = (dict(iters=timed_iters, bound=bound(c),
+                       library=lambda it: sdpa_ms(c, it))
+                  if engine_shape else None)
+        results[name] = hold_kernel(
+            'paged_decode', name, pa.paged_flash_decode,
+            lambda i: pa.paged_flash_decode(*args(i)),
+            lambda i: pa.paged_decode_reference(*args(i)),
+            TOL[kw['dtype']], timing)
+        del c
+        torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (continued): the dense decode kernels and the forward kernel
+# ---------------------------------------------------------------------------
+
+GEN_POS = 191      # mean position of phase 6's decode steps (128 .. 254)
+BF16, F32 = torch.bfloat16, torch.float32
+# (name, case arguments, main-path shape: timed and bounded)
+DECODE_CASES = [
+    ('decode_T1', dict(b=8, t=1, h=16, h_kv=16, d=64, s_max=1024,
+                       pos=GEN_POS, dtype=BF16), True),
+    ('prefill_T128', dict(b=8, t=128, h=16, h_kv=16, d=64, s_max=1024,
+                          pos=0, dtype=BF16), True),
+    ('prefill_T1000', dict(b=8, t=1000, h=16, h_kv=16, d=64, s_max=1024,
+                           pos=0, dtype=BF16), False),
+    ('decode_T1_gqa_hkv4_d128', dict(b=8, t=1, h=16, h_kv=4, d=128,
+                                     s_max=1024, pos=700, dtype=BF16), False),
+    ('decode_T3_f32_d256', dict(b=2, t=3, h=4, h_kv=4, d=256, s_max=512,
+                                pos=300, dtype=F32), False),
+    ('decode_T1_int8', dict(b=8, t=1, h=16, h_kv=16, d=64, s_max=1024,
+                            pos=GEN_POS, dtype=BF16, int8=True), True),
+    ('prefill_T128_int8', dict(b=8, t=128, h=16, h_kv=16, d=64, s_max=1024,
+                               pos=0, dtype=BF16, int8=True), True),
+    ('decode_T2_int8_f32_gqa', dict(b=4, t=2, h=8, h_kv=2, d=64, s_max=512,
+                                    pos=400, dtype=F32, int8=True), False),
+]
+FWD_CASES = [
+    ('fwd_S1024', dict(b=8, s=1024, h=16, h_kv=16, d=64, dtype=BF16), True),
+    ('fwd_S300_gqa_d128_f32', dict(b=2, s=300, h=8, h_kv=4, d=128,
+                                   dtype=F32), False),
+    ('fwd_S200_mask_noncausal', dict(b=2, s=200, h=4, h_kv=4, d=64,
+                                     dtype=BF16, causal=False, masked=True),
+     False),
+    ('fwd_S130_d256', dict(b=1, s=130, h=2, h_kv=2, d=256, dtype=BF16),
+     False),
+]
+LSE_TOL = 1e-4     # lse is f32 from the same scores: order of sums only
+
+
+def dense_case(b, t, h, h_kv, d, s_max, pos, dtype, int8=False, layers=1,
+               seed=0):
+    """q, ``layers`` dense caches [B, S_max, H_kv, D] (int8 banks with
+    ``int8``) and pos as the int32 [1] tensor generate() passes."""
+    from paddle_tpu_torch.ops.weight_only import quantize_kv
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    q = torch.randn((b, t, h, d), generator=g, device='cuda').to(dtype)
+
+    def plane():
+        out = []
+        for _ in range(layers):
+            x = torch.randn((b, s_max, h_kv, d), generator=g, device='cuda')
+            if int8:
+                qx, sx = quantize_kv(x)
+                out.append({'int8': qx, 'scale': sx})
+            else:
+                out.append(x.to(dtype))
+        return out
+
+    return dict(q=q, k=plane(), v=plane(), s_max=s_max, int8=int8,
+                pos=torch.tensor([pos], dtype=torch.int32, device='cuda'))
+
+
+def decode_bound(c):
+    """Each K/V row the rows can see read once (int8: its byte per value
+    and its f32 scale), q, out and pos once; 4*D flops per (row, visible
+    key, head)."""
+    q = c['q']
+    b, t, h, d = q.shape
+    kv = c['k'][0]['int8'] if c['int8'] else c['k'][0]
+    h_kv = kv.shape[2]
+    pos, s_max = int(c['pos']), c['s_max']
+    row = d * kv.element_size() + (4 if c['int8'] else 0)
+    nbytes = (2 * b * min(pos + t, s_max) * h_kv * row
+              + 2 * q.numel() * q.element_size() + 4)
+    ops = 4 * d * h * b * sum(min(pos + j + 1, s_max) for j in range(t))
+    return bound_of(nbytes, ops, q.dtype)
+
+
+def decode_sdpa_ms(c, iters):
+    """Yardstick only: one F.scaled_dot_product_attention over the keys the
+    rows can see, the cache transposed (and int8 dequantized) beforehand,
+    not timed."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.weight_only import dequantize_kv
+    q = c['q']
+    b, t, h, d = q.shape
+    pos = int(c['pos'])
+    keys = min(pos + t, c['s_max'])
+    rot = min(8, len(c['k']))
+
+    def dense(x):
+        if c['int8']:
+            x = dequantize_kv(x['int8'], x['scale'], q.dtype)
+        return x[:, :keys].transpose(1, 2).contiguous()
+
+    ks = [dense(c['k'][i]) for i in range(rot)]
+    vs = [dense(c['v'][i]) for i in range(rot)]
+    qt = q.transpose(1, 2).contiguous()
+    mask = (torch.arange(keys, device='cuda')[None, :]
+            <= pos + torch.arange(t, device='cuda')[:, None])
+    return device_ms(lambda i: F.scaled_dot_product_attention(
+        qt, ks[i % rot], vs[i % rot], attn_mask=mask), iters)
+
+
+def fwd_case(b, s, h, h_kv, d, dtype, causal=True, masked=False, layers=1,
+             seed=0):
+    """q, k, v as ``_block_qkv`` gives them, per layer: strided views of
+    one packed projection [B, S, H_kv, g+2, D] (q is copied when g > 1)."""
+    g = h // h_kv
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    parts = []
+    for _ in range(layers):
+        x = torch.randn((b, s, h_kv, g + 2, d), generator=gen,
+                        device='cuda').to(dtype)
+        parts.append((x[..., :g, :].reshape(b, s, h, d), x[..., g, :],
+                      x[..., g + 1, :]))
+    kmask = None
+    if masked:
+        valid = torch.tensor([s, s - 77], device='cuda')[:b, None]
+        kmask = torch.where(torch.arange(s, device='cuda')[None] < valid,
+                            0.0, -1e30)
+    return dict(parts=parts, causal=causal, kmask=kmask)
+
+
+def fwd_bound(c):
+    """q, k, v and out each moved once, lse written once; 4*D flops per
+    (row, visible key, head)."""
+    q, k, _ = c['parts'][0]
+    b, s, h, d = q.shape
+    es = q.element_size()
+    nbytes = (2 * q.numel() + 2 * k.numel()) * es + b * h * s * 4
+    vis = s * (s + 1) // 2 if c['causal'] else s * s
+    return bound_of(nbytes, 4 * d * h * b * vis, q.dtype)
+
+
+def fwd_sdpa_ms(c, iters):
+    """Yardstick only: one F.scaled_dot_product_attention (causal) over
+    q, k, v made contiguous in [B, H, S, D] beforehand, not timed."""
+    import torch.nn.functional as F
+    rot = min(8, len(c['parts']))
+    qkv = [[x.transpose(1, 2).contiguous() for x in c['parts'][i]]
+           for i in range(rot)]
+    return device_ms(lambda i: F.scaled_dot_product_attention(
+        *qkv[i % rot], is_causal=c['causal']), iters)
+
+
+def dense_kernel_cases(fa, timed_iters):
+    """The dense decode kernels (4, 5) and the forward kernel (1) against
+    their twins; the main-path shapes are timed over LAYERS rotating
+    caches or projections, as generate() and forward() find them."""
+    results = {'flash_decode': {}, 'flash_decode_int8': {}, 'flash_fwd': {}}
+    for name, kw, timed in DECODE_CASES:
+        c = dense_case(layers=LAYERS if timed else 1, **kw)
+        kname = 'flash_decode_int8' if c['int8'] else 'flash_decode'
+        kern = getattr(fa, kname)
+        twin = getattr(fa, kname + '_reference')
+        n = len(c['k'])
+        args = lambda i: (c['q'], c['k'][i % n], c['v'][i % n], c['pos'])  # noqa: E731
+        timing = (dict(iters=timed_iters, bound=decode_bound(c),
+                       library=lambda it: decode_sdpa_ms(c, it))
+                  if timed else None)
+        results[kname][name] = hold_kernel(
+            kname, name, kern, lambda i: kern(*args(i)),
+            lambda i: twin(*args(i)), TOL[kw['dtype']], timing)
+        del c
+        torch.cuda.empty_cache()
+    for name, kw, timed in FWD_CASES:
+        c = fwd_case(layers=LAYERS if timed else 1, **kw)
+        n = len(c['parts'])
+        # self-attention: q_off = S_k - S_q = 0
+        args = lambda i: (*c['parts'][i % n], c['causal'])  # noqa: E731
+        timing = (dict(iters=max(4, timed_iters // 4), bound=fwd_bound(c),
+                       library=lambda it: fwd_sdpa_ms(c, it))
+                  if timed else None)
+        results['flash_fwd'][name] = hold_kernel(
+            'flash_fwd', name, fa.flash_fwd,
+            lambda i: fa.flash_fwd(*args(i), kmask=c['kmask']),
+            lambda i: fa.flash_fwd_reference(*args(i), kmask=c['kmask']),
+            TOL[kw['dtype']], timing, lse=True)
         del c
         torch.cuda.empty_cache()
     return results
@@ -325,15 +591,21 @@ def phase_engine(gpt, pa, GenerationEngine, card):
 
 
 def profile_serving(eng, reqs, new):
-    """The same traffic again under torch.profiler: the window's wall
-    time, the device time summed over every kernel and copy, and the
-    kernels that took most of it. The profiler adds host time of its
+    return profile_window(lambda: serve(eng, reqs, new))
+
+
+def profile_window(fn):
+    """fn() once under torch.profiler: the window's wall time (to a
+    synchronize), the device time summed over every kernel and copy, and
+    the kernels that took most of it. The profiler adds host time of its
     own, so the busy share it gives is a lower bound."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
-        _, wall = serve(eng, reqs, new)
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     dev, n = {}, 0
     for e in p.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -396,6 +668,269 @@ def phase_card_vs_cpu(gpt, GenerationEngine):
     return {'prefill_logits_max_abs_err': err, 'streams_equal': same}
 
 
+# ---------------------------------------------------------------------------
+# phases 6-8: dense generate(), forward() and the sliding window
+# ---------------------------------------------------------------------------
+
+def zero_launches(kernels):
+    for k in kernels.values():
+        k.launches = 0
+
+
+def launch_counts(kernels):
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def expect_launches(what, got, want):
+    """Every counter of ``got`` must equal ``want`` (0 where unnamed)."""
+    full = {name: want.get(name, 0) for name in got}
+    if got != full:
+        raise AssertionError(f'{what}: launches {got}, want {full}')
+    print(f'  launches {what}: {got}', flush=True)
+
+
+def check_tokens(out, shape, vocab, what):
+    if tuple(out.shape) != shape or out.dtype != torch.int32:
+        raise AssertionError(f'{what}: tokens {tuple(out.shape)} '
+                             f'{out.dtype}, want {shape} int32')
+    if not bool(((out >= 0) & (out < vocab)).all()):
+        raise AssertionError(f'{what}: a token outside [0, {vocab})')
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_generate(gpt, kernels, card):
+    """generate() at full width, bf16 cache then int8 cache."""
+    cfg = bench_config(gpt)
+    torch.cuda.reset_peak_memory_stats()
+    model = gpt.GPTForCausalLM(cfg, device='cuda', seed=0)
+    b, t0, new = 8, 128, 128
+    prompt = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (b, t0)).astype(np.int32)).cuda()
+    res, prefill_logits = {}, {}
+    for label, kname in (('bf16', 'flash_decode'),
+                         ('int8', 'flash_decode_int8')):
+        c = cfg if label == 'bf16' else bench_config(gpt, kv_cache_int8=True)
+        m = model if label == 'bf16' else gpt.GPTForCausalLM(
+            c, model.param_dict(), device='cuda')
+        m.generate(prompt, max_new_tokens=2, temperature=0)     # warm-up
+        zero_launches(kernels)
+        out, wall = timed(lambda: m.generate(prompt, max_new_tokens=new,
+                                             temperature=0))
+        launches = launch_counts(kernels)
+        check_tokens(out, (b, t0 + new), cfg.vocab_size, f'generate {label}')
+        expect_launches(f'generate {label} (prefill + {new - 1} steps)',
+                        launches, {kname: cfg.num_layers * new})
+        # once more, uncounted: how far one run's time is from the next
+        again, wall2 = timed(lambda: m.generate(prompt, max_new_tokens=new,
+                                                temperature=0))
+        if not torch.equal(again, out):
+            raise AssertionError(f'generate {label}: a second run gave '
+                                 'other tokens')
+        # the same run in its two parts, each timed to a synchronize
+        params = gpt.serving_params(m.param_dict(), c)
+        prefill, _ = gpt.make_decode_fns(c)
+        loop = gpt.make_generate_loop(c)
+        cache = gpt.init_kv_cache(c, b, 'cuda')
+        (lg, cache), pre_s = timed(lambda: prefill(params, prompt, cache))
+        first = torch.argmax(lg, dim=-1).to(torch.int32)
+        pos0 = torch.full((1,), t0, dtype=torch.int32, device='cuda')
+        (rest, cache), loop_s = timed(lambda: loop(params, first, pos0, cache,
+                                                   None, new - 1))
+        if not torch.equal(torch.cat([first[:, None], rest], 1), out[:, t0:]):
+            raise AssertionError(f'generate {label}: the timed prefill + '
+                                 'loop gave other tokens than generate()')
+        prefill_logits[label] = lg.float()
+        rec = {'wall_s': wall, 'tokens_per_s': b * new / wall,
+               'wall_s_second_run': wall2, 'prefill_ms': pre_s * 1e3,
+               'step_ms_mean': loop_s * 1e3 / (new - 1),
+               'launches': launches[kname],
+               'distinct_tokens': int(out[:, t0:].unique().numel())}
+        if label == 'bf16':
+            rec['profile'] = profile_window(lambda: loop(
+                params, first, pos0, cache, None, 16))
+        print(f'  generate {label} cache: {b} x {new} tokens in {wall:.3f} s'
+              f' (again: {wall2:.3f} s)'
+              f'; {rec["tokens_per_s"]:.1f} tokens/s, prefill '
+              f'{rec["prefill_ms"]:.2f} ms, mean step '
+              f'{rec["step_ms_mean"]:.2f} ms [{card}]', flush=True)
+        res[label] = rec
+        del m, cache
+    a, c8 = prefill_logits['bf16'], prefill_logits['int8']
+    cos = float((a * c8).sum() / (a.norm() * c8.norm()))
+    if not (torch.isfinite(a).all() and torch.isfinite(c8).all()):
+        raise AssertionError('non-finite prefill logits')
+    print(f'  prefill logits int8 vs bf16 cache: cosine {cos:.6f} '
+          f'(want > 0.999)', flush=True)
+    if not cos > 0.999:
+        raise AssertionError(f'int8 cache prefill logits cosine {cos}')
+    prof = res['bf16']['profile']
+    print(f'  profiled 16 decode steps: window {prof["window_ms"]:.1f} ms, '
+          f'device busy {prof["device_ms"]:.1f} ms '
+          f'({100 * prof["busy_share"]:.1f}%), {prof["kernels"]} kernel '
+          'launches', flush=True)
+    for name, ms in prof['top']:
+        print(f'    {ms:9.3f} ms  {name}', flush=True)
+    res['int8_prefill_cosine'] = cos
+    res['peak_mem_gb'] = torch.cuda.max_memory_allocated() / 1e9
+    return model, res
+
+
+def phase_forward_sliding(gpt, model, kernels, card):
+    """forward() on [8, 1024], then generate() past the window."""
+    cfg = model.config
+    b, s = 8, cfg.max_seq_len
+    toks = torch.from_numpy(np.random.RandomState(7).randint(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    zero_launches(kernels)
+    logits, fwd_s = timed(lambda: model(toks))
+    fwd_launches = launch_counts(kernels)
+    expect_launches('forward [8, 1024]', fwd_launches,
+                    {'flash_fwd': cfg.num_layers})
+    if (tuple(logits.shape) != (b, s, cfg.vocab_size)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f'forward logits {tuple(logits.shape)}, '
+                             'finite?')
+    del logits
+    prof = profile_window(lambda: model(toks))
+    t0, new = 1000, 32
+    cached = s - t0 + 1
+    zero_launches(kernels)
+    out, wall = timed(lambda: model.generate(toks[:, :t0], max_new_tokens=new,
+                                             temperature=0))
+    launches = launch_counts(kernels)
+    check_tokens(out, (b, t0 + new), cfg.vocab_size, 'generate past window')
+    expect_launches(f'generate T0={t0} +{new} ({cached} cached, '
+                    f'{new - cached} sliding)', launches,
+                    {'flash_decode': cfg.num_layers * cached,
+                     'flash_fwd': cfg.num_layers * (new - cached)})
+    _, slide_s = timed(lambda: model._generate_sliding(
+        out[:, -s:], 1, 0, None))
+    res = {'forward_ms': fwd_s * 1e3, 'wall_s': wall,
+           'tokens_per_s': b * new / wall, 'sliding_step_ms': slide_s * 1e3,
+           'forward_launches': fwd_launches, 'launches': launches,
+           'forward_profile': prof}
+    print(f'  forward [8, 1024]: {res["forward_ms"]:.2f} ms; generate '
+          f'{b} x {new} past the window in {wall:.3f} s '
+          f'({res["tokens_per_s"]:.1f} tokens/s), one sliding step '
+          f'{res["sliding_step_ms"]:.2f} ms [{card}]', flush=True)
+    print(f'  profiled forward [8, 1024]: window {prof["window_ms"]:.1f} ms, '
+          f'device busy {prof["device_ms"]:.1f} ms '
+          f'({100 * prof["busy_share"]:.1f}%), {prof["kernels"]} kernel '
+          'launches', flush=True)
+    for name, ms in prof['top']:
+        print(f'    {ms:9.3f} ms  {name}', flush=True)
+    return res
+
+
+INT8_SHARE = 0.25    # see phase_generate_card_vs_cpu
+
+
+def teacher_forced_logits(gpt, model, stream, t0):
+    """``model``'s logits for every new token of ``stream`` given the
+    stream's own prefix: one cached prefill over the stream (each row
+    quantizes as the decode steps quantized it) -> [B, new, V] f32 on the
+    CPU."""
+    cfg = model.config
+    params = gpt.serving_params(model.param_dict(), cfg)
+    cache = gpt.init_kv_cache(cfg, stream.shape[0], model.device)
+    zero = torch.zeros(1, dtype=torch.int32, device=model.device)
+    with torch.no_grad():
+        lg, _ = gpt.forward_with_cache(params, stream[:, :-1].to(
+            model.device), cache, zero, cfg)
+    return lg[:, t0 - 1:].float().cpu()
+
+
+def phase_generate_card_vs_cpu(gpt):
+    """Greedy generate() card vs CPU at 2 layers in f32 (block matrices
+    x10, so streams depend on their context), and forward() logits.
+
+    The dense and window-crossing streams must be equal. The int8 cache
+    quantizes each row as it is written, and a value that lands within f32
+    noise of a rounding boundary quantizes one step apart on the two
+    devices (it moves by a 127th of its row's largest), so a near-tie late
+    in a stream may break the other way. Where the int8 streams differ,
+    both devices compute the logits of every token of the card's stream
+    given its own prefix. Their largest difference must stay within
+    INT8_SHARE of what the int8 cache itself changes (the CPU's logits
+    with the int8 cache against the f32 cache, on the same tokens): a
+    wrong int8 kernel errs by as much as the quantization or more. And
+    each token the card took must be the CPU's best up to twice that
+    difference, which is all a near-tie between the two can explain.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    cases = [('dense', dict(), (4, 100, 24)),
+             ('int8', dict(kv_cache_int8=True), (4, 100, 24)),
+             ('window', dict(max_seq_len=256), (2, 240, 24))]
+    for label, over, (b, t0, new) in cases:
+        cfg = bench_config(gpt, num_layers=2, dtype='float32', **over)
+        params = gpt.init_params(cfg, torch.Generator().manual_seed(2), 'cpu')
+        for k in ('qkv_w', 'proj_w', 'fc_w', 'out_w'):
+            params['blocks'][k] = params['blocks'][k] * 10
+        prompt = np.random.RandomState(3).randint(
+            0, cfg.vocab_size, (b, t0)).astype(np.int32)
+        streams, models = {}, {}
+        for dev in ('cuda', 'cpu'):
+            m = models[dev] = gpt.GPTForCausalLM(cfg, params, device=dev)
+            streams[dev] = m.generate(torch.from_numpy(prompt),
+                                      max_new_tokens=new,
+                                      temperature=0).cpu()
+            if label == 'window':
+                toks = torch.from_numpy(np.random.RandomState(4).randint(
+                    0, cfg.vocab_size, (2, cfg.max_seq_len)).astype(
+                        np.int32))
+                res.setdefault('logits', {})[dev] = m(toks).float().cpu()
+        same = torch.equal(streams['cuda'], streams['cpu'])
+        distinct = int(streams['cpu'][:, t0:].unique().numel())
+        rec = {'streams_equal': same, 'distinct_tokens': distinct}
+        msg = 'equal' if same else 'DIFFERENT'
+        if not same and label == 'int8':
+            diff = (streams['cuda'] != streams['cpu']).nonzero()[0]
+            card = streams['cuda']
+            lg_cpu = teacher_forced_logits(gpt, models['cpu'], card, t0)
+            lg_card = teacher_forced_logits(gpt, models['cuda'], card, t0)
+            f32_cache = gpt.GPTForCausalLM(
+                bench_config(gpt, num_layers=2, dtype='float32'), params,
+                device='cpu')
+            quant = (teacher_forced_logits(gpt, f32_cache, card, t0)
+                     - lg_cpu).abs().max().item()
+            disc = (lg_cpu - lg_card).abs().max().item()
+            took = lg_cpu.gather(-1, card[:, t0:, None].long())[..., 0]
+            gap = (lg_cpu.amax(-1) - took).max().item()
+            rec.update(first_difference=[int(x) for x in diff],
+                       teacher_forced_logit_diff=disc,
+                       int8_vs_f32_cache_logit_diff=quant,
+                       card_gap_under_cpu=gap)
+            msg = (f'equal up to row {diff[0]} token {diff[1]}; given the '
+                   f"card's tokens the logits differ by {disc:.2e} (int8 "
+                   f'vs f32 cache: {quant:.2e}; tol {INT8_SHARE:g} of it) '
+                   f"and each card token is within {gap:.2e} of the CPU's "
+                   f'best (<= 2 x {disc:.2e})')
+            same = disc <= INT8_SHARE * quant and gap <= 2 * disc
+        print(f'  greedy generate() card vs cpu, {label} ({b} x {t0} + '
+              f'{new}): {msg} ({distinct} distinct new tokens)', flush=True)
+        if not same:
+            raise AssertionError(f'{label}: card {streams["cuda"].tolist()}'
+                                 f' cpu {streams["cpu"].tolist()}')
+        res[label] = rec
+    lg = res.pop('logits')
+    err = (lg['cuda'] - lg['cpu']).abs().max().item()
+    print(f'  forward() logits card vs cpu (2 layers, f32, [2, 256]): max '
+          f'abs err {err:.3e} (tol 1e-3)', flush=True)
+    if not (torch.isfinite(lg['cuda']).all() and err <= 1e-3):
+        raise AssertionError(f'forward logits card vs cpu differ by {err}')
+    res['forward_logits_max_abs_err'] = err
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--report', default=None,
@@ -408,10 +943,15 @@ def main(argv=None):
     # the port itself: absent when this script stands alone
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.serving import GenerationEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    counters = {'paged_decode': pa.paged_flash_decode,
+                'flash_decode': fa.flash_decode,
+                'flash_decode_int8': fa.flash_decode_int8,
+                'flash_fwd': fa.flash_fwd}
 
     t_start = time.perf_counter()
     card = card_line()
@@ -422,36 +962,65 @@ def main(argv=None):
 
     report = {'card': card}
     t0 = time.perf_counter()
-    _build.load('paged_decode')
+    _build.build(SOURCES)
     secs = time.perf_counter() - t0
-    log = _build.build_log['paged_decode']
-    print(f'phase 2: built paged_decode (nvcc sm_90a) in {secs:.1f} s '
-          f'(nvcc {log["seconds"]:.1f} s)', flush=True)
-    for line in log['ptxas'].splitlines():
-        if 'registers' in line or 'spill' in line:
-            print(f'  ptxas: {line.strip()}', flush=True)
+    print(f'phase 2: built {", ".join(SOURCES)} (nvcc sm_90a, in parallel) '
+          f'in {secs:.1f} s', flush=True)
+    for name in SOURCES:
+        log = _build.build_log[name]
+        print(f'  {name}: nvcc {log["seconds"]:.1f} s', flush=True)
+        for line in log['ptxas'].splitlines():
+            if 'registers' in line or 'spill' in line:
+                print(f'    ptxas: {line.strip()}', flush=True)
     report['build_s'] = secs
-    print('phase 3: kernel against plain twin on the card', flush=True)
+    print('phase 3: kernels against their plain twins on the card',
+          flush=True)
     report['kernel'] = kr = kernel_cases(pa, TIMED_ITERS)
+    report['dense_kernels'] = dk = dense_kernel_cases(fa, TIMED_ITERS)
     print('phase 4: GenerationEngine at full width', flush=True)
     report['engine'] = phase_engine(gpt, pa, GenerationEngine, card)
     print('phase 5: card against CPU at 2 layers', flush=True)
     report['card_vs_cpu'] = phase_card_vs_cpu(gpt, GenerationEngine)
+    print('phase 6: dense generate() at full width', flush=True)
+    model, report['generate'] = phase_generate(gpt, counters, card)
+    print('phase 7: forward() and the sliding window at full width',
+          flush=True)
+    report['forward'] = phase_forward_sliding(gpt, model, counters, card)
+    del model
+    torch.cuda.empty_cache()
+    print('phase 8: generate() card against CPU at 2 layers', flush=True)
+    report['generate_card_vs_cpu'] = phase_generate_card_vs_cpu(gpt)
 
-    main_rec = kr['decode_T1']
-    kernels = [{
-        'name': 'paged_decode',
-        'route': 'cuda',
-        'source': 'paddle_tpu_torch/csrc/paged_decode.cu',
-        'replaces': 'paddle_tpu/ops/paged_attention.py:70',
-        'launches': report['engine']['launches'],
-        'max_abs_err': max(r['max_abs_err'] for r in kr.values()),
-        'ms': main_rec['ms'], 'plain_ms': main_rec['plain_ms'],
-        'bound_ms': main_rec['bound_ms'],
-        'bound_by': main_rec['bound_by'],
-        'library_ms': main_rec['library_ms'],
-        'shapes': {k: v for k, v in kr.items() if 'ms' in v},
-    }]
+    gen, fwd = report['generate'], report['forward']
+    main_path = {
+        'paged_decode': report['engine']['launches'],
+        'flash_decode': gen['bf16']['launches']
+        + fwd['launches']['flash_decode'],
+        'flash_decode_int8': gen['int8']['launches'],
+        'flash_fwd': fwd['forward_launches']['flash_fwd']
+        + fwd['launches']['flash_fwd'],
+    }
+    timed_shape = {'paged_decode': 'decode_T1', 'flash_decode': 'decode_T1',
+                   'flash_decode_int8': 'decode_T1_int8',
+                   'flash_fwd': 'fwd_S1024'}
+    cases = dict(dk, paged_decode=kr)
+    kernels = []
+    for name in SOURCE_OF:
+        recs = cases[name]
+        main_rec = recs[timed_shape[name]]
+        kernels.append({
+            'name': name,
+            'route': 'cuda',
+            'source': SOURCE_OF[name],
+            'replaces': REPLACES[name],
+            'launches': main_path[name],
+            'max_abs_err': max(r['max_abs_err'] for r in recs.values()),
+            'ms': main_rec['ms'], 'plain_ms': main_rec['plain_ms'],
+            'bound_ms': main_rec['bound_ms'],
+            'bound_by': main_rec['bound_by'],
+            'library_ms': main_rec['library_ms'],
+            'shapes': {k: v for k, v in recs.items() if 'ms' in v},
+        })
     report['seconds'] = time.perf_counter() - t_start
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

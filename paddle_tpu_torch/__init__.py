@@ -7,9 +7,12 @@ JAX package by tests that feed both the same inputs. It never imports
 ``jax`` or ``paddle_tpu``: what it needs of the JAX package it keeps as
 its own copy.
 
-Implemented so far: the serving path of ``serving.GenerationEngine``
-(continuous batching over the paged KV pool) for GPT, whose attention
-runs the hand-written Hopper kernel in ``csrc/paged_decode.cu``.
+Implemented so far, for GPT: the serving path of
+``serving.GenerationEngine`` (continuous batching over the paged KV pool),
+whose attention runs the hand-written Hopper kernel in
+``csrc/paged_decode.cu``; and ``models.gpt.GPTForCausalLM`` with its plain
+forward and ``generate()`` over the dense KV cache (bf16/f32 or int8),
+whose attention runs ``csrc/flash_fwd.cu`` and ``csrc/flash_decode.cu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 with no card and no explicit CPU request they raise (``resolve_device``)

@@ -29,74 +29,12 @@
 // bound by operations (shared-memory traffic in practice). This first
 // version keeps the arithmetic simple and exact; wgmma, TMA and splitting
 // the key range across blocks are for later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "attention.cuh"
 
 namespace {
 
-constexpr int NT = 256;          // threads per block
-constexpr int TQ = 64;           // q rows per block
-constexpr float NEG_INF = -1e30f;
-constexpr float EPS = 1e-30f;
-
-template <typename T> struct Elem;
-
-template <> struct Elem<float> {
-  static __device__ __forceinline__ float from_f(float x) { return x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-  // 16 bytes = 4 floats
-  static __device__ __forceinline__ void load16(const float* src, float* dst) {
-    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-  }
-};
-
-template <> struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ __nv_bfloat16 from_f(float x) {
-    return __float2bfloat16(x);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  // 16 bytes = 8 bf16, widened to f32
-  static __device__ __forceinline__ void load16(const __nv_bfloat16* src,
-                                                float* dst) {
-    uint4 u = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-    float2 a = __bfloat1622float2(h[0]);
-    float2 b = __bfloat1622float2(h[1]);
-    float2 c = __bfloat1622float2(h[2]);
-    float2 d = __bfloat1622float2(h[3]);
-    reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-    reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
-  }
-};
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Copy n rows of D elements (row i at src + i * stride) into smem rows of
-// DP floats, as 16-byte vectors.
-template <typename T, int D, int DP>
-__device__ __forceinline__ void load_rows(const T* __restrict__ src,
-                                          size_t stride, int n, float* dst) {
-  constexpr int EPV = 16 / sizeof(T);   // elements per 16-byte vector
-  constexpr int VPR = D / EPV;          // vectors per row
-  for (int i = threadIdx.x; i < n * VPR; i += NT) {
-    const int r = i / VPR, c = i % VPR;
-    Elem<T>::load16(src + (size_t)r * stride + c * EPV, dst + r * DP + c * EPV);
-  }
-}
+// element loaders, warp reductions, load_rows and the tile constants
+using namespace attn;
 
 template <typename T, int D, int BK>
 // D = 64: two blocks per SM (128 registers a thread); wider heads are held
@@ -331,8 +269,7 @@ int paged_decode(const void* q, const void* k, const void* v,
 }
 
 const char* paged_decode_error_string(int code) {
-  if (code < 0) return "no kernel instance for this dtype / head_dim";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return attn::error_string(code);
 }
 
 }  // extern "C"

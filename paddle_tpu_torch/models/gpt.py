@@ -1,8 +1,10 @@
-"""GPT-style causal LM — the serving half, ported to PyTorch.
+"""GPT-style causal LM — the inference half, ported to PyTorch.
 
 Port of ``paddle_tpu/models/gpt.py``: the config, the stacked-block
-parameter layout, and the paged KV-cache forward that the
-continuous-batching engine (serving/generation.py) drives. Parameters are
+parameter layout, the plain forward (``forward``), the dense KV-cache
+decode behind ``GPTForCausalLM.generate`` (bf16/f32 or int8 cache), and
+the paged KV-cache forward that the continuous-batching engine
+(serving/generation.py) drives. Parameters are
 a plain dict of tensors with the reference's structure — transformer
 blocks STACKED on a leading layer dim — so a reference parameter tree
 (as numpy arrays) converts one to one (``params_from_numpy``).
@@ -16,11 +18,19 @@ the compute dtype before the product; ``wpe`` is read at positions
 clipped to ``max_seq_len - 1``.
 
 Where the reference scans the layer stack with ``lax.scan`` and donates
-the KV pool, the port runs a Python loop over layers and writes each
-layer's rows into ``pool[l]`` in place.
+the KV cache, the port runs a Python loop over layers and writes each
+layer's rows into ``cache[l]`` in place. Where the reference jits its
+decode loop and buckets loop lengths to bound retraces, the port runs
+exactly the steps it needs as a Python loop whose position stays on the
+device (no step waits on the host).
 
-Not ported yet (ROADMAP Queue 1): training (forward/loss/train step), the
-dense KV cache and ``generate()``, int8 KV, tensor parallelism.
+Attention runs the port's Hopper kernels on the card (their plain twins
+on the CPU): the forward's causal attention is kernel 1, the dense decode
+is kernel 4 (kernel 5 over int8 banks), the paged decode kernel 6.
+
+Not ported yet (ROADMAP Queue 1): training (loss, backward, train step,
+attention dropout), int8 paged pools, int8 weight-only serving, tensor
+and sequence parallelism.
 """
 import dataclasses
 import math
@@ -28,10 +38,14 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
+from .. import resolve_device
+from ..ops.flash_attention import decode_attention, flash_attention, repeat_kv
 from ..ops.paged_attention import paged_attention
 from ..ops.paged_kv import flat_write_indices, init_paged_pool, paged_write
-from ..ops.weight_only import wo_lm_head, wo_matmul, wo_take
+from ..ops.weight_only import (init_kv_bank, is_weight_only, quantize_kv,
+                               wo_lm_head, wo_matmul, wo_take)
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -84,7 +98,7 @@ class GPTConfig:
     n_microbatches: int = 1
     pp_schedule: str = 'gpipe'
     xent_chunk: int = 8192
-    # int8 KV pools are not ported yet: the serving path raises on True
+    # int8 banks for the dense decode cache; the paged pool raises on True
     kv_cache_int8: bool = False
     scan_unroll: int = 1
     grad_quant: str = 'none'
@@ -192,17 +206,23 @@ def params_from_numpy(tree, config, device):
         out[key] = _to_tensor(tree[key], device)
     for key in want['blocks']:
         out['blocks'][key] = _to_tensor(tree['blocks'][key], device)
-    for key, shape in want.items():
+    check_param_shapes(out, config)
+    return out
+
+
+def check_param_shapes(params, config):
+    """Raise unless ``params`` has every tensor ``config`` wants, at its
+    shape."""
+    for key, shape in _param_shapes(config).items():
         if key == 'blocks':
             for bk, bshape in shape.items():
-                got = tuple(out['blocks'][bk].shape)
+                got = tuple(params['blocks'][bk].shape)
                 if got != bshape:
                     raise ValueError(f'blocks.{bk}: shape {got}, config '
                                      f'wants {bshape}')
-        elif tuple(out[key].shape) != shape:
-            raise ValueError(f'{key}: shape {tuple(out[key].shape)}, '
+        elif tuple(params[key].shape) != shape:
+            raise ValueError(f'{key}: shape {tuple(params[key].shape)}, '
                              f'config wants {shape}')
-    return out
 
 
 _CAST_ONCE = ('qkv_w', 'qkv_b', 'proj_w', 'proj_b', 'fc_w', 'fc_b',
@@ -249,14 +269,122 @@ def _block_mlp(bp, y, cdt):
     return wo_matmul(y, bp['out_w'], cdt)
 
 
+def _attention(q, k, v, config):
+    """Causal self-attention of the plain forward, for inference (the
+    reference's ``_attention`` without sequence parallelism or dropout).
+    q [B,S,H,D], k/v [B,S,H_kv,D]. ``use_flash`` runs kernel 1 (its twin
+    on the CPU); ``use_flash=False`` runs the reference's own einsum path
+    (``gpt.py:277-285``): scores in the compute dtype, f32 softmax."""
+    if config.sp > 1:
+        raise NotImplementedError('sequence parallelism (sp > 1) is not '
+                                  'ported yet (ROADMAP Queue 1 item 10)')
+    if config.use_flash:
+        return flash_attention(q, k, v, causal=True)
+    k, v = repeat_kv(k, v, int(q.shape[2]))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum('bqhd,bkhd->bhqk', q, k) * scale
+    S = q.shape[1]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    return torch.einsum('bhqk,bkhd->bqhd', p, v)
+
+
+def block_fn(bp, x, config):
+    """One transformer block of the plain forward (``gpt.py:320``, mp=1,
+    no fp8). bp: this layer's params (no leading L dim); x: [B, S, H]."""
+    cdt = torch_dtype(config.dtype)
+    B, S, h = x.shape
+    y = _layer_norm(x, bp['ln1_g'], bp['ln1_b']).to(cdt)
+    q, k, v = _block_qkv(bp, y, config.num_heads, config.head_dim, cdt,
+                         config.kv_heads)
+    a = _attention(q, k, v, config).reshape(B, S, h)
+    x = x + wo_matmul(a, bp['proj_w'], cdt) + bp['proj_b'].to(cdt)
+    y = _layer_norm(x, bp['ln2_g'], bp['ln2_b']).to(cdt)
+    return x + _block_mlp(bp, y, cdt) + bp['out_b'].to(cdt)
+
+
+def _layer(blocks, layer):
+    return {k: w[layer] for k, w in blocks.items()}
+
+
+def forward_hidden(params, tokens, config, dropout_seed=None):
+    """tokens [B, S] -> final hidden states [B, S, H] (pre-LM-head), a
+    Python loop over the stacked blocks. Inference only: a
+    ``dropout_seed`` with ``config.dropout > 0`` raises (training slice)."""
+    if dropout_seed is not None and config.dropout > 0.0:
+        raise NotImplementedError('attention dropout comes with the '
+                                  'training slice (ROADMAP Queue 1 item 4)')
+    cdt = torch_dtype(config.dtype)
+    B, S = tokens.shape
+    if S > config.max_seq_len:
+        raise ValueError(f'{S} tokens exceed max_seq_len '
+                         f'{config.max_seq_len}')
+    pos = torch.arange(S, device=tokens.device)
+    x = (wo_take(params['wte'], tokens.long()) + params['wpe'][pos]).to(cdt)
+    for layer in range(config.num_layers):
+        x = block_fn(_layer(params['blocks'], layer), x, config)
+    return _layer_norm(x, params['lnf_g'], params['lnf_b']).to(cdt)
+
+
+def forward(params, tokens, config, dropout_seed=None):
+    """tokens [B, S] -> logits [B, S, V]."""
+    x = forward_hidden(params, tokens, config, dropout_seed=dropout_seed)
+    return wo_lm_head(x, params['wte'], x.dtype)
+
+
+def init_kv_cache(config, batch, device=None):
+    """The dense decode cache: ``{'k','v': [L, B, S_max, H_kv, Dh]}`` in
+    the compute dtype, or with ``config.kv_cache_int8`` each of k/v an
+    int8 bank ``{'int8': that shape, 'scale': [L, B, S_max, H_kv] f32}``,
+    zeroed on ``device`` (cuda unless 'cpu' is asked for)."""
+    dev = resolve_device(device)
+    shape = (config.num_layers, batch, config.max_seq_len, config.kv_heads,
+             config.head_dim)
+    if config.kv_cache_int8:
+        return {'k': init_kv_bank(shape, dev), 'v': init_kv_bank(shape, dev)}
+    cdt = torch_dtype(config.dtype)
+    return {'k': torch.zeros(shape, dtype=cdt, device=dev),
+            'v': torch.zeros(shape, dtype=cdt, device=dev)}
+
+
+def dense_rows(pos, t, s_max, device):
+    """The cache rows a T-row call at ``pos`` (an int or a one-element
+    tensor) writes, and the ``wpe`` rows it reads: the start clamped to
+    [0, S_max - T] as the reference's ``dynamic_update_slice`` clamps it,
+    so an index never leaves the cache (on the card an out-of-range index
+    is a device-side assert). -> [T] int64 on ``device``, computed there."""
+    start = torch.as_tensor(pos, device=device).reshape(-1)[:1].long()
+    return torch.clamp(start, 0, s_max - t) + torch.arange(t, device=device)
+
+
+def _dense_write(cache, rows, idx):
+    """Write [B, T, H_kv, D] rows into one layer's dense cache at positions
+    ``idx``, in place; int8 banks quantize the rows on the way in."""
+    if is_weight_only(cache):
+        qr, sr = quantize_kv(rows)
+        cache['int8'].index_copy_(1, idx, qr)
+        cache['scale'].index_copy_(1, idx, sr)
+    else:
+        cache.index_copy_(1, idx, rows.to(cache.dtype))
+
+
+def _cache_layer(cache, layer):
+    """Layer ``layer`` of a dense cache plane (raw, or an int8 bank)."""
+    if is_weight_only(cache):
+        return {'int8': cache['int8'][layer], 'scale': cache['scale'][layer]}
+    return cache[layer]
+
+
 def init_paged_kv_cache(config, num_pages, page_size, device):
     """Shared page pool for the continuous-batching decode path:
     ``{'k','v': [L, num_pages, page_size, H_kv, Dh]}`` in the compute
     dtype on ``device``."""
     if config.kv_cache_int8:
         raise NotImplementedError(
-            'kv_cache_int8 pools are not ported yet (ROADMAP Queue 1 '
-            'item 3: int8 KV cache, kernels 5 and 7)')
+            'int8 page pools are not ported yet (ROADMAP Queue 1 item 3: '
+            "the engine's int8 pool, kernel 7); the dense cache takes "
+            'kv_cache_int8')
     return init_paged_pool(config.num_layers, num_pages, page_size,
                            config.kv_heads, config.head_dim,
                            torch_dtype(config.dtype), device)
@@ -270,28 +398,51 @@ def is_paged(cache):
 
 
 def cached_attention(x, q, k, v, k_cache, v_cache, pos, proj_w, proj_b, cdt,
-                     page_table, valid=None, flat_idx=None):
-    """Paged branch of the reference's KV-cache attention core: writes the
-    fresh k/v rows into the single-layer page pools ``[N, page_size, H_kv,
-    D]`` in place (rows past ``valid[b]`` land in the trash page), attends
-    each q row to the paged cache through ``paged_attention``, and applies
-    the output projection + residual. ``pos`` is a [B] int32 vector.
-    Returns (x_new, k_cache, v_cache).
+                     page_table=None, valid=None, flat_idx=None):
+    """KV-cache attention core: writes the fresh k/v rows into the caches
+    in place, attends each q row to the cache positions up to its own, and
+    applies the output projection + residual. Returns (x_new, k_cache,
+    v_cache).
 
-    The reference runs a multi-token call that is not a prefix-cache tail
-    through its flash forward kernel over the fresh rows; that kernel is
-    not ported yet, and attention over the paged cache computes the same
-    rows, so every call here goes through the paged kernel."""
+    Dense (``page_table`` None): the caches are one layer's ``[B, S_max,
+    H_kv, D]`` (or int8 banks, whose rows quantize on write); ``pos`` is
+    an int or an int32 [1] tensor; ``flat_idx`` may carry the call's
+    ``dense_rows``. Routing follows the reference (``gpt.py:584-593``): a
+    Python int 0 runs kernel 1 (causal attention over the fresh rows
+    equals attention over the cache, whose later rows are masked);
+    anything else, a device tensor 0 included, runs kernel 4 over the
+    cache (kernel 5 for int8 banks) for every T, where the TPU took its
+    einsum fallback past T = 128.
+
+    Paged (``page_table`` given): the caches are single-layer page pools
+    ``[N, page_size, H_kv, D]`` and ``pos`` is a [B] int32 vector. Rows
+    past ``valid[b]`` land in the trash page; ``flat_idx`` may carry
+    precomputed pool offsets. The reference runs a multi-token call that
+    is not a prefix-cache tail through its flash forward over the fresh
+    rows; attention over the paged cache computes the same rows, so every
+    call here goes through the paged kernel."""
     B, T, h = x.shape
-    paged_write(k_cache, k, page_table, pos, valid, flat_idx)
-    paged_write(v_cache, v, page_table, pos, valid, flat_idx)
-    a = paged_attention(q.contiguous(), k_cache, v_cache, page_table,
-                        pos).reshape(B, T, h)
-    return (x + wo_matmul(a, proj_w, cdt) + proj_b.to(cdt),
+    if page_table is not None:
+        paged_write(k_cache, k, page_table, pos, valid, flat_idx)
+        paged_write(v_cache, v, page_table, pos, valid, flat_idx)
+        a = paged_attention(q.contiguous(), k_cache, v_cache, page_table,
+                            pos)
+    else:
+        s_max = int((k_cache['int8'] if is_weight_only(k_cache)
+                     else k_cache).shape[1])
+        idx = (flat_idx if flat_idx is not None
+               else dense_rows(pos, T, s_max, x.device))
+        _dense_write(k_cache, k, idx)
+        _dense_write(v_cache, v, idx)
+        if isinstance(pos, int) and pos == 0:
+            a = flash_attention(q, k, v, causal=True)
+        else:
+            a = decode_attention(q, k_cache, v_cache, pos)
+    return (x + wo_matmul(a.reshape(B, T, h), proj_w, cdt) + proj_b.to(cdt),
             k_cache, v_cache)
 
 
-def _cached_block(bp, x, k_cache, v_cache, pos, config, page_table,
+def _cached_block(bp, x, k_cache, v_cache, pos, config, page_table=None,
                   valid=None, flat_idx=None):
     """One block over a [B, T, H] slice starting at ``pos``."""
     cdt = torch_dtype(config.dtype)
@@ -330,11 +481,10 @@ def paged_forward_with_cache(params, tokens, cache, pos, config,
     # every layer writes the same rows: compute their pool offsets once
     flat_idx = flat_write_indices(page_table, pos_v, T, k_pool.shape[2],
                                   valid)
-    blocks = params['blocks']
     for layer in range(config.num_layers):
-        bp = {k: w[layer] for k, w in blocks.items()}
-        x, _, _ = _cached_block(bp, x, k_pool[layer], v_pool[layer], pos_v,
-                                config, page_table, valid, flat_idx)
+        x, _, _ = _cached_block(_layer(params['blocks'], layer), x,
+                                k_pool[layer], v_pool[layer], pos_v, config,
+                                page_table, valid, flat_idx)
     if last_only:
         if valid is not None:
             # per-slot prompt lengths: pick each slot's last REAL row
@@ -352,15 +502,40 @@ def paged_forward_with_cache(params, tokens, cache, pos, config,
 
 def forward_with_cache(params, tokens, cache, pos, config: GPTConfig,
                        last_only=False):
-    """The reference's cached forward. A paged cache (``is_paged``) routes
-    to ``paged_forward_with_cache`` with ``pos`` as a per-slot [B] vector;
-    the dense contiguous cache is the next slice of the port."""
+    """Run [B, T] tokens whose absolute positions start at ``pos`` through
+    the KV cache. Returns (logits, cache): logits [B,T,V], or [B,1,V] with
+    ``last_only``.
+
+    A paged cache (``is_paged``) routes to ``paged_forward_with_cache``
+    with ``pos`` a per-slot [B] vector. The dense cache (``init_kv_cache``)
+    takes ``pos`` as an int or a one-element tensor. A Python int 0 is
+    passed on as it is (it routes to kernel 1, see ``cached_attention``);
+    any other position becomes an int32 [1] tensor on the tokens' device,
+    once. Each layer writes its rows into ``cache['k'][l]`` /
+    ``cache['v'][l]`` in place."""
     if is_paged(cache):
         return paged_forward_with_cache(params, tokens, cache, pos, config,
                                         last_only=last_only)
-    raise NotImplementedError(
-        'the dense KV cache (init_kv_cache / generate()) is not ported yet '
-        '(ROADMAP Queue 1 item 2: dense KV-cache decode)')
+    cdt = torch_dtype(config.dtype)
+    B, T = tokens.shape
+    dev = tokens.device
+    if T > config.max_seq_len:
+        raise ValueError(f'{T} tokens exceed the cache of '
+                         f'{config.max_seq_len}')
+    if not (isinstance(pos, int) and pos == 0):
+        pos = torch.as_tensor(pos, device=dev).to(torch.int32).reshape(1)
+    rows = dense_rows(pos, T, config.max_seq_len, dev)
+    x = (wo_take(params['wte'], tokens.long())
+         + params['wpe'][rows]).to(cdt)
+    for layer in range(config.num_layers):
+        x, _, _ = _cached_block(
+            _layer(params['blocks'], layer), x,
+            _cache_layer(cache['k'], layer), _cache_layer(cache['v'], layer),
+            pos, config, flat_idx=rows)
+    if last_only:
+        x = x[:, -1:]
+    x = _layer_norm(x, params['lnf_g'], params['lnf_b']).to(cdt)
+    return wo_lm_head(x, params['wte'], cdt), cache
 
 
 # ---------------------------------------------------------------------------
@@ -440,3 +615,185 @@ def _sample(logits, temperature, top_k, top_p=None, seeds=None,
     g = gumbel_noise(seeds.to(lg.device), positions.to(lg.device),
                      lg.shape[-1])
     return torch.argmax(lg + g, dim=-1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Dense KV-cache decoding: prefill, step, the generation loop, and the
+# GPTForCausalLM wrapper
+# ---------------------------------------------------------------------------
+
+def make_decode_fns(config: GPTConfig):
+    """-> (prefill, step), the reference's pair (``gpt.py:806``); both
+    write the cache in place.
+
+    prefill(params, prompt [B,T], cache) -> (last logits [B,V], cache)
+    step(params, tok [B], pos, cache)    -> (logits [B,V], cache)
+
+    The prefill passes its position as a device tensor 0, as the
+    reference passes ``jnp.int32(0)``: not a Python int, so the prefill
+    runs the decode kernel over the cache, never kernel 1."""
+    @torch.no_grad()
+    def prefill(params, prompt, cache):
+        zero = torch.zeros(1, dtype=torch.int32, device=prompt.device)
+        logits, cache = forward_with_cache(params, prompt, cache, zero,
+                                           config, last_only=True)
+        return logits[:, -1], cache
+
+    @torch.no_grad()
+    def step(params, tok, pos, cache):
+        logits, cache = forward_with_cache(params, tok[:, None], cache, pos,
+                                           config)
+        return logits[:, 0], cache
+
+    return prefill, step
+
+
+def make_generate_loop(config, temperature=0.0, top_k=None, top_p=None,
+                       forward_fn=None):
+    """Autoregressive generation over the dense cache (``gpt.py:770``).
+
+    -> gen(params, tok0 [B] int32, pos0 int32 [1], cache, seeds, n_steps)
+       returning (tokens [B, n_steps] int32, cache). ``tok0`` is the input
+    of the first step; each step's draw is emitted and fed to the next.
+    ``seeds`` ([B] integers, or None for greedy) key each row's draw with
+    the position of the row it is drawn from. A Python loop of exactly
+    ``n_steps`` steps; the position advances on the device, so no step
+    waits on the host. ``forward_fn(params, tokens, cache, pos, config)``
+    defaults to ``forward_with_cache``."""
+    fwd = forward_fn or forward_with_cache
+
+    @torch.no_grad()
+    def gen(params, tok0, pos0, cache, seeds, n_steps):
+        tok, pos, out = tok0, pos0, []
+        for _ in range(n_steps):
+            logits, cache = fwd(params, tok[:, None], cache, pos, config)
+            tok = _sample(logits[:, 0], temperature, top_k, top_p,
+                          seeds=seeds, positions=pos.expand(tok.shape[0]))
+            out.append(tok)
+            pos = pos + 1
+        if not out:
+            return tok0.new_zeros((tok0.shape[0], 0)), cache
+        return torch.stack(out, dim=1), cache
+
+    return gen
+
+
+class GPTForCausalLM(nn.Module):
+    """The reference's layer wrapper (``gpt.py:1136``) as an ``nn.Module``:
+    ``model(tokens)`` gives logits, ``model.generate(...)`` decodes.
+
+    ``params`` is a parameter dict in the reference's layout (for example
+    ``params_from_numpy`` of the reference's own); without it the
+    parameters are drawn from ``seed`` (``init_params``). They are held as
+    frozen parameters named as in the dict (``wte``, ``blocks.qkv_w``, ...)
+    on ``device``: cuda unless 'cpu' is asked for, and raising when there
+    is no card."""
+
+    def __init__(self, config=None, params=None, device=None, seed=0,
+                 **kwargs):
+        super().__init__()
+        self.config = config or GPTConfig(**kwargs)
+        dev = resolve_device(device)
+        if params is None:
+            params = init_params(
+                self.config, torch.Generator(device=dev).manual_seed(seed),
+                dev)
+        check_param_shapes(params, self.config)
+        self.blocks = nn.Module()
+        for key, t in params['blocks'].items():
+            self.blocks.register_parameter(
+                key, nn.Parameter(t.to(dev), requires_grad=False))
+        for key, t in params.items():
+            if key != 'blocks':
+                self.register_parameter(
+                    key, nn.Parameter(t.to(dev), requires_grad=False))
+
+    @property
+    def device(self):
+        return self.wte.device
+
+    def param_dict(self):
+        """The parameters as the functional core takes them."""
+        out = {k: v for k, v in self.named_parameters(recurse=False)}
+        out['blocks'] = dict(self.blocks.named_parameters())
+        return out
+
+    def _tokens(self, tokens):
+        if not isinstance(tokens, torch.Tensor):
+            tokens = torch.from_numpy(np.asarray(tokens))
+        return tokens.to(self.device, torch.int32)
+
+    @torch.no_grad()
+    def forward(self, tokens):
+        """tokens [B, S] -> logits [B, S, V] (kernel 1 with ``use_flash``)."""
+        return forward(self.param_dict(), self._tokens(tokens), self.config)
+
+    @torch.no_grad()
+    def generate(self, tokens, max_new_tokens=32, temperature=1.0,
+                 top_k=None, top_p=None, seed=None):
+        """KV-cache decoding (``gpt.py:1166``): a prefill, then one cached
+        step per token while the window has room, then the sliding-window
+        recompute. -> [B, T0 + max_new_tokens] int32.
+
+        Greedy (``temperature=0``) takes the argmax. Otherwise the draws
+        are the port's counter-based sampler keyed by (seed, position):
+        row b draws with seed ``seed + b``, as an engine request with that
+        seed would; ``seed=None`` takes one from ``torch``'s global
+        generator."""
+        cfg = self.config
+        toks = self._tokens(tokens)
+        B, T0 = toks.shape
+        dev = toks.device
+        # +1: the last cached step runs at pos max_seq_len-1 and its logits
+        # see the full window, as the sliding path's first step would
+        n_cached = (min(max_new_tokens, cfg.max_seq_len - T0 + 1)
+                    if T0 < cfg.max_seq_len else 0)
+        params = serving_params(self.param_dict(), cfg)
+        seeds = None
+        if temperature != 0:
+            if seed is None:
+                seed = int(torch.randint(0, 2 ** 31 - 1, ()))
+            seeds = torch.arange(B, device=dev, dtype=torch.int64) + seed
+        if n_cached > 0:
+            prefill, _ = make_decode_fns(cfg)
+            cache = init_kv_cache(cfg, B, dev)
+            logits, cache = prefill(params, toks, cache)
+            first = _sample(logits, temperature, top_k, top_p, seeds=seeds,
+                            positions=torch.full((B,), T0 - 1, device=dev))
+            pieces = [toks, first[:, None]]
+            if n_cached > 1:
+                loop = make_generate_loop(cfg, temperature, top_k, top_p)
+                pos0 = torch.full((1,), T0, dtype=torch.int32, device=dev)
+                new, cache = loop(params, first, pos0, cache, seeds,
+                                  n_cached - 1)
+                pieces.append(new)
+            toks = torch.cat(pieces, dim=1)
+        rest = max_new_tokens - n_cached
+        if rest > 0:
+            return self._generate_sliding(toks, rest, temperature, top_k,
+                                          top_p, seeds, params)
+        return toks
+
+    @torch.no_grad()
+    def _generate_sliding(self, toks, max_new_tokens, temperature, top_k,
+                          top_p=None, seeds=None, params=None):
+        """Full-context recompute over the last ``max_seq_len`` tokens: the
+        continuation once generation outgrows the cache. Each step is one
+        plain forward (kernel 1); the LM head runs on the last row only."""
+        cfg = self.config
+        if params is None:
+            params = serving_params(self.param_dict(), cfg)
+        B = toks.shape[0]
+        for _ in range(max_new_tokens):
+            x = forward_hidden(params, toks[:, -cfg.max_seq_len:], cfg)
+            lg = wo_lm_head(x[:, -1], params['wte'], x.dtype)
+            last = torch.full((B,), toks.shape[1] - 1, device=toks.device)
+            nxt = _sample(lg, temperature, top_k, top_p, seeds=seeds,
+                          positions=last)
+            toks = torch.cat([toks, nxt[:, None]], dim=1)
+        return toks
+
+    def enable_int8_decode(self, enable=True):
+        raise NotImplementedError(
+            'int8 weight-only decode is not ported yet (ROADMAP Queue 1 '
+            'item 5: low precision, int8 weight-only)')

@@ -1,2 +1,3 @@
-"""Tensor ops of the port: the paged KV pool, paged attention (with its
-Hopper kernel) and the raw-weight helpers the GPT serving path shares."""
+"""Tensor ops of the port: the paged KV pool, paged attention, flash
+attention and the dense flash decode (each with its Hopper kernel), and
+the weight and int8 KV-row helpers the GPT paths share."""

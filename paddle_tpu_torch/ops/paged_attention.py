@@ -204,7 +204,8 @@ def paged_attention(q, k_pages, v_pages, page_table, pos):
     if is_weight_only(k_pages):
         raise NotImplementedError(
             'int8 KV page banks are not ported yet (ROADMAP Queue 1 '
-            'item 3, kernel 7: _paged_decode_kernel_int8)')
+            "item 3, the engine's int8 pool: kernel 7, "
+            '_paged_decode_kernel_int8)')
     if q.device.type == 'cpu':
         return paged_decode_reference(q, k_pages, v_pages, page_table, pos)
     if q.device.type == 'cuda':

@@ -22,7 +22,8 @@ Conventions shared by every consumer:
  - Where the reference returns a new pool (JAX donates the old buffer),
    the port writes the pool in place and says so.
 
-int8 pools (``kv_cache_int8``) are not ported yet (ROADMAP Queue 1).
+int8 pools (``kv_cache_int8``) are not ported yet (ROADMAP Queue 1
+item 3); the dense decode cache has its int8 banks (models/gpt.py).
 """
 import threading
 
@@ -168,7 +169,7 @@ def paged_write(pages, rows, page_table, pos, valid=None, flat_idx=None):
     if not isinstance(pages, torch.Tensor):
         raise NotImplementedError(
             'int8 KV page banks are not ported yet (ROADMAP Queue 1 '
-            'item 3: int8 KV cache)')
+            "item 3: the engine's int8 pool)")
     b, t = rows.shape[:2]
     n, ps, h, d = pages.shape
     if flat_idx is None:

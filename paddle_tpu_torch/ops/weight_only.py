@@ -1,4 +1,5 @@
-"""Weight helpers shared by every weight consumer of the GPT serving path.
+"""Weight helpers shared by every weight consumer of the GPT serving path,
+and the int8 KV-cache rows of the dense decode cache.
 
 Port of ``paddle_tpu/ops/weight_only.py:53-124`` for raw float weights.
 A weight is a raw tensor (``[in, out]`` for matmuls, ``[V, H]`` for the
@@ -11,6 +12,8 @@ compute dtype (the engine keeps such a copy, made once at load): the
 The int8 weight-only form ``{'int8', 'scale'}`` is not ported yet and
 raises (ROADMAP Queue 1, "Low precision": ``precision='int8_wo'``).
 """
+
+import torch
 
 _INT8_TODO = ('int8 weight-only weights ({"int8", "scale"}) are not ported '
               'yet (ROADMAP Queue 1, "Low precision": int8_wo)')
@@ -39,3 +42,27 @@ def wo_take(w, idx):
 def wo_lm_head(x, wte, cdt):
     """Tied LM head ``x @ wte.T`` for a raw embedding table."""
     return x @ _raw(wte).to(cdt).T
+
+
+def quantize_kv(t):
+    """Quantize KV rows ``[..., D]`` to int8 with one f32 scale per row:
+    ``scale = max(amax over D, 1e-8) / 127``, values rounded half to even
+    (``torch.round``, as ``jnp.round``) and clipped to [-127, 127].
+    -> (int8 rows, f32 scales ``[...]``)."""
+    a = t.float()
+    scale = torch.clamp(a.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(a / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, cdt):
+    return q.to(cdt) * scale[..., None].to(cdt)
+
+
+def init_kv_bank(shape, device):
+    """Zeroed int8 KV bank ``{'int8': [*shape] int8, 'scale': [*shape[:-1]]
+    f32}`` on ``device``: the layout ``quantize_kv``, ``dequantize_kv`` and
+    ``flash_decode_int8`` share."""
+    return {'int8': torch.zeros(shape, dtype=torch.int8, device=device),
+            'scale': torch.zeros(shape[:-1], dtype=torch.float32,
+                                 device=device)}

@@ -230,7 +230,7 @@ class GenerationEngine:
                             'port has no Layer-style model wrapper yet')
         if config.kv_cache_int8:
             raise _not_ported('kv_cache_int8',
-                              'item 3, int8 KV cache (kernels 5 and 7)')
+                              "item 3, the engine's int8 pool (kernel 7)")
         self.device = resolve_device(device)
         cfg = config
         params = {k: ({bk: bv.to(self.device) for bk, bv in v.items()}

@@ -9,7 +9,7 @@ setup(
     # builds its CUDA kernels from these sources with nvcc at first use,
     # into paddle_tpu_torch/_build/: run it from a checkout (or an editable
     # install), where that directory is writable
-    package_data={'paddle_tpu_torch': ['csrc/*.cu']},
+    package_data={'paddle_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
     python_requires='>=3.10',
     install_requires=['jax', 'numpy'],
 )

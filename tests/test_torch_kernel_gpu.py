@@ -93,3 +93,103 @@ def test_engine_on_card_streams_equal_cpu(cuda):
             futs = [eng.submit(p, max_new_tokens=12) for p in prompts]
             streams[dev] = [f.result(timeout=300) for f in futs]
     assert streams['cuda'] == streams['cpu']
+
+
+# ---------------------------------------------------------------------------
+# kernels 4, 5 (dense flash decode, bf16/f32 and int8 cache) and 1 (the
+# flash-attention forward)
+# ---------------------------------------------------------------------------
+
+def _row_err(got, want):
+    return ((got.float() - want.float()).abs().amax(-1)
+            / want.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def _dense_case(b, t, h, h_kv, d, s_max, dtype, seed=0):
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    q = torch.randn((b, t, h, d), generator=g, device='cuda').to(dtype)
+    kc = torch.randn((b, s_max, h_kv, d), generator=g, device='cuda')
+    vc = torch.randn((b, s_max, h_kv, d), generator=g, device='cuda')
+    return q, kc, vc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('int8', [False, True])
+@pytest.mark.parametrize('b,t,h,h_kv,d,s_max,pos', [
+    (8, 1, 16, 16, 64, 1024, 200),
+    (8, 128, 16, 16, 64, 1024, 0),
+    (2, 300, 4, 2, 128, 512, 100),
+    (3, 2, 4, 4, 256, 384, 381),
+])
+def test_dense_decode_matches_twin(cuda, b, t, h, h_kv, d, s_max, pos, int8,
+                                   dtype):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import weight_only as wo
+    q, kc, vc = _dense_case(b, t, h, h_kv, d, s_max, dtype)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device='cuda')
+    if int8:
+        kb = dict(zip(('int8', 'scale'), wo.quantize_kv(kc)))
+        vb = dict(zip(('int8', 'scale'), wo.quantize_kv(vc)))
+        kern, twin = fa.flash_decode_int8, fa.flash_decode_int8_reference
+    else:
+        kb, vb = kc.to(dtype), vc.to(dtype)
+        kern, twin = fa.flash_decode, fa.flash_decode_reference
+    before = kern.launches
+    got = fa.decode_attention(q, kb, vb, pos_t)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = twin(q, kb, vb, pos_t)
+    assert _row_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('b,s_q,s_k,h,h_kv,d,causal,masked', [
+    (2, 1024, 1024, 16, 16, 64, True, False),
+    (2, 200, 200, 4, 2, 128, True, False),
+    (2, 256, 300, 4, 4, 64, False, True),
+    (1, 100, 357, 2, 2, 256, True, False),
+])
+def test_flash_fwd_matches_twin(cuda, b, s_q, s_k, h, h_kv, d, causal,
+                                masked, dtype):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device='cuda').manual_seed(1)
+    # q, k, v as strided views of one packed projection, as _block_qkv
+    # returns them
+    qkv = torch.randn((b, max(s_q, s_k), h + 2 * h_kv, d), generator=g,
+                      device='cuda').to(dtype)
+    q, k, v = (qkv[:, :s_q, :h], qkv[:, :s_k, h:h + h_kv],
+               qkv[:, :s_k, h + h_kv:])
+    kmask = None
+    if masked:
+        valid = torch.tensor([s_k, s_k - 77], device='cuda')[:, None]
+        kmask = torch.where(torch.arange(s_k, device='cuda')[None] < valid,
+                            0.0, -1e30)
+    q_off = (s_k - s_q) if causal else 0
+    before = fa.flash_fwd.launches
+    out, lse = fa._flash_fwd(q, k, v, causal, q_off=q_off, kmask=kmask)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == before + 1
+    want_o, want_l = fa.flash_fwd_reference(q, k, v, causal, q_off=q_off,
+                                            kmask=kmask)
+    assert _row_err(out, want_o) <= TOL[dtype]
+    assert (lse - want_l).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_new_kernels_refuse_what_they_do_not_take(cuda):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, kc, vc = _dense_case(2, 1, 4, 4, 64, 256, torch.bfloat16)
+    kc, vc = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+    pos = torch.tensor([3], dtype=torch.int32, device='cuda')
+    with pytest.raises(ValueError, match='head_dim'):
+        fa.flash_decode(q[..., :32].contiguous(), kc[..., :32].contiguous(),
+                        vc[..., :32].contiguous(), pos)
+    with pytest.raises(ValueError, match='caches must be'):
+        fa.flash_decode(q, kc.float(), vc.float(), pos)
+    with pytest.raises(ValueError, match='int32'):
+        fa.flash_decode(q, kc, vc, pos.long())
+    with pytest.raises(ValueError, match='head_dim'):
+        fa.flash_fwd(q[..., :48].contiguous(), kc[..., :48].contiguous(),
+                     vc[..., :48].contiguous(), True)

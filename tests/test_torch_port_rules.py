@@ -103,3 +103,92 @@ def test_kernel_source_exports_the_c_entry_point():
     src = (PORT / 'csrc' / 'paged_decode.cu').read_text()
     assert 'extern "C"' in src and 'int paged_decode(' in src
     assert 'cudaGetLastError()' in src
+
+
+def test_the_generate_model_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    params, cfg = _tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgpt.GPTForCausalLM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgpt.GPTForCausalLM(cfg, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgpt.init_kv_cache(cfg, 1)
+    model = tgpt.GPTForCausalLM(cfg, params, device='cpu')
+    assert model.device == torch.device('cpu')
+    assert tgpt.init_kv_cache(cfg, 1, 'cpu')['k'].device.type == 'cpu'
+
+
+@pytest.mark.parametrize('src,entries', [
+    ('flash_decode.cu', ('flash_decode', 'flash_decode_int8')),
+    ('flash_fwd.cu', ('flash_fwd',)),
+])
+def test_new_kernel_sources_export_their_c_entry_points(src, entries):
+    text = (PORT / 'csrc' / src).read_text()
+    assert 'extern "C"' in text and '#include "attention.cuh"' in text
+    head, _, body = text.partition('extern "C" {')
+    for name in entries + ('attn_error_string',):
+        assert f'int {name}(' in body or f'* {name}(' in body, name
+    assert 'cudaGetLastError()' in (PORT / 'csrc' / 'attention.cuh'
+                                    ).read_text()
+
+
+class _CudaStandIn(torch.Tensor):
+    """A CPU tensor that reports itself on the card: what a wrapper does
+    with a CUDA tensor up to its library load, on a machine with none."""
+
+    @property
+    def device(self):
+        return torch.device('cuda')
+
+
+@pytest.mark.parametrize('op', ['flash_decode', 'flash_decode_int8',
+                                'flash_fwd'])
+def test_a_cuda_call_raises_when_its_kernel_cannot_load(monkeypatch, op):
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as tfa
+
+    def no_library(name):
+        raise RuntimeError(f'nvcc not found building {name}')
+
+    def twin(*a, **k):
+        raise AssertionError('a CUDA tensor ran the plain twin')
+
+    monkeypatch.setattr(_build, 'load', no_library)
+    monkeypatch.setattr(tfa, '_libs', {})
+    for name in ('flash_decode_reference', 'flash_decode_int8_reference',
+                 'flash_fwd_reference'):
+        monkeypatch.setattr(tfa, name, twin)
+
+    def card(shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype).as_subclass(_CudaStandIn)
+
+    q = card((2, 1, 4, 64))
+    pos = card((1,), torch.int32)
+    with pytest.raises(RuntimeError, match=f'nvcc not found building '
+                       f'{op.replace("_int8", "")}'):
+        if op == 'flash_decode':
+            kc = card((2, 16, 4, 64))
+            tfa.decode_attention(q, kc, kc, pos)
+        elif op == 'flash_decode_int8':
+            bank = {'int8': card((2, 16, 4, 64), torch.int8),
+                    'scale': card((2, 16, 4), torch.float32)}
+            tfa.decode_attention(q, bank, bank, pos)
+        else:
+            tfa.flash_attention(card((2, 8, 4, 64)), card((2, 8, 4, 64)),
+                                card((2, 8, 4, 64)), causal=True)
+    assert getattr(tfa, op).launches == 0
+
+
+def test_a_header_edit_changes_every_build_digest(tmp_path):
+    from paddle_tpu_torch.ops import _build
+    csrc = tmp_path / 'csrc'
+    shutil.copytree(PORT / 'csrc', csrc)
+    names = sorted(p.stem for p in csrc.glob('*.cu'))
+    assert {'paged_decode', 'flash_decode', 'flash_fwd'} <= set(names)
+    before = {n: _build.source_digest(n, csrc) for n in names}
+    assert before == {n: _build.source_digest(n) for n in names}
+    hdr = csrc / 'attention.cuh'
+    hdr.write_bytes(hdr.read_bytes() + b'\n// one more line\n')
+    after = {n: _build.source_digest(n, csrc) for n in names}
+    assert all(before[n] != after[n] for n in names)
