@@ -13,9 +13,12 @@ non-zero:
     its main path gives it, plus GQA, float32 and other head-dim cases;
     max abs error against the stated tolerance (scaled to each output
     row's size in bfloat16), kernel / plain / library times and the bound:
-    paged_decode (the engine's decode T=1 at ragged positions, prefill
-    T=1024), flash_decode and flash_decode_int8 (generate()'s decode step
-    and prefill), flash_fwd (forward() over [8, 1024]);
+    paged_decode and paged_decode_int8 (the engine's decode T=1 at ragged
+    positions, prefill T=1024), flash_decode and flash_decode_int8
+    (generate()'s decode step and prefill), flash_fwd (forward() over
+    [8, 1024], and with dropout 0.1), flash_bwd_dq and flash_bwd_dkv (the
+    train step's backward over [8, 1024], and with dropout 0.1; library:
+    PyTorch's own flash backward, for the two together);
  4. the serving path at full width: the bench GPT (vocab 32768, hidden
     1024, 24 layers, 16 heads, bf16, random weights from a seed) in
     GenerationEngine(num_slots=8, page_size=128) answering 8 greedy
@@ -34,9 +37,22 @@ non-zero:
     sliding window (flash_decode 24 x 25, flash_fwd 24 x 7 launches);
  8. card against CPU at 2 layers in float32: greedy generate() streams
     equal on the dense, int8 and window-crossing paths, forward() logits
-    within 1e-3.
+    within 1e-3;
+ 9. the engine over the int8 page pool (kv_cache_int8) at full width, the
+    requests of phase 4: paged_decode_int8 launches == 24 x (prefills +
+    steps); int8 prefill logits within cosine 0.999 of a bf16 pool's;
+10. the int8 engine card against CPU at 2 layers in float32: streams
+    equal, or held to phase 8's int8 rule;
+11. the single-device train step at full width (the bench rung: [8, 1024],
+    bf16 over f32 params, AdamW(2e-4, weight_decay=0.01), remat 'dots',
+    xent_chunk 8192, targets = tokens): 2 warm-up and 8 timed steps on one
+    batch; tokens/s, step ms, MFU, peak memory, a profiled step; launches
+    per step flash_fwd 48 (24 + 24 recomputed under remat), flash_bwd_dq
+    24, flash_bwd_dkv 24; the loss finite and falling;
+12. the train step card against CPU at 2 layers in float32: the first
+    step's gradients and a 6-step loss curve, dropout 0 and 0.1.
 Every launch counter is set to 0 just before each main-path run (phases 4,
-6 and 7) and read just after. Then one line of kernel records (JSON), and
+6, 7, 9 and 11) and read just after. Then one line of kernel records (JSON), and
 the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the rest of the repository beside it, it
@@ -69,18 +85,24 @@ LAYERS = 24                        # timing rotates over one pool per layer,
                                    # pages cold in L2)
 
 
-SOURCES = ('paged_decode', 'flash_decode', 'flash_fwd')
-SOURCE_OF = {   # kernel -> its source; kernels 4 and 5 share one
+SOURCES = ('paged_decode', 'flash_decode', 'flash_fwd', 'flash_bwd')
+SOURCE_OF = {   # kernel -> its source; kernels sharing a template share one
     'paged_decode': 'paddle_tpu_torch/csrc/paged_decode.cu',
+    'paged_decode_int8': 'paddle_tpu_torch/csrc/paged_decode.cu',
     'flash_decode': 'paddle_tpu_torch/csrc/flash_decode.cu',
     'flash_decode_int8': 'paddle_tpu_torch/csrc/flash_decode.cu',
     'flash_fwd': 'paddle_tpu_torch/csrc/flash_fwd.cu',
+    'flash_bwd_dq': 'paddle_tpu_torch/csrc/flash_bwd.cu',
+    'flash_bwd_dkv': 'paddle_tpu_torch/csrc/flash_bwd.cu',
 }
 REPLACES = {    # the TPU kernel each one ports
     'paged_decode': 'paddle_tpu/ops/paged_attention.py:70',
+    'paged_decode_int8': 'paddle_tpu/ops/paged_attention.py:119',
     'flash_decode': 'paddle_tpu/ops/flash_attention.py:825',
     'flash_decode_int8': 'paddle_tpu/ops/flash_attention.py:861',
     'flash_fwd': 'paddle_tpu/ops/flash_attention.py:236',
+    'flash_bwd_dq': 'paddle_tpu/ops/flash_attention.py:427',
+    'flash_bwd_dkv': 'paddle_tpu/ops/flash_attention.py:479',
 }
 
 
@@ -134,23 +156,29 @@ def device_ms(fn, iters, warmup=3):
 # phase 3: paged-decode kernel against its twin
 # ---------------------------------------------------------------------------
 
-def make_case(b, t, h, h_kv, d, pos, dtype, ps=128, p_max=8, seed=0):
-    """q, LAYERS page pools, a table of scattered pages and ``pos``, on the
-    card. Entries past a slot's needed pages stay 0 (the trash page), as
-    the engine leaves them."""
+def make_case(b, t, h, h_kv, d, pos, dtype, ps=128, p_max=8, seed=0,
+              int8=False):
+    """q, LAYERS page pools (int8 banks with ``int8``), a table of
+    scattered pages and ``pos``, on the card. Entries past a slot's needed
+    pages stay 0 (the trash page), as the engine leaves them."""
+    from paddle_tpu_torch.ops.weight_only import quantize_kv
     g = torch.Generator(device='cuda').manual_seed(seed)
     n = b * p_max + 1
     q = torch.randn((b, t, h, d), generator=g, device='cuda').to(dtype)
-    kp = torch.randn((LAYERS, n, ps, h_kv, d), generator=g,
-                     device='cuda').to(dtype)
-    vp = torch.randn((LAYERS, n, ps, h_kv, d), generator=g,
-                     device='cuda').to(dtype)
+
+    def pool():
+        x = torch.randn((LAYERS, n, ps, h_kv, d), generator=g, device='cuda')
+        if int8:
+            return dict(zip(('int8', 'scale'), quantize_kv(x)))
+        return x.to(dtype)
+
+    kp, vp = pool(), pool()
     perm = np.random.RandomState(seed).permutation(np.arange(1, n))
     table = np.zeros((b, p_max), np.int32)
     for i, p0 in enumerate(pos):
         need = min(-(-(p0 + t) // ps), p_max)
         table[i, :need] = perm[i * p_max:i * p_max + need]
-    return dict(q=q, k=kp, v=vp,
+    return dict(q=q, k=kp, v=vp, int8=int8,
                 table=torch.from_numpy(table).cuda(),
                 pos=torch.tensor(pos, dtype=torch.int32, device='cuda'),
                 ps=ps, p_max=p_max)
@@ -158,16 +186,19 @@ def make_case(b, t, h, h_kv, d, pos, dtype, ps=128, p_max=8, seed=0):
 
 def bound(c):
     """Least time for the call: each input byte read once (the KV rows the
-    slots can see, q, table, pos), the output written once, and 4*D flops
-    per (row, visible key, head); the larger of bytes / HBM rate and
-    operations / peak rate for the dtype."""
+    slots can see, int8: a byte a value and an f32 scale a row, q, table,
+    pos), the output written once, and 4*D flops per (row, visible key,
+    head); the larger of bytes / HBM rate and operations / peak rate for
+    the dtype."""
     q = c['q']
     b, t, h, d = q.shape
-    h_kv = c['k'].shape[3]
+    kv = c['k']['int8'] if c['int8'] else c['k']
+    h_kv = kv.shape[3]
     es = q.element_size()
+    row = d * kv.element_size() + (4 if c['int8'] else 0)
     cap = c['p_max'] * c['ps']
     keys = [min(p0 + t, cap) for p0 in c['pos'].tolist()]
-    kv_bytes = 2 * sum(keys) * h_kv * d * es
+    kv_bytes = 2 * sum(keys) * h_kv * row
     nbytes = kv_bytes + 2 * q.numel() * es + c['table'].numel() * 4 + b * 4
     ops = 0
     for p0 in c['pos'].tolist():
@@ -188,16 +219,24 @@ def bound_of(nbytes, ops, dtype):
 def sdpa_ms(c, iters):
     """Yardstick only (never called by the port): one
     F.scaled_dot_product_attention over the cache gathered through the
-    table (the gather is done beforehand and not timed)."""
+    table (the gather, and for int8 the dequantization, done beforehand
+    and not timed)."""
     from paddle_tpu_torch.ops.paged_kv import gather_virtual
+    from paddle_tpu_torch.ops.weight_only import dequantize_kv, kv_layer
     import torch.nn.functional as F
     q = c['q']
     b, t, h, d = q.shape
     rot = 8
+
+    def dense(bank):
+        g = gather_virtual(bank, c['table'])               # [B,S,Hkv,D]
+        return (dequantize_kv(g['int8'], g['scale'], q.dtype)
+                if c['int8'] else g)
+
     ks, vs = [], []
     for layer in range(rot):
-        kg = gather_virtual(c['k'][layer], c['table'])     # [B,S,Hkv,D]
-        vg = gather_virtual(c['v'][layer], c['table'])
+        kg = dense(kv_layer(c['k'], layer))
+        vg = dense(kv_layer(c['v'], layer))
         ks.append(kg.permute(0, 2, 1, 3).contiguous())
         vs.append(vg.permute(0, 2, 1, 3).contiguous())
     s = ks[0].shape[2]
@@ -209,16 +248,22 @@ def sdpa_ms(c, iters):
         qt, ks[i % rot], vs[i % rot], attn_mask=mask), iters)
 
 
-def kernel_err(got, want):
+def kernel_err(got, want, floor=0.0):
     """(max |got - want|, max over output rows of that row's largest
-    |got - want| / its largest |want|)."""
-    d = (got.float() - want.float()).abs().amax(-1)
-    scale = want.float().abs().amax(-1)
+    |got - want| / its largest |want|). ``floor``: each row's scale is at
+    least that share of the tensor's largest |want| (gradients: a row can
+    be pure cancellation, rounding noise on both sides)."""
+    w = want.float()
+    d = (got.float() - w).abs().amax(-1)
+    scale = w.abs().amax(-1).clamp_min(floor * w.abs().max().item() + 1e-30)
     return d.max().item(), (d / scale).max().item()
 
 
+GRAD_FLOOR = 0.01   # gradients: rows scaled by at least 1% of the tensor
+
+
 def hold_kernel(kname, name, kernel, call, twin, tol, timing=None,
-                lse=False):
+                lse=False, floor=0.0):
     """Hold one kernel call against its twin on the same inputs, and on a
     main-path shape (``timing``: dict of ``iters``, ``bound`` as
     ``bound_of`` returns it, ``library(iters)``) time it. ``call(i)`` and
@@ -233,7 +278,11 @@ def hold_kernel(kname, name, kernel, call, twin, tol, timing=None,
     if lse:
         (got, got_lse), (want, want_lse) = got, want
         rec['lse_err'] = (got_lse - want_lse).abs().max().item()
-    err, rel = kernel_err(got, want)
+    if isinstance(got, tuple):          # several outputs: the worst of them
+        errs = [kernel_err(a, b, floor) for a, b in zip(got, want)]
+        err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    else:
+        err, rel = kernel_err(got, want, floor)
     rec.update(max_abs_err=err, max_row_rel_err=rel, tol=tol)
     if timing:
         it = timing['iters']
@@ -263,6 +312,8 @@ def hold_kernel(kname, name, kernel, call, twin, tol, timing=None,
 
 
 def kernel_cases(pa, timed_iters):
+    """Kernels 6 and 7 (paged decode over bf16/f32 and int8 pools)."""
+    from paddle_tpu_torch.ops.weight_only import kv_layer
     rng = np.random.RandomState(1)
     ragged = [int(x) for x in rng.randint(16, 1023, size=8)]
     ragged[0], ragged[1] = 0, 1023          # both ends of the window
@@ -282,20 +333,37 @@ def kernel_cases(pa, timed_iters):
         ('prefill_T300_f32_gqa', dict(b=2, t=300, h=16, h_kv=4, d=64,
                                       pos=[0, 517], dtype=torch.float32),
          False),
+        # kernel 7: the int8 engine's decode and prefill, then GQA, f32
+        # and the other head dims
+        ('decode_T1', dict(b=8, t=1, h=16, h_kv=16, d=64, pos=ragged,
+                           dtype=torch.bfloat16, int8=True), True),
+        ('prefill_T1024', dict(b=1, t=1024, h=16, h_kv=16, d=64, pos=[0],
+                               dtype=torch.bfloat16, int8=True), True),
+        ('decode_T1_gqa_hkv4', dict(b=8, t=1, h=16, h_kv=4, d=64,
+                                    pos=ragged, dtype=torch.bfloat16,
+                                    int8=True), False),
+        ('decode_T1_d128_f32', dict(b=8, t=1, h=8, h_kv=8, d=128, pos=ragged,
+                                    dtype=torch.float32, int8=True), False),
+        ('prefill_T300_d256_gqa', dict(b=2, t=300, h=4, h_kv=2, d=256,
+                                       pos=[0, 517], dtype=torch.bfloat16,
+                                       int8=True), False),
     ]
-    results = {}
+    results = {'paged_decode': {}, 'paged_decode_int8': {}}
     for name, kw, engine_shape in cases:
         c = make_case(**kw)
-        args = lambda i: (c['q'], c['k'][i % LAYERS], c['v'][i % LAYERS],  # noqa: E731
-                          c['table'], c['pos'])
+        kname = 'paged_decode_int8' if c['int8'] else 'paged_decode'
+        kern = (pa.paged_flash_decode_int8 if c['int8']
+                else pa.paged_flash_decode)
+        twin = (pa.paged_decode_int8_reference if c['int8']
+                else pa.paged_decode_reference)
+        args = lambda i: (c['q'], kv_layer(c['k'], i % LAYERS),  # noqa: E731
+                          kv_layer(c['v'], i % LAYERS), c['table'], c['pos'])
         timing = (dict(iters=timed_iters, bound=bound(c),
                        library=lambda it: sdpa_ms(c, it))
                   if engine_shape else None)
-        results[name] = hold_kernel(
-            'paged_decode', name, pa.paged_flash_decode,
-            lambda i: pa.paged_flash_decode(*args(i)),
-            lambda i: pa.paged_decode_reference(*args(i)),
-            TOL[kw['dtype']], timing)
+        results[kname][name] = hold_kernel(
+            kname, name, kern, lambda i: kern(*args(i)),
+            lambda i: twin(*args(i)), TOL[kw['dtype']], timing)
         del c
         torch.cuda.empty_cache()
     return results
@@ -334,6 +402,25 @@ FWD_CASES = [
                                      dtype=BF16, causal=False, masked=True),
      False),
     ('fwd_S130_d256', dict(b=1, s=130, h=2, h_kv=2, d=256, dtype=BF16),
+     False),
+    # attention dropout (training): the forward's shape at rate 0.1
+    ('fwd_S1024_drop0.1', dict(b=8, s=1024, h=16, h_kv=16, d=64, dtype=BF16,
+                               drop=0.1), True),
+]
+DROP_SEED = 2 ** 31 + 12345     # a u32 past the int32 range
+# kernels 2 and 3 (the flash backward): the train step's shape first
+BWD_CASES = [
+    ('bwd_S1024', dict(b=8, s=1024, h=16, h_kv=16, d=64, dtype=BF16), True),
+    ('bwd_S1024_drop0.1', dict(b=8, s=1024, h=16, h_kv=16, d=64, dtype=BF16,
+                               drop=0.1), True),
+    ('bwd_S300_gqa_d128_f32', dict(b=2, s=300, h=8, h_kv=4, d=128,
+                                   dtype=F32), False),
+    ('bwd_S512_f32', dict(b=2, s=512, h=4, h_kv=4, d=64, dtype=F32), False),
+    ('bwd_S200_mask_noncausal_drop0.25', dict(b=2, s=200, h=4, h_kv=2, d=64,
+                                              dtype=BF16, causal=False,
+                                              masked=True, drop=0.25),
+     False),
+    ('bwd_S130_d256', dict(b=1, s=130, h=2, h_kv=2, d=256, dtype=BF16),
      False),
 ]
 LSE_TOL = 1e-4     # lse is f32 from the same scores: order of sums only
@@ -405,9 +492,10 @@ def decode_sdpa_ms(c, iters):
 
 
 def fwd_case(b, s, h, h_kv, d, dtype, causal=True, masked=False, layers=1,
-             seed=0):
+             seed=0, drop=0.0):
     """q, k, v as ``_block_qkv`` gives them, per layer: strided views of
-    one packed projection [B, S, H_kv, g+2, D] (q is copied when g > 1)."""
+    one packed projection [B, S, H_kv, g+2, D] (q is copied when g > 1),
+    and dO per layer."""
     g = h // h_kv
     gen = torch.Generator(device='cuda').manual_seed(seed)
     parts = []
@@ -416,12 +504,15 @@ def fwd_case(b, s, h, h_kv, d, dtype, causal=True, masked=False, layers=1,
                         device='cuda').to(dtype)
         parts.append((x[..., :g, :].reshape(b, s, h, d), x[..., g, :],
                       x[..., g + 1, :]))
+    dos = [torch.randn((b, s, h, d), generator=gen, device='cuda').to(dtype)
+           for _ in range(layers)]
     kmask = None
     if masked:
         valid = torch.tensor([s, s - 77], device='cuda')[:b, None]
         kmask = torch.where(torch.arange(s, device='cuda')[None] < valid,
                             0.0, -1e30)
-    return dict(parts=parts, causal=causal, kmask=kmask)
+    return dict(parts=parts, dos=dos, causal=causal, kmask=kmask, drop=drop,
+                seed=DROP_SEED if drop else None)
 
 
 def fwd_bound(c):
@@ -436,14 +527,15 @@ def fwd_bound(c):
 
 
 def fwd_sdpa_ms(c, iters):
-    """Yardstick only: one F.scaled_dot_product_attention (causal) over
-    q, k, v made contiguous in [B, H, S, D] beforehand, not timed."""
+    """Yardstick only: one F.scaled_dot_product_attention (causal, with
+    the case's dropout rate and its own random mask) over q, k, v made
+    contiguous in [B, H, S, D] beforehand, not timed."""
     import torch.nn.functional as F
     rot = min(8, len(c['parts']))
     qkv = [[x.transpose(1, 2).contiguous() for x in c['parts'][i]]
            for i in range(rot)]
     return device_ms(lambda i: F.scaled_dot_product_attention(
-        *qkv[i % rot], is_causal=c['causal']), iters)
+        *qkv[i % rot], is_causal=c['causal'], dropout_p=c['drop']), iters)
 
 
 def dense_kernel_cases(fa, timed_iters):
@@ -474,12 +566,88 @@ def dense_kernel_cases(fa, timed_iters):
         timing = (dict(iters=max(4, timed_iters // 4), bound=fwd_bound(c),
                        library=lambda it: fwd_sdpa_ms(c, it))
                   if timed else None)
+        extra = dict(kmask=c['kmask'], drop_rate=c['drop'], seed=c['seed'])
         results['flash_fwd'][name] = hold_kernel(
             'flash_fwd', name, fa.flash_fwd,
-            lambda i: fa.flash_fwd(*args(i), kmask=c['kmask']),
-            lambda i: fa.flash_fwd_reference(*args(i), kmask=c['kmask']),
+            lambda i: fa.flash_fwd(*args(i), **extra),
+            lambda i: fa.flash_fwd_reference(*args(i), **extra),
             TOL[kw['dtype']], timing, lse=True)
         del c
+        torch.cuda.empty_cache()
+    return results
+
+
+def bwd_bound(c, dots):
+    """q, k, v, dO, lse and delta read once and the kernel's outputs (dq;
+    or dk and dv) written once; ``dots`` dots of 2*D flops per (row,
+    visible key, head): 3 for dq (s, dp, ds.K), 4 for dk/dv."""
+    q, k, _ = c['parts'][0]
+    b, s, h, d = q.shape
+    es = q.element_size()
+    ins = (2 * q.numel() + 2 * k.numel()) * es + 2 * b * h * s * 4
+    outs = q.numel() * es if dots == 3 else 2 * k.numel() * es
+    vis = s * (s + 1) // 2 if c['causal'] else s * s
+    return bound_of(ins + outs, dots * 2 * d * h * b * vis, q.dtype)
+
+
+def sdpa_bwd_ms(c, iters):
+    """Yardstick only (the port never calls it): PyTorch's own flash
+    backward, ``aten._scaled_dot_product_flash_attention_backward``, which
+    computes dq, dk and dv together (kernels 2 and 3 at once), on q, k, v
+    and dO made contiguous in [B, H, S, D] and its own forward's out and
+    lse, all made beforehand and not timed."""
+    rot = min(8, len(c['parts']))
+    ops = torch.ops.aten
+    args = []
+    for i in range(rot):
+        q, k, v = (x.transpose(1, 2).contiguous() for x in c['parts'][i])
+        o = ops._scaled_dot_product_flash_attention(q, k, v, c['drop'],
+                                                    c['causal'])
+        g = c['dos'][i].transpose(1, 2).contiguous()
+        args.append((g, q, k, v, o[0], o[1], o[2], o[3], o[4], o[5],
+                     c['drop'], c['causal'], o[6], o[7]))
+    return device_ms(lambda i: ops._scaled_dot_product_flash_attention_backward(
+        *args[i % rot]), iters)
+
+
+def bwd_kernel_cases(fa, timed_iters):
+    """Kernels 2 and 3 against their twin on the same inputs (q, k, v,
+    dO, and kernel 1's own out and lse), each kernel timed alone at the
+    train step's shape over LAYERS rotating inputs; the twin computes
+    dq, dk and dv together, so its time stands for both."""
+    results = {'flash_bwd_dq': {}, 'flash_bwd_dkv': {}}
+    for name, kw, timed in BWD_CASES:
+        c = fwd_case(layers=LAYERS if timed else 1, **kw)
+        n = len(c['parts'])
+        extra = dict(kmask=c['kmask'], drop_rate=c['drop'], seed=c['seed'])
+        fwd = [fa.flash_fwd(*c['parts'][i], c['causal'], **extra)
+               for i in range(n)]
+        delta = [fa.bwd_delta(fwd[i][0], c['dos'][i]) for i in range(n)]
+
+        def inputs(i):
+            j = i % n
+            return (*c['parts'][j], c['dos'][j], fwd[j][1], delta[j],
+                    c['causal'])
+
+        library = {}
+
+        def lib_ms(it):
+            if 'ms' not in library:
+                library['ms'] = sdpa_bwd_ms(c, it)
+            return library['ms']
+
+        for kname, dots, pick in (('flash_bwd_dq', 3, lambda r: r[0]),
+                                  ('flash_bwd_dkv', 4, lambda r: r[1:])):
+            kern = getattr(fa, kname)
+            timing = (dict(iters=max(4, timed_iters // 4),
+                           bound=bwd_bound(c, dots), library=lib_ms)
+                      if timed else None)
+            results[kname][name] = hold_kernel(
+                kname, name, kern,
+                lambda i: kern(*inputs(i), **extra),
+                lambda i: pick(fa.flash_bwd_reference(*inputs(i), **extra)),
+                TOL[kw['dtype']], timing, floor=GRAD_FLOOR)
+        del c, fwd, delta
         torch.cuda.empty_cache()
     return results
 
@@ -832,6 +1000,26 @@ def phase_forward_sliding(gpt, model, kernels, card):
 INT8_SHARE = 0.25    # see phase_generate_card_vs_cpu
 
 
+def int8_split(lg_cpu, lg_card, lg_f32, took):
+    """Phase 8's rule for int8 streams that split (see
+    phase_generate_card_vs_cpu): given the card's tokens ``took`` [R, new],
+    the two devices' int8 logits [R, new, V] differ by at most INT8_SHARE
+    of what the int8 cache itself changes (the CPU's logits over an f32
+    cache, ``lg_f32``), and each card token is the CPU's best up to twice
+    that difference. -> (ok, record, message)."""
+    disc = (lg_cpu - lg_card).abs().max().item()
+    quant = (lg_f32 - lg_cpu).abs().max().item()
+    got = lg_cpu.gather(-1, took[..., None].long())[..., 0]
+    gap = (lg_cpu.amax(-1) - got).max().item()
+    rec = dict(teacher_forced_logit_diff=disc,
+               int8_vs_f32_cache_logit_diff=quant, card_gap_under_cpu=gap)
+    msg = (f"given the card's tokens the logits differ by {disc:.2e} (int8 "
+           f'vs f32 cache: {quant:.2e}; tol {INT8_SHARE:g} of it) and each '
+           f"card token is within {gap:.2e} of the CPU's best (<= 2 x "
+           f'{disc:.2e})')
+    return disc <= INT8_SHARE * quant and gap <= 2 * disc, rec, msg
+
+
 def teacher_forced_logits(gpt, model, stream, t0):
     """``model``'s logits for every new token of ``stream`` given the
     stream's own prefix: one cached prefill over the stream (each row
@@ -900,21 +1088,11 @@ def phase_generate_card_vs_cpu(gpt):
             f32_cache = gpt.GPTForCausalLM(
                 bench_config(gpt, num_layers=2, dtype='float32'), params,
                 device='cpu')
-            quant = (teacher_forced_logits(gpt, f32_cache, card, t0)
-                     - lg_cpu).abs().max().item()
-            disc = (lg_cpu - lg_card).abs().max().item()
-            took = lg_cpu.gather(-1, card[:, t0:, None].long())[..., 0]
-            gap = (lg_cpu.amax(-1) - took).max().item()
-            rec.update(first_difference=[int(x) for x in diff],
-                       teacher_forced_logit_diff=disc,
-                       int8_vs_f32_cache_logit_diff=quant,
-                       card_gap_under_cpu=gap)
-            msg = (f'equal up to row {diff[0]} token {diff[1]}; given the '
-                   f"card's tokens the logits differ by {disc:.2e} (int8 "
-                   f'vs f32 cache: {quant:.2e}; tol {INT8_SHARE:g} of it) '
-                   f"and each card token is within {gap:.2e} of the CPU's "
-                   f'best (<= 2 x {disc:.2e})')
-            same = disc <= INT8_SHARE * quant and gap <= 2 * disc
+            lg_f32 = teacher_forced_logits(gpt, f32_cache, card, t0)
+            same, split, msg = int8_split(lg_cpu, lg_card, lg_f32,
+                                          card[:, t0:])
+            rec.update(first_difference=[int(x) for x in diff], **split)
+            msg = f'equal up to row {diff[0]} token {diff[1]}; ' + msg
         print(f'  greedy generate() card vs cpu, {label} ({b} x {t0} + '
               f'{new}): {msg} ({distinct} distinct new tokens)', flush=True)
         if not same:
@@ -928,6 +1106,273 @@ def phase_generate_card_vs_cpu(gpt):
     if not (torch.isfinite(lg['cuda']).all() and err <= 1e-3):
         raise AssertionError(f'forward logits card vs cpu differ by {err}')
     res['forward_logits_max_abs_err'] = err
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: the engine over the int8 page pool (kernel 7)
+# ---------------------------------------------------------------------------
+
+def paged_prefill_logits(gpt, params, cfg, reqs, dev, rows=None):
+    """Logits of a paged prefill over a fresh pool of ``cfg``'s kind (bf16 /
+    f32, or int8 banks), one slot per request padded to the longest:
+    [R, 1, V] at each request's last row, or with ``rows`` (one count per
+    request) the last ``rows[i]`` rows of each as [R, max rows, V] f32 on
+    the CPU."""
+    ps = 128
+    width = max(len(r) for r in reqs)
+    per = -(-cfg.max_seq_len // ps)
+    pool = gpt.init_paged_kv_cache(cfg, 1 + per * len(reqs), ps, dev)
+    table = (torch.arange(per * len(reqs), dtype=torch.int32, device=dev)
+             .reshape(len(reqs), per) + 1)
+    toks = np.zeros((len(reqs), width), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, :len(r)] = r
+    valid = torch.tensor([len(r) for r in reqs], dtype=torch.int32,
+                         device=dev)
+    cache = dict(pool, page_table=table, valid=valid)
+    with torch.no_grad():
+        lg, _ = gpt.forward_with_cache(
+            params, torch.from_numpy(toks).to(dev), cache,
+            torch.zeros(len(reqs), dtype=torch.int32, device=dev), cfg,
+            last_only=rows is None)
+    if rows is None:
+        return lg.float().cpu()
+    n = max(rows)
+    return torch.stack([lg[i, len(r) - n:len(r)].float().cpu()
+                        for i, r in enumerate(reqs)])
+
+
+def phase_engine_int8(gpt, GenerationEngine, kernels, card):
+    """The bench GPT in GenerationEngine(kv_cache_int8=True) answering the
+    requests of phase 4; then the prefill logits of an int8 pool against
+    a bf16 pool's, both through the paged forward the engine runs."""
+    cfg = bench_config(gpt, kv_cache_int8=True)
+    params = gpt.init_params(cfg, torch.Generator(device='cuda').manual_seed(0),
+                             'cuda')
+    eng = GenerationEngine(params, cfg, num_slots=8, page_size=128)
+    try:
+        eng.warmup()
+        reqs = prompts(8, 16, 400, cfg.vocab_size, seed=0)
+        new = 32
+        zero_launches(kernels)
+        out, wall = serve(eng, reqs, new)
+        torch.cuda.synchronize()
+        launches = launch_counts(kernels)
+        st = eng.stats()
+    finally:
+        eng.shutdown()
+    for i, toks in enumerate(out):
+        if len(toks) != new or not all(0 <= t < cfg.vocab_size
+                                       for t in toks):
+            raise AssertionError(f'int8 engine request {i}: {len(toks)} '
+                                 'tokens out of range or short')
+    calls = st['prefills'] + st['steps']
+    expect_launches(f'int8 engine ({st["prefills"]} prefills + '
+                    f'{st["steps"]} steps)', launches,
+                    {'paged_decode_int8': cfg.num_layers * calls})
+    sp = gpt.serving_params(params, cfg)
+    lg8 = paged_prefill_logits(gpt, sp, cfg, reqs, 'cuda')
+    lgb = paged_prefill_logits(gpt, sp, bench_config(gpt), reqs, 'cuda')
+    if not (torch.isfinite(lg8).all() and torch.isfinite(lgb).all()):
+        raise AssertionError('non-finite int8 / bf16 prefill logits')
+    cos = float((lg8 * lgb).sum() / (lg8.norm() * lgb.norm()))
+    res = {'requests': len(out), 'new_tokens': new, 'wall_s': wall,
+           'tokens_per_s': len(out) * new / wall,
+           'ttft_ms_p50': st['ttft_ms_p50'],
+           'step_ms_mean': st['decode_step_ms_mean'],
+           'prefill_ms_mean': st['prefill_ms_mean'],
+           'prefills': st['prefills'], 'steps': st['steps'],
+           'launches': launches['paged_decode_int8'],
+           'prefill_cosine_vs_bf16': cos}
+    print(f'  int8 engine at full width: {len(out)} requests x {new} tokens '
+          f'in {wall:.3f} s; {res["tokens_per_s"]:.1f} tokens/s, TTFT p50 '
+          f'{res["ttft_ms_p50"]:.1f} ms, mean step {res["step_ms_mean"]:.2f}'
+          f' ms [{card}]', flush=True)
+    print(f'  prefill logits int8 vs bf16 pool: cosine {cos:.6f} (want > '
+          '0.999)', flush=True)
+    if not cos > 0.999:
+        raise AssertionError(f'int8 pool prefill logits cosine {cos}')
+    return res
+
+
+def phase_engine_int8_card_vs_cpu(gpt, GenerationEngine):
+    """The int8 engine at 2 layers in f32 (block matrices x10, as phase 8)
+    on the card and on the CPU: greedy streams equal, or where they split
+    at a near-tie, held to phase 8's int8 rule on teacher-forced logits
+    through the paged forward."""
+    cfg = bench_config(gpt, num_layers=2, dtype='float32',
+                       kv_cache_int8=True)
+    params = gpt.init_params(cfg, torch.Generator().manual_seed(2), 'cpu')
+    for k in ('qkv_w', 'proj_w', 'fc_w', 'out_w'):
+        params['blocks'][k] = params['blocks'][k] * 10
+    reqs = prompts(4, 16, 200, cfg.vocab_size, seed=1)
+    new = 16
+    streams = {}
+    for dev in ('cuda', 'cpu'):
+        eng = GenerationEngine(params, cfg, device=dev, num_slots=8,
+                               page_size=128)
+        try:
+            streams[dev], _ = serve(eng, reqs, new)
+        finally:
+            eng.shutdown()
+    same = streams['cuda'] == streams['cpu']
+    rec = {'streams_equal': same}
+    msg = 'equal'
+    if not same:
+        full = [np.concatenate([r, np.asarray(c[:-1], np.int32)])
+                for r, c in zip(reqs, streams['cuda'])]
+        rows = [new] * len(reqs)
+
+        def tf(c, dev):
+            p = {k: ({bk: bv.to(dev) for bk, bv in v.items()}
+                     if k == 'blocks' else v.to(dev))
+                 for k, v in params.items()}
+            return paged_prefill_logits(gpt, gpt.serving_params(p, c), c,
+                                        full, dev, rows)
+
+        f32 = bench_config(gpt, num_layers=2, dtype='float32')
+        took = torch.tensor(streams['cuda'])
+        same, split, msg = int8_split(tf(cfg, 'cpu'), tf(cfg, 'cuda'),
+                                      tf(f32, 'cpu'), took)
+        rec.update(split)
+        msg = 'DIFFERENT; ' + msg
+    print(f'  int8 engine greedy streams card vs cpu ({len(reqs)} requests x'
+          f' {new} tokens): {msg}', flush=True)
+    if not same:
+        raise AssertionError(f'int8 engine streams: card {streams["cuda"]} '
+                             f'cpu {streams["cpu"]}')
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phases 11 and 12: the single-device train step
+# ---------------------------------------------------------------------------
+
+PEAK_BF16 = PEAK_OPS_PER_S[torch.bfloat16]
+
+
+def phase_train(gpt, topt, kernels, card):
+    """The bench rung (bench.py _child_train rung 1): the bench GPT, B=8,
+    S=1024, bf16 compute over f32 params, AdamW(2e-4, weight_decay=0.01),
+    remat 'dots', xent_chunk 8192, targets = tokens, one numpy-seeded
+    batch; 2 warm-up steps (the first counted alone), then 8 timed."""
+    cfg = bench_config(gpt, remat=True, remat_policy='dots', xent_chunk=8192)
+    b, s = 8, cfg.max_seq_len
+    torch.cuda.reset_peak_memory_stats()
+    params = gpt.init_params(cfg, torch.Generator(device='cuda').manual_seed(0),
+                             'cuda')
+    n_params = sum(v.numel() for k, v in params.items() if k != 'blocks')
+    n_params += sum(v.numel() for v in params['blocks'].values())
+    opt = topt.AdamW(learning_rate=2e-4, weight_decay=0.01)
+    state = opt.functional_init(params)
+    step = gpt.make_train_step(cfg, opt)
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    losses = []
+
+    def one():
+        nonlocal params, state
+        loss, params, state = step(params, state, 0, 2e-4, toks, toks)
+        losses.append(loss)
+
+    L = cfg.num_layers
+    # kernel 1 runs 2 x L a step: once in the forward, once more when the
+    # backward recomputes each block under remat (the reference recomputes
+    # its custom call the same way); kernels 2 and 3 once a layer
+    per_step = {'flash_fwd': 2 * L, 'flash_bwd_dq': L, 'flash_bwd_dkv': L}
+    zero_launches(kernels)
+    one()
+    torch.cuda.synchronize()
+    expect_launches('one train step', launch_counts(kernels), per_step)
+    one()
+    n = 8
+    zero_launches(kernels)
+    _, wall = timed(lambda: [one() for _ in range(n)])
+    launches = launch_counts(kernels)
+    expect_launches(f'{n} timed train steps', launches,
+                    {k: n * v for k, v in per_step.items()})
+    vals = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in vals):
+        raise AssertionError(f'non-finite train loss {vals}')
+    if not vals[-1] < vals[0]:
+        raise AssertionError(f'the train loss did not fall: {vals}')
+    tok_s = b * s * n / wall
+    prof = profile_window(one)
+    res = {'params': n_params, 'losses': vals, 'step_ms': wall * 1e3 / n,
+           'tokens_per_s': tok_s,
+           'mfu': 6 * n_params * tok_s / PEAK_BF16,
+           'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9,
+           'launches': launches, 'profile': prof}
+    print(f'  train step at full width ({n_params / 1e6:.1f}M params, '
+          f'[{b}, {s}], bf16, remat dots): {res["step_ms"]:.1f} ms a step, '
+          f'{tok_s:.0f} tokens/s, MFU {100 * res["mfu"]:.2f}% of 989 '
+          f'TFLOP/s, peak {res["peak_mem_gb"]:.2f} GB [{card}]', flush=True)
+    print(f'  losses {" ".join(f"{x:.4f}" for x in vals)}', flush=True)
+    print(f'  profiled step: window {prof["window_ms"]:.1f} ms, device busy '
+          f'{prof["device_ms"]:.1f} ms ({100 * prof["busy_share"]:.1f}%), '
+          f'{prof["kernels"]} kernel launches', flush=True)
+    for name, ms in prof['top']:
+        print(f'    {ms:9.3f} ms  {name}', flush=True)
+    del params, state
+    torch.cuda.empty_cache()
+    return res
+
+
+# card vs CPU train step, f32 at 2 layers: gradients and losses sum in
+# other orders (cuBLAS, the kernels' tiles) but in f32 throughout
+TRAIN_GRAD_TOL = 1e-3      # each gradient's largest error / its largest value
+TRAIN_LOSS_TOL = 1e-4      # relative, each of 6 losses
+
+
+def phase_train_card_vs_cpu(gpt, topt):
+    """The train step at 2 layers in f32 (hidden 1024, vocab 32768, [2,
+    256]) on the card and on the CPU, from the same weights and tokens:
+    the first step's gradients and a 6-step AdamW loss curve, without
+    dropout and with dropout 0.1 under the same u32 seeds."""
+    res = {}
+    for drop in (0.0, 0.1):
+        cfg = bench_config(gpt, num_layers=2, dtype='float32',
+                           max_seq_len=256, dropout=drop)
+        params = gpt.init_params(cfg, torch.Generator().manual_seed(3), 'cpu')
+        rng = np.random.RandomState(5)
+        toks = rng.randint(0, cfg.vocab_size, (2, 256)).astype(np.int32)
+        tgts = rng.randint(0, cfg.vocab_size, (2, 256)).astype(np.int32)
+        seeds = [2 ** 31 + 7919 * i for i in range(7)]
+        grads, curves = {}, {}
+        for dev in ('cuda', 'cpu'):
+            p = {k: ({bk: bv.to(dev).clone() for bk, bv in v.items()}
+                     if k == 'blocks' else v.to(dev).clone())
+                 for k, v in params.items()}
+            t, y = (torch.from_numpy(x).to(dev) for x in (toks, tgts))
+            leaves = gpt._leaves(p)
+            live = [x.detach().clone().requires_grad_() for x in leaves]
+            loss = gpt.loss_fn(gpt._rebuild(p, live), t, y, cfg, seeds[0])
+            grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, live)]
+            opt = topt.AdamW(learning_rate=1e-3, weight_decay=0.01)
+            state = opt.functional_init(p)
+            step = gpt.make_train_step(cfg, opt)
+            curve = []
+            for i in range(6):
+                loss, p, state = step(p, state, seeds[i + 1], 1e-3, t, y)
+                curve.append(float(loss))
+            curves[dev] = curve
+        g_err = max((a - b).abs().max().item() / b.abs().max().clamp_min(
+            1e-30).item() for a, b in zip(grads['cuda'], grads['cpu']))
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(curves['cuda'],
+                                                        curves['cpu']))
+        ok = (g_err <= TRAIN_GRAD_TOL and l_err <= TRAIN_LOSS_TOL
+              and curves['cpu'][-1] < curves['cpu'][0])
+        print(f'  train card vs cpu (2 layers, f32, dropout {drop}): grads '
+              f'{g_err:.2e} (tol {TRAIN_GRAD_TOL:g}), 6-step losses '
+              f'{l_err:.2e} (tol {TRAIN_LOSS_TOL:g}): card '
+              f'{" ".join(f"{x:.5f}" for x in curves["cuda"])} '
+              f'{"OK" if ok else "FAIL"}', flush=True)
+        if not ok:
+            raise AssertionError(f'train card vs cpu, dropout {drop}: grads '
+                                 f'{g_err}, losses {curves}')
+        res[f'dropout_{drop}'] = {'grad_rel_err': g_err,
+                                  'loss_rel_err': l_err, 'curves': curves}
     return res
 
 
@@ -945,13 +1390,17 @@ def main(argv=None):
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.serving import GenerationEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = {'paged_decode': pa.paged_flash_decode,
+                'paged_decode_int8': pa.paged_flash_decode_int8,
                 'flash_decode': fa.flash_decode,
                 'flash_decode_int8': fa.flash_decode_int8,
-                'flash_fwd': fa.flash_fwd}
+                'flash_fwd': fa.flash_fwd,
+                'flash_bwd_dq': fa.flash_bwd_dq,
+                'flash_bwd_dkv': fa.flash_bwd_dkv}
 
     t_start = time.perf_counter()
     card = card_line()
@@ -977,6 +1426,7 @@ def main(argv=None):
           flush=True)
     report['kernel'] = kr = kernel_cases(pa, TIMED_ITERS)
     report['dense_kernels'] = dk = dense_kernel_cases(fa, TIMED_ITERS)
+    report['bwd_kernels'] = bk = bwd_kernel_cases(fa, TIMED_ITERS)
     print('phase 4: GenerationEngine at full width', flush=True)
     report['engine'] = phase_engine(gpt, pa, GenerationEngine, card)
     print('phase 5: card against CPU at 2 layers', flush=True)
@@ -990,20 +1440,39 @@ def main(argv=None):
     torch.cuda.empty_cache()
     print('phase 8: generate() card against CPU at 2 layers', flush=True)
     report['generate_card_vs_cpu'] = phase_generate_card_vs_cpu(gpt)
+    print('phase 9: GenerationEngine over the int8 page pool at full width',
+          flush=True)
+    report['engine_int8'] = phase_engine_int8(gpt, GenerationEngine,
+                                              counters, card)
+    print('phase 10: int8 engine card against CPU at 2 layers', flush=True)
+    report['engine_int8_card_vs_cpu'] = phase_engine_int8_card_vs_cpu(
+        gpt, GenerationEngine)
+    print('phase 11: the train step at full width', flush=True)
+    report['train'] = phase_train(gpt, topt, counters, card)
+    print('phase 12: the train step card against CPU at 2 layers',
+          flush=True)
+    report['train_card_vs_cpu'] = phase_train_card_vs_cpu(gpt, topt)
 
     gen, fwd = report['generate'], report['forward']
+    train = report['train']['launches']
     main_path = {
         'paged_decode': report['engine']['launches'],
+        'paged_decode_int8': report['engine_int8']['launches'],
         'flash_decode': gen['bf16']['launches']
         + fwd['launches']['flash_decode'],
         'flash_decode_int8': gen['int8']['launches'],
         'flash_fwd': fwd['forward_launches']['flash_fwd']
-        + fwd['launches']['flash_fwd'],
+        + fwd['launches']['flash_fwd'] + train['flash_fwd'],
+        'flash_bwd_dq': train['flash_bwd_dq'],
+        'flash_bwd_dkv': train['flash_bwd_dkv'],
     }
-    timed_shape = {'paged_decode': 'decode_T1', 'flash_decode': 'decode_T1',
+    timed_shape = {'paged_decode': 'decode_T1',
+                   'paged_decode_int8': 'decode_T1',
+                   'flash_decode': 'decode_T1',
                    'flash_decode_int8': 'decode_T1_int8',
-                   'flash_fwd': 'fwd_S1024'}
-    cases = dict(dk, paged_decode=kr)
+                   'flash_fwd': 'fwd_S1024', 'flash_bwd_dq': 'bwd_S1024',
+                   'flash_bwd_dkv': 'bwd_S1024'}
+    cases = dict(dk, **kr, **bk)
     kernels = []
     for name in SOURCE_OF:
         recs = cases[name]

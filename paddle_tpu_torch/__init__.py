@@ -8,11 +8,14 @@ JAX package by tests that feed both the same inputs. It never imports
 its own copy.
 
 Implemented so far, for GPT: the serving path of
-``serving.GenerationEngine`` (continuous batching over the paged KV pool),
-whose attention runs the hand-written Hopper kernel in
-``csrc/paged_decode.cu``; and ``models.gpt.GPTForCausalLM`` with its plain
+``serving.GenerationEngine`` (continuous batching over the paged KV pool,
+bf16/f32 or int8), whose attention runs the hand-written Hopper kernels in
+``csrc/paged_decode.cu``; ``models.gpt.GPTForCausalLM`` with its plain
 forward and ``generate()`` over the dense KV cache (bf16/f32 or int8),
-whose attention runs ``csrc/flash_fwd.cu`` and ``csrc/flash_decode.cu``.
+whose attention runs ``csrc/flash_fwd.cu`` and ``csrc/flash_decode.cu``;
+and the single-device train step (``models.gpt.make_train_step`` with
+``optimizer.AdamW`` and the blockwise LM-head loss ``ops/xent.py``),
+whose attention backward runs ``csrc/flash_bwd.cu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 with no card and no explicit CPU request they raise (``resolve_device``)

@@ -13,6 +13,9 @@
 // l sums the unrounded p, while p.V takes p rounded to q's dtype (int8
 // values first multiply their row scale into p); the output is
 // acc / max(l, 1e-30) in q's dtype, and lse = m + log(max(l, 1e-30)).
+// With attention dropout (training, kernel 1 only) l still sums the
+// undropped p, and p.V takes p x keep / (1 - rate) rounded to q's dtype,
+// keep from the counter hash dropout_keep below.
 //
 // Design. Head h reads kv head h / (H / H_kv): GQA never materialises
 // repeated KV. Operands are read in the reference's [B, S, H, D] layout
@@ -85,6 +88,32 @@ template <> struct Elem<int8_t> {
   }
 };
 
+// The reference's counter-hash dropout mask (_dropout_keep,
+// paddle_tpu/ops/flash_attention.py): a murmur3-style finalizer over (seed,
+// attention row b * H + h, local q row, global key) in u32 arithmetic; the
+// top 24 bits against thr, the f32 of rate * 2^24. The forward and both
+// backward kernels call it, so they regenerate the same mask bit for bit
+// and never store it.
+__device__ __forceinline__ bool dropout_keep(uint32_t seed, uint32_t row,
+                                             uint32_t q, uint32_t k,
+                                             float thr) {
+  uint32_t x = q * 0x9E3779B1u + k * 0x85EBCA77u + row * 0xC2B2AE3Du + seed;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return (float)(x >> 8) >= thr;
+}
+
+// Dropout arguments of one attention call (dropout == 0: none).
+struct Dropout {
+  int dropout;
+  uint32_t seed;
+  float thr;                // f32 of rate * 2^24
+  float mult;               // f32 of 1 / (1 - rate)
+};
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -129,6 +158,7 @@ struct TileArgs {
   int causal;               // row i sees keys <= off + i
   int q_off;                // off when pos is null
   float scale;              // 1/sqrt(D)
+  Dropout drop;             // forward only; the decode kernels pass none
 };
 
 template <typename T, typename KV, int D, int BK>
@@ -227,8 +257,9 @@ attn_tile_kernel(const TileArgs a) {
     __syncthreads();
 
     // online softmax over this chunk, one warp per row; l takes the
-    // unrounded p, the p.V product takes p [times the v scale] rounded to
-    // q's dtype
+    // unrounded p, the p.V product takes p [times the v scale] [times the
+    // dropout multiplier] rounded to q's dtype
+    const uint32_t drow = (uint32_t)(b * a.H + h);
     for (int r = warp; r < rows; r += NT / 32) {
       float* sr = s_s + r * BK;
       float mx = NEG_INF;
@@ -240,8 +271,11 @@ attn_tile_kernel(const TileArgs a) {
       for (int k = lane; k < n; k += 32) {
         const float e = expf(sr[k] - m_new);
         sum += e;
-        sr[k] = Elem<T>::round(
-            INT8 ? e * a.vs[sc0 + (size_t)(c0 + k) * a.H_kv] : e);
+        float pv = INT8 ? e * a.vs[sc0 + (size_t)(c0 + k) * a.H_kv] : e;
+        if (a.drop.dropout)
+          pv = dropout_keep(a.drop.seed, drow, q0 + r, c0 + k, a.drop.thr)
+                   ? pv * a.drop.mult : 0.f;
+        sr[k] = Elem<T>::round(pv);
       }
       sum = warp_sum(sum);
       if (lane == 0) {

@@ -1,0 +1,433 @@
+// Flash-attention backward, for NVIDIA Hopper (sm_90a): kernels 2 and 3 of
+// the port.
+//
+// Replaces the Pallas TPU kernels _bwd_dq_kernel and _bwd_dkv_kernel
+// (paddle_tpu/ops/flash_attention.py, launched by _bwd_pallas_pre). They
+// compute the same function from the forward's saved lse and
+// delta = rowsum(out * dO): p = exp(s - lse) with s the masked f32 scores
+// of the forward (q.k times 1/sqrt(D), plus the additive key mask, -1e30
+// where causal or the valid-key bound hides a key); dp = dO.v, times the
+// dropout multiplier where the forward dropped (the same counter hash,
+// dropout_keep in attention.cuh, row b * H + h of the QUERY head);
+// ds = p * (dp - delta). Then
+//   flash_bwd_dq:  dq = scale * sum_k ds(rounded to k's dtype) * K;
+//   flash_bwd_dkv: dk = scale * sum_q ds(rounded to q's dtype) * Q,
+//                  dv = sum_q pd(rounded to dO's dtype) * dO,
+//                  pd = p times the dropout multiplier.
+// Operands are read in the reference's [B, S, H, D] layout through element
+// strides (the head dim contiguous): q/k/v may be strided views of the
+// packed qkv projection. lse and delta are [B, H, S_q] f32.
+//
+// Design. flash_bwd_dq: a block per (b, query head h, BT q rows) holds its
+// q, dO, lse and delta rows in shared memory and walks key chunks of BT up
+// to its last row's causal limit; dq stays in registers. flash_bwd_dkv: a
+// block per (b, kv head, BT key rows) holds its K and V rows and walks q
+// chunks of BT from the first one that can see its keys (the reference's
+// start block), for each query head of the GQA group in turn, summing the
+// group's dk/dv in f32 registers: no atomics and no per-head partial
+// buffer. (The reference rounds each head's partial to k's dtype before
+// its f32 sum; in bf16 the two differ by that rounding.) The dots run on
+// CUDA cores in f32 from shared memory, a thread per key for the score
+// tile (s and dp together) and a thread per output column for the
+// products, as in the forward tile of attention.cuh.
+//
+// Bound. At the train step's shape (B = 8, S = 1024, H = 16, D = 64,
+// causal, bf16) kernel 2 does three causal dots (s, dp, ds.K), ~25.8 GFLOP
+// (26 us on the tensor cores), and kernel 3 four (s, dp, pd.dO, ds.Q),
+// ~34.4 GFLOP (35 us), over ~85 MB and ~118 MB of operands (25 us and
+// 35 us at 3.35 TB/s). These kernels do their dots on CUDA cores in f32 from
+// shared memory, so they are bound by operations (shared-memory traffic
+// in practice) far above that; wgmma with TMA-fed tiles is the later step.
+// Both skip the tiles the causal mask hides entirely, halving the work of
+// a full sweep.
+#include "attention.cuh"
+
+namespace {
+
+using namespace attn;
+
+struct BwdArgs {
+  const void* q;            // [B, S_q, H, D], strides q_s*
+  const void* k;            // [B, S_k, H_kv, D], strides k_s*
+  const void* v;            // as k (same strides)
+  const void* g;            // dO: [B, S_q, H, D], strides g_s*
+  const float* lse;         // [B, H, S_q] f32
+  const float* delta;       // [B, H, S_q] f32
+  const float* kmask;       // additive [B, S_k] (batch stride m_sb), or null
+  void* dq;                 // [B, S_q, H, D] contiguous, q's dtype
+  void* dk;                 // [B, S_k, H_kv, D] contiguous, k's dtype
+  void* dv;                 // as dk
+  long long q_sb, q_ss, q_sh;
+  long long g_sb, g_ss, g_sh;
+  long long k_sb, k_ss, k_sh;
+  long long m_sb;
+  int s_q, s_k, H, H_kv;
+  int n_keys;               // keys at or past n_keys are masked
+  int causal;               // q row i sees keys <= q_off + i
+  int q_off;
+  float scale;              // 1/sqrt(D)
+  Dropout drop;
+};
+
+// Rows (q rows or keys) per tile: 64, or 32 at D = 256 to fit shared memory.
+template <int D> __host__ __device__ constexpr int tile_rows() {
+  return D <= 128 ? 64 : 32;
+}
+
+// One [R q rows x C keys] tile of the backward: from the q and dO rows
+// (qa, ga: [R][DP] f32), the K and V rows (ka, va: [C][DP] f32) and each
+// row's lse and delta, write ds = p * (dp * mult - delta) rounded to T into
+// ds_s [R][C] and, when pd_s is given, pd = p * mult rounded to T into
+// pd_s. Rows r0 .. r0 + nr - 1 and keys c0 .. c0 + nc - 1 are global
+// indices; entries past nr / nc are left unwritten. A thread per key,
+// rows rg + j * RSTEP.
+template <typename T, int D, int R, int C>
+__device__ __forceinline__ void bwd_tile(const BwdArgs& a, const float* qa,
+                                         const float* ga, const float* ka,
+                                         const float* va, const float* lse_s,
+                                         const float* dta_s, int b, int hq,
+                                         int r0, int nr, int c0, int nc,
+                                         float* ds_s, float* pd_s) {
+  constexpr int DP = D + 4;
+  constexpr int RSTEP = NT / C;
+  constexpr int NJ = R / RSTEP;
+  const int key = threadIdx.x % C, rg = threadIdx.x / C;
+  if (key >= nc) return;
+  float s[NJ], dp[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) s[j] = dp[j] = 0.f;
+  const float* kr = ka + key * DP;
+  const float* vr = va + key * DP;
+#pragma unroll 2
+  for (int dd = 0; dd < D; dd += 4) {
+    const float4 k4 = *reinterpret_cast<const float4*>(kr + dd);
+    const float4 v4 = *reinterpret_cast<const float4*>(vr + dd);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int r = rg + j * RSTEP;
+      if (r >= nr) break;               // rows grow with j: the rest too
+      const float4 q4 = *reinterpret_cast<const float4*>(qa + r * DP + dd);
+      const float4 g4 = *reinterpret_cast<const float4*>(ga + r * DP + dd);
+      s[j] = fmaf(q4.x, k4.x, s[j]);
+      s[j] = fmaf(q4.y, k4.y, s[j]);
+      s[j] = fmaf(q4.z, k4.z, s[j]);
+      s[j] = fmaf(q4.w, k4.w, s[j]);
+      dp[j] = fmaf(g4.x, v4.x, dp[j]);
+      dp[j] = fmaf(g4.y, v4.y, dp[j]);
+      dp[j] = fmaf(g4.z, v4.z, dp[j]);
+      dp[j] = fmaf(g4.w, v4.w, dp[j]);
+    }
+  }
+  const int kpos = c0 + key;
+  const float madd = a.kmask ? a.kmask[b * a.m_sb + kpos] : 0.f;
+  const bool kvalid = kpos < a.n_keys;
+  const uint32_t drow = (uint32_t)(b * a.H + hq);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int r = rg + j * RSTEP;
+    if (r >= nr) break;
+    const int qpos = r0 + r;
+    float sc = s[j] * a.scale;
+    if (a.kmask) sc += madd;
+    if (!kvalid || (a.causal && kpos > a.q_off + qpos)) sc = NEG_INF;
+    const float p = expf(sc - lse_s[r]);
+    float d = dp[j], pd = p;
+    if (a.drop.dropout) {
+      const float mult =
+          dropout_keep(a.drop.seed, drow, qpos, kpos, a.drop.thr)
+              ? a.drop.mult : 0.f;
+      d *= mult;
+      pd = p * mult;
+    }
+    ds_s[r * C + key] = Elem<T>::round(p * (d - dta_s[r]));
+    if (pd_s) pd_s[r * C + key] = Elem<T>::round(pd);
+  }
+}
+
+// Load n rows of lse and delta of (b, head h) from row r0 into smem.
+__device__ __forceinline__ void load_stats(const BwdArgs& a, int b, int h,
+                                           int r0, int n, float* lse_s,
+                                           float* dta_s) {
+  const size_t base = ((size_t)b * a.H + h) * a.s_q + r0;
+  for (int r = threadIdx.x; r < n; r += NT) {
+    lse_s[r] = a.lse[base + r];
+    dta_s[r] = a.delta[base + r];
+  }
+}
+
+template <typename T, int D>
+// D = 64: two blocks per SM (128 registers a thread)
+__global__ void __launch_bounds__(NT, D <= 64 ? 2 : 1)
+flash_bwd_dq_kernel(const BwdArgs a) {
+  constexpr int BT = tile_rows<D>();
+  constexpr int DP = D + 4;
+  constexpr int O_RSTEP = NT / D;       // output tile: thread -> one
+  constexpr int O_NJ = BT / O_RSTEP;    //   column, rows orow0 + j * O_RSTEP
+
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                    // [BT][DP]  q rows (f32)
+  float* g_s = q_s + BT * DP;           // [BT][DP]  dO rows
+  float* k_s = g_s + BT * DP;           // [BT][DP]  K chunk
+  float* v_s = k_s + BT * DP;           // [BT][DP]  V chunk
+  float* ds_s = v_s + BT * DP;          // [BT][BT]  ds (rows x keys)
+  float* lse_s = ds_s + BT * BT;        // [BT]
+  float* dta_s = lse_s + BT;            // [BT]
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BT;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int rows = min(BT, a.s_q - q0);
+  const int hk = h / (a.H / a.H_kv);
+  // keys any row of this tile can see
+  int n_end = min(a.n_keys, a.s_k);
+  if (a.causal) n_end = max(0, min(n_end, a.q_off + q0 + rows));
+
+  load_rows<T, D, DP>(static_cast<const T*>(a.q) + b * a.q_sb + q0 * a.q_ss +
+                          h * a.q_sh,
+                      (size_t)a.q_ss, rows, q_s);
+  load_rows<T, D, DP>(static_cast<const T*>(a.g) + b * a.g_sb + q0 * a.g_ss +
+                          h * a.g_sh,
+                      (size_t)a.g_ss, rows, g_s);
+  load_stats(a, b, h, q0, rows, lse_s, dta_s);
+  float acc[O_NJ];
+#pragma unroll
+  for (int j = 0; j < O_NJ; ++j) acc[j] = 0.f;
+  const int od = tid % D, orow0 = tid / D;
+  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const T* vb = static_cast<const T*>(a.v) + b * a.k_sb + hk * a.k_sh;
+  __syncthreads();
+
+  for (int c0 = 0; c0 < n_end; c0 += BT) {
+    const int n = min(BT, n_end - c0);
+    load_rows<T, D, DP>(kb + (size_t)c0 * a.k_ss, (size_t)a.k_ss, n, k_s);
+    load_rows<T, D, DP>(vb + (size_t)c0 * a.k_ss, (size_t)a.k_ss, n, v_s);
+    __syncthreads();
+    bwd_tile<T, D, BT, BT>(a, q_s, g_s, k_s, v_s, lse_s, dta_s, b, h, q0,
+                           rows, c0, n, ds_s, nullptr);
+    __syncthreads();
+    // dq += ds . K, four keys at a time (one 16-byte read of ds per row)
+    const int n4 = n & ~3;
+    for (int k = 0; k < n4; k += 4) {
+      const float k0 = k_s[k * DP + od], k1 = k_s[(k + 1) * DP + od];
+      const float k2 = k_s[(k + 2) * DP + od], k3 = k_s[(k + 3) * DP + od];
+#pragma unroll
+      for (int j = 0; j < O_NJ; ++j) {
+        const int r = orow0 + j * O_RSTEP;
+        if (r >= rows) break;
+        const float4 d4 = *reinterpret_cast<const float4*>(ds_s + r * BT + k);
+        acc[j] = fmaf(d4.x, k0, acc[j]);
+        acc[j] = fmaf(d4.y, k1, acc[j]);
+        acc[j] = fmaf(d4.z, k2, acc[j]);
+        acc[j] = fmaf(d4.w, k3, acc[j]);
+      }
+    }
+    for (int k = n4; k < n; ++k) {
+      const float kv = k_s[k * DP + od];
+#pragma unroll
+      for (int j = 0; j < O_NJ; ++j) {
+        const int r = orow0 + j * O_RSTEP;
+        if (r >= rows) break;
+        acc[j] = fmaf(ds_s[r * BT + k], kv, acc[j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  T* dq = static_cast<T*>(a.dq);
+#pragma unroll
+  for (int j = 0; j < O_NJ; ++j) {
+    const int r = orow0 + j * O_RSTEP;
+    if (r >= rows) break;
+    dq[(((size_t)b * a.s_q + q0 + r) * a.H + h) * D + od] =
+        Elem<T>::from_f(acc[j] * a.scale);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT, D <= 64 ? 2 : 1)
+flash_bwd_dkv_kernel(const BwdArgs a) {
+  constexpr int BT = tile_rows<D>();
+  constexpr int DP = D + 4;
+  constexpr int O_RSTEP = NT / D;       // output tile: thread -> one
+  constexpr int O_NJ = BT / O_RSTEP;    //   column, keys orow0 + j * O_RSTEP
+
+  extern __shared__ __align__(16) float smem[];
+  float* k_s = smem;                    // [BT][DP]  this block's K rows
+  float* v_s = k_s + BT * DP;           // [BT][DP]  its V rows
+  float* q_s = v_s + BT * DP;           // [BT][DP]  q chunk
+  float* g_s = q_s + BT * DP;           // [BT][DP]  dO chunk
+  float* ds_s = g_s + BT * DP;          // [BT][BT]  ds (q rows x keys)
+  float* pd_s = ds_s + BT * BT;         // [BT][BT]  pd
+  float* lse_s = pd_s + BT * BT;        // [BT]
+  float* dta_s = lse_s + BT;            // [BT]
+
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * BT;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nk = min(BT, a.s_k - k0);
+  const int grp = a.H / a.H_kv;
+  // causal: the first q row that can see key k0
+  const int q_first = a.causal ? max(0, k0 - a.q_off) : 0;
+
+  load_rows<T, D, DP>(static_cast<const T*>(a.k) + b * a.k_sb + k0 * a.k_ss +
+                          hk * a.k_sh,
+                      (size_t)a.k_ss, nk, k_s);
+  load_rows<T, D, DP>(static_cast<const T*>(a.v) + b * a.k_sb + k0 * a.k_ss +
+                          hk * a.k_sh,
+                      (size_t)a.k_ss, nk, v_s);
+  float dk[O_NJ], dv[O_NJ];
+#pragma unroll
+  for (int j = 0; j < O_NJ; ++j) dk[j] = dv[j] = 0.f;
+  const int od = tid % D, orow0 = tid / D;
+
+  // keys at or past n_keys see nothing: their gradients stay 0
+  const int q_end = k0 < a.n_keys ? a.s_q : q_first;
+  for (int i = 0; i < grp; ++i) {
+    const int hq = hk * grp + i;
+    const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + hq * a.q_sh;
+    const T* gb = static_cast<const T*>(a.g) + b * a.g_sb + hq * a.g_sh;
+    for (int q0 = q_first; q0 < q_end; q0 += BT) {
+      const int rows = min(BT, a.s_q - q0);
+      __syncthreads();                  // the last chunk's readers are done
+      load_rows<T, D, DP>(qb + (size_t)q0 * a.q_ss, (size_t)a.q_ss, rows,
+                          q_s);
+      load_rows<T, D, DP>(gb + (size_t)q0 * a.g_ss, (size_t)a.g_ss, rows,
+                          g_s);
+      load_stats(a, b, hq, q0, rows, lse_s, dta_s);
+      __syncthreads();
+      bwd_tile<T, D, BT, BT>(a, q_s, g_s, k_s, v_s, lse_s, dta_s, b, hq, q0,
+                             rows, k0, nk, ds_s, pd_s);
+      __syncthreads();
+      // dv += pd^T . dO, dk += ds^T . Q over this chunk's q rows
+      for (int qq = 0; qq < rows; ++qq) {
+        const float gv = g_s[qq * DP + od], qv = q_s[qq * DP + od];
+#pragma unroll
+        for (int j = 0; j < O_NJ; ++j) {
+          const int kr = orow0 + j * O_RSTEP;
+          if (kr >= nk) break;
+          dv[j] = fmaf(pd_s[qq * BT + kr], gv, dv[j]);
+          dk[j] = fmaf(ds_s[qq * BT + kr], qv, dk[j]);
+        }
+      }
+    }
+  }
+
+  T* dkp = static_cast<T*>(a.dk);
+  T* dvp = static_cast<T*>(a.dv);
+#pragma unroll
+  for (int j = 0; j < O_NJ; ++j) {
+    const int kr = orow0 + j * O_RSTEP;
+    if (kr >= nk) break;
+    const size_t o = (((size_t)b * a.s_k + k0 + kr) * a.H_kv + hk) * D + od;
+    dkp[o] = Elem<T>::from_f(dk[j] * a.scale);
+    dvp[o] = Elem<T>::from_f(dv[j]);
+  }
+}
+
+template <typename T, int D>
+int launch(const BwdArgs& a, int B, bool dkv, cudaStream_t stream) {
+  constexpr int BT = tile_rows<D>();
+  const size_t smem = sizeof(float) * (4 * (size_t)BT * (D + 4) +
+                                       (dkv ? 2 : 1) * (size_t)BT * BT +
+                                       2 * BT);
+  void (*kern)(const BwdArgs) =
+      dkv ? &flash_bwd_dkv_kernel<T, D> : &flash_bwd_dq_kernel<T, D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = dkv ? a.s_k : a.s_q;
+  const dim3 grid((rows + BT - 1) / BT, dkv ? a.H_kv : a.H, B);
+  if (grid.x == 0 || B == 0) return 0;
+  kern<<<grid, NT, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_d(int D, const BwdArgs& a, int B, bool dkv, cudaStream_t stream) {
+  switch (D) {
+    case 64: return launch<T, 64>(a, B, dkv, stream);
+    case 128: return launch<T, 128>(a, B, dkv, stream);
+    case 256: return launch<T, 256>(a, B, dkv, stream);
+  }
+  return -1;
+}
+
+int run(const void* q, const void* k, const void* v, const void* g,
+        const void* lse, const void* delta, const void* kmask, void* dq,
+        void* dk, void* dv, long long q_sb, long long q_ss, long long q_sh,
+        long long g_sb, long long g_ss, long long g_sh, long long k_sb,
+        long long k_ss, long long k_sh, long long m_sb, int B, int S_q,
+        int S_k, int H, int H_kv, int D, int n_keys, int causal, int q_off,
+        int dropout, unsigned int seed, float drop_thr, float drop_mult,
+        int dtype, void* stream, bool dkv) {
+  BwdArgs a{};
+  a.q = q; a.k = k; a.v = v; a.g = g;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.kmask = static_cast<const float*>(kmask);
+  a.dq = dq; a.dk = dk; a.dv = dv;
+  a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
+  a.g_sb = g_sb; a.g_ss = g_ss; a.g_sh = g_sh;
+  a.k_sb = k_sb; a.k_ss = k_ss; a.k_sh = k_sh;
+  a.m_sb = m_sb;
+  a.s_q = S_q; a.s_k = S_k; a.H = H; a.H_kv = H_kv;
+  a.n_keys = n_keys;
+  a.causal = causal;
+  a.q_off = q_off;
+  a.scale = (float)(1.0 / sqrt((double)D));
+  a.drop = Dropout{dropout, seed, drop_thr, drop_mult};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_d<float>(D, a, B, dkv, s);
+  if (dtype == 1) return launch_d<__nv_bfloat16>(D, a, B, dkv, s);
+  return -1;
+}
+
+}  // namespace
+
+extern "C" {
+
+// q [B, S_q, H, D] and dO (g) [B, S_q, H, D] with element strides (q_s*,
+// g_s*); k/v [B, S_k, H_kv, D] with strides (k_s*); every head dim
+// contiguous. lse, delta [B, H, S_q] f32 contiguous. kmask additive f32
+// [B, S_k] with batch stride m_sb, or null. n_keys: keys at or past it are
+// masked. causal: q row i sees keys <= q_off + i. dropout as in flash_fwd.
+// flash_bwd_dq writes dq [B, S_q, H, D] contiguous (dk, dv unused, may be
+// null); flash_bwd_dkv writes dk, dv [B, S_k, H_kv, D] contiguous (dq
+// unused). dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs
+// alike). Launch on `stream`; return cudaGetLastError() after the launch
+// (0 on success), or -1 for a dtype/head_dim with no instance.
+int flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
+                 const void* lse, const void* delta, const void* kmask,
+                 void* dq, void* dk, void* dv, long long q_sb, long long q_ss,
+                 long long q_sh, long long g_sb, long long g_ss,
+                 long long g_sh, long long k_sb, long long k_ss,
+                 long long k_sh, long long m_sb, int B, int S_q, int S_k,
+                 int H, int H_kv, int D, int n_keys, int causal, int q_off,
+                 int dropout, unsigned int seed, float drop_thr,
+                 float drop_mult, int dtype, void* stream) {
+  return run(q, k, v, g, lse, delta, kmask, dq, dk, dv, q_sb, q_ss, q_sh,
+             g_sb, g_ss, g_sh, k_sb, k_ss, k_sh, m_sb, B, S_q, S_k, H, H_kv,
+             D, n_keys, causal, q_off, dropout, seed, drop_thr, drop_mult,
+             dtype, stream, false);
+}
+
+int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
+                  const void* lse, const void* delta, const void* kmask,
+                  void* dq, void* dk, void* dv, long long q_sb,
+                  long long q_ss, long long q_sh, long long g_sb,
+                  long long g_ss, long long g_sh, long long k_sb,
+                  long long k_ss, long long k_sh, long long m_sb, int B,
+                  int S_q, int S_k, int H, int H_kv, int D, int n_keys,
+                  int causal, int q_off, int dropout, unsigned int seed,
+                  float drop_thr, float drop_mult, int dtype, void* stream) {
+  return run(q, k, v, g, lse, delta, kmask, dq, dk, dv, q_sb, q_ss, q_sh,
+             g_sb, g_ss, g_sh, k_sb, k_ss, k_sh, m_sb, B, S_q, S_k, H, H_kv,
+             D, n_keys, causal, q_off, dropout, seed, drop_thr, drop_mult,
+             dtype, stream, true);
+}
+
+const char* attn_error_string(int code) { return attn::error_string(code); }
+
+}  // extern "C"

@@ -1,2 +1,3 @@
-"""Model families of the port (GPT's serving path so far)."""
+"""Model families of the port (GPT: serving and the single-device train
+step so far)."""
 from . import gpt  # noqa: F401

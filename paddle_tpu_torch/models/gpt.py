@@ -1,10 +1,12 @@
-"""GPT-style causal LM — the inference half, ported to PyTorch.
+"""GPT-style causal LM, ported to PyTorch.
 
 Port of ``paddle_tpu/models/gpt.py``: the config, the stacked-block
-parameter layout, the plain forward (``forward``), the dense KV-cache
-decode behind ``GPTForCausalLM.generate`` (bf16/f32 or int8 cache), and
-the paged KV-cache forward that the continuous-batching engine
-(serving/generation.py) drives. Parameters are
+parameter layout, the plain forward (``forward``), the loss and the
+single-device train step (``loss_fn``, ``make_train_step``), the dense
+KV-cache decode behind ``GPTForCausalLM.generate`` (bf16/f32 or int8
+cache), and the paged KV-cache forward that the continuous-batching
+engine (serving/generation.py) drives (bf16/f32 or int8 pool).
+Parameters are
 a plain dict of tensors with the reference's structure — transformer
 blocks STACKED on a leading layer dim — so a reference parameter tree
 (as numpy arrays) converts one to one (``params_from_numpy``).
@@ -25,27 +27,42 @@ exactly the steps it needs as a Python loop whose position stays on the
 device (no step waits on the host).
 
 Attention runs the port's Hopper kernels on the card (their plain twins
-on the CPU): the forward's causal attention is kernel 1, the dense decode
-is kernel 4 (kernel 5 over int8 banks), the paged decode kernel 6.
+on the CPU): the forward's causal attention is kernel 1 (with attention
+dropout in training), its backward kernels 2 and 3, the dense decode
+kernel 4 (kernel 5 over int8 banks), the paged decode kernel 6 (kernel 7
+over int8 pools).
 
-Not ported yet (ROADMAP Queue 1): training (loss, backward, train step,
-attention dropout), int8 paged pools, int8 weight-only serving, tensor
-and sequence parallelism.
+Training. The reference scans the blocks under ``jax.checkpoint``; the
+port loops over them under ``torch.utils.checkpoint`` (``_remat``). The
+train step takes the u32 dropout seed where the reference takes a PRNG
+key and draws the seed from it with ``jax.random.bits`` (which torch
+cannot reproduce): pass ``jax.random.bits(key, (1,), uint32)[0]`` to
+match it.
+
+Not ported yet (ROADMAP Queue 1): int8 weight-only serving (item 5), fp8
+matmuls (item 5), quantized gradient all-reduce and tensor, sequence and
+pipeline parallelism (item 10).
 """
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from .. import resolve_device
-from ..ops.flash_attention import decode_attention, flash_attention, repeat_kv
+from ..ops.flash_attention import (_M32, _mul32, attention_reference,
+                                   decode_attention, flash_attention,
+                                   per_layer_seeds, repeat_kv)
+from ..ops.xent import softmax_xent_blockwise
 from ..ops.paged_attention import paged_attention
 from ..ops.paged_kv import flat_write_indices, init_paged_pool, paged_write
-from ..ops.weight_only import (init_kv_bank, is_weight_only, quantize_kv,
-                               wo_lm_head, wo_matmul, wo_take)
+from ..ops.weight_only import (init_kv_bank, is_weight_only, kv_layer,
+                               kv_plane, quantize_kv, wo_lm_head, wo_matmul,
+                               wo_take)
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -75,9 +92,10 @@ def validate_gqa(num_heads, num_kv_heads, mp):
 class GPTConfig:
     """The reference's config, field for field (``paddle_tpu/models/
     gpt.py:50-132``), so a reference config converts with
-    ``GPTConfig(**dataclasses.asdict(ref_cfg))``. Fields that steer
-    training or parallelism are carried but not used by the serving
-    path."""
+    ``GPTConfig(**dataclasses.asdict(ref_cfg))``. The
+    parallelism fields (mp, pp, sp, n_microbatches, pp_schedule),
+    grad_quant, matmul_precision and scan_unroll are carried; the train
+    step raises on values it does not take."""
     vocab_size: int = 50304
     hidden_size: int = 768
     num_layers: int = 12
@@ -98,7 +116,7 @@ class GPTConfig:
     n_microbatches: int = 1
     pp_schedule: str = 'gpipe'
     xent_chunk: int = 8192
-    # int8 banks for the dense decode cache; the paged pool raises on True
+    # int8 banks with per-row scales for the dense cache and the page pool
     kv_cache_int8: bool = False
     scan_unroll: int = 1
     grad_quant: str = 'none'
@@ -269,15 +287,25 @@ def _block_mlp(bp, y, cdt):
     return wo_matmul(y, bp['out_w'], cdt)
 
 
-def _attention(q, k, v, config):
-    """Causal self-attention of the plain forward, for inference (the
-    reference's ``_attention`` without sequence parallelism or dropout).
-    q [B,S,H,D], k/v [B,S,H_kv,D]. ``use_flash`` runs kernel 1 (its twin
-    on the CPU); ``use_flash=False`` runs the reference's own einsum path
-    (``gpt.py:277-285``): scores in the compute dtype, f32 softmax."""
+def _attention(q, k, v, config, drop_seed=None):
+    """Causal self-attention of the plain forward (the reference's
+    ``_attention`` without sequence parallelism). q [B,S,H,D], k/v
+    [B,S,H_kv,D]. ``use_flash`` runs kernel 1 with kernels 2 and 3 as its
+    backward (their twins on the CPU); ``use_flash=False`` runs the
+    reference's own einsum path (``gpt.py:277-285``): scores in the
+    compute dtype, f32 softmax. ``drop_seed`` (a u32, training only) turns
+    on ``config.dropout``: in the kernels on the flash path, through the
+    same counter-hash mask in ``attention_reference`` otherwise."""
     if config.sp > 1:
         raise NotImplementedError('sequence parallelism (sp > 1) is not '
                                   'ported yet (ROADMAP Queue 1 item 10)')
+    if config.dropout > 0.0 and drop_seed is not None:
+        if config.use_flash:
+            return flash_attention(q, k, v, causal=True,
+                                   dropout_rate=config.dropout,
+                                   dropout_seed=drop_seed)
+        return attention_reference(q, k, v, True, None, config.dropout,
+                                   drop_seed)
     if config.use_flash:
         return flash_attention(q, k, v, causal=True)
     k, v = repeat_kv(k, v, int(q.shape[2]))
@@ -290,15 +318,16 @@ def _attention(q, k, v, config):
     return torch.einsum('bhqk,bkhd->bqhd', p, v)
 
 
-def block_fn(bp, x, config):
+def block_fn(bp, x, config, drop_seed=None):
     """One transformer block of the plain forward (``gpt.py:320``, mp=1,
-    no fp8). bp: this layer's params (no leading L dim); x: [B, S, H]."""
+    no fp8). bp: this layer's params (no leading L dim); x: [B, S, H];
+    ``drop_seed``: this layer's u32 dropout seed, or None."""
     cdt = torch_dtype(config.dtype)
     B, S, h = x.shape
     y = _layer_norm(x, bp['ln1_g'], bp['ln1_b']).to(cdt)
     q, k, v = _block_qkv(bp, y, config.num_heads, config.head_dim, cdt,
                          config.kv_heads)
-    a = _attention(q, k, v, config).reshape(B, S, h)
+    a = _attention(q, k, v, config, drop_seed).reshape(B, S, h)
     x = x + wo_matmul(a, bp['proj_w'], cdt) + bp['proj_b'].to(cdt)
     y = _layer_norm(x, bp['ln2_g'], bp['ln2_b']).to(cdt)
     return x + _block_mlp(bp, y, cdt) + bp['out_b'].to(cdt)
@@ -308,22 +337,58 @@ def _layer(blocks, layer):
     return {k: w[layer] for k, w in blocks.items()}
 
 
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy='dots'``: keep the
+    outputs of the block matmuls (``y @ w`` lowers to ``aten.mm`` /
+    ``aten.addmm``), recompute everything else, kernel 1 included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(body, config):
+    """The configured rematerialisation of a block body (``gpt.py:206``):
+    'dots' keeps the matmul outputs (the reference's
+    ``dots_with_no_batch_dims_saveable``), any other policy recomputes
+    the whole block in the backward. Under both, the attention forward
+    (kernel 1) runs again in the backward, as the reference recomputes
+    its custom call."""
+    kw = {}
+    if config.remat_policy == 'dots':
+        kw['context_fn'] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_matmuls)
+
+    def run(*args):
+        return _ckpt.checkpoint(body, *args, use_reentrant=False, **kw)
+    return run
+
+
 def forward_hidden(params, tokens, config, dropout_seed=None):
     """tokens [B, S] -> final hidden states [B, S, H] (pre-LM-head), a
-    Python loop over the stacked blocks. Inference only: a
-    ``dropout_seed`` with ``config.dropout > 0`` raises (training slice)."""
-    if dropout_seed is not None and config.dropout > 0.0:
-        raise NotImplementedError('attention dropout comes with the '
-                                  'training slice (ROADMAP Queue 1 item 4)')
+    Python loop over the stacked blocks. ``dropout_seed`` (a u32, training
+    only) turns on ``config.dropout`` with one derived seed per layer
+    (``per_layer_seeds``); None leaves it off. With ``config.remat`` and
+    autograd recording, each block runs under ``_remat``."""
     cdt = torch_dtype(config.dtype)
     B, S = tokens.shape
+    L = config.num_layers
     if S > config.max_seq_len:
         raise ValueError(f'{S} tokens exceed max_seq_len '
                          f'{config.max_seq_len}')
+    seeds = [None] * L
+    if config.dropout > 0.0 and dropout_seed is not None:
+        seeds = per_layer_seeds(int(dropout_seed), L).tolist()
+    body = block_fn
+    if config.remat and torch.is_grad_enabled():
+        body = _remat(block_fn, config)
     pos = torch.arange(S, device=tokens.device)
     x = (wo_take(params['wte'], tokens.long()) + params['wpe'][pos]).to(cdt)
-    for layer in range(config.num_layers):
-        x = block_fn(_layer(params['blocks'], layer), x, config)
+    # one unbind per stacked weight: its backward stacks the L gradients
+    # once, where per-layer indexing would add L full-size zero tensors
+    layers = {k: w.unbind(0) for k, w in params['blocks'].items()}
+    for layer in range(L):
+        bp = {k: w[layer] for k, w in layers.items()}
+        x = body(bp, x, config, seeds[layer])
     return _layer_norm(x, params['lnf_g'], params['lnf_b']).to(cdt)
 
 
@@ -331,6 +396,86 @@ def forward(params, tokens, config, dropout_seed=None):
     """tokens [B, S] -> logits [B, S, V]."""
     x = forward_hidden(params, tokens, config, dropout_seed=dropout_seed)
     return wo_lm_head(x, params['wte'], x.dtype)
+
+
+def loss_fn(params, tokens, targets, config, dropout_seed=None):
+    """Mean token cross-entropy (``gpt.py:418``), f32. ``dropout_seed``:
+    the u32 the reference draws from its key (``jax.random.bits(key,
+    (1,), uint32)[0]``), used only when ``config.dropout > 0``. With
+    ``xent_chunk`` dividing the vocab, the blockwise LM-head loss
+    (``ops/xent.py``) never builds the [B, S, V] logits; otherwise the
+    logits go through an f32 ``log_softmax``."""
+    seed = dropout_seed if config.dropout > 0.0 else None
+    x = forward_hidden(params, tokens, config, dropout_seed=seed)
+    if config.xent_chunk and config.vocab_size % config.xent_chunk == 0:
+        B, S, H = x.shape
+        return softmax_xent_blockwise(x.reshape(B * S, H), params['wte'],
+                                      targets.reshape(B * S),
+                                      config.xent_chunk)
+    logits = wo_lm_head(x, params['wte'], x.dtype)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, targets.long()[..., None])[..., 0]
+    return -ll.mean()
+
+
+def _check_trainable(config, mesh):
+    """Raise on the train-step options that are not ported, naming their
+    ROADMAP items."""
+    later = []
+    if mesh is not None:
+        later.append('a device mesh (item 10, distributed training)')
+    for name in ('mp', 'sp', 'pp'):
+        if getattr(config, name) > 1:
+            later.append(f'{name} > 1 (item 10, distributed training)')
+    if config.grad_quant not in (None, 'none'):
+        later.append('grad_quant (item 10, the quantized dp all-reduce)')
+    if config.matmul_precision == 'fp8':
+        later.append("matmul_precision='fp8' (item 5, low precision)")
+    if later:
+        raise NotImplementedError('not ported yet: ' + '; '.join(later)
+                                  + ' (ROADMAP Queue 1)')
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _rebuild(tree, leaves):
+    it = iter(leaves)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        return next(it)
+    return walk(tree)
+
+
+def make_train_step(config, optimizer, mesh=None):
+    """The single-device train step (``gpt.py:888-897``):
+    ``step(params, opt_state, seed, lr, tokens, targets) -> (loss, params,
+    opt_state)``. ``seed`` is the step's u32 dropout seed (an int), used
+    only when ``config.dropout > 0``, in place of the reference's PRNG key
+    (see the module docstring). The loss and its gradients come from
+    autograd over ``loss_fn``; ``optimizer.functional_apply`` then updates
+    ``params`` and ``opt_state`` in place (the reference donates them) and
+    the same dicts are returned. A mesh, mp/sp/pp > 1, grad_quant and fp8
+    matmuls raise."""
+    _check_trainable(config, mesh)
+
+    def step(params, opt_state, seed, lr, tokens, targets):
+        leaves = _leaves(params)
+        with torch.enable_grad():
+            live = [p.detach().requires_grad_(True) for p in leaves]
+            loss = loss_fn(_rebuild(params, live), tokens, targets, config,
+                           seed if config.dropout > 0.0 else None)
+            grads = torch.autograd.grad(loss, live)
+        params, opt_state = optimizer.functional_apply(
+            params, _rebuild(params, grads), opt_state, lr)
+        return loss.detach(), params, opt_state
+
+    return step
 
 
 def init_kv_cache(config, batch, device=None):
@@ -369,25 +514,14 @@ def _dense_write(cache, rows, idx):
         cache.index_copy_(1, idx, rows.to(cache.dtype))
 
 
-def _cache_layer(cache, layer):
-    """Layer ``layer`` of a dense cache plane (raw, or an int8 bank)."""
-    if is_weight_only(cache):
-        return {'int8': cache['int8'][layer], 'scale': cache['scale'][layer]}
-    return cache[layer]
-
-
 def init_paged_kv_cache(config, num_pages, page_size, device):
     """Shared page pool for the continuous-batching decode path:
     ``{'k','v': [L, num_pages, page_size, H_kv, Dh]}`` in the compute
-    dtype on ``device``."""
-    if config.kv_cache_int8:
-        raise NotImplementedError(
-            'int8 page pools are not ported yet (ROADMAP Queue 1 item 3: '
-            "the engine's int8 pool, kernel 7); the dense cache takes "
-            'kv_cache_int8')
+    dtype on ``device`` (int8 banks with ``config.kv_cache_int8``)."""
     return init_paged_pool(config.num_layers, num_pages, page_size,
                            config.kv_heads, config.head_dim,
-                           torch_dtype(config.dtype), device)
+                           torch_dtype(config.dtype), device,
+                           int8=config.kv_cache_int8)
 
 
 def is_paged(cache):
@@ -415,7 +549,8 @@ def cached_attention(x, q, k, v, k_cache, v_cache, pos, proj_w, proj_b, cdt,
     einsum fallback past T = 128.
 
     Paged (``page_table`` given): the caches are single-layer page pools
-    ``[N, page_size, H_kv, D]`` and ``pos`` is a [B] int32 vector. Rows
+    ``[N, page_size, H_kv, D]`` (or int8 banks: kernel 7) and ``pos`` is a
+    [B] int32 vector. Rows
     past ``valid[b]`` land in the trash page; ``flat_idx`` may carry
     precomputed pool offsets. The reference runs a multi-token call that
     is not a prefix-cache tail through its flash forward over the fresh
@@ -428,8 +563,7 @@ def cached_attention(x, q, k, v, k_cache, v_cache, pos, proj_w, proj_b, cdt,
         a = paged_attention(q.contiguous(), k_cache, v_cache, page_table,
                             pos)
     else:
-        s_max = int((k_cache['int8'] if is_weight_only(k_cache)
-                     else k_cache).shape[1])
+        s_max = int(kv_plane(k_cache).shape[1])
         idx = (flat_idx if flat_idx is not None
                else dense_rows(pos, T, s_max, x.device))
         _dense_write(k_cache, k, idx)
@@ -463,7 +597,8 @@ def paged_forward_with_cache(params, tokens, cache, pos, config,
     int32, one per slot) through the paged cache: ``cache`` carries the
     page pools ``{'k','v'}`` + ``page_table`` (+ optional ``valid``).
     Each layer writes its rows into ``cache['k'][l]`` / ``cache['v'][l]``
-    in place. Returns (logits, cache) — logits [B,T,V], or [B,1,V] with
+    (int8 banks: both planes) in place. Returns (logits, cache) — logits
+    [B,T,V], or [B,1,V] with
     ``last_only`` (each slot's last REAL row when ``valid`` is given) —
     with the table/valid passed through."""
     cdt = torch_dtype(config.dtype)
@@ -479,11 +614,12 @@ def paged_forward_with_cache(params, tokens, cache, pos, config,
          + params['wpe'][ppos]).to(cdt)
     k_pool, v_pool = cache['k'], cache['v']
     # every layer writes the same rows: compute their pool offsets once
-    flat_idx = flat_write_indices(page_table, pos_v, T, k_pool.shape[2],
-                                  valid)
+    flat_idx = flat_write_indices(page_table, pos_v, T,
+                                  kv_plane(k_pool).shape[2], valid)
     for layer in range(config.num_layers):
         x, _, _ = _cached_block(_layer(params['blocks'], layer), x,
-                                k_pool[layer], v_pool[layer], pos_v, config,
+                                kv_layer(k_pool, layer),
+                                kv_layer(v_pool, layer), pos_v, config,
                                 page_table, valid, flat_idx)
     if last_only:
         if valid is not None:
@@ -530,7 +666,7 @@ def forward_with_cache(params, tokens, cache, pos, config: GPTConfig,
     for layer in range(config.num_layers):
         x, _, _ = _cached_block(
             _layer(params['blocks'], layer), x,
-            _cache_layer(cache['k'], layer), _cache_layer(cache['v'], layer),
+            kv_layer(cache['k'], layer), kv_layer(cache['v'], layer),
             pos, config, flat_idx=rows)
     if last_only:
         x = x[:, -1:]
@@ -545,19 +681,9 @@ def forward_with_cache(params, tokens, cache, pos, config: GPTConfig,
 # over a murmur3-style hash of (seed, position, vocab index). A stream
 # therefore never depends on slot index or batch composition, and a
 # restarted sequence redraws the same tokens. It cannot match jax.random
-# bit for bit; greedy decoding (argmax) matches exactly.
+# bit for bit; greedy decoding (argmax) matches exactly. The u32 helpers
+# (_M32, _mul32) are the dropout hash's, from ops/flash_attention.py.
 # ---------------------------------------------------------------------------
-
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x, c):
-    """(x * c) mod 2**32 for int64 tensors holding u32 values, split in
-    16-bit halves so no intermediate overflows int64."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
 
 def _fmix32(x):
     """murmur3's 32-bit finalizer on int64 tensors holding u32 values."""

@@ -1,12 +1,16 @@
-"""Flash attention: the attention forward and the dense KV-cache decode.
+"""Flash attention: the attention forward and backward, and the dense
+KV-cache decode.
 
-Port of ``paddle_tpu/ops/flash_attention.py`` for inference. Three TPU
-kernels of the reference become hand-written Hopper kernels, each beside
-its plain PyTorch twin:
+Port of ``paddle_tpu/ops/flash_attention.py``. Five TPU kernels of the
+reference become hand-written Hopper kernels, each beside its plain
+PyTorch twin:
 
- - kernel 1, ``_fwd_kernel`` (attention forward with its log-sum-exp):
-   ``_flash_fwd`` launches ``csrc/flash_fwd.cu``; twin
-   ``flash_fwd_reference``;
+ - kernel 1, ``_fwd_kernel`` (attention forward with its log-sum-exp and
+   attention dropout): ``_flash_fwd`` launches ``csrc/flash_fwd.cu``;
+   twin ``flash_fwd_reference``;
+ - kernels 2 and 3, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (the
+   backward from the saved lse): ``flash_bwd_dq`` and ``flash_bwd_dkv``
+   launch ``csrc/flash_bwd.cu``; twin ``flash_bwd_reference``;
  - kernel 4, ``_decode_kernel`` (q rows against a dense KV cache up to a
    device-side position): ``flash_decode`` launches
    ``csrc/flash_decode.cu``; twin ``flash_decode_reference``;
@@ -14,30 +18,41 @@ its plain PyTorch twin:
    ``flash_decode_int8``, same source; twin
    ``flash_decode_int8_reference``.
 
+``_Flash`` (a ``torch.autograd.Function``, the counterpart of the
+reference's ``_flash`` custom_vjp) joins kernel 1 to kernels 2 and 3.
+
 The dispatching entries (``flash_attention``, ``_flash_fwd``,
-``decode_attention``) pick by q's device, as ``ops/paged_attention.py``
-does: a CPU tensor runs the twin, a CUDA tensor launches the kernel or the
-wrapper raises, anything else raises. The kernel wrappers (``flash_fwd``,
-``flash_decode``, ``flash_decode_int8``) take CUDA tensors only. There is
-no fallback from the card to the twin.
+``_flash_bwd``, ``decode_attention``) pick by q's device, as
+``ops/paged_attention.py`` does: a CPU tensor runs the twin, a CUDA tensor
+launches the kernel or the wrapper raises, anything else raises. The
+kernel wrappers take CUDA tensors only. There is no fallback from the card
+to the twin.
 
 The twins repeat the Pallas kernels' arithmetic, so the CPU tests hold
 them to the reference in interpret mode at f32 rounding: the online
 softmax state (m, l, acc) is updated once per key block of the
 reference's block size (``_pick_blocks`` for the forward, ``_decode_bk``
 for decode); scores are f32 dots times 1/sqrt(D), masked with -1e30; l
-sums the unrounded p while p.V uses p rounded to V's dtype; the
-normalizer is floored at 1e-30. The kernels tile differently and are held
-to the twins by tolerance.
+sums the unrounded (undropped) p while p.V uses p (times the dropout
+multiplier) rounded to V's dtype; the normalizer is floored at 1e-30. The
+backward twin walks the reference's blocks too and rounds where its
+kernels round. The kernels tile differently and are held to the twins by
+tolerance.
+
+Attention dropout is the reference's counter hash (``_dropout_keep``): a
+pure function of (seed, attention row b*H + h, local q row, key), so the
+forward and both backward kernels regenerate the same mask and never store
+it. Seeds are u32, carried as Python ints or int64 tensors masked to 32
+bits.
 
 The port needs no padding to block multiples (the reference's
 ``_pad_seq``): the kernels and the twins mask the ragged edge of the key
-range themselves. Attention dropout (``dropout_rate > 0``) comes with the
-training slice and raises here.
+range themselves.
 """
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from . import _build
@@ -53,8 +68,84 @@ HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BLOCK_CAP = 512   # the reference's default q/k block cap (_BQ_CAP, _BK_CAP)
 
-_TRAINING_TODO = ('attention dropout comes with the training slice (ROADMAP '
-                  'Queue 1 item 4: kernel 1 dropout with kernels 2 and 3)')
+# ---------------------------------------------------------------------------
+# Counter-hash dropout (paddle_tpu/ops/flash_attention.py:173-233), in u32
+# arithmetic on int64 tensors masked to 32 bits
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c):
+    """(x * c) mod 2**32 for int64 tensors holding u32 values, split in
+    16-bit halves so no intermediate overflows int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _u32(x):
+    """An int, or an integer tensor, as an int64 tensor of u32 values."""
+    return torch.as_tensor(x).long() & _M32
+
+
+def mix_seed(x):
+    """The reference's murmur-style finalizer over u32 values (every
+    derived-seed fold goes through it, so linear index arithmetic never
+    lines up with the hash's coordinate multipliers)."""
+    x = _u32(x)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def per_layer_seeds(seed, n_layers):
+    """One mixed dropout seed per layer: int64 [n_layers] of u32 values,
+    on the CPU for an int seed."""
+    seed = _u32(seed)
+    idx = torch.arange(n_layers, device=seed.device, dtype=torch.int64)
+    return mix_seed((seed + _mul32(idx, 0x27D4EB2F)) & _M32)
+
+
+def _dropout_keep(seed, row, q_pos, k_pos, rate):
+    """Bool keep mask with P(keep) = 1 - rate: the hash of (seed,
+    attention row, local q position, global key position), broadcast over
+    the integer tensors ``row``, ``q_pos``, ``k_pos``; the top 24 bits
+    against the f32 of ``rate * 2**24``. Bit for bit the reference's."""
+    x = mix_seed(_mul32(_u32(q_pos), 0x9E3779B1)
+                 + _mul32(_u32(k_pos), 0x85EBCA77)
+                 + _mul32(_u32(row), 0xC2B2AE3D) + _u32(seed))
+    return (x >> 8).float() >= _drop_thr(rate)
+
+
+def _drop_thr(rate):
+    return float(np.float32(rate * (1 << 24)))
+
+
+def _drop_mult_value(rate):
+    return float(np.float32(1.0 / (1.0 - rate)))
+
+
+def _drop_mult(seed, row, q_pos, k_pos, rate):
+    """f32 dropout multiplier: 1/(1-rate) where kept, 0 where dropped."""
+    keep = _dropout_keep(seed, row, q_pos, k_pos, rate)
+    return torch.where(keep, _drop_mult_value(rate), 0.0)
+
+
+def _attention_rows(b, h, device):
+    """[B, H, 1, 1] int64: each (batch, query head)'s hash row b*H + h."""
+    return torch.arange(b * h, device=device).reshape(b, h, 1, 1)
+
+
+def _check_dropout(rate, seed):
+    rate = float(rate or 0.0)
+    if rate >= 1.0:
+        raise ValueError('flash_attention dropout_rate must be < 1')
+    if rate > 0.0 and seed is None:
+        raise ValueError('dropout_rate > 0 requires dropout_seed')
+    return rate
 
 
 def repeat_kv(k, v, n_q_heads):
@@ -134,11 +225,13 @@ def lift_mask_4d(m):
 # Plain paths
 # ---------------------------------------------------------------------------
 
-def attention_reference(q, k, v, causal, mask=None):
-    """The reference's plain softmax attention (``_jnp_attention``, without
-    dropout), [B,S,H,D] layout: scores in q's dtype, then f32 with causal
-    (aligned ends: query i sees keys <= S_k - S_q + i) and mask applied,
-    softmax in f32, p cast to V's dtype for p.V."""
+def attention_reference(q, k, v, causal, mask=None, drop_rate=0.0,
+                        seed=None):
+    """The reference's plain softmax attention (``_jnp_attention``),
+    [B,S,H,D] layout: scores in q's dtype, then f32 with causal (aligned
+    ends: query i sees keys <= S_k - S_q + i) and mask applied, softmax in
+    f32, dropout (``drop_rate``: the counter-hash mask of the kernels, row
+    b*H + h), p cast to V's dtype for p.V. Differentiable by autograd."""
     k, v = repeat_kv(k, v, int(q.shape[2]))
     d = q.shape[-1]
     scores = torch.einsum('bqhd,bkhd->bhqk', q, k).float()
@@ -154,8 +247,14 @@ def attention_reference(q, k, v, causal, mask=None):
             scores = torch.where(m, scores, _NEG_INF)
         else:
             scores = scores + m.float()
-    p = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum('bhqk,bkhd->bqhd', p, v)
+    p = torch.softmax(scores, dim=-1)
+    if drop_rate:
+        b, h, s_q, s_k = p.shape
+        p = p * _drop_mult(seed, _attention_rows(b, h, q.device),
+                           torch.arange(s_q, device=q.device)[:, None],
+                           torch.arange(s_k, device=q.device)[None, :],
+                           drop_rate)
+    return torch.einsum('bhqk,bkhd->bqhd', p.to(v.dtype), v)
 
 
 def _online_update(m, l, s):
@@ -169,14 +268,15 @@ def _online_update(m, l, s):
 
 
 def flash_fwd_reference(q, k, v, causal, q_off=0, kv_valid=None,
-                        kmask=None):
+                        kmask=None, drop_rate=0.0, seed=None):
     """Plain twin of kernel 1 (the reference's ``_fwd_kernel``).
 
     q [B,S_q,H,D], k/v [B,S_k,H_kv,D] (H_kv divides H; head h reads kv
     head h // (H / H_kv)); ``causal``: query row i sees keys <= i + q_off;
     ``kv_valid``: keys >= kv_valid are masked; ``kmask``: additive f32
-    [B, S_k] or None. Blocks are the reference's (``_pick_blocks``): each
-    q block visits the key blocks the reference visits and updates the
+    [B, S_k] or None; ``drop_rate``/``seed``: attention dropout on p (l
+    sums the undropped p). Blocks are the reference's (``_pick_blocks``):
+    each q block visits the key blocks the reference visits and updates the
     online softmax once per key block; a ragged last block is simply
     shorter. -> (out [B,S_q,H,D] in q's dtype, lse [B,H,S_q] f32 =
     m + log(max(l, 1e-30)))."""
@@ -194,17 +294,18 @@ def flash_fwd_reference(q, k, v, causal, q_off=0, kv_valid=None,
         vt = torch.repeat_interleave(vt, g, dim=1)
     nkb = -(-s_k // bk)
     n_valid = nkb if kv_valid is None else min(nkb, -(-kv_valid // bk))
+    rows = _attention_rows(b, h, dev) if drop_rate else None
     outs, lses = [], []
     for q0 in range(0, s_q, bq):
         q1 = min(s_q, q0 + bq)
         n_iter = n_valid
         if causal:
             n_iter = min(n_iter, (q0 + bq + q_off + bk - 1) // bk)
-        rows = q1 - q0
-        acc = torch.zeros((b, h, rows, d), dtype=torch.float32, device=dev)
-        m = torch.full((b, h, rows, 1), _NEG_INF, dtype=torch.float32,
+        n_rows = q1 - q0
+        acc = torch.zeros((b, h, n_rows, d), dtype=torch.float32, device=dev)
+        m = torch.full((b, h, n_rows, 1), _NEG_INF, dtype=torch.float32,
                        device=dev)
-        l = torch.zeros((b, h, rows, 1), dtype=torch.float32, device=dev)
+        l = torch.zeros((b, h, n_rows, 1), dtype=torch.float32, device=dev)
         q_pos = torch.arange(q0, q1, device=dev)[:, None]
         for kb in range(max(0, n_iter)):
             c0, c1 = kb * bk, min(s_k, kb * bk + bk)
@@ -218,12 +319,105 @@ def flash_fwd_reference(q, k, v, causal, q_off=0, kv_valid=None,
             if kv_valid is not None:
                 s = torch.where(k_pos < kv_valid, s, _NEG_INF)
             m, l, p, alpha = _online_update(m, l, s)
+            if drop_rate:
+                p = p * _drop_mult(seed, rows, q_pos, k_pos, drop_rate)
             vb = vt[:, :, c0:c1]
             acc = acc * alpha + p.to(vb.dtype).float() @ vb.float()
         outs.append(acc / torch.clamp(l, min=_EPS))
         lses.append((m + torch.log(torch.clamp(l, min=_EPS)))[..., 0])
     out = torch.cat(outs, dim=2).to(q.dtype).permute(0, 2, 1, 3)
     return out, torch.cat(lses, dim=2)
+
+
+def bwd_delta(out, g):
+    """delta = rowsum(out * dO) in f32 (the reference's ``bwd_broadcasts``
+    without the TPU's lane broadcast): [B,S,H,D] -> [B,H,S] contiguous."""
+    return (out.float() * g.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_bwd_reference(q, k, v, g, lse, delta, causal, q_off=0,
+                        kv_valid=None, kmask=None, drop_rate=0.0, seed=None):
+    """Plain twin of kernels 2 and 3 (the reference's ``_bwd_dq_kernel``
+    and ``_bwd_dkv_kernel`` as ``_bwd_pallas_pre`` runs them), block by
+    block at the reference's ``_pick_blocks``.
+
+    q, g (dO) [B,S_q,H,D]; k, v [B,S_k,H_kv,D]; lse, delta [B,H,S_q] f32;
+    the mask arguments as ``flash_fwd_reference``. Each tile recomputes
+    p = exp(s - lse); dp = dO.v (times the dropout multiplier);
+    ds = p * (dp - delta), rounded to k's dtype before ds.K (dq) and to q's
+    dtype before ds^T.Q (dk); pd = p (times the multiplier) rounded to dO's
+    dtype before pd^T.dO (dv); the scale is folded into dq and dk at the
+    end. dq visits the key blocks up to its causal limit, dk/dv the q
+    blocks from the first that can see the key block. GQA: per-query-head
+    dk/dv partials rounded to k's dtype, then summed in f32.
+    -> (dq in q's dtype, dk, dv in k's dtype)."""
+    b, s_q, h, d = q.shape
+    s_k, h_kv = int(k.shape[1]), int(k.shape[2])
+    grp = h // h_kv
+    bq, bk = _pick_blocks(s_q, s_k)
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    qt = q.float().permute(0, 2, 1, 3)                        # [B,H,Sq,D]
+    gt = g.float().permute(0, 2, 1, 3)
+    kt = k.permute(0, 2, 1, 3)                                # [B,Hkv,Sk,D]
+    vt = v.permute(0, 2, 1, 3)
+    if grp > 1:
+        kt = torch.repeat_interleave(kt, grp, dim=1)
+        vt = torch.repeat_interleave(vt, grp, dim=1)
+    kf, vf = kt.float(), vt.float()
+    rows = _attention_rows(b, h, dev) if drop_rate else None
+    nkb, nqb = -(-s_k // bk), -(-s_q // bq)
+    n_valid = nkb if kv_valid is None else min(nkb, -(-kv_valid // bk))
+
+    def tile(q0, q1, c0, c1):
+        """(ds, pd) f32 [B,H,q1-q0,c1-c0] of one (q block, key block)."""
+        s = (qt[:, :, q0:q1] @ kf[:, :, c0:c1].transpose(-1, -2)) * scale
+        if kmask is not None:
+            s = s + kmask[:, None, None, c0:c1].float()
+        q_pos = torch.arange(q0, q1, device=dev)[:, None]
+        k_pos = torch.arange(c0, c1, device=dev)[None, :]
+        if causal:
+            s = torch.where(q_pos + q_off >= k_pos, s, _NEG_INF)
+        if kv_valid is not None:
+            s = torch.where(k_pos < kv_valid, s, _NEG_INF)
+        p = torch.exp(s - lse[:, :, q0:q1, None])
+        dp = gt[:, :, q0:q1] @ vf[:, :, c0:c1].transpose(-1, -2)
+        pd = p
+        if drop_rate:
+            mult = _drop_mult(seed, rows, q_pos, k_pos, drop_rate)
+            dp = dp * mult
+            pd = p * mult
+        return p * (dp - delta[:, :, q0:q1, None]), pd
+
+    dq = torch.zeros((b, h, s_q, d), dtype=torch.float32, device=dev)
+    for qb in range(nqb):
+        q0, q1 = qb * bq, min(s_q, qb * bq + bq)
+        n_iter = n_valid
+        if causal:
+            n_iter = min(n_iter, (q0 + bq + q_off + bk - 1) // bk)
+        for kb in range(max(0, n_iter)):
+            c0, c1 = kb * bk, min(s_k, kb * bk + bk)
+            ds, _ = tile(q0, q1, c0, c1)
+            dq[:, :, q0:q1] += ds.to(k.dtype).float() @ kf[:, :, c0:c1]
+    dk = torch.zeros((b, h, s_k, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    for kb in range(nkb):
+        c0, c1 = kb * bk, min(s_k, kb * bk + bk)
+        start = max(0, (kb * bk - q_off) // bq) if causal else 0
+        for qb in range(start, nqb):
+            q0, q1 = qb * bq, min(s_q, qb * bq + bq)
+            ds, pd = tile(q0, q1, c0, c1)
+            dv[:, :, c0:c1] += (pd.to(g.dtype).float().transpose(-1, -2)
+                                @ gt[:, :, q0:q1])
+            dk[:, :, c0:c1] += (ds.to(q.dtype).float().transpose(-1, -2)
+                                @ qt[:, :, q0:q1])
+    dq = (dq * scale).to(q.dtype).permute(0, 2, 1, 3)
+    dk = (dk * scale).to(k.dtype)
+    dv = dv.to(v.dtype)
+    if grp > 1:
+        dk = dk.float().reshape(b, h_kv, grp, s_k, d).sum(2).to(k.dtype)
+        dv = dv.float().reshape(b, h_kv, grp, s_k, d).sum(2).to(v.dtype)
+    return dq, dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
 
 
 def _decode_twin(q, k, v, pos, ks=None, vs=None):
@@ -298,12 +492,18 @@ def flash_decode_int8_reference(q, k_bank, v_bank, pos):
 # ---------------------------------------------------------------------------
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# pointers, element strides, ints, then the stream (csrc/*.cu, extern "C")
+_U32, _F32 = ctypes.c_uint32, ctypes.c_float
+# pointers, element strides, ints, the dropout arguments, then the stream
+# (csrc/*.cu, extern "C")
 _DECODE_ARGS = [_P] * 8 + [_I64] * 6 + [_I32] * 7 + [_P]
+_DROP_ARGS = [_I32, _U32, _F32, _F32]
+_BWD_ARGS = [_P] * 10 + [_I64] * 10 + [_I32] * 9 + _DROP_ARGS + [_I32, _P]
 _ENTRY_POINTS = {
     'flash_decode': {'flash_decode': _DECODE_ARGS,
                      'flash_decode_int8': _DECODE_ARGS},
-    'flash_fwd': {'flash_fwd': [_P] * 6 + [_I64] * 7 + [_I32] * 9 + [_P]},
+    'flash_fwd': {'flash_fwd': [_P] * 6 + [_I64] * 7 + [_I32] * 9
+                  + _DROP_ARGS + [_P]},
+    'flash_bwd': {'flash_bwd_dq': _BWD_ARGS, 'flash_bwd_dkv': _BWD_ARGS},
 }
 _libs = {}
 
@@ -323,6 +523,13 @@ def _kernel_lib(name):
     return lib
 
 
+def _rows_aligned(x):
+    """True when every row of ``x`` [B,S,H,D] starts 16-byte aligned."""
+    es = x.element_size()
+    return not (x.data_ptr() % 16
+                or any((st * es) % 16 for st in x.stride()[:3]))
+
+
 def _check_rows(name, x, dev):
     """A [B, S, H, D] operand the kernels read row by row: on ``dev``, the
     head dim contiguous, and every row 16-byte aligned."""
@@ -331,8 +538,7 @@ def _check_rows(name, x, dev):
     if x.dim() != 4 or x.stride(3) != 1:
         raise ValueError(f'{name} must be [B, S, H, D] with a contiguous '
                          'head dim')
-    es = x.element_size()
-    if x.data_ptr() % 16 or any((st * es) % 16 for st in x.stride()[:3]):
+    if not _rows_aligned(x):
         raise ValueError(f'{name} rows must be 16-byte aligned')
 
 
@@ -343,6 +549,41 @@ def _check_q(q, op):
         raise ValueError(f'q dtype {q.dtype} not in float32/bfloat16')
     if int(q.shape[-1]) not in HEAD_DIMS:
         raise ValueError(f'head_dim {int(q.shape[-1])} not in {HEAD_DIMS}')
+
+
+def _drop_args(drop_rate, seed):
+    """(dropout, seed, threshold, multiplier) as the kernels take them."""
+    if not drop_rate:
+        return 0, 0, 0.0, 0.0
+    return (1, int(_u32(seed)), _drop_thr(drop_rate),
+            _drop_mult_value(drop_rate))
+
+
+def _check_attn_args(q, k, v, kmask, op):
+    """Shared checks of kernels 1-3: -> (b, s_q, h, d, s_k, h_kv)."""
+    _check_q(q, op)
+    dev = q.device
+    b, s_q, h, d = q.shape
+    if k.dim() != 4 or tuple(v.shape) != tuple(k.shape):
+        raise ValueError('k and v must be [B, S_k, H_kv, D] alike')
+    _, s_k, h_kv, dk = k.shape
+    if k.shape[0] != b or dk != d:
+        raise ValueError(f'k {tuple(k.shape)} does not fit q '
+                         f'{tuple(q.shape)}')
+    if h_kv == 0 or h % h_kv:
+        raise ValueError(f'kv heads {h_kv} must divide q heads {h}')
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("k and v must have q's dtype")
+    for name, x in (('q', q), ('k', k), ('v', v)):
+        _check_rows(name, x, dev)
+    if k.stride() != v.stride():
+        raise ValueError('k and v must have the same strides')
+    if kmask is not None:
+        if (kmask.dtype != torch.float32 or kmask.device != dev
+                or tuple(kmask.shape) != (b, s_k) or kmask.stride(1) != 1):
+            raise ValueError('kmask must be additive f32 [B, S_k] on q\'s '
+                             'device with contiguous keys')
+    return b, s_q, h, d, s_k, h_kv
 
 
 def _launch_done(lib, err, op):
@@ -440,34 +681,16 @@ def flash_decode_int8(q, k_bank, v_bank, pos):
 flash_decode_int8.launches = 0
 
 
-def flash_fwd(q, k, v, causal, q_off=0, kv_valid=None, kmask=None):
+def flash_fwd(q, k, v, causal, q_off=0, kv_valid=None, kmask=None,
+              drop_rate=0.0, seed=None):
     """Kernel 1 on the card. q [B,S_q,H,D], k/v [B,S_k,H_kv,D] (strided
     views with a contiguous head dim are read in place, as ``_block_qkv``
     returns them); ``kmask`` additive f32 [B, S_k] (a zero batch stride
-    broadcasts one row) -> (out [B,S_q,H,D] contiguous in q's dtype,
-    lse [B,H,S_q] f32). ``flash_fwd.launches`` counts launches."""
-    _check_q(q, 'flash_fwd')
+    broadcasts one row); ``drop_rate``/``seed`` (a u32) attention dropout
+    -> (out [B,S_q,H,D] contiguous in q's dtype, lse [B,H,S_q] f32).
+    ``flash_fwd.launches`` counts launches."""
+    b, s_q, h, d, s_k, h_kv = _check_attn_args(q, k, v, kmask, 'flash_fwd')
     dev = q.device
-    b, s_q, h, d = q.shape
-    if k.dim() != 4 or tuple(v.shape) != tuple(k.shape):
-        raise ValueError('k and v must be [B, S_k, H_kv, D] alike')
-    _, s_k, h_kv, dk = k.shape
-    if k.shape[0] != b or dk != d:
-        raise ValueError(f'k {tuple(k.shape)} does not fit q '
-                         f'{tuple(q.shape)}')
-    if h_kv == 0 or h % h_kv:
-        raise ValueError(f'kv heads {h_kv} must divide q heads {h}')
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("k and v must have q's dtype")
-    for name, x in (('q', q), ('k', k), ('v', v)):
-        _check_rows(name, x, dev)
-    if k.stride() != v.stride():
-        raise ValueError('k and v must have the same strides')
-    if kmask is not None:
-        if (kmask.dtype != torch.float32 or kmask.device != dev
-                or tuple(kmask.shape) != (b, s_k) or kmask.stride(1) != 1):
-            raise ValueError('kmask must be additive f32 [B, S_k] on q\'s '
-                             'device with contiguous keys')
     n_keys = s_k if kv_valid is None else max(0, min(s_k, int(kv_valid)))
     lib = _kernel_lib('flash_fwd')
     out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=dev)
@@ -481,13 +704,80 @@ def flash_fwd(q, k, v, causal, q_off=0, kv_valid=None, kmask=None):
             k.stride(0), k.stride(1), k.stride(2),
             0 if kmask is None else kmask.stride(0),
             b, s_q, h, h_kv, d, n_keys, int(bool(causal)), int(q_off),
-            _DTYPE_CODE[q.dtype], _stream(dev))
+            _DTYPE_CODE[q.dtype], *_drop_args(drop_rate, seed), _stream(dev))
     _launch_done(lib, err, 'flash_fwd')
     flash_fwd.launches += 1
     return out, lse
 
 
 flash_fwd.launches = 0
+
+
+def _bwd_launch(entry, q, k, v, g, lse, delta, causal, q_off, kv_valid,
+                kmask, drop_rate, seed):
+    b, s_q, h, d, s_k, h_kv = _check_attn_args(q, k, v, kmask, entry)
+    dev = q.device
+    if tuple(g.shape) != tuple(q.shape) or g.dtype != q.dtype:
+        raise ValueError("dO must have q's shape and dtype")
+    _check_rows('dO', g, dev)
+    for name, x in (('lse', lse), ('delta', delta)):
+        if (x.dtype != torch.float32 or x.device != dev
+                or tuple(x.shape) != (b, h, s_q) or not x.is_contiguous()):
+            raise ValueError(f'{name} must be contiguous f32 [B, H, S_q] on '
+                             "q's device")
+    n_keys = s_k if kv_valid is None else max(0, min(s_k, int(kv_valid)))
+    lib = _kernel_lib('flash_bwd')
+    if entry == 'flash_bwd_dq':
+        outs = (torch.empty((b, s_q, h, d), dtype=q.dtype, device=dev),)
+        ptrs = (outs[0].data_ptr(), 0, 0)
+    else:
+        outs = tuple(torch.empty((b, s_k, h_kv, d), dtype=k.dtype,
+                                 device=dev) for _ in range(2))
+        ptrs = (0, outs[0].data_ptr(), outs[1].data_ptr())
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            0 if kmask is None else kmask.data_ptr(), *ptrs,
+            q.stride(0), q.stride(1), q.stride(2),
+            g.stride(0), g.stride(1), g.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            0 if kmask is None else kmask.stride(0),
+            b, s_q, s_k, h, h_kv, d, n_keys, int(bool(causal)), int(q_off),
+            *_drop_args(drop_rate, seed), _DTYPE_CODE[q.dtype], _stream(dev))
+    _launch_done(lib, err, entry)
+    return outs
+
+
+def flash_bwd_dq(q, k, v, g, lse, delta, causal, q_off=0, kv_valid=None,
+                 kmask=None, drop_rate=0.0, seed=None):
+    """Kernel 2 on the card: dq [B,S_q,H,D] (contiguous, q's dtype) from q,
+    k, v and dO (``g``, [B,S_q,H,D], read through its strides), the
+    forward's ``lse`` and ``delta = bwd_delta(out, g)`` ([B,H,S_q] f32);
+    the mask and dropout arguments are the forward's.
+    ``flash_bwd_dq.launches`` counts launches."""
+    dq, = _bwd_launch('flash_bwd_dq', q, k, v, g, lse, delta, causal, q_off,
+                      kv_valid, kmask, drop_rate, seed)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, g, lse, delta, causal, q_off=0, kv_valid=None,
+                  kmask=None, drop_rate=0.0, seed=None):
+    """Kernel 3 on the card: (dk, dv) [B,S_k,H_kv,D] (contiguous, k's
+    dtype), each kv head's gradient summed over its query group in f32;
+    arguments as ``flash_bwd_dq``. ``flash_bwd_dkv.launches`` counts
+    launches."""
+    dk, dv = _bwd_launch('flash_bwd_dkv', q, k, v, g, lse, delta, causal,
+                         q_off, kv_valid, kmask, drop_rate, seed)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -501,12 +791,52 @@ def _on(q, op):
     raise ValueError(f'{op} runs on cuda or cpu, not {q.device}')
 
 
-def _flash_fwd(q, k, v, causal, q_off=0, kv_valid=None, kmask=None):
+def _flash_fwd(q, k, v, causal, q_off=0, kv_valid=None, kmask=None,
+               drop_rate=0.0, seed=None):
     """Kernel 1 for a CUDA tensor, its twin for a CPU tensor. [B,S,H,D]
     layout -> (out [B,S_q,H,D], lse [B,H,S_q] f32)."""
-    if _on(q, '_flash_fwd') == 'cpu':
-        return flash_fwd_reference(q, k, v, causal, q_off, kv_valid, kmask)
-    return flash_fwd(q, k, v, causal, q_off, kv_valid, kmask)
+    fn = (flash_fwd_reference if _on(q, '_flash_fwd') == 'cpu'
+          else flash_fwd)
+    return fn(q, k, v, causal, q_off, kv_valid, kmask, drop_rate, seed)
+
+
+def _flash_bwd(q, k, v, g, out, lse, causal, q_off=0, kv_valid=None,
+               kmask=None, drop_rate=0.0, seed=None):
+    """The backward of ``_flash_fwd``: delta = rowsum(out * dO) in f32,
+    then kernels 2 and 3 for a CUDA tensor (the twin for a CPU tensor)
+    -> (dq, dk, dv)."""
+    delta = bwd_delta(out, g)
+    args = (causal, q_off, kv_valid, kmask, drop_rate, seed)
+    if _on(q, '_flash_bwd') == 'cpu':
+        return flash_bwd_reference(q, k, v, g, lse, delta, *args)
+    g = g.to(q.dtype)
+    if g.stride(3) != 1 or not _rows_aligned(g):
+        g = g.contiguous()
+    dq = flash_bwd_dq(q, k, v, g, lse, delta, *args)
+    dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, *args)
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """Kernel 1 with kernels 2 and 3 as its backward (the reference's
+    ``_flash`` custom_vjp). The forward saves q, k, v, out and lse (the
+    mask and the seed ride on ``ctx``); the key mask and the seed get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kmask, causal, q_off, kv_valid, drop_rate,
+                seed):
+        out, lse = _flash_fwd(q, k, v, causal, q_off, kv_valid, kmask,
+                              drop_rate, seed)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_off, kv_valid, kmask, drop_rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, g, out, lse, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def decode_attention(q, k_cache, v_cache, pos):
@@ -523,11 +853,16 @@ def decode_attention(q, k_cache, v_cache, pos):
 
 def flash_attention(q, k, v, causal=False, mask=None, dropout_rate=0.0,
                     dropout_seed=None):
-    """q: [B, S_q, H, D]; k/v: [B, S_k, H_kv, D] -> [B, S_q, H, D].
+    """q: [B, S_q, H, D]; k/v: [B, S_k, H_kv, D] -> [B, S_q, H, D],
+    differentiable (kernels 2 and 3 on the card, their twin on the CPU).
 
     ``mask``: optional key-padding mask, bool (True = attend) or additive,
     shaped [S_k], [B, S_k], [B, 1, S_k] or [B, 1, 1, S_k]. Causal
-    cross-attention uses aligned ends (query i sees keys <= S_k - S_q + i).
+    cross-attention uses aligned ends (query i attends keys <= S_k - S_q + i).
+    ``dropout_rate``/``dropout_seed``: attention dropout on the
+    post-softmax probabilities (inverted scaling), the mask a counter hash
+    of (seed, row b*H + h, q row, key) that the backward regenerates;
+    ``dropout_seed`` is a u32 (an int, or an integer tensor of one value).
 
     Routing. Kernel 1 (its twin on the CPU) takes every call except those
     the reference sends to its plain path for a reason of meaning, which
@@ -538,14 +873,13 @@ def flash_attention(q, k, v, causal=False, mask=None, dropout_rate=0.0,
     TPU limits (S_k >= 128, head dim 64/128/256 on its platform) are not
     carried over: the twin takes any shape, and on the card a head dim
     without a kernel instance raises."""
-    if dropout_rate:
-        raise NotImplementedError(_TRAINING_TODO)
+    drop = _check_dropout(dropout_rate, dropout_seed)
+    seed = int(_u32(dropout_seed)) if drop else None
     b, s_q = int(q.shape[0]), int(q.shape[1])
     s_k = int(k.shape[1])
     if ((mask is not None and not _key_mask_normalizable(mask, b, s_k))
             or (causal and s_q > s_k)):
-        return attention_reference(q, k, v, causal, mask)
+        return attention_reference(q, k, v, causal, mask, drop, seed)
     kmask = _normalize_key_mask(mask, b, s_k) if mask is not None else None
     q_off = (s_k - s_q) if causal else 0
-    out, _ = _flash_fwd(q, k, v, causal, q_off=q_off, kmask=kmask)
-    return out
+    return _Flash.apply(q, k, v, kmask, causal, q_off, None, drop, seed)

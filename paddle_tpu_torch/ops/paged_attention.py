@@ -5,13 +5,17 @@ engine (serving/generation.py) stores each slot's KV rows in
 non-contiguous fixed-size pages (ops/paged_kv.py). This module attends q
 rows to that paged cache three ways:
 
- - ``paged_flash_decode``: the hand-written Hopper kernel
-   (``csrc/paged_decode.cu``), replacing the Pallas TPU kernel
-   ``_paged_decode_kernel``. It reads each page straight out of the pool
-   through the page table and never materializes the gathered cache;
- - ``paged_decode_reference``: its plain PyTorch twin, the same
-   arithmetic (per-page online softmax, p rounded to V's dtype before
-   p.V) in ordinary tensor ops;
+ - ``paged_flash_decode`` and ``paged_flash_decode_int8``: the
+   hand-written Hopper kernels (``csrc/paged_decode.cu``, one template),
+   replacing the Pallas TPU kernels ``_paged_decode_kernel`` (kernel 6)
+   and ``_paged_decode_kernel_int8`` (kernel 7, int8 pages with per-row
+   f32 scales). They read each page straight out of the pool through the
+   page table and never materialize the gathered cache;
+ - ``paged_decode_reference`` and ``paged_decode_int8_reference``: their
+   plain PyTorch twins, the same arithmetic (per-page online softmax, p
+   rounded to V's dtype before p.V; int8 rows cast to q's dtype, the k
+   scale on the score after the dot, the v scale into p before p is
+   rounded) in ordinary tensor ops;
  - ``paged_attention_fallback``: the reference's gather-then-softmax
    path, op for op (kept for parity with the reference's own fallback).
 
@@ -28,10 +32,11 @@ on the card every attention call of the engine, prefill and decode, is a
 kernel launch. Any page size whose score tile fits in shared memory
 (64 x page_size f32 beside the q and K/V tiles) is taken. Head dims are
 64, 128 and 256 (one template instance each), dtypes float32 and
-bfloat16; the pool must have q's dtype.
+bfloat16; the pool must have q's dtype, or be int8 banks.
 
 ``pos`` is a PER-SLOT [B] int32 vector (slots decode at different depths);
-q row j of slot b attends virtual positions <= pos[b] + j. Inference only.
+q row j of slot b attends virtual positions <= pos[b] + j. Inference only
+(no backward).
 """
 import ctypes
 import math
@@ -41,7 +46,7 @@ import torch
 from . import _build
 from .flash_attention import _EPS, _NEG_INF, repeat_kv
 from .paged_kv import gather_virtual
-from .weight_only import is_weight_only
+from .weight_only import dequantize_kv, is_weight_only
 
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,22 +61,30 @@ def _kernel_lib():
         lib.paged_decode.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.paged_decode.restype = ctypes.c_int
+        lib.paged_decode_int8.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib.paged_decode_int8.restype = ctypes.c_int
         lib.paged_decode_error_string.argtypes = [ctypes.c_int]
         lib.paged_decode_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def paged_decode_reference(q, k_pages, v_pages, page_table, pos):
-    """Plain PyTorch twin of the kernel (and of the TPU's
-    ``_paged_decode_kernel``): pages are visited in order, each slot
+def paged_decode_reference(q, k_pages, v_pages, page_table, pos, ks=None,
+                           vs=None):
+    """Plain PyTorch twin of kernel 6 (the TPU's ``_paged_decode_kernel``),
+    and of kernel 7 with the int8 pages' scales ``ks``/``vs``
+    ([N, page_size, H_kv] f32): pages are visited in order, each slot
     stops at its last needed page ``min(ceil((pos+T)/ps), P_max)``, and
     the online-softmax state (m, l, acc) is updated once per page in f32.
-    Scores are f32 dots times 1/sqrt(D), masked with -1e30; l sums the
-    unrounded p, while p.V uses p rounded to V's dtype.
+    Scores are f32 dots times 1/sqrt(D) (int8: times the k scale, after
+    the dot), masked with -1e30; l sums the unrounded p, while p.V uses p
+    (int8: times the v scale) rounded to V's dtype (int8: q's dtype, the
+    int8 values cast to it).
 
     q: [B, T, H, D]; pages [N, page_size, H_kv, D]; page_table [B, P_max]
     int; pos [B] int -> [B, T, H, D] in q's dtype."""
+    int8 = ks is not None
     b, t, h, d = q.shape
     _, ps, h_kv, _ = k_pages.shape
     p_max = int(page_table.shape[1])
@@ -87,20 +100,26 @@ def paged_decode_reference(q, k_pages, v_pages, page_table, pos):
     acc = torch.zeros((b, h, t, d), dtype=torch.float32, device=dev)
     m = torch.full((b, h, t, 1), _NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, h, t, 1), dtype=torch.float32, device=dev)
+    def heads(x):                     # [B, ps, Hkv, ..] -> [B, H, ps, ..]
+        x = x.transpose(1, 2)
+        return torch.repeat_interleave(x, g, dim=1) if g > 1 else x
+
     for p in range(int(needed.max())):
         pid = table[:, p]
-        kb = k_pages[pid].float().permute(0, 2, 1, 3)        # [B,Hkv,ps,D]
-        vb = v_pages[pid].permute(0, 2, 1, 3)
-        if g > 1:
-            kb = torch.repeat_interleave(kb, g, dim=1)
-            vb = torch.repeat_interleave(vb, g, dim=1)
-        s = (qf @ kb.transpose(-1, -2)) * scale               # [B,H,T,ps]
+        kb, vb = heads(k_pages[pid]), heads(v_pages[pid])     # [B,H,ps,D]
+        if int8:
+            kb, vb = kb.to(q.dtype), vb.to(q.dtype)
+        s = (qf @ kb.float().transpose(-1, -2)) * scale       # [B,H,T,ps]
+        if int8:
+            s = s * heads(ks[pid])[:, :, None, :]
         k_pos = p * ps + torch.arange(ps, device=dev)
         s = torch.where(k_pos <= q_pos, s, _NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         pr = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
         l_new = l * alpha + pr.sum(dim=-1, keepdim=True)
+        if int8:
+            pr = pr * heads(vs[pid])[:, :, None, :]
         acc_new = acc * alpha + pr.to(vb.dtype).float() @ vb.float()
         live = (p < needed)[:, None, None, None]
         acc = torch.where(live, acc_new, acc)
@@ -110,10 +129,19 @@ def paged_decode_reference(q, k_pages, v_pages, page_table, pos):
     return out.to(q.dtype).permute(0, 2, 1, 3)
 
 
-def _check_kernel_args(q, k_pages, v_pages, page_table, pos):
+def paged_decode_int8_reference(q, k_bank, v_bank, page_table, pos):
+    """Plain twin of kernel 7 over int8 banks ``{'int8': [N, page_size,
+    H_kv, D] int8, 'scale': [N, page_size, H_kv] f32}``."""
+    return paged_decode_reference(q, k_bank['int8'], v_bank['int8'],
+                                  page_table, pos, k_bank['scale'],
+                                  v_bank['scale'])
+
+
+def _check_kernel_args(q, k_pages, v_pages, page_table, pos, ks=None,
+                       vs=None):
+    op = 'paged_flash_decode_int8' if ks is not None else 'paged_flash_decode'
     if q.device.type != 'cuda':
-        raise ValueError(f'paged_flash_decode needs CUDA tensors, q is on '
-                         f'{q.device}')
+        raise ValueError(f'{op} needs CUDA tensors, q is on {q.device}')
     for name, x in (('k_pages', k_pages), ('v_pages', v_pages),
                     ('page_table', page_table), ('pos', pos)):
         if x.device != q.device:
@@ -130,8 +158,16 @@ def _check_kernel_args(q, k_pages, v_pages, page_table, pos):
         raise ValueError(f'kv heads {h_kv} must divide q heads {h}')
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f'q dtype {q.dtype} not in float32/bfloat16')
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise ValueError('the pools must have q\'s dtype')
+    want = torch.int8 if ks is not None else q.dtype
+    if k_pages.dtype != want or v_pages.dtype != want:
+        raise ValueError(f'the pools must have dtype {want}')
+    if ks is not None:
+        for name, x in (('k scale', ks), ('v scale', vs)):
+            if (x.dtype != torch.float32 or x.device != q.device
+                    or tuple(x.shape) != (n, ps, h_kv)
+                    or not x.is_contiguous()):
+                raise ValueError(f'{name} must be contiguous f32 [N, '
+                                 "page_size, H_kv] on q's device")
     if (page_table.dtype != torch.int32 or page_table.dim() != 2
             or page_table.shape[0] != b):
         raise ValueError('page_table must be int32 [B, P_max]')
@@ -146,27 +182,36 @@ def _check_kernel_args(q, k_pages, v_pages, page_table, pos):
             raise ValueError(f'{name} must be 16-byte aligned')
 
 
+def _paged_launch(q, k_pages, v_pages, page_table, pos, ks=None, vs=None):
+    """Check the arguments and launch kernel 6, or kernel 7 with the int8
+    pages' scales ``ks``/``vs``; raises on a refused launch."""
+    _check_kernel_args(q, k_pages, v_pages, page_table, pos, ks, vs)
+    lib = _kernel_lib()
+    b, t, h, d = q.shape
+    _, ps, h_kv, _ = k_pages.shape
+    out = torch.empty_like(q)
+    scales = () if ks is None else (ks.data_ptr(), vs.data_ptr())
+    op = 'paged_decode' if ks is None else 'paged_decode_int8'
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, op)(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
+            page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            b, t, h, h_kv, d, ps, int(page_table.shape[1]),
+            _DTYPE_CODE[q.dtype], stream)
+    if err != 0:
+        msg = lib.paged_decode_error_string(err).decode()
+        raise RuntimeError(f'{op} launch failed ({err}): {msg}')
+    return out
+
+
 def paged_flash_decode(q, k_pages, v_pages, page_table, pos):
     """The Hopper kernel. q: [B,T,H,D]; pages [N, page_size, H_kv, D]
     (one layer of the pool, read in place); page_table [B, P_max] int32;
     pos [B] int32 -> [B,T,H,D]. Launches on the current stream without
     synchronising; raises on arguments the kernel does not take and on a
     refused launch. ``paged_flash_decode.launches`` counts launches."""
-    _check_kernel_args(q, k_pages, v_pages, page_table, pos)
-    lib = _kernel_lib()
-    b, t, h, d = q.shape
-    _, ps, h_kv, _ = k_pages.shape
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.paged_decode(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            b, t, h, h_kv, d, ps, int(page_table.shape[1]),
-            _DTYPE_CODE[q.dtype], stream)
-    if err != 0:
-        msg = lib.paged_decode_error_string(err).decode()
-        raise RuntimeError(f'paged_decode launch failed ({err}): {msg}')
+    out = _paged_launch(q, k_pages, v_pages, page_table, pos)
     paged_flash_decode.launches += 1
     return out
 
@@ -174,12 +219,31 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, pos):
 paged_flash_decode.launches = 0
 
 
+def paged_flash_decode_int8(q, k_bank, v_bank, page_table, pos):
+    """Kernel 7 on the card: ``paged_flash_decode`` over int8 banks
+    ``{'int8': [N, page_size, H_kv, D] int8, 'scale': [N, page_size, H_kv]
+    f32}`` (one layer of the pool, read in place); q and the output in
+    float32 or bfloat16. ``paged_flash_decode_int8.launches`` counts
+    launches."""
+    out = _paged_launch(q, k_bank['int8'], v_bank['int8'], page_table, pos,
+                        k_bank['scale'], v_bank['scale'])
+    paged_flash_decode_int8.launches += 1
+    return out
+
+
+paged_flash_decode_int8.launches = 0
+
+
 def paged_attention_fallback(q, k_pages, v_pages, page_table, pos, cdt):
     """The reference's gather path, op for op: gather each slot's virtual
-    dense cache through the page table, then einsum in the compute dtype,
-    f32 masked softmax, cast back."""
+    dense cache through the page table (int8 banks dequantized to the
+    compute dtype), then einsum in the compute dtype, f32 masked softmax,
+    cast back."""
     kc = gather_virtual(k_pages, page_table)
     vc = gather_virtual(v_pages, page_table)
+    if is_weight_only(kc):
+        kc = dequantize_kv(kc['int8'], kc['scale'], cdt)
+        vc = dequantize_kv(vc['int8'], vc['scale'], cdt)
     kc, vc = repeat_kv(kc, vc, int(q.shape[2]))
     B, T = q.shape[:2]
     S = kc.shape[1]
@@ -198,16 +262,15 @@ def paged_attention(q, k_pages, v_pages, page_table, pos):
     """Attention over a paged KV pool, dispatched on q's device: the plain
     twin for a CPU tensor, the Hopper kernel for a CUDA tensor.
 
-    q: [B, T, H, D]; pools: [N, page_size, H_kv, D]; page_table: [B, P_max]
-    int32; pos: [B] int32 (first q row's absolute position per slot)
-    -> [B, T, H, D]."""
-    if is_weight_only(k_pages):
-        raise NotImplementedError(
-            'int8 KV page banks are not ported yet (ROADMAP Queue 1 '
-            "item 3, the engine's int8 pool: kernel 7, "
-            '_paged_decode_kernel_int8)')
+    q: [B, T, H, D]; pools: [N, page_size, H_kv, D] tensors (kernel 6) or
+    int8 banks (kernel 7); page_table: [B, P_max] int32; pos: [B] int32
+    (first q row's absolute position per slot) -> [B, T, H, D]."""
+    int8 = is_weight_only(k_pages)
     if q.device.type == 'cpu':
-        return paged_decode_reference(q, k_pages, v_pages, page_table, pos)
+        return (paged_decode_int8_reference if int8
+                else paged_decode_reference)(q, k_pages, v_pages, page_table,
+                                             pos)
     if q.device.type == 'cuda':
-        return paged_flash_decode(q, k_pages, v_pages, page_table, pos)
+        return (paged_flash_decode_int8 if int8 else paged_flash_decode)(
+            q, k_pages, v_pages, page_table, pos)
     raise ValueError(f'paged_attention runs on cuda or cpu, not {q.device}')

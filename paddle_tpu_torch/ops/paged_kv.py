@@ -10,6 +10,11 @@ continuous-batching engine (serving/generation.py) packs many ragged
 sequences into one fixed-slot decode batch. Page ids are host-side state
 handed to each device call as an int32 table.
 
+int8 pools (``kv_cache_int8``) hold each plane as a bank ``{'int8': [L,
+N, page_size, H_kv, Dh] int8, 'scale': [L, N, page_size, H_kv] f32}``
+(the dense cache's bank layout, ``ops/weight_only.init_kv_bank``): rows
+quantize on write with ``quantize_kv``, one scale per row and head.
+
 Conventions shared by every consumer:
 
  - **Page 0 is the trash page.** The allocator never hands it out. Writes
@@ -21,13 +26,12 @@ Conventions shared by every consumer:
    pool, a contiguous view the attention kernel reads in place.
  - Where the reference returns a new pool (JAX donates the old buffer),
    the port writes the pool in place and says so.
-
-int8 pools (``kv_cache_int8``) are not ported yet (ROADMAP Queue 1
-item 3); the dense decode cache has its int8 banks (models/gpt.py).
 """
 import threading
 
 import torch
+
+from .weight_only import init_kv_bank, is_weight_only, kv_plane, quantize_kv
 
 TRASH_PAGE = 0   # reserved; see module docstring
 
@@ -38,13 +42,17 @@ def pages_for(n_tokens, page_size):
 
 
 def init_paged_pool(num_layers, num_pages, page_size, kv_heads, head_dim,
-                    dtype, device):
+                    dtype, device, int8=False):
     """Allocate the shared page pool: ``{'k': pages, 'v': pages}`` with
-    pages ``[L, N, page_size, H_kv, Dh]`` of ``dtype`` on ``device``.
-    ``num_pages`` INCLUDES the reserved trash page 0."""
+    pages ``[L, N, page_size, H_kv, Dh]`` of ``dtype`` on ``device`` (int8:
+    banks of that shape, ``dtype`` unused). ``num_pages`` INCLUDES the
+    reserved trash page 0."""
     if num_pages < 2:
         raise ValueError('num_pages must be >= 2 (page 0 is reserved)')
     shape = (num_layers, num_pages, page_size, kv_heads, head_dim)
+    if int8:
+        return {'k': init_kv_bank(shape, device),
+                'v': init_kv_bank(shape, device)}
     return {'k': torch.zeros(shape, dtype=dtype, device=device),
             'v': torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -160,42 +168,51 @@ def paged_write(pages, rows, page_table, pos, valid=None, flat_idx=None):
     reference returns a new pool and donates the old buffer; here
     ``pages`` itself is written) and return it.
 
-    ``pages``: [N, page_size, H, D]; ``rows``: [B, T, H, D] fresh k or v
+    ``pages``: [N, page_size, H, D] (or an int8 bank of that shape, whose
+    rows are quantized with ``quantize_kv`` on the way in, as the
+    reference's ``paged_write`` does); ``rows``: [B, T, H, D] fresh k or v
     rows for absolute positions ``pos[b] + j``; ``page_table``: [B, P_max];
     ``valid``: [B] or None (rows past it go to the trash page).
     ``flat_idx`` takes indices already computed by ``flat_write_indices``
     for this call — every layer of one forward writes the same rows, so
     the forward computes them once."""
-    if not isinstance(pages, torch.Tensor):
-        raise NotImplementedError(
-            'int8 KV page banks are not ported yet (ROADMAP Queue 1 '
-            "item 3: the engine's int8 pool)")
     b, t = rows.shape[:2]
-    n, ps, h, d = pages.shape
+    n, ps, h, d = kv_plane(pages).shape
     if flat_idx is None:
         flat_idx = flat_write_indices(page_table, pos, t, ps, valid)
-    flat = pages.view(n * ps, h, d)
-    flat.index_copy_(0, flat_idx.reshape(-1),
-                     rows.reshape(b * t, h, d).to(pages.dtype))
+    idx = flat_idx.reshape(-1)
+    if is_weight_only(pages):
+        qr, sr = quantize_kv(rows)
+        pages['int8'].view(n * ps, h, d).index_copy_(
+            0, idx, qr.reshape(b * t, h, d))
+        pages['scale'].view(n * ps, h).index_copy_(0, idx,
+                                                   sr.reshape(b * t, h))
+        return pages
+    pages.view(n * ps, h, d).index_copy_(
+        0, idx, rows.reshape(b * t, h, d).to(pages.dtype))
     return pages
 
 
 def copy_page(pool, src, dst):
     """Copy-on-write primitive: duplicate physical page ``src`` into
-    ``dst`` across every pool plane (k and v, all layers), in place.
-    ``pool`` is the engine's full paged cache ``{'k': [L, N, ps, H, D],
-    'v': ...}``; returns it."""
+    ``dst`` across every pool plane (k and v, all layers; int8 banks copy
+    both the int8 and scale planes), in place. ``pool`` is the engine's
+    full paged cache ``{'k': [L, N, ps, H, D], 'v': ...}``; returns it."""
     src, dst = int(src), int(dst)
-    for arr in pool.values():
-        arr[:, dst].copy_(arr[:, src])
+    for plane in pool.values():
+        for arr in (plane.values() if is_weight_only(plane) else (plane,)):
+            arr[:, dst].copy_(arr[:, src])
     return pool
 
 
 def gather_virtual(pages, page_table):
     """Reconstruct each slot's virtual dense cache from its pages:
     ``[N, page_size, H, D]`` + ``[B, P_max]`` -> ``[B, P_max*page_size,
-    H, D]``. The result is value-identical to the dense cache regardless of
-    physical page placement."""
+    H, D]`` (an int8 bank gathers both planes). The result is
+    value-identical to the dense cache regardless of physical page
+    placement."""
+    if is_weight_only(pages):
+        return {k: gather_virtual(v, page_table) for k, v in pages.items()}
     g = pages[page_table.long()]                  # [B, P_max, ps, ...]
     b, p_max, ps = g.shape[:3]
     return g.reshape((b, p_max * ps) + tuple(g.shape[3:]))

@@ -59,6 +59,20 @@ def dequantize_kv(q, scale, cdt):
     return q.to(cdt) * scale[..., None].to(cdt)
 
 
+def kv_plane(x):
+    """The value plane of a KV store (a dense cache or a page pool, or
+    one layer of either): the tensor itself, or an int8 bank's 'int8'."""
+    return x['int8'] if is_weight_only(x) else x
+
+
+def kv_layer(x, layer):
+    """Layer ``layer`` of a stacked KV store (raw, or an int8 bank), as
+    views that writes go through."""
+    if is_weight_only(x):
+        return {'int8': x['int8'][layer], 'scale': x['scale'][layer]}
+    return x[layer]
+
+
 def init_kv_bank(shape, device):
     """Zeroed int8 KV bank ``{'int8': [*shape] int8, 'scale': [*shape[:-1]]
     f32}`` on ``device``: the layout ``quantize_kv``, ``dequantize_kv`` and

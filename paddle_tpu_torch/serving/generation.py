@@ -36,10 +36,12 @@ when already expired), a ``fault.CircuitBreaker`` + ``gen.step`` chaos
 point around device calls, ``gen.*`` metrics in the observability
 registry, and request-scoped timelines.
 
+``config.kv_cache_int8`` stores the pool as int8 banks with per-row
+scales (ops/paged_kv.py); attention then runs kernel 7.
+
 Not ported yet, each raising with its ROADMAP item: the prefix cache
 (``prefix_cache=True`` / ``prefix_cache_pages``), int8 weight-only
-serving (``precision='int8_wo'``), int8 KV (``kv_cache_int8``), mesh
-sharding (``mesh=`` / ``mp>1``) and the telemetry HTTP plane
+serving (``precision='int8_wo'``), mesh sharding (``mesh=`` / ``mp>1``) and the telemetry HTTP plane
 (``telemetry_port=``). Eager PyTorch has no trace count and no AOT
 executables: ``warmup()`` runs one prefill and one step into the trash
 page, and ``stats()`` has no ``traces`` entry. CUDA graphs come later.
@@ -228,9 +230,6 @@ class GenerationEngine:
         if config is None:
             raise TypeError('GenerationEngine needs (params, config): the '
                             'port has no Layer-style model wrapper yet')
-        if config.kv_cache_int8:
-            raise _not_ported('kv_cache_int8',
-                              "item 3, the engine's int8 pool (kernel 7)")
         self.device = resolve_device(device)
         cfg = config
         params = {k: ({bk: bv.to(self.device) for bk, bv in v.items()}

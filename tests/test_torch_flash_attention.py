@@ -245,7 +245,13 @@ def test_flash_attention_matches_reference_routing(interpret, causal,
 
 
 def test_dropout_waits_for_the_training_slice():
-    x = torch.zeros(1, 8, 2, 64)
-    with pytest.raises(NotImplementedError, match='training slice'):
-        tfa.flash_attention(x, x, x, causal=True, dropout_rate=0.1,
-                            dropout_seed=1)
+    # the training slice has come: dropout runs, with the reference's mask
+    # (tests/test_torch_flash_backward.py holds it bit for bit)
+    rng = np.random.RandomState(5)
+    x = rng.randn(1, 8, 2, 64).astype(np.float32)
+    want = fa._jnp_attention(jnp.asarray(x), jnp.asarray(x), jnp.asarray(x),
+                             True, None, drop_rate=0.1, seed=1)
+    got = tfa.flash_attention(_t(x), _t(x), _t(x), causal=True,
+                              dropout_rate=0.1, dropout_seed=1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)

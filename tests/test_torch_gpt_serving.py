@@ -3,9 +3,9 @@ serving/generation.py) against the JAX package's, on the CPU at a small
 size: the reference's own parameters (converted through numpy), paged
 prefill + decode logits within 1e-4 (float32; the two sum in different
 orders and the port's attention is the kernel's per-page twin where the
-reference gathers), greedy engine streams equal token for token, and the
-engine's admission / deadline / shutdown behaviour equal to the
-reference engine's. Sampled streams cannot match jax.random; they are
+reference gathers), greedy engine streams equal token for token (bf16/f32
+pools and int8 pools), and the engine's admission / deadline / shutdown
+behaviour equal to the reference engine's. Sampled streams cannot match jax.random; they are
 held to their own contract: a pure function of (seed, position)."""
 import dataclasses
 
@@ -336,14 +336,10 @@ def test_unported_options_raise_naming_the_roadmap(model):
                dict(telemetry_port=0)):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             GenerationEngine(tp, tcfg, device='cpu', **_kw(**kw))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        GenerationEngine(tp, dataclasses.replace(tcfg, kv_cache_int8=True),
-                         device='cpu', **_kw())
-    # the dense cache is ported (tests/test_torch_gpt_decode.py); its int8
-    # banks are, the engine's int8 page pool is not
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tgpt.init_paged_kv_cache(
-            dataclasses.replace(tcfg, kv_cache_int8=True), 4, PS, 'cpu')
+    # the int8 page pool is ported: kv_cache_int8 builds an engine
+    eng = GenerationEngine(tp, dataclasses.replace(tcfg, kv_cache_int8=True),
+                           device='cpu', autostart=False, **_kw())
+    eng.shutdown()
 
 
 def test_metrics_and_readiness(model):
@@ -367,3 +363,75 @@ def test_metrics_and_readiness(model):
              if e['name'] == 'gen.prefill'
              and e['args']['req_id'] == recs[0]['id']]
     assert len(spans) == 1 and spans[0]['dur'] > 0
+
+
+# ---------------------------------------------------------------------------
+# the int8 page pool (kv_cache_int8): kernel 7's twin on the CPU
+# ---------------------------------------------------------------------------
+
+def _int8(model):
+    jp, cfg, tp, tcfg = model
+    return (jp, dataclasses.replace(cfg, kv_cache_int8=True), tp,
+            dataclasses.replace(tcfg, kv_cache_int8=True))
+
+
+def test_int8_paged_prefill_and_decode_match_reference(model):
+    # the reference's CPU path dequantizes the gathered cache; the port's
+    # twin applies the scales around the dots: f32 rounding apart (1e-4)
+    jp, cfg, tp, tcfg = _int8(model)
+    prompts = _prompts([6, 10], seed=31)
+    b, w = 2, 12
+    table = np.zeros((b, tkv.pages_for(cfg.max_seq_len, PS)), np.int32)
+    table[0, :3] = [5, 2, 9]
+    table[1, :3] = [1, 11, 4]
+    toks = np.zeros((b, w), np.int32)
+    valid = np.array([len(p) for p in prompts], np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    jpool = jgpt.init_paged_kv_cache(cfg, 13, PS)
+    tpool = tgpt.init_paged_kv_cache(tcfg, 13, PS, 'cpu')
+    assert tpool['k']['int8'].dtype == torch.int8
+    jt, tt = jnp.asarray(table), torch.from_numpy(table)
+    jlg, jc = jax.jit(lambda p, x, c, s: jgpt.forward_with_cache(
+        p, x, c, s, cfg, last_only=True))(
+            jp, jnp.asarray(toks),
+            dict(jpool, page_table=jt, valid=jnp.asarray(valid)),
+            jnp.zeros((b,), jnp.int32))
+    tlg, tc = tgpt.forward_with_cache(
+        tp, torch.from_numpy(toks),
+        dict(tpool, page_table=tt, valid=torch.from_numpy(valid)),
+        torch.zeros(b, dtype=torch.int32), tcfg, last_only=True)
+    np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg), atol=1e-4,
+                               rtol=1e-4)
+    # the pools hold the same quantized rows
+    for plane in ('k', 'v'):
+        np.testing.assert_array_equal(tc[plane]['int8'].numpy(),
+                                      np.asarray(jc[plane]['int8']))
+    tok = np.asarray(jnp.argmax(jlg[:, 0], -1)).astype(np.int32)
+    jstep = jax.jit(lambda p, x, c, s: jgpt.forward_with_cache(
+        p, x, c, s, cfg))
+    jcache = {'k': jc['k'], 'v': jc['v'], 'page_table': jt}
+    tcache = {'k': tc['k'], 'v': tc['v'], 'page_table': tt}
+    pos = valid.copy()
+    for _ in range(4):
+        jlg, jcache = jstep(jp, jnp.asarray(tok[:, None]), jcache,
+                            jnp.asarray(pos))
+        tlg, tcache = tgpt.forward_with_cache(
+            tp, torch.from_numpy(tok[:, None]), tcache,
+            torch.from_numpy(pos), tcfg)
+        np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg), atol=1e-4,
+                                   rtol=1e-4)
+        tok = np.asarray(jnp.argmax(jlg[:, 0], -1)).astype(np.int32)
+        pos += 1
+
+
+@pytest.mark.parametrize('num_pages', [None, 6])
+def test_int8_engine_greedy_streams_equal_reference(model, num_pages):
+    jp, cfg, tp, tcfg = _int8(model)
+    prompts = _prompts([9, 9, 3, 14], seed=23)
+    want, _ = _run(JEngine(jp, cfg, **_kw(num_pages=num_pages)), prompts, 16)
+    got, st = _run(GenerationEngine(tp, tcfg, device='cpu',
+                                    **_kw(num_pages=num_pages)), prompts, 16)
+    assert got == want
+    assert st['completed'] == len(prompts)
+    assert st['free_pages'] == st['num_pages'] - 1

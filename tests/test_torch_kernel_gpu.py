@@ -1,4 +1,4 @@
-"""The Hopper paged-decode kernel against its plain PyTorch twin, on the
+"""The port's Hopper kernels against their plain PyTorch twins, on the
 card. Needs a CUDA device (marker ``gpu``; skips elsewhere) and imports
 neither JAX nor the JAX package, so on a machine with only PyTorch it runs
 as ``python -m pytest --noconftest -m gpu tests/test_torch_kernel_gpu.py``.
@@ -193,3 +193,130 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match='head_dim'):
         fa.flash_fwd(q[..., :48].contiguous(), kc[..., :48].contiguous(),
                      vc[..., :48].contiguous(), True)
+
+
+# ---------------------------------------------------------------------------
+# kernel 1's dropout, kernels 2 and 3 (the flash backward) and kernel 7
+# (paged decode over int8 pages)
+# ---------------------------------------------------------------------------
+
+def _grad_err(got, want):
+    """``_row_err`` with each row's scale floored at 1% of the tensor's
+    largest value: a gradient row can be pure cancellation (causal dq row
+    0: ds = p * (dp - delta) with p = 1 and dp = delta), rounding noise on
+    both sides, and noise over noise says nothing."""
+    w = want.float()
+    scale = w.abs().amax(-1).clamp_min(0.01 * w.abs().max().item() + 1e-30)
+    return ((got.float() - w).abs().amax(-1) / scale).max().item()
+
+
+def _qkv(b, s_q, s_k, h, h_kv, d, dtype, seed=1):
+    """q, k, v as strided views of one packed projection, and dO."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    qkv = torch.randn((b, max(s_q, s_k), h + 2 * h_kv, d), generator=g,
+                      device='cuda').to(dtype)
+    do = torch.randn((b, s_q, h, d), generator=g, device='cuda').to(dtype)
+    return (qkv[:, :s_q, :h], qkv[:, :s_k, h:h + h_kv],
+            qkv[:, :s_k, h + h_kv:], do)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('b,s_q,s_k,h,h_kv,d,causal,masked,drop', [
+    (2, 1024, 1024, 16, 16, 64, True, False, 0.0),
+    (2, 1024, 1024, 16, 16, 64, True, False, 0.1),
+    (2, 200, 200, 4, 2, 128, True, False, 0.0),
+    (2, 256, 300, 4, 4, 64, False, True, 0.25),
+    (1, 100, 357, 2, 2, 256, True, False, 0.0),
+])
+def test_flash_backward_and_dropout_match_twins(cuda, b, s_q, s_k, h, h_kv,
+                                                d, causal, masked, drop,
+                                                dtype):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _qkv(b, s_q, s_k, h, h_kv, d, dtype)
+    kmask = None
+    if masked:
+        valid = torch.tensor([s_k, s_k - 77], device='cuda')[:, None]
+        kmask = torch.where(torch.arange(s_k, device='cuda')[None] < valid,
+                            0.0, -1e30)
+    q_off = (s_k - s_q) if causal else 0
+    args = (causal, q_off, None, kmask, drop, 2 ** 31 + 12345)
+    out, lse = fa._flash_fwd(q, k, v, *args)
+    want_o, want_l = fa.flash_fwd_reference(q, k, v, *args)
+    assert _row_err(out, want_o) <= TOL[dtype]
+    assert (lse - want_l).abs().max().item() <= 1e-4
+    # the backward kernels and their twin on the same out and lse
+    before = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    dq, dk, dv = fa._flash_bwd(q, k, v, do, out, lse, *args)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    delta = fa.bwd_delta(out, do)
+    want = fa.flash_bwd_reference(q, k, v, do, lse, delta, *args)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert _grad_err(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_flash_attention_autograd_runs_the_kernels(cuda):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _qkv(2, 256, 256, 4, 2, 64, torch.float32)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    out = fa.flash_attention(*leaves, causal=True, dropout_rate=0.1,
+                             dropout_seed=7)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    cpu = [x.detach().cpu().requires_grad_() for x in (q, k, v)]
+    ref = fa.flash_attention(*cpu, causal=True, dropout_rate=0.1,
+                             dropout_seed=7)
+    ref.backward(do.cpu())
+    assert _row_err(out.detach().cpu(), ref.detach()) <= 2e-5
+    for a, c in zip(leaves, cpu):
+        assert _grad_err(a.grad.cpu(), c.grad) <= 2e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('b,t,h,h_kv,d,pos', [
+    (8, 1, 16, 16, 64, [0, 1023, 5, 127, 128, 300, 640, 900]),
+    (1, 1024, 16, 16, 64, [0]),
+    (3, 70, 8, 2, 128, [0, 129, 900]),
+    (2, 5, 4, 4, 256, [250, 1000]),
+])
+def test_int8_paged_kernel_matches_twin(cuda, b, t, h, h_kv, d, pos, dtype):
+    from paddle_tpu_torch.ops import weight_only as wo
+    q, kp, vp, table, pos_t = _case(b, t, h, h_kv, d, pos, torch.float32)
+    kb = dict(zip(('int8', 'scale'), wo.quantize_kv(kp)))
+    vb = dict(zip(('int8', 'scale'), wo.quantize_kv(vp)))
+    q = q.to(dtype)
+    before = pa.paged_flash_decode_int8.launches
+    got = pa.paged_attention(q, kb, vb, table, pos_t)
+    torch.cuda.synchronize()
+    assert pa.paged_flash_decode_int8.launches == before + 1
+    want = pa.paged_decode_int8_reference(q, kb, vb, table, pos_t)
+    assert _row_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_new_training_kernels_refuse_what_they_do_not_take(cuda):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _qkv(2, 128, 128, 4, 4, 64, torch.bfloat16)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa.bwd_delta(out, do)
+    with pytest.raises(ValueError, match='dO'):
+        fa.flash_bwd_dq(q, k, v, do.float(), lse, delta, True)
+    with pytest.raises(ValueError, match='lse'):
+        fa.flash_bwd_dkv(q, k, v, do, lse.transpose(1, 2), delta, True)
+    kp = torch.zeros((3, 128, 4, 64), dtype=torch.int8, device='cuda')
+    bank = {'int8': kp, 'scale': torch.zeros((3, 128, 4), device='cuda')}
+    table = torch.ones((2, 1), dtype=torch.int32, device='cuda')
+    pos = torch.zeros(2, dtype=torch.int32, device='cuda')
+    with pytest.raises(ValueError, match='scale'):
+        pa.paged_flash_decode_int8(q[:, :1].contiguous(), bank,
+                                   dict(bank, scale=bank['scale'].double()),
+                                   table, pos)

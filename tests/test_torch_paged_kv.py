@@ -9,6 +9,7 @@ import torch
 
 from paddle_tpu.ops import paged_kv as jkv
 from paddle_tpu_torch.ops import paged_kv as tkv
+from paddle_tpu_torch.ops import weight_only as two
 
 
 def _outcome(fn):
@@ -130,3 +131,63 @@ def test_init_paged_pool_shape_and_trash_rule():
         tkv.init_paged_pool(2, 1, 4, 3, 8, torch.float32, 'cpu')
     assert tkv.pages_for(9, 4) == jkv.pages_for(9, 4) == 3
     assert tkv.pages_for(0, 4) == 0
+
+
+# ---------------------------------------------------------------------------
+# int8 pools (the engine's kv_cache_int8): banks quantized on write
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('with_valid', [False, True])
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_int8_paged_write_matches_reference_bit_for_bit(seed, with_valid):
+    _, rows, table, pos, valid = _setup(seed, d=16)
+    rows = rows * np.float32(5)
+    v = valid if with_valid else None
+    jbank = jkv.init_paged_pool(1, 12, 4, 2, 16, jnp.float32,
+                                int8=True)['k']
+    jbank = {k: a[0] for k, a in jbank.items()}
+    want = jkv.paged_write(jbank, jnp.asarray(rows), jnp.asarray(table),
+                           jnp.asarray(pos),
+                           None if v is None else jnp.asarray(v))
+    tbank = tkv.init_paged_pool(1, 12, 4, 2, 16, torch.float32, 'cpu',
+                                int8=True)['k']
+    layer = two.kv_layer(tbank, 0)
+    out = tkv.paged_write(layer, torch.from_numpy(rows),
+                          torch.from_numpy(table), torch.from_numpy(pos),
+                          None if v is None else torch.from_numpy(v))
+    assert out is layer and layer['int8'].dtype == torch.int8
+    for k in ('int8', 'scale'):
+        # written in place, through the layer's views into the pool
+        np.testing.assert_array_equal(tbank[k][0].numpy(),
+                                      np.asarray(want[k]))
+    got = tkv.gather_virtual(layer, torch.from_numpy(table))
+    ref = jkv.gather_virtual(want, jnp.asarray(table))
+    for k in ('int8', 'scale'):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]))
+
+
+def test_int8_pool_layout_and_copy_page_match_reference():
+    pool = tkv.init_paged_pool(2, 5, 4, 3, 16, torch.bfloat16, 'cpu',
+                               int8=True)
+    ref = jkv.init_paged_pool(2, 5, 4, 3, 16, jnp.bfloat16, int8=True)
+    for plane in ('k', 'v'):
+        for k in ('int8', 'scale'):
+            assert tuple(pool[plane][k].shape) == tuple(ref[plane][k].shape)
+            assert not pool[plane][k].any()
+    assert pool['k']['int8'].dtype == torch.int8
+    assert pool['k']['scale'].dtype == torch.float32
+    assert two.kv_plane(pool['k']) is pool['k']['int8']
+    rng = np.random.RandomState(4)
+    for plane in ('k', 'v'):
+        pool[plane]['int8'].copy_(torch.from_numpy(
+            rng.randint(-127, 128, size=(2, 5, 4, 3, 16)).astype(np.int8)))
+        pool[plane]['scale'].copy_(torch.from_numpy(
+            rng.rand(2, 5, 4, 3).astype(np.float32)))
+    jpool = {p: {k: jnp.asarray(a.numpy()) for k, a in b.items()}
+             for p, b in pool.items()}
+    want = jkv.copy_page(jpool, 2, 4)
+    got = tkv.copy_page(pool, 2, 4)
+    for plane in ('k', 'v'):
+        for k in ('int8', 'scale'):
+            np.testing.assert_array_equal(got[plane][k].numpy(),
+                                          np.asarray(want[plane][k]))

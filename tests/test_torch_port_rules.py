@@ -50,6 +50,12 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f'{path.relative_to(ROOT)} imports {bad}'
 
 
+def test_the_scan_covers_the_training_modules():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob('*.py')}
+    assert {'optimizer/__init__.py', 'optimizer/optimizer.py',
+            'ops/xent.py', 'ops/flash_attention.py'} <= scanned
+
+
 def test_the_scan_sees_forbidden_imports(tmp_path):
     f = tmp_path / 'probe.py'
     f.write_text('import jax.numpy as jnp\nfrom paddle_tpu.ops import x\n'
@@ -122,6 +128,7 @@ def test_the_generate_model_raises_without_a_card(monkeypatch):
 @pytest.mark.parametrize('src,entries', [
     ('flash_decode.cu', ('flash_decode', 'flash_decode_int8')),
     ('flash_fwd.cu', ('flash_fwd',)),
+    ('flash_bwd.cu', ('flash_bwd_dq', 'flash_bwd_dkv')),
 ])
 def test_new_kernel_sources_export_their_c_entry_points(src, entries):
     text = (PORT / 'csrc' / src).read_text()
@@ -180,12 +187,64 @@ def test_a_cuda_call_raises_when_its_kernel_cannot_load(monkeypatch, op):
     assert getattr(tfa, op).launches == 0
 
 
+def test_the_paged_source_exports_the_int8_entry_point():
+    src = (PORT / 'csrc' / 'paged_decode.cu').read_text()
+    _, _, body = src.partition('extern "C" {')
+    assert 'int paged_decode_int8(' in body
+    assert 'dispatch_d<__nv_bfloat16, int8_t>' in src
+
+
+@pytest.mark.parametrize('op', ['flash_bwd', 'paged_decode_int8'])
+def test_a_cuda_training_or_int8_call_raises_when_its_kernel_cannot_load(
+        monkeypatch, op):
+    """Kernels 2, 3 and 7: a CUDA tensor launches the kernel or raises;
+    the plain twin never runs for it."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as tfa
+    from paddle_tpu_torch.ops import paged_attention as tpa
+
+    def no_library(name):
+        raise RuntimeError(f'nvcc not found building {name}')
+
+    def twin(*a, **k):
+        raise AssertionError('a CUDA tensor ran the plain twin')
+
+    monkeypatch.setattr(_build, 'load', no_library)
+    monkeypatch.setattr(tfa, '_libs', {})
+    monkeypatch.setattr(tpa, '_lib', None)
+    for mod, name in ((tfa, 'flash_bwd_reference'),
+                      (tpa, 'paged_decode_int8_reference'),
+                      (tpa, 'paged_decode_reference')):
+        monkeypatch.setattr(mod, name, twin)
+
+    def card(shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype).as_subclass(_CudaStandIn)
+
+    before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches,
+              tpa.paged_flash_decode_int8.launches)
+    with pytest.raises(RuntimeError, match=f'nvcc not found building '
+                       f'{op.replace("_int8", "")}'):
+        if op == 'flash_bwd':
+            x = card((2, 8, 4, 64))
+            lse = card((2, 4, 8), torch.float32)
+            tfa._flash_bwd(x, x, x, x, x, lse, True)
+        else:
+            bank = {'int8': card((3, 16, 4, 64), torch.int8),
+                    'scale': card((3, 16, 4), torch.float32)}
+            tpa.paged_attention(card((2, 1, 4, 64)), bank, bank,
+                                card((2, 2), torch.int32),
+                                card((2,), torch.int32))
+    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches,
+            tpa.paged_flash_decode_int8.launches) == before
+
+
 def test_a_header_edit_changes_every_build_digest(tmp_path):
     from paddle_tpu_torch.ops import _build
     csrc = tmp_path / 'csrc'
     shutil.copytree(PORT / 'csrc', csrc)
     names = sorted(p.stem for p in csrc.glob('*.cu'))
-    assert {'paged_decode', 'flash_decode', 'flash_fwd'} <= set(names)
+    assert {'paged_decode', 'flash_decode', 'flash_fwd',
+            'flash_bwd'} <= set(names)
     before = {n: _build.source_digest(n, csrc) for n in names}
     assert before == {n: _build.source_digest(n) for n in names}
     hdr = csrc / 'attention.cuh'
