@@ -12,7 +12,10 @@ non-zero:
  3. each kernel against its plain PyTorch twin on the card, at the shapes
     its main path gives it, plus GQA, float32 and other head-dim cases;
     max abs error against the stated tolerance (scaled to each output
-    row's size in bfloat16), kernel / plain / library times and the bound:
+    row's size in bfloat16), kernel / plain / library times and the bound;
+    for kernels 1 and 3, which instance ran (tensor-core for bfloat16, and
+    for kernel 3 at head dim 64 or 128; CUDA-core otherwise), failing when
+    a case took the other:
     paged_decode and paged_decode_int8 (the engine's decode T=1 at ragged
     positions, prefill T=1024), flash_decode and flash_decode_int8
     (generate()'s decode step and prefill), flash_fwd (forward() over
@@ -34,7 +37,8 @@ non-zero:
     int8 run's prefill logits within cosine 0.999 of the bf16 run's;
  7. forward() on [8, 1024] (flash_fwd launches == 24), then generate() on
     8 prompts of 1000 tokens with 32 new: 25 cached tokens and 7 on the
-    sliding window (flash_decode 24 x 25, flash_fwd 24 x 7 launches);
+    sliding window (flash_decode 24 x 25, flash_fwd 24 x 7 launches); every
+    flash_fwd launch of both on the tensor-core instance;
  8. card against CPU at 2 layers in float32: greedy generate() streams
     equal on the dense, int8 and window-crossing paths, forward() logits
     within 1e-3;
@@ -48,7 +52,8 @@ non-zero:
     xent_chunk 8192, targets = tokens): 2 warm-up and 8 timed steps on one
     batch; tokens/s, step ms, MFU, peak memory, a profiled step; launches
     per step flash_fwd 48 (24 + 24 recomputed under remat), flash_bwd_dq
-    24, flash_bwd_dkv 24; the loss finite and falling;
+    24, flash_bwd_dkv 24, every flash_fwd and flash_bwd_dkv launch on the
+    tensor-core instance; the loss finite and falling;
 12. the train step card against CPU at 2 layers in float32: the first
     step's gradients and a 6-step loss curve, dropout 0 and 0.1.
 Every launch counter is set to 0 just before each main-path run (phases 4,
@@ -263,18 +268,28 @@ GRAD_FLOOR = 0.01   # gradients: rows scaled by at least 1% of the tensor
 
 
 def hold_kernel(kname, name, kernel, call, twin, tol, timing=None,
-                lse=False, floor=0.0):
+                lse=False, floor=0.0, tensor_core=None):
     """Hold one kernel call against its twin on the same inputs, and on a
     main-path shape (``timing``: dict of ``iters``, ``bound`` as
     ``bound_of`` returns it, ``library(iters)``) time it. ``call(i)`` and
     ``twin(i)`` run on the inputs of layer i; with ``lse`` they return
-    (out, lse). The launches made here only compare and time, so the
-    kernel's counter is put back. Raises when the two disagree."""
+    (out, lse). ``tensor_core``: whether the call must take the kernel's
+    tensor-core instance (kernels 1 and 3 count those launches apart). The
+    launches made here only compare and time, so the kernel's counters are
+    put back. Raises when the two disagree or the wrong instance ran."""
     before = kernel.launches
+    tc_before = getattr(kernel, 'tc_launches', 0)
     got = call(0)
     torch.cuda.synchronize()
     want = twin(0)
     rec = {}
+    if tensor_core is not None:
+        took = getattr(kernel, 'tc_launches', 0) > tc_before
+        rec['instance'] = 'tensor-core' if took else 'cuda-core'
+        if took != tensor_core:
+            raise AssertionError(
+                f'{kname} {name}: ran the {rec["instance"]} instance, want '
+                f'{"tensor-core" if tensor_core else "cuda-core"}')
     if lse:
         (got, got_lse), (want, want_lse) = got, want
         rec['lse_err'] = (got_lse - want_lse).abs().max().item()
@@ -292,11 +307,13 @@ def hold_kernel(kname, name, kernel, call, twin, tol, timing=None,
                    library_ms=timing['library'](it), bound_ms=b_ms,
                    bound_by=b_by, bytes=nbytes, ops=ops)
     kernel.launches = before
+    if tensor_core is not None:
+        kernel.tc_launches = tc_before
     ok = math.isfinite(err) and rel <= tol
-    extra = ''
+    extra = f'; {rec["instance"]} instance' if tensor_core is not None else ''
     if lse:
         ok = ok and rec['lse_err'] <= LSE_TOL
-        extra = f'; lse {rec["lse_err"]:.3e} (tol {LSE_TOL:g})'
+        extra += f'; lse {rec["lse_err"]:.3e} (tol {LSE_TOL:g})'
     if timing:
         extra += (f'; kernel {rec["ms"]:.4f} ms (events '
                   f'{rec["ms_events"]:.4f}), plain {rec["plain_ms"]:.4f} ms,'
@@ -398,6 +415,8 @@ FWD_CASES = [
     ('fwd_S1024', dict(b=8, s=1024, h=16, h_kv=16, d=64, dtype=BF16), True),
     ('fwd_S300_gqa_d128_f32', dict(b=2, s=300, h=8, h_kv=4, d=128,
                                    dtype=F32), False),
+    ('fwd_S300_gqa_d128', dict(b=2, s=300, h=8, h_kv=4, d=128, dtype=BF16),
+     False),
     ('fwd_S200_mask_noncausal', dict(b=2, s=200, h=4, h_kv=4, d=64,
                                      dtype=BF16, causal=False, masked=True),
      False),
@@ -415,6 +434,8 @@ BWD_CASES = [
                                drop=0.1), True),
     ('bwd_S300_gqa_d128_f32', dict(b=2, s=300, h=8, h_kv=4, d=128,
                                    dtype=F32), False),
+    ('bwd_S300_gqa_d128', dict(b=2, s=300, h=8, h_kv=4, d=128, dtype=BF16),
+     False),
     ('bwd_S512_f32', dict(b=2, s=512, h=4, h_kv=4, d=64, dtype=F32), False),
     ('bwd_S200_mask_noncausal_drop0.25', dict(b=2, s=200, h=4, h_kv=2, d=64,
                                               dtype=BF16, causal=False,
@@ -571,7 +592,8 @@ def dense_kernel_cases(fa, timed_iters):
             'flash_fwd', name, fa.flash_fwd,
             lambda i: fa.flash_fwd(*args(i), **extra),
             lambda i: fa.flash_fwd_reference(*args(i), **extra),
-            TOL[kw['dtype']], timing, lse=True)
+            TOL[kw['dtype']], timing, lse=True,
+            tensor_core=kw['dtype'] == BF16)
         del c
         torch.cuda.empty_cache()
     return results
@@ -642,11 +664,15 @@ def bwd_kernel_cases(fa, timed_iters):
             timing = (dict(iters=max(4, timed_iters // 4),
                            bound=bwd_bound(c, dots), library=lib_ms)
                       if timed else None)
+            # kernel 3 runs its tensor-core instance for bf16 at head dim
+            # 64 and 128; kernel 2 has one instance
+            tc = (kw['dtype'] == BF16 and kw['d'] in (64, 128)
+                  if kname == 'flash_bwd_dkv' else None)
             results[kname][name] = hold_kernel(
                 kname, name, kern,
                 lambda i: kern(*inputs(i), **extra),
                 lambda i: pick(fa.flash_bwd_reference(*inputs(i), **extra)),
-                TOL[kw['dtype']], timing, floor=GRAD_FLOOR)
+                TOL[kw['dtype']], timing, floor=GRAD_FLOOR, tensor_core=tc)
         del c, fwd, delta
         torch.cuda.empty_cache()
     return results
@@ -843,10 +869,29 @@ def phase_card_vs_cpu(gpt, GenerationEngine):
 def zero_launches(kernels):
     for k in kernels.values():
         k.launches = 0
+        if hasattr(k, 'tc_launches'):
+            k.tc_launches = 0
 
 
 def launch_counts(kernels):
     return {name: k.launches for name, k in kernels.items()}
+
+
+TC_KERNELS = ('flash_fwd', 'flash_bwd_dkv')   # count tensor-core launches
+
+
+def expect_tensor_core(what, kernels):
+    """Every launch of kernels 1 and 3 since their counters were zeroed
+    took the tensor-core instance (the bf16 main paths). -> the counts."""
+    got = {name: (kernels[name].tc_launches, kernels[name].launches)
+           for name in TC_KERNELS}
+    bad = {k: v for k, v in got.items() if v[0] != v[1]}
+    if bad:
+        raise AssertionError(f'{what}: CUDA-core launches of the bf16 '
+                             f'path (tensor-core, all): {bad}')
+    tc = {k: v[0] for k, v in got.items()}
+    print(f'  tensor-core launches {what}: {tc}', flush=True)
+    return tc
 
 
 def expect_launches(what, got, want):
@@ -961,6 +1006,7 @@ def phase_forward_sliding(gpt, model, kernels, card):
     fwd_launches = launch_counts(kernels)
     expect_launches('forward [8, 1024]', fwd_launches,
                     {'flash_fwd': cfg.num_layers})
+    fwd_tc = expect_tensor_core('forward [8, 1024]', kernels)
     if (tuple(logits.shape) != (b, s, cfg.vocab_size)
             or not torch.isfinite(logits).all()):
         raise AssertionError(f'forward logits {tuple(logits.shape)}, '
@@ -978,11 +1024,13 @@ def phase_forward_sliding(gpt, model, kernels, card):
                     f'{new - cached} sliding)', launches,
                     {'flash_decode': cfg.num_layers * cached,
                      'flash_fwd': cfg.num_layers * (new - cached)})
+    slide_tc = expect_tensor_core('generate past the window', kernels)
     _, slide_s = timed(lambda: model._generate_sliding(
         out[:, -s:], 1, 0, None))
     res = {'forward_ms': fwd_s * 1e3, 'wall_s': wall,
            'tokens_per_s': b * new / wall, 'sliding_step_ms': slide_s * 1e3,
            'forward_launches': fwd_launches, 'launches': launches,
+           'tensor_core_launches': {'forward': fwd_tc, 'sliding': slide_tc},
            'forward_profile': prof}
     print(f'  forward [8, 1024]: {res["forward_ms"]:.2f} ms; generate '
           f'{b} x {new} past the window in {wall:.3f} s '
@@ -1292,6 +1340,7 @@ def phase_train(gpt, topt, kernels, card):
     launches = launch_counts(kernels)
     expect_launches(f'{n} timed train steps', launches,
                     {k: n * v for k, v in per_step.items()})
+    train_tc = expect_tensor_core(f'{n} timed train steps', kernels)
     vals = [float(x) for x in losses]
     if not all(math.isfinite(x) for x in vals):
         raise AssertionError(f'non-finite train loss {vals}')
@@ -1303,7 +1352,8 @@ def phase_train(gpt, topt, kernels, card):
            'tokens_per_s': tok_s,
            'mfu': 6 * n_params * tok_s / PEAK_BF16,
            'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9,
-           'launches': launches, 'profile': prof}
+           'launches': launches, 'tensor_core_launches': train_tc,
+           'profile': prof}
     print(f'  train step at full width ({n_params / 1e6:.1f}M params, '
           f'[{b}, {s}], bf16, remat dots): {res["step_ms"]:.1f} ms a step, '
           f'{tok_s:.0f} tokens/s, MFU {100 * res["mfu"]:.2f}% of 989 '

@@ -1,6 +1,8 @@
 // Device code shared by the port's attention kernels, for NVIDIA Hopper
-// (sm_90a): element loaders, warp reductions, the row loader, and the
-// attention-tile kernel that flash_decode.cu and flash_fwd.cu instantiate.
+// (sm_90a): element loaders, warp reductions, the row loader, the dropout
+// hash, and the attention-tile kernel that flash_decode.cu instantiates
+// (kernels 4 and 5) and flash_fwd.cu instantiates for float32 (kernel 1's
+// bf16 instance is the tensor-core kernel of flash_fwd.cu).
 //
 // The attention-tile kernel computes, for one (batch b, query head h, tile
 // of up to 64 q rows), the function of the reference's Pallas kernels
@@ -365,7 +367,13 @@ int launch_tile_d(int D, const TileArgs& a, int B, cudaStream_t stream) {
   return -1;
 }
 
+// Codes the C entry points return beside cudaError_t (which is >= 0).
+constexpr int ERR_NO_INSTANCE = -1;
+constexpr int ERR_TENSOR_MAP = -2;
+
 inline const char* error_string(int code) {
+  if (code == ERR_TENSOR_MAP)
+    return "cuTensorMapEncodeTiled refused an operand's layout";
   if (code < 0) return "no kernel instance for this dtype / head_dim";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

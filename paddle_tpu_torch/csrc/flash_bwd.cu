@@ -18,29 +18,50 @@
 // strides (the head dim contiguous): q/k/v may be strided views of the
 // packed qkv projection. lse and delta are [B, H, S_q] f32.
 //
-// Design. flash_bwd_dq: a block per (b, query head h, BT q rows) holds its
-// q, dO, lse and delta rows in shared memory and walks key chunks of BT up
-// to its last row's causal limit; dq stays in registers. flash_bwd_dkv: a
-// block per (b, kv head, BT key rows) holds its K and V rows and walks q
-// chunks of BT from the first one that can see its keys (the reference's
-// start block), for each query head of the GQA group in turn, summing the
-// group's dk/dv in f32 registers: no atomics and no per-head partial
-// buffer. (The reference rounds each head's partial to k's dtype before
-// its f32 sum; in bf16 the two differ by that rounding.) The dots run on
-// CUDA cores in f32 from shared memory, a thread per key for the score
-// tile (s and dp together) and a thread per output column for the
-// products, as in the forward tile of attention.cuh.
-//
 // Bound. At the train step's shape (B = 8, S = 1024, H = 16, D = 64,
 // causal, bf16) kernel 2 does three causal dots (s, dp, ds.K), ~25.8 GFLOP
 // (26 us on the tensor cores), and kernel 3 four (s, dp, pd.dO, ds.Q),
 // ~34.4 GFLOP (35 us), over ~85 MB and ~118 MB of operands (25 us and
-// 35 us at 3.35 TB/s). These kernels do their dots on CUDA cores in f32 from
-// shared memory, so they are bound by operations (shared-memory traffic
-// in practice) far above that; wgmma with TMA-fed tiles is the later step.
-// Both skip the tiles the causal mask hides entirely, halving the work of
-// a full sweep.
+// 35 us at 3.35 TB/s): bound by operations on the tensor cores. Both skip
+// the tiles the causal mask hides entirely, halving the work of a full
+// sweep.
+//
+// flash_bwd_dq (every dtype) and flash_bwd_dkv in float32 or at D = 256:
+// CUDA-core kernels. A block per (b, query head h, BT q rows) holds its q,
+// dO, lse and delta rows in shared memory and walks key chunks of BT up to
+// its last row's causal limit; dq stays in registers. The dkv kernel: a
+// block per (b, kv head, BT key rows) holds its K and V rows and walks q
+// chunks of BT from the first one that can see its keys (the reference's
+// start block), for each query head of the GQA group in turn. The dots run
+// on CUDA cores in f32 from shared memory, a thread per key for the score
+// tile (s and dp together) and a thread per output column for the
+// products. float32 stays here because a TF32 product would not hold its
+// tolerance of 2e-5 against the twin; D = 256 in bf16 because the
+// tensor-core kernel's f32 dK and dV of 64 keys x 256 would take every
+// register a thread has.
+//
+// flash_bwd_dkv in bf16 at D = 64 and 128 (flash_bwd_dkv_tc_kernel): a
+// block of 384 threads owns 128 keys of one (b, kv head): two consumer
+// warpgroups of 64 keys and a producer warp (in a warpgroup of its own,
+// which hands its registers to the consumers). The block's K and V rows stay
+// in shared memory; the producer streams q and dO chunks of BQ rows by TMA
+// (their lse and delta copied beside them by its lanes) through a ring of
+// slots, from the first chunk that can see the block's keys, for each
+// query head of the GQA group. Per chunk each warpgroup computes, with
+// wgmma, S^T = K Q^T and dP^T = V dO^T (operands in shared memory, both
+// K-major), then P^T = exp(S^T - lse) and dS^T = P^T (dP^T x mult - delta)
+// in the accumulator fragments (lse and delta per column, the masks and
+// the dropout hash from each element's (key, q row)), and
+// dV += (P^T x mult, bf16) dO and dK += (dS^T, bf16) Q with the rounded
+// fragments as the A operands in registers and dO, Q read MN-major. dK and
+// dV stay in f32 registers over the whole group (no atomics, no partial
+// buffers) and are written once.
+//
+// Both dkv kernels sum the GQA group's dk/dv in f32 inside the block. (The
+// reference rounds each head's partial to k's dtype before its f32 sum; in
+// bf16 the two differ by that rounding.)
 #include "attention.cuh"
+#include "tc_attention.cuh"
 
 namespace {
 
@@ -326,6 +347,269 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// kernel 3 in bf16: the tensor-core dK/dV kernel
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BN = 128;               // keys per block
+// two consumer warpgroups, then the producer's: its first warp copies; the
+// group exists so that it can hand its registers over
+constexpr int TC_THREADS = 3 * tc::WG;
+
+template <int D> struct DkvTile {
+  static constexpr int BQ = D == 64 ? 64 : 32;     // q rows per chunk
+  static constexpr int STAGES = 3;                 // ring slots
+  static constexpr int PANELS = D / 64;            // 64-wide head-dim panels
+  static constexpr int KV_BYTES = TC_BN * D * 2;   // the block's K, or V
+  static constexpr int QG_BYTES = BQ * D * 2;      // one q or dO chunk
+  static constexpr int SLOT = 2 * QG_BYTES;        // q and dO (1 KB multiple)
+  static constexpr int STATS = 2 * BQ * 4;         // a slot's lse and delta
+  static constexpr int SMEM =
+      2 * KV_BYTES + STAGES * (SLOT + STATS) + 64 * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_g,
+                        const BwdArgs a) {
+  using Tile = DkvTile<D>;
+  constexpr int BQ = Tile::BQ, ST = Tile::STAGES, PN = Tile::PANELS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_s = tc::align1024(smem_raw);        // [PN][TC_BN][64]
+  uint8_t* v_s = k_s + Tile::KV_BYTES;           // [PN][TC_BN][64]
+  uint8_t* slots = v_s + Tile::KV_BYTES;         // [ST] x {q, dO}
+  float* stats = reinterpret_cast<float*>(slots + ST * Tile::SLOT);
+                                                 // [ST] x {lse, delta}[BQ]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(stats) + ST * Tile::STATS);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + ST;
+
+  const int b = blockIdx.x / a.H_kv, hk = blockIdx.x % a.H_kv;
+  const int k0 = blockIdx.y * TC_BN;     // causal: the longest blocks first
+  const int grp = a.H / a.H_kv;
+  // causal: the first q row that can see key k0; keys at or past n_keys see
+  // nothing, so a block past it walks no chunk and writes zeros
+  const int q_first = a.causal ? max(0, k0 - a.q_off) : 0;
+  const int q_end = k0 < a.n_keys ? a.s_q : q_first;
+  const int n_q = (q_end - q_first + BQ - 1) / BQ;     // chunks per head
+
+  if (threadIdx.x == 0) {
+    tc::bar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      tc::bar_init(&full[s], 32);       // every producer lane
+      tc::bar_init(&empty[s], 2);       // one arrival per consumer warpgroup
+    }
+    tc::bar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp >= 8) {
+    tc::regs_producer();
+    if (warp > 8) return;
+    // producer: lane 0 issues the copies, every lane copies lse and delta
+    if (lane == 0) {
+      tc::bar_expect_tx(kv_full, 2 * Tile::KV_BYTES);
+      for (int p = 0; p < PN; ++p) {
+        tc::tma_load(k_s + p * TC_BN * tc::ROW_BYTES, &tm_k, kv_full, 64 * p,
+                     hk, k0, b);
+        tc::tma_load(v_s + p * TC_BN * tc::ROW_BYTES, &tm_v, kv_full, 64 * p,
+                     hk, k0, b);
+      }
+    }
+    for (int j = 0; j < grp * n_q; ++j) {
+      const int s = j % ST;
+      const int hq = hk * grp + j / n_q;
+      const int q0 = q_first + (j % n_q) * BQ;
+      if (j >= ST) tc::bar_wait(&empty[s], ((j / ST) - 1) & 1);
+      uint8_t* slot = slots + s * Tile::SLOT;
+      float* lse_s = stats + s * 2 * BQ;
+      float* dta_s = lse_s + BQ;
+      // rows past S_q: lse = +inf makes their p 0
+      const size_t base = ((size_t)b * a.H + hq) * a.s_q;
+      for (int r = lane; r < BQ; r += 32) {
+        const bool in = q0 + r < a.s_q;
+        lse_s[r] = in ? a.lse[base + q0 + r] : INFINITY;
+        dta_s[r] = in ? a.delta[base + q0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        tc::bar_expect_tx(&full[s], 2 * Tile::QG_BYTES);
+        for (int p = 0; p < PN; ++p) {
+          tc::tma_load(slot + p * BQ * tc::ROW_BYTES, &tm_q, &full[s], 64 * p,
+                       hq, q0, b);
+          tc::tma_load(slot + Tile::QG_BYTES + p * BQ * tc::ROW_BYTES, &tm_g,
+                       &full[s], 64 * p, hq, q0, b);
+        }
+      } else {
+        tc::bar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  tc::regs_consumer();
+  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63
+  const int wg = warp / 4;
+  const int t = threadIdx.x % tc::WG;
+  const int key0 = k0 + 64 * wg;                        // first key of the wg
+  const int kr = key0 + 16 * (t / 32) + lane / 4;  // fragment rows kr, kr + 8
+  const int cq = 2 * (lane % 4);               // columns 8 n + cq + {0, 1}
+  const uint32_t k_addr = tc::smem_u32(k_s) + 64 * wg * tc::ROW_BYTES;
+  const uint32_t v_addr = tc::smem_u32(v_s) + 64 * wg * tc::ROW_BYTES;
+  // per fragment row: the key mask, and whether the key is past n_keys
+  float madd[2];
+  bool dead[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kr + 8 * i;
+    dead[i] = key >= a.n_keys;
+    madd[i] = (a.kmask && !dead[i]) ? a.kmask[b * a.m_sb + key] : 0.f;
+  }
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  tc::bar_wait(kv_full, 0);
+  for (int j = 0; j < grp * n_q; ++j) {
+    const int s = j % ST;
+    const uint32_t ph = (j / ST) & 1;
+    const int hq = hk * grp + j / n_q;
+    const int q0 = q_first + (j % n_q) * BQ;
+    const uint32_t drow = (uint32_t)(b * a.H + hq);
+    uint8_t* slot = slots + s * Tile::SLOT;
+    const uint32_t q_addr = tc::smem_u32(slot);
+    const uint32_t g_addr = q_addr + Tile::QG_BYTES;
+    const float* lse_s = stats + s * 2 * BQ;
+    const float* dta_s = lse_s + BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T over D in k16 steps
+    float st[BQ / 2], dpt[BQ / 2];
+    tc::bar_wait(&full[s], ph);
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;          // 16 values into the row
+      const uint32_t kp = (kk / 4) * TC_BN * tc::ROW_BYTES + off;
+      const uint32_t qp = (kk / 4) * BQ * tc::ROW_BYTES + off;
+      tc::WgmmaSS<BQ>::mma(st, tc::desc(k_addr + kp, 16, 1024),
+                           tc::desc(q_addr + qp, 16, 1024), kk > 0);
+      tc::WgmmaSS<BQ>::mma(dpt, tc::desc(v_addr + kp, 16, 1024),
+                           tc::desc(g_addr + qp, 16, 1024), kk > 0);
+    }
+    tc::wg_commit();
+    tc::wg_wait();
+    tc::reg_fence(st);
+    tc::reg_fence(dpt);
+
+    // P^T, then pd = P^T x mult and dS^T = P^T (dP^T x mult - delta); the
+    // causal mask only where the chunk reaches below a key's first row
+    const bool diag = a.causal && q0 + a.q_off < key0 + 63;
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) {
+      const float2 ls = *reinterpret_cast<const float2*>(lse_s + 8 * n + cq);
+      const float2 dl = *reinterpret_cast<const float2*>(dta_s + 8 * n + cq);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int q = q0 + 8 * n + cq + jj;
+        const float lq = jj ? ls.y : ls.x, dlq = jj ? dl.y : dl.x;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int idx = 4 * n + 2 * i + jj;
+          const int key = kr + 8 * i;
+          float sv = st[idx] * a.scale + madd[i];
+          if (dead[i] || (diag && key > a.q_off + q)) sv = NEG_INF;
+          const float p = exp2f((sv - lq) * tc::LOG2E);
+          float dp = dpt[idx], pd = p;
+          if (a.drop.dropout) {
+            const float mult =
+                dropout_keep(a.drop.seed, drow, q, key, a.drop.thr)
+                    ? a.drop.mult : 0.f;
+            dp *= mult;
+            pd = p * mult;
+          }
+          st[idx] = pd;
+          dpt[idx] = p * (dp - dlq);
+        }
+      }
+    }
+    uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      tc::to_a(st, kk, pa[kk]);
+      tc::to_a(dpt, kk, sa[kk]);
+    }
+
+    // dV += pd dO and dK += dS Q over the chunk's q rows in k16 steps
+    tc::reg_fence(dv);
+    tc::reg_fence(dk);
+    tc::reg_fence(pa);
+    tc::reg_fence(sa);
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint32_t rows = kk * 16 * tc::ROW_BYTES;
+      tc::WgmmaRS<D>::mma(dv, pa[kk],
+                          tc::desc(g_addr + rows, BQ * tc::ROW_BYTES, 1024));
+      tc::WgmmaRS<D>::mma(dk, sa[kk],
+                          tc::desc(q_addr + rows, BQ * tc::ROW_BYTES, 1024));
+    }
+    tc::wg_commit();
+    tc::wg_wait();
+    tc::reg_fence(dv);
+    tc::reg_fence(dk);
+    if (t == 0) tc::bar_arrive(&empty[s]);
+  }
+
+  // dk = scale x dK, dv = dV, in bf16, [B, S_k, H_kv, D] contiguous
+  __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(a.dk);
+  __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(a.dv);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kr + 8 * i;
+    if (key >= a.s_k) continue;
+    const size_t o = (((size_t)b * a.s_k + key) * a.H_kv + hk) * D + cq;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(dkp + o + 8 * n) = tc::pack_bf16(
+          dk[4 * n + 2 * i] * a.scale, dk[4 * n + 2 * i + 1] * a.scale);
+      *reinterpret_cast<uint32_t*>(dvp + o + 8 * n) =
+          tc::pack_bf16(dv[4 * n + 2 * i], dv[4 * n + 2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_tc(const BwdArgs& a, int B, cudaStream_t stream) {
+  using Tile = DkvTile<D>;
+  if (B == 0 || a.s_k == 0 || a.H_kv == 0) return 0;
+  CUtensorMap mq, mk, mv, mg;
+  int e = tc::make_map(&mq, a.q, B, a.s_q, a.H, D, a.q_sb, a.q_ss, a.q_sh,
+                       Tile::BQ);
+  if (e == 0)
+    e = tc::make_map(&mg, a.g, B, a.s_q, a.H, D, a.g_sb, a.g_ss, a.g_sh,
+                     Tile::BQ);
+  if (e == 0)
+    e = tc::make_map(&mk, a.k, B, a.s_k, a.H_kv, D, a.k_sb, a.k_ss, a.k_sh,
+                     TC_BN);
+  if (e == 0)
+    e = tc::make_map(&mv, a.v, B, a.s_k, a.H_kv, D, a.k_sb, a.k_ss, a.k_sh,
+                     TC_BN);
+  if (e != 0) return e;
+  auto kern = flash_bwd_dkv_tc_kernel<D>;
+  cudaError_t ce = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
+  if (ce != cudaSuccess) return (int)ce;
+  const dim3 grid(B * a.H_kv, (a.s_k + TC_BN - 1) / TC_BN);
+  kern<<<grid, TC_THREADS, Tile::SMEM, stream>>>(mq, mk, mv, mg, a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch(const BwdArgs& a, int B, bool dkv, cudaStream_t stream) {
   constexpr int BT = tile_rows<D>();
@@ -351,7 +635,7 @@ int launch_d(int D, const BwdArgs& a, int B, bool dkv, cudaStream_t stream) {
     case 128: return launch<T, 128>(a, B, dkv, stream);
     case 256: return launch<T, 256>(a, B, dkv, stream);
   }
-  return -1;
+  return ERR_NO_INSTANCE;
 }
 
 int run(const void* q, const void* k, const void* v, const void* g,
@@ -361,7 +645,8 @@ int run(const void* q, const void* k, const void* v, const void* g,
         long long k_ss, long long k_sh, long long m_sb, int B, int S_q,
         int S_k, int H, int H_kv, int D, int n_keys, int causal, int q_off,
         int dropout, unsigned int seed, float drop_thr, float drop_mult,
-        int dtype, void* stream, bool dkv) {
+        int dtype, int* tc, void* stream, bool dkv) {
+  *tc = 0;
   BwdArgs a{};
   a.q = q; a.k = k; a.v = v; a.g = g;
   a.lse = static_cast<const float*>(lse);
@@ -380,8 +665,16 @@ int run(const void* q, const void* k, const void* v, const void* g,
   a.drop = Dropout{dropout, seed, drop_thr, drop_mult};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_d<float>(D, a, B, dkv, s);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(D, a, B, dkv, s);
-  return -1;
+  if (dtype != 1) return ERR_NO_INSTANCE;
+  // bf16 dk/dv at D = 64 and 128: the tensor-core kernel, chosen by dtype
+  // and head dim (never after a failed launch)
+  if (dkv && (D == 64 || D == 128)) {
+    const int e = D == 64 ? launch_dkv_tc<64>(a, B, s)
+                          : launch_dkv_tc<128>(a, B, s);
+    if (e == 0) *tc = 1;
+    return e;
+  }
+  return launch_d<__nv_bfloat16>(D, a, B, dkv, s);
 }
 
 }  // namespace
@@ -396,8 +689,11 @@ extern "C" {
 // flash_bwd_dq writes dq [B, S_q, H, D] contiguous (dk, dv unused, may be
 // null); flash_bwd_dkv writes dk, dv [B, S_k, H_kv, D] contiguous (dq
 // unused). dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs
-// alike). Launch on `stream`; return cudaGetLastError() after the launch
-// (0 on success), or -1 for a dtype/head_dim with no instance.
+// alike). *tc is set to 1 when the tensor-core kernel was launched (bf16
+// dk/dv at D = 64 or 128), else 0. Launch on `stream`; return
+// cudaGetLastError() after the launch (0 on success), ERR_TENSOR_MAP when a
+// tensor map cannot describe an operand, or -1 for a dtype/head_dim with
+// no instance.
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                  const void* lse, const void* delta, const void* kmask,
                  void* dq, void* dk, void* dv, long long q_sb, long long q_ss,
@@ -406,11 +702,11 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                  long long k_sh, long long m_sb, int B, int S_q, int S_k,
                  int H, int H_kv, int D, int n_keys, int causal, int q_off,
                  int dropout, unsigned int seed, float drop_thr,
-                 float drop_mult, int dtype, void* stream) {
+                 float drop_mult, int dtype, int* tc, void* stream) {
   return run(q, k, v, g, lse, delta, kmask, dq, dk, dv, q_sb, q_ss, q_sh,
              g_sb, g_ss, g_sh, k_sb, k_ss, k_sh, m_sb, B, S_q, S_k, H, H_kv,
              D, n_keys, causal, q_off, dropout, seed, drop_thr, drop_mult,
-             dtype, stream, false);
+             dtype, tc, stream, false);
 }
 
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
@@ -421,11 +717,12 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                   long long k_ss, long long k_sh, long long m_sb, int B,
                   int S_q, int S_k, int H, int H_kv, int D, int n_keys,
                   int causal, int q_off, int dropout, unsigned int seed,
-                  float drop_thr, float drop_mult, int dtype, void* stream) {
+                  float drop_thr, float drop_mult, int dtype, int* tc,
+                  void* stream) {
   return run(q, k, v, g, lse, delta, kmask, dq, dk, dv, q_sb, q_ss, q_sh,
              g_sb, g_ss, g_sh, k_sb, k_ss, k_sh, m_sb, B, S_q, S_k, H, H_kv,
              D, n_keys, causal, q_off, dropout, seed, drop_thr, drop_mult,
-             dtype, stream, true);
+             dtype, tc, stream, true);
 }
 
 const char* attn_error_string(int code) { return attn::error_string(code); }

@@ -21,6 +21,13 @@ PyTorch twin:
 ``_Flash`` (a ``torch.autograd.Function``, the counterpart of the
 reference's ``_flash`` custom_vjp) joins kernel 1 to kernels 2 and 3.
 
+In bfloat16, kernel 1 and kernel 3 (head dim 64 or 128) run on the tensor
+cores (``wgmma`` fed by TMA, ``csrc/tc_attention.cuh``); float32 keeps
+their CUDA-core instances, whose f32 products hold the twins' 2e-5 where
+TF32 would not. The library picks the instance by dtype and head dim,
+never after a failed launch; ``tc_launches`` on each wrapper counts the
+tensor-core launches beside ``launches``.
+
 The dispatching entries (``flash_attention``, ``_flash_fwd``,
 ``_flash_bwd``, ``decode_attention``) pick by q's device, as
 ``ops/paged_attention.py`` does: a CPU tensor runs the twin, a CUDA tensor
@@ -493,16 +500,18 @@ def flash_decode_int8_reference(q, k_bank, v_bank, pos):
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _U32, _F32 = ctypes.c_uint32, ctypes.c_float
+_FLAG = ctypes.POINTER(ctypes.c_int)     # set to 1 by a tensor-core launch
 # pointers, element strides, ints, the dropout arguments, then the stream
 # (csrc/*.cu, extern "C")
 _DECODE_ARGS = [_P] * 8 + [_I64] * 6 + [_I32] * 7 + [_P]
 _DROP_ARGS = [_I32, _U32, _F32, _F32]
-_BWD_ARGS = [_P] * 10 + [_I64] * 10 + [_I32] * 9 + _DROP_ARGS + [_I32, _P]
+_BWD_ARGS = ([_P] * 10 + [_I64] * 10 + [_I32] * 9 + _DROP_ARGS
+             + [_I32, _FLAG, _P])
 _ENTRY_POINTS = {
     'flash_decode': {'flash_decode': _DECODE_ARGS,
                      'flash_decode_int8': _DECODE_ARGS},
     'flash_fwd': {'flash_fwd': [_P] * 6 + [_I64] * 7 + [_I32] * 9
-                  + _DROP_ARGS + [_P]},
+                  + _DROP_ARGS + [_FLAG, _P]},
     'flash_bwd': {'flash_bwd_dq': _BWD_ARGS, 'flash_bwd_dkv': _BWD_ARGS},
 }
 _libs = {}
@@ -688,13 +697,16 @@ def flash_fwd(q, k, v, causal, q_off=0, kv_valid=None, kmask=None,
     returns them); ``kmask`` additive f32 [B, S_k] (a zero batch stride
     broadcasts one row); ``drop_rate``/``seed`` (a u32) attention dropout
     -> (out [B,S_q,H,D] contiguous in q's dtype, lse [B,H,S_q] f32).
-    ``flash_fwd.launches`` counts launches."""
+    bfloat16 runs the tensor-core kernel, float32 the CUDA-core tile (the
+    library picks by dtype). ``flash_fwd.launches`` counts launches,
+    ``flash_fwd.tc_launches`` those of the tensor-core kernel."""
     b, s_q, h, d, s_k, h_kv = _check_attn_args(q, k, v, kmask, 'flash_fwd')
     dev = q.device
     n_keys = s_k if kv_valid is None else max(0, min(s_k, int(kv_valid)))
     lib = _kernel_lib('flash_fwd')
     out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=dev)
+    tc = ctypes.c_int(0)
     with torch.cuda.device(dev):
         err = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -704,13 +716,16 @@ def flash_fwd(q, k, v, causal, q_off=0, kv_valid=None, kmask=None,
             k.stride(0), k.stride(1), k.stride(2),
             0 if kmask is None else kmask.stride(0),
             b, s_q, h, h_kv, d, n_keys, int(bool(causal)), int(q_off),
-            _DTYPE_CODE[q.dtype], *_drop_args(drop_rate, seed), _stream(dev))
+            _DTYPE_CODE[q.dtype], *_drop_args(drop_rate, seed),
+            ctypes.byref(tc), _stream(dev))
     _launch_done(lib, err, 'flash_fwd')
     flash_fwd.launches += 1
+    flash_fwd.tc_launches += tc.value
     return out, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.tc_launches = 0
 
 
 def _bwd_launch(entry, q, k, v, g, lse, delta, causal, q_off, kv_valid,
@@ -727,6 +742,7 @@ def _bwd_launch(entry, q, k, v, g, lse, delta, causal, q_off, kv_valid,
                              "q's device")
     n_keys = s_k if kv_valid is None else max(0, min(s_k, int(kv_valid)))
     lib = _kernel_lib('flash_bwd')
+    tc = ctypes.c_int(0)
     if entry == 'flash_bwd_dq':
         outs = (torch.empty((b, s_q, h, d), dtype=q.dtype, device=dev),)
         ptrs = (outs[0].data_ptr(), 0, 0)
@@ -744,9 +760,10 @@ def _bwd_launch(entry, q, k, v, g, lse, delta, causal, q_off, kv_valid,
             k.stride(0), k.stride(1), k.stride(2),
             0 if kmask is None else kmask.stride(0),
             b, s_q, s_k, h, h_kv, d, n_keys, int(bool(causal)), int(q_off),
-            *_drop_args(drop_rate, seed), _DTYPE_CODE[q.dtype], _stream(dev))
+            *_drop_args(drop_rate, seed), _DTYPE_CODE[q.dtype],
+            ctypes.byref(tc), _stream(dev))
     _launch_done(lib, err, entry)
-    return outs
+    return outs, tc.value
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, causal, q_off=0, kv_valid=None,
@@ -756,8 +773,8 @@ def flash_bwd_dq(q, k, v, g, lse, delta, causal, q_off=0, kv_valid=None,
     forward's ``lse`` and ``delta = bwd_delta(out, g)`` ([B,H,S_q] f32);
     the mask and dropout arguments are the forward's.
     ``flash_bwd_dq.launches`` counts launches."""
-    dq, = _bwd_launch('flash_bwd_dq', q, k, v, g, lse, delta, causal, q_off,
-                      kv_valid, kmask, drop_rate, seed)
+    (dq,), _ = _bwd_launch('flash_bwd_dq', q, k, v, g, lse, delta, causal,
+                           q_off, kv_valid, kmask, drop_rate, seed)
     flash_bwd_dq.launches += 1
     return dq
 
@@ -769,15 +786,21 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, causal, q_off=0, kv_valid=None,
                   kmask=None, drop_rate=0.0, seed=None):
     """Kernel 3 on the card: (dk, dv) [B,S_k,H_kv,D] (contiguous, k's
     dtype), each kv head's gradient summed over its query group in f32;
-    arguments as ``flash_bwd_dq``. ``flash_bwd_dkv.launches`` counts
-    launches."""
-    dk, dv = _bwd_launch('flash_bwd_dkv', q, k, v, g, lse, delta, causal,
-                         q_off, kv_valid, kmask, drop_rate, seed)
+    arguments as ``flash_bwd_dq``. bfloat16 at head dim 64 or 128 runs the
+    tensor-core kernel, float32 and head dim 256 the CUDA-core kernel (the
+    library picks by dtype and head dim). ``flash_bwd_dkv.launches`` counts
+    launches, ``flash_bwd_dkv.tc_launches`` those of the tensor-core
+    kernel."""
+    (dk, dv), tc = _bwd_launch('flash_bwd_dkv', q, k, v, g, lse, delta,
+                               causal, q_off, kv_valid, kmask, drop_rate,
+                               seed)
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.tc_launches += tc
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -810,7 +833,9 @@ def _flash_bwd(q, k, v, g, out, lse, causal, q_off=0, kv_valid=None,
     if _on(q, '_flash_bwd') == 'cpu':
         return flash_bwd_reference(q, k, v, g, lse, delta, *args)
     g = g.to(q.dtype)
-    if g.stride(3) != 1 or not _rows_aligned(g):
+    # a broadcast dO (a zero stride) is copied out too: kernel 3's TMA
+    # tensor maps describe real strides
+    if g.stride(3) != 1 or not _rows_aligned(g) or 0 in g.stride()[:3]:
         g = g.contiguous()
     dq = flash_bwd_dq(q, k, v, g, lse, delta, *args)
     dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, *args)

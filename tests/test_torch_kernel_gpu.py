@@ -320,3 +320,91 @@ def test_new_training_kernels_refuse_what_they_do_not_take(cuda):
         pa.paged_flash_decode_int8(q[:, :1].contiguous(), bank,
                                    dict(bank, scale=bank['scale'].double()),
                                    table, pos)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core instances of kernels 1 (forward) and 3 (dK/dV): the
+# cases a wrong fragment layout, swizzle, ring phase or mask breaks
+# ---------------------------------------------------------------------------
+
+TC_SEED = 2 ** 31 + 99991          # a u32 past the int32 range
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b,s_q,s_k,h,h_kv,d,causal,masked,kv_valid,drop', [
+    (2, 130, 130, 4, 4, 64, True, False, None, 0.0),     # S past 128-row tiles
+    (2, 300, 300, 4, 4, 64, True, False, None, 0.0),
+    (2, 100, 357, 4, 4, 64, True, False, None, 0.0),     # S_q < S_k, q_off 257
+    (2, 256, 300, 4, 4, 64, False, True, 250, 0.0),      # kv_valid, key mask
+    (2, 200, 200, 4, 2, 64, True, False, None, 0.0),     # GQA groups of 2
+    (1, 256, 256, 8, 2, 128, True, False, None, 0.0),    # groups of 4, D 128
+    (1, 300, 300, 2, 2, 128, False, False, None, 0.0),
+    (1, 200, 200, 2, 2, 256, True, False, None, 0.0),    # D 256
+    (2, 1024, 1024, 4, 4, 64, True, False, None, 0.1),   # dropout 0.1
+    (2, 300, 300, 4, 2, 128, True, True, None, 0.25),    # dropout 0.25
+], ids=['s130', 's300', 'q_off257', 'kv_valid_mask_noncausal', 'gqa2',
+        'gqa4_d128', 'noncausal_d128', 'd256', 'drop0.1', 'drop0.25_d128'])
+def test_tensor_core_kernels_match_twins(cuda, b, s_q, s_k, h, h_kv, d,
+                                         causal, masked, kv_valid, drop):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _qkv(b, s_q, s_k, h, h_kv, d, torch.bfloat16, seed=3)
+    kmask = None
+    if masked:
+        valid = torch.tensor([s_k, s_k - 77], device='cuda')[:b, None]
+        kmask = torch.where(torch.arange(s_k, device='cuda')[None] < valid,
+                            0.0, -1e30)
+    q_off = (s_k - s_q) if causal else 0
+    args = (causal, q_off, kv_valid, kmask, drop, TC_SEED if drop else None)
+    before = fa.flash_fwd.tc_launches
+    out, lse = fa.flash_fwd(q, k, v, *args)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.tc_launches == before + 1
+    want_o, want_l = fa.flash_fwd_reference(q, k, v, *args)
+    assert _row_err(out, want_o) <= TOL[torch.bfloat16]
+    assert (lse - want_l).abs().max().item() <= 1e-4
+    # kernel 3 on kernel 1's own out and lse; D = 256 keeps the CUDA-core
+    # instance (its f32 dK and dV would not fit the registers)
+    delta = fa.bwd_delta(out, do)
+    before = fa.flash_bwd_dkv.tc_launches
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dkv.tc_launches == before + (d in (64, 128))
+    _, want_dk, want_dv = fa.flash_bwd_reference(q, k, v, do, lse, delta,
+                                                 *args)
+    for got, ref in ((dk, want_dk), (dv, want_dv)):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert _grad_err(got, ref) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+def test_float32_keeps_the_cuda_core_instances(cuda):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _qkv(1, 130, 130, 2, 2, 64, torch.float32)
+    before = (fa.flash_fwd.launches, fa.flash_fwd.tc_launches,
+              fa.flash_bwd_dkv.launches, fa.flash_bwd_dkv.tc_launches)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    fa.flash_bwd_dkv(q, k, v, do, lse, fa.bwd_delta(out, do), True)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_fwd.tc_launches,
+            fa.flash_bwd_dkv.launches, fa.flash_bwd_dkv.tc_launches) == (
+        before[0] + 1, before[1], before[2] + 1, before[3])
+
+
+@pytest.mark.gpu
+def test_a_batch_broadcast_gradient_reaches_the_tensor_core_backward(cuda):
+    """out.sum(0).backward(g) hands the backward dO = g expanded over the
+    batch (a zero stride), which kernel 3's TMA maps do not describe: the
+    backward copies it out first, and the gradients match the twin's."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _qkv(2, 130, 130, 2, 2, 64, torch.bfloat16)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    before = fa.flash_bwd_dkv.tc_launches
+    fa.flash_attention(*leaves, causal=True).sum(0).backward(do[0])
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dkv.tc_launches == before + 1
+    out, lse = fa.flash_fwd(q, k, v, True)
+    g = do[0].expand_as(out).contiguous()
+    want = fa.flash_bwd_reference(q, k, v, g, lse, fa.bwd_delta(out, g),
+                                  True)
+    for leaf, ref in zip(leaves, want):
+        assert _grad_err(leaf.grad, ref) <= TOL[torch.bfloat16]
