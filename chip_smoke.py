@@ -13,11 +13,15 @@ non-zero:
     its main path gives it, plus GQA, float32 and other head-dim cases;
     max abs error against the stated tolerance (scaled to each output
     row's size in bfloat16), kernel / plain / library times and the bound;
-    for kernels 1 and 3, which instance ran (tensor-core for bfloat16, and
-    for kernel 3 at head dim 64 or 128; CUDA-core otherwise), failing when
-    a case took the other:
+    for kernels 1, 2, 3 and 7, which instance ran, failing when a case took
+    another than the library's rule gives (kernel 1: tensor-core for
+    bfloat16; kernels 2 and 3: tensor-core for bfloat16 at head dim 64 or
+    128; kernel 7: split-K for T <= 16, tensor-core for bfloat16 at head
+    dim 64 or 128, CUDA-core otherwise):
     paged_decode and paged_decode_int8 (the engine's decode T=1 at ragged
-    positions, prefill T=1024), flash_decode and flash_decode_int8
+    positions, prefill T=1024; for kernel 7 also T 1-1024 at page-edge
+    positions, GQA 4 and 2, head dims 64/128/256, f32 q),
+    flash_decode and flash_decode_int8
     (generate()'s decode step and prefill), flash_fwd (forward() over
     [8, 1024], and with dropout 0.1), flash_bwd_dq and flash_bwd_dkv (the
     train step's backward over [8, 1024], and with dropout 0.1; library:
@@ -44,7 +48,9 @@ non-zero:
     within 1e-3;
  9. the engine over the int8 page pool (kv_cache_int8) at full width, the
     requests of phase 4: paged_decode_int8 launches == 24 x (prefills +
-    steps); int8 prefill logits within cosine 0.999 of a bf16 pool's;
+    steps), the 24 x prefills on the tensor-core instance and the
+    24 x steps on the split-K instance; a profiled rerun's device time;
+    int8 prefill logits within cosine 0.999 of a bf16 pool's;
 10. the int8 engine card against CPU at 2 layers in float32: streams
     equal, or held to phase 8's int8 rule;
 11. the single-device train step at full width (the bench rung: [8, 1024],
@@ -52,8 +58,8 @@ non-zero:
     xent_chunk 8192, targets = tokens): 2 warm-up and 8 timed steps on one
     batch; tokens/s, step ms, MFU, peak memory, a profiled step; launches
     per step flash_fwd 48 (24 + 24 recomputed under remat), flash_bwd_dq
-    24, flash_bwd_dkv 24, every flash_fwd and flash_bwd_dkv launch on the
-    tensor-core instance; the loss finite and falling;
+    24, flash_bwd_dkv 24, every flash_fwd, flash_bwd_dq and flash_bwd_dkv
+    launch on the tensor-core instance; the loss finite and falling;
 12. the train step card against CPU at 2 layers in float32: the first
     step's gradients and a 6-step loss curve, dropout 0 and 0.1.
 Every launch counter is set to 0 just before each main-path run (phases 4,
@@ -162,8 +168,8 @@ def device_ms(fn, iters, warmup=3):
 # ---------------------------------------------------------------------------
 
 def make_case(b, t, h, h_kv, d, pos, dtype, ps=128, p_max=8, seed=0,
-              int8=False):
-    """q, LAYERS page pools (int8 banks with ``int8``), a table of
+              int8=False, layers=LAYERS):
+    """q, ``layers`` page pools (int8 banks with ``int8``), a table of
     scattered pages and ``pos``, on the card. Entries past a slot's needed
     pages stay 0 (the trash page), as the engine leaves them."""
     from paddle_tpu_torch.ops.weight_only import quantize_kv
@@ -172,7 +178,7 @@ def make_case(b, t, h, h_kv, d, pos, dtype, ps=128, p_max=8, seed=0,
     q = torch.randn((b, t, h, d), generator=g, device='cuda').to(dtype)
 
     def pool():
-        x = torch.randn((LAYERS, n, ps, h_kv, d), generator=g, device='cuda')
+        x = torch.randn((layers, n, ps, h_kv, d), generator=g, device='cuda')
         if int8:
             return dict(zip(('int8', 'scale'), quantize_kv(x)))
         return x.to(dtype)
@@ -267,29 +273,42 @@ def kernel_err(got, want, floor=0.0):
 GRAD_FLOOR = 0.01   # gradients: rows scaled by at least 1% of the tensor
 
 
+# instance counters a kernel wrapper may carry beside ``launches``
+INSTANCE_COUNTERS = (('split_launches', 'split-k'),
+                     ('tc_launches', 'tensor-core'))
+
+
+def instance_counts(kernel):
+    return {attr: getattr(kernel, attr) for attr, _ in INSTANCE_COUNTERS
+            if hasattr(kernel, attr)}
+
+
 def hold_kernel(kname, name, kernel, call, twin, tol, timing=None,
-                lse=False, floor=0.0, tensor_core=None):
+                lse=False, floor=0.0, instance=None):
     """Hold one kernel call against its twin on the same inputs, and on a
     main-path shape (``timing``: dict of ``iters``, ``bound`` as
     ``bound_of`` returns it, ``library(iters)``) time it. ``call(i)`` and
     ``twin(i)`` run on the inputs of layer i; with ``lse`` they return
-    (out, lse). ``tensor_core``: whether the call must take the kernel's
-    tensor-core instance (kernels 1 and 3 count those launches apart). The
-    launches made here only compare and time, so the kernel's counters are
-    put back. Raises when the two disagree or the wrong instance ran."""
+    (out, lse). ``instance``: the instance the call must take
+    ('tensor-core', 'split-k' or 'cuda-core'), read from the wrapper's
+    instance counters. The launches made here only compare and time, so
+    the kernel's counters are put back. Raises when the two disagree or
+    the wrong instance ran."""
     before = kernel.launches
-    tc_before = getattr(kernel, 'tc_launches', 0)
+    inst_before = instance_counts(kernel)
     got = call(0)
     torch.cuda.synchronize()
     want = twin(0)
     rec = {}
-    if tensor_core is not None:
-        took = getattr(kernel, 'tc_launches', 0) > tc_before
-        rec['instance'] = 'tensor-core' if took else 'cuda-core'
-        if took != tensor_core:
-            raise AssertionError(
-                f'{kname} {name}: ran the {rec["instance"]} instance, want '
-                f'{"tensor-core" if tensor_core else "cuda-core"}')
+    if instance is not None:
+        took = 'cuda-core'
+        for attr, label in INSTANCE_COUNTERS:
+            if getattr(kernel, attr, 0) > inst_before.get(attr, 0):
+                took = label
+        rec['instance'] = took
+        if took != instance:
+            raise AssertionError(f'{kname} {name}: ran the {took} instance, '
+                                 f'want {instance}')
     if lse:
         (got, got_lse), (want, want_lse) = got, want
         rec['lse_err'] = (got_lse - want_lse).abs().max().item()
@@ -307,10 +326,10 @@ def hold_kernel(kname, name, kernel, call, twin, tol, timing=None,
                    library_ms=timing['library'](it), bound_ms=b_ms,
                    bound_by=b_by, bytes=nbytes, ops=ops)
     kernel.launches = before
-    if tensor_core is not None:
-        kernel.tc_launches = tc_before
+    for attr, n in inst_before.items():
+        setattr(kernel, attr, n)
     ok = math.isfinite(err) and rel <= tol
-    extra = f'; {rec["instance"]} instance' if tensor_core is not None else ''
+    extra = f'; {rec["instance"]} instance' if instance is not None else ''
     if lse:
         ok = ok and rec['lse_err'] <= LSE_TOL
         extra += f'; lse {rec["lse_err"]:.3e} (tol {LSE_TOL:g})'
@@ -326,6 +345,40 @@ def hold_kernel(kname, name, kernel, call, twin, tol, timing=None,
         raise AssertionError(f'{kname} {name}: kernel and twin differ '
                              f'({rec})')
     return rec
+
+
+# kernel 7 beyond the engine's shapes, one case per instance and edge: pos
+# at page edges (0, 127, 128, 1023), the table shuffled with its unused
+# entries on the trash page, GQA groups of 4 and 2, head dims 64/128/256,
+# f32 q; T 1, 2, 16 (split-K), 17-1024 (tensor-core in bf16 at D 64/128)
+BF, FP = torch.bfloat16, torch.float32
+EDGES = [0, 127, 128, 1023]
+INT8_CASES = [
+    ('T1_edges', dict(b=4, t=1, h=16, h_kv=16, d=64, pos=EDGES, dtype=BF)),
+    ('T1_gqa4', dict(b=4, t=1, h=16, h_kv=4, d=64, pos=EDGES, dtype=BF)),
+    ('T2_gqa4_d128', dict(b=4, t=2, h=8, h_kv=2, d=128,
+                          pos=[0, 127, 128, 1000], dtype=BF)),
+    ('T16_gqa4_d256', dict(b=2, t=16, h=8, h_kv=2, d=256, pos=[127, 900],
+                           dtype=BF)),
+    ('T1_f32_edges', dict(b=4, t=1, h=16, h_kv=16, d=64, pos=EDGES,
+                          dtype=FP)),
+    ('T16_f32_d128', dict(b=2, t=16, h=4, h_kv=4, d=128, pos=[128, 1000],
+                          dtype=FP)),
+    ('T17_gqa4', dict(b=2, t=17, h=16, h_kv=4, d=64, pos=[0, 127],
+                      dtype=BF)),
+    ('T64_gqa4_d128', dict(b=2, t=64, h=8, h_kv=2, d=128, pos=[128, 900],
+                           dtype=BF)),
+    ('T65', dict(b=2, t=65, h=8, h_kv=8, d=64, pos=[127, 300], dtype=BF)),
+    ('T300_gqa4', dict(b=2, t=300, h=16, h_kv=4, d=64, pos=[0, 517],
+                       dtype=BF)),
+    ('T1024_gqa2_d128', dict(b=1, t=1024, h=4, h_kv=2, d=128, pos=[0],
+                             dtype=BF)),
+    ('T300_gqa2_d256', dict(b=2, t=300, h=4, h_kv=2, d=256, pos=[0, 517],
+                            dtype=BF)),
+    ('T65_f32_gqa4', dict(b=2, t=65, h=8, h_kv=2, d=64, pos=[127, 128],
+                          dtype=FP)),
+    ('T1024_f32', dict(b=1, t=1024, h=4, h_kv=4, d=64, pos=[0], dtype=FP)),
+]
 
 
 def kernel_cases(pa, timed_iters):
@@ -350,37 +403,35 @@ def kernel_cases(pa, timed_iters):
         ('prefill_T300_f32_gqa', dict(b=2, t=300, h=16, h_kv=4, d=64,
                                       pos=[0, 517], dtype=torch.float32),
          False),
-        # kernel 7: the int8 engine's decode and prefill, then GQA, f32
-        # and the other head dims
+        # kernel 7: the int8 engine's decode and prefill, then INT8_CASES
         ('decode_T1', dict(b=8, t=1, h=16, h_kv=16, d=64, pos=ragged,
                            dtype=torch.bfloat16, int8=True), True),
         ('prefill_T1024', dict(b=1, t=1024, h=16, h_kv=16, d=64, pos=[0],
                                dtype=torch.bfloat16, int8=True), True),
-        ('decode_T1_gqa_hkv4', dict(b=8, t=1, h=16, h_kv=4, d=64,
-                                    pos=ragged, dtype=torch.bfloat16,
-                                    int8=True), False),
-        ('decode_T1_d128_f32', dict(b=8, t=1, h=8, h_kv=8, d=128, pos=ragged,
-                                    dtype=torch.float32, int8=True), False),
-        ('prefill_T300_d256_gqa', dict(b=2, t=300, h=4, h_kv=2, d=256,
-                                       pos=[0, 517], dtype=torch.bfloat16,
-                                       int8=True), False),
-    ]
+    ] + [(name, dict(kw, int8=True), False) for name, kw in INT8_CASES]
     results = {'paged_decode': {}, 'paged_decode_int8': {}}
     for name, kw, engine_shape in cases:
-        c = make_case(**kw)
+        c = make_case(layers=LAYERS if engine_shape else 1, **kw)
         kname = 'paged_decode_int8' if c['int8'] else 'paged_decode'
         kern = (pa.paged_flash_decode_int8 if c['int8']
                 else pa.paged_flash_decode)
         twin = (pa.paged_decode_int8_reference if c['int8']
                 else pa.paged_decode_reference)
-        args = lambda i: (c['q'], kv_layer(c['k'], i % LAYERS),  # noqa: E731
-                          kv_layer(c['v'], i % LAYERS), c['table'], c['pos'])
+        n_layers = (c['k']['int8'] if c['int8'] else c['k']).shape[0]
+        args = lambda i: (c['q'], kv_layer(c['k'], i % n_layers),  # noqa: E731
+                          kv_layer(c['v'], i % n_layers), c['table'],
+                          c['pos'])
         timing = (dict(iters=timed_iters, bound=bound(c),
                        library=lambda it: sdpa_ms(c, it))
                   if engine_shape else None)
+        # kernel 7: the library's instance for the case (split-K, tensor-
+        # core or CUDA-core); kernel 6 has one
+        inst = (pa.int8_instance(kw['dtype'], kw['t'], kw['d'], c['ps'])
+                if c['int8'] else None)
         results[kname][name] = hold_kernel(
             kname, name, kern, lambda i: kern(*args(i)),
-            lambda i: twin(*args(i)), TOL[kw['dtype']], timing)
+            lambda i: twin(*args(i)), TOL[kw['dtype']], timing,
+            instance=inst)
         del c
         torch.cuda.empty_cache()
     return results
@@ -593,7 +644,7 @@ def dense_kernel_cases(fa, timed_iters):
             lambda i: fa.flash_fwd(*args(i), **extra),
             lambda i: fa.flash_fwd_reference(*args(i), **extra),
             TOL[kw['dtype']], timing, lse=True,
-            tensor_core=kw['dtype'] == BF16)
+            instance='tensor-core' if kw['dtype'] == BF16 else 'cuda-core')
         del c
         torch.cuda.empty_cache()
     return results
@@ -664,15 +715,15 @@ def bwd_kernel_cases(fa, timed_iters):
             timing = (dict(iters=max(4, timed_iters // 4),
                            bound=bwd_bound(c, dots), library=lib_ms)
                       if timed else None)
-            # kernel 3 runs its tensor-core instance for bf16 at head dim
-            # 64 and 128; kernel 2 has one instance
-            tc = (kw['dtype'] == BF16 and kw['d'] in (64, 128)
-                  if kname == 'flash_bwd_dkv' else None)
+            # kernels 2 and 3 run their tensor-core instances for bf16 at
+            # head dim 64 and 128
+            tc = kw['dtype'] == BF16 and kw['d'] in (64, 128)
             results[kname][name] = hold_kernel(
                 kname, name, kern,
                 lambda i: kern(*inputs(i), **extra),
                 lambda i: pick(fa.flash_bwd_reference(*inputs(i), **extra)),
-                TOL[kw['dtype']], timing, floor=GRAD_FLOOR, tensor_core=tc)
+                TOL[kw['dtype']], timing, floor=GRAD_FLOOR,
+                instance='tensor-core' if tc else 'cuda-core')
         del c, fwd, delta
         torch.cuda.empty_cache()
     return results
@@ -810,7 +861,14 @@ def profile_window(fn):
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     return {'window_ms': wall * 1e3, 'device_ms': total,
             'busy_share': total / (wall * 1e3), 'kernels': n,
-            'top': [(k[:90], v) for k, v in top]}
+            'top': [(k[:90], v) for k, v in top], 'by_name': dev}
+
+
+def kernel_ms(prof, *names):
+    """Device ms of a profiled window in the kernels whose names contain
+    one of ``names`` (the port's __global__ functions)."""
+    return sum(v for k, v in prof['by_name'].items()
+               if any(n in k for n in names))
 
 
 def phase_card_vs_cpu(gpt, GenerationEngine):
@@ -869,19 +927,20 @@ def phase_card_vs_cpu(gpt, GenerationEngine):
 def zero_launches(kernels):
     for k in kernels.values():
         k.launches = 0
-        if hasattr(k, 'tc_launches'):
-            k.tc_launches = 0
+        for attr in instance_counts(k):
+            setattr(k, attr, 0)
 
 
 def launch_counts(kernels):
     return {name: k.launches for name, k in kernels.items()}
 
 
-TC_KERNELS = ('flash_fwd', 'flash_bwd_dkv')   # count tensor-core launches
+# kernels whose every launch on a bf16 main path is tensor-core
+TC_KERNELS = ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')
 
 
 def expect_tensor_core(what, kernels):
-    """Every launch of kernels 1 and 3 since their counters were zeroed
+    """Every launch of kernels 1, 2 and 3 since their counters were zeroed
     took the tensor-core instance (the bf16 main paths). -> the counts."""
     got = {name: (kernels[name].tc_launches, kernels[name].launches)
            for name in TC_KERNELS}
@@ -1207,7 +1266,10 @@ def phase_engine_int8(gpt, GenerationEngine, kernels, card):
         out, wall = serve(eng, reqs, new)
         torch.cuda.synchronize()
         launches = launch_counts(kernels)
+        k7 = kernels['paged_decode_int8']
+        inst = {'tensor-core': k7.tc_launches, 'split-k': k7.split_launches}
         st = eng.stats()
+        prof = profile_serving(eng, reqs, new)
     finally:
         eng.shutdown()
     for i, toks in enumerate(out):
@@ -1216,9 +1278,21 @@ def phase_engine_int8(gpt, GenerationEngine, kernels, card):
             raise AssertionError(f'int8 engine request {i}: {len(toks)} '
                                  'tokens out of range or short')
     calls = st['prefills'] + st['steps']
+    L = cfg.num_layers
     expect_launches(f'int8 engine ({st["prefills"]} prefills + '
                     f'{st["steps"]} steps)', launches,
-                    {'paged_decode_int8': cfg.num_layers * calls})
+                    {'paged_decode_int8': L * calls})
+    # the prefills (T = prefill width) on the tensor-core instance, the
+    # decode steps (T = 1) on the split-K instance
+    want = {'tensor-core': L * st['prefills'], 'split-k': L * st['steps']}
+    if inst != want:
+        raise AssertionError(f'int8 engine: kernel 7 instances {inst}, want '
+                             f'{want}')
+    print(f'  kernel 7 instances: {inst}', flush=True)
+    k7_ms = {'split-k': kernel_ms(prof, 'paged_split_kernel',
+                                  'paged_combine_kernel'),
+             'tensor-core': kernel_ms(prof, 'paged_prefill_tc_kernel'),
+             'cuda-core': kernel_ms(prof, 'paged_decode_kernel')}
     sp = gpt.serving_params(params, cfg)
     lg8 = paged_prefill_logits(gpt, sp, cfg, reqs, 'cuda')
     lgb = paged_prefill_logits(gpt, sp, bench_config(gpt), reqs, 'cuda')
@@ -1231,12 +1305,20 @@ def phase_engine_int8(gpt, GenerationEngine, kernels, card):
            'step_ms_mean': st['decode_step_ms_mean'],
            'prefill_ms_mean': st['prefill_ms_mean'],
            'prefills': st['prefills'], 'steps': st['steps'],
-           'launches': launches['paged_decode_int8'],
-           'prefill_cosine_vs_bf16': cos}
+           'launches': launches['paged_decode_int8'], 'instances': inst,
+           'prefill_cosine_vs_bf16': cos, 'profile': prof,
+           'kernel7_device_ms': k7_ms}
     print(f'  int8 engine at full width: {len(out)} requests x {new} tokens '
           f'in {wall:.3f} s; {res["tokens_per_s"]:.1f} tokens/s, TTFT p50 '
           f'{res["ttft_ms_p50"]:.1f} ms, mean step {res["step_ms_mean"]:.2f}'
           f' ms [{card}]', flush=True)
+    print(f'  profiled rerun: window {prof["window_ms"]:.1f} ms, device busy '
+          f'{prof["device_ms"]:.1f} ms ({100 * prof["busy_share"]:.1f}%), '
+          f'{prof["kernels"]} kernel launches', flush=True)
+    for name, ms in prof['top']:
+        print(f'    {ms:9.3f} ms  {name}', flush=True)
+    print(f'  kernel 7 device ms in the profiled rerun, by instance: '
+          f'{k7_ms}', flush=True)
     print(f'  prefill logits int8 vs bf16 pool: cosine {cos:.6f} (want > '
           '0.999)', flush=True)
     if not cos > 0.999:
@@ -1348,12 +1430,16 @@ def phase_train(gpt, topt, kernels, card):
         raise AssertionError(f'the train loss did not fall: {vals}')
     tok_s = b * s * n / wall
     prof = profile_window(one)
+    attn_ms = {name: kernel_ms(prof, kern) for name, kern in (
+        ('flash_fwd', 'flash_fwd_tc_kernel'),
+        ('flash_bwd_dq', 'flash_bwd_dq_tc_kernel'),
+        ('flash_bwd_dkv', 'flash_bwd_dkv_tc_kernel'))}
     res = {'params': n_params, 'losses': vals, 'step_ms': wall * 1e3 / n,
            'tokens_per_s': tok_s,
            'mfu': 6 * n_params * tok_s / PEAK_BF16,
            'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9,
            'launches': launches, 'tensor_core_launches': train_tc,
-           'profile': prof}
+           'profile': prof, 'attention_device_ms': attn_ms}
     print(f'  train step at full width ({n_params / 1e6:.1f}M params, '
           f'[{b}, {s}], bf16, remat dots): {res["step_ms"]:.1f} ms a step, '
           f'{tok_s:.0f} tokens/s, MFU {100 * res["mfu"]:.2f}% of 989 '
@@ -1364,6 +1450,9 @@ def phase_train(gpt, topt, kernels, card):
           f'{prof["kernels"]} kernel launches', flush=True)
     for name, ms in prof['top']:
         print(f'    {ms:9.3f} ms  {name}', flush=True)
+    print('  attention kernels in the profiled step, device ms: '
+          + ', '.join(f'{k} {v:.3f}' for k, v in attn_ms.items()),
+          flush=True)
     del params, state
     torch.cuda.empty_cache()
     return res

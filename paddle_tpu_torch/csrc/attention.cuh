@@ -370,10 +370,13 @@ int launch_tile_d(int D, const TileArgs& a, int B, cudaStream_t stream) {
 // Codes the C entry points return beside cudaError_t (which is >= 0).
 constexpr int ERR_NO_INSTANCE = -1;
 constexpr int ERR_TENSOR_MAP = -2;
+constexpr int ERR_SCRATCH = -3;
 
 inline const char* error_string(int code) {
   if (code == ERR_TENSOR_MAP)
     return "cuTensorMapEncodeTiled refused an operand's layout";
+  if (code == ERR_SCRATCH)
+    return "the split-K instance was given no partial buffers";
   if (code < 0) return "no kernel instance for this dtype / head_dim";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -26,19 +26,39 @@
 // the tiles the causal mask hides entirely, halving the work of a full
 // sweep.
 //
-// flash_bwd_dq (every dtype) and flash_bwd_dkv in float32 or at D = 256:
-// CUDA-core kernels. A block per (b, query head h, BT q rows) holds its q,
-// dO, lse and delta rows in shared memory and walks key chunks of BT up to
-// its last row's causal limit; dq stays in registers. The dkv kernel: a
-// block per (b, kv head, BT key rows) holds its K and V rows and walks q
-// chunks of BT from the first one that can see its keys (the reference's
-// start block), for each query head of the GQA group in turn. The dots run
-// on CUDA cores in f32 from shared memory, a thread per key for the score
-// tile (s and dp together) and a thread per output column for the
-// products. float32 stays here because a TF32 product would not hold its
-// tolerance of 2e-5 against the twin; D = 256 in bf16 because the
-// tensor-core kernel's f32 dK and dV of 64 keys x 256 would take every
-// register a thread has.
+// float32 (both kernels) and bf16 at D = 256 (both kernels): CUDA-core
+// kernels. flash_bwd_dq_kernel: a block per (b, query head h, BT q rows)
+// holds its q, dO, lse and delta rows in shared memory and walks key chunks
+// of BT up to its last row's causal limit; dq stays in registers. The dkv
+// kernel: a block per (b, kv head, BT key rows) holds its K and V rows and
+// walks q chunks of BT from the first one that can see its keys (the
+// reference's start block), for each query head of the GQA group in turn.
+// The dots run on CUDA cores in f32 from shared memory, a thread per key
+// for the score tile (s and dp together) and a thread per output column
+// for the products. float32 stays here because a TF32 product would not
+// hold its tolerance of 2e-5 against the twin (nor the card-vs-CPU f32
+// gradient checks); D = 256 in bf16 because neither tensor-core kernel
+// fits it: kernel 3's f32 dK and dV of 64 keys x 256 would take every
+// register a thread has, and kernel 2's q and dO tile of 128 rows x 256
+// takes 128 KB of shared memory, which leaves no room for a ring of two
+// K/V chunks (64 KB each).
+//
+// flash_bwd_dq in bf16 at D = 64 and 128 (flash_bwd_dq_tc_kernel): the
+// blocks are persistent, one an SM, each walking 128-row q tiles of one
+// (b, query head) longest first (causal tiles differ in length by up to 8x,
+// so the short ones even out the end). A block is 384 threads: two consumer
+// warpgroups of 64 q rows and a producer warpgroup whose one working thread
+// issues TMA copies: the tile's q and dO rows once (released after the
+// tile's last S and dP products), then K and V chunks of BK = 64 keys of
+// the kv head h / (H / H_kv) through a ring that runs on across tiles.
+// Each row's lse and delta sit in registers. Per chunk each warpgroup
+// computes S = Q K^T and dP = dO V^T with wgmma (both operands K-major in
+// shared memory), then p = 2^(s log2e - lse log2e) and
+// dS = p (dP x mult - delta) in the accumulator fragments (the masks only
+// on diagonal and edge chunks, the dropout hash per element), and
+// dQ += dS K with dS rounded to bf16 as the A operand in registers and K
+// read MN-major through the transpose flag. dQ stays in f32 registers and
+// is written once, times the scale.
 //
 // flash_bwd_dkv in bf16 at D = 64 and 128 (flash_bwd_dkv_tc_kernel): a
 // block of 384 threads owns 128 keys of one (b, kv head): two consumer
@@ -410,7 +430,7 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (warp >= 8) {
-    tc::regs_producer();
+    tc::regs_dec<24>();
     if (warp > 8) return;
     // producer: lane 0 issues the copies, every lane copies lse and delta
     if (lane == 0) {
@@ -452,7 +472,7 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     return;
   }
 
-  tc::regs_consumer();
+  tc::regs_inc<240>();
   // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63
   const int wg = warp / 4;
   const int t = threadIdx.x % tc::WG;
@@ -610,6 +630,273 @@ int launch_dkv_tc(const BwdArgs& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// kernel 2 in bf16: the tensor-core dQ kernel
+// ---------------------------------------------------------------------------
+
+constexpr int DQ_BM = 128;               // q rows per tile
+
+template <int D> struct DqTile {
+  static constexpr int BK = 64;                    // keys per chunk
+  static constexpr int STAGES = D == 64 ? 4 : 3;   // ring slots
+  static constexpr int PANELS = D / 64;            // 64-wide head-dim panels
+  static constexpr int QG_BYTES = DQ_BM * D * 2;   // the tile's q, or its dO
+  static constexpr int KV_BYTES = BK * D * 2;      // one K or V chunk
+  static constexpr int SLOT = 2 * KV_BYTES;        // K and V (1 KB multiple)
+  static constexpr int SMEM =
+      2 * QG_BYTES + STAGES * SLOT + 64 * 8 + 1024;   // + barriers, align
+};
+
+// Tile i of the longest-first order: all (batch, head)s of the last q tile
+// first, then those of the one before it.
+struct DqTileAt {
+  int b, h, hk, q0, n_end, n_chunks;
+  __device__ DqTileAt(const BwdArgs& a, int B, int i, int bk) {
+    const int bh = i % (B * a.H);
+    const int n_qt = (a.s_q + DQ_BM - 1) / DQ_BM;
+    b = bh / a.H;
+    h = bh % a.H;
+    hk = h / (a.H / a.H_kv);
+    q0 = (n_qt - 1 - i / (B * a.H)) * DQ_BM;
+    // keys any row of this tile can see
+    n_end = min(a.n_keys, a.s_k);
+    if (a.causal)
+      n_end = max(0, min(n_end, a.q_off + q0 + min(DQ_BM, a.s_q - q0)));
+    n_chunks = (n_end + bk - 1) / bk;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_g,
+                       const BwdArgs a, const int B, const int n_tiles) {
+  using Tile = DqTile<D>;
+  constexpr int BK = Tile::BK, ST = Tile::STAGES, PN = Tile::PANELS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = tc::align1024(smem_raw);          // [PN][DQ_BM][64]
+  uint8_t* g_s = q_s + Tile::QG_BYTES;             // [PN][DQ_BM][64]
+  uint8_t* ring = g_s + Tile::QG_BYTES;            // [ST] x {K, V}[PN][BK][64]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + ST * Tile::SLOT);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* full = q_empty + 1;
+  uint64_t* empty = full + ST;
+
+  if (threadIdx.x == 0) {
+    tc::bar_init(q_full, 1);
+    tc::bar_init(q_empty, 2);           // one arrival per consumer warpgroup
+    for (int s = 0; s < ST; ++s) {
+      tc::bar_init(&full[s], 1);
+      tc::bar_init(&empty[s], 2);
+    }
+    tc::bar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp >= 8) {
+    tc::regs_dec<24>();
+    // producer: one thread issues every copy, tile after tile; the K/V ring
+    // runs on across tiles, so the next tile's first chunks arrive while
+    // this one's last are multiplied
+    if (threadIdx.x == 2 * tc::WG) {
+      int g = 0;                                      // chunks issued
+      for (int i = blockIdx.x, it = 0; i < n_tiles; i += gridDim.x, ++it) {
+        const DqTileAt tl(a, B, i, BK);
+        if (it > 0) tc::bar_wait(q_empty, (it - 1) & 1);
+        tc::bar_expect_tx(q_full, 2 * Tile::QG_BYTES);
+        for (int p = 0; p < PN; ++p) {
+          tc::tma_load(q_s + p * DQ_BM * tc::ROW_BYTES, &tm_q, q_full,
+                       64 * p, tl.h, tl.q0, tl.b);
+          tc::tma_load(g_s + p * DQ_BM * tc::ROW_BYTES, &tm_g, q_full,
+                       64 * p, tl.h, tl.q0, tl.b);
+        }
+        for (int j = 0; j < tl.n_chunks; ++j, ++g) {
+          const int s = g % ST;
+          if (g >= ST) tc::bar_wait(&empty[s], ((g / ST) - 1) & 1);
+          uint8_t* ks = ring + s * Tile::SLOT;
+          uint8_t* vs = ks + Tile::KV_BYTES;
+          tc::bar_expect_tx(&full[s], Tile::SLOT);
+          for (int p = 0; p < PN; ++p) {
+            tc::tma_load(ks + p * BK * tc::ROW_BYTES, &tm_k, &full[s],
+                         64 * p, tl.hk, j * BK, tl.b);
+            tc::tma_load(vs + p * BK * tc::ROW_BYTES, &tm_v, &full[s],
+                         64 * p, tl.hk, j * BK, tl.b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  tc::regs_inc<240>();
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63 of each tile
+  const int wg = warp / 4;
+  const int t = threadIdx.x % tc::WG;
+  const int lane = t % 32;
+  const int cq = 2 * (lane % 4);               // columns 8 n + cq + {0, 1}
+  const uint32_t q_addr = tc::smem_u32(q_s) + 64 * wg * tc::ROW_BYTES;
+  const uint32_t g_addr = tc::smem_u32(g_s) + 64 * wg * tc::ROW_BYTES;
+  const float c2 = a.scale * tc::LOG2E;
+  __nv_bfloat16* dqp = static_cast<__nv_bfloat16*>(a.dq);
+
+  int g = 0;                                           // chunks consumed
+  for (int i = blockIdx.x, it = 0; i < n_tiles; i += gridDim.x, ++it) {
+    const DqTileAt tl(a, B, i, BK);
+    const int row0 = tl.q0 + 64 * wg;                  // first row of the wg
+    const int r = row0 + 16 * (t / 32) + lane / 4;   // fragment rows r, r + 8
+    const uint32_t drow = (uint32_t)(tl.b * a.H + tl.h);
+    const float* km = a.kmask ? a.kmask + (size_t)tl.b * a.m_sb : nullptr;
+    // each fragment row's lse and delta; rows past S_q: lse = +inf makes
+    // their p 0
+    float lq[2], lq2[2], dl[2];
+    const size_t sbase = ((size_t)tl.b * a.H + tl.h) * a.s_q;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const bool in = r + 8 * k < a.s_q;
+      lq[k] = in ? a.lse[sbase + r + 8 * k] : INFINITY;
+      dl[k] = in ? a.delta[sbase + r + 8 * k] : 0.f;
+      lq2[k] = lq[k] * tc::LOG2E;
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int k = 0; k < D / 2; ++k) dq[k] = 0.f;
+
+    tc::bar_wait(q_full, it & 1);
+    if (tl.n_chunks == 0 && t == 0) tc::bar_arrive(q_empty);
+    for (int j = 0; j < tl.n_chunks; ++j, ++g) {
+      const int s = g % ST;
+      const uint32_t ph = (g / ST) & 1;
+      const int c0 = j * BK;
+      const uint32_t k_addr = tc::smem_u32(ring + s * Tile::SLOT);
+      const uint32_t v_addr = k_addr + Tile::KV_BYTES;
+
+      // S = Q K^T and dP = dO V^T over D in k16 steps
+      float sc[BK / 2], dp[BK / 2];
+      tc::bar_wait(&full[s], ph);
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;        // 16 values into the row
+        const uint32_t qp = (kk / 4) * DQ_BM * tc::ROW_BYTES + off;
+        const uint32_t kp = (kk / 4) * BK * tc::ROW_BYTES + off;
+        tc::WgmmaSS<BK>::mma(sc, tc::desc(q_addr + qp, 16, 1024),
+                             tc::desc(k_addr + kp, 16, 1024), kk > 0);
+        tc::WgmmaSS<BK>::mma(dp, tc::desc(g_addr + qp, 16, 1024),
+                             tc::desc(v_addr + kp, 16, 1024), kk > 0);
+      }
+      tc::wg_commit();
+      tc::wg_wait();
+      tc::reg_fence(sc);
+      tc::reg_fence(dp);
+      // the tile's last products with q and dO: the producer may load the
+      // next tile's
+      if (j == tl.n_chunks - 1 && t == 0) tc::bar_arrive(q_empty);
+
+      // p = exp(s - lse) in log2 units. Chunks off the diagonal and the
+      // valid-key edge, without a key mask, need no mask; the others add
+      // the key mask and mask per element (-1e30, as the reference).
+      const bool masked = (a.causal && c0 + BK - 1 > a.q_off + row0) ||
+                          c0 + BK > tl.n_end || km != nullptr;
+      if (!masked) {
+#pragma unroll
+        for (int idx = 0; idx < BK / 2; ++idx)
+          sc[idx] = tc::ex2(fmaf(sc[idx], c2, -lq2[(idx / 2) % 2]));
+      } else {
+#pragma unroll
+        for (int idx = 0; idx < BK / 2; ++idx) {
+          const int k = (idx / 2) % 2;
+          const int key = c0 + 8 * (idx / 4) + cq + idx % 2;
+          float v = sc[idx] * a.scale;
+          if (km && key < tl.n_end) v += km[key];
+          if (key >= tl.n_end || (a.causal && key > a.q_off + r + 8 * k))
+            v = NEG_INF;
+          sc[idx] = tc::ex2((v - lq[k]) * tc::LOG2E);
+        }
+      }
+      // dS = p (dP x mult - delta), rounded to bf16 as the A operand
+#pragma unroll
+      for (int idx = 0; idx < BK / 2; ++idx) {
+        const int k = (idx / 2) % 2;
+        float d = dp[idx];
+        if (a.drop.dropout) {
+          const int key = c0 + 8 * (idx / 4) + cq + idx % 2;
+          d = dropout_keep(a.drop.seed, drow, r + 8 * k, key, a.drop.thr)
+                  ? d * a.drop.mult : 0.f;
+        }
+        sc[idx] = sc[idx] * (d - dl[k]);
+      }
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) tc::to_a(sc, kk, pa[kk]);
+
+      // dQ += dS K over the chunk's keys in k16 steps, K read MN-major
+      tc::reg_fence(dq);
+      tc::reg_fence(pa);
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        tc::WgmmaRS<D>::mma(
+            dq, pa[kk],
+            tc::desc(k_addr + kk * 16 * tc::ROW_BYTES, BK * tc::ROW_BYTES,
+                     1024));
+      tc::wg_commit();
+      tc::wg_wait();
+      tc::reg_fence(dq);
+      if (t == 0) tc::bar_arrive(&empty[s]);
+    }
+
+    // dq = scale x dQ in bf16, [B, S_q, H, D] contiguous
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int row = r + 8 * k;
+      if (row >= a.s_q) continue;
+      __nv_bfloat16* o =
+          dqp + (((size_t)tl.b * a.s_q + row) * a.H + tl.h) * D + cq;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(o + 8 * n) = tc::pack_bf16(
+            dq[4 * n + 2 * k] * a.scale, dq[4 * n + 2 * k + 1] * a.scale);
+    }
+  }
+}
+
+template <int D>
+int launch_dq_tc(const BwdArgs& a, int B, cudaStream_t stream) {
+  using Tile = DqTile<D>;
+  if (B == 0 || a.s_q == 0 || a.H == 0) return 0;
+  CUtensorMap mq, mk, mv, mg;
+  const int s_k = max(a.s_k, 1);
+  int e = tc::make_map(&mq, a.q, B, a.s_q, a.H, D, a.q_sb, a.q_ss, a.q_sh,
+                       DQ_BM);
+  if (e == 0)
+    e = tc::make_map(&mg, a.g, B, a.s_q, a.H, D, a.g_sb, a.g_ss, a.g_sh,
+                     DQ_BM);
+  if (e == 0)
+    e = tc::make_map(&mk, a.k, B, s_k, a.H_kv, D, a.k_sb, a.k_ss, a.k_sh,
+                     Tile::BK);
+  if (e == 0)
+    e = tc::make_map(&mv, a.v, B, s_k, a.H_kv, D, a.k_sb, a.k_ss, a.k_sh,
+                     Tile::BK);
+  if (e != 0) return e;
+  auto kern = flash_bwd_dq_tc_kernel<D>;
+  int dev = 0, sms = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce == cudaSuccess)
+    ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (ce == cudaSuccess)
+    ce = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
+  if (ce != cudaSuccess) return (int)ce;
+  // persistent blocks, one an SM, walking the tiles longest first
+  const int n_tiles = ((a.s_q + DQ_BM - 1) / DQ_BM) * B * a.H;
+  kern<<<min(n_tiles, sms), TC_THREADS, Tile::SMEM, stream>>>(
+      mq, mk, mv, mg, a, B, n_tiles);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch(const BwdArgs& a, int B, bool dkv, cudaStream_t stream) {
   constexpr int BT = tile_rows<D>();
@@ -666,15 +953,19 @@ int run(const void* q, const void* k, const void* v, const void* g,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_d<float>(D, a, B, dkv, s);
   if (dtype != 1) return ERR_NO_INSTANCE;
-  // bf16 dk/dv at D = 64 and 128: the tensor-core kernel, chosen by dtype
-  // and head dim (never after a failed launch)
-  if (dkv && (D == 64 || D == 128)) {
-    const int e = D == 64 ? launch_dkv_tc<64>(a, B, s)
-                          : launch_dkv_tc<128>(a, B, s);
+  // bf16 at D = 64 and 128: the tensor-core kernels, chosen by dtype and
+  // head dim (never after a failed launch)
+  if (D == 64 || D == 128) {
+    int e;
+    if (dkv)
+      e = D == 64 ? launch_dkv_tc<64>(a, B, s) : launch_dkv_tc<128>(a, B, s);
+    else
+      e = D == 64 ? launch_dq_tc<64>(a, B, s) : launch_dq_tc<128>(a, B, s);
     if (e == 0) *tc = 1;
     return e;
   }
-  return launch_d<__nv_bfloat16>(D, a, B, dkv, s);
+  if (D == 256) return launch<__nv_bfloat16, 256>(a, B, dkv, s);
+  return ERR_NO_INSTANCE;
 }
 
 }  // namespace
@@ -689,8 +980,8 @@ extern "C" {
 // flash_bwd_dq writes dq [B, S_q, H, D] contiguous (dk, dv unused, may be
 // null); flash_bwd_dkv writes dk, dv [B, S_k, H_kv, D] contiguous (dq
 // unused). dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs
-// alike). *tc is set to 1 when the tensor-core kernel was launched (bf16
-// dk/dv at D = 64 or 128), else 0. Launch on `stream`; return
+// alike). *tc is set to 1 when a tensor-core kernel was launched (bf16 at
+// D = 64 or 128), else 0. Launch on `stream`; return
 // cudaGetLastError() after the launch (0 on success), ERR_TENSOR_MAP when a
 // tensor map cannot describe an operand, or -1 for a dtype/head_dim with
 // no instance.

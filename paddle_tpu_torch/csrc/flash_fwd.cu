@@ -143,7 +143,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int warp = threadIdx.x / 32;
   if (warp >= 8) {
-    tc::regs_producer();
+    tc::regs_dec<24>();
     // producer: one thread issues every copy, tile after tile; the K/V ring
     // runs on across tiles, so the next tile's first chunks arrive while
     // this one's last are multiplied
@@ -175,7 +175,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     return;
   }
 
-  tc::regs_consumer();
+  tc::regs_inc<240>();
   // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63 of each tile.
   // Scores and the running max are kept in log2 units (x log2(e)), so
   // p = 2^(s - m) is one FFMA and one MUFU.EX2; the reference's -1e30

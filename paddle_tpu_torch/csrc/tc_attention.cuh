@@ -1,10 +1,12 @@
 // Tensor-core building blocks shared by the port's bf16 attention kernels
-// on NVIDIA Hopper (sm_90a): kernel 1's forward (flash_fwd.cu) and kernel
-// 3's dK/dV (flash_bwd.cu).
+// on NVIDIA Hopper (sm_90a): kernel 1's forward (flash_fwd.cu), kernel 2's
+// dQ and kernel 3's dK/dV (flash_bwd.cu), and kernel 7's prefill over int8
+// pages (paged_decode.cu).
 //
 // - mbarriers, the TMA tile load that completes on one, and the host-side
-//   tensor map of a [B, S, H, D] bf16 view read through its element
-//   strides (the strided views of the packed qkv projection included);
+//   tensor map of a 4-D view read through its element strides: a
+//   [B, S, H, D] bf16 operand (the strided views of the packed qkv
+//   projection included), or a page pool [N, ps, H_kv, D] of int8 rows;
 // - shared-memory matrix descriptors for tiles in the 128-byte swizzle that
 //   TMA writes: rows of 64 bf16 (128 bytes), 8-row atoms of 1024 bytes, a
 //   head dim past 64 split into 64-wide panels stored one after another;
@@ -105,15 +107,35 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
 }
 
 // Register rebalancing in a block of two consumer warpgroups and a
-// producer warpgroup: ptxas budgets 168 registers a thread; the producer,
-// which only issues copies, gives back all but 24 so each consumer thread
-// can hold 240 (its accumulators). Each role calls its function once,
-// first thing on its own path, and the paths never meet again.
-__device__ __forceinline__ void regs_producer() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+// producer warpgroup: ptxas budgets 168 registers a thread; the producer
+// gives back all but N (24 where it only issues copies, so each consumer
+// thread can hold 240 for its accumulators; 40 where it also widens int8
+// rows, consumers 232), with 2 M + N <= 504 (the SM's 64 K registers over
+// 128 threads a warpgroup). Each role calls its function once, first
+// thing on its own path, and the paths never meet again.
+template <int N> __device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N) : "memory");
 }
-__device__ __forceinline__ void regs_consumer() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+template <int M> __device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(M) : "memory");
+}
+
+// Make this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma, TMA) before it signals a barrier that a product waits on.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `n` threads of the block.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// Byte offset of the 16-byte chunk holding element (row, col) of a 64-wide
+// bf16 panel in the 128-byte swizzle TMA writes (the panel 1024-aligned):
+// chunk col / 8 of the row lands at chunk (col / 8) ^ (row % 8).
+__device__ __forceinline__ uint32_t swz128(int row, int col) {
+  return (uint32_t)(row * ROW_BYTES + ((((col >> 3) ^ row) & 7) << 4));
 }
 
 // 1024-byte aligned start of the dynamic shared memory (the swizzle atoms
@@ -386,18 +408,19 @@ template <> struct WgmmaRS<256> {
 };
 
 // ---------------------------------------------------------------------------
-// Host: the tensor map of a [B, S, H, D] bf16 operand
+// Host: tensor maps
 // ---------------------------------------------------------------------------
 
-// Boxes of 64 head-dim values x `rows` sequence rows of one (batch, head),
-// written in the 128-byte swizzle; `x` read in place through its element
-// strides (sb, ss, sh), the head dim contiguous. The encoder is looked up
-// through the CUDA runtime, so the library needs no -lcuda. Returns 0, a
-// cudaError_t, or attn::ERR_TENSOR_MAP when the encoder refuses the
-// layout.
-inline int make_map(CUtensorMap* map, const void* x, int B, int S, int H,
-                    int D, long long sb, long long ss, long long sh,
-                    int rows) {
+// The 4-D map (dims d0 innermost .. d3, strides s1..s3 in elements) of
+// boxes of `box0` x 1 x `rows` x 1 elements of `ebytes` bytes each, with
+// the given data type and swizzle; `x` read in place. The encoder is
+// looked up through the CUDA runtime, so the library needs no -lcuda.
+// Returns 0, a cudaError_t, or attn::ERR_TENSOR_MAP when the encoder
+// refuses the layout.
+inline int make_map_4d(CUtensorMap* map, const void* x, CUtensorMapDataType dt,
+                       int ebytes, long long d0, long long d1, long long d2,
+                       long long d3, long long s1, long long s2, long long s3,
+                       int box0, int rows, CUtensorMapSwizzle swizzle) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -414,18 +437,29 @@ inline int make_map(CUtensorMap* map, const void* x, int B, int S, int H,
       return attn::ERR_TENSOR_MAP;
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2,
+                              (cuuint64_t)d3};
+  const cuuint64_t strides[3] = {(cuuint64_t)(s1 * ebytes),
+                                 (cuuint64_t)(s2 * ebytes),
+                                 (cuuint64_t)(s3 * ebytes)};
+  const cuuint32_t box[4] = {(cuuint32_t)box0, 1, (cuuint32_t)rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, dt, 4, const_cast<void*>(x), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : attn::ERR_TENSOR_MAP;
+}
+
+// A [B, S, H, D] bf16 operand: boxes of 64 head-dim values x `rows`
+// sequence rows of one (batch, head), written in the 128-byte swizzle;
+// `x` read through its element strides (sb, ss, sh), the head dim
+// contiguous.
+inline int make_map(CUtensorMap* map, const void* x, int B, int S, int H,
+                    int D, long long sb, long long ss, long long sh,
+                    int rows) {
+  return make_map_4d(map, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, H, S, B,
+                     sh, ss, sb, 64, rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace tc

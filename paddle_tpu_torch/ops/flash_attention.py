@@ -21,10 +21,10 @@ PyTorch twin:
 ``_Flash`` (a ``torch.autograd.Function``, the counterpart of the
 reference's ``_flash`` custom_vjp) joins kernel 1 to kernels 2 and 3.
 
-In bfloat16, kernel 1 and kernel 3 (head dim 64 or 128) run on the tensor
-cores (``wgmma`` fed by TMA, ``csrc/tc_attention.cuh``); float32 keeps
-their CUDA-core instances, whose f32 products hold the twins' 2e-5 where
-TF32 would not. The library picks the instance by dtype and head dim,
+In bfloat16, kernel 1 and kernels 2 and 3 (head dim 64 or 128) run on the
+tensor cores (``wgmma`` fed by TMA, ``csrc/tc_attention.cuh``); float32
+keeps their CUDA-core instances, whose f32 products hold the twins' 2e-5
+where TF32 would not. The library picks the instance by dtype and head dim,
 never after a failed launch; ``tc_launches`` on each wrapper counts the
 tensor-core launches beside ``launches``.
 
@@ -771,15 +771,20 @@ def flash_bwd_dq(q, k, v, g, lse, delta, causal, q_off=0, kv_valid=None,
     """Kernel 2 on the card: dq [B,S_q,H,D] (contiguous, q's dtype) from q,
     k, v and dO (``g``, [B,S_q,H,D], read through its strides), the
     forward's ``lse`` and ``delta = bwd_delta(out, g)`` ([B,H,S_q] f32);
-    the mask and dropout arguments are the forward's.
-    ``flash_bwd_dq.launches`` counts launches."""
-    (dq,), _ = _bwd_launch('flash_bwd_dq', q, k, v, g, lse, delta, causal,
-                           q_off, kv_valid, kmask, drop_rate, seed)
+    the mask and dropout arguments are the forward's. bfloat16 at head dim
+    64 or 128 runs the tensor-core kernel, float32 and head dim 256 the
+    CUDA-core kernel (the library picks by dtype and head dim).
+    ``flash_bwd_dq.launches`` counts launches, ``flash_bwd_dq.tc_launches``
+    those of the tensor-core kernel."""
+    (dq,), tc = _bwd_launch('flash_bwd_dq', q, k, v, g, lse, delta, causal,
+                            q_off, kv_valid, kmask, drop_rate, seed)
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.tc_launches += tc
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.tc_launches = 0
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, causal, q_off=0, kv_valid=None,

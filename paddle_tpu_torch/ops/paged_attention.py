@@ -6,16 +6,23 @@ non-contiguous fixed-size pages (ops/paged_kv.py). This module attends q
 rows to that paged cache three ways:
 
  - ``paged_flash_decode`` and ``paged_flash_decode_int8``: the
-   hand-written Hopper kernels (``csrc/paged_decode.cu``, one template),
-   replacing the Pallas TPU kernels ``_paged_decode_kernel`` (kernel 6)
-   and ``_paged_decode_kernel_int8`` (kernel 7, int8 pages with per-row
-   f32 scales). They read each page straight out of the pool through the
-   page table and never materialize the gathered cache;
+   hand-written Hopper kernels (``csrc/paged_decode.cu``), replacing the
+   Pallas TPU kernels ``_paged_decode_kernel`` (kernel 6) and
+   ``_paged_decode_kernel_int8`` (kernel 7, int8 pages with per-row f32
+   scales). They read each page straight out of the pool through the page
+   table and never materialize the gathered cache. Kernel 7 has three
+   instances, which the C entry point picks by T, q's dtype and the head
+   dim (``int8_instance`` mirrors the rule): the split-K decode for
+   T <= 16 (``split_plan`` sizes its splits and partial buffers), the
+   tensor-core prefill for bf16 q at D 64/128, and the CUDA-core kernel
+   that kernel 6 also runs;
  - ``paged_decode_reference`` and ``paged_decode_int8_reference``: their
    plain PyTorch twins, the same arithmetic (per-page online softmax, p
    rounded to V's dtype before p.V; int8 rows cast to q's dtype, the k
    scale on the score after the dot, the v scale into p before p is
-   rounded) in ordinary tensor ops;
+   rounded) in ordinary tensor ops; ``paged_decode_split_reference`` is
+   the split-K instance's twin (per-split partials merged by
+   log-sum-exp);
  - ``paged_attention_fallback``: the reference's gather-then-softmax
    path, op for op (kept for parity with the reference's own fallback).
 
@@ -50,8 +57,13 @@ from .weight_only import dequantize_kv, is_weight_only
 
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+SPLIT_MAX_T = 16        # kernel 7: T at or below takes the split-K decode
+PREFILL_BK = 64         # the tensor-core prefill's chunk: pages a multiple
+SPLIT_BLOCKS_PER_SM = 8  # split-K: blocks aimed at per SM
+_INSTANCE = {0: 'cuda-core', 1: 'split-k', 2: 'tensor-core'}
 
 _lib = None
+_sms = {}
 
 
 def _kernel_lib():
@@ -62,7 +74,8 @@ def _kernel_lib():
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.paged_decode.restype = ctypes.c_int
         lib.paged_decode_int8.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
+            + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         lib.paged_decode_int8.restype = ctypes.c_int
         lib.paged_decode_error_string.argtypes = [ctypes.c_int]
         lib.paged_decode_error_string.restype = ctypes.c_char_p
@@ -70,20 +83,12 @@ def _kernel_lib():
     return _lib
 
 
-def paged_decode_reference(q, k_pages, v_pages, page_table, pos, ks=None,
-                           vs=None):
-    """Plain PyTorch twin of kernel 6 (the TPU's ``_paged_decode_kernel``),
-    and of kernel 7 with the int8 pages' scales ``ks``/``vs``
-    ([N, page_size, H_kv] f32): pages are visited in order, each slot
-    stops at its last needed page ``min(ceil((pos+T)/ps), P_max)``, and
-    the online-softmax state (m, l, acc) is updated once per page in f32.
-    Scores are f32 dots times 1/sqrt(D) (int8: times the k scale, after
-    the dot), masked with -1e30; l sums the unrounded p, while p.V uses p
-    (int8: times the v scale) rounded to V's dtype (int8: q's dtype, the
-    int8 values cast to it).
-
-    q: [B, T, H, D]; pages [N, page_size, H_kv, D]; page_table [B, P_max]
-    int; pos [B] int -> [B, T, H, D] in q's dtype."""
+def _paged_partial(q, k_pages, v_pages, page_table, pos, ks, vs, p_lo,
+                   p_hi):
+    """The online-softmax state (m, l, acc) [B, H, T, 1 / 1 / D] f32 of q's
+    rows over pages ``p_lo <= p < p_hi`` of each slot, in order, stopping at
+    the slot's last needed page; (m, l, acc) start at (-1e30, 0, 0). Also
+    returns each slot's needed page count [B]."""
     int8 = ks is not None
     b, t, h, d = q.shape
     _, ps, h_kv, _ = k_pages.shape
@@ -104,7 +109,7 @@ def paged_decode_reference(q, k_pages, v_pages, page_table, pos, ks=None,
         x = x.transpose(1, 2)
         return torch.repeat_interleave(x, g, dim=1) if g > 1 else x
 
-    for p in range(int(needed.max())):
+    for p in range(p_lo, min(p_hi, int(needed.max()))):
         pid = table[:, p]
         kb, vb = heads(k_pages[pid]), heads(v_pages[pid])     # [B,H,ps,D]
         if int8:
@@ -125,6 +130,25 @@ def paged_decode_reference(q, k_pages, v_pages, page_table, pos, ks=None,
         acc = torch.where(live, acc_new, acc)
         m = torch.where(live, m_new, m)
         l = torch.where(live, l_new, l)
+    return m, l, acc, needed
+
+
+def paged_decode_reference(q, k_pages, v_pages, page_table, pos, ks=None,
+                           vs=None):
+    """Plain PyTorch twin of kernel 6 (the TPU's ``_paged_decode_kernel``),
+    and of kernel 7 with the int8 pages' scales ``ks``/``vs``
+    ([N, page_size, H_kv] f32): pages are visited in order, each slot
+    stops at its last needed page ``min(ceil((pos+T)/ps), P_max)``, and
+    the online-softmax state (m, l, acc) is updated once per page in f32.
+    Scores are f32 dots times 1/sqrt(D) (int8: times the k scale, after
+    the dot), masked with -1e30; l sums the unrounded p, while p.V uses p
+    (int8: times the v scale) rounded to V's dtype (int8: q's dtype, the
+    int8 values cast to it).
+
+    q: [B, T, H, D]; pages [N, page_size, H_kv, D]; page_table [B, P_max]
+    int; pos [B] int -> [B, T, H, D] in q's dtype."""
+    _, l, acc, _ = _paged_partial(q, k_pages, v_pages, page_table, pos, ks,
+                                  vs, 0, int(page_table.shape[1]))
     out = acc / torch.clamp(l, min=_EPS)
     return out.to(q.dtype).permute(0, 2, 1, 3)
 
@@ -135,6 +159,72 @@ def paged_decode_int8_reference(q, k_bank, v_bank, page_table, pos):
     return paged_decode_reference(q, k_bank['int8'], v_bank['int8'],
                                   page_table, pos, k_bank['scale'],
                                   v_bank['scale'])
+
+
+def int8_instance(dtype, t, d, page_size):
+    """The instance of kernel 7 the C entry point takes for q of ``dtype``
+    with ``t`` rows, head dim ``d`` and pages of ``page_size`` rows:
+    'split-k' for T <= 16, 'tensor-core' for bf16 at D 64/128 with pages a
+    multiple of 64 rows, else 'cuda-core'."""
+    if t <= SPLIT_MAX_T:
+        return 'split-k'
+    if (dtype == torch.bfloat16 and d in (64, 128)
+            and page_size % PREFILL_BK == 0):
+        return 'tensor-core'
+    return 'cuda-core'
+
+
+def split_plan(b, t, h, h_kv, d, p_max, sms):
+    """The split-K decode's launch plan, from shapes and the card's SM
+    count only (never from pos, which stays on the device): about
+    SPLIT_BLOCKS_PER_SM blocks an SM over the B x H_kv (slot, kv head)
+    pairs, at most one split a page; the pages of a slot are cut into
+    ``n_split`` runs of ``pages_per_split``, the last possibly shorter. ->
+    dict of n_split, pages_per_split and the shapes of the partial buffers
+    (f32): m and l [B * T * H, n_split], acc [B * T * H, n_split, D]."""
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // max(1, b * h_kv))
+    n = max(1, min(p_max, want))
+    pps = -(-p_max // n)
+    n = -(-p_max // pps)
+    rows = b * t * h
+    return {'n_split': n, 'pages_per_split': pps, 'm': (rows, n),
+            'l': (rows, n), 'acc': (rows, n, d)}
+
+
+def paged_decode_split_reference(q, k_bank, v_bank, page_table, pos,
+                                 n_split, pages_per_split):
+    """Plain twin of kernel 7's split-K instance: each split's (m, l, acc)
+    over its pages ``[i * pages_per_split, (i + 1) * pages_per_split)`` (as
+    ``paged_decode_int8_reference`` computes them, from a fresh state),
+    then the splits that start before the slot's last needed page merged by
+    log-sum-exp: out = sum_i w_i acc_i / max(sum_i w_i l_i, 1e-30),
+    w_i = exp(m_i - max_j m_j). Same arguments and result as
+    ``paged_decode_int8_reference``."""
+    parts = []
+    needed = None
+    for i in range(n_split):
+        m, l, acc, needed = _paged_partial(
+            q, k_bank['int8'], v_bank['int8'], page_table, pos,
+            k_bank['scale'], v_bank['scale'], i * pages_per_split,
+            (i + 1) * pages_per_split)
+        parts.append((m, l, acc))
+    m = torch.stack([x[0] for x in parts])              # [S,B,H,T,1]
+    l = torch.stack([x[1] for x in parts])
+    acc = torch.stack([x[2] for x in parts])
+    starts = torch.arange(n_split, device=q.device) * pages_per_split
+    live = (starts[:, None] < needed[None, :])[:, :, None, None, None]
+    m = torch.where(live, m, -math.inf)
+    w = torch.exp(m - m.amax(dim=0, keepdim=True))      # dead splits: 0
+    den = (w * l).sum(0)
+    out = (w * acc).sum(0) / torch.clamp(den, min=_EPS)
+    return out.to(q.dtype).permute(0, 2, 1, 3)
+
+
+def _sm_count(dev):
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def _check_kernel_args(q, k_pages, v_pages, page_table, pos, ks=None,
@@ -184,25 +274,48 @@ def _check_kernel_args(q, k_pages, v_pages, page_table, pos, ks=None,
 
 def _paged_launch(q, k_pages, v_pages, page_table, pos, ks=None, vs=None):
     """Check the arguments and launch kernel 6, or kernel 7 with the int8
-    pages' scales ``ks``/``vs``; raises on a refused launch."""
+    pages' scales ``ks``/``vs``; raises on a refused launch. -> (out, the
+    instance the library ran: 'cuda-core', 'split-k' or 'tensor-core')."""
     _check_kernel_args(q, k_pages, v_pages, page_table, pos, ks, vs)
     lib = _kernel_lib()
     b, t, h, d = q.shape
-    _, ps, h_kv, _ = k_pages.shape
+    n_pages, ps, h_kv, _ = k_pages.shape
+    p_max = int(page_table.shape[1])
     out = torch.empty_like(q)
-    scales = () if ks is None else (ks.data_ptr(), vs.data_ptr())
+    inst = ctypes.c_int(0)
     op = 'paged_decode' if ks is None else 'paged_decode_int8'
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, op)(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
-            page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            b, t, h, h_kv, d, ps, int(page_table.shape[1]),
-            _DTYPE_CODE[q.dtype], stream)
+        if ks is None:
+            err = lib.paged_decode(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                b, t, h, h_kv, d, ps, p_max, _DTYPE_CODE[q.dtype], stream)
+        else:
+            # the split-K instance's partial buffers (T <= 16)
+            scratch, n_split, pps = (0, 0, 0), 0, 0
+            if int8_instance(q.dtype, t, d, ps) == 'split-k':
+                plan = split_plan(b, t, h, h_kv, d, p_max,
+                                  _sm_count(q.device))
+                sizes = [math.prod(plan[k]) for k in ('m', 'l', 'acc')]
+                # one allocation; freed on return while the kernels may
+                # still run, which is safe: the caching allocator hands
+                # the memory only to later work on this stream
+                buf = torch.empty(sum(sizes), dtype=torch.float32,
+                                  device=q.device)
+                scratch = (buf.data_ptr(), buf[sizes[0]:].data_ptr(),
+                           buf[sizes[0] + sizes[1]:].data_ptr())
+                n_split, pps = plan['n_split'], plan['pages_per_split']
+            err = lib.paged_decode_int8(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                ks.data_ptr(), vs.data_ptr(), page_table.data_ptr(),
+                pos.data_ptr(), out.data_ptr(), *scratch, b, t, h, h_kv, d,
+                ps, p_max, n_pages, n_split, pps, _DTYPE_CODE[q.dtype],
+                ctypes.byref(inst), stream)
     if err != 0:
         msg = lib.paged_decode_error_string(err).decode()
         raise RuntimeError(f'{op} launch failed ({err}): {msg}')
-    return out
+    return out, _INSTANCE[inst.value]
 
 
 def paged_flash_decode(q, k_pages, v_pages, page_table, pos):
@@ -211,7 +324,7 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, pos):
     pos [B] int32 -> [B,T,H,D]. Launches on the current stream without
     synchronising; raises on arguments the kernel does not take and on a
     refused launch. ``paged_flash_decode.launches`` counts launches."""
-    out = _paged_launch(q, k_pages, v_pages, page_table, pos)
+    out, _ = _paged_launch(q, k_pages, v_pages, page_table, pos)
     paged_flash_decode.launches += 1
     return out
 
@@ -224,14 +337,20 @@ def paged_flash_decode_int8(q, k_bank, v_bank, page_table, pos):
     ``{'int8': [N, page_size, H_kv, D] int8, 'scale': [N, page_size, H_kv]
     f32}`` (one layer of the pool, read in place); q and the output in
     float32 or bfloat16. ``paged_flash_decode_int8.launches`` counts
-    launches."""
-    out = _paged_launch(q, k_bank['int8'], v_bank['int8'], page_table, pos,
-                        k_bank['scale'], v_bank['scale'])
+    launches; ``split_launches`` and ``tc_launches`` those that ran the
+    split-K decode and the tensor-core prefill (``int8_instance``); a
+    split-K launch is the split kernel and its combine, counted once."""
+    out, inst = _paged_launch(q, k_bank['int8'], v_bank['int8'], page_table,
+                              pos, k_bank['scale'], v_bank['scale'])
     paged_flash_decode_int8.launches += 1
+    paged_flash_decode_int8.split_launches += inst == 'split-k'
+    paged_flash_decode_int8.tc_launches += inst == 'tensor-core'
     return out
 
 
 paged_flash_decode_int8.launches = 0
+paged_flash_decode_int8.split_launches = 0
+paged_flash_decode_int8.tc_launches = 0
 
 
 def paged_attention_fallback(q, k_pages, v_pages, page_table, pos, cdt):

@@ -362,16 +362,20 @@ def test_tensor_core_kernels_match_twins(cuda, b, s_q, s_k, h, h_kv, d,
     want_o, want_l = fa.flash_fwd_reference(q, k, v, *args)
     assert _row_err(out, want_o) <= TOL[torch.bfloat16]
     assert (lse - want_l).abs().max().item() <= 1e-4
-    # kernel 3 on kernel 1's own out and lse; D = 256 keeps the CUDA-core
-    # instance (its f32 dK and dV would not fit the registers)
+    # kernels 2 and 3 on kernel 1's own out and lse; D = 256 keeps their
+    # CUDA-core instances (kernel 3's f32 dK and dV would not fit the
+    # registers, kernel 2's q and dO tile and ring not shared memory)
     delta = fa.bwd_delta(out, do)
-    before = fa.flash_bwd_dkv.tc_launches
+    before = (fa.flash_bwd_dq.tc_launches, fa.flash_bwd_dkv.tc_launches)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, *args)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, *args)
     torch.cuda.synchronize()
-    assert fa.flash_bwd_dkv.tc_launches == before + (d in (64, 128))
-    _, want_dk, want_dv = fa.flash_bwd_reference(q, k, v, do, lse, delta,
-                                                 *args)
-    for got, ref in ((dk, want_dk), (dv, want_dv)):
+    tc = int(d in (64, 128))
+    assert (fa.flash_bwd_dq.tc_launches, fa.flash_bwd_dkv.tc_launches) == (
+        before[0] + tc, before[1] + tc)
+    want_dq, want_dk, want_dv = fa.flash_bwd_reference(q, k, v, do, lse,
+                                                       delta, *args)
+    for got, ref in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         assert got.dtype == ref.dtype and got.shape == ref.shape
         assert _grad_err(got, ref) <= TOL[torch.bfloat16]
 
@@ -380,14 +384,15 @@ def test_tensor_core_kernels_match_twins(cuda, b, s_q, s_k, h, h_kv, d,
 def test_float32_keeps_the_cuda_core_instances(cuda):
     from paddle_tpu_torch.ops import flash_attention as fa
     q, k, v, do = _qkv(1, 130, 130, 2, 2, 64, torch.float32)
-    before = (fa.flash_fwd.launches, fa.flash_fwd.tc_launches,
-              fa.flash_bwd_dkv.launches, fa.flash_bwd_dkv.tc_launches)
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [(f.launches, f.tc_launches) for f in kernels]
     out, lse = fa.flash_fwd(q, k, v, True)
-    fa.flash_bwd_dkv(q, k, v, do, lse, fa.bwd_delta(out, do), True)
+    delta = fa.bwd_delta(out, do)
+    fa.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)
     torch.cuda.synchronize()
-    assert (fa.flash_fwd.launches, fa.flash_fwd.tc_launches,
-            fa.flash_bwd_dkv.launches, fa.flash_bwd_dkv.tc_launches) == (
-        before[0] + 1, before[1], before[2] + 1, before[3])
+    assert [(f.launches, f.tc_launches) for f in kernels] == [
+        (n + 1, tc) for n, tc in before]
 
 
 @pytest.mark.gpu
@@ -408,3 +413,52 @@ def test_a_batch_broadcast_gradient_reaches_the_tensor_core_backward(cuda):
                                   True)
     for leaf, ref in zip(leaves, want):
         assert _grad_err(leaf.grad, ref) <= TOL[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
+# kernel 7's instances over int8 pages: split-K decode (T <= 16), the
+# tensor-core prefill (bf16, D 64/128) and the CUDA-core kernel (f32 at
+# large T, D 256)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b,t,h,h_kv,d,pos,dtype,instance', [
+    (4, 1, 16, 16, 64, [0, 127, 128, 1023], torch.bfloat16, 'split-k'),
+    (4, 1, 16, 4, 64, [0, 127, 128, 1023], torch.bfloat16, 'split-k'),
+    (4, 2, 8, 2, 128, [0, 127, 128, 1000], torch.bfloat16, 'split-k'),
+    (2, 16, 8, 2, 256, [127, 900], torch.bfloat16, 'split-k'),
+    (4, 1, 16, 16, 64, [0, 127, 128, 1023], torch.float32, 'split-k'),
+    (2, 16, 4, 4, 128, [128, 1000], torch.float32, 'split-k'),
+    (2, 17, 16, 4, 64, [0, 127], torch.bfloat16, 'tensor-core'),
+    (2, 64, 8, 2, 128, [128, 900], torch.bfloat16, 'tensor-core'),
+    (2, 65, 8, 8, 64, [127, 300], torch.bfloat16, 'tensor-core'),
+    (2, 300, 16, 4, 64, [0, 517], torch.bfloat16, 'tensor-core'),
+    (1, 1024, 16, 16, 64, [0], torch.bfloat16, 'tensor-core'),
+    (1, 1024, 4, 2, 128, [0], torch.bfloat16, 'tensor-core'),
+    (2, 300, 4, 2, 256, [0, 517], torch.bfloat16, 'cuda-core'),
+    (2, 65, 8, 2, 64, [127, 128], torch.float32, 'cuda-core'),
+    (1, 1024, 4, 4, 64, [0], torch.float32, 'cuda-core'),
+], ids=['T1', 'T1_gqa4', 'T2_gqa4_d128', 'T16_gqa4_d256', 'T1_f32',
+        'T16_f32_d128', 'T17_gqa4', 'T64_gqa4_d128', 'T65', 'T300_gqa4',
+        'T1024', 'T1024_gqa2_d128', 'T300_d256', 'T65_f32', 'T1024_f32'])
+def test_int8_paged_instances_match_twin(cuda, b, t, h, h_kv, d, pos, dtype,
+                                         instance):
+    """Each instance against kernel 7's twin: pos at page edges, a shuffled
+    table whose unused entries point at the trash page, GQA groups of 4
+    and 2."""
+    from paddle_tpu_torch.ops import weight_only as wo
+    q, kp, vp, table, pos_t = _case(b, t, h, h_kv, d, pos, torch.float32)
+    kb = dict(zip(('int8', 'scale'), wo.quantize_kv(kp)))
+    vb = dict(zip(('int8', 'scale'), wo.quantize_kv(vp)))
+    q = q.to(dtype)
+    assert pa.int8_instance(dtype, t, d, kp.shape[1]) == instance
+    k7 = pa.paged_flash_decode_int8
+    before = (k7.launches, k7.split_launches, k7.tc_launches)
+    got = pa.paged_attention(q, kb, vb, table, pos_t)
+    torch.cuda.synchronize()
+    assert (k7.launches, k7.split_launches, k7.tc_launches) == (
+        before[0] + 1, before[1] + (instance == 'split-k'),
+        before[2] + (instance == 'tensor-core'))
+    want = pa.paged_decode_int8_reference(q, kb, vb, table, pos_t)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _row_err(got, want) <= TOL[dtype]
