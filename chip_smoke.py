@@ -13,32 +13,40 @@ non-zero:
     its main path gives it, plus GQA, float32 and other head-dim cases;
     max abs error against the stated tolerance (scaled to each output
     row's size in bfloat16), kernel / plain / library times and the bound;
-    for kernels 1, 2, 3 and 7, which instance ran, failing when a case took
-    another than the library's rule gives (kernel 1: tensor-core for
+    for kernels 1, 2, 3, 5, 6 and 7, which instance ran, failing when a case
+    took another than the library's rule gives (kernel 1: tensor-core for
     bfloat16; kernels 2 and 3: tensor-core for bfloat16 at head dim 64 or
-    128; kernel 7: split-K for T <= 16, tensor-core for bfloat16 at head
-    dim 64 or 128, CUDA-core otherwise):
+    128; kernels 5, 6 and 7: split-K for T <= 16, tensor-core for bfloat16
+    at head dim 64 or 128 over pages (kernel 5: S_max) a multiple of 64
+    rows, CUDA-core otherwise):
     paged_decode and paged_decode_int8 (the engine's decode T=1 at ragged
-    positions, prefill T=1024; for kernel 7 also T 1-1024 at page-edge
-    positions, GQA 4 and 2, head dims 64/128/256, f32 q),
+    positions, prefill T=1024, and with 200 real rows; T 1-1024 at page-edge positions, GQA 4 and 2, head dims
+    64/128/256, f32 q, pages of 512 and 1024 rows, prefills with valid <
+    T whose padding rows must come out zero),
     flash_decode and flash_decode_int8
-    (generate()'s decode step and prefill), flash_fwd (forward() over
+    (generate()'s decode step and prefill; kernel 5's other instances),
+    flash_fwd (forward() over
     [8, 1024], and with dropout 0.1), flash_bwd_dq and flash_bwd_dkv (the
     train step's backward over [8, 1024], and with dropout 0.1; library:
     PyTorch's own flash backward, for the two together);
  4. the serving path at full width: the bench GPT (vocab 32768, hidden
-    1024, 24 layers, 16 heads, bf16, random weights from a seed) in
-    GenerationEngine(num_slots=8, page_size=128) answering 8 greedy
-    requests with ragged prompts; every launch counter is set to 0 just
-    before and read just after, and must equal 24 x (prefills + steps);
+    1024, 24 layers, 16 heads, bf16, random weights from a seed) as a
+    GPTForCausalLM in GenerationEngine(model, num_slots=8, page_size=128)
+    answering 8 greedy requests with ragged prompts; every launch counter
+    is set to 0 just before and read just after: paged_decode must equal
+    24 x (prefills + steps), the 24 x prefills on the tensor-core instance
+    and the 24 x steps on the split-K one; the share of prefill q tiles
+    the kernel skipped as padding;
  5. card against CPU at reduced depth (hidden 1024, 2 layers, float32), the
     engine at its default 1024-row prefill on both: prefill logits agree
     and greedy streams are equal;
  6. dense generate() at full width: the same bench GPT, 8 prompts of 128
     tokens (numpy seed), 128 greedy tokens, once with the bf16 cache and
     once with the int8 cache; tokens/s, prefill ms, mean step ms, a
-    profiled window of decode steps; launches == 24 x 128 per run, and the
-    int8 run's prefill logits within cosine 0.999 of the bf16 run's;
+    profiled window of decode steps for each; launches == 24 x 128 per run
+    (int8: the 24 prefill launches on kernel 5's tensor-core instance, the
+    24 x 127 steps on its split-K one), and the int8 run's prefill logits
+    within cosine 0.999 of the bf16 run's;
  7. forward() on [8, 1024] (flash_fwd launches == 24), then generate() on
     8 prompts of 1000 tokens with 32 new: 25 cached tokens and 7 on the
     sliding window (flash_decode 24 x 25, flash_fwd 24 x 7 launches); every
@@ -168,10 +176,11 @@ def device_ms(fn, iters, warmup=3):
 # ---------------------------------------------------------------------------
 
 def make_case(b, t, h, h_kv, d, pos, dtype, ps=128, p_max=8, seed=0,
-              int8=False, layers=LAYERS):
+              int8=False, layers=LAYERS, valid=None):
     """q, ``layers`` page pools (int8 banks with ``int8``), a table of
-    scattered pages and ``pos``, on the card. Entries past a slot's needed
-    pages stay 0 (the trash page), as the engine leaves them."""
+    scattered pages, ``pos`` and ``valid`` (real rows per slot, or None),
+    on the card. Entries past a slot's needed pages stay 0 (the trash
+    page), as the engine leaves them."""
     from paddle_tpu_torch.ops.weight_only import quantize_kv
     g = torch.Generator(device='cuda').manual_seed(seed)
     n = b * p_max + 1
@@ -192,15 +201,17 @@ def make_case(b, t, h, h_kv, d, pos, dtype, ps=128, p_max=8, seed=0,
     return dict(q=q, k=kp, v=vp, int8=int8,
                 table=torch.from_numpy(table).cuda(),
                 pos=torch.tensor(pos, dtype=torch.int32, device='cuda'),
+                valid=(None if valid is None else torch.tensor(
+                    valid, dtype=torch.int32, device='cuda')),
                 ps=ps, p_max=p_max)
 
 
 def bound(c):
     """Least time for the call: each input byte read once (the KV rows the
-    slots can see, int8: a byte a value and an f32 scale a row, q, table,
-    pos), the output written once, and 4*D flops per (row, visible key,
-    head); the larger of bytes / HBM rate and operations / peak rate for
-    the dtype."""
+    slots' real rows can see, int8: a byte a value and an f32 scale a row,
+    the real q rows, table, pos, valid), the output written once, and 4*D
+    flops per (real row, visible key, head); the larger of bytes / HBM rate
+    and operations / peak rate for the dtype."""
     q = c['q']
     b, t, h, d = q.shape
     kv = c['k']['int8'] if c['int8'] else c['k']
@@ -208,12 +219,15 @@ def bound(c):
     es = q.element_size()
     row = d * kv.element_size() + (4 if c['int8'] else 0)
     cap = c['p_max'] * c['ps']
-    keys = [min(p0 + t, cap) for p0 in c['pos'].tolist()]
+    real = (c['valid'].tolist() if c['valid'] is not None else [t] * b)
+    real = [min(max(n, 0), t) for n in real]
+    keys = [min(p0 + n, cap) for p0, n in zip(c['pos'].tolist(), real)]
     kv_bytes = 2 * sum(keys) * h_kv * row
-    nbytes = kv_bytes + 2 * q.numel() * es + c['table'].numel() * 4 + b * 4
+    nbytes = (kv_bytes + (sum(real) + b * t) * h * d * es
+              + c['table'].numel() * 4 + b * 4 * (1 + (c['valid'] is not None)))
     ops = 0
-    for p0 in c['pos'].tolist():
-        vis = sum(min(p0 + j + 1, cap) for j in range(t))
+    for p0, n in zip(c['pos'].tolist(), real):
+        vis = sum(min(p0 + j + 1, cap) for j in range(n))
         ops += 4 * d * h * vis
     return bound_of(nbytes, ops, q.dtype)
 
@@ -251,6 +265,9 @@ def sdpa_ms(c, iters):
         ks.append(kg.permute(0, 2, 1, 3).contiguous())
         vs.append(vg.permute(0, 2, 1, 3).contiguous())
     s = ks[0].shape[2]
+    if c['valid'] is not None:          # the real rows only (one slot)
+        n = int(c['valid'][0])
+        q, t = q[:, :n], n
     qpos = c['pos'].long()[:, None, None] + torch.arange(
         t, device='cuda')[None, :, None]
     mask = (torch.arange(s, device='cuda')[None, None, :] <= qpos)[:, None]
@@ -284,7 +301,7 @@ def instance_counts(kernel):
 
 
 def hold_kernel(kname, name, kernel, call, twin, tol, timing=None,
-                lse=False, floor=0.0, instance=None):
+                lse=False, floor=0.0, instance=None, check=None):
     """Hold one kernel call against its twin on the same inputs, and on a
     main-path shape (``timing``: dict of ``iters``, ``bound`` as
     ``bound_of`` returns it, ``library(iters)``) time it. ``call(i)`` and
@@ -293,11 +310,14 @@ def hold_kernel(kname, name, kernel, call, twin, tol, timing=None,
     ('tensor-core', 'split-k' or 'cuda-core'), read from the wrapper's
     instance counters. The launches made here only compare and time, so
     the kernel's counters are put back. Raises when the two disagree or
-    the wrong instance ran."""
+    the wrong instance ran; ``check(out)`` may raise on the call's output
+    too."""
     before = kernel.launches
     inst_before = instance_counts(kernel)
     got = call(0)
     torch.cuda.synchronize()
+    if check is not None:
+        check(got)
     want = twin(0)
     rec = {}
     if instance is not None:
@@ -347,13 +367,14 @@ def hold_kernel(kname, name, kernel, call, twin, tol, timing=None,
     return rec
 
 
-# kernel 7 beyond the engine's shapes, one case per instance and edge: pos
-# at page edges (0, 127, 128, 1023), the table shuffled with its unused
-# entries on the trash page, GQA groups of 4 and 2, head dims 64/128/256,
-# f32 q; T 1, 2, 16 (split-K), 17-1024 (tensor-core in bf16 at D 64/128)
+# kernels 6 and 7 beyond the engine's shapes, one case per instance and
+# edge: pos at page edges (0, 127, 128, 1023), the table shuffled with its
+# unused entries on the trash page, GQA groups of 4 and 2, head dims
+# 64/128/256, f32 q; T 1, 2, 16 (split-K), 17-1024 (tensor-core in bf16 at D
+# 64/128); kernel 6 over pages of the pool's dtype, kernel 7 over int8 banks
 BF, FP = torch.bfloat16, torch.float32
 EDGES = [0, 127, 128, 1023]
-INT8_CASES = [
+PAGED_CASES = [
     ('T1_edges', dict(b=4, t=1, h=16, h_kv=16, d=64, pos=EDGES, dtype=BF)),
     ('T1_gqa4', dict(b=4, t=1, h=16, h_kv=4, d=64, pos=EDGES, dtype=BF)),
     ('T2_gqa4_d128', dict(b=4, t=2, h=8, h_kv=2, d=128,
@@ -378,7 +399,25 @@ INT8_CASES = [
     ('T65_f32_gqa4', dict(b=2, t=65, h=8, h_kv=2, d=64, pos=[127, 128],
                           dtype=FP)),
     ('T1024_f32', dict(b=1, t=1024, h=4, h_kv=4, d=64, pos=[0], dtype=FP)),
+    # pages of 512 and 1024 rows (ROADMAP Q3.2): the CUDA-core kernel's
+    # shared memory no longer grows with the page size
+    ('T300_f32_ps512_d128', dict(b=2, t=300, h=4, h_kv=2, d=128,
+                                 pos=[0, 600], dtype=FP, ps=512, p_max=2)),
+    ('T300_f32_ps1024', dict(b=2, t=300, h=4, h_kv=2, d=64, pos=[0, 700],
+                             dtype=FP, ps=1024, p_max=1)),
+    ('T200_ps512_d128', dict(b=2, t=200, h=4, h_kv=2, d=128, pos=[0, 700],
+                             dtype=BF, ps=512, p_max=2)),
+    ('T3_ps1024', dict(b=2, t=3, h=4, h_kv=2, d=64, pos=[5, 1020], dtype=BF,
+                       ps=1024, p_max=1)),
+    # prefill padding: rows at or past valid come out zero, their q tiles
+    # skipped (tensor-core, CUDA-core)
+    ('T1024_valid', dict(b=3, t=1024, h=4, h_kv=2, d=64, pos=[0, 0, 0],
+                         dtype=BF, valid=[5, 129, 1000])),
+    ('T300_f32_valid', dict(b=2, t=300, h=4, h_kv=2, d=64, pos=[0, 0],
+                            dtype=FP, valid=[1, 250])),
 ]
+# the engine's prefill at its real rows: one prompt of 200 padded to 1024
+ENGINE_VALID = 200
 
 
 def kernel_cases(pa, timed_iters):
@@ -387,28 +426,30 @@ def kernel_cases(pa, timed_iters):
     rng = np.random.RandomState(1)
     ragged = [int(x) for x in rng.randint(16, 1023, size=8)]
     ragged[0], ragged[1] = 0, 1023          # both ends of the window
-    cases = [
+    engine = [
         ('decode_T1', dict(b=8, t=1, h=16, h_kv=16, d=64, pos=ragged,
-                           dtype=torch.bfloat16), True),
+                           dtype=BF), True),
         ('prefill_T1024', dict(b=1, t=1024, h=16, h_kv=16, d=64, pos=[0],
-                               dtype=torch.bfloat16), True),
+                               dtype=BF), True),
+        ('prefill_T1024_valid200', dict(b=1, t=1024, h=16, h_kv=16, d=64,
+                                        pos=[0], dtype=BF,
+                                        valid=[ENGINE_VALID]), True),
         ('decode_T1_gqa_hkv4', dict(b=8, t=1, h=16, h_kv=4, d=64,
-                                    pos=ragged, dtype=torch.bfloat16), False),
+                                    pos=ragged, dtype=BF), False),
         ('decode_T1_d128', dict(b=8, t=1, h=8, h_kv=8, d=128, pos=ragged,
-                                dtype=torch.bfloat16), False),
+                                dtype=BF), False),
         ('decode_T1_d256', dict(b=8, t=1, h=4, h_kv=4, d=256, pos=ragged,
-                                dtype=torch.bfloat16), False),
+                                dtype=BF), False),
         ('decode_T1_f32', dict(b=8, t=1, h=16, h_kv=16, d=64, pos=ragged,
-                               dtype=torch.float32), False),
+                               dtype=FP), False),
         ('prefill_T300_f32_gqa', dict(b=2, t=300, h=16, h_kv=4, d=64,
-                                      pos=[0, 517], dtype=torch.float32),
-         False),
-        # kernel 7: the int8 engine's decode and prefill, then INT8_CASES
-        ('decode_T1', dict(b=8, t=1, h=16, h_kv=16, d=64, pos=ragged,
-                           dtype=torch.bfloat16, int8=True), True),
-        ('prefill_T1024', dict(b=1, t=1024, h=16, h_kv=16, d=64, pos=[0],
-                               dtype=torch.bfloat16, int8=True), True),
-    ] + [(name, dict(kw, int8=True), False) for name, kw in INT8_CASES]
+                                      pos=[0, 517], dtype=FP), False),
+    ]
+    cases = (engine + [(name, kw, False) for name, kw in PAGED_CASES]
+             + [(name, dict(kw, int8=True), timed)
+                for name, kw, timed in engine[:3]]
+             + [(name, dict(kw, int8=True), False)
+                for name, kw in PAGED_CASES])
     results = {'paged_decode': {}, 'paged_decode_int8': {}}
     for name, kw, engine_shape in cases:
         c = make_case(layers=LAYERS if engine_shape else 1, **kw)
@@ -424,17 +465,29 @@ def kernel_cases(pa, timed_iters):
         timing = (dict(iters=timed_iters, bound=bound(c),
                        library=lambda it: sdpa_ms(c, it))
                   if engine_shape else None)
-        # kernel 7: the library's instance for the case (split-K, tensor-
-        # core or CUDA-core); kernel 6 has one
-        inst = (pa.int8_instance(kw['dtype'], kw['t'], kw['d'], c['ps'])
-                if c['int8'] else None)
+        # the library's instance for the case: split-K, tensor-core or
+        # CUDA-core, by T, dtype, head dim and page size
+        inst = pa.paged_instance(kw['dtype'], kw['t'], kw['d'], c['ps'],
+                                 torch.int8 if c['int8'] else kw['dtype'])
         results[kname][name] = hold_kernel(
-            kname, name, kern, lambda i: kern(*args(i)),
-            lambda i: twin(*args(i)), TOL[kw['dtype']], timing,
-            instance=inst)
+            kname, name, kern,
+            lambda i: kern(*args(i), valid=c['valid']),
+            lambda i: twin(*args(i), valid=c['valid']), TOL[kw['dtype']],
+            timing, instance=inst,
+            check=(None if c['valid'] is None else
+                   lambda out: expect_zero_past_valid(kname, name, out,
+                                                      c['valid'])))
         del c
         torch.cuda.empty_cache()
     return results
+
+
+def expect_zero_past_valid(kname, name, out, valid):
+    """Rows at or past valid[b] of a kernel's output are exactly zero."""
+    for b, n in enumerate(valid.tolist()):
+        if out[b, n:].any():
+            raise AssertionError(f'{kname} {name}: slot {b} has nonzero rows '
+                                 f'past valid {n}')
 
 
 # ---------------------------------------------------------------------------
@@ -442,6 +495,7 @@ def kernel_cases(pa, timed_iters):
 # ---------------------------------------------------------------------------
 
 GEN_POS = 191      # mean position of phase 6's decode steps (128 .. 254)
+PF_TILE = 128      # q rows a block of the tensor-core prefill
 BF16, F32 = torch.bfloat16, torch.float32
 # (name, case arguments, main-path shape: timed and bounded)
 DECODE_CASES = [
@@ -461,6 +515,20 @@ DECODE_CASES = [
                                pos=0, dtype=BF16, int8=True), True),
     ('decode_T2_int8_f32_gqa', dict(b=4, t=2, h=8, h_kv=2, d=64, s_max=512,
                                     pos=400, dtype=F32, int8=True), False),
+    # kernel 5's instances beyond generate()'s shapes: S_max not a
+    # multiple of the split-K's 128-row pages, T 16 at D 256, the
+    # tensor-core prefill at D 128 and GQA, the CUDA-core tile
+    ('decode_T16_int8_d256_smax200', dict(b=2, t=16, h=8, h_kv=2, d=256,
+                                          s_max=200, pos=150, dtype=BF16,
+                                          int8=True), False),
+    ('prefill_T300_int8_gqa_d128', dict(b=2, t=300, h=8, h_kv=2, d=128,
+                                        s_max=512, pos=100, dtype=BF16,
+                                        int8=True), False),
+    ('prefill_T128_int8_smax1000', dict(b=2, t=128, h=4, h_kv=4, d=64,
+                                        s_max=1000, pos=0, dtype=BF16,
+                                        int8=True), False),
+    ('prefill_T128_int8_f32', dict(b=2, t=128, h=4, h_kv=4, d=64, s_max=1024,
+                                   pos=0, dtype=F32, int8=True), False),
 ]
 FWD_CASES = [
     ('fwd_S1024', dict(b=8, s=1024, h=16, h_kv=16, d=64, dtype=BF16), True),
@@ -501,10 +569,15 @@ LSE_TOL = 1e-4     # lse is f32 from the same scores: order of sums only
 def dense_case(b, t, h, h_kv, d, s_max, pos, dtype, int8=False, layers=1,
                seed=0):
     """q, ``layers`` dense caches [B, S_max, H_kv, D] (int8 banks with
-    ``int8``) and pos as the int32 [1] tensor generate() passes."""
+    ``int8``) and pos as the int32 [1] tensor generate() passes. q is a
+    strided view of a packed [B, T, H_kv, g + 2, D] projection, as
+    ``_block_qkv`` hands it over (MHA: a view; GQA: a copy)."""
     from paddle_tpu_torch.ops.weight_only import quantize_kv
     g = torch.Generator(device='cuda').manual_seed(seed)
-    q = torch.randn((b, t, h, d), generator=g, device='cuda').to(dtype)
+    grp = h // h_kv
+    packed = torch.randn((b, t, h_kv, grp + 2, d), generator=g,
+                         device='cuda').to(dtype)
+    q = packed[..., :grp, :].reshape(b, t, h, d)
 
     def plane():
         out = []
@@ -610,7 +683,7 @@ def fwd_sdpa_ms(c, iters):
         *qkv[i % rot], is_causal=c['causal'], dropout_p=c['drop']), iters)
 
 
-def dense_kernel_cases(fa, timed_iters):
+def dense_kernel_cases(fa, pa, timed_iters):
     """The dense decode kernels (4, 5) and the forward kernel (1) against
     their twins; the main-path shapes are timed over LAYERS rotating
     caches or projections, as generate() and forward() find them."""
@@ -625,9 +698,14 @@ def dense_kernel_cases(fa, timed_iters):
         timing = (dict(iters=timed_iters, bound=decode_bound(c),
                        library=lambda it: decode_sdpa_ms(c, it))
                   if timed else None)
+        # kernel 5 takes kernel 7's rule over its implicit pages; kernel 4
+        # keeps its one CUDA-core tile
+        inst = (pa.paged_instance(kw['dtype'], kw['t'], kw['d'], kw['s_max'],
+                                  torch.int8) if c['int8'] else None)
         results[kname][name] = hold_kernel(
             kname, name, kern, lambda i: kern(*args(i)),
-            lambda i: twin(*args(i)), TOL[kw['dtype']], timing)
+            lambda i: twin(*args(i)), TOL[kw['dtype']], timing,
+            instance=inst)
         del c
         torch.cuda.empty_cache()
     for name, kw, timed in FWD_CASES:
@@ -762,6 +840,14 @@ def prefill_pad_share(lens, width, ps, tq=64):
     return pad / total
 
 
+def prefill_tiles_skipped(lens, width, tq):
+    """Share of the prefills' q tiles of ``tq`` rows that start at or past
+    the prompt's length: the tiles the kernel, given valid, skips."""
+    tiles = -(-width // tq)
+    return sum(sum(q0 >= n for q0 in range(0, width, tq))
+               for n in lens) / (tiles * len(lens))
+
+
 def serve(engine, reqs, max_new):
     t0 = time.perf_counter()
     futs = [engine.submit(p, max_new_tokens=max_new) for p in reqs]
@@ -769,22 +855,27 @@ def serve(engine, reqs, max_new):
     return out, time.perf_counter() - t0
 
 
-def phase_engine(gpt, pa, GenerationEngine, card):
+def phase_engine(gpt, pa, GenerationEngine, kernels, card):
     cfg = bench_config(gpt)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device='cuda').manual_seed(0)
     params = gpt.init_params(cfg, gen, 'cuda')
     n_params = sum(v.numel() for k, v in params.items() if k != 'blocks')
     n_params += sum(v.numel() for v in params['blocks'].values())
-    eng = GenerationEngine(params, cfg, num_slots=8, page_size=128)
+    # the engine takes the model object (ROADMAP Q3.1)
+    model = gpt.GPTForCausalLM(cfg, params, device='cuda')
+    eng = GenerationEngine(model, num_slots=8, page_size=128)
     try:
         w = eng.warmup()
         reqs = prompts(8, 16, 400, cfg.vocab_size, seed=0)
         new = 32
-        pa.paged_flash_decode.launches = 0
+        zero_launches(kernels)
         out, wall = serve(eng, reqs, new)
         torch.cuda.synchronize()
-        launches = pa.paged_flash_decode.launches
+        counts = launch_counts(kernels)
+        k6 = kernels['paged_decode']
+        inst = {'tensor-core': k6.tc_launches, 'split-k': k6.split_launches}
+        launches = k6.launches
         st = eng.stats()
         prof = profile_serving(eng, reqs, new)
     finally:
@@ -795,13 +886,21 @@ def phase_engine(gpt, pa, GenerationEngine, card):
             raise AssertionError(f'request {i}: {len(toks)} tokens, want '
                                  f'{new} in [0, {cfg.vocab_size})')
     calls = st['prefills'] + st['steps']
-    if launches != cfg.num_layers * calls:
-        raise AssertionError(
-            f'paged_decode launched {launches} times, want '
-            f'{cfg.num_layers} x ({st["prefills"]} prefills + '
-            f'{st["steps"]} steps) = {cfg.num_layers * calls}')
+    L = cfg.num_layers
+    expect_launches(f'engine ({st["prefills"]} prefills + {st["steps"]} '
+                    'steps)', counts, {'paged_decode': L * calls})
     if launches == 0:
         raise AssertionError('the main path launched no kernel')
+    # the prefills (T = prefill width, bf16) on the tensor-core instance,
+    # the decode steps (T = 1) on the split-K instance
+    want = {'tensor-core': L * st['prefills'], 'split-k': L * st['steps']}
+    if inst != want:
+        raise AssertionError(f'engine: kernel 6 instances {inst}, want {want}')
+    print(f'  kernel 6 instances: {inst}', flush=True)
+    lens = [len(p) for p in reqs]
+    k6_ms = {'split-k': kernel_ms(prof, 'split_kernel'),
+             'tensor-core': kernel_ms(prof, 'prefill_tc_kernel'),
+             'cuda-core': kernel_ms(prof, 'paged_decode_kernel')}
     res = {'params': n_params, 'requests': len(out), 'new_tokens': new,
            'prompt_lens': [len(p) for p in reqs], 'wall_s': wall,
            'tokens_per_s': len(out) * new / wall,
@@ -812,7 +911,12 @@ def phase_engine(gpt, pa, GenerationEngine, card):
            'prefills': st['prefills'], 'steps': st['steps'],
            'launches': launches, 'warmup_s': w['seconds'],
            'prefill_pad_share': prefill_pad_share(
-               [len(p) for p in reqs], eng.prefill_width, eng.page_size),
+               lens, eng.prefill_width, eng.page_size),
+           'prefill_work_skipped': prefill_pad_share(
+               lens, eng.prefill_width, eng.page_size, PF_TILE),
+           'prefill_tiles_skipped': prefill_tiles_skipped(
+               lens, eng.prefill_width, PF_TILE),
+           'instances': inst, 'kernel6_device_ms': k6_ms,
            'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9,
            'profile': prof}
     print(f'  engine at full width ({n_params / 1e6:.1f}M params, 8 slots, '
@@ -821,17 +925,19 @@ def phase_engine(gpt, pa, GenerationEngine, card):
           f'{res["ttft_ms_p50"]:.1f} ms, mean step {res["step_ms_mean"]:.2f}'
           f' ms, mean prefill {res["prefill_ms_mean"]:.2f} ms [{card}]',
           flush=True)
-    print(f'  launches {launches} == {cfg.num_layers} x ({st["prefills"]} '
-          f'prefills + {st["steps"]} steps)', flush=True)
     print(f'  prefill attention work on padding-only q tiles (prompts '
-          f'{min(res["prompt_lens"])}-{max(res["prompt_lens"])} rows padded '
-          f'to {eng.prefill_width}): {100 * res["prefill_pad_share"]:.1f}%',
-          flush=True)
+          f'{min(lens)}-{max(lens)} rows padded to {eng.prefill_width}): '
+          f'{100 * res["prefill_pad_share"]:.1f}% of 64-row tiles; the '
+          f'tensor-core prefill skipped {100 * res["prefill_tiles_skipped"]:.1f}'
+          f'% of its {PF_TILE}-row q tiles, '
+          f'{100 * res["prefill_work_skipped"]:.1f}% of its work', flush=True)
     print(f'  profiled rerun: window {prof["window_ms"]:.1f} ms, device busy '
           f'{prof["device_ms"]:.1f} ms ({100 * prof["busy_share"]:.1f}%), '
           f'{prof["kernels"]} kernel launches', flush=True)
     for name, ms in prof['top']:
         print(f'    {ms:9.3f} ms  {name}', flush=True)
+    print(f'  kernel 6 device ms in the profiled rerun, by instance: '
+          f'{k6_ms}', flush=True)
     return res
 
 
@@ -999,6 +1105,16 @@ def phase_generate(gpt, kernels, card):
         check_tokens(out, (b, t0 + new), cfg.vocab_size, f'generate {label}')
         expect_launches(f'generate {label} (prefill + {new - 1} steps)',
                         launches, {kname: cfg.num_layers * new})
+        inst = instance_counts(kernels[kname])
+        if label == 'int8':
+            # kernel 5: the prefill (T = 128, bf16) on the tensor-core
+            # instance, the decode steps (T = 1) on the split-K one
+            want = {'tc_launches': cfg.num_layers,
+                    'split_launches': cfg.num_layers * (new - 1)}
+            if inst != want:
+                raise AssertionError(f'generate int8: kernel 5 instances '
+                                     f'{inst}, want {want}')
+            print(f'  kernel 5 instances: {inst}', flush=True)
         # once more, uncounted: how far one run's time is from the next
         again, wall2 = timed(lambda: m.generate(prompt, max_new_tokens=new,
                                                 temperature=0))
@@ -1022,11 +1138,12 @@ def phase_generate(gpt, kernels, card):
         rec = {'wall_s': wall, 'tokens_per_s': b * new / wall,
                'wall_s_second_run': wall2, 'prefill_ms': pre_s * 1e3,
                'step_ms_mean': loop_s * 1e3 / (new - 1),
-               'launches': launches[kname],
+               'launches': launches[kname], 'instances': inst,
                'distinct_tokens': int(out[:, t0:].unique().numel())}
-        if label == 'bf16':
-            rec['profile'] = profile_window(lambda: loop(
-                params, first, pos0, cache, None, 16))
+        rec['profile'] = profile_window(lambda: loop(
+            params, first, pos0, cache, None, 16))
+        rec['profile']['kernel_ms'] = kernel_ms(
+            rec['profile'], 'split_kernel', 'attn_tile_kernel')
         print(f'  generate {label} cache: {b} x {new} tokens in {wall:.3f} s'
               f' (again: {wall2:.3f} s)'
               f'; {rec["tokens_per_s"]:.1f} tokens/s, prefill '
@@ -1042,13 +1159,15 @@ def phase_generate(gpt, kernels, card):
           f'(want > 0.999)', flush=True)
     if not cos > 0.999:
         raise AssertionError(f'int8 cache prefill logits cosine {cos}')
-    prof = res['bf16']['profile']
-    print(f'  profiled 16 decode steps: window {prof["window_ms"]:.1f} ms, '
-          f'device busy {prof["device_ms"]:.1f} ms '
-          f'({100 * prof["busy_share"]:.1f}%), {prof["kernels"]} kernel '
-          'launches', flush=True)
-    for name, ms in prof['top']:
-        print(f'    {ms:9.3f} ms  {name}', flush=True)
+    for label in ('bf16', 'int8'):
+        prof = res[label]['profile']
+        print(f'  profiled 16 decode steps, {label} cache: window '
+              f'{prof["window_ms"]:.1f} ms, device busy '
+              f'{prof["device_ms"]:.1f} ms ({100 * prof["busy_share"]:.1f}%),'
+              f' {prof["kernels"]} kernel launches; attention '
+              f'{prof["kernel_ms"]:.3f} ms', flush=True)
+        for name, ms in prof['top']:
+            print(f'    {ms:9.3f} ms  {name}', flush=True)
     res['int8_prefill_cosine'] = cos
     res['peak_mem_gb'] = torch.cuda.max_memory_allocated() / 1e9
     return model, res
@@ -1289,9 +1408,8 @@ def phase_engine_int8(gpt, GenerationEngine, kernels, card):
         raise AssertionError(f'int8 engine: kernel 7 instances {inst}, want '
                              f'{want}')
     print(f'  kernel 7 instances: {inst}', flush=True)
-    k7_ms = {'split-k': kernel_ms(prof, 'paged_split_kernel',
-                                  'paged_combine_kernel'),
-             'tensor-core': kernel_ms(prof, 'paged_prefill_tc_kernel'),
+    k7_ms = {'split-k': kernel_ms(prof, 'split_kernel'),
+             'tensor-core': kernel_ms(prof, 'prefill_tc_kernel'),
              'cuda-core': kernel_ms(prof, 'paged_decode_kernel')}
     sp = gpt.serving_params(params, cfg)
     lg8 = paged_prefill_logits(gpt, sp, cfg, reqs, 'cuda')
@@ -1564,10 +1682,11 @@ def main(argv=None):
     print('phase 3: kernels against their plain twins on the card',
           flush=True)
     report['kernel'] = kr = kernel_cases(pa, TIMED_ITERS)
-    report['dense_kernels'] = dk = dense_kernel_cases(fa, TIMED_ITERS)
+    report['dense_kernels'] = dk = dense_kernel_cases(fa, pa, TIMED_ITERS)
     report['bwd_kernels'] = bk = bwd_kernel_cases(fa, TIMED_ITERS)
     print('phase 4: GenerationEngine at full width', flush=True)
-    report['engine'] = phase_engine(gpt, pa, GenerationEngine, card)
+    report['engine'] = phase_engine(gpt, pa, GenerationEngine, counters,
+                                    card)
     print('phase 5: card against CPU at 2 layers', flush=True)
     report['card_vs_cpu'] = phase_card_vs_cpu(gpt, GenerationEngine)
     print('phase 6: dense generate() at full width', flush=True)

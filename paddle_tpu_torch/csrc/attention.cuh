@@ -376,7 +376,7 @@ inline const char* error_string(int code) {
   if (code == ERR_TENSOR_MAP)
     return "cuTensorMapEncodeTiled refused an operand's layout";
   if (code == ERR_SCRATCH)
-    return "the split-K instance was given no partial buffers";
+    return "the split-K instance was given no partial buffers or tickets";
   if (code < 0) return "no kernel instance for this dtype / head_dim";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -6,27 +6,45 @@
 // flash_decode_int8). q rows at absolute positions pos .. pos+T-1 attend the
 // cache positions up to their own. pos is read from device memory (an int32
 // [1] tensor), the counterpart of the TPU's scalar prefetch, so a decode
-// step needs no host sync and can be captured in a CUDA graph. One template
-// (attn_tile_kernel in attention.cuh) over the cache's element type serves
-// both: bf16/f32 rows in q's dtype, or int8 rows with f32 row scales, where
-// the k scale multiplies the score after the dot and the v scale multiplies
-// p before p is rounded to q's dtype for p.V, as on the TPU.
+// step needs no host sync and can be captured in a CUDA graph. bf16/f32 rows
+// are in q's dtype; int8 rows carry f32 row scales, where the k scale
+// multiplies the score after the dot and the v scale multiplies p before p
+// is rounded to q's dtype for p.V, as on the TPU.
 //
 // The cache is one layer's [B, S_max, H_kv, D] view of the [L, B, S_max,
-// H_kv, D] cache, read in place: one head's K/V row is a contiguous D-vector
-// (the TPU wrapper transposes the cache to [B*H_kv, S_max, D] on every call).
-// The TPU kernel takes T <= 128 (its q tile); here a block owns 64 q rows of
-// one (batch, head) and the grid tiles T, so every T is one launch.
+// H_kv, D] cache, read in place through its element strides: one head's K/V
+// row is a contiguous D-vector (the TPU wrapper transposes the cache to
+// [B*H_kv, S_max, D] on every call), and q may be a strided view of the
+// packed qkv projection. The TPU kernel takes T <= 128 (its q tile); here
+// every T is one launch.
+//
+// Kernel 4 (bf16/f32 cache) runs the CUDA-core attention tile of
+// attention.cuh (attn_tile_kernel): a block owns 64 q rows of one (batch,
+// head) and streams its keys alone. Kernel 5 (int8 cache) takes kernel 7's
+// instances from kv_attention.cuh, chosen in its entry point by T, dtype,
+// head dim and S_max (never after a failed launch):
+// - T <= 16: the split-K decode over the cache read as pages of 128 rows
+//   through an implicit table (page p of batch row b is its rows p * 128 ..
+//   p * 128 + 127), n_split runs of pps pages sized from S_max and the SM
+//   count (never from pos), the partials merged by the last split of each
+//   (batch row, kv head) to finish;
+// - T > 16, bf16 q, D 64/128, S_max a multiple of 64: the tensor-core
+//   prefill, 64-row chunks of each batch row's int8 rows TMA-loaded and
+//   widened to bf16 by the producer warpgroup;
+// - otherwise the CUDA-core tile.
 //
 // Bound. A decode step (T = 1) reads each K/V row up to pos once and does
 // ~4*D flops per key per head, far below the card's ~295 flops per byte: it
 // is bound by bytes (int8 rows halve them; their scales add 8 bytes a row).
-// Each block stops at the last key its rows can see. A block streams its
-// keys alone, so with B*H blocks the card has few bytes in flight; splitting
-// the key range across blocks is for later work.
+// A block of the CUDA-core tile streams its keys alone, so with B*H blocks
+// the card has few bytes in flight: the split-K instance splits the key
+// range across blocks.
 #include "attention.cuh"
+#include "kv_attention.cuh"
 
 namespace {
+
+constexpr int DENSE_PS = 128;   // rows of a page of the implicit table
 
 attn::TileArgs decode_args(const void* q, const void* k, const void* v,
                            const void* ks, const void* vs, const void* pos,
@@ -83,14 +101,74 @@ int flash_decode(FLASH_DECODE_ARGS) {
   return -1;
 }
 
-int flash_decode_int8(FLASH_DECODE_ARGS) {
+// Kernel 5: flash_decode's arguments over int8 banks (k/v int8 with their
+// row scales ks/vs, contiguous [B, S_max, H_kv] f32), then the split-K
+// instance's partial buffers m_part, l_part [B * T * H, n_split] and
+// acc_part [B * T * H, n_split, D] f32 over n_split runs of pps pages of
+// DENSE_PS rows (n_split = ceil(ceil(S_max / DENSE_PS) / pps)), and its
+// tickets ([B * H_kv] int32, zero and left zero). *instance: 1 split-K, 2
+// tensor-core, 0 the CUDA-core tile. Returns as flash_decode; ERR_SCRATCH
+// when the split-K instance is chosen and a partial buffer or the tickets
+// are null.
+int flash_decode_int8(FLASH_DECODE_ARGS, void* m_part, void* l_part,
+                      void* acc_part, void* tickets, int n_split, int pps,
+                      int* instance) {
+  *instance = 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != 0 && dtype != 1) return -1;
+  kv::SplitArgs sa{};
+  sa.q = q;
+  sa.q_sb = q_sb;
+  sa.q_ss = q_ss;
+  sa.q_sh = q_sh;
+  kv::KvSrc& src = sa.src;
+  src.k = k;
+  src.v = v;
+  src.ks = static_cast<const float*>(ks);
+  src.vs = static_cast<const float*>(vs);
+  src.table = nullptr;                   // the implicit table
+  src.s_page = k_sb;
+  src.s_row = k_ss;
+  src.s_head = k_sh;
+  src.ps = DENSE_PS;
+  src.p_max = (S_max + DENSE_PS - 1) / DENSE_PS;
+  src.n_keys = S_max;
+  src.pos_sb = 0;                        // one pos for every batch row
+  sa.pos = static_cast<const int*>(pos);
+  sa.valid = nullptr;
+  sa.m_part = static_cast<float*>(m_part);
+  sa.l_part = static_cast<float*>(l_part);
+  sa.acc_part = static_cast<float*>(acc_part);
+  sa.tickets = static_cast<int*>(tickets);
+  sa.out = out;
+  sa.B = B;
+  sa.t_len = T;
+  sa.H = H;
+  sa.H_kv = H_kv;
+  sa.n_split = n_split;
+  sa.pps = pps;
+  sa.scale = (float)(1.0 / sqrt((double)D));
+  if (T <= kv::SPLIT_MAX_T) {
+    const int e =
+        dtype == 0 ? kv::launch_split<float, int8_t, false>(D, sa, s)
+                   : kv::launch_split<__nv_bfloat16, int8_t, false>(D, sa, s);
+    if (e == 0) *instance = 1;
+    return e;
+  }
+  if (kv::prefill_tc_takes(dtype, D, S_max)) {
+    kv::PrefillArgs pa{src, sa.pos, nullptr,
+                       static_cast<__nv_bfloat16*>(out), T, H, H_kv,
+                       sa.scale};
+    const int e = kv::launch_prefill_tc<int8_t, false>(D, q, q_sb, q_ss,
+                                                       q_sh, pa, B, B, s);
+    if (e == 0) *instance = 2;
+    return e;
+  }
   const attn::TileArgs a = decode_args(q, k, v, ks, vs, pos, out, lse, q_sb,
                                        q_ss, q_sh, k_sb, k_ss, k_sh, T, H,
                                        H_kv, D, S_max);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return attn::launch_tile_d<float, int8_t>(D, a, B, s);
-  if (dtype == 1) return attn::launch_tile_d<__nv_bfloat16, int8_t>(D, a, B, s);
-  return -1;
+  return attn::launch_tile_d<__nv_bfloat16, int8_t>(D, a, B, s);
 }
 
 const char* attn_error_string(int code) { return attn::error_string(code); }

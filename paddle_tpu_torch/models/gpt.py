@@ -550,18 +550,18 @@ def cached_attention(x, q, k, v, k_cache, v_cache, pos, proj_w, proj_b, cdt,
 
     Paged (``page_table`` given): the caches are single-layer page pools
     ``[N, page_size, H_kv, D]`` (or int8 banks: kernel 7) and ``pos`` is a
-    [B] int32 vector. Rows
-    past ``valid[b]`` land in the trash page; ``flat_idx`` may carry
-    precomputed pool offsets. The reference runs a multi-token call that
-    is not a prefix-cache tail through its flash forward over the fresh
-    rows; attention over the paged cache computes the same rows, so every
+    [B] int32 vector. Rows past ``valid[b]`` land in the trash page, and
+    their attention output is zero (the kernel skips their q tiles);
+    ``flat_idx`` may carry precomputed pool offsets. The reference runs a
+    multi-token call that is not a prefix-cache tail through its flash
+    forward over the fresh rows; attention over the paged cache computes the same rows, so every
     call here goes through the paged kernel."""
     B, T, h = x.shape
     if page_table is not None:
         paged_write(k_cache, k, page_table, pos, valid, flat_idx)
         paged_write(v_cache, v, page_table, pos, valid, flat_idx)
         a = paged_attention(q.contiguous(), k_cache, v_cache, page_table,
-                            pos)
+                            pos, valid)
     else:
         s_max = int(kv_plane(k_cache).shape[1])
         idx = (flat_idx if flat_idx is not None
@@ -616,11 +616,14 @@ def paged_forward_with_cache(params, tokens, cache, pos, config,
     # every layer writes the same rows: compute their pool offsets once
     flat_idx = flat_write_indices(page_table, pos_v, T,
                                   kv_plane(k_pool).shape[2], valid)
+    # the attention kernels read valid on the device, as int32
+    valid_v = (None if valid is None
+               else valid.to(device=dev, dtype=torch.int32).reshape(-1))
     for layer in range(config.num_layers):
         x, _, _ = _cached_block(_layer(params['blocks'], layer), x,
                                 kv_layer(k_pool, layer),
                                 kv_layer(v_pool, layer), pos_v, config,
-                                page_table, valid, flat_idx)
+                                page_table, valid_v, flat_idx)
     if last_only:
         if valid is not None:
             # per-slot prompt lengths: pick each slot's last REAL row

@@ -494,6 +494,36 @@ def flash_decode_int8_reference(q, k_bank, v_bank, pos):
                         k_bank['scale'], v_bank['scale'])
 
 
+def flash_decode_int8_split_reference(q, k_bank, v_bank, pos, n_split,
+                                      pages_per_split):
+    """Plain twin of kernel 5's split-K instance: the dense int8 cache read
+    as a pool of ``DENSE_PS``-row pages through the implicit table (page p
+    of batch row b is its rows p * DENSE_PS ..; S_max padded with zero rows
+    to whole pages, the padding masked), then kernel 7's split twin with
+    every batch row at ``pos``. Same arguments and result as
+    ``flash_decode_int8_reference``, plus the split plan."""
+    from .paged_attention import paged_decode_split_reference
+    b, s_max, h_kv, d = k_bank['int8'].shape
+    p_max = -(-s_max // DENSE_PS)
+    pad = p_max * DENSE_PS - s_max
+
+    def pool(bank):
+        x, sc = bank['int8'], bank['scale']
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+            sc = torch.nn.functional.pad(sc, (0, 0, 0, pad))
+        return {'int8': x.reshape(b * p_max, DENSE_PS, h_kv, d),
+                'scale': sc.reshape(b * p_max, DENSE_PS, h_kv)}
+
+    table = torch.arange(b * p_max, dtype=torch.int32,
+                         device=q.device).reshape(b, p_max)
+    pos_b = torch.as_tensor(pos, device=q.device).reshape(-1)[:1].to(
+        torch.int32).expand(b)
+    return paged_decode_split_reference(q, pool(k_bank), pool(v_bank), table,
+                                        pos_b, n_split, pages_per_split,
+                                        n_keys=s_max)
+
+
 # ---------------------------------------------------------------------------
 # The kernels
 # ---------------------------------------------------------------------------
@@ -509,7 +539,10 @@ _BWD_ARGS = ([_P] * 10 + [_I64] * 10 + [_I32] * 9 + _DROP_ARGS
              + [_I32, _FLAG, _P])
 _ENTRY_POINTS = {
     'flash_decode': {'flash_decode': _DECODE_ARGS,
-                     'flash_decode_int8': _DECODE_ARGS},
+                     # + the split-K partials and tickets, n_split, pps and
+                     # the instance it ran
+                     'flash_decode_int8': _DECODE_ARGS + [_P] * 4
+                     + [_I32] * 2 + [_FLAG]},
     'flash_fwd': {'flash_fwd': [_P] * 6 + [_I64] * 7 + [_I32] * 9
                   + _DROP_ARGS + [_FLAG, _P]},
     'flash_bwd': {'flash_bwd_dq': _BWD_ARGS, 'flash_bwd_dkv': _BWD_ARGS},
@@ -617,7 +650,16 @@ def _pos_arg(pos, dev):
     return torch.tensor([int(pos)], dtype=torch.int32, device=dev)
 
 
+DENSE_PS = 128    # kernel 5's split-K pages: rows p * 128 .. of a batch row
+# the instance a C entry point reports it ran (kernels 5, 6 and 7)
+INSTANCE = {0: 'cuda-core', 1: 'split-k', 2: 'tensor-core'}
+
+
 def _decode_launch(q, k, v, pos, ks=None, vs=None):
+    """Check the arguments and launch kernel 4, or kernel 5 with the int8
+    rows' scales ``ks``/``vs``; raises on a refused launch. -> (out, the
+    instance that ran: kernel 4 'cuda-core'; kernel 5 'split-k',
+    'tensor-core' or 'cuda-core')."""
     op = 'flash_decode_int8' if ks is not None else 'flash_decode'
     _check_q(q, op)
     dev = q.device
@@ -647,18 +689,31 @@ def _decode_launch(q, k, v, pos, ks=None, vs=None):
     pos_t = _pos_arg(pos, dev)
     lib = _kernel_lib('flash_decode')
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=dev)
-    fn = lib.flash_decode_int8 if ks is not None else lib.flash_decode
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            0 if ks is None else ks.data_ptr(),
+            0 if vs is None else vs.data_ptr(),
+            pos_t.data_ptr(), out.data_ptr(), None,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            b, t, h, h_kv, d, s_max, _DTYPE_CODE[q.dtype])
     with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 0 if ks is None else ks.data_ptr(),
-                 0 if vs is None else vs.data_ptr(),
-                 pos_t.data_ptr(), out.data_ptr(), None,
-                 q.stride(0), q.stride(1), q.stride(2),
-                 k.stride(0), k.stride(1), k.stride(2),
-                 b, t, h, h_kv, d, s_max, _DTYPE_CODE[q.dtype],
-                 _stream(dev))
+        if ks is None:
+            err, inst = lib.flash_decode(*args, _stream(dev)), 0
+        else:
+            # kernel 5 takes kernel 7's instances over its implicit pages
+            from . import paged_attention as pa
+            scratch, n_split, pps, keep = (0, 0, 0, 0), 0, 0, None
+            if pa.paged_instance(q.dtype, t, d, s_max,
+                                 torch.int8) == 'split-k':
+                scratch, n_split, pps, keep = pa.split_scratch(
+                    b, t, h, h_kv, d, -(-s_max // DENSE_PS), dev)
+            flag = ctypes.c_int(0)
+            err = lib.flash_decode_int8(*args, _stream(dev), *scratch,
+                                        n_split, pps, ctypes.byref(flag))
+            inst = flag.value
+            del keep
     _launch_done(lib, err, op)
-    return out
+    return out, INSTANCE[inst]
 
 
 def flash_decode(q, k_cache, v_cache, pos):
@@ -669,7 +724,7 @@ def flash_decode(q, k_cache, v_cache, pos):
     Launches on the current stream without synchronising; raises on
     arguments the kernel does not take. ``flash_decode.launches`` counts
     launches."""
-    out = _decode_launch(q, k_cache, v_cache, pos)
+    out, _ = _decode_launch(q, k_cache, v_cache, pos)
     flash_decode.launches += 1
     return out
 
@@ -679,15 +734,24 @@ flash_decode.launches = 0
 
 def flash_decode_int8(q, k_bank, v_bank, pos):
     """Kernel 5 on the card: ``flash_decode`` over int8 banks
-    ``{'int8': [B,S_max,H_kv,D] int8, 'scale': [B,S_max,H_kv] f32}``.
-    ``flash_decode_int8.launches`` counts launches."""
-    out = _decode_launch(q, k_bank['int8'], v_bank['int8'], pos,
-                         k_bank['scale'], v_bank['scale'])
+    ``{'int8': [B,S_max,H_kv,D] int8, 'scale': [B,S_max,H_kv] f32}`` by
+    kernel 7's instances (the rule of ``paged_attention.paged_instance``
+    with S_max as the page size): the split-K decode for T <= 16 over
+    pages of ``DENSE_PS`` rows, the tensor-core prefill for bf16 at D
+    64/128 with S_max a multiple of 64, else the CUDA-core tile. ``flash_decode_int8.launches`` counts
+    launches; ``split_launches`` and ``tc_launches`` those of the split-K
+    and tensor-core instances."""
+    out, inst = _decode_launch(q, k_bank['int8'], v_bank['int8'], pos,
+                               k_bank['scale'], v_bank['scale'])
     flash_decode_int8.launches += 1
+    flash_decode_int8.split_launches += inst == 'split-k'
+    flash_decode_int8.tc_launches += inst == 'tensor-core'
     return out
 
 
 flash_decode_int8.launches = 0
+flash_decode_int8.split_launches = 0
+flash_decode_int8.tc_launches = 0
 
 
 def flash_fwd(q, k, v, causal, q_off=0, kv_valid=None, kmask=None,

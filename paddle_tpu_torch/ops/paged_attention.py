@@ -7,22 +7,23 @@ rows to that paged cache three ways:
 
  - ``paged_flash_decode`` and ``paged_flash_decode_int8``: the
    hand-written Hopper kernels (``csrc/paged_decode.cu``), replacing the
-   Pallas TPU kernels ``_paged_decode_kernel`` (kernel 6) and
-   ``_paged_decode_kernel_int8`` (kernel 7, int8 pages with per-row f32
+   Pallas TPU kernels ``_paged_decode_kernel`` (kernel 6, bf16/f32 pages)
+   and ``_paged_decode_kernel_int8`` (kernel 7, int8 pages with per-row f32
    scales). They read each page straight out of the pool through the page
-   table and never materialize the gathered cache. Kernel 7 has three
-   instances, which the C entry point picks by T, q's dtype and the head
-   dim (``int8_instance`` mirrors the rule): the split-K decode for
-   T <= 16 (``split_plan`` sizes its splits and partial buffers), the
-   tensor-core prefill for bf16 q at D 64/128, and the CUDA-core kernel
-   that kernel 6 also runs;
+   table and never materialize the gathered cache. Both kernels have three
+   instances, which the C entry point picks by T, q's dtype, the page dtype
+   and the head dim (``paged_instance`` mirrors the rule): the split-K
+   decode for T <= 16 (``split_plan`` sizes its splits and partial
+   buffers), the tensor-core prefill for bf16 q at D 64/128 over pages a
+   multiple of 64 rows, and the CUDA-core kernel for the rest;
  - ``paged_decode_reference`` and ``paged_decode_int8_reference``: their
    plain PyTorch twins, the same arithmetic (per-page online softmax, p
    rounded to V's dtype before p.V; int8 rows cast to q's dtype, the k
    scale on the score after the dot, the v scale into p before p is
-   rounded) in ordinary tensor ops; ``paged_decode_split_reference`` is
-   the split-K instance's twin (per-split partials merged by
-   log-sum-exp);
+   rounded) in ordinary tensor ops; ``chunk=64`` updates the softmax per
+   64-key chunk of a page, as the CUDA-core kernel does, and
+   ``paged_decode_split_reference`` is the split-K instance's twin
+   (per-split partials merged by log-sum-exp);
  - ``paged_attention_fallback``: the reference's gather-then-softmax
    path, op for op (kept for parity with the reference's own fallback).
 
@@ -30,16 +31,22 @@ rows to that paged cache three ways:
 the twin, a CUDA tensor launches the kernel (or the wrapper raises), and
 anything else raises. There is no silent fallback on the card.
 
+Prefill padding. The engine pads each prompt to ``prefill_width`` rows and
+passes the real length per slot as ``valid`` ([B] int32, on the device).
+Given it, the kernels and the twins write zeros to the rows
+``t >= valid[b]``, and the kernels skip the q tiles that hold only such
+rows; the rows below ``valid[b]`` are computed as without it. Nothing reads
+a padding row's output: the engine's first token comes from row
+``valid - 1``, and padding rows' K/V land in the trash page.
+
 Differences from the TPU kernel's gate (``paged_attention_available``):
 the TPU limits its kernel to T <= 128 q rows (its 128-row q tile) and to
 page sizes that are multiples of 128, so on the TPU an engine prefill
 (``prefill_width`` rows, default ``max_seq_len``) took the gather
-fallback. This kernel tiles q rows in 64-row blocks and takes every T, so
-on the card every attention call of the engine, prefill and decode, is a
-kernel launch. Any page size whose score tile fits in shared memory
-(64 x page_size f32 beside the q and K/V tiles) is taken. Head dims are
-64, 128 and 256 (one template instance each), dtypes float32 and
-bfloat16; the pool must have q's dtype, or be int8 banks.
+fallback. These kernels take every T and page size, so on the card every
+attention call of the engine, prefill and decode, is a kernel launch. Head
+dims are 64, 128 and 256, dtypes float32 and bfloat16; the pool must have
+q's dtype, or be int8 banks.
 
 ``pos`` is a PER-SLOT [B] int32 vector (slots decode at different depths);
 q row j of slot b attends virtual positions <= pos[b] + j. Inference only
@@ -51,32 +58,32 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import _EPS, _NEG_INF, repeat_kv
+from .flash_attention import _EPS, _NEG_INF, INSTANCE, repeat_kv
 from .paged_kv import gather_virtual
 from .weight_only import dequantize_kv, is_weight_only
 
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-SPLIT_MAX_T = 16        # kernel 7: T at or below takes the split-K decode
+SPLIT_MAX_T = 16        # T at or below takes the split-K decode
 PREFILL_BK = 64         # the tensor-core prefill's chunk: pages a multiple
+CHUNK = 64              # the CUDA-core kernel's keys a softmax update
 SPLIT_BLOCKS_PER_SM = 8  # split-K: blocks aimed at per SM
-_INSTANCE = {0: 'cuda-core', 1: 'split-k', 2: 'tensor-core'}
 
 _lib = None
 _sms = {}
+_ticket_bufs = {}
 
 
 def _kernel_lib():
     global _lib
     if _lib is None:
         lib = _build.load('paged_decode')
-        lib.paged_decode.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-        lib.paged_decode.restype = ctypes.c_int
-        lib.paged_decode_int8.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
-            + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
-        lib.paged_decode_int8.restype = ctypes.c_int
+        # pointers (kernel 7: + the scales), ints, the instance, the stream
+        for fn, n_ptr in (('paged_decode', 11), ('paged_decode_int8', 13)):
+            getattr(lib, fn).argtypes = (
+                [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 11
+                + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+            getattr(lib, fn).restype = ctypes.c_int
         lib.paged_decode_error_string.argtypes = [ctypes.c_int]
         lib.paged_decode_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -84,11 +91,13 @@ def _kernel_lib():
 
 
 def _paged_partial(q, k_pages, v_pages, page_table, pos, ks, vs, p_lo,
-                   p_hi):
+                   p_hi, chunk=None, n_keys=None):
     """The online-softmax state (m, l, acc) [B, H, T, 1 / 1 / D] f32 of q's
     rows over pages ``p_lo <= p < p_hi`` of each slot, in order, stopping at
-    the slot's last needed page; (m, l, acc) start at (-1e30, 0, 0). Also
-    returns each slot's needed page count [B]."""
+    the slot's last needed page; (m, l, acc) start at (-1e30, 0, 0). The
+    state is updated once per page, or once per ``chunk`` keys of a page;
+    keys at or past ``n_keys`` are masked. Also returns each slot's needed
+    page count [B]."""
     int8 = ks is not None
     b, t, h, d = q.shape
     _, ps, h_kv, _ = k_pages.shape
@@ -96,6 +105,7 @@ def _paged_partial(q, k_pages, v_pages, page_table, pos, ks, vs, p_lo,
     g = h // h_kv
     dev = q.device
     scale = 1.0 / math.sqrt(d)
+    step = chunk or ps
     qf = q.float().permute(0, 2, 1, 3)                        # [B,H,T,D]
     pos_l = pos.to(dev).long()
     table = page_table.to(dev).long()
@@ -117,59 +127,81 @@ def _paged_partial(q, k_pages, v_pages, page_table, pos, ks, vs, p_lo,
         s = (qf @ kb.float().transpose(-1, -2)) * scale       # [B,H,T,ps]
         if int8:
             s = s * heads(ks[pid])[:, :, None, :]
+            v_scale = heads(vs[pid])[:, :, None, :]
         k_pos = p * ps + torch.arange(ps, device=dev)
-        s = torch.where(k_pos <= q_pos, s, _NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        pr = torch.exp(s - m_new)
-        alpha = torch.exp(m - m_new)
-        l_new = l * alpha + pr.sum(dim=-1, keepdim=True)
-        if int8:
-            pr = pr * heads(vs[pid])[:, :, None, :]
-        acc_new = acc * alpha + pr.to(vb.dtype).float() @ vb.float()
+        seen = k_pos <= q_pos
+        if n_keys is not None:
+            seen = seen & (k_pos < n_keys)
+        s = torch.where(seen, s, _NEG_INF)
         live = (p < needed)[:, None, None, None]
-        acc = torch.where(live, acc_new, acc)
-        m = torch.where(live, m_new, m)
-        l = torch.where(live, l_new, l)
+        for c0 in range(0, ps, step):
+            c = slice(c0, c0 + step)
+            m_new = torch.maximum(m, s[..., c].amax(dim=-1, keepdim=True))
+            pr = torch.exp(s[..., c] - m_new)
+            alpha = torch.exp(m - m_new)
+            l_new = l * alpha + pr.sum(dim=-1, keepdim=True)
+            if int8:
+                pr = pr * v_scale[..., c]
+            acc_new = (acc * alpha
+                       + pr.to(vb.dtype).float() @ vb[:, :, c].float())
+            acc = torch.where(live, acc_new, acc)
+            m = torch.where(live, m_new, m)
+            l = torch.where(live, l_new, l)
     return m, l, acc, needed
 
 
+def _zero_past(out, valid):
+    """``out`` [B, T, H, D] with rows t >= valid[b] set to zero."""
+    if valid is None:
+        return out
+    keep = (torch.arange(out.shape[1], device=out.device)[None, :]
+            < valid.to(out.device).long()[:, None])           # [B, T]
+    return torch.where(keep[:, :, None, None], out, torch.zeros(
+        (), dtype=out.dtype, device=out.device))
+
+
 def paged_decode_reference(q, k_pages, v_pages, page_table, pos, ks=None,
-                           vs=None):
+                           vs=None, valid=None, chunk=None):
     """Plain PyTorch twin of kernel 6 (the TPU's ``_paged_decode_kernel``),
     and of kernel 7 with the int8 pages' scales ``ks``/``vs``
     ([N, page_size, H_kv] f32): pages are visited in order, each slot
     stops at its last needed page ``min(ceil((pos+T)/ps), P_max)``, and
-    the online-softmax state (m, l, acc) is updated once per page in f32.
-    Scores are f32 dots times 1/sqrt(D) (int8: times the k scale, after
-    the dot), masked with -1e30; l sums the unrounded p, while p.V uses p
-    (int8: times the v scale) rounded to V's dtype (int8: q's dtype, the
-    int8 values cast to it).
+    the online-softmax state (m, l, acc) is updated once per page in f32
+    (once per ``chunk`` keys of a page with ``chunk``: the CUDA-core
+    kernel's 64). Scores are f32 dots times 1/sqrt(D) (int8: times the k
+    scale, after the dot), masked with -1e30; l sums the unrounded p,
+    while p.V uses p (int8: times the v scale) rounded to V's dtype (int8:
+    q's dtype, the int8 values cast to it). Rows t >= valid[b] are zeros.
 
     q: [B, T, H, D]; pages [N, page_size, H_kv, D]; page_table [B, P_max]
-    int; pos [B] int -> [B, T, H, D] in q's dtype."""
+    int; pos [B] int; valid [B] int or None -> [B, T, H, D] in q's
+    dtype."""
     _, l, acc, _ = _paged_partial(q, k_pages, v_pages, page_table, pos, ks,
-                                  vs, 0, int(page_table.shape[1]))
+                                  vs, 0, int(page_table.shape[1]), chunk)
     out = acc / torch.clamp(l, min=_EPS)
-    return out.to(q.dtype).permute(0, 2, 1, 3)
+    return _zero_past(out.to(q.dtype).permute(0, 2, 1, 3), valid)
 
 
-def paged_decode_int8_reference(q, k_bank, v_bank, page_table, pos):
+def paged_decode_int8_reference(q, k_bank, v_bank, page_table, pos,
+                                valid=None):
     """Plain twin of kernel 7 over int8 banks ``{'int8': [N, page_size,
     H_kv, D] int8, 'scale': [N, page_size, H_kv] f32}``."""
     return paged_decode_reference(q, k_bank['int8'], v_bank['int8'],
                                   page_table, pos, k_bank['scale'],
-                                  v_bank['scale'])
+                                  v_bank['scale'], valid)
 
 
-def int8_instance(dtype, t, d, page_size):
-    """The instance of kernel 7 the C entry point takes for q of ``dtype``
-    with ``t`` rows, head dim ``d`` and pages of ``page_size`` rows:
-    'split-k' for T <= 16, 'tensor-core' for bf16 at D 64/128 with pages a
-    multiple of 64 rows, else 'cuda-core'."""
+def paged_instance(dtype, t, d, page_size, page_dtype):
+    """The instance kernels 6 and 7 take in the C entry point for q of
+    ``dtype`` with ``t`` rows and head dim ``d`` over pages of
+    ``page_size`` rows of ``page_dtype``: 'split-k' for T <= 16,
+    'tensor-core' for bf16 q at D 64/128 over bf16 or int8 pages a multiple
+    of 64 rows, else 'cuda-core'. Kernel 5 takes the same rule over its
+    implicit pages, with S_max for ``page_size``."""
     if t <= SPLIT_MAX_T:
         return 'split-k'
-    if (dtype == torch.bfloat16 and d in (64, 128)
-            and page_size % PREFILL_BK == 0):
+    if (dtype == torch.bfloat16 and page_dtype in (torch.bfloat16, torch.int8)
+            and d in (64, 128) and page_size % PREFILL_BK == 0):
         return 'tensor-core'
     return 'cuda-core'
 
@@ -191,22 +223,28 @@ def split_plan(b, t, h, h_kv, d, p_max, sms):
             'l': (rows, n), 'acc': (rows, n, d)}
 
 
-def paged_decode_split_reference(q, k_bank, v_bank, page_table, pos,
-                                 n_split, pages_per_split):
-    """Plain twin of kernel 7's split-K instance: each split's (m, l, acc)
-    over its pages ``[i * pages_per_split, (i + 1) * pages_per_split)`` (as
-    ``paged_decode_int8_reference`` computes them, from a fresh state),
-    then the splits that start before the slot's last needed page merged by
-    log-sum-exp: out = sum_i w_i acc_i / max(sum_i w_i l_i, 1e-30),
-    w_i = exp(m_i - max_j m_j). Same arguments and result as
-    ``paged_decode_int8_reference``."""
+def paged_decode_split_reference(q, k_pages, v_pages, page_table, pos,
+                                 n_split, pages_per_split, valid=None,
+                                 n_keys=None):
+    """Plain twin of the split-K instance of kernels 6 and 7: each split's
+    (m, l, acc) over its pages ``[i * pages_per_split, (i + 1) *
+    pages_per_split)`` (as ``paged_decode_reference`` computes them, from
+    a fresh state), then the splits that start before the slot's last
+    needed page merged by log-sum-exp: out = sum_i w_i acc_i /
+    max(sum_i w_i l_i, 1e-30), w_i = exp(m_i - max_j m_j). The pools are
+    bf16/f32 pages or int8 banks; keys at or past ``n_keys`` are masked;
+    rows t >= valid[b] are zeros. Same result as
+    ``paged_decode_reference`` / ``paged_decode_int8_reference``."""
+    ks = vs = None
+    if is_weight_only(k_pages):
+        ks, vs = k_pages['scale'], v_pages['scale']
+        k_pages, v_pages = k_pages['int8'], v_pages['int8']
     parts = []
     needed = None
     for i in range(n_split):
         m, l, acc, needed = _paged_partial(
-            q, k_bank['int8'], v_bank['int8'], page_table, pos,
-            k_bank['scale'], v_bank['scale'], i * pages_per_split,
-            (i + 1) * pages_per_split)
+            q, k_pages, v_pages, page_table, pos, ks, vs,
+            i * pages_per_split, (i + 1) * pages_per_split, n_keys=n_keys)
         parts.append((m, l, acc))
     m = torch.stack([x[0] for x in parts])              # [S,B,H,T,1]
     l = torch.stack([x[1] for x in parts])
@@ -217,7 +255,7 @@ def paged_decode_split_reference(q, k_bank, v_bank, page_table, pos,
     w = torch.exp(m - m.amax(dim=0, keepdim=True))      # dead splits: 0
     den = (w * l).sum(0)
     out = (w * acc).sum(0) / torch.clamp(den, min=_EPS)
-    return out.to(q.dtype).permute(0, 2, 1, 3)
+    return _zero_past(out.to(q.dtype).permute(0, 2, 1, 3), valid)
 
 
 def _sm_count(dev):
@@ -227,8 +265,36 @@ def _sm_count(dev):
     return _sms[idx]
 
 
+def _tickets(dev, n):
+    """At least ``n`` int32 zeros on ``dev`` for the split-K decode's merge
+    on the current stream, kept across calls (each launch leaves them zero;
+    one buffer a stream, so launches that may overlap never share one)."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _ticket_bufs.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _ticket_bufs[key] = torch.zeros(max(n, 1024),
+                                              dtype=torch.int32, device=dev)
+    return buf
+
+
+def split_scratch(b, t, h, h_kv, d, p_max, dev):
+    """The split-K instance's launch arguments on ``dev``: (the m, l, acc
+    partial buffers' and the tickets' pointers, n_split, pages_per_split,
+    the tensors to keep alive until the launch is queued)."""
+    plan = split_plan(b, t, h, h_kv, d, p_max, _sm_count(dev))
+    sizes = [math.prod(plan[k]) for k in ('m', 'l', 'acc')]
+    # one allocation; freed on return while the kernels may still run,
+    # which is safe: the caching allocator hands the memory only to later
+    # work on this stream
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    tickets = _tickets(dev, b * h_kv)
+    ptrs = (buf.data_ptr(), buf[sizes[0]:].data_ptr(),
+            buf[sizes[0] + sizes[1]:].data_ptr(), tickets.data_ptr())
+    return ptrs, plan['n_split'], plan['pages_per_split'], (buf, tickets)
+
+
 def _check_kernel_args(q, k_pages, v_pages, page_table, pos, ks=None,
-                       vs=None):
+                       vs=None, valid=None):
     op = 'paged_flash_decode_int8' if ks is not None else 'paged_flash_decode'
     if q.device.type != 'cuda':
         raise ValueError(f'{op} needs CUDA tensors, q is on {q.device}')
@@ -263,6 +329,10 @@ def _check_kernel_args(q, k_pages, v_pages, page_table, pos, ks=None,
         raise ValueError('page_table must be int32 [B, P_max]')
     if pos.dtype != torch.int32 or tuple(pos.shape) != (b,):
         raise ValueError('pos must be int32 [B]')
+    if valid is not None and (
+            valid.dtype != torch.int32 or tuple(valid.shape) != (b,)
+            or valid.device != q.device or not valid.is_contiguous()):
+        raise ValueError("valid must be a contiguous int32 [B] on q's device")
     for name, x in (('q', q), ('k_pages', k_pages), ('v_pages', v_pages),
                     ('page_table', page_table), ('pos', pos)):
         if not x.is_contiguous():
@@ -272,79 +342,74 @@ def _check_kernel_args(q, k_pages, v_pages, page_table, pos, ks=None,
             raise ValueError(f'{name} must be 16-byte aligned')
 
 
-def _paged_launch(q, k_pages, v_pages, page_table, pos, ks=None, vs=None):
+def _paged_launch(q, k_pages, v_pages, page_table, pos, ks=None, vs=None,
+                  valid=None):
     """Check the arguments and launch kernel 6, or kernel 7 with the int8
     pages' scales ``ks``/``vs``; raises on a refused launch. -> (out, the
     instance the library ran: 'cuda-core', 'split-k' or 'tensor-core')."""
-    _check_kernel_args(q, k_pages, v_pages, page_table, pos, ks, vs)
+    _check_kernel_args(q, k_pages, v_pages, page_table, pos, ks, vs, valid)
     lib = _kernel_lib()
     b, t, h, d = q.shape
     n_pages, ps, h_kv, _ = k_pages.shape
     p_max = int(page_table.shape[1])
     out = torch.empty_like(q)
     inst = ctypes.c_int(0)
-    op = 'paged_decode' if ks is None else 'paged_decode_int8'
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if ks is None:
-            err = lib.paged_decode(
-                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                b, t, h, h_kv, d, ps, p_max, _DTYPE_CODE[q.dtype], stream)
-        else:
-            # the split-K instance's partial buffers (T <= 16)
-            scratch, n_split, pps = (0, 0, 0), 0, 0
-            if int8_instance(q.dtype, t, d, ps) == 'split-k':
-                plan = split_plan(b, t, h, h_kv, d, p_max,
-                                  _sm_count(q.device))
-                sizes = [math.prod(plan[k]) for k in ('m', 'l', 'acc')]
-                # one allocation; freed on return while the kernels may
-                # still run, which is safe: the caching allocator hands
-                # the memory only to later work on this stream
-                buf = torch.empty(sum(sizes), dtype=torch.float32,
-                                  device=q.device)
-                scratch = (buf.data_ptr(), buf[sizes[0]:].data_ptr(),
-                           buf[sizes[0] + sizes[1]:].data_ptr())
-                n_split, pps = plan['n_split'], plan['pages_per_split']
-            err = lib.paged_decode_int8(
-                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                ks.data_ptr(), vs.data_ptr(), page_table.data_ptr(),
-                pos.data_ptr(), out.data_ptr(), *scratch, b, t, h, h_kv, d,
-                ps, p_max, n_pages, n_split, pps, _DTYPE_CODE[q.dtype],
-                ctypes.byref(inst), stream)
+        # the split-K instance's partial buffers (T <= 16)
+        scratch, n_split, pps, keep = (0, 0, 0, 0), 0, 0, None
+        if paged_instance(q.dtype, t, d, ps, k_pages.dtype) == 'split-k':
+            scratch, n_split, pps, keep = split_scratch(
+                b, t, h, h_kv, d, p_max, q.device)
+        scales = () if ks is None else (ks.data_ptr(), vs.data_ptr())
+        op = 'paged_decode' if ks is None else 'paged_decode_int8'
+        err = getattr(lib, op)(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
+            page_table.data_ptr(), pos.data_ptr(),
+            0 if valid is None else valid.data_ptr(), out.data_ptr(),
+            *scratch, b, t, h, h_kv, d, ps, p_max, n_pages, n_split, pps,
+            _DTYPE_CODE[q.dtype], ctypes.byref(inst), stream)
+        del keep
     if err != 0:
         msg = lib.paged_decode_error_string(err).decode()
         raise RuntimeError(f'{op} launch failed ({err}): {msg}')
-    return out, _INSTANCE[inst.value]
+    return out, INSTANCE[inst.value]
 
 
-def paged_flash_decode(q, k_pages, v_pages, page_table, pos):
-    """The Hopper kernel. q: [B,T,H,D]; pages [N, page_size, H_kv, D]
-    (one layer of the pool, read in place); page_table [B, P_max] int32;
-    pos [B] int32 -> [B,T,H,D]. Launches on the current stream without
-    synchronising; raises on arguments the kernel does not take and on a
-    refused launch. ``paged_flash_decode.launches`` counts launches."""
-    out, _ = _paged_launch(q, k_pages, v_pages, page_table, pos)
-    paged_flash_decode.launches += 1
+def _count(kernel, inst):
+    kernel.launches += 1
+    kernel.split_launches += inst == 'split-k'
+    kernel.tc_launches += inst == 'tensor-core'
+
+
+def paged_flash_decode(q, k_pages, v_pages, page_table, pos, valid=None):
+    """Kernel 6 on the card. q: [B,T,H,D]; pages [N, page_size, H_kv, D]
+    in q's dtype (one layer of the pool, read in place); page_table
+    [B, P_max] int32; pos [B] int32; valid [B] int32 (rows t >= valid[b]
+    come out zero) or None -> [B,T,H,D]. Launches on the current stream
+    without synchronising; raises on arguments the kernel does not take and
+    on a refused launch. ``paged_flash_decode.launches`` counts launches;
+    ``split_launches`` and ``tc_launches`` those that ran the split-K decode
+    and the tensor-core prefill (``paged_instance``)."""
+    out, inst = _paged_launch(q, k_pages, v_pages, page_table, pos,
+                              valid=valid)
+    _count(paged_flash_decode, inst)
     return out
 
 
 paged_flash_decode.launches = 0
+paged_flash_decode.split_launches = 0
+paged_flash_decode.tc_launches = 0
 
 
-def paged_flash_decode_int8(q, k_bank, v_bank, page_table, pos):
+def paged_flash_decode_int8(q, k_bank, v_bank, page_table, pos, valid=None):
     """Kernel 7 on the card: ``paged_flash_decode`` over int8 banks
     ``{'int8': [N, page_size, H_kv, D] int8, 'scale': [N, page_size, H_kv]
     f32}`` (one layer of the pool, read in place); q and the output in
-    float32 or bfloat16. ``paged_flash_decode_int8.launches`` counts
-    launches; ``split_launches`` and ``tc_launches`` those that ran the
-    split-K decode and the tensor-core prefill (``int8_instance``); a
-    split-K launch is the split kernel and its combine, counted once."""
+    float32 or bfloat16. Counters as ``paged_flash_decode``'s."""
     out, inst = _paged_launch(q, k_bank['int8'], v_bank['int8'], page_table,
-                              pos, k_bank['scale'], v_bank['scale'])
-    paged_flash_decode_int8.launches += 1
-    paged_flash_decode_int8.split_launches += inst == 'split-k'
-    paged_flash_decode_int8.tc_launches += inst == 'tensor-core'
+                              pos, k_bank['scale'], v_bank['scale'], valid)
+    _count(paged_flash_decode_int8, inst)
     return out
 
 
@@ -377,19 +442,20 @@ def paged_attention_fallback(q, k_pages, v_pages, page_table, pos, cdt):
     return torch.einsum('bhqk,bkhd->bqhd', p, vc)
 
 
-def paged_attention(q, k_pages, v_pages, page_table, pos):
+def paged_attention(q, k_pages, v_pages, page_table, pos, valid=None):
     """Attention over a paged KV pool, dispatched on q's device: the plain
     twin for a CPU tensor, the Hopper kernel for a CUDA tensor.
 
     q: [B, T, H, D]; pools: [N, page_size, H_kv, D] tensors (kernel 6) or
     int8 banks (kernel 7); page_table: [B, P_max] int32; pos: [B] int32
-    (first q row's absolute position per slot) -> [B, T, H, D]."""
+    (first q row's absolute position per slot); valid: [B] int32 real rows
+    per slot (rows t >= valid[b] come out zero), or None -> [B, T, H, D]."""
     int8 = is_weight_only(k_pages)
     if q.device.type == 'cpu':
         return (paged_decode_int8_reference if int8
                 else paged_decode_reference)(q, k_pages, v_pages, page_table,
-                                             pos)
+                                             pos, valid=valid)
     if q.device.type == 'cuda':
         return (paged_flash_decode_int8 if int8 else paged_flash_decode)(
-            q, k_pages, v_pages, page_table, pos)
+            q, k_pages, v_pages, page_table, pos, valid)
     raise ValueError(f'paged_attention runs on cuda or cpu, not {q.device}')

@@ -87,6 +87,25 @@ def _not_ported(what, item):
         f'(ROADMAP Queue 1: {item})')
 
 
+def _resolve_generation_model(net, config, forward_fn):
+    """(params, config, forward_fn) as the reference's
+    ``_resolve_generation_model`` takes them: a model with ``.config``
+    (``models.gpt.GPTForCausalLM``, whose ``param_dict()`` gives the
+    parameters) when ``config`` is None, else a ``(params, config)`` pair;
+    ``forward_fn`` defaults to GPT's ``forward_with_cache``."""
+    if config is None:
+        cfg = getattr(net, 'config', None)
+        if cfg is None:
+            raise TypeError('GenerationEngine needs a model with a .config '
+                            'or an explicit (params, config) pair')
+        params = net.param_dict()
+    else:
+        params, cfg = net, config
+    if 'moe' in type(cfg).__name__.lower():
+        raise _not_ported('a MoE model', 'step H, item 9: other models')
+    return params, cfg, forward_fn or _gpt.forward_with_cache
+
+
 class GenerationFuture:
     """Handle for one submitted sequence. ``result()`` blocks for the full
     token list; ``stream()`` yields tokens as decode iterations emit them.
@@ -191,11 +210,13 @@ class _Slot:
 class GenerationEngine:
     """Continuous-batching generation over one GPT model.
 
-    ``GenerationEngine(params, config, device=None)``: ``params`` is the
-    port's parameter dict (``models.gpt.init_params`` or
-    ``params_from_numpy``), ``config`` a ``models.gpt.GPTConfig``. The
-    engine runs on ``cuda`` unless ``device='cpu'`` is given, and raises
-    when there is no card. ``submit(prompt)`` returns a
+    ``GenerationEngine(model)`` serves a ``models.gpt.GPTForCausalLM`` on
+    the model's device; ``GenerationEngine(params, config, device=None)``
+    a parameter dict (``models.gpt.init_params`` or ``params_from_numpy``)
+    with its ``models.gpt.GPTConfig``, on ``cuda`` unless ``device='cpu'``
+    is given (raising when there is no card). ``forward_fn`` replaces
+    GPT's ``forward_with_cache`` (same signature) for another model
+    family. ``submit(prompt)`` returns a
     ``GenerationFuture`` immediately; the scheduler thread prefills it
     into a free slot and advances it one token per decode iteration
     alongside every other active sequence. Sampling knobs
@@ -205,11 +226,11 @@ class GenerationEngine:
 
     _seq = itertools.count()
 
-    def __init__(self, params, config=None, *, device=None, num_slots=None,
+    def __init__(self, net, config=None, *, device=None, num_slots=None,
                  page_size=None, num_pages=None, prefill_width=None,
                  temperature=0.0, top_k=None, top_p=None, eos_id=None,
                  queue_capacity=64, default_deadline_ms=None, breaker=None,
-                 autostart=True, clock=None, precision=None,
+                 autostart=True, forward_fn=None, clock=None, precision=None,
                  telemetry_port=None, prefix_cache=None,
                  prefix_cache_pages=None, mesh=None, mp=None):
         if precision not in (None, 'float32', 'int8_wo'):
@@ -227,11 +248,11 @@ class GenerationEngine:
         if telemetry_port is not None:
             raise _not_ported('the telemetry HTTP plane (telemetry_port=)',
                               'item 1, deferred: telemetry HTTP plane')
-        if config is None:
-            raise TypeError('GenerationEngine needs (params, config): the '
-                            'port has no Layer-style model wrapper yet')
+        params, cfg, self._forward_fn = _resolve_generation_model(
+            net, config, forward_fn)
+        if device is None and config is None:
+            device = net.device
         self.device = resolve_device(device)
-        cfg = config
         params = {k: ({bk: bv.to(self.device) for bk, bv in v.items()}
                       if k == 'blocks' else v.to(self.device))
                   for k, v in params.items()}
@@ -366,7 +387,7 @@ class GenerationEngine:
                  'page_table': self._tensor(table),
                  'valid': self._tensor(valid)}
         start_t = self._tensor(start)
-        logits, _ = _gpt.forward_with_cache(
+        logits, _ = self._forward_fn(
             self._params, self._tensor(prompt), cache, start_t, self.config,
             last_only=True)
         # absolute position start+valid-1 keys the prompt's last row
@@ -380,7 +401,7 @@ class GenerationEngine:
         cache = {'k': self._pool['k'], 'v': self._pool['v'],
                  'page_table': self._tensor(table)}
         pos_t = self._tensor(pos)
-        logits, _ = _gpt.forward_with_cache(
+        logits, _ = self._forward_fn(
             self._params, self._tensor(tok)[:, None], cache, pos_t,
             self.config)
         return self._sample_rows(logits[:, 0], self._tensor(seeds), pos_t)

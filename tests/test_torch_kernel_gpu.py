@@ -451,7 +451,7 @@ def test_int8_paged_instances_match_twin(cuda, b, t, h, h_kv, d, pos, dtype,
     kb = dict(zip(('int8', 'scale'), wo.quantize_kv(kp)))
     vb = dict(zip(('int8', 'scale'), wo.quantize_kv(vp)))
     q = q.to(dtype)
-    assert pa.int8_instance(dtype, t, d, kp.shape[1]) == instance
+    assert pa.paged_instance(dtype, t, d, kp.shape[1], torch.int8) == instance
     k7 = pa.paged_flash_decode_int8
     before = (k7.launches, k7.split_launches, k7.tc_launches)
     got = pa.paged_attention(q, kb, vb, table, pos_t)
@@ -460,5 +460,192 @@ def test_int8_paged_instances_match_twin(cuda, b, t, h, h_kv, d, pos, dtype,
         before[0] + 1, before[1] + (instance == 'split-k'),
         before[2] + (instance == 'tensor-core'))
     want = pa.paged_decode_int8_reference(q, kb, vb, table, pos_t)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _row_err(got, want) <= TOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# kernel 6's instances over bf16/f32 pages (split-K decode, tensor-core
+# prefill, the CUDA-core kernel at any page size), the prefill padding
+# (valid) on kernels 6 and 7, and kernel 5's instances over the dense int8
+# cache
+# ---------------------------------------------------------------------------
+
+def _counts(kern):
+    return (kern.launches, kern.split_launches, kern.tc_launches)
+
+
+def _expect(kern, before, instance):
+    assert _counts(kern) == (before[0] + 1,
+                             before[1] + (instance == 'split-k'),
+                             before[2] + (instance == 'tensor-core'))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b,t,h,h_kv,d,pos,dtype,ps,instance', [
+    (8, 1, 16, 16, 64, [0, 1023, 5, 127, 128, 300, 640, 900],
+     torch.bfloat16, 128, 'split-k'),
+    (4, 1, 16, 4, 64, [0, 127, 128, 1023], torch.bfloat16, 128, 'split-k'),
+    (4, 2, 8, 2, 128, [0, 127, 128, 1000], torch.bfloat16, 128, 'split-k'),
+    (2, 16, 8, 2, 256, [127, 900], torch.bfloat16, 128, 'split-k'),
+    (4, 1, 16, 16, 64, [0, 127, 128, 1023], torch.float32, 128, 'split-k'),
+    (2, 16, 4, 4, 256, [128, 1000], torch.float32, 128, 'split-k'),
+    (2, 3, 4, 2, 128, [0, 1020], torch.bfloat16, 512, 'split-k'),
+    (2, 17, 16, 4, 64, [0, 127], torch.bfloat16, 128, 'tensor-core'),
+    (2, 64, 8, 2, 128, [128, 900], torch.bfloat16, 128, 'tensor-core'),
+    (2, 300, 16, 4, 64, [0, 517], torch.bfloat16, 128, 'tensor-core'),
+    (1, 1024, 16, 16, 64, [0], torch.bfloat16, 128, 'tensor-core'),
+    (1, 1024, 4, 2, 128, [0], torch.bfloat16, 128, 'tensor-core'),
+    (2, 200, 4, 2, 128, [0, 700], torch.bfloat16, 512, 'tensor-core'),
+    (2, 300, 4, 2, 256, [0, 517], torch.bfloat16, 128, 'cuda-core'),
+    (2, 65, 8, 2, 64, [127, 128], torch.float32, 128, 'cuda-core'),
+    (2, 70, 4, 4, 64, [0, 300], torch.bfloat16, 16, 'cuda-core'),
+], ids=['T1', 'T1_gqa4', 'T2_gqa4_d128', 'T16_gqa4_d256', 'T1_f32',
+        'T16_f32_d256', 'T3_ps512', 'T17_gqa4', 'T64_gqa4_d128', 'T300_gqa4',
+        'T1024', 'T1024_gqa2_d128', 'T200_ps512_d128', 'T300_d256',
+        'T65_f32', 'T70_ps16'])
+def test_kernel_6_instances_match_twin(cuda, b, t, h, h_kv, d, pos, dtype,
+                                       ps, instance):
+    p_max = -(-1024 // ps)
+    args = _case(b, t, h, h_kv, d, pos, dtype, ps=ps, p_max=p_max)
+    assert pa.paged_instance(dtype, t, d, ps, dtype) == instance
+    before = _counts(pa.paged_flash_decode)
+    got = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    _expect(pa.paged_flash_decode, before, instance)
+    want = pa.paged_decode_reference(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _row_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('ps,d,t,pos', [
+    (512, 128, 300, [0, 600]),
+    (1024, 64, 300, [0, 700]),
+    (512, 128, 100, [1, 1023]),
+], ids=['ps512_d128', 'ps1024_d64', 'ps512_d128_late'])
+def test_large_pages_launch_on_every_instance(cuda, ps, d, t, pos, dtype):
+    """Q3.2: the CUDA-core kernel (f32 at T > 16) streams each page in
+    64-key chunks, so its shared memory no longer grows with the page
+    size; bf16 takes the tensor-core prefill at the same pages."""
+    args = _case(2, t, 4, 2, d, pos, dtype, ps=ps, p_max=-(-1024 // ps) + 1)
+    want_inst = 'cuda-core' if dtype == torch.float32 else 'tensor-core'
+    before = _counts(pa.paged_flash_decode)
+    got = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    _expect(pa.paged_flash_decode, before, want_inst)
+    assert _row_err(got, pa.paged_decode_reference(*args)) <= TOL[dtype]
+    # kernel 7's CUDA-core instance at the same pages (f32 q)
+    if dtype == torch.float32:
+        from paddle_tpu_torch.ops import weight_only as wo
+        q, kp, vp, table, pos_t = args
+        kb = dict(zip(('int8', 'scale'), wo.quantize_kv(kp)))
+        vb = dict(zip(('int8', 'scale'), wo.quantize_kv(vp)))
+        got = pa.paged_attention(q, kb, vb, table, pos_t)
+        want = pa.paged_decode_int8_reference(q, kb, vb, table, pos_t)
+        assert _row_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('int8', [False, True])
+@pytest.mark.parametrize('t,d,dtype,valid', [
+    (1024, 64, torch.bfloat16, [5, 129, 1024]),     # tensor-core
+    (300, 128, torch.bfloat16, [1, 200, 64]),
+    (300, 64, torch.float32, [70, 1, 300]),         # CUDA-core
+    (200, 256, torch.bfloat16, [3, 150, 64]),
+    (12, 64, torch.bfloat16, [4, 12, 0]),           # split-K
+], ids=['T1024_tc', 'T300_tc_d128', 'T300_f32_cuda_core',
+        'T200_d256_cuda_core', 'T12_split'])
+def test_valid_skips_the_padding_and_zeroes_it(cuda, t, d, dtype, valid,
+                                               int8):
+    """Rows below valid[b] as without it, within tolerance of the twin;
+    rows at or past it exactly zero, on every instance of kernels 6 and
+    7."""
+    from paddle_tpu_torch.ops import weight_only as wo
+    q, kp, vp, table, pos = _case(3, t, 4, 2, d, [0, 0, 0], torch.float32)
+    q = q.to(dtype)
+    if int8:
+        kp = dict(zip(('int8', 'scale'), wo.quantize_kv(kp)))
+        vp = dict(zip(('int8', 'scale'), wo.quantize_kv(vp)))
+        twin = pa.paged_decode_int8_reference
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+        twin = pa.paged_decode_reference
+    v = torch.tensor(valid, dtype=torch.int32, device='cuda')
+    got = pa.paged_attention(q, kp, vp, table, pos, v)
+    torch.cuda.synchronize()
+    want = twin(q, kp, vp, table, pos, valid=v)
+    full = pa.paged_attention(q, kp, vp, table, pos)
+    for i, n in enumerate(valid):
+        assert not got[i, n:].any()
+        assert torch.equal(got[i, :n], full[i, :n])
+    assert _row_err(got[:, :max(valid)], want[:, :max(valid)]) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('int8', [False, True])
+def test_split_merge_leaves_its_tickets_zero(cuda, int8):
+    """The last split of each (slot, kv head) to finish merges; every launch
+    finds the tickets zero and leaves them so."""
+    from paddle_tpu_torch.ops import weight_only as wo
+    q, kp, vp, table, pos = _case(8, 1, 16, 4, 64,
+                                  [0, 1023, 5, 127, 128, 300, 640, 900],
+                                  torch.float32)
+    q = q.to(torch.bfloat16)
+    if int8:
+        kb = dict(zip(('int8', 'scale'), wo.quantize_kv(kp)))
+        vb = dict(zip(('int8', 'scale'), wo.quantize_kv(vp)))
+        kern, twin = pa.paged_flash_decode_int8, pa.paged_decode_int8_reference
+    else:
+        kb, vb = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+        kern, twin = pa.paged_flash_decode, pa.paged_decode_reference
+    want = twin(q, kb, vb, table, pos)
+    for _ in range(3):
+        got = kern(q, kb, vb, table, pos)
+        torch.cuda.synchronize()
+        assert _row_err(got, want) <= TOL[torch.bfloat16]
+        assert not pa._tickets(q.device, 8 * 4).any()
+
+
+def _packed_q(b, t, h, d, dtype, seed=2):
+    """q as generate() hands it over: a strided view of the packed qkv
+    projection [B, T, H_kv, g + 2, D] (MHA: a view, no copy)."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.randn((b, t, h, 3, d), generator=g, device='cuda').to(dtype)
+    return x[..., 0, :]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b,t,h,h_kv,d,s_max,pos,dtype,instance', [
+    (8, 1, 16, 16, 64, 1024, 191, torch.bfloat16, 'split-k'),
+    (8, 1, 16, 16, 64, 1024, 1023, torch.bfloat16, 'split-k'),
+    (4, 2, 8, 2, 128, 512, 400, torch.float32, 'split-k'),
+    (2, 16, 8, 2, 256, 200, 150, torch.bfloat16, 'split-k'),
+    (8, 128, 16, 16, 64, 1024, 0, torch.bfloat16, 'tensor-core'),
+    (2, 300, 8, 2, 128, 512, 100, torch.bfloat16, 'tensor-core'),
+    (2, 128, 4, 4, 64, 1000, 0, torch.bfloat16, 'cuda-core'),
+    (2, 128, 4, 4, 64, 1024, 0, torch.float32, 'cuda-core'),
+], ids=['T1_pos191', 'T1_pos1023', 'T2_f32_gqa_d128', 'T16_d256_smax200',
+        'T128_tc', 'T300_tc_d128', 'T128_smax1000', 'T128_f32'])
+def test_kernel_5_instances_match_twin(cuda, b, t, h, h_kv, d, s_max, pos,
+                                       dtype, instance):
+    """Kernel 5 over the dense int8 cache (split-K: 128-row pages), q a
+    strided view of the packed projection (MHA) or contiguous (GQA),
+    against its twin per row."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import weight_only as wo
+    _, kc, vc = _dense_case(b, t, h, h_kv, d, s_max, dtype)
+    q = (_packed_q(b, t, h, d, dtype) if h == h_kv else
+         torch.randn((b, t, h, d), device='cuda').to(dtype))
+    kb = dict(zip(('int8', 'scale'), wo.quantize_kv(kc)))
+    vb = dict(zip(('int8', 'scale'), wo.quantize_kv(vc)))
+    pos_t = torch.tensor([pos], dtype=torch.int32, device='cuda')
+    assert pa.paged_instance(dtype, t, d, s_max, torch.int8) == instance
+    before = _counts(fa.flash_decode_int8)
+    got = fa.flash_decode_int8(q, kb, vb, pos_t)
+    torch.cuda.synchronize()
+    _expect(fa.flash_decode_int8, before, instance)
+    want = fa.flash_decode_int8_reference(q, kb, vb, pos_t)
     assert got.dtype == dtype and got.shape == want.shape
     assert _row_err(got, want) <= TOL[dtype]

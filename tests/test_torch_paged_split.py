@@ -85,7 +85,7 @@ def test_split_plan_ignores_positions():
     (torch.bfloat16, 64, 64, 16, 'cuda-core'),     # pages under 64 rows
 ])
 def test_int8_instance_by_dtype_t_and_head_dim(dtype, t, d, ps, want):
-    assert tpa.int8_instance(dtype, t, d, ps) == want
+    assert tpa.paged_instance(dtype, t, d, ps, torch.int8) == want
 
 
 # ---------------------------------------------------------------------------
@@ -204,44 +204,64 @@ def test_split_twin_merges_by_log_sum_exp():
 CSRC = __import__('pathlib').Path(tpa.__file__).resolve().parent.parent / 'csrc'
 
 
+def _kind(param):
+    """'ptr', 'i64' or 'int' for one C parameter declaration."""
+    return ('ptr' if '*' in param else 'i64' if 'long long' in param
+            else 'int')
+
+
 def _c_params(src, entry):
-    """'ptr' or 'int' for each parameter of ``int entry(...)`` in src."""
+    """The kind of each parameter of ``int entry(...)`` in src."""
     _, _, rest = src.partition(f'int {entry}(')
-    params = [p.strip() for p in rest.split(')')[0].split(',')]
-    return ['ptr' if '*' in p else 'int' for p in params]
+    return [_kind(p) for p in rest.split(')')[0].split(',')]
 
 
 def _bound_params(argtypes):
     import ctypes
-    return ['int' if t is ctypes.c_int else 'ptr' for t in argtypes]
+    return ['int' if t in (ctypes.c_int, ctypes.c_uint32) else
+            'i64' if t is ctypes.c_longlong else 'ptr' for t in argtypes]
 
 
 def test_paged_bindings_match_the_c_entry_points(monkeypatch):
     """Every pointer of the C signatures is bound as a pointer (a pointer
-    bound as c_int would be cut to 32 bits) and the counts agree, for
-    kernel 6's entry and kernel 7's with its partial buffers, instance
-    and SM-sized split arguments."""
+    bound as c_int would be cut to 32 bits) and the counts agree, for the
+    entries of kernels 6 and 7 with their partial buffers, tickets,
+    instance and SM-sized split arguments, and for kernel 5's entry."""
     import types
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as tfa
 
     def fake(name):
         fns = ('paged_decode', 'paged_decode_int8',
-               'paged_decode_error_string')
+               'paged_decode_error_string', 'flash_decode',
+               'flash_decode_int8', 'attn_error_string')
         return types.SimpleNamespace(
             **{f: types.SimpleNamespace() for f in fns})
 
     monkeypatch.setattr(_build, 'load', fake)
     monkeypatch.setattr(tpa, '_lib', None)
+    monkeypatch.setattr(tfa, '_libs', {})
     lib = tpa._kernel_lib()
     src = (CSRC / 'paged_decode.cu').read_text()
     for entry in ('paged_decode', 'paged_decode_int8'):
         assert _bound_params(getattr(lib, entry).argtypes) == _c_params(
             src, entry), entry
+    # kernel 5: flash_decode's arguments (the FLASH_DECODE_ARGS macro),
+    # then the split-K ones
+    dense = tfa._kernel_lib('flash_decode')
+    fsrc = (CSRC / 'flash_decode.cu').read_text()
+    macro = fsrc.partition('#define FLASH_DECODE_ARGS')[2].partition(
+        '\n\n')[0].replace('\\', '')
+    base = [_kind(p) for p in macro.split(',')]
+    assert _bound_params(dense.flash_decode.argtypes) == base
+    extra = _c_params(fsrc.replace('FLASH_DECODE_ARGS, ', ''),
+                      'flash_decode_int8')
+    assert _bound_params(dense.flash_decode_int8.argtypes) == base + extra
 
 
 @pytest.mark.parametrize('src,names', [
-    ('paged_decode.cu', ('paged_split_kernel', 'paged_combine_kernel',
-                         'paged_prefill_tc_kernel', 'paged_decode_kernel')),
+    ('kv_attention.cuh', ('split_kernel', 'prefill_tc_kernel')),
+    ('paged_decode.cu', ('paged_decode_kernel',)),
     ('flash_bwd.cu', ('flash_bwd_dq_tc_kernel', 'flash_bwd_dq_kernel',
                       'flash_bwd_dkv_tc_kernel')),
 ])

@@ -191,7 +191,7 @@ def test_the_paged_source_exports_the_int8_entry_point():
     src = (PORT / 'csrc' / 'paged_decode.cu').read_text()
     _, _, body = src.partition('extern "C" {')
     assert 'int paged_decode_int8(' in body
-    assert 'dispatch_d<__nv_bfloat16, int8_t>' in src
+    assert 'paged_instances<__nv_bfloat16, int8_t>' in src
 
 
 @pytest.mark.parametrize('op', ['flash_bwd', 'paged_decode_int8'])
