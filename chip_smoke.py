@@ -13,18 +13,21 @@ non-zero:
     its main path gives it, plus GQA, float32 and other head-dim cases;
     max abs error against the stated tolerance (scaled to each output
     row's size in bfloat16), kernel / plain / library times and the bound;
-    for kernels 1, 2, 3, 5, 6 and 7, which instance ran, failing when a case
-    took another than the library's rule gives (kernel 1: tensor-core for
-    bfloat16; kernels 2 and 3: tensor-core for bfloat16 at head dim 64 or
-    128; kernels 5, 6 and 7: split-K for T <= 16, tensor-core for bfloat16
-    at head dim 64 or 128 over pages (kernel 5: S_max) a multiple of 64
-    rows, CUDA-core otherwise):
+    for every kernel, which instance ran, failing when a case took another
+    than the library's rule gives (kernel 1: tensor-core for bfloat16;
+    kernels 2 and 3: tensor-core for bfloat16 at head dim 64 or 128;
+    kernels 4-7: split-K for T <= 16, tensor-core for bfloat16 at head dim
+    64 or 128 over pages (kernels 4 and 5: S_max) a multiple of 64 rows,
+    CUDA-core otherwise):
     paged_decode and paged_decode_int8 (the engine's decode T=1 at ragged
     positions, prefill T=1024, and with 200 real rows; T 1-1024 at page-edge positions, GQA 4 and 2, head dims
     64/128/256, f32 q, pages of 512 and 1024 rows, prefills with valid <
     T whose padding rows must come out zero),
     flash_decode and flash_decode_int8
-    (generate()'s decode step and prefill; kernel 5's other instances),
+    (generate()'s decode step and prefill; every instance of kernel 4 with
+    its bound and library time: split-K at T 1, 2, 16, tensor-core at T
+    128, 300, 1000, CUDA-core for f32 at T > 16, S_max 1000 and head dim
+    256; kernel 5's other instances),
     flash_fwd (forward() over
     [8, 1024], and with dropout 0.1), flash_bwd_dq and flash_bwd_dkv (the
     train step's backward over [8, 1024], and with dropout 0.1; library:
@@ -32,33 +35,42 @@ non-zero:
  4. the serving path at full width: the bench GPT (vocab 32768, hidden
     1024, 24 layers, 16 heads, bf16, random weights from a seed) as a
     GPTForCausalLM in GenerationEngine(model, num_slots=8, page_size=128)
-    answering 8 greedy requests with ragged prompts; every launch counter
-    is set to 0 just before and read just after: paged_decode must equal
-    24 x (prefills + steps), the 24 x prefills on the tensor-core instance
-    and the 24 x steps on the split-K one; the share of prefill q tiles
-    the kernel skipped as padding;
+    answering 8 greedy requests with ragged prompts, first eager (a
+    private switch, for the comparison only), then on its captured CUDA
+    graphs (the prefill and the step, two captures at warmup and none from
+    traffic); tokens/s, TTFT p50 and mean step of both, and their streams
+    equal; every launch counter is set to 0 just before each run and read
+    just after: paged_decode must equal 24 x (prefills + steps) under
+    replay too, the 24 x prefills on the tensor-core instance and the
+    24 x steps on the split-K one; the share of prefill q tiles the kernel
+    skipped as padding; a profiled rerun of each;
  5. card against CPU at reduced depth (hidden 1024, 2 layers, float32), the
     engine at its default 1024-row prefill on both: prefill logits agree
     and greedy streams are equal;
  6. dense generate() at full width: the same bench GPT, 8 prompts of 128
-    tokens (numpy seed), 128 greedy tokens, once with the bf16 cache and
-    once with the int8 cache; tokens/s, prefill ms, mean step ms, a
-    profiled window of decode steps for each; launches == 24 x 128 per run
-    (int8: the 24 prefill launches on kernel 5's tensor-core instance, the
-    24 x 127 steps on its split-K one), and the int8 run's prefill logits
+    tokens (numpy seed), 128 greedy tokens, with the bf16 cache and with
+    the int8 cache, each eager and on captured graphs (the prefill and one
+    step replayed per token, captured by a warm-up call); tokens/s,
+    prefill ms, mean step ms, a profiled window of decode steps for each;
+    launches == 24 x 128 per run (kernels 4 and 5: the 24 prefill launches
+    on the tensor-core instance, the 24 x 127 steps on the split-K one),
+    captured and eager tokens equal, and the int8 run's prefill logits
     within cosine 0.999 of the bf16 run's;
  7. forward() on [8, 1024] (flash_fwd launches == 24), then generate() on
-    8 prompts of 1000 tokens with 32 new: 25 cached tokens and 7 on the
-    sliding window (flash_decode 24 x 25, flash_fwd 24 x 7 launches); every
-    flash_fwd launch of both on the tensor-core instance;
+    8 prompts of 1000 tokens with 32 new, on graphs captured by a warm-up
+    call: 25 cached tokens and 7 on the sliding window (flash_decode
+    24 x 25, the 24 prefill launches tensor-core and the 24 x 24 steps
+    split-K; flash_fwd 24 x 7 launches); every flash_fwd launch of both
+    on the tensor-core instance;
  8. card against CPU at 2 layers in float32: greedy generate() streams
     equal on the dense, int8 and window-crossing paths, forward() logits
     within 1e-3;
  9. the engine over the int8 page pool (kv_cache_int8) at full width, the
-    requests of phase 4: paged_decode_int8 launches == 24 x (prefills +
-    steps), the 24 x prefills on the tensor-core instance and the
-    24 x steps on the split-K instance; a profiled rerun's device time;
-    int8 prefill logits within cosine 0.999 of a bf16 pool's;
+    requests of phase 4, eager and captured as in phase 4:
+    paged_decode_int8 launches == 24 x (prefills + steps), the
+    24 x prefills on the tensor-core instance and the 24 x steps on the
+    split-K instance; a profiled rerun's device time; int8 prefill logits
+    within cosine 0.999 of a bf16 pool's;
 10. the int8 engine card against CPU at 2 layers in float32: streams
     equal, or held to phase 8's int8 rule;
 11. the single-device train step at full width (the bench rung: [8, 1024],
@@ -497,38 +509,59 @@ def expect_zero_past_valid(kname, name, out, valid):
 GEN_POS = 191      # mean position of phase 6's decode steps (128 .. 254)
 PF_TILE = 128      # q rows a block of the tensor-core prefill
 BF16, F32 = torch.bfloat16, torch.float32
-# (name, case arguments, main-path shape: timed and bounded)
+# (name, case arguments, timing: 'main' for a main-path shape, timed over
+# LAYERS rotating caches; 'shape' for kernel 4's other instances, timed
+# lightly; None untimed)
 DECODE_CASES = [
+    # kernel 4, one case per instance and edge: split-K at T 1, 2, 16 (GQA,
+    # head dims 64-256, f32, S_max 1000), tensor-core at T 128 (generate()'s
+    # prefill), 300 and 1000 (the prefill past the window), CUDA-core for
+    # f32 at T > 16, S_max 1000 and head dim 256
     ('decode_T1', dict(b=8, t=1, h=16, h_kv=16, d=64, s_max=1024,
-                       pos=GEN_POS, dtype=BF16), True),
+                       pos=GEN_POS, dtype=BF16), 'main'),
     ('prefill_T128', dict(b=8, t=128, h=16, h_kv=16, d=64, s_max=1024,
-                          pos=0, dtype=BF16), True),
-    ('prefill_T1000', dict(b=8, t=1000, h=16, h_kv=16, d=64, s_max=1024,
-                           pos=0, dtype=BF16), False),
-    ('decode_T1_gqa_hkv4_d128', dict(b=8, t=1, h=16, h_kv=4, d=128,
-                                     s_max=1024, pos=700, dtype=BF16), False),
+                          pos=0, dtype=BF16), 'main'),
+    ('decode_T2_gqa_hkv4_d128', dict(b=8, t=2, h=16, h_kv=4, d=128,
+                                     s_max=1024, pos=700, dtype=BF16),
+     'shape'),
+    ('decode_T16_gqa_d256_smax1000', dict(b=2, t=16, h=8, h_kv=4, d=256,
+                                          s_max=1000, pos=984, dtype=BF16),
+     'shape'),
     ('decode_T3_f32_d256', dict(b=2, t=3, h=4, h_kv=4, d=256, s_max=512,
-                                pos=300, dtype=F32), False),
+                                pos=300, dtype=F32), 'shape'),
+    ('decode_T1_f32_smax1000', dict(b=4, t=1, h=8, h_kv=2, d=64,
+                                    s_max=1000, pos=128, dtype=F32),
+     'shape'),
+    ('prefill_T300_gqa_d128', dict(b=2, t=300, h=8, h_kv=2, d=128,
+                                   s_max=512, pos=100, dtype=BF16), 'shape'),
+    ('prefill_T1000', dict(b=8, t=1000, h=16, h_kv=16, d=64, s_max=1024,
+                           pos=0, dtype=BF16), 'shape'),
+    ('prefill_T128_f32', dict(b=2, t=128, h=4, h_kv=4, d=64, s_max=1024,
+                              pos=0, dtype=F32), 'shape'),
+    ('prefill_T128_smax1000', dict(b=2, t=128, h=4, h_kv=4, d=64,
+                                   s_max=1000, pos=0, dtype=BF16), 'shape'),
+    ('prefill_T70_d256', dict(b=2, t=70, h=4, h_kv=2, d=256, s_max=512,
+                              pos=30, dtype=BF16), 'shape'),
     ('decode_T1_int8', dict(b=8, t=1, h=16, h_kv=16, d=64, s_max=1024,
-                            pos=GEN_POS, dtype=BF16, int8=True), True),
+                            pos=GEN_POS, dtype=BF16, int8=True), 'main'),
     ('prefill_T128_int8', dict(b=8, t=128, h=16, h_kv=16, d=64, s_max=1024,
-                               pos=0, dtype=BF16, int8=True), True),
+                               pos=0, dtype=BF16, int8=True), 'main'),
     ('decode_T2_int8_f32_gqa', dict(b=4, t=2, h=8, h_kv=2, d=64, s_max=512,
-                                    pos=400, dtype=F32, int8=True), False),
+                                    pos=400, dtype=F32, int8=True), None),
     # kernel 5's instances beyond generate()'s shapes: S_max not a
     # multiple of the split-K's 128-row pages, T 16 at D 256, the
     # tensor-core prefill at D 128 and GQA, the CUDA-core tile
     ('decode_T16_int8_d256_smax200', dict(b=2, t=16, h=8, h_kv=2, d=256,
                                           s_max=200, pos=150, dtype=BF16,
-                                          int8=True), False),
+                                          int8=True), None),
     ('prefill_T300_int8_gqa_d128', dict(b=2, t=300, h=8, h_kv=2, d=128,
                                         s_max=512, pos=100, dtype=BF16,
-                                        int8=True), False),
+                                        int8=True), None),
     ('prefill_T128_int8_smax1000', dict(b=2, t=128, h=4, h_kv=4, d=64,
                                         s_max=1000, pos=0, dtype=BF16,
-                                        int8=True), False),
+                                        int8=True), None),
     ('prefill_T128_int8_f32', dict(b=2, t=128, h=4, h_kv=4, d=64, s_max=1024,
-                                   pos=0, dtype=F32, int8=True), False),
+                                   pos=0, dtype=F32, int8=True), None),
 ]
 FWD_CASES = [
     ('fwd_S1024', dict(b=8, s=1024, h=16, h_kv=16, d=64, dtype=BF16), True),
@@ -632,8 +665,9 @@ def decode_sdpa_ms(c, iters):
     qt = q.transpose(1, 2).contiguous()
     mask = (torch.arange(keys, device='cuda')[None, :]
             <= pos + torch.arange(t, device='cuda')[:, None])
+    gqa = ks[0].shape[1] != h
     return device_ms(lambda i: F.scaled_dot_product_attention(
-        qt, ks[i % rot], vs[i % rot], attn_mask=mask), iters)
+        qt, ks[i % rot], vs[i % rot], attn_mask=mask, enable_gqa=gqa), iters)
 
 
 def fwd_case(b, s, h, h_kv, d, dtype, causal=True, masked=False, layers=1,
@@ -689,19 +723,21 @@ def dense_kernel_cases(fa, pa, timed_iters):
     caches or projections, as generate() and forward() find them."""
     results = {'flash_decode': {}, 'flash_decode_int8': {}, 'flash_fwd': {}}
     for name, kw, timed in DECODE_CASES:
-        c = dense_case(layers=LAYERS if timed else 1, **kw)
+        layers = {'main': LAYERS, 'shape': 4}.get(timed, 1)
+        c = dense_case(layers=layers, **kw)
         kname = 'flash_decode_int8' if c['int8'] else 'flash_decode'
         kern = getattr(fa, kname)
         twin = getattr(fa, kname + '_reference')
         n = len(c['k'])
         args = lambda i: (c['q'], c['k'][i % n], c['v'][i % n], c['pos'])  # noqa: E731
-        timing = (dict(iters=timed_iters, bound=decode_bound(c),
+        iters = timed_iters if timed == 'main' else max(8, timed_iters // 5)
+        timing = (dict(iters=iters, bound=decode_bound(c),
                        library=lambda it: decode_sdpa_ms(c, it))
                   if timed else None)
-        # kernel 5 takes kernel 7's rule over its implicit pages; kernel 4
-        # keeps its one CUDA-core tile
-        inst = (pa.paged_instance(kw['dtype'], kw['t'], kw['d'], kw['s_max'],
-                                  torch.int8) if c['int8'] else None)
+        # kernels 4 and 5 take kernel 6 and 7's rule over their implicit
+        # pages, S_max for the page size
+        inst = pa.paged_instance(kw['dtype'], kw['t'], kw['d'], kw['s_max'],
+                                 torch.int8 if c['int8'] else kw['dtype'])
         results[kname][name] = hold_kernel(
             kname, name, kern, lambda i: kern(*args(i)),
             lambda i: twin(*args(i)), TOL[kw['dtype']], timing,
@@ -855,7 +891,94 @@ def serve(engine, reqs, max_new):
     return out, time.perf_counter() - t0
 
 
-def phase_engine(gpt, pa, GenerationEngine, kernels, card):
+MODES = (('eager', False), ('captured', True))
+
+
+def engine_run(GenerationEngine, net, config, kname, kernels, reqs, new,
+               capture, card, what):
+    """One engine over the bench GPT (8 slots, page 128), eager (a private
+    switch, for this comparison only) or on captured CUDA graphs: warmed
+    up, every launch counter set to 0, then the requests served. Checks
+    the tokens, the exact launches (kernel ``kname``: 24 x (prefills +
+    steps), the prefills on the tensor-core instance and the steps on the
+    split-K one), two captures at warmup and none from traffic; then a
+    profiled rerun. -> (record, the streams)."""
+    args = (net,) if config is None else (net, config)
+    eng = GenerationEngine(*args, num_slots=8, page_size=128)
+    eng._capture = capture
+    try:
+        w = eng.warmup()
+        traces = eng._trace_count
+        zero_launches(kernels)
+        out, wall = serve(eng, reqs, new)
+        torch.cuda.synchronize()
+        counts = launch_counts(kernels)
+        k = kernels[kname]
+        inst = {'tensor-core': k.tc_launches, 'split-k': k.split_launches}
+        st = eng.stats()
+        after = eng._trace_count
+        graphs = [f.captured for f in eng._fns.values()]
+        prof = profile_serving(eng, reqs, new)
+        width, ps = eng.prefill_width, eng.page_size
+    finally:
+        eng.shutdown()
+    mode = 'captured' if capture else 'eager'
+    vocab = (config or net.config).vocab_size
+    L = (config or net.config).num_layers
+    for i, toks in enumerate(out):
+        if len(toks) != new or not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f'{what} {mode}, request {i}: {len(toks)} '
+                                 f'tokens, want {new} in [0, {vocab})')
+    if graphs != [capture] * 2:
+        raise AssertionError(f'{what} {mode}: captured {graphs}')
+    if (w['prebuilt'], traces, after) != (2, 2, 2):
+        raise AssertionError(f'{what} {mode}: {w["prebuilt"]} built at '
+                             f'warmup, _trace_count {traces} after warmup '
+                             f'and {after} after traffic, want 2, 2, 2')
+    expect_launches(f'{what} {mode} ({st["prefills"]} prefills + '
+                    f'{st["steps"]} steps)', counts,
+                    {kname: L * (st['prefills'] + st['steps'])})
+    if counts[kname] == 0:
+        raise AssertionError('the main path launched no kernel')
+    want = {'tensor-core': L * st['prefills'], 'split-k': L * st['steps']}
+    if inst != want:
+        raise AssertionError(f'{what} {mode}: {kname} instances {inst}, '
+                             f'want {want}')
+    res = {'mode': mode, 'requests': len(out), 'new_tokens': new,
+           'wall_s': wall, 'tokens_per_s': len(out) * new / wall,
+           'ttft_ms_p50': st['ttft_ms_p50'], 'ttft_ms_p99': st['ttft_ms_p99'],
+           'step_ms_mean': st['decode_step_ms_mean'],
+           'prefill_ms_mean': st['prefill_ms_mean'],
+           'prefills': st['prefills'], 'steps': st['steps'],
+           'launches': counts[kname], 'instances': inst,
+           'warmup_s': w['seconds'], 'traces': after,
+           'prefill_width': width, 'page_size': ps,
+           'kernel_device_ms': {
+               'split-k': kernel_ms(prof, 'split_kernel'),
+               'tensor-core': kernel_ms(prof, 'prefill_tc_kernel'),
+               'cuda-core': kernel_ms(prof, 'paged_decode_kernel')},
+           'profile': prof}
+    print(f'  {what} {mode}: {len(out)} requests x {new} tokens in '
+          f'{wall:.3f} s; {res["tokens_per_s"]:.1f} tokens/s, TTFT p50 '
+          f'{res["ttft_ms_p50"]:.1f} ms, mean step {res["step_ms_mean"]:.2f}'
+          f' ms, mean prefill {res["prefill_ms_mean"]:.2f} ms; {kname} '
+          f'instances {inst}; captures {after} [{card}]', flush=True)
+    return res, out
+
+
+def print_profiles(what, runs, kname):
+    for mode, _ in MODES:
+        prof, r = runs[mode]['profile'], runs[mode]
+        print(f'  {what} {mode}, profiled rerun: window '
+              f'{prof["window_ms"]:.1f} ms, device busy '
+              f'{prof["device_ms"]:.1f} ms ({100 * prof["busy_share"]:.1f}%),'
+              f' {prof["kernels"]} kernel launches; {kname} device ms by '
+              f'instance {r["kernel_device_ms"]}', flush=True)
+        for name, ms in prof['top']:
+            print(f'    {ms:9.3f} ms  {name}', flush=True)
+
+
+def phase_engine(gpt, GenerationEngine, kernels, card):
     cfg = bench_config(gpt)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device='cuda').manual_seed(0)
@@ -864,80 +987,35 @@ def phase_engine(gpt, pa, GenerationEngine, kernels, card):
     n_params += sum(v.numel() for v in params['blocks'].values())
     # the engine takes the model object (ROADMAP Q3.1)
     model = gpt.GPTForCausalLM(cfg, params, device='cuda')
-    eng = GenerationEngine(model, num_slots=8, page_size=128)
-    try:
-        w = eng.warmup()
-        reqs = prompts(8, 16, 400, cfg.vocab_size, seed=0)
-        new = 32
-        zero_launches(kernels)
-        out, wall = serve(eng, reqs, new)
-        torch.cuda.synchronize()
-        counts = launch_counts(kernels)
-        k6 = kernels['paged_decode']
-        inst = {'tensor-core': k6.tc_launches, 'split-k': k6.split_launches}
-        launches = k6.launches
-        st = eng.stats()
-        prof = profile_serving(eng, reqs, new)
-    finally:
-        eng.shutdown()
-    for i, toks in enumerate(out):
-        if len(toks) != new or not all(0 <= t < cfg.vocab_size
-                                       for t in toks):
-            raise AssertionError(f'request {i}: {len(toks)} tokens, want '
-                                 f'{new} in [0, {cfg.vocab_size})')
-    calls = st['prefills'] + st['steps']
-    L = cfg.num_layers
-    expect_launches(f'engine ({st["prefills"]} prefills + {st["steps"]} '
-                    'steps)', counts, {'paged_decode': L * calls})
-    if launches == 0:
-        raise AssertionError('the main path launched no kernel')
-    # the prefills (T = prefill width, bf16) on the tensor-core instance,
-    # the decode steps (T = 1) on the split-K instance
-    want = {'tensor-core': L * st['prefills'], 'split-k': L * st['steps']}
-    if inst != want:
-        raise AssertionError(f'engine: kernel 6 instances {inst}, want {want}')
-    print(f'  kernel 6 instances: {inst}', flush=True)
-    lens = [len(p) for p in reqs]
-    k6_ms = {'split-k': kernel_ms(prof, 'split_kernel'),
-             'tensor-core': kernel_ms(prof, 'prefill_tc_kernel'),
-             'cuda-core': kernel_ms(prof, 'paged_decode_kernel')}
-    res = {'params': n_params, 'requests': len(out), 'new_tokens': new,
-           'prompt_lens': [len(p) for p in reqs], 'wall_s': wall,
-           'tokens_per_s': len(out) * new / wall,
-           'ttft_ms_p50': st['ttft_ms_p50'],
-           'ttft_ms_p99': st['ttft_ms_p99'],
-           'step_ms_mean': st['decode_step_ms_mean'],
-           'prefill_ms_mean': st['prefill_ms_mean'],
-           'prefills': st['prefills'], 'steps': st['steps'],
-           'launches': launches, 'warmup_s': w['seconds'],
-           'prefill_pad_share': prefill_pad_share(
-               lens, eng.prefill_width, eng.page_size),
-           'prefill_work_skipped': prefill_pad_share(
-               lens, eng.prefill_width, eng.page_size, PF_TILE),
-           'prefill_tiles_skipped': prefill_tiles_skipped(
-               lens, eng.prefill_width, PF_TILE),
-           'instances': inst, 'kernel6_device_ms': k6_ms,
-           'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9,
-           'profile': prof}
-    print(f'  engine at full width ({n_params / 1e6:.1f}M params, 8 slots, '
-          f'page 128): {len(out)}/{len(reqs)} requests x {new} tokens in '
-          f'{wall:.3f} s; {res["tokens_per_s"]:.1f} tokens/s, TTFT p50 '
-          f'{res["ttft_ms_p50"]:.1f} ms, mean step {res["step_ms_mean"]:.2f}'
-          f' ms, mean prefill {res["prefill_ms_mean"]:.2f} ms [{card}]',
+    reqs = prompts(8, 16, 400, cfg.vocab_size, seed=0)
+    new = 32
+    runs, streams = {}, {}
+    for mode, capture in MODES:
+        runs[mode], streams[mode] = engine_run(
+            GenerationEngine, model, None, 'paged_decode', kernels, reqs, new,
+            capture, card, f'engine ({n_params / 1e6:.1f}M params)')
+    if streams['captured'] != streams['eager']:
+        raise AssertionError('engine: captured and eager greedy streams '
+                             'differ')
+    print('  engine greedy streams, captured against eager: equal',
           flush=True)
+    res = dict(runs['captured'], eager=runs['eager'], params=n_params,
+               prompt_lens=[len(p) for p in reqs])
+    lens = res['prompt_lens']
+    width, ps = res['prefill_width'], res['page_size']
+    res.update(prefill_pad_share=prefill_pad_share(lens, width, ps),
+               prefill_work_skipped=prefill_pad_share(lens, width, ps,
+                                                      PF_TILE),
+               prefill_tiles_skipped=prefill_tiles_skipped(lens, width,
+                                                           PF_TILE),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f'  prefill attention work on padding-only q tiles (prompts '
-          f'{min(lens)}-{max(lens)} rows padded to {eng.prefill_width}): '
+          f'{min(lens)}-{max(lens)} rows padded to {width}): '
           f'{100 * res["prefill_pad_share"]:.1f}% of 64-row tiles; the '
           f'tensor-core prefill skipped {100 * res["prefill_tiles_skipped"]:.1f}'
           f'% of its {PF_TILE}-row q tiles, '
           f'{100 * res["prefill_work_skipped"]:.1f}% of its work', flush=True)
-    print(f'  profiled rerun: window {prof["window_ms"]:.1f} ms, device busy '
-          f'{prof["device_ms"]:.1f} ms ({100 * prof["busy_share"]:.1f}%), '
-          f'{prof["kernels"]} kernel launches', flush=True)
-    for name, ms in prof['top']:
-        print(f'    {ms:9.3f} ms  {name}', flush=True)
-    print(f'  kernel 6 device ms in the profiled rerun, by instance: '
-          f'{k6_ms}', flush=True)
+    print_profiles('engine', runs, 'kernel 6')
     return res
 
 
@@ -1083,8 +1161,70 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def generate_run(gpt, m, prompt, new, kname, kernels, card, what):
+    """generate() of ``new`` greedy tokens on model ``m`` (eager or
+    captured, as ``m._capture`` says) after a warm-up call that captures:
+    every launch counter set to 0, then the run, its launches checked
+    exactly (kernel ``kname``: 24 prefill launches on the tensor-core
+    instance, 24 x (new - 1) steps on the split-K one); a second run; the
+    same run in its two parts, each timed to a synchronize; a profiled
+    window of 16 steps. -> (record, tokens, prefill logits)."""
+    c = m.config
+    b, t0 = prompt.shape
+    L = c.num_layers
+    mode = 'captured' if m._capture else 'eager'
+    m.generate(prompt, max_new_tokens=2, temperature=0)     # warm-up
+    zero_launches(kernels)
+    out, wall = timed(lambda: m.generate(prompt, max_new_tokens=new,
+                                         temperature=0))
+    launches = launch_counts(kernels)
+    check_tokens(out, (b, t0 + new), c.vocab_size, f'generate {what}')
+    expect_launches(f'generate {what} {mode} (prefill + {new - 1} steps)',
+                    launches, {kname: L * new})
+    inst = instance_counts(kernels[kname])
+    want = {'tc_launches': L, 'split_launches': L * (new - 1)}
+    if inst != want:
+        raise AssertionError(f'generate {what} {mode}: {kname} instances '
+                             f'{inst}, want {want}')
+    # once more, uncounted: how far one run's time is from the next
+    again, wall2 = timed(lambda: m.generate(prompt, max_new_tokens=new,
+                                            temperature=0))
+    if not torch.equal(again, out):
+        raise AssertionError(f'generate {what} {mode}: a second run gave '
+                             'other tokens')
+    # the same run in its two parts: the model's prefill and loop, each
+    # timed to a synchronize
+    entry = m._decode_entry(b, t0, 0, None, None, False)
+    first, pre_s = timed(lambda: entry['prefill'].replay(
+        prompt=prompt).clone())
+    pos0 = torch.full((1,), t0, dtype=torch.int32, device='cuda')
+    (rest, _), loop_s = timed(lambda: entry['loop'](
+        entry['params'], first, pos0, entry['cache'], None, new - 1))
+    if not torch.equal(torch.cat([first[:, None], rest], 1), out[:, t0:]):
+        raise AssertionError(f'generate {what} {mode}: the timed prefill + '
+                             'loop gave other tokens than generate()')
+    # the prefill's logits, eagerly over a cache of its own
+    prefill, _ = gpt.make_decode_fns(c)
+    lg, _ = prefill(entry['params'], prompt, gpt.init_kv_cache(c, b, 'cuda'))
+    rec = {'mode': mode, 'wall_s': wall, 'tokens_per_s': b * new / wall,
+           'wall_s_second_run': wall2, 'prefill_ms': pre_s * 1e3,
+           'step_ms_mean': loop_s * 1e3 / (new - 1),
+           'launches': launches[kname], 'instances': inst,
+           'distinct_tokens': int(out[:, t0:].unique().numel())}
+    prof = rec['profile'] = profile_window(lambda: entry['loop'](
+        entry['params'], first, pos0, entry['cache'], None, 16))
+    prof['kernel_ms'] = kernel_ms(prof, 'split_kernel', 'attn_tile_kernel')
+    print(f'  generate {what} {mode}: {b} x {new} tokens in {wall:.3f} s'
+          f' (again: {wall2:.3f} s); {rec["tokens_per_s"]:.1f} tokens/s, '
+          f'prefill {rec["prefill_ms"]:.2f} ms, mean step '
+          f'{rec["step_ms_mean"]:.2f} ms; {kname} instances {inst} '
+          f'[{card}]', flush=True)
+    return rec, out, lg.float()
+
+
 def phase_generate(gpt, kernels, card):
-    """generate() at full width, bf16 cache then int8 cache."""
+    """generate() at full width, bf16 cache then int8 cache, each eager
+    and on captured graphs."""
     cfg = bench_config(gpt)
     torch.cuda.reset_peak_memory_stats()
     model = gpt.GPTForCausalLM(cfg, device='cuda', seed=0)
@@ -1095,62 +1235,25 @@ def phase_generate(gpt, kernels, card):
     for label, kname in (('bf16', 'flash_decode'),
                          ('int8', 'flash_decode_int8')):
         c = cfg if label == 'bf16' else bench_config(gpt, kv_cache_int8=True)
-        m = model if label == 'bf16' else gpt.GPTForCausalLM(
-            c, model.param_dict(), device='cuda')
-        m.generate(prompt, max_new_tokens=2, temperature=0)     # warm-up
-        zero_launches(kernels)
-        out, wall = timed(lambda: m.generate(prompt, max_new_tokens=new,
-                                             temperature=0))
-        launches = launch_counts(kernels)
-        check_tokens(out, (b, t0 + new), cfg.vocab_size, f'generate {label}')
-        expect_launches(f'generate {label} (prefill + {new - 1} steps)',
-                        launches, {kname: cfg.num_layers * new})
-        inst = instance_counts(kernels[kname])
-        if label == 'int8':
-            # kernel 5: the prefill (T = 128, bf16) on the tensor-core
-            # instance, the decode steps (T = 1) on the split-K one
-            want = {'tc_launches': cfg.num_layers,
-                    'split_launches': cfg.num_layers * (new - 1)}
-            if inst != want:
-                raise AssertionError(f'generate int8: kernel 5 instances '
-                                     f'{inst}, want {want}')
-            print(f'  kernel 5 instances: {inst}', flush=True)
-        # once more, uncounted: how far one run's time is from the next
-        again, wall2 = timed(lambda: m.generate(prompt, max_new_tokens=new,
-                                                temperature=0))
-        if not torch.equal(again, out):
-            raise AssertionError(f'generate {label}: a second run gave '
-                                 'other tokens')
-        # the same run in its two parts, each timed to a synchronize
-        params = gpt.serving_params(m.param_dict(), c)
-        prefill, _ = gpt.make_decode_fns(c)
-        loop = gpt.make_generate_loop(c)
-        cache = gpt.init_kv_cache(c, b, 'cuda')
-        (lg, cache), pre_s = timed(lambda: prefill(params, prompt, cache))
-        first = torch.argmax(lg, dim=-1).to(torch.int32)
-        pos0 = torch.full((1,), t0, dtype=torch.int32, device='cuda')
-        (rest, cache), loop_s = timed(lambda: loop(params, first, pos0, cache,
-                                                   None, new - 1))
-        if not torch.equal(torch.cat([first[:, None], rest], 1), out[:, t0:]):
-            raise AssertionError(f'generate {label}: the timed prefill + '
-                                 'loop gave other tokens than generate()')
-        prefill_logits[label] = lg.float()
-        rec = {'wall_s': wall, 'tokens_per_s': b * new / wall,
-               'wall_s_second_run': wall2, 'prefill_ms': pre_s * 1e3,
-               'step_ms_mean': loop_s * 1e3 / (new - 1),
-               'launches': launches[kname], 'instances': inst,
-               'distinct_tokens': int(out[:, t0:].unique().numel())}
-        rec['profile'] = profile_window(lambda: loop(
-            params, first, pos0, cache, None, 16))
-        rec['profile']['kernel_ms'] = kernel_ms(
-            rec['profile'], 'split_kernel', 'attn_tile_kernel')
-        print(f'  generate {label} cache: {b} x {new} tokens in {wall:.3f} s'
-              f' (again: {wall2:.3f} s)'
-              f'; {rec["tokens_per_s"]:.1f} tokens/s, prefill '
-              f'{rec["prefill_ms"]:.2f} ms, mean step '
-              f'{rec["step_ms_mean"]:.2f} ms [{card}]', flush=True)
-        res[label] = rec
-        del m, cache
+        runs, outs = {}, {}
+        for mode, capture in MODES:
+            m = (model if label == 'bf16' and capture else
+                 gpt.GPTForCausalLM(c, model.param_dict(), device='cuda'))
+            m._capture = capture
+            runs[mode], outs[mode], lg = generate_run(
+                gpt, m, prompt, new, kname, kernels, card,
+                f'{label} cache')
+            if capture:
+                prefill_logits[label] = lg
+            if m is not model:
+                del m
+            torch.cuda.empty_cache()
+        if not torch.equal(outs['captured'], outs['eager']):
+            raise AssertionError(f'generate {label}: captured and eager '
+                                 'tokens differ')
+        print(f'  generate {label} cache, captured against eager: equal '
+              'tokens', flush=True)
+        res[label] = dict(runs['captured'], eager=runs['eager'])
     a, c8 = prefill_logits['bf16'], prefill_logits['int8']
     cos = float((a * c8).sum() / (a.norm() * c8.norm()))
     if not (torch.isfinite(a).all() and torch.isfinite(c8).all()):
@@ -1160,14 +1263,17 @@ def phase_generate(gpt, kernels, card):
     if not cos > 0.999:
         raise AssertionError(f'int8 cache prefill logits cosine {cos}')
     for label in ('bf16', 'int8'):
-        prof = res[label]['profile']
-        print(f'  profiled 16 decode steps, {label} cache: window '
-              f'{prof["window_ms"]:.1f} ms, device busy '
-              f'{prof["device_ms"]:.1f} ms ({100 * prof["busy_share"]:.1f}%),'
-              f' {prof["kernels"]} kernel launches; attention '
-              f'{prof["kernel_ms"]:.3f} ms', flush=True)
-        for name, ms in prof['top']:
-            print(f'    {ms:9.3f} ms  {name}', flush=True)
+        for mode, _ in MODES:
+            r = res[label] if mode == 'captured' else res[label]['eager']
+            prof = r['profile']
+            print(f'  profiled 16 decode steps, {label} cache, {mode}: '
+                  f'window {prof["window_ms"]:.1f} ms, device busy '
+                  f'{prof["device_ms"]:.1f} ms '
+                  f'({100 * prof["busy_share"]:.1f}%), {prof["kernels"]} '
+                  f'kernel launches; attention {prof["kernel_ms"]:.3f} ms',
+                  flush=True)
+            for name, ms in prof['top']:
+                print(f'    {ms:9.3f} ms  {name}', flush=True)
     res['int8_prefill_cosine'] = cos
     res['peak_mem_gb'] = torch.cuda.max_memory_allocated() / 1e9
     return model, res
@@ -1193,6 +1299,8 @@ def phase_forward_sliding(gpt, model, kernels, card):
     prof = profile_window(lambda: model(toks))
     t0, new = 1000, 32
     cached = s - t0 + 1
+    # the warm-up call captures this prompt length's prefill and loop
+    model.generate(toks[:, :t0], max_new_tokens=2, temperature=0)
     zero_launches(kernels)
     out, wall = timed(lambda: model.generate(toks[:, :t0], max_new_tokens=new,
                                              temperature=0))
@@ -1202,9 +1310,20 @@ def phase_forward_sliding(gpt, model, kernels, card):
                     f'{new - cached} sliding)', launches,
                     {'flash_decode': cfg.num_layers * cached,
                      'flash_fwd': cfg.num_layers * (new - cached)})
+    # kernel 4: the prefill (T 1000, bf16) tensor-core, the steps split-K
+    inst = instance_counts(kernels['flash_decode'])
+    want = {'tc_launches': cfg.num_layers,
+            'split_launches': cfg.num_layers * (cached - 1)}
+    if inst != want:
+        raise AssertionError(f'generate past the window: kernel 4 instances '
+                             f'{inst}, want {want}')
+    print(f'  kernel 4 instances past the window: {inst}', flush=True)
     slide_tc = expect_tensor_core('generate past the window', kernels)
+    # one sliding step as generate() runs it, over the serving parameters
+    # it already holds
+    sp = model._serving_params()
     _, slide_s = timed(lambda: model._generate_sliding(
-        out[:, -s:], 1, 0, None))
+        out[:, -s:], 1, 0, None, params=sp))
     res = {'forward_ms': fwd_s * 1e3, 'wall_s': wall,
            'tokens_per_s': b * new / wall, 'sliding_step_ms': slide_s * 1e3,
            'forward_launches': fwd_launches, 'launches': launches,
@@ -1371,72 +1490,33 @@ def paged_prefill_logits(gpt, params, cfg, reqs, dev, rows=None):
 
 def phase_engine_int8(gpt, GenerationEngine, kernels, card):
     """The bench GPT in GenerationEngine(kv_cache_int8=True) answering the
-    requests of phase 4; then the prefill logits of an int8 pool against
-    a bf16 pool's, both through the paged forward the engine runs."""
+    requests of phase 4, eager and captured; then the prefill logits of an
+    int8 pool against a bf16 pool's, both through the paged forward the
+    engine runs."""
     cfg = bench_config(gpt, kv_cache_int8=True)
     params = gpt.init_params(cfg, torch.Generator(device='cuda').manual_seed(0),
                              'cuda')
-    eng = GenerationEngine(params, cfg, num_slots=8, page_size=128)
-    try:
-        eng.warmup()
-        reqs = prompts(8, 16, 400, cfg.vocab_size, seed=0)
-        new = 32
-        zero_launches(kernels)
-        out, wall = serve(eng, reqs, new)
-        torch.cuda.synchronize()
-        launches = launch_counts(kernels)
-        k7 = kernels['paged_decode_int8']
-        inst = {'tensor-core': k7.tc_launches, 'split-k': k7.split_launches}
-        st = eng.stats()
-        prof = profile_serving(eng, reqs, new)
-    finally:
-        eng.shutdown()
-    for i, toks in enumerate(out):
-        if len(toks) != new or not all(0 <= t < cfg.vocab_size
-                                       for t in toks):
-            raise AssertionError(f'int8 engine request {i}: {len(toks)} '
-                                 'tokens out of range or short')
-    calls = st['prefills'] + st['steps']
-    L = cfg.num_layers
-    expect_launches(f'int8 engine ({st["prefills"]} prefills + '
-                    f'{st["steps"]} steps)', launches,
-                    {'paged_decode_int8': L * calls})
-    # the prefills (T = prefill width) on the tensor-core instance, the
-    # decode steps (T = 1) on the split-K instance
-    want = {'tensor-core': L * st['prefills'], 'split-k': L * st['steps']}
-    if inst != want:
-        raise AssertionError(f'int8 engine: kernel 7 instances {inst}, want '
-                             f'{want}')
-    print(f'  kernel 7 instances: {inst}', flush=True)
-    k7_ms = {'split-k': kernel_ms(prof, 'split_kernel'),
-             'tensor-core': kernel_ms(prof, 'prefill_tc_kernel'),
-             'cuda-core': kernel_ms(prof, 'paged_decode_kernel')}
+    reqs = prompts(8, 16, 400, cfg.vocab_size, seed=0)
+    new = 32
+    runs, streams = {}, {}
+    for mode, capture in MODES:
+        runs[mode], streams[mode] = engine_run(
+            GenerationEngine, params, cfg, 'paged_decode_int8', kernels,
+            reqs, new, capture, card, 'int8 engine')
+    if streams['captured'] != streams['eager']:
+        raise AssertionError('int8 engine: captured and eager greedy '
+                             'streams differ')
+    print('  int8 engine greedy streams, captured against eager: equal',
+          flush=True)
+    print_profiles('int8 engine', runs, 'kernel 7')
     sp = gpt.serving_params(params, cfg)
     lg8 = paged_prefill_logits(gpt, sp, cfg, reqs, 'cuda')
     lgb = paged_prefill_logits(gpt, sp, bench_config(gpt), reqs, 'cuda')
     if not (torch.isfinite(lg8).all() and torch.isfinite(lgb).all()):
         raise AssertionError('non-finite int8 / bf16 prefill logits')
     cos = float((lg8 * lgb).sum() / (lg8.norm() * lgb.norm()))
-    res = {'requests': len(out), 'new_tokens': new, 'wall_s': wall,
-           'tokens_per_s': len(out) * new / wall,
-           'ttft_ms_p50': st['ttft_ms_p50'],
-           'step_ms_mean': st['decode_step_ms_mean'],
-           'prefill_ms_mean': st['prefill_ms_mean'],
-           'prefills': st['prefills'], 'steps': st['steps'],
-           'launches': launches['paged_decode_int8'], 'instances': inst,
-           'prefill_cosine_vs_bf16': cos, 'profile': prof,
-           'kernel7_device_ms': k7_ms}
-    print(f'  int8 engine at full width: {len(out)} requests x {new} tokens '
-          f'in {wall:.3f} s; {res["tokens_per_s"]:.1f} tokens/s, TTFT p50 '
-          f'{res["ttft_ms_p50"]:.1f} ms, mean step {res["step_ms_mean"]:.2f}'
-          f' ms [{card}]', flush=True)
-    print(f'  profiled rerun: window {prof["window_ms"]:.1f} ms, device busy '
-          f'{prof["device_ms"]:.1f} ms ({100 * prof["busy_share"]:.1f}%), '
-          f'{prof["kernels"]} kernel launches', flush=True)
-    for name, ms in prof['top']:
-        print(f'    {ms:9.3f} ms  {name}', flush=True)
-    print(f'  kernel 7 device ms in the profiled rerun, by instance: '
-          f'{k7_ms}', flush=True)
+    res = dict(runs['captured'], eager=runs['eager'],
+               prefill_cosine_vs_bf16=cos)
     print(f'  prefill logits int8 vs bf16 pool: cosine {cos:.6f} (want > '
           '0.999)', flush=True)
     if not cos > 0.999:
@@ -1685,7 +1765,7 @@ def main(argv=None):
     report['dense_kernels'] = dk = dense_kernel_cases(fa, pa, TIMED_ITERS)
     report['bwd_kernels'] = bk = bwd_kernel_cases(fa, TIMED_ITERS)
     print('phase 4: GenerationEngine at full width', flush=True)
-    report['engine'] = phase_engine(gpt, pa, GenerationEngine, counters,
+    report['engine'] = phase_engine(gpt, GenerationEngine, counters,
                                     card)
     print('phase 5: card against CPU at 2 layers', flush=True)
     report['card_vs_cpu'] = phase_card_vs_cpu(gpt, GenerationEngine)

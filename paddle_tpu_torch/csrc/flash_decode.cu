@@ -18,20 +18,22 @@
 // packed qkv projection. The TPU kernel takes T <= 128 (its q tile); here
 // every T is one launch.
 //
-// Kernel 4 (bf16/f32 cache) runs the CUDA-core attention tile of
-// attention.cuh (attn_tile_kernel): a block owns 64 q rows of one (batch,
-// head) and streams its keys alone. Kernel 5 (int8 cache) takes kernel 7's
-// instances from kv_attention.cuh, chosen in its entry point by T, dtype,
-// head dim and S_max (never after a failed launch):
+// Both kernels take kernel 6 and 7's instances from kv_attention.cuh, chosen
+// in one shared entry (dense_instances) by T, dtype, head dim and S_max
+// (never after a failed launch); the rows are q's dtype (kernel 4) or int8
+// with their scales (kernel 5):
 // - T <= 16: the split-K decode over the cache read as pages of 128 rows
 //   through an implicit table (page p of batch row b is its rows p * 128 ..
 //   p * 128 + 127), n_split runs of pps pages sized from S_max and the SM
 //   count (never from pos), the partials merged by the last split of each
 //   (batch row, kv head) to finish;
 // - T > 16, bf16 q, D 64/128, S_max a multiple of 64: the tensor-core
-//   prefill, 64-row chunks of each batch row's int8 rows TMA-loaded and
-//   widened to bf16 by the producer warpgroup;
-// - otherwise the CUDA-core tile.
+//   prefill over 64-row chunks of each batch row, TMA-loaded straight into
+//   the 128-byte swizzle (bf16 rows) or widened to bf16 by the producer
+//   warpgroup (int8 rows);
+// - otherwise (f32 at T > 16, D 256, S_max not a multiple of 64) the
+//   CUDA-core attention tile of attention.cuh (attn_tile_kernel): a block
+//   owns 64 q rows of one (batch, head) and streams its keys alone.
 //
 // Bound. A decode step (T = 1) reads each K/V row up to pos once and does
 // ~4*D flops per key per head, far below the card's ~295 flops per byte: it
@@ -71,51 +73,42 @@ attn::TileArgs decode_args(const void* q, const void* k, const void* v,
   return a;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Shared argument order of both entry points. q [B, T, H, D] with element
-// strides (q_sb, q_ss, q_sh) and a contiguous head dim; k/v one layer's
-// cache [B, S_max, H_kv, D] with strides (k_sb, k_ss, k_sh); ks/vs the int8
-// row scales, contiguous [B, S_max, H_kv] (null for flash_decode); pos int32
-// [1] on the device; out [B, T, H, D] contiguous; lse [B, H, T] f32 or null.
-// dtype (q's): 0 = float32, 1 = bfloat16. Launches on `stream` and returns
-// cudaGetLastError() after the launch (0 on success), or -1 for a
-// dtype/head_dim this library has no instance of.
-#define FLASH_DECODE_ARGS                                                    \
-  const void *q, const void *k, const void *v, const void *ks,               \
-      const void *vs, const void *pos, void *out, void *lse, long long q_sb, \
-      long long q_ss, long long q_sh, long long k_sb, long long k_ss,        \
-      long long k_sh, int B, int T, int H, int H_kv, int D, int S_max,       \
-      int dtype, void *stream
-
-int flash_decode(FLASH_DECODE_ARGS) {
-  const attn::TileArgs a = decode_args(q, k, v, ks, vs, pos, out, lse, q_sb,
-                                       q_ss, q_sh, k_sb, k_ss, k_sh, T, H,
-                                       H_kv, D, S_max);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return attn::launch_tile_d<float, float>(D, a, B, s);
-  if (dtype == 1)
-    return attn::launch_tile_d<__nv_bfloat16, __nv_bfloat16>(D, a, B, s);
-  return -1;
+// The three instances over the dense cache, rows of KV, for q (and out)
+// of T; *instance as the entry points report it.
+template <typename T, typename KV>
+int dense_instances(const kv::SplitArgs& sa, const attn::TileArgs& ta,
+                    int dtype, int D, int S_max, int* instance,
+                    cudaStream_t s) {
+  if (sa.t_len <= kv::SPLIT_MAX_T) {
+    const int e = kv::launch_split<T, KV, false>(D, sa, s);
+    if (e == 0) *instance = 1;
+    return e;
+  }
+  if constexpr (sizeof(T) == 2) {
+    if (kv::prefill_tc_takes(dtype, D, S_max)) {
+      kv::PrefillArgs pa{sa.src, sa.pos, nullptr,
+                         static_cast<__nv_bfloat16*>(sa.out), sa.t_len,
+                         sa.H, sa.H_kv, sa.scale};
+      const int e = kv::launch_prefill_tc<KV, false>(
+          D, sa.q, sa.q_sb, sa.q_ss, sa.q_sh, pa, sa.B, sa.B, s);
+      if (e == 0) *instance = 2;
+      return e;
+    }
+  }
+  return attn::launch_tile_d<T, KV>(D, ta, sa.B, s);
 }
 
-// Kernel 5: flash_decode's arguments over int8 banks (k/v int8 with their
-// row scales ks/vs, contiguous [B, S_max, H_kv] f32), then the split-K
-// instance's partial buffers m_part, l_part [B * T * H, n_split] and
-// acc_part [B * T * H, n_split, D] f32 over n_split runs of pps pages of
-// DENSE_PS rows (n_split = ceil(ceil(S_max / DENSE_PS) / pps)), and its
-// tickets ([B * H_kv] int32, zero and left zero). *instance: 1 split-K, 2
-// tensor-core, 0 the CUDA-core tile. Returns as flash_decode; ERR_SCRATCH
-// when the split-K instance is chosen and a partial buffer or the tickets
-// are null.
-int flash_decode_int8(FLASH_DECODE_ARGS, void* m_part, void* l_part,
-                      void* acc_part, void* tickets, int n_split, int pps,
-                      int* instance) {
+// The body of both entry points; int8: k/v int8 with row scales ks/vs.
+int dense_entry(const void* q, const void* k, const void* v, const void* ks,
+                const void* vs, const void* pos, void* out, void* lse,
+                long long q_sb, long long q_ss, long long q_sh,
+                long long k_sb, long long k_ss, long long k_sh, int B, int T,
+                int H, int H_kv, int D, int S_max, int dtype, void* stream,
+                void* m_part, void* l_part, void* acc_part, void* tickets,
+                int n_split, int pps, bool int8, int* instance) {
   *instance = 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   kv::SplitArgs sa{};
   sa.q = q;
   sa.q_sb = q_sb;
@@ -148,27 +141,59 @@ int flash_decode_int8(FLASH_DECODE_ARGS, void* m_part, void* l_part,
   sa.n_split = n_split;
   sa.pps = pps;
   sa.scale = (float)(1.0 / sqrt((double)D));
-  if (T <= kv::SPLIT_MAX_T) {
-    const int e =
-        dtype == 0 ? kv::launch_split<float, int8_t, false>(D, sa, s)
-                   : kv::launch_split<__nv_bfloat16, int8_t, false>(D, sa, s);
-    if (e == 0) *instance = 1;
-    return e;
-  }
-  if (kv::prefill_tc_takes(dtype, D, S_max)) {
-    kv::PrefillArgs pa{src, sa.pos, nullptr,
-                       static_cast<__nv_bfloat16*>(out), T, H, H_kv,
-                       sa.scale};
-    const int e = kv::launch_prefill_tc<int8_t, false>(D, q, q_sb, q_ss,
-                                                       q_sh, pa, B, B, s);
-    if (e == 0) *instance = 2;
-    return e;
-  }
-  const attn::TileArgs a = decode_args(q, k, v, ks, vs, pos, out, lse, q_sb,
-                                       q_ss, q_sh, k_sb, k_ss, k_sh, T, H,
-                                       H_kv, D, S_max);
-  if (dtype == 0) return attn::launch_tile_d<float, int8_t>(D, a, B, s);
-  return attn::launch_tile_d<__nv_bfloat16, int8_t>(D, a, B, s);
+  const attn::TileArgs ta = decode_args(q, k, v, ks, vs, pos, out, lse, q_sb,
+                                        q_ss, q_sh, k_sb, k_ss, k_sh, T, H,
+                                        H_kv, D, S_max);
+  if (int8)
+    return dtype == 0 ? dense_instances<float, int8_t>(sa, ta, dtype, D,
+                                                       S_max, instance, s)
+                      : dense_instances<__nv_bfloat16, int8_t>(
+                            sa, ta, dtype, D, S_max, instance, s);
+  return dtype == 0 ? dense_instances<float, float>(sa, ta, dtype, D, S_max,
+                                                    instance, s)
+                    : dense_instances<__nv_bfloat16, __nv_bfloat16>(
+                          sa, ta, dtype, D, S_max, instance, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared argument order of both entry points. q [B, T, H, D] with element
+// strides (q_sb, q_ss, q_sh) and a contiguous head dim; k/v one layer's
+// cache [B, S_max, H_kv, D] with strides (k_sb, k_ss, k_sh); ks/vs the int8
+// row scales, contiguous [B, S_max, H_kv] (null for flash_decode); pos int32
+// [1] on the device; out [B, T, H, D] contiguous; lse [B, H, T] f32 or null
+// (the CUDA-core tile only). dtype (q's): 0 = float32, 1 = bfloat16. Then
+// the split-K instance's partial buffers m_part, l_part [B * T * H, n_split]
+// and acc_part [B * T * H, n_split, D] f32 over n_split runs of pps pages
+// of DENSE_PS rows (n_split = ceil(ceil(S_max / DENSE_PS) / pps)), and its
+// tickets ([B * H_kv] int32, zero and left zero). *instance: 1 split-K, 2
+// tensor-core, 0 the CUDA-core tile. Launches on `stream` and returns
+// cudaGetLastError() after the launch (0 on success), -1 for a
+// dtype/head_dim this library has no instance of, ERR_SCRATCH when the
+// split-K instance is chosen and a partial buffer or the tickets are null.
+#define FLASH_DECODE_ARGS                                                    \
+  const void *q, const void *k, const void *v, const void *ks,               \
+      const void *vs, const void *pos, void *out, void *lse, long long q_sb, \
+      long long q_ss, long long q_sh, long long k_sb, long long k_ss,        \
+      long long k_sh, int B, int T, int H, int H_kv, int D, int S_max,       \
+      int dtype, void *stream, void *m_part, void *l_part, void *acc_part,   \
+      void *tickets, int n_split, int pps, int *instance
+
+#define FLASH_DECODE_PASS                                                    \
+  q, k, v, ks, vs, pos, out, lse, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, B, T,  \
+      H, H_kv, D, S_max, dtype, stream, m_part, l_part, acc_part, tickets,   \
+      n_split, pps
+
+// Kernel 4: k/v in q's dtype (ks/vs ignored).
+int flash_decode(FLASH_DECODE_ARGS) {
+  return dense_entry(FLASH_DECODE_PASS, false, instance);
+}
+
+// Kernel 5: k/v int8 with their row scales ks/vs.
+int flash_decode_int8(FLASH_DECODE_ARGS) {
+  return dense_entry(FLASH_DECODE_PASS, true, instance);
 }
 
 const char* attn_error_string(int code) { return attn::error_string(code); }

@@ -46,6 +46,7 @@ pipeline parallelism (item 10).
 import dataclasses
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -54,6 +55,7 @@ from torch import nn
 from torch.utils import checkpoint as _ckpt
 
 from .. import resolve_device
+from .decode_cache import CapturedFn, DecodeFnCache, tensor_key
 from ..ops.flash_attention import (_M32, _mul32, attention_reference,
                                    decode_attention, flash_attention,
                                    per_layer_seeds, repeat_kv)
@@ -493,6 +495,15 @@ def init_kv_cache(config, batch, device=None):
             'v': torch.zeros(shape, dtype=cdt, device=dev)}
 
 
+def zero_kv(store):
+    """Zero a KV store (a dense cache or a page pool, raw or int8 banks)
+    in place: captured graphs hold its addresses, so it is reused, never
+    reallocated."""
+    for plane in (store['k'], store['v']):
+        for t in (plane.values() if is_weight_only(plane) else (plane,)):
+            t.zero_()
+
+
 def dense_rows(pos, t, s_max, device):
     """The cache rows a T-row call at ``pos`` (an int or a one-element
     tensor) writes, and the ``wpe`` rows it reads: the start clamped to
@@ -778,31 +789,60 @@ def make_decode_fns(config: GPTConfig):
 
 
 def make_generate_loop(config, temperature=0.0, top_k=None, top_p=None,
-                       forward_fn=None):
+                       forward_fn=None, capture=True):
     """Autoregressive generation over the dense cache (``gpt.py:770``).
 
     -> gen(params, tok0 [B] int32, pos0 int32 [1], cache, seeds, n_steps)
        returning (tokens [B, n_steps] int32, cache). ``tok0`` is the input
     of the first step; each step's draw is emitted and fed to the next.
     ``seeds`` ([B] integers, or None for greedy) key each row's draw with
-    the position of the row it is drawn from. A Python loop of exactly
-    ``n_steps`` steps; the position advances on the device, so no step
-    waits on the host. ``forward_fn(params, tokens, cache, pos, config)``
-    defaults to ``forward_with_cache``."""
+    the position of the row it is drawn from. ``forward_fn(params, tokens,
+    cache, pos, config)`` defaults to ``forward_with_cache``.
+
+    The reference runs the steps as one jitted ``lax.scan``, a single
+    dispatch. Here one step (the forward, the draw, the drawn token fed
+    back into the input buffer, ``pos += 1``) is one captured CUDA graph
+    (``decode_cache.CapturedFn``), replayed once per token, and one copy a
+    step moves its tokens into the result; no step waits on the host. The
+    graph is captured on the first call for a (params, cache) pair, keyed
+    by where their tensors live (``decode_cache.tensor_key``) in a bounded
+    ``DecodeFnCache``, so later calls over the same tensors only replay.
+    Its warm-up runs start from the call's own inputs and write only cache
+    rows at or past ``pos0``, which the steps rewrite before any read. On
+    the CPU, or with ``capture=False``, the same step runs eagerly."""
     fwd = forward_fn or forward_with_cache
+    steps = DecodeFnCache(name='gpt.generate_loop')
+
+    def build(params, cache, inputs, dev):
+        b = inputs['tok'].shape[0]
+        state = {k: v.to(dev).clone() for k, v in inputs.items()}
+
+        def step(tok, pos, seeds=None):
+            logits, _ = fwd(params, tok[:, None], cache, pos, config)
+            nxt = _sample(logits[:, 0], temperature, top_k, top_p,
+                          seeds=seeds, positions=pos.expand(b))
+            tok.copy_(nxt)
+            pos.add_(1)
+            return tok
+
+        return CapturedFn(step, state, dev, capture=capture)
 
     @torch.no_grad()
     def gen(params, tok0, pos0, cache, seeds, n_steps):
-        tok, pos, out = tok0, pos0, []
-        for _ in range(n_steps):
-            logits, cache = fwd(params, tok[:, None], cache, pos, config)
-            tok = _sample(logits[:, 0], temperature, top_k, top_p,
-                          seeds=seeds, positions=pos.expand(tok.shape[0]))
-            out.append(tok)
-            pos = pos + 1
-        if not out:
-            return tok0.new_zeros((tok0.shape[0], 0)), cache
-        return torch.stack(out, dim=1), cache
+        b, dev = tok0.shape[0], tok0.device
+        out = torch.empty((b, n_steps), dtype=torch.int32, device=dev)
+        if n_steps == 0:
+            return out, cache
+        inputs = {'tok': tok0.to(torch.int32),
+                  'pos': torch.as_tensor(pos0).to(dev, torch.int32).reshape(1)}
+        if seeds is not None:
+            inputs['seeds'] = seeds.to(dev, torch.int64)
+        key = (tensor_key(params), tensor_key(cache), b, str(dev),
+               seeds is not None)
+        fn = steps.get(key, lambda: build(params, cache, inputs, dev))
+        for k in range(n_steps):
+            out[:, k].copy_(fn.replay(**(inputs if k == 0 else {})))
+        return out, cache
 
     return gen
 
@@ -836,6 +876,11 @@ class GPTForCausalLM(nn.Module):
             if key != 'blocks':
                 self.register_parameter(
                     key, nn.Parameter(t.to(dev), requires_grad=False))
+        # generate()'s captured prefills and loops, the serving parameters
+        # they read, and the private switch to eager runs (comparisons)
+        self._decode_fns = DecodeFnCache(name='gpt.decode_fns')
+        self._serving = (None, None)
+        self._capture = True
 
     @property
     def device(self):
@@ -868,7 +913,12 @@ class GPTForCausalLM(nn.Module):
         are the port's counter-based sampler keyed by (seed, position):
         row b draws with seed ``seed + b``, as an engine request with that
         seed would; ``seed=None`` takes one from ``torch``'s global
-        generator."""
+        generator.
+
+        The prefill and each cached step are replayed CUDA graphs, the
+        reference's jitted prefill and ``lax.scan`` loop: captured on the
+        first call for a (B, T0, sampling knobs) and kept with their cache
+        (``_decode_entry``); the sliding window runs eagerly."""
         cfg = self.config
         toks = self._tokens(tokens)
         B, T0 = toks.shape
@@ -877,31 +927,87 @@ class GPTForCausalLM(nn.Module):
         # see the full window, as the sliding path's first step would
         n_cached = (min(max_new_tokens, cfg.max_seq_len - T0 + 1)
                     if T0 < cfg.max_seq_len else 0)
-        params = serving_params(self.param_dict(), cfg)
-        seeds = None
+        seeds, params = None, None
         if temperature != 0:
             if seed is None:
                 seed = int(torch.randint(0, 2 ** 31 - 1, ()))
             seeds = torch.arange(B, device=dev, dtype=torch.int64) + seed
         if n_cached > 0:
-            prefill, _ = make_decode_fns(cfg)
-            cache = init_kv_cache(cfg, B, dev)
-            logits, cache = prefill(params, toks, cache)
-            first = _sample(logits, temperature, top_k, top_p, seeds=seeds,
-                            positions=torch.full((B,), T0 - 1, device=dev))
-            pieces = [toks, first[:, None]]
-            if n_cached > 1:
-                loop = make_generate_loop(cfg, temperature, top_k, top_p)
-                pos0 = torch.full((1,), T0, dtype=torch.int32, device=dev)
-                new, cache = loop(params, first, pos0, cache, seeds,
-                                  n_cached - 1)
-                pieces.append(new)
+            entry = self._decode_entry(B, T0, temperature, top_k, top_p,
+                                       seeds is not None)
+            with entry['lock']:
+                first = entry['prefill'].replay(
+                    prompt=toks,
+                    **({} if seeds is None else {'seeds': seeds})).clone()
+                pieces = [toks, first[:, None]]
+                if n_cached > 1:
+                    pos0 = torch.full((1,), T0, dtype=torch.int32,
+                                      device=dev)
+                    new, _ = entry['loop'](entry['params'], first, pos0,
+                                           entry['cache'], seeds,
+                                           n_cached - 1)
+                    pieces.append(new)
             toks = torch.cat(pieces, dim=1)
+            params = entry['params']
         rest = max_new_tokens - n_cached
         if rest > 0:
             return self._generate_sliding(toks, rest, temperature, top_k,
                                           top_p, seeds, params)
         return toks
+
+    def _serving_params(self):
+        """``serving_params`` of the current parameters, made once per set
+        of parameter tensors and kept: captured graphs read them."""
+        src = self.param_dict()
+        key = tensor_key(src)
+        if self._serving[0] != key:
+            self._serving = (key, serving_params(src, self.config))
+        return self._serving[1]
+
+    def _decode_entry(self, b, t0, temperature, top_k, top_p, seeded):
+        """generate()'s captured prefill and loop for a batch of ``b``
+        prompts of ``t0`` tokens, with the dense cache they write and the
+        serving parameters they read, from the model's ``DecodeFnCache``
+        keyed by (config, sampling knobs, B, T0, device, the parameter
+        tensors). The prefill refreshes the cast parameters from the
+        model's own (weights changed in place are seen), zeroes the cache,
+        fills it and draws the first token, all in one graph."""
+        cfg, dev = self.config, self.device
+        src = self.param_dict()
+        key = (repr(cfg), temperature, top_k, top_p, b, t0, str(dev),
+               seeded, tensor_key(src), self._capture)
+
+        def build():
+            params = self._serving_params()
+            # (cast, source) of every parameter cast into a tensor of its
+            # own (f32 configs keep the source itself)
+            pairs = [(params['blocks'][k], src['blocks'][k])
+                     for k in _CAST_ONCE if params['blocks'][k].data_ptr()
+                     != src['blocks'][k].data_ptr()]
+            cache = init_kv_cache(cfg, b, dev)
+            prefill, _ = make_decode_fns(cfg)
+            bufs = {'prompt': torch.zeros((b, t0), dtype=torch.int32,
+                                          device=dev)}
+            if seeded:
+                bufs['seeds'] = torch.zeros(b, dtype=torch.int64, device=dev)
+
+            def run(prompt, seeds=None):
+                for dst, s in pairs:
+                    dst.copy_(s)
+                zero_kv(cache)
+                logits, _ = prefill(params, prompt, cache)
+                return _sample(logits, temperature, top_k, top_p,
+                               seeds=seeds, positions=torch.full(
+                                   (b,), t0 - 1, device=dev))
+
+            return {'prefill': CapturedFn(run, bufs, dev,
+                                          capture=self._capture),
+                    'cache': cache, 'params': params,
+                    'loop': make_generate_loop(cfg, temperature, top_k,
+                                               top_p, capture=self._capture),
+                    'lock': threading.Lock()}
+
+        return self._decode_fns.get(key, build)
 
     @torch.no_grad()
     def _generate_sliding(self, toks, max_new_tokens, temperature, top_k,

@@ -18,6 +18,14 @@ PyTorch twin:
    ``flash_decode_int8``, same source; twin
    ``flash_decode_int8_reference``.
 
+Kernels 4 and 5 run the instances of the paged kernels 6 and 7
+(``csrc/kv_attention.cuh``) over the dense cache read as pages of
+``DENSE_PS`` rows, chosen by ``paged_attention.paged_instance`` with S_max
+as the page size: the split-K decode for T <= 16 (twins
+``flash_decode_split_reference`` and
+``flash_decode_int8_split_reference``), the tensor-core prefill for bf16
+at head dim 64/128, and the CUDA-core tile for the rest.
+
 ``_Flash`` (a ``torch.autograd.Function``, the counterpart of the
 reference's ``_flash`` custom_vjp) joins kernel 1 to kernels 2 and 3.
 
@@ -494,34 +502,55 @@ def flash_decode_int8_reference(q, k_bank, v_bank, pos):
                         k_bank['scale'], v_bank['scale'])
 
 
-def flash_decode_int8_split_reference(q, k_bank, v_bank, pos, n_split,
-                                      pages_per_split):
-    """Plain twin of kernel 5's split-K instance: the dense int8 cache read
-    as a pool of ``DENSE_PS``-row pages through the implicit table (page p
-    of batch row b is its rows p * DENSE_PS ..; S_max padded with zero rows
-    to whole pages, the padding masked), then kernel 7's split twin with
-    every batch row at ``pos``. Same arguments and result as
-    ``flash_decode_int8_reference``, plus the split plan."""
+def _dense_split_twin(q, k, v, ks, vs, pos, n_split, pages_per_split):
+    """The split-K instance's twin over the dense cache read as a pool of
+    ``DENSE_PS``-row pages through the implicit table (page p of batch row
+    b is its rows p * DENSE_PS ..; S_max padded with zero rows to whole
+    pages, the padding masked), then kernel 6 and 7's split twin with every
+    batch row at ``pos``; ``ks``/``vs`` the int8 rows' scales or None."""
     from .paged_attention import paged_decode_split_reference
-    b, s_max, h_kv, d = k_bank['int8'].shape
+    b, s_max, h_kv, d = k.shape
     p_max = -(-s_max // DENSE_PS)
     pad = p_max * DENSE_PS - s_max
 
-    def pool(bank):
-        x, sc = bank['int8'], bank['scale']
+    def pool(x, sc):
         if pad:
             x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        x = x.reshape(b * p_max, DENSE_PS, h_kv, d)
+        if sc is None:
+            return x
+        if pad:
             sc = torch.nn.functional.pad(sc, (0, 0, 0, pad))
-        return {'int8': x.reshape(b * p_max, DENSE_PS, h_kv, d),
-                'scale': sc.reshape(b * p_max, DENSE_PS, h_kv)}
+        return {'int8': x, 'scale': sc.reshape(b * p_max, DENSE_PS, h_kv)}
 
     table = torch.arange(b * p_max, dtype=torch.int32,
                          device=q.device).reshape(b, p_max)
     pos_b = torch.as_tensor(pos, device=q.device).reshape(-1)[:1].to(
         torch.int32).expand(b)
-    return paged_decode_split_reference(q, pool(k_bank), pool(v_bank), table,
+    return paged_decode_split_reference(q, pool(k, ks), pool(v, vs), table,
                                         pos_b, n_split, pages_per_split,
                                         n_keys=s_max)
+
+
+def flash_decode_split_reference(q, k_cache, v_cache, pos, n_split,
+                                 pages_per_split):
+    """Plain twin of kernel 4's split-K instance: the bf16/f32 dense cache
+    read as ``DENSE_PS``-row pages through the implicit table, split into
+    ``n_split`` runs of ``pages_per_split`` pages, the runs merged by
+    log-sum-exp. Same arguments and result as ``flash_decode_reference``,
+    plus the split plan."""
+    return _dense_split_twin(q, k_cache, v_cache, None, None, pos, n_split,
+                             pages_per_split)
+
+
+def flash_decode_int8_split_reference(q, k_bank, v_bank, pos, n_split,
+                                      pages_per_split):
+    """Plain twin of kernel 5's split-K instance: kernel 4's
+    (``flash_decode_split_reference``) over int8 banks. Same arguments and
+    result as ``flash_decode_int8_reference``, plus the split plan."""
+    return _dense_split_twin(q, k_bank['int8'], v_bank['int8'],
+                             k_bank['scale'], v_bank['scale'], pos, n_split,
+                             pages_per_split)
 
 
 # ---------------------------------------------------------------------------
@@ -532,17 +561,16 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _U32, _F32 = ctypes.c_uint32, ctypes.c_float
 _FLAG = ctypes.POINTER(ctypes.c_int)     # set to 1 by a tensor-core launch
 # pointers, element strides, ints, the dropout arguments, then the stream
-# (csrc/*.cu, extern "C")
-_DECODE_ARGS = [_P] * 8 + [_I64] * 6 + [_I32] * 7 + [_P]
+# (csrc/*.cu, extern "C"); the decode entries go on with the split-K
+# partials and tickets, n_split, pps and the instance they ran
+_DECODE_ARGS = ([_P] * 8 + [_I64] * 6 + [_I32] * 7 + [_P] + [_P] * 4
+                + [_I32] * 2 + [_FLAG])
 _DROP_ARGS = [_I32, _U32, _F32, _F32]
 _BWD_ARGS = ([_P] * 10 + [_I64] * 10 + [_I32] * 9 + _DROP_ARGS
              + [_I32, _FLAG, _P])
 _ENTRY_POINTS = {
     'flash_decode': {'flash_decode': _DECODE_ARGS,
-                     # + the split-K partials and tickets, n_split, pps and
-                     # the instance it ran
-                     'flash_decode_int8': _DECODE_ARGS + [_P] * 4
-                     + [_I32] * 2 + [_FLAG]},
+                     'flash_decode_int8': _DECODE_ARGS},
     'flash_fwd': {'flash_fwd': [_P] * 6 + [_I64] * 7 + [_I32] * 9
                   + _DROP_ARGS + [_FLAG, _P]},
     'flash_bwd': {'flash_bwd_dq': _BWD_ARGS, 'flash_bwd_dkv': _BWD_ARGS},
@@ -650,16 +678,17 @@ def _pos_arg(pos, dev):
     return torch.tensor([int(pos)], dtype=torch.int32, device=dev)
 
 
-DENSE_PS = 128    # kernel 5's split-K pages: rows p * 128 .. of a batch row
-# the instance a C entry point reports it ran (kernels 5, 6 and 7)
+DENSE_PS = 128    # the split-K pages of kernels 4 and 5: rows p * 128 ..
+# the instance a C entry point reports it ran (kernels 4-7)
 INSTANCE = {0: 'cuda-core', 1: 'split-k', 2: 'tensor-core'}
 
 
 def _decode_launch(q, k, v, pos, ks=None, vs=None):
     """Check the arguments and launch kernel 4, or kernel 5 with the int8
     rows' scales ``ks``/``vs``; raises on a refused launch. -> (out, the
-    instance that ran: kernel 4 'cuda-core'; kernel 5 'split-k',
-    'tensor-core' or 'cuda-core')."""
+    instance that ran: 'split-k', 'tensor-core' or 'cuda-core', the rule
+    of ``paged_attention.paged_instance`` with S_max as the page size)."""
+    from . import paged_attention as pa
     op = 'flash_decode_int8' if ks is not None else 'flash_decode'
     _check_q(q, op)
     dev = q.device
@@ -689,31 +718,30 @@ def _decode_launch(q, k, v, pos, ks=None, vs=None):
     pos_t = _pos_arg(pos, dev)
     lib = _kernel_lib('flash_decode')
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=dev)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    flag = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        scratch, n_split, pps, keep = (0, 0, 0, 0), 0, 0, None
+        if pa.paged_instance(q.dtype, t, d, s_max, k.dtype) == 'split-k':
+            scratch, n_split, pps, keep = pa.split_scratch(
+                b, t, h, h_kv, d, -(-s_max // DENSE_PS), dev)
+        err = getattr(lib, op)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
             0 if ks is None else ks.data_ptr(),
             0 if vs is None else vs.data_ptr(),
             pos_t.data_ptr(), out.data_ptr(), None,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
-            b, t, h, h_kv, d, s_max, _DTYPE_CODE[q.dtype])
-    with torch.cuda.device(dev):
-        if ks is None:
-            err, inst = lib.flash_decode(*args, _stream(dev)), 0
-        else:
-            # kernel 5 takes kernel 7's instances over its implicit pages
-            from . import paged_attention as pa
-            scratch, n_split, pps, keep = (0, 0, 0, 0), 0, 0, None
-            if pa.paged_instance(q.dtype, t, d, s_max,
-                                 torch.int8) == 'split-k':
-                scratch, n_split, pps, keep = pa.split_scratch(
-                    b, t, h, h_kv, d, -(-s_max // DENSE_PS), dev)
-            flag = ctypes.c_int(0)
-            err = lib.flash_decode_int8(*args, _stream(dev), *scratch,
-                                        n_split, pps, ctypes.byref(flag))
-            inst = flag.value
-            del keep
+            b, t, h, h_kv, d, s_max, _DTYPE_CODE[q.dtype], _stream(dev),
+            *scratch, n_split, pps, ctypes.byref(flag))
+        del keep
     _launch_done(lib, err, op)
-    return out, INSTANCE[inst]
+    return out, INSTANCE[flag.value]
+
+
+def _count(kernel, inst):
+    kernel.launches += 1
+    kernel.split_launches += inst == 'split-k'
+    kernel.tc_launches += inst == 'tensor-core'
 
 
 def flash_decode(q, k_cache, v_cache, pos):
@@ -722,30 +750,30 @@ def flash_decode(q, k_cache, v_cache, pos):
     in place (one layer's view of the [L,B,S_max,H_kv,D] cache); ``pos`` an
     int32 [1] tensor on the card (an int is copied over) -> [B,T,H,D].
     Launches on the current stream without synchronising; raises on
-    arguments the kernel does not take. ``flash_decode.launches`` counts
-    launches."""
-    out, _ = _decode_launch(q, k_cache, v_cache, pos)
-    flash_decode.launches += 1
+    arguments the kernel does not take. The instance is kernel 6's rule
+    (``paged_attention.paged_instance``) with S_max as the page size: the
+    split-K decode for T <= 16 over pages of ``DENSE_PS`` rows, the
+    tensor-core prefill for bf16 at D 64/128 with S_max a multiple of 64,
+    else the CUDA-core tile. ``flash_decode.launches`` counts launches;
+    ``split_launches`` and ``tc_launches`` those of the split-K and
+    tensor-core instances."""
+    out, inst = _decode_launch(q, k_cache, v_cache, pos)
+    _count(flash_decode, inst)
     return out
 
 
 flash_decode.launches = 0
+flash_decode.split_launches = 0
+flash_decode.tc_launches = 0
 
 
 def flash_decode_int8(q, k_bank, v_bank, pos):
     """Kernel 5 on the card: ``flash_decode`` over int8 banks
-    ``{'int8': [B,S_max,H_kv,D] int8, 'scale': [B,S_max,H_kv] f32}`` by
-    kernel 7's instances (the rule of ``paged_attention.paged_instance``
-    with S_max as the page size): the split-K decode for T <= 16 over
-    pages of ``DENSE_PS`` rows, the tensor-core prefill for bf16 at D
-    64/128 with S_max a multiple of 64, else the CUDA-core tile. ``flash_decode_int8.launches`` counts
-    launches; ``split_launches`` and ``tc_launches`` those of the split-K
-    and tensor-core instances."""
+    ``{'int8': [B,S_max,H_kv,D] int8, 'scale': [B,S_max,H_kv] f32}``, by
+    the same instances and rule. Counters as ``flash_decode``'s."""
     out, inst = _decode_launch(q, k_bank['int8'], v_bank['int8'], pos,
                                k_bank['scale'], v_bank['scale'])
-    flash_decode_int8.launches += 1
-    flash_decode_int8.split_launches += inst == 'split-k'
-    flash_decode_int8.tc_launches += inst == 'tensor-core'
+    _count(flash_decode_int8, inst)
     return out
 
 

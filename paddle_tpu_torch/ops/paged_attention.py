@@ -58,7 +58,7 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import _EPS, _NEG_INF, INSTANCE, repeat_kv
+from .flash_attention import _EPS, _NEG_INF, INSTANCE, _count, repeat_kv
 from .paged_kv import gather_virtual
 from .weight_only import dequantize_kv, is_weight_only
 
@@ -196,8 +196,8 @@ def paged_instance(dtype, t, d, page_size, page_dtype):
     ``dtype`` with ``t`` rows and head dim ``d`` over pages of
     ``page_size`` rows of ``page_dtype``: 'split-k' for T <= 16,
     'tensor-core' for bf16 q at D 64/128 over bf16 or int8 pages a multiple
-    of 64 rows, else 'cuda-core'. Kernel 5 takes the same rule over its
-    implicit pages, with S_max for ``page_size``."""
+    of 64 rows, else 'cuda-core'. Kernels 4 and 5 take the same rule over
+    their implicit pages, with S_max for ``page_size``."""
     if t <= SPLIT_MAX_T:
         return 'split-k'
     if (dtype == torch.bfloat16 and page_dtype in (torch.bfloat16, torch.int8)
@@ -268,13 +268,15 @@ def _sm_count(dev):
 def _tickets(dev, n):
     """At least ``n`` int32 zeros on ``dev`` for the split-K decode's merge
     on the current stream, kept across calls (each launch leaves them zero;
-    one buffer a stream, so launches that may overlap never share one)."""
+    one buffer a stream, so launches that may overlap never share one). A
+    buffer outgrown by a larger launch stays allocated: a captured CUDA
+    graph may hold its address."""
     key = (dev, torch.cuda.current_stream(dev).cuda_stream)
-    buf = _ticket_bufs.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _ticket_bufs[key] = torch.zeros(max(n, 1024),
-                                              dtype=torch.int32, device=dev)
-    return buf
+    bufs = _ticket_bufs.setdefault(key, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
+                                device=dev))
+    return bufs[-1]
 
 
 def split_scratch(b, t, h, h_kv, d, p_max, dev):
@@ -374,12 +376,6 @@ def _paged_launch(q, k_pages, v_pages, page_table, pos, ks=None, vs=None,
         msg = lib.paged_decode_error_string(err).decode()
         raise RuntimeError(f'{op} launch failed ({err}): {msg}')
     return out, INSTANCE[inst.value]
-
-
-def _count(kernel, inst):
-    kernel.launches += 1
-    kernel.split_launches += inst == 'split-k'
-    kernel.tc_launches += inst == 'tensor-core'
 
 
 def paged_flash_decode(q, k_pages, v_pages, page_table, pos, valid=None):

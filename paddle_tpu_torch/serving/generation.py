@@ -42,9 +42,19 @@ scales (ops/paged_kv.py); attention then runs kernel 7.
 Not ported yet, each raising with its ROADMAP item: the prefix cache
 (``prefix_cache=True`` / ``prefix_cache_pages``), int8 weight-only
 serving (``precision='int8_wo'``), mesh sharding (``mesh=`` / ``mp>1``) and the telemetry HTTP plane
-(``telemetry_port=``). Eager PyTorch has no trace count and no AOT
-executables: ``warmup()`` runs one prefill and one step into the trash
-page, and ``stats()`` has no ``traces`` entry. CUDA graphs come later.
+(``telemetry_port=``).
+
+Captured device calls (the reference's ``_build_fns``/``_fns_pair``): the
+prefill and the step are each one CUDA graph (``models.decode_cache.
+CapturedFn``), captured once per engine, at ``warmup()`` or at first use.
+Their inputs (tokens, positions, page tables, seeds, valid rows, start)
+live in static device buffers, copied in from pinned staging on every
+call; the parameters and the pool stay where they are for the engine's
+life (a device failure zeroes the pool in place). ``_trace_count`` counts
+captures, as the reference's counts traces: ``warmup()`` makes it 2 and
+live traffic adds nothing. On the CPU the same functions run eagerly from
+the same buffers. A failed capture or replay fails the call; it never
+falls back to the eager path.
 
 Env knobs: ``PADDLE_TPU_GEN_SLOTS`` (default 8),
 ``PADDLE_TPU_GEN_PAGE_SIZE`` (default 128, clamped to max_seq_len).
@@ -62,6 +72,7 @@ from .. import fault
 from .. import observability as _obs
 from .. import resolve_device
 from ..models import gpt as _gpt
+from ..models.decode_cache import CapturedFn
 from ..ops import paged_kv as _pkv
 from .errors import DeadlineExceededError, EngineClosedError, QueueFullError
 
@@ -290,7 +301,8 @@ class GenerationEngine:
         self._clock = clock or time.monotonic
         self._autostart = autostart
 
-        self._pool = self._init_pool()
+        self._pool = _gpt.init_paged_kv_cache(cfg, self.num_pages, ps,
+                                              self.device)
         self._alloc = _pkv.PageAllocator(self.num_pages)
         self._slots = [None] * self.num_slots
         self._queue = deque()
@@ -300,6 +312,9 @@ class GenerationEngine:
         self._closed = False
         self._draining = False
         self._admit_seq = 0
+        self._trace_count = 0
+        self._fns = {}           # 'prefill' / 'step' -> CapturedFn
+        self._capture = True     # False: eager, for comparisons only
         self._start_t = self._clock()
         self._n = {k: 0 for k in ('submitted', 'completed', 'rejected',
                                   'expired', 'failed', 'evictions',
@@ -309,11 +324,6 @@ class GenerationEngine:
         self._warmed = False
         self._probe_name = f'serving.{self.labels["engine"]}'
         _obs.add_readiness(self._probe_name, self._readiness_probe)
-
-    def _init_pool(self):
-        """Fresh paged-KV pool on the engine's device."""
-        return _gpt.init_paged_kv_cache(self.config, self.num_pages,
-                                        self.page_size, self.device)
 
     def _readiness_probe(self):
         with self._lock:
@@ -376,42 +386,79 @@ class GenerationEngine:
         return _gpt._sample(lg, self.temperature, self.top_k, self.top_p,
                             seeds=seeds, positions=positions)
 
-    def _tensor(self, arr):
-        return torch.from_numpy(arr).to(self.device)
+    def _prefill_fn(self, prompt, start, valid, table, seed):
+        """One padded batch-1 prefill from the static buffers; the pool is
+        written in place. -> sampled first token [1] int32."""
+        cache = {'k': self._pool['k'], 'v': self._pool['v'],
+                 'page_table': table, 'valid': valid}
+        logits, _ = self._forward_fn(self._params, prompt, cache, start,
+                                     self.config, last_only=True)
+        # absolute position start+valid-1 keys the prompt's last row
+        return self._sample_rows(logits[:, 0], seed, start + valid - 1)
+
+    def _step_fn(self, tok, pos, table, seeds):
+        """One decode step over every slot from the static buffers; the
+        pool is written in place. -> next token per slot [S] int32."""
+        cache = {'k': self._pool['k'], 'v': self._pool['v'],
+                 'page_table': table}
+        logits, _ = self._forward_fn(self._params, tok[:, None], cache, pos,
+                                     self.config)
+        return self._sample_rows(logits[:, 0], seeds, pos)
+
+    def _build_fn(self, kind):
+        """Capture the prefill or the step over zeroed static buffers (the
+        warm-up runs write the trash page only)."""
+        s, p_max, dev = self.num_slots, self.p_max, self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        i64 = dict(dtype=torch.int64, device=dev)
+        if kind == 'prefill':
+            fn, bufs = self._prefill_fn, dict(
+                prompt=torch.zeros((1, self.prefill_width), **i32),
+                start=torch.zeros((1,), **i32),
+                valid=torch.ones((1,), **i32),
+                table=torch.zeros((1, p_max), **i32),
+                seed=torch.zeros((1,), **i64))
+        else:
+            fn, bufs = self._step_fn, dict(
+                tok=torch.zeros((s,), **i32), pos=torch.zeros((s,), **i32),
+                table=torch.zeros((s, p_max), **i32),
+                seeds=torch.zeros((s,), **i64))
+        cap = CapturedFn(fn, bufs, dev, capture=self._capture)
+        self._trace_count += 1
+        return cap
+
+    def _fn(self, kind):
+        """The engine's captured ``kind`` ('prefill' or 'step'), captured
+        on first use (``warmup()`` does both before traffic)."""
+        cap = self._fns.get(kind)
+        if cap is None:
+            cap = self._fns[kind] = self._build_fn(kind)
+        return cap
 
     @torch.no_grad()
     def _prefill_call(self, prompt, start, valid, table, seed):
-        """One padded batch-1 prefill; the pool is written in place.
-        -> sampled first token [1] int32 (on the device)."""
-        cache = {'k': self._pool['k'], 'v': self._pool['v'],
-                 'page_table': self._tensor(table),
-                 'valid': self._tensor(valid)}
-        start_t = self._tensor(start)
-        logits, _ = self._forward_fn(
-            self._params, self._tensor(prompt), cache, start_t, self.config,
-            last_only=True)
-        # absolute position start+valid-1 keys the prompt's last row
-        return self._sample_rows(logits[:, 0], self._tensor(seed),
-                                 start_t + cache['valid'] - 1)
+        """One padded batch-1 prefill (numpy inputs). -> sampled first
+        token [1] int32 (on the device)."""
+        return self._fn('prefill').replay(prompt=prompt, start=start,
+                                          valid=valid, table=table,
+                                          seed=seed)
 
     @torch.no_grad()
     def _step_call(self, tok, pos, table, seeds):
-        """One decode step over every slot; the pool is written in place.
-        -> next token per slot [S] int32 (on the device)."""
-        cache = {'k': self._pool['k'], 'v': self._pool['v'],
-                 'page_table': self._tensor(table)}
-        pos_t = self._tensor(pos)
-        logits, _ = self._forward_fn(
-            self._params, self._tensor(tok)[:, None], cache, pos_t,
-            self.config)
-        return self._sample_rows(logits[:, 0], self._tensor(seeds), pos_t)
+        """One decode step over every slot (numpy inputs). -> next token
+        per slot [S] int32 (on the device)."""
+        return self._fn('step').replay(tok=tok, pos=pos, table=table,
+                                       seeds=seeds)
 
     def warmup(self):
-        """Run one prefill and one decode step into the trash page before
-        traffic (first-call allocations, kernel load, library init), and
-        flip the readiness warm check. Returns ``{'prebuilt': 2,
+        """Capture the prefill and the decode step before traffic (a live
+        call after this captures nothing), replay each once into the trash
+        page, and flip the readiness warm check. Returns ``{'prebuilt': the
+        functions captured now, 'already_cached': those captured before,
         'seconds': ...}``."""
         t0 = time.perf_counter()
+        kinds = ('prefill', 'step')
+        cached = sum(k in self._fns for k in kinds)
         s, p_max = self.num_slots, self.p_max
         self._prefill_call(np.zeros((1, self.prefill_width), np.int32),
                            np.zeros((1,), np.int32),
@@ -422,7 +469,8 @@ class GenerationEngine:
                         np.zeros((s, p_max), np.int32),
                         np.zeros((s,), np.int64)).cpu()
         self._warmed = True
-        return {'prebuilt': 2, 'seconds': time.perf_counter() - t0}
+        return {'prebuilt': len(kinds) - cached, 'already_cached': cached,
+                'seconds': time.perf_counter() - t0}
 
     # ---- lifecycle -------------------------------------------------------
     def start(self):
@@ -794,14 +842,15 @@ class GenerationEngine:
 
     def _handle_device_failure(self, exc):
         """A failed device call may have left the pool half written: fail
-        every active sequence, release their pages, rebuild the pool."""
+        every active sequence, release their pages, zero the pool."""
         with self._cv:
             failed = []
             for i, slot in enumerate(self._slots):
                 if slot is not None:
                     failed.append(slot.req)
                     self._free_slot_locked(i)
-            self._pool = self._init_pool()
+            # the captured prefill and step hold the pool's addresses
+            _gpt.zero_kv(self._pool)
             self._update_gauges_locked()
             self._cv.notify_all()
         for r in failed:
@@ -839,6 +888,7 @@ class GenerationEngine:
             'decode_step_ms_mean': self._h['step'].mean,
             'ttft_ms_p50': pct(self._h['ttft'], 50),
             'ttft_ms_p99': pct(self._h['ttft'], 99),
+            'traces': self._trace_count,
             'circuit_state': self._breaker.state,
             'precision': self._precision,
             'device': str(self.device),

@@ -649,3 +649,169 @@ def test_kernel_5_instances_match_twin(cuda, b, t, h, h_kv, d, s_max, pos,
     want = fa.flash_decode_int8_reference(q, kb, vb, pos_t)
     assert got.dtype == dtype and got.shape == want.shape
     assert _row_err(got, want) <= TOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# kernel 4 on the split-K and tensor-core templates; captured CUDA graphs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b,t,h,h_kv,d,s_max,pos,dtype,instance', [
+    (8, 1, 16, 16, 64, 1024, 191, torch.bfloat16, 'split-k'),
+    (8, 1, 16, 16, 64, 1024, 1023, torch.bfloat16, 'split-k'),
+    (4, 2, 8, 2, 128, 1024, 127, torch.bfloat16, 'split-k'),
+    (2, 16, 8, 4, 256, 1000, 984, torch.bfloat16, 'split-k'),
+    (4, 1, 8, 2, 64, 1000, 128, torch.float32, 'split-k'),
+    (2, 16, 4, 4, 256, 512, 300, torch.float32, 'split-k'),
+    (8, 128, 16, 16, 64, 1024, 0, torch.bfloat16, 'tensor-core'),
+    (2, 300, 8, 2, 128, 512, 100, torch.bfloat16, 'tensor-core'),
+    (2, 1000, 16, 16, 64, 1024, 0, torch.bfloat16, 'tensor-core'),
+    (2, 128, 4, 4, 64, 1000, 0, torch.bfloat16, 'cuda-core'),
+    (2, 70, 4, 2, 256, 512, 30, torch.bfloat16, 'cuda-core'),
+    (2, 128, 4, 4, 64, 1024, 0, torch.float32, 'cuda-core'),
+], ids=['T1_pos191', 'T1_pos1023', 'T2_gqa_d128', 'T16_d256_smax1000',
+        'T1_f32_smax1000', 'T16_f32_d256', 'T128_tc', 'T300_tc_gqa_d128',
+        'T1000_tc', 'T128_smax1000', 'T70_d256', 'T128_f32'])
+def test_kernel_4_instances_match_twin(cuda, b, t, h, h_kv, d, s_max, pos,
+                                       dtype, instance):
+    """Kernel 4 over the dense bf16/f32 cache, q a strided view of the
+    packed projection (MHA) or contiguous (GQA), against its twin per row
+    on every instance, and the split-K instance against its split twin at
+    the wrapper's plan."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    _, kc, vc = _dense_case(b, t, h, h_kv, d, s_max, dtype)
+    kc, vc = kc.to(dtype), vc.to(dtype)
+    q = (_packed_q(b, t, h, d, dtype) if h == h_kv else
+         torch.randn((b, t, h, d), device='cuda').to(dtype))
+    pos_t = torch.tensor([pos], dtype=torch.int32, device='cuda')
+    assert pa.paged_instance(dtype, t, d, s_max, dtype) == instance
+    before = _counts(fa.flash_decode)
+    got = fa.flash_decode(q, kc, vc, pos_t)
+    torch.cuda.synchronize()
+    _expect(fa.flash_decode, before, instance)
+    want = fa.flash_decode_reference(q, kc, vc, pos_t)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _row_err(got, want) <= TOL[dtype]
+    if instance == 'split-k':
+        plan = pa.split_plan(b, t, h, h_kv, d, -(-s_max // fa.DENSE_PS),
+                             pa._sm_count(q.device))
+        split = fa.flash_decode_split_reference(
+            q, kc, vc, pos_t, plan['n_split'], plan['pages_per_split'])
+        assert _row_err(got, split) <= TOL[dtype]
+
+
+def _small_gpt(int8=False, dtype='bfloat16'):
+    cfg = gpt.GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                        num_heads=2, max_seq_len=256, dtype=dtype,
+                        kv_cache_int8=int8)
+    params = gpt.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
+    for k in ('qkv_w', 'proj_w', 'fc_w', 'out_w'):
+        params['blocks'][k] = params['blocks'][k] * 10
+    return cfg, params
+
+
+def _serve(cfg, params, capture, prompts, new=10):
+    eng = GenerationEngine(params, cfg, device='cuda', num_slots=2,
+                           page_size=128, autostart=False)
+    eng._capture = capture
+    rep = eng.warmup()
+    traces = eng._trace_count
+    with eng:
+        futs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        out = [f.result(timeout=300) for f in futs]
+    st = eng.stats()
+    return out, rep, traces, eng._trace_count, st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('int8', [False, True])
+def test_captured_engine_equals_eager_token_for_token(cuda, int8):
+    cfg, params = _small_gpt(int8)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, 512, size=n).astype(np.int32)
+               for n in (5, 130, 64)]
+    eager = _serve(cfg, params, False, prompts)
+    graphs = _serve(cfg, params, True, prompts)
+    assert graphs[0] == eager[0]
+    # two captures at warmup, none from live traffic
+    assert graphs[1]['prebuilt'] == 2 and graphs[2] == graphs[3] == 2
+
+
+@pytest.mark.gpu
+def test_replays_count_the_launches_they_hold(cuda):
+    """Each replay adds the launches its graph holds: after warmup, the
+    engine's kernel 6 counts 2 layers x (prefills + steps), the prefills
+    on the tensor-core instance, the steps on the split-K one."""
+    cfg, params = _small_gpt()
+    eng = GenerationEngine(params, cfg, device='cuda', num_slots=2,
+                           page_size=128, autostart=False)
+    eng.warmup()
+    k6 = pa.paged_flash_decode
+    k6.launches = k6.split_launches = k6.tc_launches = 0
+    rng = np.random.RandomState(2)
+    with eng:
+        for f in [eng.submit(rng.randint(0, 512, size=n).astype(np.int32),
+                             max_new_tokens=6) for n in (7, 40)]:
+            f.result(timeout=300)
+    torch.cuda.synchronize()
+    st = eng.stats()
+    assert eng._fns['step'].captured and eng._fns['prefill'].captured
+    assert (k6.launches, k6.tc_launches, k6.split_launches) == (
+        2 * (st['prefills'] + st['steps']), 2 * st['prefills'],
+        2 * st['steps'])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('int8', [False, True])
+def test_captured_generate_equals_eager_token_for_token(cuda, int8):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    cfg, params = _small_gpt(int8)
+    prompt = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 512, (3, 40)).astype(np.int32))
+    outs = {}
+    for capture in (False, True):
+        m = gpt.GPTForCausalLM(cfg, params, device='cuda')
+        m._capture = capture
+        m.generate(prompt, max_new_tokens=2, temperature=0)   # captures
+        kern = fa.flash_decode_int8 if int8 else fa.flash_decode
+        kern.launches = kern.split_launches = kern.tc_launches = 0
+        outs[capture] = m.generate(prompt, max_new_tokens=20,
+                                   temperature=0).cpu()
+        torch.cuda.synchronize()
+        # the prefill (T 40, bf16) on the tensor-core instance, 19 steps on
+        # the split-K one, 2 layers each
+        assert (kern.launches, kern.tc_launches, kern.split_launches) == (
+            2 * 20, 2, 2 * 19)
+        # sampled: the same draws with or without graphs
+        outs[capture, 'sampled'] = m.generate(
+            prompt, max_new_tokens=12, temperature=0.8, top_k=40,
+            seed=5).cpu()
+    assert torch.equal(outs[True], outs[False])
+    assert torch.equal(outs[True, 'sampled'], outs[False, 'sampled'])
+
+
+@pytest.mark.gpu
+def test_captured_engine_serves_again_after_a_device_failure(cuda):
+    """A failed call zeroes the pool in place; the graphs, which hold its
+    addresses, serve the same streams again without a new capture."""
+    from paddle_tpu_torch import fault
+    cfg, params = _small_gpt()
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, 512, size=n).astype(np.int32)
+               for n in (9, 70)]
+    base = _serve(cfg, params, True, prompts)[0]
+    eng = GenerationEngine(params, cfg, device='cuda', num_slots=2,
+                           page_size=128)
+    eng.warmup()
+    eng.submit(prompts[0], max_new_tokens=10).result(timeout=300)
+    fault.configure('gen.step:1.0', seed=0, max_faults=1)
+    try:
+        bad = eng.submit(prompts[1], max_new_tokens=10)
+        assert isinstance(bad.exception(timeout=300), fault.InjectedFault)
+    finally:
+        fault.configure(None)
+    assert not any(bool(t.any()) for t in (eng._pool['k'], eng._pool['v']))
+    futs = [eng.submit(p, max_new_tokens=10) for p in prompts]
+    assert [f.result(timeout=300) for f in futs] == base
+    eng.shutdown()
+    assert eng._trace_count == 2
