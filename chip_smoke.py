@@ -20,7 +20,10 @@ non-zero:
     64 or 128 over pages (kernels 4 and 5: S_max) a multiple of 64 rows,
     CUDA-core otherwise):
     paged_decode and paged_decode_int8 (the engine's decode T=1 at ragged
-    positions, prefill T=1024, and with 200 real rows; T 1-1024 at page-edge positions, GQA 4 and 2, head dims
+    positions, prefill T=1024, and with 200 real rows; the prefix cache's
+    tail prefills, 1024 rows from start 640, 700 and 1000 with the tail
+    real, the slot owning only the pages its real rows reach and its trash
+    page NaN; T 1-1024 at page-edge positions, GQA 4 and 2, head dims
     64/128/256, f32 q, pages of 512 and 1024 rows, prefills with valid <
     T whose padding rows must come out zero),
     flash_decode and flash_decode_int8
@@ -81,10 +84,41 @@ non-zero:
     24, flash_bwd_dkv 24, every flash_fwd, flash_bwd_dq and flash_bwd_dkv
     launch on the tensor-core instance; the loss finite and falling;
 12. the train step card against CPU at 2 layers in float32: the first
-    step's gradients and a 6-step loss curve, dropout 0 and 0.1.
+    step's gradients and a 6-step loss curve, dropout 0 and 0.1;
+13. GenerationEngine(model, precision='int8_wo') at full width with the
+    requests of phase 4, on captured graphs, over the bf16 pool and then
+    the int8 pool: paged_decode / paged_decode_int8 launches == 24 x
+    (prefills + steps), prefills tensor-core and steps split-K; the served
+    weights' bytes against the bf16 engine's; the full-width prefill
+    logits' cosine against the bf16 engine's (printed, not held: the
+    weights are random); the device time of the int8 -> bf16 converts a
+    step runs, beside phase 4's step;
+14. generate() after enable_int8_decode() at phase 6's shape (B=8, T0=128,
+    128 greedy tokens), bf16 then int8 cache, on graphs: launches 24 x 128
+    a run split as in phase 6; a second enable_int8_decode() after an
+    in-place weight change takes a new snapshot whose tokens are those of
+    a fresh model over the new weights; then generate() past the window
+    over the int8 weights (flash_decode 24 x 25, flash_fwd 24 x 7);
+15. the prefix cache at full width (bf16 pool, page 128, 8 slots, 32 new
+    tokens a request, submitted one at a time, numpy seed 0):
+    tools/prefix_cache_check.py's workload and gates at this size: 12
+    prompts of a 640-token system prefix + a unique 64-255-token suffix,
+    cold and warm waves and the cold wave on a cache-off engine (streams
+    equal, warm == cold, >= 70% of the warm wave's prompt tokens skipped,
+    warm TTFT p99 <= 0.25 x cold's, _trace_count 2 throughout, every warm
+    request a full hit); 8 two-turn conversations (turn 2 = turn 1's
+    200-500-token prompt + its 32 tokens + 48 new: copy-on-write and a tail
+    prefill that starts mid-page; streams equal cache-off's, or split only
+    at near-ties); the same prompt under two tenants on disjoint pages; no
+    page leaked after drain + clear_prefix_cache(); paged_decode launches
+    == 24 x (device prefills + steps), full hits adding none; then the
+    waves again over the int8 pool (kernel 7);
+16. this slice card against CPU at 2 layers in float32 (block matrices
+    x10): the int8_wo engine's and int8 generate()'s greedy streams equal,
+    the prefix-cache engine's cold and warm waves equal.
 Every launch counter is set to 0 just before each main-path run (phases 4,
-6, 7, 9 and 11) and read just after. Then one line of kernel records (JSON), and
-the last line ``{"ok": true, "device": {...}}``.
+6, 7, 9, 11, 13, 14 and 15) and read just after. Then one line of kernel
+records (JSON), and the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the rest of the repository beside it, it
 exits non-zero and prints no result.
@@ -188,11 +222,15 @@ def device_ms(fn, iters, warmup=3):
 # ---------------------------------------------------------------------------
 
 def make_case(b, t, h, h_kv, d, pos, dtype, ps=128, p_max=8, seed=0,
-              int8=False, layers=LAYERS, valid=None):
+              int8=False, layers=LAYERS, valid=None, tail=False):
     """q, ``layers`` page pools (int8 banks with ``int8``), a table of
     scattered pages, ``pos`` and ``valid`` (real rows per slot, or None),
     on the card. Entries past a slot's needed pages stay 0 (the trash
-    page), as the engine leaves them."""
+    page), as the engine leaves them. ``tail``: a prefix-cache tail
+    prefill, whose slot owns only the pages its real rows reach (pos +
+    valid), while its padding rows run further; the trash page then holds
+    NaN (int8: NaN scales) in every layer, so a real row that read it
+    would come out NaN."""
     from paddle_tpu_torch.ops.weight_only import quantize_kv
     g = torch.Generator(device='cuda').manual_seed(seed)
     n = b * p_max + 1
@@ -201,14 +239,19 @@ def make_case(b, t, h, h_kv, d, pos, dtype, ps=128, p_max=8, seed=0,
     def pool():
         x = torch.randn((layers, n, ps, h_kv, d), generator=g, device='cuda')
         if int8:
-            return dict(zip(('int8', 'scale'), quantize_kv(x)))
+            bank = dict(zip(('int8', 'scale'), quantize_kv(x)))
+            if tail:
+                bank['scale'][:, 0] = float('nan')
+            return bank
+        if tail:
+            x[:, 0] = float('nan')
         return x.to(dtype)
 
     kp, vp = pool(), pool()
     perm = np.random.RandomState(seed).permutation(np.arange(1, n))
     table = np.zeros((b, p_max), np.int32)
     for i, p0 in enumerate(pos):
-        need = min(-(-(p0 + t) // ps), p_max)
+        need = min(-(-(p0 + (valid[i] if tail else t)) // ps), p_max)
         table[i, :need] = perm[i * p_max:i * p_max + need]
     return dict(q=q, k=kp, v=vp, int8=int8,
                 table=torch.from_numpy(table).cuda(),
@@ -430,6 +473,22 @@ PAGED_CASES = [
 ]
 # the engine's prefill at its real rows: one prompt of 200 padded to 1024
 ENGINE_VALID = 200
+# the prefix cache's tail prefills (phase 15): 1024 rows from a nonzero
+# start, the uncached tail real. A page edge (a shared system prompt of 5
+# pages), mid-page (after copy-on-write: a turn's written rows end
+# anywhere), and so late that the padding rows' positions run past
+# max_seq_len. Timed as main-path shapes.
+TAIL_CASES = [
+    ('prefill_T1024_start640_valid192', dict(
+        b=1, t=1024, h=16, h_kv=16, d=64, pos=[640], dtype=BF, valid=[192],
+        tail=True)),
+    ('prefill_T1024_start700_valid124', dict(
+        b=1, t=1024, h=16, h_kv=16, d=64, pos=[700], dtype=BF, valid=[124],
+        tail=True)),
+    ('prefill_T1024_start1000_valid24', dict(
+        b=1, t=1024, h=16, h_kv=16, d=64, pos=[1000], dtype=BF, valid=[24],
+        tail=True)),
+]
 
 
 def kernel_cases(pa, timed_iters):
@@ -457,9 +516,11 @@ def kernel_cases(pa, timed_iters):
         ('prefill_T300_f32_gqa', dict(b=2, t=300, h=16, h_kv=4, d=64,
                                       pos=[0, 517], dtype=FP), False),
     ]
-    cases = (engine + [(name, kw, False) for name, kw in PAGED_CASES]
+    tails = [(name, kw, True) for name, kw in TAIL_CASES]
+    cases = (engine + tails
+             + [(name, kw, False) for name, kw in PAGED_CASES]
              + [(name, dict(kw, int8=True), timed)
-                for name, kw, timed in engine[:3]]
+                for name, kw, timed in engine[:3] + tails]
              + [(name, dict(kw, int8=True), False)
                 for name, kw in PAGED_CASES])
     results = {'paged_decode': {}, 'paged_decode_int8': {}}
@@ -895,16 +956,17 @@ MODES = (('eager', False), ('captured', True))
 
 
 def engine_run(GenerationEngine, net, config, kname, kernels, reqs, new,
-               capture, card, what):
-    """One engine over the bench GPT (8 slots, page 128), eager (a private
-    switch, for this comparison only) or on captured CUDA graphs: warmed
-    up, every launch counter set to 0, then the requests served. Checks
-    the tokens, the exact launches (kernel ``kname``: 24 x (prefills +
-    steps), the prefills on the tensor-core instance and the steps on the
-    split-K one), two captures at warmup and none from traffic; then a
-    profiled rerun. -> (record, the streams)."""
+               capture, card, what, inspect=None, **engine_kw):
+    """One engine over the bench GPT (8 slots, page 128, ``engine_kw``),
+    eager (a private switch, for this comparison only) or on captured CUDA
+    graphs: warmed up, every launch counter set to 0, then the requests
+    served. Checks the tokens, the exact launches (kernel ``kname``: 24 x
+    (prefills + steps), the prefills on the tensor-core instance and the
+    steps on the split-K one), two captures at warmup and none from
+    traffic; then a profiled rerun, and ``inspect(engine)`` (its result
+    in the record's 'inspect'). -> (record, the streams)."""
     args = (net,) if config is None else (net, config)
-    eng = GenerationEngine(*args, num_slots=8, page_size=128)
+    eng = GenerationEngine(*args, num_slots=8, page_size=128, **engine_kw)
     eng._capture = capture
     try:
         w = eng.warmup()
@@ -920,6 +982,7 @@ def engine_run(GenerationEngine, net, config, kname, kernels, reqs, new,
         graphs = [f.captured for f in eng._fns.values()]
         prof = profile_serving(eng, reqs, new)
         width, ps = eng.prefill_width, eng.page_size
+        extra = inspect(eng) if inspect is not None else None
     finally:
         eng.shutdown()
     mode = 'captured' if capture else 'eager'
@@ -957,7 +1020,7 @@ def engine_run(GenerationEngine, net, config, kname, kernels, reqs, new,
                'split-k': kernel_ms(prof, 'split_kernel'),
                'tensor-core': kernel_ms(prof, 'prefill_tc_kernel'),
                'cuda-core': kernel_ms(prof, 'paged_decode_kernel')},
-           'profile': prof}
+           'profile': prof, 'inspect': extra}
     print(f'  {what} {mode}: {len(out)} requests x {new} tokens in '
           f'{wall:.3f} s; {res["tokens_per_s"]:.1f} tokens/s, TTFT p50 '
           f'{res["ttft_ms_p50"]:.1f} ms, mean step {res["step_ms_mean"]:.2f}'
@@ -1161,6 +1224,10 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def cosine(a, b):
+    return float((a * b).sum() / (a.norm() * b.norm()))
+
+
 def generate_run(gpt, m, prompt, new, kname, kernels, card, what):
     """generate() of ``new`` greedy tokens on model ``m`` (eager or
     captured, as ``m._capture`` says) after a warm-up call that captures:
@@ -1255,7 +1322,7 @@ def phase_generate(gpt, kernels, card):
               'tokens', flush=True)
         res[label] = dict(runs['captured'], eager=runs['eager'])
     a, c8 = prefill_logits['bf16'], prefill_logits['int8']
-    cos = float((a * c8).sum() / (a.norm() * c8.norm()))
+    cos = cosine(a, c8)
     if not (torch.isfinite(a).all() and torch.isfinite(c8).all()):
         raise AssertionError('non-finite prefill logits')
     print(f'  prefill logits int8 vs bf16 cache: cosine {cos:.6f} '
@@ -1514,7 +1581,7 @@ def phase_engine_int8(gpt, GenerationEngine, kernels, card):
     lgb = paged_prefill_logits(gpt, sp, bench_config(gpt), reqs, 'cuda')
     if not (torch.isfinite(lg8).all() and torch.isfinite(lgb).all()):
         raise AssertionError('non-finite int8 / bf16 prefill logits')
-    cos = float((lg8 * lgb).sum() / (lg8.norm() * lgb.norm()))
+    cos = cosine(lg8, lgb)
     res = dict(runs['captured'], eager=runs['eager'],
                prefill_cosine_vs_bf16=cos)
     print(f'  prefill logits int8 vs bf16 pool: cosine {cos:.6f} (want > '
@@ -1713,6 +1780,458 @@ def phase_train_card_vs_cpu(gpt, topt):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 13-16: int8 weight-only serving and the prefix cache
+# ---------------------------------------------------------------------------
+
+WO_MATS = ('qkv_w', 'proj_w', 'fc_w', 'out_w')
+
+
+def tree_bytes(tree):
+    """Bytes of every tensor of a parameter dict (int8 banks included)."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def dequant_ms(params, cfg, cdt, iters=20):
+    """Device ms of the int8 -> ``cdt`` converts one forward over the
+    weight-only ``params`` runs before its products (each layer's four
+    banks, and the tied embedding for the LM head: ``wo_matmul`` and
+    ``wo_lm_head`` convert them whole), summed; torch.profiler."""
+    from paddle_tpu_torch.ops.weight_only import kv_layer
+    banks = [params['wte']] + [kv_layer(params['blocks'][k], layer)
+                               for k in WO_MATS
+                               for layer in range(cfg.num_layers)]
+
+    def run(_):
+        for bank in banks:
+            bank['int8'].to(cdt)
+    return device_ms(run, iters, warmup=1)
+
+
+def phase_engine_int8_wo(gpt, GenerationEngine, kernels, card, bf16_run):
+    """GenerationEngine(model, precision='int8_wo') over the bench GPT with
+    phase 4's requests on its captured graphs, over the bf16 pool and then
+    the int8 pool: launches exact, the served weights' bytes against the
+    bf16 engine's, the full-width prefill logits' cosine against the bf16
+    engine's (printed, not held: the weights are random), the device time
+    of the converts a step runs, and phase 4's captured step beside it."""
+    cfg = bench_config(gpt)
+    model = gpt.GPTForCausalLM(cfg, device='cuda', seed=0)   # phase 4's
+    reqs = prompts(8, 16, 400, cfg.vocab_size, seed=0)
+    new = 32
+    bf16_params = gpt.serving_params(model.param_dict(), cfg)
+    bf16_bytes = tree_bytes(bf16_params)
+    lg_bf16 = paged_prefill_logits(gpt, bf16_params, cfg, reqs, 'cuda')
+
+    def inspect(eng):
+        p = eng._params
+        return {'weight_bytes': tree_bytes(p),
+                'logits': paged_prefill_logits(gpt, p, eng.config, reqs,
+                                               'cuda'),
+                'dequant_ms': dequant_ms(p, eng.config,
+                                         gpt.torch_dtype(eng.config.dtype))}
+
+    res = {'bf16_weight_bytes': bf16_bytes,
+           'bf16_engine_step_ms': bf16_run['step_ms_mean'],
+           'bf16_engine_tokens_per_s': bf16_run['tokens_per_s'],
+           'bf16_engine_window_device_ms': bf16_run['profile']['device_ms']}
+    for label, kname, c, net in (
+            ('bf16 pool', 'paged_decode', None, model),
+            ('int8 pool', 'paged_decode_int8',
+             bench_config(gpt, kv_cache_int8=True), model.param_dict())):
+        r, _ = engine_run(GenerationEngine, net, c, kname, kernels, reqs, new,
+                          True, card, f'int8_wo engine, {label}',
+                          inspect=inspect, precision='int8_wo')
+        info = r.pop('inspect')
+        lg = info.pop('logits')
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f'int8_wo engine, {label}: non-finite '
+                                 'prefill logits')
+        r.update(info, prefill_cosine_vs_bf16=cosine(lg, lg_bf16))
+        prof = r['profile']
+        print(f'  int8_wo engine, {label}: served weights '
+              f'{info["weight_bytes"] / 1e6:.1f} MB against the bf16 '
+              f"engine's {bf16_bytes / 1e6:.1f} MB; prefill logits cosine "
+              f'against the bf16 engine {r["prefill_cosine_vs_bf16"]:.6f} '
+              f'(printed only); int8 -> bf16 converts of one step '
+              f'{info["dequant_ms"]:.3f} ms device; mean step '
+              f'{r["step_ms_mean"]:.3f} ms (bf16 engine, phase 4: '
+              f'{bf16_run["step_ms_mean"]:.3f} ms); profiled rerun device '
+              f'{prof["device_ms"]:.1f} ms of {prof["window_ms"]:.1f} ms '
+              f'(bf16 engine: {bf16_run["profile"]["device_ms"]:.1f} ms) '
+              f'[{card}]', flush=True)
+        for name, ms in prof['top']:
+            print(f'    {ms:9.3f} ms  {name}', flush=True)
+        res['int8_pool' if 'int8' in label else 'bf16_pool'] = r
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_generate_int8_wo(gpt, kernels, card):
+    """generate() after enable_int8_decode() at phase 6's shape, bf16 then
+    int8 cache, on captured graphs; then a re-snapshot after an in-place
+    weight change, and generate() past the window over the int8 weights
+    (kernel 1 on the sliding steps)."""
+    cfg = bench_config(gpt)
+    model = gpt.GPTForCausalLM(cfg, device='cuda', seed=0)
+    b, t0, new = 8, 128, 128
+    prompt = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (b, t0)).astype(np.int32)).cuda()
+    res, outs = {}, {}
+    for label, kname in (('bf16', 'flash_decode'),
+                         ('int8', 'flash_decode_int8')):
+        m = (model if label == 'bf16' else gpt.GPTForCausalLM(
+            bench_config(gpt, kv_cache_int8=True), model.param_dict(),
+            device='cuda'))
+        m.enable_int8_decode()
+        res[label], outs[label], _ = generate_run(
+            gpt, m, prompt, new, kname, kernels, card,
+            f'int8 weights, {label} cache')
+        prof = res[label]['profile']
+        print(f'  profiled 16 decode steps, int8 weights, {label} cache: '
+              f'window {prof["window_ms"]:.1f} ms, device busy '
+              f'{prof["device_ms"]:.1f} ms ({100 * prof["busy_share"]:.1f}%)'
+              f'; attention {prof["kernel_ms"]:.3f} ms', flush=True)
+        for name, ms in prof['top']:
+            print(f'    {ms:9.3f} ms  {name}', flush=True)
+        if m is not model:
+            del m
+        torch.cuda.empty_cache()
+    res['weight_bytes'] = tree_bytes(model._serving_params())
+
+    # a re-snapshot: the weights change in place (a block matrix, and the
+    # final LayerNorm's bias moved along one token's embedding, so that the
+    # new weights pick that token every step); the frozen snapshot keeps the
+    # old tokens until enable_int8_decode() takes a new one
+    n, target = 16, 1234
+    snap = model._decode_params()
+    with torch.no_grad():
+        model.blocks.fc_w.mul_(-1.0)
+        w = model.wte[target]
+        model.lnf_b.add_(w * (50.0 / w.square().sum()))
+    frozen = model.generate(prompt, max_new_tokens=n, temperature=0)
+    if not torch.equal(frozen, outs['bf16'][:, :t0 + n]):
+        raise AssertionError('int8 decode: the frozen snapshot changed its '
+                             'tokens after an in-place weight change')
+    model.enable_int8_decode()
+    fresh = model.generate(prompt, max_new_tokens=n, temperature=0)
+    ref = gpt.GPTForCausalLM(cfg, model.param_dict(), device='cuda')
+    want = ref.enable_int8_decode().generate(prompt, max_new_tokens=n,
+                                             temperature=0)
+    del ref
+    ok = (model._decode_params() is not snap and torch.equal(fresh, want)
+          and bool((fresh[:, t0:] == target).all())
+          and not bool((frozen[:, t0:] == target).all()))
+    print(f'  int8 decode re-snapshot after an in-place weight change: the '
+          f'frozen snapshot kept its tokens; a new snapshot, whose tokens '
+          f'are those of a fresh model over the new weights (all {target}): '
+          f'{"OK" if ok else "FAIL"}', flush=True)
+    if not ok:
+        raise AssertionError('int8 decode re-snapshot: stale graph or '
+                             'snapshot')
+    res['resnapshot_ok'] = ok
+
+    # past the window over the int8 weights: 25 cached steps, 7 sliding
+    s = cfg.max_seq_len
+    toks = torch.from_numpy(np.random.RandomState(7).randint(
+        0, cfg.vocab_size, (b, 1000)).astype(np.int32)).cuda()
+    cached, more = s - 1000 + 1, 32
+    model.generate(toks, max_new_tokens=2, temperature=0)     # captures
+    zero_launches(kernels)
+    out, wall = timed(lambda: model.generate(toks, max_new_tokens=more,
+                                             temperature=0))
+    launches = launch_counts(kernels)
+    check_tokens(out, (b, 1000 + more), cfg.vocab_size,
+                 'int8 weights past the window')
+    L = cfg.num_layers
+    expect_launches(f'int8 weights, generate T0=1000 +{more} ({cached} '
+                    f'cached, {more - cached} sliding)', launches,
+                    {'flash_decode': L * cached,
+                     'flash_fwd': L * (more - cached)})
+    expect_tensor_core('int8 weights past the window', kernels)
+    res['window'] = {'wall_s': wall, 'tokens_per_s': b * more / wall,
+                     'launches': launches}
+    print(f'  int8 weights, generate {b} x {more} past the window in '
+          f'{wall:.3f} s ({b * more / wall:.1f} tokens/s) [{card}]',
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+# the prefix cache at full width: tools/prefix_cache_check.py's workload and
+# gates, at the bench GPT's size
+PFX_SYSTEM = 640        # shared system prompt: 5 full pages of 128
+PFX_REQUESTS = 12
+PFX_NEW = 32
+PFX_TURNS = 8
+PFX_USER = 48           # turn 2's new user tokens
+SKIP_FLOOR = 0.70       # warm wave: share of prompt tokens not prefilled
+TTFT_RATIO_MAX = 0.25   # warm TTFT p99 over cold TTFT p99
+
+
+def p99(xs):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(0.99 * (len(xs) - 1))))]
+
+
+def wave(eng, reqs, tenant='default', new=PFX_NEW):
+    """Submit each (prompt, seed) after the previous one's stream ended,
+    as tools/prefix_cache_check.py does. -> (streams, TTFTs ms: submit to
+    the first streamed token)."""
+    streams, ttfts = [], []
+    for p, seed in reqs:
+        t0 = time.perf_counter()
+        it = eng.submit(p, max_new_tokens=new, seed=seed,
+                        tenant=tenant).stream(timeout=600)
+        first = next(it)
+        ttfts.append((time.perf_counter() - t0) * 1e3)
+        streams.append([first] + list(it))
+    return streams, ttfts
+
+
+def bf16_ulps(x, n=2):
+    """n bfloat16 rounding steps at the size of |x|'s largest element."""
+    top = float(x.abs().max())
+    return n * 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
+
+
+def near_ties(gpt, params, cfg, reqs, got, want):
+    """Where a cache-on stream ``got`` leaves the cache-off stream ``want``
+    (multi-turn: the reused rows were written by decode steps, the cache-off
+    engine writes them in its prefill, and bf16 rounds the two apart), the
+    two tokens at the first difference must be a near-tie: their logits
+    within two bf16 rounding steps at that row's largest logit, in a
+    cache-off prefill over the common prefix. -> (ok, [(request, index,
+    gap, limit)])."""
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+        prefix = np.concatenate([reqs[i][0], np.asarray(b[:j], np.int32)])
+        lg = paged_prefill_logits(gpt, params, cfg, [prefix], 'cuda')[0, 0]
+        gap = abs(float(lg[b[j]]) - float(lg[a[j]]))
+        out.append((i, j, gap, bf16_ulps(lg)))
+    return all(g <= lim for _, _, g, lim in out), out
+
+
+def phase_prefix_cache(gpt, GenerationEngine, kernels, card):
+    """The prefix cache at full width (8 slots, page 128, numpy seed 0):
+    tools/prefix_cache_check.py's shared-system-prompt waves (cold, warm,
+    and the cold wave on a cache-off engine) and multi-turn conversations
+    over the bf16 pool, then the waves again over the int8 pool; the
+    reference tool's gates, exact launches, two captures throughout."""
+    rng = np.random.RandomState(0)
+    cfg = bench_config(gpt)
+    vocab = cfg.vocab_size
+    system = rng.randint(1, vocab, PFX_SYSTEM).astype(np.int32)
+    shared = [(np.concatenate([system, rng.randint(
+        1, vocab, int(n)).astype(np.int32)]), i)
+        for i, n in enumerate(rng.randint(64, 256, PFX_REQUESTS))]
+    turn1 = [(rng.randint(1, vocab, int(n)).astype(np.int32), 100 + i)
+             for i, n in enumerate(rng.randint(200, 501, PFX_TURNS))]
+    users = [rng.randint(1, vocab, PFX_USER).astype(np.int32)
+             for _ in range(PFX_TURNS)]
+    params = gpt.init_params(cfg, torch.Generator(device='cuda').manual_seed(0),
+                             'cuda')
+    L = cfg.num_layers
+    res = {}
+    for label, kname, c in (('bf16', 'paged_decode', cfg),
+                            ('int8', 'paged_decode_int8',
+                             bench_config(gpt, kv_cache_int8=True))):
+        what = f'prefix cache, {label} pool'
+        off = GenerationEngine(params, c, num_slots=8, page_size=128)
+        on = GenerationEngine(params, c, num_slots=8, page_size=128,
+                              prefix_cache=True)
+        try:
+            off.warmup()
+            on.warmup()
+            traces = [on._trace_count]
+            # the cache-off engine first: the reference streams
+            want, off_ttft = wave(off, shared)
+            if label == 'bf16':
+                # multi-turn: turn 2 = turn 1's prompt + its 32 tokens + a
+                # new user turn; on the cache-on engine its cached rows end
+                # mid-page
+                t1_off, _ = wave(off, turn1)
+                turn2 = [(np.concatenate([p, np.asarray(g, np.int32), u]), s)
+                         for (p, s), g, u in zip(turn1, t1_off, users)]
+                t2_off, t2_off_ttft = wave(off, turn2)
+            zero_launches(kernels)
+            cold, cold_ttft = wave(on, shared)
+            mid = on.stats()
+            traces.append(on._trace_count)
+            warm, warm_ttft = wave(on, shared)
+            st = on.stats()
+            traces.append(on._trace_count)
+            rec = {'cold_ttft_ms_p50': float(np.median(cold_ttft)),
+                   'cold_ttft_ms_p99': p99(cold_ttft),
+                   'warm_ttft_ms_p50': float(np.median(warm_ttft)),
+                   'warm_ttft_ms_p99': p99(warm_ttft),
+                   'off_ttft_ms_p50': float(np.median(off_ttft)),
+                   'off_ttft_ms_p99': p99(off_ttft)}
+            saved = st['prefix_tokens_saved'] - mid['prefix_tokens_saved']
+            rec['warm_skipped_share'] = saved / sum(len(p) for p, _ in shared)
+            rec['cold_skipped_share'] = (mid['prefix_tokens_saved']
+                                         / sum(len(p) for p, _ in shared))
+            rec['ttft_ratio'] = rec['warm_ttft_ms_p99'] / rec['cold_ttft_ms_p99']
+            rec['warm_full_hits'] = (st['prefix_full_hits']
+                                     - mid['prefix_full_hits'])
+            if label == 'bf16':
+                t1_on, _ = wave(on, turn1)
+                before = on.stats()
+                t2_on, t2_ttft = wave(on, turn2)
+                after = on.stats()
+                traces.append(on._trace_count)
+            # tenants: the same prompt under two tenants, disjoint pages
+            a, _ = wave(on, [shared[0]], tenant='alpha')
+            b, _ = wave(on, [shared[0]], tenant='beta')
+            pages = on.prefix_cache.debug_pages()
+            overlap = len(set(pages.get('alpha', ())) & set(pages.get('beta', ())))
+            torch.cuda.synchronize()
+            counts = launch_counts(kernels)
+            k = kernels[kname]
+            inst = {'tensor-core': k.tc_launches, 'split-k': k.split_launches}
+            fin = on.stats()
+            traces.append(on._trace_count)
+            on.clear_prefix_cache()
+            leaked = (on.num_pages - 1) - on._alloc.free_pages
+        finally:
+            on.shutdown()
+            off.shutdown()
+        rec.update(prefills=fin['prefills'], steps=fin['steps'],
+                   launches=counts[kname], instances=inst, traces=traces,
+                   cross_tenant_shared_pages=overlap, pages_leaked=leaked,
+                   prefix=fin['prefix'])
+        if label == 'bf16':
+            # (after the launches are read: near_ties runs prefills of its
+            # own)
+            ties_ok, ties = near_ties(gpt, on._params, c, turn2, t2_on,
+                                      t2_off)
+            starts = [len(p) + PFX_NEW - 1 for p, _ in turn1]
+            mt = rec['multi_turn'] = {
+                'turn1_equal': t1_on == t1_off,
+                'turn2_equal': t2_on == t2_off, 'near_ties': ties,
+                'tokens_saved': (after['prefix_tokens_saved']
+                                 - before['prefix_tokens_saved']),
+                'starts': starts,
+                'mid_page_starts': sum(x % 128 != 0 for x in starts),
+                'turn2_ttft_ms_p50': float(np.median(t2_ttft)),
+                'turn2_off_ttft_ms_p50': float(np.median(t2_off_ttft))}
+            split = ('equal' if mt['turn2_equal']
+                     else f'split only at near-ties {ties}')
+            print(f'  {what}, multi-turn ({PFX_TURNS} conversations, turn 2 '
+                  f'starts {starts}, {mt["mid_page_starts"]} mid-page): turn '
+                  f'1 cache-on vs cache-off equal {mt["turn1_equal"]}; turn 2 '
+                  f'{split}; {mt["tokens_saved"]} prompt tokens reused; turn '
+                  f'2 TTFT p50 {mt["turn2_ttft_ms_p50"]:.2f} ms (cache off '
+                  f'{mt["turn2_off_ttft_ms_p50"]:.2f})', flush=True)
+            if not (mt['turn1_equal'] and ties_ok):
+                raise AssertionError(f'{what}: multi-turn streams {mt}')
+            if mt['tokens_saved'] != sum(starts):
+                raise AssertionError(f'{what}: turn 2 reused '
+                                     f'{mt["tokens_saved"]} tokens, want '
+                                     f'{sum(starts)}')
+        expect_launches(f'{what} ({fin["prefills"]} device prefills + '
+                        f'{fin["steps"]} steps)', counts,
+                        {kname: L * (fin['prefills'] + fin['steps'])})
+        want_inst = {'tensor-core': L * fin['prefills'],
+                     'split-k': L * fin['steps']}
+        checks = {
+            'cache-on cold == cache-off': cold == want,
+            'warm == cold': warm == cold,
+            'tenants stream the same': a[0] == b[0] == want[0],
+            f'warm prefill tokens skipped >= {SKIP_FLOOR:.0%}':
+                rec['warm_skipped_share'] >= SKIP_FLOOR,
+            f'warm TTFT p99 <= {TTFT_RATIO_MAX} x cold':
+                rec['ttft_ratio'] <= TTFT_RATIO_MAX,
+            'every warm request a full hit':
+                rec['warm_full_hits'] == PFX_REQUESTS,
+            '_trace_count 2 throughout': set(traces) == {2},
+            'no page shared across tenants': overlap == 0,
+            'no page leaked after drain + clear': leaked == 0,
+            'instances': inst == want_inst,
+        }
+        rec['checks'] = checks
+        print(f'  {what}: cold TTFT p50/p99 {rec["cold_ttft_ms_p50"]:.2f}/'
+              f'{rec["cold_ttft_ms_p99"]:.2f} ms, warm '
+              f'{rec["warm_ttft_ms_p50"]:.2f}/{rec["warm_ttft_ms_p99"]:.2f} '
+              f'ms, cache off {rec["off_ttft_ms_p50"]:.2f}/'
+              f'{rec["off_ttft_ms_p99"]:.2f} ms (ratio {rec["ttft_ratio"]:.4f}'
+              f'); prompt tokens skipped cold {rec["cold_skipped_share"]:.1%},'
+              f' warm {rec["warm_skipped_share"]:.1%}; {kname} instances '
+              f'{inst} [{card}]', flush=True)
+        bad = [name for name, ok in checks.items() if not ok]
+        print(f'  {what} checks: ' + ('all hold' if not bad else
+                                      'FAILED ' + ', '.join(bad)), flush=True)
+        if bad:
+            raise AssertionError(f'{what}: {bad} ({rec})')
+        res[label] = rec
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_slice_card_vs_cpu(gpt, GenerationEngine):
+    """This slice's paths at 2 layers in f32 (block matrices x10, as phases
+    8 and 10) on the card and on the CPU: the int8_wo engine's and int8
+    generate()'s greedy streams equal, and a prefix-cache engine's cold and
+    warm waves equal the CPU's."""
+    cfg = bench_config(gpt, num_layers=2, dtype='float32')
+    params = gpt.init_params(cfg, torch.Generator().manual_seed(2), 'cpu')
+    for k in WO_MATS:
+        params['blocks'][k] = params['blocks'][k] * 10
+    reqs = prompts(4, 16, 200, cfg.vocab_size, seed=1)
+    rng = np.random.RandomState(4)
+    head = rng.randint(1, cfg.vocab_size, 256).astype(np.int32)
+    shared = [(np.concatenate([head, rng.randint(
+        1, cfg.vocab_size, int(n)).astype(np.int32)]), i)
+        for i, n in enumerate(rng.randint(16, 100, 4))]
+    prompt = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (4, 100)).astype(np.int32))
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        p = {k: ({bk: bv.to(dev) for bk, bv in v.items()}
+                 if k == 'blocks' else v.to(dev)) for k, v in params.items()}
+        eng = GenerationEngine(p, cfg, device=dev, num_slots=8, page_size=128,
+                               precision='int8_wo')
+        try:
+            wo, _ = serve(eng, reqs, 8)
+        finally:
+            eng.shutdown()
+        m = gpt.GPTForCausalLM(cfg, p, device=dev).enable_int8_decode()
+        gen = m.generate(prompt, max_new_tokens=16, temperature=0).cpu()
+        eng = GenerationEngine(p, cfg, device=dev, num_slots=8, page_size=128,
+                               prefix_cache=True)
+        try:
+            cold, _ = wave(eng, shared, new=8)
+            warm, _ = wave(eng, shared, new=8)
+            hits = eng.stats()['prefix_full_hits']
+        finally:
+            eng.shutdown()
+        out[dev] = {'int8_wo': wo, 'generate': gen, 'cold': cold,
+                    'warm': warm, 'full_hits': hits}
+    c, h = out['cuda'], out['cpu']
+    res = {'int8_wo_engine_equal': c['int8_wo'] == h['int8_wo'],
+           'int8_generate_equal': bool(torch.equal(c['generate'],
+                                                   h['generate'])),
+           'prefix_cold_equal': c['cold'] == h['cold'],
+           'prefix_warm_equal': c['warm'] == h['warm'] == h['cold'],
+           'full_hits': [c['full_hits'], h['full_hits']]}
+    print(f'  card vs cpu (2 layers, f32): int8_wo engine streams '
+          f'{res["int8_wo_engine_equal"]}, int8 generate() '
+          f'{res["int8_generate_equal"]}, prefix cache cold '
+          f'{res["prefix_cold_equal"]}, warm {res["prefix_warm_equal"]} '
+          f'(full hits card/cpu {res["full_hits"]})', flush=True)
+    if not all(v for k, v in res.items() if k != 'full_hits'):
+        raise AssertionError(f'card vs cpu, this slice: {res}')
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--report', default=None,
@@ -1790,17 +2309,38 @@ def main(argv=None):
     print('phase 12: the train step card against CPU at 2 layers',
           flush=True)
     report['train_card_vs_cpu'] = phase_train_card_vs_cpu(gpt, topt)
+    print('phase 13: GenerationEngine(precision=\'int8_wo\') at full width',
+          flush=True)
+    report['engine_int8_wo'] = phase_engine_int8_wo(
+        gpt, GenerationEngine, counters, card, report['engine'])
+    print('phase 14: generate() over int8 weights (enable_int8_decode) at '
+          'full width', flush=True)
+    report['generate_int8_wo'] = phase_generate_int8_wo(gpt, counters, card)
+    print('phase 15: the prefix cache at full width', flush=True)
+    report['prefix'] = phase_prefix_cache(gpt, GenerationEngine, counters,
+                                          card)
+    print('phase 16: int8 weights and the prefix cache, card against CPU at '
+          '2 layers', flush=True)
+    report['slice_card_vs_cpu'] = phase_slice_card_vs_cpu(gpt,
+                                                          GenerationEngine)
 
     gen, fwd = report['generate'], report['forward']
     train = report['train']['launches']
+    wo, gwo = report['engine_int8_wo'], report['generate_int8_wo']
+    pfx = report['prefix']
     main_path = {
-        'paged_decode': report['engine']['launches'],
-        'paged_decode_int8': report['engine_int8']['launches'],
+        'paged_decode': report['engine']['launches']
+        + wo['bf16_pool']['launches'] + pfx['bf16']['launches'],
+        'paged_decode_int8': report['engine_int8']['launches']
+        + wo['int8_pool']['launches'] + pfx['int8']['launches'],
         'flash_decode': gen['bf16']['launches']
-        + fwd['launches']['flash_decode'],
-        'flash_decode_int8': gen['int8']['launches'],
+        + fwd['launches']['flash_decode'] + gwo['bf16']['launches']
+        + gwo['window']['launches']['flash_decode'],
+        'flash_decode_int8': gen['int8']['launches']
+        + gwo['int8']['launches'],
         'flash_fwd': fwd['forward_launches']['flash_fwd']
-        + fwd['launches']['flash_fwd'] + train['flash_fwd'],
+        + fwd['launches']['flash_fwd'] + train['flash_fwd']
+        + gwo['window']['launches']['flash_fwd'],
         'flash_bwd_dq': train['flash_bwd_dq'],
         'flash_bwd_dkv': train['flash_bwd_dkv'],
     }

@@ -212,10 +212,13 @@ struct SplitArgs {
   float scale;
 };
 
-// The pages of slot b its rows can see.
+// The pages of slot b its real rows (below valid[b]) can see: never a
+// page past them, which the slot need not own (a prefix-cache tail's
+// padding rows run past its last page), nor one past p_max.
 __device__ __forceinline__ int needed_pages(const SplitArgs a, int b) {
   const int p0 = a.pos[b * a.src.pos_sb];
-  return min((p0 + a.t_len + a.src.ps - 1) / a.src.ps, a.src.p_max);
+  const int n = rows_valid(a.valid, b, a.t_len);
+  return min((p0 + n + a.src.ps - 1) / a.src.ps, a.src.p_max);
 }
 
 // One warp merges output row `row` (= (b * T + t) * H + head) from its live
@@ -283,7 +286,9 @@ split_kernel(const SplitArgs a) {
   const int p0 = a.pos[b * src.pos_sb];
   const int needed = needed_pages(a, b);
   const int pg0 = split * a.pps;
-  if (pg0 >= needed) return;                  // past the slot's last page
+  // past the slot's last page; split 0 always runs, so a slot with no real
+  // rows (needed 0) still merges its zeros
+  if (pg0 >= needed && split > 0) return;
   const int pg1 = min(pg0 + a.pps, needed);
   const int t_len = a.t_len, H = a.H, H_kv = a.H_kv;
   const int g = H / H_kv;
@@ -485,7 +490,7 @@ split_kernel(const SplitArgs a) {
   // the last live split of (b, h_kv) to finish merges its rows
   __threadfence();              // this block's partials, before its ticket
   __syncthreads();
-  const int live = (needed + a.pps - 1) / a.pps;
+  const int live = max(1, (needed + a.pps - 1) / a.pps);
   if (tid == 0)
     merge_here = atomicAdd(&a.tickets[b * H_kv + hk], 1) == live - 1;
   __syncthreads();

@@ -39,9 +39,13 @@ key and draws the seed from it with ``jax.random.bits`` (which torch
 cannot reproduce): pass ``jax.random.bits(key, (1,), uint32)[0]`` to
 match it.
 
-Not ported yet (ROADMAP Queue 1): int8 weight-only serving (item 5), fp8
-matmuls (item 5), quantized gradient all-reduce and tensor, sequence and
-pipeline parallelism (item 10).
+Weight-only int8 serving (``quantize_decode_params``,
+``GPTForCausalLM.enable_int8_decode``): the four block matrices and the
+tied embedding as ``{'int8', 'scale'}`` banks (ops/weight_only.py), which
+every weight consumer takes in place of a raw tensor.
+
+Not ported yet (ROADMAP Queue 1): fp8 matmuls (item 5), quantized gradient
+all-reduce and tensor, sequence and pipeline parallelism (item 10).
 """
 import dataclasses
 import functools
@@ -63,8 +67,8 @@ from ..ops.xent import softmax_xent_blockwise
 from ..ops.paged_attention import paged_attention
 from ..ops.paged_kv import flat_write_indices, init_paged_pool, paged_write
 from ..ops.weight_only import (init_kv_bank, is_weight_only, kv_layer,
-                               kv_plane, quantize_kv, wo_lm_head, wo_matmul,
-                               wo_take)
+                               kv_plane, quantize_kv, quantize_weight,
+                               wo_lm_head, wo_matmul, wo_take)
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -253,14 +257,31 @@ def serving_params(params, config):
     """The parameters the serving forward reads: the block matmul weights
     and biases cast to the compute dtype once, here, instead of on every
     call (the reference casts them inside each product; the cast values
-    are the same, so the numbers are too). LayerNorm parameters, ``wte``
-    (looked up in the parameter dtype before the cast of the sum) and
-    ``wpe`` stay as they are."""
+    are the same, so the numbers are too). Weight-only int8 banks
+    (``quantize_decode_params``) pass through as they are: a compute-dtype
+    copy beside them would undo their memory saving. LayerNorm parameters,
+    ``wte`` (looked up in the parameter dtype before the cast of the sum)
+    and ``wpe`` stay as they are."""
     cdt = torch_dtype(config.dtype)
     blocks = dict(params['blocks'])
     for k in _CAST_ONCE:
-        blocks[k] = blocks[k].to(cdt)
+        if not is_weight_only(blocks[k]):
+            blocks[k] = blocks[k].to(cdt)
     return dict(params, blocks=blocks)
+
+
+def quantize_decode_params(params):
+    """Weight-only int8 snapshot of a parameter dict for serving
+    (``gpt.py:473``): ``qkv_w``, ``proj_w``, ``fc_w`` and ``out_w`` go int8
+    with one f32 scale per output channel (amax over axis 1 of the stacked
+    ``[L, in, out]``), ``wte`` with one per vocab row; biases, norms and
+    ``wpe`` stay as they are (the same tensors). The result drops into
+    ``forward`` / ``forward_with_cache`` / the engine as it is."""
+    blocks = dict(params['blocks'])
+    for k in ('qkv_w', 'proj_w', 'fc_w', 'out_w'):
+        blocks[k] = quantize_weight(blocks[k], reduce_axis=1)
+    return dict(params, blocks=blocks,
+                wte=quantize_weight(params['wte'], reduce_axis=1))
 
 
 def _layer_norm(x, g, b, eps=1e-5):
@@ -336,7 +357,9 @@ def block_fn(bp, x, config, drop_seed=None):
 
 
 def _layer(blocks, layer):
-    return {k: w[layer] for k, w in blocks.items()}
+    """Layer ``layer`` of the stacked blocks (an int8 bank: of both of its
+    planes)."""
+    return {k: kv_layer(w, layer) for k, w in blocks.items()}
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
@@ -387,9 +410,11 @@ def forward_hidden(params, tokens, config, dropout_seed=None):
     x = (wo_take(params['wte'], tokens.long()) + params['wpe'][pos]).to(cdt)
     # one unbind per stacked weight: its backward stacks the L gradients
     # once, where per-layer indexing would add L full-size zero tensors
-    layers = {k: w.unbind(0) for k, w in params['blocks'].items()}
+    layers = {k: ({p: t.unbind(0) for p, t in w.items()}
+                  if is_weight_only(w) else w.unbind(0))
+              for k, w in params['blocks'].items()}
     for layer in range(L):
-        bp = {k: w[layer] for k, w in layers.items()}
+        bp = {k: kv_layer(w, layer) for k, w in layers.items()}
         x = body(bp, x, config, seeds[layer])
     return _layer_norm(x, params['lnf_g'], params['lnf_b']).to(cdt)
 
@@ -881,6 +906,9 @@ class GPTForCausalLM(nn.Module):
         self._decode_fns = DecodeFnCache(name='gpt.decode_fns')
         self._serving = (None, None)
         self._capture = True
+        # enable_int8_decode: the switch and the snapshot (made lazily)
+        self._int8_decode = False
+        self._int8_params = None
 
     @property
     def device(self):
@@ -918,7 +946,8 @@ class GPTForCausalLM(nn.Module):
         The prefill and each cached step are replayed CUDA graphs, the
         reference's jitted prefill and ``lax.scan`` loop: captured on the
         first call for a (B, T0, sampling knobs) and kept with their cache
-        (``_decode_entry``); the sliding window runs eagerly."""
+        (``_decode_entry``); the sliding window runs eagerly. After
+        ``enable_int8_decode()`` every path reads the int8 snapshot."""
         cfg = self.config
         toks = self._tokens(tokens)
         B, T0 = toks.shape
@@ -956,9 +985,10 @@ class GPTForCausalLM(nn.Module):
         return toks
 
     def _serving_params(self):
-        """``serving_params`` of the current parameters, made once per set
-        of parameter tensors and kept: captured graphs read them."""
-        src = self.param_dict()
+        """``serving_params`` of the parameters generate() reads
+        (``_decode_params``), made once per set of parameter tensors and
+        kept: captured graphs read them."""
+        src = self._decode_params()
         key = tensor_key(src)
         if self._serving[0] != key:
             self._serving = (key, serving_params(src, self.config))
@@ -968,12 +998,16 @@ class GPTForCausalLM(nn.Module):
         """generate()'s captured prefill and loop for a batch of ``b``
         prompts of ``t0`` tokens, with the dense cache they write and the
         serving parameters they read, from the model's ``DecodeFnCache``
-        keyed by (config, sampling knobs, B, T0, device, the parameter
-        tensors). The prefill refreshes the cast parameters from the
-        model's own (weights changed in place are seen), zeroes the cache,
-        fills it and draws the first token, all in one graph."""
+        keyed by (config, sampling knobs, B, T0, device, the tensors of
+        ``_decode_params``: the model's own, or the int8 snapshot's, so a
+        re-snapshot never replays a graph over the old banks). Over the
+        float parameters the prefill refreshes the cast copies from the
+        model's own (weights changed in place are seen); the int8 snapshot
+        stays frozen until the next ``enable_int8_decode()``, as the
+        reference's does. Then the prefill zeroes the cache, fills it and
+        draws the first token, all in one graph."""
         cfg, dev = self.config, self.device
-        src = self.param_dict()
+        src = self._decode_params()
         key = (repr(cfg), temperature, top_k, top_p, b, t0, str(dev),
                seeded, tensor_key(src), self._capture)
 
@@ -981,9 +1015,10 @@ class GPTForCausalLM(nn.Module):
             params = self._serving_params()
             # (cast, source) of every parameter cast into a tensor of its
             # own (f32 configs keep the source itself)
-            pairs = [(params['blocks'][k], src['blocks'][k])
-                     for k in _CAST_ONCE if params['blocks'][k].data_ptr()
-                     != src['blocks'][k].data_ptr()]
+            pairs = ([] if self._int8_decode else
+                     [(params['blocks'][k], src['blocks'][k])
+                      for k in _CAST_ONCE if params['blocks'][k].data_ptr()
+                      != src['blocks'][k].data_ptr()])
             cache = init_kv_cache(cfg, b, dev)
             prefill, _ = make_decode_fns(cfg)
             bufs = {'prompt': torch.zeros((b, t0), dtype=torch.int32,
@@ -1017,7 +1052,7 @@ class GPTForCausalLM(nn.Module):
         plain forward (kernel 1); the LM head runs on the last row only."""
         cfg = self.config
         if params is None:
-            params = serving_params(self.param_dict(), cfg)
+            params = serving_params(self._decode_params(), cfg)
         B = toks.shape[0]
         for _ in range(max_new_tokens):
             x = forward_hidden(params, toks[:, -cfg.max_seq_len:], cfg)
@@ -1029,6 +1064,32 @@ class GPTForCausalLM(nn.Module):
         return toks
 
     def enable_int8_decode(self, enable=True):
-        raise NotImplementedError(
-            'int8 weight-only decode is not ported yet (ROADMAP Queue 1 '
-            'item 5: low precision, int8 weight-only)')
+        """Serve ``generate`` from weight-only int8 matrices
+        (``quantize_decode_params``): the snapshot of the CURRENT weights is
+        taken lazily at the next ``generate``; call again after further
+        training to re-snapshot, or with False to go back to the float
+        weights. ``forward`` and training are untouched. Graphs captured
+        over an earlier snapshot are dropped with it."""
+        self._int8_decode = bool(enable)
+        self._int8_params = None
+        self._decode_fns.clear()
+        self._serving = (None, None)
+        return self
+
+    def _decode_params(self):
+        """The parameters generate() and an engine built from this model
+        serve: the model's own, or after ``enable_int8_decode()`` the int8
+        snapshot. The snapshot is frozen, as the reference's (immutable
+        arrays): the tensors it keeps unquantized are copies."""
+        if not self._int8_decode:
+            return self.param_dict()
+        if self._int8_params is None:
+            snap = quantize_decode_params(self.param_dict())
+
+            def frozen(w):
+                return w if is_weight_only(w) else w.detach().clone()
+            self._int8_params = {
+                k: ({bk: frozen(bw) for bk, bw in w.items()}
+                    if k == 'blocks' else frozen(w))
+                for k, w in snap.items()}
+        return self._int8_params

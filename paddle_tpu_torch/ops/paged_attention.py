@@ -91,13 +91,13 @@ def _kernel_lib():
 
 
 def _paged_partial(q, k_pages, v_pages, page_table, pos, ks, vs, p_lo,
-                   p_hi, chunk=None, n_keys=None):
+                   p_hi, chunk=None, n_keys=None, valid=None):
     """The online-softmax state (m, l, acc) [B, H, T, 1 / 1 / D] f32 of q's
     rows over pages ``p_lo <= p < p_hi`` of each slot, in order, stopping at
-    the slot's last needed page; (m, l, acc) start at (-1e30, 0, 0). The
-    state is updated once per page, or once per ``chunk`` keys of a page;
-    keys at or past ``n_keys`` are masked. Also returns each slot's needed
-    page count [B]."""
+    the slot's last needed page (the last its rows below ``valid`` can
+    see); (m, l, acc) start at (-1e30, 0, 0). The state is updated once per
+    page, or once per ``chunk`` keys of a page; keys at or past ``n_keys``
+    are masked. Also returns each slot's needed page count [B]."""
     int8 = ks is not None
     b, t, h, d = q.shape
     _, ps, h_kv, _ = k_pages.shape
@@ -109,7 +109,9 @@ def _paged_partial(q, k_pages, v_pages, page_table, pos, ks, vs, p_lo,
     qf = q.float().permute(0, 2, 1, 3)                        # [B,H,T,D]
     pos_l = pos.to(dev).long()
     table = page_table.to(dev).long()
-    needed = torch.clamp((pos_l + t + ps - 1) // ps, max=p_max)   # [B]
+    rows = (t if valid is None
+            else torch.clamp(valid.to(dev).long(), 0, t))      # real rows
+    needed = torch.clamp((pos_l + rows + ps - 1) // ps, max=p_max)   # [B]
     q_pos = pos_l[:, None, None, None] + torch.arange(
         t, device=dev)[None, None, :, None]                   # [B,1,T,1]
     acc = torch.zeros((b, h, t, d), dtype=torch.float32, device=dev)
@@ -165,7 +167,8 @@ def paged_decode_reference(q, k_pages, v_pages, page_table, pos, ks=None,
     """Plain PyTorch twin of kernel 6 (the TPU's ``_paged_decode_kernel``),
     and of kernel 7 with the int8 pages' scales ``ks``/``vs``
     ([N, page_size, H_kv] f32): pages are visited in order, each slot
-    stops at its last needed page ``min(ceil((pos+T)/ps), P_max)``, and
+    stops at its last needed page ``min(ceil((pos + n)/ps), P_max)`` (n
+    its real rows: valid[b], or T), never reading one past them, and
     the online-softmax state (m, l, acc) is updated once per page in f32
     (once per ``chunk`` keys of a page with ``chunk``: the CUDA-core
     kernel's 64). Scores are f32 dots times 1/sqrt(D) (int8: times the k
@@ -177,7 +180,8 @@ def paged_decode_reference(q, k_pages, v_pages, page_table, pos, ks=None,
     int; pos [B] int; valid [B] int or None -> [B, T, H, D] in q's
     dtype."""
     _, l, acc, _ = _paged_partial(q, k_pages, v_pages, page_table, pos, ks,
-                                  vs, 0, int(page_table.shape[1]), chunk)
+                                  vs, 0, int(page_table.shape[1]), chunk,
+                                  valid=valid)
     out = acc / torch.clamp(l, min=_EPS)
     return _zero_past(out.to(q.dtype).permute(0, 2, 1, 3), valid)
 
@@ -244,7 +248,8 @@ def paged_decode_split_reference(q, k_pages, v_pages, page_table, pos,
     for i in range(n_split):
         m, l, acc, needed = _paged_partial(
             q, k_pages, v_pages, page_table, pos, ks, vs,
-            i * pages_per_split, (i + 1) * pages_per_split, n_keys=n_keys)
+            i * pages_per_split, (i + 1) * pages_per_split, n_keys=n_keys,
+            valid=valid)
         parts.append((m, l, acc))
     m = torch.stack([x[0] for x in parts])              # [S,B,H,T,1]
     l = torch.stack([x[1] for x in parts])

@@ -1,47 +1,91 @@
-"""Weight helpers shared by every weight consumer of the GPT serving path,
-and the int8 KV-cache rows of the dense decode cache.
+"""Weight-only int8 numerics for serving, shared by every weight consumer
+of the GPT serving path, and the int8 KV-cache rows of the dense decode
+cache and the page pool.
 
-Port of ``paddle_tpu/ops/weight_only.py:53-124`` for raw float weights.
-A weight is a raw tensor (``[in, out]`` for matmuls, ``[V, H]`` for the
-tied embedding) kept in the parameter dtype; each helper casts it to the
-compute dtype before the product, exactly as the reference does
-(``y @ w.astype(cdt)``). A caller may hand in weights already cast to the
-compute dtype (the engine keeps such a copy, made once at load): the
-``.to`` is then a no-op and the numbers are the same.
+Port of ``paddle_tpu/ops/weight_only.py``. A weight is either a raw tensor
+(``[in, out]`` for matmuls, ``[V, H]`` for the tied embedding) kept in the
+parameter dtype, or its weight-only int8 form ``{'int8': int8 [..., out],
+'scale': f32 [..., out]}``: symmetric per-channel, one f32 scale per
+output channel (per vocab row for ``wte``). Each helper takes either, so
+one model body serves both:
 
-The int8 weight-only form ``{'int8', 'scale'}`` is not ported yet and
-raises (ROADMAP Queue 1, "Low precision": ``precision='int8_wo'``).
+    y @ (q * s)  ==  (y @ q.to(cdt)) * s        (s broadcast over rows)
+
+A raw weight is cast to the compute dtype before the product, exactly as
+the reference does (``y @ w.astype(cdt)``); a caller may hand in weights
+already cast (the engine keeps such a copy, made once at load): the ``.to``
+is then a no-op and the numbers are the same. The reference's int8 products
+lower through XLA, which folds the int8 -> compute-dtype convert into the
+matmul's operand read; here the convert is its own op before
+``torch.matmul`` (it reads the int8 bytes, writes and rereads a
+compute-dtype copy), so the int8 form saves memory, not time.
 """
 
 import torch
 
-_INT8_TODO = ('int8 weight-only weights ({"int8", "scale"}) are not ported '
-              'yet (ROADMAP Queue 1, "Low precision": int8_wo)')
+
+def quantize_weight(w, reduce_axis):
+    """Symmetric per-channel int8: amax over ``reduce_axis`` (the
+    contraction/input axis), ``scale = max(amax, 1e-8) / 127``, values
+    rounded half to even (``torch.round``, as ``jnp.round``) and clipped to
+    [-127, 127]. -> ``{'int8', 'scale'}`` with ``scale`` shaped like ``w``
+    minus the reduced axis."""
+    q, scale = _quantize(w, reduce_axis)
+    return {'int8': q, 'scale': scale.squeeze(reduce_axis)}
+
+
+def dequantize_weight(w, reduce_axis):
+    """Reconstruct the f32 weight (test/inspection helper)."""
+    return w['int8'].float() * w['scale'].unsqueeze(reduce_axis)
 
 
 def is_weight_only(w):
     return isinstance(w, dict) and 'int8' in w and 'scale' in w
 
 
-def _raw(w):
-    if is_weight_only(w):
-        raise NotImplementedError(_INT8_TODO)
-    return w
+def _quantize(w, reduce_axis):
+    a = w.float()
+    scale = torch.clamp(a.abs().amax(dim=reduce_axis, keepdim=True),
+                        min=1e-8) / 127.0
+    q = torch.clamp(torch.round(a / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_param(w, reduce_axis):
+    """Like ``quantize_weight`` but the scale KEEPS the reduced axes (size-1
+    dims), so ``int8 * scale`` broadcasts back to the original shape."""
+    q, scale = _quantize(w, reduce_axis)
+    return {'int8': q, 'scale': scale}
+
+
+def dequantize_param(w, dtype):
+    """Inverse of ``quantize_param``: broadcast-multiply back to ``dtype``."""
+    return (w['int8'].float() * w['scale']).to(dtype)
 
 
 def wo_matmul(y, w, cdt):
-    """``y @ w`` for a raw ``[in, out]`` weight, cast to ``cdt`` first."""
-    return y @ _raw(w).to(cdt)
+    """``y @ w`` where ``w`` is raw ``[in, out]`` or weight-only
+    ``{'int8': [in, out], 'scale': [out]}``."""
+    if not is_weight_only(w):
+        return y @ w.to(cdt)
+    return (y @ w['int8'].to(cdt)) * w['scale'].to(cdt)
 
 
 def wo_take(w, idx):
-    """Row gather (embedding lookup) from a raw ``[V, H]`` table."""
-    return _raw(w)[idx]
+    """Row gather (embedding lookup) from a raw ``[V, H]`` table, or from a
+    weight-only table with per-ROW scales ``{'int8': [V, H], 'scale': [V]}``
+    (f32 rows, as the reference gives)."""
+    if not is_weight_only(w):
+        return w[idx]
+    return w['int8'][idx].float() * w['scale'][idx][..., None]
 
 
 def wo_lm_head(x, wte, cdt):
-    """Tied LM head ``x @ wte.T`` for a raw embedding table."""
-    return x @ _raw(wte).to(cdt).T
+    """Tied LM head ``x @ wte.T`` for a raw or weight-only (per-row-scaled)
+    embedding table."""
+    if not is_weight_only(wte):
+        return x @ wte.to(cdt).T
+    return (x @ wte['int8'].to(cdt).T) * wte['scale'].to(cdt)
 
 
 def quantize_kv(t):

@@ -10,12 +10,15 @@
         eng.warmup()
         toks = eng.submit(prompt_ids, max_new_tokens=32).result()
 
-The batch ``InferenceEngine``, the fleet router, the model host and the
-prefix cache are not ported yet (ROADMAP Queue 1).
+``GenerationEngine(..., precision='int8_wo')`` serves weight-only int8
+matrices; ``prefix_cache=True`` reuses the KV pages of earlier requests
+(``PrefixCache``). The batch ``InferenceEngine``, the fleet router and the
+model host are not ported yet (ROADMAP Queue 1).
 """
 from .errors import (DeadlineExceededError, EngineClosedError,  # noqa: F401
                      QueueFullError)
 from .generation import GenerationEngine, GenerationFuture  # noqa: F401
+from .prefix_cache import PrefixCache  # noqa: F401
 
-__all__ = ['GenerationEngine', 'GenerationFuture', 'QueueFullError',
-           'DeadlineExceededError', 'EngineClosedError']
+__all__ = ['GenerationEngine', 'GenerationFuture', 'PrefixCache',
+           'QueueFullError', 'DeadlineExceededError', 'EngineClosedError']

@@ -38,11 +38,24 @@ registry, and request-scoped timelines.
 
 ``config.kv_cache_int8`` stores the pool as int8 banks with per-row
 scales (ops/paged_kv.py); attention then runs kernel 7.
+``precision='int8_wo'`` quantizes the weights once, at construction
+(``models.gpt.quantize_decode_params``): the four block matrices and the
+tied embedding are served as int8 banks with per-channel scales.
 
-Not ported yet, each raising with its ROADMAP item: the prefix cache
-(``prefix_cache=True`` / ``prefix_cache_pages``), int8 weight-only
-serving (``precision='int8_wo'``), mesh sharding (``mesh=`` / ``mp>1``) and the telemetry HTTP plane
-(``telemetry_port=``).
+With ``prefix_cache=True`` the engine indexes finished sequences' pages in
+a :class:`~.prefix_cache.PrefixCache` (tenant-namespaced trie over
+page-aligned chunks): a later request with a cached prefix is admitted
+with those pages pre-mapped and prefills only the uncached tail through
+the SAME captured prefill (the tail's start position is one of its device
+buffers: zero new captures, provable via ``_trace_count``); an exact
+``(prompt, seed)`` repeat skips the prefill device call entirely and
+replays the recorded first token. Shared pages are refcounted by the
+allocator; mid-page divergence copies the page (copy-on-write) before any
+write, and cache residency is released LRU before any live slot is ever
+evicted for pages.
+
+Not ported yet, each raising with its ROADMAP item: mesh sharding
+(``mesh=`` / ``mp>1``) and the telemetry HTTP plane (``telemetry_port=``).
 
 Captured device calls (the reference's ``_build_fns``/``_fns_pair``): the
 prefill and the step are each one CUDA graph (``models.decode_cache.
@@ -57,7 +70,8 @@ the same buffers. A failed capture or replay fails the call; it never
 falls back to the eager path.
 
 Env knobs: ``PADDLE_TPU_GEN_SLOTS`` (default 8),
-``PADDLE_TPU_GEN_PAGE_SIZE`` (default 128, clamped to max_seq_len).
+``PADDLE_TPU_GEN_PAGE_SIZE`` (default 128, clamped to max_seq_len),
+``PADDLE_TPU_GEN_PREFIX`` (=1 enables the prefix cache by default).
 """
 import itertools
 import os
@@ -74,10 +88,13 @@ from .. import resolve_device
 from ..models import gpt as _gpt
 from ..models.decode_cache import CapturedFn
 from ..ops import paged_kv as _pkv
+from ..ops.weight_only import is_weight_only
 from .errors import DeadlineExceededError, EngineClosedError, QueueFullError
+from .prefix_cache import PrefixCache
 
 ENV_SLOTS = 'PADDLE_TPU_GEN_SLOTS'
 ENV_PAGE_SIZE = 'PADDLE_TPU_GEN_PAGE_SIZE'
+ENV_PREFIX = 'PADDLE_TPU_GEN_PREFIX'
 
 _HIST_WINDOW = 4096
 
@@ -101,20 +118,31 @@ def _not_ported(what, item):
 def _resolve_generation_model(net, config, forward_fn):
     """(params, config, forward_fn) as the reference's
     ``_resolve_generation_model`` takes them: a model with ``.config``
-    (``models.gpt.GPTForCausalLM``, whose ``param_dict()`` gives the
-    parameters) when ``config`` is None, else a ``(params, config)`` pair;
-    ``forward_fn`` defaults to GPT's ``forward_with_cache``."""
+    (``models.gpt.GPTForCausalLM``, whose ``_decode_params()`` gives the
+    parameters it serves: its own, or its int8 snapshot after
+    ``enable_int8_decode()``) when ``config`` is None, else a ``(params,
+    config)`` pair; ``forward_fn`` defaults to GPT's
+    ``forward_with_cache``."""
     if config is None:
         cfg = getattr(net, 'config', None)
         if cfg is None:
             raise TypeError('GenerationEngine needs a model with a .config '
                             'or an explicit (params, config) pair')
-        params = net.param_dict()
+        params = (net._decode_params() if hasattr(net, '_decode_params')
+                  else net.param_dict())
     else:
         params, cfg = net, config
     if 'moe' in type(cfg).__name__.lower():
         raise _not_ported('a MoE model', 'step H, item 9: other models')
     return params, cfg, forward_fn or _gpt.forward_with_cache
+
+
+def _to_device(tree, dev):
+    """A parameter dict (int8 banks included) with every tensor on
+    ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
 
 
 class GenerationFuture:
@@ -128,18 +156,45 @@ class GenerationFuture:
         self._tokens = []
         self._done = False
         self._exc = None
+        self._listeners = []
 
     # ---- engine-internal ------------------------------------------------
     def _count(self):
         with self._cv:
             return len(self._tokens)
 
+    def _snapshot(self, n):
+        """First ``n`` emitted tokens (the prefix-cache publisher's view of
+        what the KV rows past the prompt hold)."""
+        with self._cv:
+            return [int(t) for t in self._tokens[:n]]
+
+    def _subscribe(self, fn):
+        """Register ``fn(kind, *args)`` invoked OUTSIDE the future's lock:
+        ``('token', idx, tok)`` per emission and ``('finish', exc)`` once.
+        Tokens already emitted are replayed so a late subscriber misses
+        nothing; the index identifies each token's position."""
+        with self._cv:
+            self._listeners.append(fn)
+            replay = list(enumerate(self._tokens))
+            done, exc = self._done, self._exc
+        for i, t in replay:
+            fn('token', i, t)
+        if done:
+            fn('finish', exc)
+
     def _append(self, tok):
         with self._cv:
             if self._done:
                 return
             self._tokens.append(int(tok))
+            idx = len(self._tokens) - 1
+            listeners = list(self._listeners)
             self._cv.notify_all()
+        # listeners run outside the lock: they may take other locks that
+        # must never nest inside this one
+        for fn in listeners:
+            fn('token', idx, int(tok))
 
     def _finish(self, exc=None):
         with self._cv:
@@ -147,7 +202,10 @@ class GenerationFuture:
                 return False
             self._done = True
             self._exc = exc
+            listeners = list(self._listeners)
             self._cv.notify_all()
+        for fn in listeners:
+            fn('finish', exc)
         return True
 
     # ---- caller API -----------------------------------------------------
@@ -189,13 +247,14 @@ class GenerationFuture:
 
 class _Request:
     __slots__ = ('prompt', 'eff_max_new', 'seed', 'future', 'enqueue_t',
-                 'deadline_t', 'evictions', 'ttft_noted', 'rec')
+                 'deadline_t', 'evictions', 'ttft_noted', 'rec', 'tenant')
 
     def __init__(self, prompt, eff_max_new, seed, future, enqueue_t,
-                 deadline_t, rec=None):
+                 deadline_t, rec=None, tenant='default'):
         self.prompt = prompt
         self.eff_max_new = eff_max_new
         self.seed = seed
+        self.tenant = tenant
         self.future = future
         self.enqueue_t = enqueue_t
         self.deadline_t = deadline_t
@@ -207,15 +266,22 @@ class _Request:
 
 
 class _Slot:
-    __slots__ = ('req', 'pos', 'last_tok', 'produced', 'table', 'admit_seq')
+    __slots__ = ('req', 'pos', 'last_tok', 'produced', 'table', 'admit_seq',
+                 'start', 'cow', 'first_tok')
 
-    def __init__(self, req, table, admit_seq):
+    def __init__(self, req, table, admit_seq, start=0, cow=None,
+                 first_tok=None):
         self.req = req
         self.pos = len(req.prompt)      # next KV write position
         self.last_tok = 0
         self.produced = 0
         self.table = table              # np [p_max] i32, 0 = unallocated
         self.admit_seq = admit_seq
+        self.start = start              # first prompt row prefill computes
+                                        # (cached rows < start are mapped)
+        self.cow = cow                  # pending (src, dst) page copy
+        self.first_tok = first_tok      # full prefix hit: replay this token
+                                        # instead of running prefill
 
 
 class GenerationEngine:
@@ -232,7 +298,10 @@ class GenerationEngine:
     into a free slot and advances it one token per decode iteration
     alongside every other active sequence. Sampling knobs
     (temperature/top_k/top_p, greedy by default) are engine-wide while
-    the RNG seed is per-request.
+    the RNG seed is per-request. ``precision='int8_wo'`` serves int8
+    weight-only matrices; ``prefix_cache=True`` (or ``prefix_cache_pages``,
+    a residency bound, or ``PADDLE_TPU_GEN_PREFIX=1``) reuses the KV pages
+    of earlier requests of the same tenant.
     """
 
     _seq = itertools.count()
@@ -248,11 +317,6 @@ class GenerationEngine:
             raise ValueError(
                 f"GenerationEngine precision must be None/'float32'/"
                 f"'int8_wo', got {precision!r}")
-        if precision == 'int8_wo':
-            raise _not_ported("precision='int8_wo'", 'item 5, low precision')
-        if prefix_cache or prefix_cache_pages is not None:
-            raise _not_ported('the prefix cache',
-                              'item 1, deferred: prefix cache')
         if mesh is not None or (mp is not None and int(mp) != 1):
             raise _not_ported('mesh sharding (mesh= / mp>1)',
                               'item 1, deferred: mesh-sharded serving')
@@ -264,9 +328,11 @@ class GenerationEngine:
         if device is None and config is None:
             device = net.device
         self.device = resolve_device(device)
-        params = {k: ({bk: bv.to(self.device) for bk, bv in v.items()}
-                      if k == 'blocks' else v.to(self.device))
-                  for k, v in params.items()}
+        params = _to_device(params, self.device)
+        if precision == 'int8_wo' and not is_weight_only(params['wte']):
+            # quantized once, here, on the engine's device; a model already
+            # snapshot (enable_int8_decode) passes through untouched
+            params = _gpt.quantize_decode_params(params)
         self._params = _gpt.serving_params(params, cfg)
         self.config = cfg
         self._precision = precision or 'float32'
@@ -304,6 +370,14 @@ class GenerationEngine:
         self._pool = _gpt.init_paged_kv_cache(cfg, self.num_pages, ps,
                                               self.device)
         self._alloc = _pkv.PageAllocator(self.num_pages)
+        # prefix cache: opt-in (constructor flag, giving it a residency
+        # bound, or the env knob): page accounting changes when finished
+        # sequences stay resident, so it is never silently enabled
+        if prefix_cache is None:
+            prefix_cache = (prefix_cache_pages is not None
+                            or _env_int(ENV_PREFIX, 0) > 0)
+        self._prefix = (PrefixCache(self._alloc, ps, prefix_cache_pages)
+                        if prefix_cache else None)
         self._slots = [None] * self.num_slots
         self._queue = deque()
         self._lock = threading.Lock()
@@ -318,7 +392,10 @@ class GenerationEngine:
         self._start_t = self._clock()
         self._n = {k: 0 for k in ('submitted', 'completed', 'rejected',
                                   'expired', 'failed', 'evictions',
-                                  'tokens', 'prefills', 'steps')}
+                                  'tokens', 'prefills', 'steps',
+                                  'prefix_hits', 'prefix_misses',
+                                  'prefix_full_hits', 'prefix_tokens_saved',
+                                  'prefix_evictions')}
         self._make_metrics()
         # readiness: warm AND breaker closed AND queue below capacity
         self._warmed = False
@@ -356,6 +433,12 @@ class GenerationEngine:
                     'failed')}
         self._c['evictions'] = mk_c('gen.evictions')
         self._c['tokens'] = mk_c('gen.tokens')
+        # gen.prefix.*: the prefix cache's series
+        self._c['prefix_hits'] = mk_c('gen.prefix.hits')
+        self._c['prefix_misses'] = mk_c('gen.prefix.misses')
+        self._c['prefix_full_hits'] = mk_c('gen.prefix.full_hits')
+        self._c['prefix_tokens_saved'] = mk_c('gen.prefix.tokens_saved')
+        self._c['prefix_evictions'] = mk_c('gen.prefix.evictions')
         self._h = {'prefill': mk_h('gen.prefill_ms'),
                    'step': mk_h('gen.decode_step_ms'),
                    'ttft': mk_h('gen.ttft_ms'),
@@ -363,7 +446,8 @@ class GenerationEngine:
                    # requeue-after-eviction preserves
                    'queue_wait': mk_h('serve.queue_wait_ms')}
         self._g = {'occupancy': mk_g('gen.slot_occupancy'),
-                   'pages': mk_g('gen.page_utilization')}
+                   'pages': mk_g('gen.page_utilization'),
+                   'prefix_pages': mk_g('gen.prefix.cached_pages')}
 
     def _note(self, key, n=1):
         self._n[key] += n
@@ -378,6 +462,12 @@ class GenerationEngine:
         # denominator: a fully loaded pool reads 1.0
         usable = max(self.num_pages - 1, 1)
         self._g['pages'].set(self._alloc.used_pages / usable)
+        if self._prefix is not None:
+            self._g['prefix_pages'].set(self._prefix.cached_pages)
+            ev = self._prefix.stats()['evictions']
+            delta = ev - self._n['prefix_evictions']
+            if delta > 0:
+                self._note('prefix_evictions', delta)
 
     # ---- device calls ----------------------------------------------------
     def _sample_rows(self, lg, seeds, positions):
@@ -388,12 +478,18 @@ class GenerationEngine:
 
     def _prefill_fn(self, prompt, start, valid, table, seed):
         """One padded batch-1 prefill from the static buffers; the pool is
-        written in place. -> sampled first token [1] int32."""
+        written in place. -> sampled first token [1] int32. ``start`` (a
+        prefix-cache tail's first row, else 0) stays on the device with
+        everything that depends on it (positions, the rows written, the
+        ``wpe`` rows, the sampled row), so one capture serves cold prefills
+        and tails alike; the tail's rows attend the cached pages through
+        the paged kernel, as every prefill does."""
         cache = {'k': self._pool['k'], 'v': self._pool['v'],
                  'page_table': table, 'valid': valid}
         logits, _ = self._forward_fn(self._params, prompt, cache, start,
                                      self.config, last_only=True)
-        # absolute position start+valid-1 keys the prompt's last row
+        # absolute position start+valid-1 keys the prompt's last row: the
+        # sampling key must not depend on how much was cached
         return self._sample_rows(logits[:, 0], seed, start + valid - 1)
 
     def _step_fn(self, tok, pos, table, seeds):
@@ -513,6 +609,9 @@ class GenerationEngine:
             self._drain_inline()
         if self._thread is not None:
             self._thread.join(timeout)
+        if self._prefix is not None:
+            with self._lock:
+                self._prefix.clear()
         _obs.remove_readiness(self._probe_name)
 
     def __enter__(self):
@@ -523,13 +622,16 @@ class GenerationEngine:
         return False
 
     # ---- admission -------------------------------------------------------
-    def submit(self, prompt, max_new_tokens=32, deadline_ms=None, seed=0):
+    def submit(self, prompt, max_new_tokens=32, deadline_ms=None, seed=0,
+               tenant='default'):
         """Enqueue one sequence. ``prompt`` is a 1-D token id sequence of
         length 1..prefill_width; returns a ``GenerationFuture``. Tokens
         stop at ``eos_id`` (emitted), ``max_new_tokens``, or the context
         window (a prompt of exactly max_seq_len still yields one token).
-        A deadline that has already passed raises
-        ``DeadlineExceededError`` here instead of queueing."""
+        ``tenant`` namespaces the prefix cache: KV pages are only ever
+        reused within one tenant's own traffic. A deadline that has
+        already passed raises ``DeadlineExceededError`` here instead of
+        queueing."""
         arr = np.asarray(prompt, dtype=np.int32).reshape(-1)
         t0 = int(arr.size)
         if not 1 <= t0 <= self.prefill_width:
@@ -559,7 +661,7 @@ class GenerationEngine:
             rec.finish('expired', err)
             raise err
         req = _Request(arr, eff, int(seed) & 0xFFFFFFFF, fut, now,
-                       deadline_t, rec=rec)
+                       deadline_t, rec=rec, tenant=str(tenant))
         try:
             with self._cv:
                 if self._closed:
@@ -595,6 +697,11 @@ class GenerationEngine:
                 admitted = self._admit_locked()
             for idx in admitted:
                 self._prefill_one(idx)
+            if admitted:
+                # a client waiting on a first token gets the GIL now, not
+                # after the next step's staging (CPython hands it over when
+                # the holder blocks, or after its 5 ms switch interval)
+                time.sleep(0)
             if any(s is not None for s in self._slots):
                 self._decode_step()
 
@@ -641,17 +748,50 @@ class GenerationEngine:
                 req.future._finish(err)
                 self._note('failed')
                 continue
-            pages = self._alloc.alloc(need)
+            # longest cached prefix: matched full pages arrive retained
+            # (this slot's references); the COW source page stays owned by
+            # the cache and is copied into a private page before any write
+            hit = (self._prefix.acquire(req.tenant, req.prompt, req.seed)
+                   if self._prefix is not None else None)
+            shared = hit['pages'] if hit else []
+            cow_src = hit['cow'] if hit else None
+            # the COW destination is one of the `need` logical pages and
+            # comes out of the fresh allocation (pages[0] below)
+            pages = self._alloc_with_release_locked(need - len(shared))
             if pages is None:
+                if shared:
+                    self._alloc.free(shared)    # undo; re-acquired on retry
                 break       # active slots will free pages; retry next round
             self._queue.popleft()
             table = np.zeros((self.p_max,), np.int32)
-            table[:need] = pages
+            n_shared = len(shared)
+            table[:n_shared] = shared
+            cow = None
+            if cow_src is not None:
+                cow = (cow_src, pages[0])
+                table[n_shared] = pages[0]
+                pages = pages[1:]
+            if pages:
+                table[need - len(pages):need] = pages
             waited_ms = max(0.0, (now - req.enqueue_t) * 1e3)
             self._h['queue_wait'].observe(waited_ms)
             req.rec.note('admit', slot=free_idx, pages=need,
                          waited_ms=round(waited_ms, 3))
-            self._slots[free_idx] = _Slot(req, table, self._admit_seq)
+            start, first_tok = 0, None
+            if hit is not None:
+                start = hit['match']
+                first_tok = hit['next_tok']
+                self._note('prefix_hits')
+                self._note('prefix_tokens_saved', start)
+                if first_tok is not None:
+                    self._note('prefix_full_hits')
+                req.rec.note('prefix_hit', tokens=start,
+                             full=first_tok is not None)
+            elif self._prefix is not None:
+                self._note('prefix_misses')
+            self._slots[free_idx] = _Slot(req, table, self._admit_seq,
+                                          start=start, cow=cow,
+                                          first_tok=first_tok)
             self._admit_seq += 1
             out.append(free_idx)
         if out:
@@ -664,20 +804,44 @@ class GenerationEngine:
             return
         req = slot.req
         t0 = len(req.prompt)
+        if slot.cow is not None:
+            # copy-on-write: duplicate the shared mid-page before this
+            # sequence writes into it (on the stream the prefill and the
+            # steps run on, so it lands before them)
+            src, dst = slot.cow
+            slot.cow = None
+            _pkv.copy_page(self._pool, src, dst)
+        if slot.first_tok is not None:
+            # full prefix hit: every prompt row is already in mapped pages
+            # and the donor recorded the first sampled token for this seed:
+            # no device call at all, TTFT is the admission latency
+            tok = slot.first_tok
+            req.rec.note('prefill_skip', slot=idx, prompt_len=t0)
+            with self._cv:
+                if self._slots[idx] is not slot:
+                    return
+                slot.last_tok = tok
+                self._emit_locked(slot, tok)
+                if self._slot_finished(slot, tok):
+                    self._finish_slot_locked(idx)
+                self._update_gauges_locked()
+            return
+        start = slot.start
+        tail = t0 - start               # uncached rows to prefill
         prompt = np.zeros((1, self.prefill_width), np.int32)
-        prompt[0, :t0] = req.prompt
-        start = np.zeros((1,), np.int32)
-        valid = np.asarray([t0], np.int32)
+        prompt[0, :tail] = req.prompt[start:]
+        startv = np.asarray([start], np.int32)
+        valid = np.asarray([tail], np.int32)
         table = slot.table[None].copy()
         seed = np.asarray([req.seed], np.int64)
         wall0 = time.perf_counter()
 
         def dev():
             fault.inject('gen.step')
-            tok = self._prefill_call(prompt, start, valid, table, seed)
+            tok = self._prefill_call(prompt, startv, valid, table, seed)
             return int(tok.cpu()[0])
 
-        req.rec.note('prefill', slot=idx, prompt_len=t0)
+        req.rec.note('prefill', slot=idx, prompt_len=t0, start=start)
         try:
             with _obs.span('gen.prefill', slot=idx, prompt_len=t0,
                            req_id=req.rec.rid):
@@ -775,8 +939,25 @@ class GenerationEngine:
             self._alloc.free(pages)
         self._slots[idx] = None
 
+    def _publish_locked(self, slot):
+        """Index a retiring/evicted slot's written pages in the prefix
+        cache (called BEFORE the slot's own references are freed, so every
+        published page is still live when the cache retains it)."""
+        if self._prefix is None:
+            return
+        req = slot.req
+        t0 = len(req.prompt)
+        # KV row p >= t0 holds the (p - t0)-th generated token; the final
+        # sampled token was emitted but never written, so rows == slot.pos
+        gen = req.future._snapshot(slot.pos - t0)
+        tokens = req.prompt.tolist() + gen
+        first = (req.future._snapshot(1) or [None])[0]
+        self._prefix.publish(req.tenant, tokens, slot.table, slot.pos,
+                             prompt_len=t0, seed=req.seed, first_tok=first)
+
     def _finish_slot_locked(self, idx):
         slot = self._slots[idx]
+        self._publish_locked(slot)
         self._free_slot_locked(idx)
         slot.req.rec.note('retire', produced=slot.produced,
                           evictions=slot.req.evictions)
@@ -792,7 +973,8 @@ class GenerationEngine:
         active sequence is therefore never a victim: it monotonically
         advances, finishes, and frees its pages, which bounds every other
         sequence's wait (the no-livelock invariant). An evicted request
-        requeues at the FRONT and later regenerates identical tokens."""
+        requeues at the FRONT and later regenerates identical tokens.
+        Prefix-cache residency yields before any live slot does."""
         for i, slot in enumerate(self._slots):
             if slot is None:
                 continue
@@ -800,7 +982,7 @@ class GenerationEngine:
             if li >= self.p_max or slot.table[li] != _pkv.TRASH_PAGE:
                 continue
             while True:
-                pg = self._alloc.alloc(1)
+                pg = self._alloc_with_release_locked(1)
                 if pg is not None:
                     slot.table[li] = pg[0]
                     break
@@ -820,6 +1002,18 @@ class GenerationEngine:
                     break       # self-preempted; re-admitted when pages free
             # fall through to the next slot whether or not i survived
 
+    def _alloc_with_release_locked(self, n):
+        """``alloc(n)``, releasing LRU prefix-cache residency on failure
+        until the allocation fits or the cache is dry. A released page
+        only reaches the free list at refcount zero, so keep releasing
+        while the cache still holds anything."""
+        pages = self._alloc.alloc(n)
+        while pages is None and self._prefix is not None:
+            if not self._prefix.release_lru(n):
+                break
+            pages = self._alloc.alloc(n)
+        return pages
+
     def _pick_victim_locked(self):
         best, best_seq = None, -1
         for i, slot in enumerate(self._slots):
@@ -832,6 +1026,9 @@ class GenerationEngine:
     def _evict_locked(self, idx):
         slot = self._slots[idx]
         req = slot.req
+        # publish what the victim already computed: its re-admission (and
+        # anyone sharing its prefix) prefills only past the cached rows
+        self._publish_locked(slot)
         self._free_slot_locked(idx)
         req.evictions += 1
         req.rec.note('evict', count=req.evictions)
@@ -849,6 +1046,9 @@ class GenerationEngine:
                 if slot is not None:
                     failed.append(slot.req)
                     self._free_slot_locked(i)
+            if self._prefix is not None:
+                # cached KV lives in the pool being zeroed: drop it all
+                self._prefix.clear()
             # the captured prefill and step hold the pool's addresses
             _gpt.zero_kv(self._pool)
             self._update_gauges_locked()
@@ -857,6 +1057,34 @@ class GenerationEngine:
             r.rec.finish('error', exc)
             if r.future._finish(exc):
                 self._note('failed')
+
+    # ---- prefix cache knobs ----------------------------------------------
+    @property
+    def prefix_cache(self):
+        """The engine's :class:`~.prefix_cache.PrefixCache` (None when
+        disabled)."""
+        return self._prefix
+
+    def set_prefix_capacity(self, capacity_pages):
+        """Bound prefix-cache residency to ``capacity_pages`` pool pages
+        (None lifts the bound). Evicts LRU leaves immediately when already
+        over."""
+        if self._prefix is None:
+            return
+        with self._lock:
+            self._prefix.set_capacity(capacity_pages)
+            self._update_gauges_locked()
+
+    def clear_prefix_cache(self):
+        """Release every cached page back toward the allocator (pages also
+        mapped by live slots free when those slots retire). Returns the
+        number of entries dropped."""
+        if self._prefix is None:
+            return 0
+        with self._lock:
+            n = self._prefix.clear()
+            self._update_gauges_locked()
+            return n
 
     # ---- observability ---------------------------------------------------
     def stats(self):
@@ -895,4 +1123,6 @@ class GenerationEngine:
             'warmed': self._warmed,
             'uptime_s': round(elapsed, 3),
         })
+        out['prefix'] = (self._prefix.stats()
+                         if self._prefix is not None else None)
         return out

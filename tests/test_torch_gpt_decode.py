@@ -187,9 +187,3 @@ def test_decode_fns_route_the_prefill_to_the_decode_twin(monkeypatch):
                      torch.tensor([6], dtype=torch.int32), cache)
     assert calls == {'fwd': 0, 'decode': 2 * tcfg.num_layers}
     assert tuple(lg.shape) == (1, tcfg.vocab_size)
-
-
-def test_int8_weight_only_decode_waits_for_its_item():
-    _, tm, _, _ = _models('mha')
-    with pytest.raises(NotImplementedError, match='item 5'):
-        tm.enable_int8_decode()

@@ -380,9 +380,9 @@ def test_injected_fault_fails_the_request_and_the_engine_recovers(model):
 
 def test_unported_options_raise_naming_the_roadmap(model):
     _, _, tp, tcfg = model
-    for kw in (dict(precision='int8_wo'), dict(prefix_cache=True),
-               dict(prefix_cache_pages=4), dict(mp=2), dict(mesh=object()),
-               dict(telemetry_port=0)):
+    # int8_wo over a mesh keeps raising, as in the reference
+    for kw in (dict(mp=2), dict(mesh=object()), dict(telemetry_port=0),
+               dict(precision='int8_wo', mesh=object())):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             GenerationEngine(tp, tcfg, device='cpu', **_kw(**kw))
     # the int8 page pool is ported: kv_cache_int8 builds an engine

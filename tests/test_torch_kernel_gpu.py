@@ -583,6 +583,79 @@ def test_valid_skips_the_padding_and_zeroes_it(cuda, t, d, dtype, valid,
     assert _row_err(got[:, :max(valid)], want[:, :max(valid)]) <= TOL[dtype]
 
 
+def _tail_case(t, start, valid, h, h_kv, d, dtype, int8, ps=128, p_max=8,
+               seed=5):
+    """One slot of a prefix-cache tail prefill: ``t`` q rows from position
+    ``start``, the first ``valid`` real. The slot owns only the pages its
+    real rows reach; its other table entries are the trash page 0, and the
+    table row after it (memory past P_max) names a poison page. Both the
+    trash and the poison page hold NaN (int8: NaN scales), so a kernel that
+    reads either for a real row puts NaN in it. -> (q, k, v, table, pos,
+    valid), the table a [1, P_max] view of a [2, P_max] buffer."""
+    from paddle_tpu_torch.ops import weight_only as wo
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    n = p_max + 2                       # trash 0, pages 1..p_max, poison
+    q = torch.randn((1, t, h, d), generator=g, device='cuda').to(dtype)
+
+    def pool():
+        x = torch.randn((n, ps, h_kv, d), generator=g, device='cuda')
+        if int8:
+            bank = dict(zip(('int8', 'scale'), wo.quantize_kv(x)))
+            bank['scale'][0] = bank['scale'][n - 1] = float('nan')
+            return bank
+        x[0] = x[n - 1] = float('nan')
+        return x.to(dtype)
+
+    owned = -(-(start + valid) // ps)
+    buf = np.zeros((2, p_max), np.int32)
+    buf[0, :owned] = np.random.RandomState(seed).permutation(
+        np.arange(1, p_max + 1))[:owned]
+    buf[1] = n - 1
+    table = torch.from_numpy(buf).cuda()[:1]
+    return (q, pool(), pool(), table,
+            torch.tensor([start], dtype=torch.int32, device='cuda'),
+            torch.tensor([valid], dtype=torch.int32, device='cuda'))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('int8', [False, True])
+@pytest.mark.parametrize('t,start,valid,dtype,instance', [
+    (1024, 640, 192, torch.bfloat16, 'tensor-core'),    # a page edge
+    (1024, 700, 124, torch.bfloat16, 'tensor-core'),    # mid-page (COW)
+    (1024, 1000, 24, torch.bfloat16, 'tensor-core'),    # rows past S_max
+    (300, 700, 124, torch.float32, 'cuda-core'),
+    (300, 1000, 24, torch.float32, 'cuda-core'),
+    (12, 250, 3, torch.bfloat16, 'split-k'),
+    (16, 1020, 4, torch.float32, 'split-k'),
+], ids=['T1024_start640', 'T1024_start700', 'T1024_start1000',
+        'T300_f32_start700', 'T300_f32_start1000', 'T12_start250',
+        'T16_f32_start1020'])
+def test_tail_prefill_reads_only_its_pages(cuda, t, start, valid, dtype,
+                                           instance, int8):
+    """Kernels 6 and 7 at a prefix-cache tail: q rows start at ``start``
+    (a page edge, mid-page after copy-on-write, or so late that the
+    padding rows' positions run past max_seq_len), ``valid`` of them real,
+    GQA 4, D 128 (f32 and split-K: D 64). Real rows hold the twin; padding
+    rows are exactly zero; no page the slot does not own and no table entry
+    past P_max is read (they hold NaN)."""
+    d = 128 if dtype == torch.bfloat16 and t > 16 else 64
+    q, k, v, table, pos, vld = _tail_case(t, start, valid, 16, 4, d, dtype,
+                                          int8)
+    kern = pa.paged_flash_decode_int8 if int8 else pa.paged_flash_decode
+    twin = (pa.paged_decode_int8_reference if int8
+            else pa.paged_decode_reference)
+    assert pa.paged_instance(dtype, t, d, 128,
+                             torch.int8 if int8 else dtype) == instance
+    before = _counts(kern)
+    got = pa.paged_attention(q, k, v, table, pos, vld)
+    torch.cuda.synchronize()
+    _expect(kern, before, instance)
+    want = twin(q, k, v, table, pos, valid=vld)
+    assert torch.isfinite(got).all()
+    assert not got[0, valid:].any()
+    assert _row_err(got[:, :valid], want[:, :valid]) <= TOL[dtype]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('int8', [False, True])
 def test_split_merge_leaves_its_tickets_zero(cuda, int8):
