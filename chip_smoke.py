@@ -116,14 +116,42 @@ non-zero:
 16. this slice card against CPU at 2 layers in float32 (block matrices
     x10): the int8_wo engine's and int8 generate()'s greedy streams equal,
     the prefix-cache engine's cold and warm waves equal.
+17. the MoE GPT at MoEConfig()'s full width (vocab 50304, hidden 768, 12
+    layers, 12 heads, 8 experts, FFN 3072, bf16 over f32 params, 520.9M
+    parameters, random weights from a seed): GenerationEngine((params,
+    cfg), num_slots=8, page_size=128) with phase 4's requests, all queued
+    before the scheduler starts (a MoE step routes its slots together),
+    eager then on its two captured graphs, streams equal, over the bf16
+    pool, the int8 pool and with precision='int8_wo': paged_decode /
+    paged_decode_int8 launches == 12 x (prefills + steps), prefills
+    tensor-core and steps split-K; tokens/s, TTFT p50, mean step, a
+    profiled rerun's busy share; then moe_gpt.generate() at B=8, T0=128,
+    128 greedy tokens, bf16 and int8 cache, captured and eager:
+    flash_decode / flash_decode_int8 launches == 12 x 128 (12 prefill
+    launches tensor-core, 12 x 127 steps split-K), tokens equal;
+18. the MoE train step at full width: [8, 1024], AdamW(2e-4,
+    weight_decay=0.01), remat on, dropout 0, the full-logits loss (50304
+    is not a multiple of xent_chunk 8192); 2 warm-up and 6 timed steps:
+    flash_fwd 24, flash_bwd_dq 12, flash_bwd_dkv 12 a step, all
+    tensor-core; the loss finite and falling; tokens/s, step ms, peak
+    memory, MFU over 181.1M active parameters (attention, embeddings, 2
+    of 8 experts) and 989 TFLOP/s;
+19. MoE card against CPU at 2 layers in f32: engine streams equal at the
+    default capacity with prompts that fill the prefill width and with
+    ragged prompts at capacity factor 8, generate() streams equal, the
+    first train step's gradients and a 6-step loss curve within phase
+    12's tolerances, and the gather-form moe_ffn on the card within 1e-5
+    of the reference's einsum form on the card at [8, 1024] rows.
+Phase 3 also holds every kernel at the MoE paths' shapes (12 heads of 64).
 Every launch counter is set to 0 just before each main-path run (phases 4,
-6, 7, 9, 11, 13, 14 and 15) and read just after. Then one line of kernel
-records (JSON), and the last line ``{"ok": true, "device": {...}}``.
+6, 7, 9, 11, 13, 14, 15, 17 and 18) and read just after. Then one line of
+kernel records (JSON), and the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the rest of the repository beside it, it
 exits non-zero and prints no result.
 """
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -491,6 +519,17 @@ TAIL_CASES = [
 ]
 
 
+def moe_paged_cases(ragged):
+    """Kernels 6 and 7 at the MoE engine's shapes (phase 17: MoEConfig()'s
+    12 heads of 64): the step over 8 slots and a 1024-row prefill with 200
+    real rows."""
+    return [('moe_decode_T1', dict(b=8, t=1, h=12, h_kv=12, d=64, pos=ragged,
+                                   dtype=BF)),
+            ('moe_prefill_T1024_valid200', dict(
+                b=1, t=1024, h=12, h_kv=12, d=64, pos=[0], dtype=BF,
+                valid=[ENGINE_VALID]))]
+
+
 def kernel_cases(pa, timed_iters):
     """Kernels 6 and 7 (paged decode over bf16/f32 and int8 pools)."""
     from paddle_tpu_torch.ops.weight_only import kv_layer
@@ -516,11 +555,12 @@ def kernel_cases(pa, timed_iters):
         ('prefill_T300_f32_gqa', dict(b=2, t=300, h=16, h_kv=4, d=64,
                                       pos=[0, 517], dtype=FP), False),
     ]
+    moe = [(name, kw, False) for name, kw in moe_paged_cases(ragged)]
     tails = [(name, kw, True) for name, kw in TAIL_CASES]
-    cases = (engine + tails
+    cases = (engine + tails + moe
              + [(name, kw, False) for name, kw in PAGED_CASES]
              + [(name, dict(kw, int8=True), timed)
-                for name, kw, timed in engine[:3] + tails]
+                for name, kw, timed in engine[:3] + tails + moe]
              + [(name, dict(kw, int8=True), False)
                 for name, kw in PAGED_CASES])
     results = {'paged_decode': {}, 'paged_decode_int8': {}}
@@ -623,6 +663,16 @@ DECODE_CASES = [
                                         int8=True), None),
     ('prefill_T128_int8_f32', dict(b=2, t=128, h=4, h_kv=4, d=64, s_max=1024,
                                    pos=0, dtype=F32, int8=True), None),
+    # the MoE generate()'s shapes (phase 17: 12 heads of 64)
+    ('moe_decode_T1', dict(b=8, t=1, h=12, h_kv=12, d=64, s_max=1024,
+                           pos=GEN_POS, dtype=BF16), None),
+    ('moe_prefill_T128', dict(b=8, t=128, h=12, h_kv=12, d=64, s_max=1024,
+                              pos=0, dtype=BF16), None),
+    ('moe_decode_T1_int8', dict(b=8, t=1, h=12, h_kv=12, d=64, s_max=1024,
+                                pos=GEN_POS, dtype=BF16, int8=True), None),
+    ('moe_prefill_T128_int8', dict(b=8, t=128, h=12, h_kv=12, d=64,
+                                   s_max=1024, pos=0, dtype=BF16, int8=True),
+     None),
 ]
 FWD_CASES = [
     ('fwd_S1024', dict(b=8, s=1024, h=16, h_kv=16, d=64, dtype=BF16), True),
@@ -638,6 +688,9 @@ FWD_CASES = [
     # attention dropout (training): the forward's shape at rate 0.1
     ('fwd_S1024_drop0.1', dict(b=8, s=1024, h=16, h_kv=16, d=64, dtype=BF16,
                                drop=0.1), True),
+    # the MoE train step's shape (phase 18: 12 heads of 64)
+    ('moe_fwd_S1024', dict(b=8, s=1024, h=12, h_kv=12, d=64, dtype=BF16),
+     False),
 ]
 DROP_SEED = 2 ** 31 + 12345     # a u32 past the int32 range
 # kernels 2 and 3 (the flash backward): the train step's shape first
@@ -655,6 +708,8 @@ BWD_CASES = [
                                               masked=True, drop=0.25),
      False),
     ('bwd_S130_d256', dict(b=1, s=130, h=2, h_kv=2, d=256, dtype=BF16),
+     False),
+    ('moe_bwd_S1024', dict(b=8, s=1024, h=12, h_kv=12, d=64, dtype=BF16),
      False),
 ]
 LSE_TOL = 1e-4     # lse is f32 from the same scores: order of sums only
@@ -945,9 +1000,16 @@ def prefill_tiles_skipped(lens, width, tq):
                for n in lens) / (tiles * len(lens))
 
 
-def serve(engine, reqs, max_new):
+def serve(engine, reqs, max_new, hold=False):
+    """Submit ``reqs`` and wait for their tokens. ``hold``: the engine was
+    built with autostart=False and starts only once every request is
+    queued, so each step's batch is the same on every run (a MoE step
+    routes its slots together: which requests share a step decides which
+    tokens keep their experts)."""
     t0 = time.perf_counter()
     futs = [engine.submit(p, max_new_tokens=max_new) for p in reqs]
+    if hold:
+        engine.start()
     out = [f.result(timeout=600) for f in futs]
     return out, time.perf_counter() - t0
 
@@ -956,7 +1018,7 @@ MODES = (('eager', False), ('captured', True))
 
 
 def engine_run(GenerationEngine, net, config, kname, kernels, reqs, new,
-               capture, card, what, inspect=None, **engine_kw):
+               capture, card, what, inspect=None, hold=False, **engine_kw):
     """One engine over the bench GPT (8 slots, page 128, ``engine_kw``),
     eager (a private switch, for this comparison only) or on captured CUDA
     graphs: warmed up, every launch counter set to 0, then the requests
@@ -964,15 +1026,17 @@ def engine_run(GenerationEngine, net, config, kname, kernels, reqs, new,
     (prefills + steps), the prefills on the tensor-core instance and the
     steps on the split-K one), two captures at warmup and none from
     traffic; then a profiled rerun, and ``inspect(engine)`` (its result
-    in the record's 'inspect'). -> (record, the streams)."""
+    in the record's 'inspect'). ``hold``: the requests are all queued
+    before the scheduler starts (``serve``). -> (record, the streams)."""
     args = (net,) if config is None else (net, config)
-    eng = GenerationEngine(*args, num_slots=8, page_size=128, **engine_kw)
+    eng = GenerationEngine(*args, num_slots=8, page_size=128,
+                           autostart=not hold, **engine_kw)
     eng._capture = capture
     try:
         w = eng.warmup()
         traces = eng._trace_count
         zero_launches(kernels)
-        out, wall = serve(eng, reqs, new)
+        out, wall = serve(eng, reqs, new, hold)
         torch.cuda.synchronize()
         counts = launch_counts(kernels)
         k = kernels[kname]
@@ -2231,6 +2295,294 @@ def phase_slice_card_vs_cpu(gpt, GenerationEngine):
         raise AssertionError(f'card vs cpu, this slice: {res}')
     return res
 
+# ---------------------------------------------------------------------------
+# phases 17-19: the MoE GPT (models/moe_gpt.py) at MoEConfig()'s width
+# ---------------------------------------------------------------------------
+
+def moe_active_params(params, cfg):
+    """Parameters a token's forward multiplies by: attention, norms,
+    embeddings and 2 of the E experts' banks (the router not counted)."""
+    blocks = params['blocks']
+    total = sum(v.numel() for k, v in params.items() if k != 'blocks')
+    total += sum(v.numel() for k, v in blocks.items()
+                 if k not in ('gate_w', 'w_in', 'w_out'))
+    experts = blocks['w_in'].numel() + blocks['w_out'].numel()
+    return total + experts * 2 // cfg.n_experts
+
+
+def moe_generate_run(moe, params, cfg, prompt, new, kname, kernels, capture,
+                     card, what):
+    """moe_gpt.generate() of ``new`` greedy tokens (eager or on graphs)
+    after a warm-up call: every launch counter set to 0, the run, its
+    launches checked exactly (kernel ``kname``: L prefill launches on the
+    tensor-core instance, L x (new - 1) steps on the split-K one).
+    -> (record, tokens)."""
+    b, t0 = prompt.shape
+    L = cfg.num_layers
+    mode = 'captured' if capture else 'eager'
+    moe.generate(params, cfg, prompt, 2, capture=capture)      # warm-up
+    zero_launches(kernels)
+    out, wall = timed(lambda: moe.generate(params, cfg, prompt, new,
+                                           capture=capture))
+    launches = launch_counts(kernels)
+    check_tokens(out, (b, t0 + new), cfg.vocab_size, f'moe generate {what}')
+    expect_launches(f'moe generate {what} {mode} (prefill + {new - 1} '
+                    'steps)', launches, {kname: L * new})
+    inst = instance_counts(kernels[kname])
+    want = {'tc_launches': L, 'split_launches': L * (new - 1)}
+    if inst != want:
+        raise AssertionError(f'moe generate {what} {mode}: {kname} '
+                             f'instances {inst}, want {want}')
+    rec = {'mode': mode, 'wall_s': wall, 'tokens_per_s': b * new / wall,
+           'launches': launches[kname], 'instances': inst,
+           'distinct_tokens': int(out[:, t0:].unique().numel())}
+    print(f'  moe generate {what} {mode}: {b} x {new} tokens in {wall:.3f} s;'
+          f' {rec["tokens_per_s"]:.1f} tokens/s; {kname} instances {inst} '
+          f'[{card}]', flush=True)
+    return rec, out
+
+
+def phase_moe_serving(moe, GenerationEngine, kernels, card):
+    """MoEConfig()'s full width (vocab 50304, hidden 768, 12 layers, 12
+    heads, 8 experts, bf16 over f32 params, random weights from a seed) in
+    GenerationEngine((params, cfg), num_slots=8, page_size=128) with phase
+    4's requests: eager, then on its two captured graphs, streams equal;
+    over the bf16 pool, the int8 pool and with precision='int8_wo'. Then
+    moe_gpt.generate() at B=8, T0=128, 128 greedy tokens, bf16 and int8
+    cache, captured and eager, tokens equal."""
+    from paddle_tpu_torch.models.decode_cache import clear_decode_caches
+    cfg = moe.MoEConfig()
+    torch.cuda.reset_peak_memory_stats()
+    params = moe.init_params(cfg, torch.Generator(device='cuda').manual_seed(
+        0), 'cuda')
+    n_params = tree_bytes(params) // 4
+    reqs = prompts(8, 16, 400, 32768, seed=0)       # phase 4's requests
+    new = 32
+    res = {'params': n_params, 'active_params': moe_active_params(params,
+                                                                  cfg)}
+    for label, kname, c, kw in (
+            ('bf16 pool', 'paged_decode', cfg, {}),
+            ('int8 pool', 'paged_decode_int8',
+             dataclasses.replace(cfg, kv_cache_int8=True), {}),
+            ('int8_wo', 'paged_decode', cfg, {'precision': 'int8_wo'})):
+        runs, streams = {}, {}
+        for mode, capture in MODES:
+            runs[mode], streams[mode] = engine_run(
+                GenerationEngine, params, c, kname, kernels, reqs, new,
+                capture, card, f'moe engine {label} '
+                f'({n_params / 1e6:.1f}M params)', hold=True, **kw)
+            torch.cuda.empty_cache()
+        if streams['captured'] != streams['eager']:
+            raise AssertionError(f'moe engine {label}: captured and eager '
+                                 'greedy streams differ')
+        print(f'  moe engine {label} greedy streams, captured against eager:'
+              ' equal', flush=True)
+        print_profiles(f'moe engine {label}', runs, kname)
+        res[label] = dict(runs['captured'], eager=runs['eager'])
+    b, t0, gnew = 8, 128, 128
+    prompt = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (b, t0)).astype(np.int32)).cuda()
+    for label, kname, c in (
+            ('bf16 cache', 'flash_decode', cfg),
+            ('int8 cache', 'flash_decode_int8',
+             dataclasses.replace(cfg, kv_cache_int8=True))):
+        runs, outs = {}, {}
+        for mode, capture in reversed(MODES):
+            runs[mode], outs[mode] = moe_generate_run(
+                moe, params, c, prompt, gnew, kname, kernels, capture, card,
+                label)
+        if not torch.equal(outs['captured'], outs['eager']):
+            raise AssertionError(f'moe generate {label}: captured and eager '
+                                 'tokens differ')
+        print(f'  moe generate {label}, captured against eager: equal '
+              'tokens', flush=True)
+        res[f'generate {label}'] = dict(runs['captured'],
+                                        eager=runs['eager'])
+        clear_decode_caches()
+        torch.cuda.empty_cache()
+    res['peak_mem_gb'] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_moe_train(moe, topt, kernels, card):
+    """moe_gpt.make_train_step at MoEConfig()'s width: [8, 1024], bf16
+    over f32 params, AdamW(2e-4, weight_decay=0.01), remat on (the whole
+    block), dropout 0, targets = tokens, one numpy-seeded batch; 2 warm-up
+    steps (the first counted alone), then 6 timed. 50304 is not a
+    multiple of xent_chunk 8192, so the loss takes the full-logits
+    branch, as the reference's."""
+    cfg = moe.MoEConfig(remat=True)
+    b, s = 8, cfg.max_seq_len
+    torch.cuda.reset_peak_memory_stats()
+    params = moe.init_params(cfg, torch.Generator(device='cuda').manual_seed(
+        0), 'cuda')
+    n_active = moe_active_params(params, cfg)
+    opt = topt.AdamW(learning_rate=2e-4, weight_decay=0.01)
+    state = opt.functional_init(params)
+    step = moe.make_train_step(cfg, opt)
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    losses = []
+
+    def one():
+        nonlocal params, state
+        loss, params, state = step(params, state, 0, 2e-4, toks, toks)
+        losses.append(loss)
+
+    L = cfg.num_layers
+    per_step = {'flash_fwd': 2 * L, 'flash_bwd_dq': L, 'flash_bwd_dkv': L}
+    zero_launches(kernels)
+    one()
+    torch.cuda.synchronize()
+    expect_launches('one moe train step', launch_counts(kernels), per_step)
+    one()
+    n = 6
+    zero_launches(kernels)
+    _, wall = timed(lambda: [one() for _ in range(n)])
+    launches = launch_counts(kernels)
+    expect_launches(f'{n} timed moe train steps', launches,
+                    {k: n * v for k, v in per_step.items()})
+    tc = expect_tensor_core(f'{n} timed moe train steps', kernels)
+    vals = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in vals):
+        raise AssertionError(f'non-finite moe train loss {vals}')
+    if not vals[-1] < vals[0]:
+        raise AssertionError(f'the moe train loss did not fall: {vals}')
+    tok_s = b * s * n / wall
+    prof = profile_window(one)
+    res = {'active_params': n_active, 'losses': vals,
+           'step_ms': wall * 1e3 / n, 'tokens_per_s': tok_s,
+           'mfu': 6 * n_active * tok_s / PEAK_BF16,
+           'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9,
+           'launches': launches, 'tensor_core_launches': tc,
+           'profile': prof}
+    print(f'  moe train step at full width ({n_active / 1e6:.1f}M active '
+          f'params, [{b}, {s}], bf16, remat): {res["step_ms"]:.1f} ms a '
+          f'step, {tok_s:.0f} tokens/s, MFU {100 * res["mfu"]:.2f}% of 989 '
+          f'TFLOP/s, peak {res["peak_mem_gb"]:.2f} GB [{card}]', flush=True)
+    print(f'  losses {" ".join(f"{x:.4f}" for x in vals)}', flush=True)
+    print(f'  profiled step: window {prof["window_ms"]:.1f} ms, device busy '
+          f'{prof["device_ms"]:.1f} ms ({100 * prof["busy_share"]:.1f}%), '
+          f'{prof["kernels"]} kernel launches', flush=True)
+    for name, ms in prof['top']:
+        print(f'    {ms:9.3f} ms  {name}', flush=True)
+    del params, state
+    torch.cuda.empty_cache()
+    return res
+
+
+MOE_FFN_TOL = 1e-5      # gather form vs einsum twin, f32, over max |y|
+
+
+def phase_moe_card_vs_cpu(moe, GenerationEngine, topt):
+    """MoE at 2 layers in f32 (MoEConfig()'s widths, block matrices x4)
+    on the card and on the CPU: engine streams equal at the default
+    capacity with prompts that fill the prefill width and with ragged
+    prompts at capacity factor 8, generate() streams equal, the first
+    train step's gradients and a 6-step loss curve within phase 12's
+    tolerances; then the gather-form moe_ffn on the card against the
+    einsum twin on the card at the train shape."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import moe as pmoe
+    cfg = moe.MoEConfig(num_layers=2, dtype='float32')
+    params = moe.init_params(cfg, torch.Generator().manual_seed(2), 'cpu')
+    for k in ('qkv_w', 'proj_w', 'w_in', 'w_out'):
+        params['blocks'][k] = params['blocks'][k] * 4
+    full = prompts(4, 128, 128, cfg.vocab_size, seed=5)
+    ragged = prompts(4, 16, 200, cfg.vocab_size, seed=1)
+    prompt = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (4, 100)).astype(np.int32))
+    wide = dataclasses.replace(cfg, capacity_factor=8.0)
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        p = {k: ({bk: bv.to(dev) for bk, bv in v.items()}
+                 if k == 'blocks' else v.to(dev)) for k, v in params.items()}
+        eng = GenerationEngine(p, cfg, device=dev, num_slots=8, page_size=128,
+                               prefill_width=128, autostart=False)
+        try:
+            a, _ = serve(eng, full, 8, hold=True)
+        finally:
+            eng.shutdown()
+        eng = GenerationEngine(p, wide, device=dev, num_slots=8,
+                               page_size=128, autostart=False)
+        try:
+            bb, _ = serve(eng, ragged, 8, hold=True)
+        finally:
+            eng.shutdown()
+        gen = moe.generate(p, cfg, prompt.to(dev), 16).cpu()
+        out[dev] = {'a': a, 'b': bb, 'generate': gen}
+    c, h = out['cuda'], out['cpu']
+    res = {'engine_full_width_cf1.25_equal': c['a'] == h['a'],
+           'engine_ragged_cf8_equal': c['b'] == h['b'],
+           'generate_equal': bool(torch.equal(c['generate'],
+                                              h['generate']))}
+    print(f'  moe card vs cpu (2 layers, f32): engine (a) '
+          f'{res["engine_full_width_cf1.25_equal"]}, (b) '
+          f'{res["engine_ragged_cf8_equal"]}, generate() '
+          f'{res["generate_equal"]}', flush=True)
+    if not all(res.values()):
+        raise AssertionError(f'moe card vs cpu streams: {res}')
+
+    # the train step: gradients of the first, then a 6-step curve
+    tcfg = dataclasses.replace(cfg, max_seq_len=256)
+    tparams = moe.init_params(tcfg, torch.Generator().manual_seed(3), 'cpu')
+    rng = np.random.RandomState(5)
+    toks = rng.randint(0, cfg.vocab_size, (2, 256)).astype(np.int32)
+    tgts = rng.randint(0, cfg.vocab_size, (2, 256)).astype(np.int32)
+    grads, curves = {}, {}
+    for dev in ('cuda', 'cpu'):
+        p = {k: ({bk: bv.to(dev).clone() for bk, bv in v.items()}
+                 if k == 'blocks' else v.to(dev).clone())
+             for k, v in tparams.items()}
+        t, y = (torch.from_numpy(x).to(dev) for x in (toks, tgts))
+        live = [x.detach().clone().requires_grad_() for x in gpt._leaves(p)]
+        loss = moe.loss_fn(gpt._rebuild(p, live), t, y, tcfg)
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, live)]
+        opt = topt.AdamW(learning_rate=1e-3, weight_decay=0.01)
+        state = opt.functional_init(p)
+        step = moe.make_train_step(tcfg, opt)
+        curve = []
+        for i in range(6):
+            loss, p, state = step(p, state, 0, 1e-3, t, y)
+            curve.append(float(loss))
+        curves[dev] = curve
+    g_err = max((a - b).abs().max().item() / b.abs().max().clamp_min(
+        1e-30).item() for a, b in zip(grads['cuda'], grads['cpu']))
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(curves['cuda'],
+                                                    curves['cpu']))
+    ok = (g_err <= TRAIN_GRAD_TOL and l_err <= TRAIN_LOSS_TOL
+          and curves['cpu'][-1] < curves['cpu'][0])
+    print(f'  moe train card vs cpu (2 layers, f32): grads {g_err:.2e} (tol '
+          f'{TRAIN_GRAD_TOL:g}), 6-step losses {l_err:.2e} (tol '
+          f'{TRAIN_LOSS_TOL:g}): card '
+          f'{" ".join(f"{x:.5f}" for x in curves["cuda"])} '
+          f'{"OK" if ok else "FAIL"}', flush=True)
+    if not ok:
+        raise AssertionError(f'moe train card vs cpu: grads {g_err}, losses '
+                             f'{curves}')
+    res.update(grad_rel_err=g_err, loss_rel_err=l_err, curves=curves)
+
+    # the gather form against the reference's einsum form, on the card, at
+    # the train step's [8, 1024] rows, f32
+    g = torch.Generator(device='cuda').manual_seed(4)
+    bp = {k: v[0].cuda() for k, v in params['blocks'].items()}
+    x = torch.randn((8, 1024, cfg.hidden_size), generator=g, device='cuda')
+    args = (x, bp['gate_w'], bp['w_in'], bp['w_out'], cfg.capacity_factor)
+    y, aux = pmoe.moe_ffn(*args)
+    ey, eaux = pmoe.moe_ffn_einsum(*args)
+    err = ((y - ey).abs().max() / ey.abs().max()).item()
+    aerr = abs(aux.item() - eaux.item())
+    print(f'  moe_ffn gather form vs einsum twin on the card ([8, 1024] rows, '
+          f'f32): {err:.2e} of max |y| (tol {MOE_FFN_TOL:g}), aux {aerr:.1e}',
+          flush=True)
+    if not (err <= MOE_FFN_TOL and aerr <= 1e-6):
+        raise AssertionError(f'moe_ffn gather vs einsum on the card: {err}, '
+                             f'aux {aerr}')
+    res.update(moe_ffn_rel_err=err, moe_ffn_aux_err=aerr)
+    return res
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2243,6 +2595,7 @@ def main(argv=None):
         return 2
     # the port itself: absent when this script stands alone
     from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.models import moe_gpt as moe
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
@@ -2323,26 +2676,39 @@ def main(argv=None):
           '2 layers', flush=True)
     report['slice_card_vs_cpu'] = phase_slice_card_vs_cpu(gpt,
                                                           GenerationEngine)
+    print('phase 17: MoE serving at full width (GenerationEngine and '
+          'generate())', flush=True)
+    report['moe_serving'] = phase_moe_serving(moe, GenerationEngine,
+                                              counters, card)
+    print('phase 18: the MoE train step at full width', flush=True)
+    report['moe_train'] = phase_moe_train(moe, topt, counters, card)
+    print('phase 19: MoE card against CPU at 2 layers', flush=True)
+    report['moe_card_vs_cpu'] = phase_moe_card_vs_cpu(moe, GenerationEngine,
+                                                      topt)
 
     gen, fwd = report['generate'], report['forward']
     train = report['train']['launches']
     wo, gwo = report['engine_int8_wo'], report['generate_int8_wo']
     pfx = report['prefix']
+    ms, mt = report['moe_serving'], report['moe_train']['launches']
     main_path = {
         'paged_decode': report['engine']['launches']
-        + wo['bf16_pool']['launches'] + pfx['bf16']['launches'],
+        + wo['bf16_pool']['launches'] + pfx['bf16']['launches']
+        + ms['bf16 pool']['launches'] + ms['int8_wo']['launches'],
         'paged_decode_int8': report['engine_int8']['launches']
-        + wo['int8_pool']['launches'] + pfx['int8']['launches'],
+        + wo['int8_pool']['launches'] + pfx['int8']['launches']
+        + ms['int8 pool']['launches'],
         'flash_decode': gen['bf16']['launches']
         + fwd['launches']['flash_decode'] + gwo['bf16']['launches']
-        + gwo['window']['launches']['flash_decode'],
+        + gwo['window']['launches']['flash_decode']
+        + ms['generate bf16 cache']['launches'],
         'flash_decode_int8': gen['int8']['launches']
-        + gwo['int8']['launches'],
+        + gwo['int8']['launches'] + ms['generate int8 cache']['launches'],
         'flash_fwd': fwd['forward_launches']['flash_fwd']
         + fwd['launches']['flash_fwd'] + train['flash_fwd']
-        + gwo['window']['launches']['flash_fwd'],
-        'flash_bwd_dq': train['flash_bwd_dq'],
-        'flash_bwd_dkv': train['flash_bwd_dkv'],
+        + gwo['window']['launches']['flash_fwd'] + mt['flash_fwd'],
+        'flash_bwd_dq': train['flash_bwd_dq'] + mt['flash_bwd_dq'],
+        'flash_bwd_dkv': train['flash_bwd_dkv'] + mt['flash_bwd_dkv'],
     }
     timed_shape = {'paged_decode': 'decode_T1',
                    'paged_decode_int8': 'decode_T1',

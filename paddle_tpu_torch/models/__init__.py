@@ -1,3 +1,3 @@
-"""Model families of the port (GPT: serving and the single-device train
-step so far)."""
-from . import gpt  # noqa: F401
+"""Model families of the port: GPT and the Mixtral-style MoE GPT
+(serving and the single-device train step)."""
+from . import gpt, moe_gpt  # noqa: F401

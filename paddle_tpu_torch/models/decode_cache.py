@@ -91,8 +91,10 @@ class DecodeFnCache:
 
 def clear_decode_caches():
     """Drop every live decode-fn/generate-loop cache (module-level and
-    per-model instances). Tests use this to force recaptures; serving code
-    can use it to release graphs after a config rollover."""
+    per-model instances: GPT's models and loops, and MoE's
+    ``moe_gpt._decode_fns_cache`` / ``_GEN_LOOPS`` with the graphs, caches
+    and cast weights they hold). Tests use this to force recaptures;
+    serving code can use it to release graphs after a config rollover."""
     with _REGISTRY_LOCK:
         caches = list(_REGISTRY)
     for c in caches:

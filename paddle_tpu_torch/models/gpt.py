@@ -65,7 +65,7 @@ from ..ops.flash_attention import (_M32, _mul32, attention_reference,
                                    per_layer_seeds, repeat_kv)
 from ..ops.xent import softmax_xent_blockwise
 from ..ops.paged_attention import paged_attention
-from ..ops.paged_kv import flat_write_indices, init_paged_pool, paged_write
+from ..ops.paged_kv import init_paged_pool, paged_write, write_plan
 from ..ops.weight_only import (init_kv_bank, is_weight_only, kv_layer,
                                kv_plane, quantize_kv, quantize_weight,
                                wo_lm_head, wo_matmul, wo_take)
@@ -196,17 +196,26 @@ def init_params(config: GPTConfig, generator, device):
 
 
 def _param_shapes(config):
+    """The shape of every parameter ``config`` wants: GPT's blocks, or
+    with ``n_experts`` (``models.moe_gpt.MoEConfig``) the MoE block's
+    router and expert banks in place of the dense FFN."""
     h, f, v, L = (config.hidden_size, config.ffn_size, config.vocab_size,
                   config.num_layers)
     qkv = (config.num_heads + 2 * config.kv_heads) * config.head_dim
+    blocks = {
+        'ln1_g': (L, h), 'ln1_b': (L, h), 'qkv_w': (L, h, qkv),
+        'qkv_b': (L, qkv), 'proj_w': (L, h, h), 'proj_b': (L, h),
+        'ln2_g': (L, h), 'ln2_b': (L, h)}
+    E = getattr(config, 'n_experts', None)
+    if E is None:
+        blocks.update(fc_w=(L, h, f), fc_b=(L, f), out_w=(L, f, h),
+                      out_b=(L, h))
+    else:
+        blocks.update(gate_w=(L, h, E), w_in=(L, E, h, f),
+                      w_out=(L, E, f, h))
     return {
         'wte': (v, h), 'wpe': (config.max_seq_len, h),
-        'lnf_g': (h,), 'lnf_b': (h,),
-        'blocks': {
-            'ln1_g': (L, h), 'ln1_b': (L, h), 'qkv_w': (L, h, qkv),
-            'qkv_b': (L, qkv), 'proj_w': (L, h, h), 'proj_b': (L, h),
-            'ln2_g': (L, h), 'ln2_b': (L, h), 'fc_w': (L, h, f),
-            'fc_b': (L, f), 'out_w': (L, f, h), 'out_b': (L, h)},
+        'lnf_g': (h,), 'lnf_b': (h,), 'blocks': blocks,
     }
 
 
@@ -220,8 +229,9 @@ def _to_tensor(a, device):
 
 def params_from_numpy(tree, config, device):
     """Turn the reference's parameter tree (``paddle_tpu.models.gpt.
-    init_params``, leaves converted to numpy arrays) into the port's dict
-    of tensors on ``device``, checking every shape against ``config``."""
+    init_params`` or ``moe_gpt.init_params``, leaves converted to numpy
+    arrays) into the port's dict of tensors on ``device``, checking every
+    shape against ``config`` (a ``GPTConfig`` or a ``MoEConfig``)."""
     want = _param_shapes(config)
     out = {'blocks': {}}
     for key, shape in want.items():
@@ -253,18 +263,19 @@ _CAST_ONCE = ('qkv_w', 'qkv_b', 'proj_w', 'proj_b', 'fc_w', 'fc_b',
               'out_w', 'out_b')
 
 
-def serving_params(params, config):
+def serving_params(params, config, keys=_CAST_ONCE):
     """The parameters the serving forward reads: the block matmul weights
-    and biases cast to the compute dtype once, here, instead of on every
-    call (the reference casts them inside each product; the cast values
-    are the same, so the numbers are too). Weight-only int8 banks
-    (``quantize_decode_params``) pass through as they are: a compute-dtype
-    copy beside them would undo their memory saving. LayerNorm parameters,
+    and biases (``keys``: GPT's by default) cast to the compute dtype
+    once, here, instead of on every call (the reference casts them inside
+    each product; the cast values are the same, so the numbers are too).
+    Weight-only int8 banks (``quantize_decode_params``) pass through as
+    they are: a compute-dtype copy beside them would undo their memory
+    saving. LayerNorm parameters,
     ``wte`` (looked up in the parameter dtype before the cast of the sum)
     and ``wpe`` stay as they are."""
     cdt = torch_dtype(config.dtype)
     blocks = dict(params['blocks'])
-    for k in _CAST_ONCE:
+    for k in keys:
         if not is_weight_only(blocks[k]):
             blocks[k] = blocks[k].to(cdt)
     return dict(params, blocks=blocks)
@@ -374,12 +385,13 @@ def _save_matmuls(ctx, op, *args, **kwargs):
 def _remat(body, config):
     """The configured rematerialisation of a block body (``gpt.py:206``):
     'dots' keeps the matmul outputs (the reference's
-    ``dots_with_no_batch_dims_saveable``), any other policy recomputes
-    the whole block in the backward. Under both, the attention forward
-    (kernel 1) runs again in the backward, as the reference recomputes
-    its custom call."""
+    ``dots_with_no_batch_dims_saveable``), any other policy, or a config
+    without one (``MoEConfig``: ``jax.checkpoint`` of the whole block),
+    recomputes the whole block in the backward. Under both, the attention
+    forward (kernel 1) runs again in the backward, as the reference
+    recomputes its custom call."""
     kw = {}
-    if config.remat_policy == 'dots':
+    if getattr(config, 'remat_policy', None) == 'dots':
         kw['context_fn'] = functools.partial(
             _ckpt.create_selective_checkpoint_contexts, _save_matmuls)
 
@@ -408,15 +420,21 @@ def forward_hidden(params, tokens, config, dropout_seed=None):
         body = _remat(block_fn, config)
     pos = torch.arange(S, device=tokens.device)
     x = (wo_take(params['wte'], tokens.long()) + params['wpe'][pos]).to(cdt)
-    # one unbind per stacked weight: its backward stacks the L gradients
-    # once, where per-layer indexing would add L full-size zero tensors
-    layers = {k: ({p: t.unbind(0) for p, t in w.items()}
-                  if is_weight_only(w) else w.unbind(0))
-              for k, w in params['blocks'].items()}
-    for layer in range(L):
-        bp = {k: kv_layer(w, layer) for k, w in layers.items()}
+    for layer, bp in enumerate(layer_views(params['blocks'])):
         x = body(bp, x, config, seeds[layer])
     return _layer_norm(x, params['lnf_g'], params['lnf_b']).to(cdt)
+
+
+def layer_views(blocks):
+    """The stacked blocks as one parameter dict a layer (int8 banks: both
+    planes), from one unbind per stacked weight: its backward stacks the L
+    gradients once, where per-layer indexing would add L full-size zero
+    tensors."""
+    layers = {k: ({p: t.unbind(0) for p, t in w.items()}
+                  if is_weight_only(w) else w.unbind(0))
+              for k, w in blocks.items()}
+    return [{k: kv_layer(w, layer) for k, w in layers.items()}
+            for layer in range(blocks['ln1_g'].shape[0])]
 
 
 def forward(params, tokens, config, dropout_seed=None):
@@ -490,17 +508,24 @@ def make_train_step(config, optimizer, mesh=None):
     the same dicts are returned. A mesh, mp/sp/pp > 1, grad_quant and fp8
     matmuls raise."""
     _check_trainable(config, mesh)
+    return autograd_step(loss_fn, config, optimizer)
 
+
+def autograd_step(loss, config, optimizer):
+    """``step(params, opt_state, seed, lr, tokens, targets) -> (loss,
+    params, opt_state)`` over ``loss(params, tokens, targets, config,
+    seed)``: its gradients from autograd, then one ``optimizer.
+    functional_apply`` in place. GPT's and MoE's train steps."""
     def step(params, opt_state, seed, lr, tokens, targets):
         leaves = _leaves(params)
         with torch.enable_grad():
             live = [p.detach().requires_grad_(True) for p in leaves]
-            loss = loss_fn(_rebuild(params, live), tokens, targets, config,
-                           seed if config.dropout > 0.0 else None)
-            grads = torch.autograd.grad(loss, live)
+            value = loss(_rebuild(params, live), tokens, targets, config,
+                         seed if config.dropout > 0.0 else None)
+            grads = torch.autograd.grad(value, live)
         params, opt_state = optimizer.functional_apply(
             params, _rebuild(params, grads), opt_state, lr)
-        return loss.detach(), params, opt_state
+        return value.detach(), params, opt_state
 
     return step
 
@@ -588,10 +613,11 @@ def cached_attention(x, q, k, v, k_cache, v_cache, pos, proj_w, proj_b, cdt,
     ``[N, page_size, H_kv, D]`` (or int8 banks: kernel 7) and ``pos`` is a
     [B] int32 vector. Rows past ``valid[b]`` land in the trash page, and
     their attention output is zero (the kernel skips their q tiles);
-    ``flat_idx`` may carry precomputed pool offsets. The reference runs a
-    multi-token call that is not a prefix-cache tail through its flash
-    forward over the fresh rows; attention over the paged cache computes the same rows, so every
-    call here goes through the paged kernel."""
+    ``flat_idx`` may carry the call's ``paged_kv.write_plan``. The
+    reference runs a multi-token call that is not a prefix-cache tail
+    through its flash forward over the fresh rows; attention over the
+    paged cache computes the same rows, so every call here goes through
+    the paged kernel."""
     B, T, h = x.shape
     if page_table is not None:
         paged_write(k_cache, k, page_table, pos, valid, flat_idx)
@@ -628,10 +654,12 @@ def _cached_block(bp, x, k_cache, v_cache, pos, config, page_table=None,
 
 
 def paged_forward_with_cache(params, tokens, cache, pos, config,
-                             last_only=False):
+                             last_only=False, block=_cached_block):
     """Run [B, T] tokens whose absolute positions start at ``pos`` ([B]
     int32, one per slot) through the paged cache: ``cache`` carries the
     page pools ``{'k','v'}`` + ``page_table`` (+ optional ``valid``).
+    ``block`` is the block body (``_cached_block``'s signature), so
+    ``moe_gpt`` reuses this forward with its own, as the reference's does.
     Each layer writes its rows into ``cache['k'][l]`` / ``cache['v'][l]``
     (int8 banks: both planes) in place. Returns (logits, cache) — logits
     [B,T,V], or [B,1,V] with
@@ -649,17 +677,17 @@ def paged_forward_with_cache(params, tokens, cache, pos, config,
     x = (wo_take(params['wte'], tokens.long())
          + params['wpe'][ppos]).to(cdt)
     k_pool, v_pool = cache['k'], cache['v']
-    # every layer writes the same rows: compute their pool offsets once
-    flat_idx = flat_write_indices(page_table, pos_v, T,
-                                  kv_plane(k_pool).shape[2], valid)
+    # every layer writes the same rows: compute their pool offsets (and
+    # which row supplies each one) once
+    n_pages, ps = kv_plane(k_pool).shape[1:3]
+    flat_idx = write_plan(page_table, pos_v, T, ps, n_pages * ps, valid)
     # the attention kernels read valid on the device, as int32
     valid_v = (None if valid is None
                else valid.to(device=dev, dtype=torch.int32).reshape(-1))
     for layer in range(config.num_layers):
-        x, _, _ = _cached_block(_layer(params['blocks'], layer), x,
-                                kv_layer(k_pool, layer),
-                                kv_layer(v_pool, layer), pos_v, config,
-                                page_table, valid_v, flat_idx)
+        x, _, _ = block(_layer(params['blocks'], layer), x,
+                        kv_layer(k_pool, layer), kv_layer(v_pool, layer),
+                        pos_v, config, page_table, valid_v, flat_idx)
     if last_only:
         if valid is not None:
             # per-slot prompt lengths: pick each slot's last REAL row
@@ -676,7 +704,7 @@ def paged_forward_with_cache(params, tokens, cache, pos, config,
 
 
 def forward_with_cache(params, tokens, cache, pos, config: GPTConfig,
-                       last_only=False):
+                       last_only=False, block=_cached_block):
     """Run [B, T] tokens whose absolute positions start at ``pos`` through
     the KV cache. Returns (logits, cache): logits [B,T,V], or [B,1,V] with
     ``last_only``.
@@ -687,10 +715,11 @@ def forward_with_cache(params, tokens, cache, pos, config: GPTConfig,
     passed on as it is (it routes to kernel 1, see ``cached_attention``);
     any other position becomes an int32 [1] tensor on the tokens' device,
     once. Each layer writes its rows into ``cache['k'][l]`` /
-    ``cache['v'][l]`` in place."""
+    ``cache['v'][l]`` in place. ``block``: the block body, as in
+    ``paged_forward_with_cache``."""
     if is_paged(cache):
         return paged_forward_with_cache(params, tokens, cache, pos, config,
-                                        last_only=last_only)
+                                        last_only=last_only, block=block)
     cdt = torch_dtype(config.dtype)
     B, T = tokens.shape
     dev = tokens.device
@@ -703,7 +732,7 @@ def forward_with_cache(params, tokens, cache, pos, config: GPTConfig,
     x = (wo_take(params['wte'], tokens.long())
          + params['wpe'][rows]).to(cdt)
     for layer in range(config.num_layers):
-        x, _, _ = _cached_block(
+        x, _, _ = block(
             _layer(params['blocks'], layer), x,
             kv_layer(cache['k'], layer), kv_layer(cache['v'], layer),
             pos, config, flat_idx=rows)
@@ -872,6 +901,44 @@ def make_generate_loop(config, temperature=0.0, top_k=None, top_p=None,
     return gen
 
 
+def cast_pairs(params, src, keys=_CAST_ONCE):
+    """(cast, source) of every block weight of ``keys`` that
+    ``serving_params`` cast into a tensor of its own (f32 configs keep the
+    source itself; int8 banks pass through)."""
+    return [(params['blocks'][k], src['blocks'][k]) for k in keys
+            if not is_weight_only(src['blocks'][k])
+            and params['blocks'][k].data_ptr() != src['blocks'][k].data_ptr()]
+
+
+def decode_entry(config, params, pairs, b, t0, temperature, top_k, top_p,
+                 seeded, device, capture, prefill, loop):
+    """generate()'s captured prefill for a batch of ``b`` prompts of ``t0``
+    tokens over ``params`` (serving parameters), with the dense cache it
+    writes: one graph copies each (cast, source) of ``pairs`` (weights
+    changed in place are seen), zeroes the cache, runs ``prefill``
+    (``make_decode_fns``' first) and draws the first token. -> {'prefill':
+    the CapturedFn over buffers 'prompt' (and 'seeds' when ``seeded``),
+    'cache', 'params', 'loop': ``loop`` (a ``make_generate_loop``),
+    'lock'}."""
+    cache = init_kv_cache(config, b, device)
+    bufs = {'prompt': torch.zeros((b, t0), dtype=torch.int32,
+                                  device=device)}
+    if seeded:
+        bufs['seeds'] = torch.zeros(b, dtype=torch.int64, device=device)
+
+    def run(prompt, seeds=None):
+        for dst, s in pairs:
+            dst.copy_(s)
+        zero_kv(cache)
+        logits, _ = prefill(params, prompt, cache)
+        return _sample(logits, temperature, top_k, top_p, seeds=seeds,
+                       positions=torch.full((b,), t0 - 1, device=device))
+
+    return {'prefill': CapturedFn(run, bufs, device, capture=capture),
+            'cache': cache, 'params': params, 'loop': loop,
+            'lock': threading.Lock()}
+
+
 class GPTForCausalLM(nn.Module):
     """The reference's layer wrapper (``gpt.py:1136``) as an ``nn.Module``:
     ``model(tokens)`` gives logits, ``model.generate(...)`` decodes.
@@ -1013,34 +1080,12 @@ class GPTForCausalLM(nn.Module):
 
         def build():
             params = self._serving_params()
-            # (cast, source) of every parameter cast into a tensor of its
-            # own (f32 configs keep the source itself)
-            pairs = ([] if self._int8_decode else
-                     [(params['blocks'][k], src['blocks'][k])
-                      for k in _CAST_ONCE if params['blocks'][k].data_ptr()
-                      != src['blocks'][k].data_ptr()])
-            cache = init_kv_cache(cfg, b, dev)
-            prefill, _ = make_decode_fns(cfg)
-            bufs = {'prompt': torch.zeros((b, t0), dtype=torch.int32,
-                                          device=dev)}
-            if seeded:
-                bufs['seeds'] = torch.zeros(b, dtype=torch.int64, device=dev)
-
-            def run(prompt, seeds=None):
-                for dst, s in pairs:
-                    dst.copy_(s)
-                zero_kv(cache)
-                logits, _ = prefill(params, prompt, cache)
-                return _sample(logits, temperature, top_k, top_p,
-                               seeds=seeds, positions=torch.full(
-                                   (b,), t0 - 1, device=dev))
-
-            return {'prefill': CapturedFn(run, bufs, dev,
-                                          capture=self._capture),
-                    'cache': cache, 'params': params,
-                    'loop': make_generate_loop(cfg, temperature, top_k,
-                                               top_p, capture=self._capture),
-                    'lock': threading.Lock()}
+            pairs = [] if self._int8_decode else cast_pairs(params, src)
+            return decode_entry(
+                cfg, params, pairs, b, t0, temperature, top_k, top_p, seeded,
+                dev, self._capture, make_decode_fns(cfg)[0],
+                make_generate_loop(cfg, temperature, top_k, top_p,
+                                   capture=self._capture))
 
         return self._decode_fns.get(key, build)
 

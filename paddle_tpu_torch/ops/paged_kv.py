@@ -163,7 +163,35 @@ def flat_write_indices(page_table, pos, n_rows, page_size, valid=None):
     return flat
 
 
-def paged_write(pages, rows, page_table, pos, valid=None, flat_idx=None):
+def last_writers(flat_idx, pool_rows):
+    """[B*T] int64: for each row of a write, the row of the same write
+    whose value lands at its destination, the last one in row order that
+    writes there (itself, unless another row shares its destination).
+    Rows share one only in the trash page: the prefill's padding rows and
+    the idle slots of a decode step, which all write row 0 and read it
+    back. The CPU (and the reference's scatter on it) applies colliding
+    writes in row order, the last one winning; on the card ``index_copy_``
+    leaves the winner undefined. Writing every colliding row with the
+    last one's value makes the pool the CPU's on both, whatever order the
+    card applies them in: a MoE step routes the idle slots with the real
+    ones, so what they read decides which real tokens keep their
+    experts."""
+    idx = flat_idx.reshape(-1)
+    order = torch.arange(idx.numel(), device=idx.device)
+    last = torch.full((pool_rows,), -1, dtype=torch.int64, device=idx.device)
+    return last.scatter_reduce_(0, idx, order, reduce='amax')[idx]
+
+
+def write_plan(page_table, pos, n_rows, page_size, pool_rows, valid=None):
+    """The destinations of a paged write (``flat_write_indices``) and the
+    row that supplies each one's value (``last_writers``), for a pool of
+    ``pool_rows`` rows (pages x page_size). Every layer of one forward
+    writes the same rows, so the forward computes its plan once."""
+    flat = flat_write_indices(page_table, pos, n_rows, page_size, valid)
+    return flat, last_writers(flat, pool_rows)
+
+
+def paged_write(pages, rows, page_table, pos, valid=None, plan=None):
     """Scatter new KV rows into the (single-layer) page pool IN PLACE (the
     reference returns a new pool and donates the old buffer; here
     ``pages`` itself is written) and return it.
@@ -173,23 +201,22 @@ def paged_write(pages, rows, page_table, pos, valid=None, flat_idx=None):
     reference's ``paged_write`` does); ``rows``: [B, T, H, D] fresh k or v
     rows for absolute positions ``pos[b] + j``; ``page_table``: [B, P_max];
     ``valid``: [B] or None (rows past it go to the trash page).
-    ``flat_idx`` takes indices already computed by ``flat_write_indices``
-    for this call — every layer of one forward writes the same rows, so
-    the forward computes them once."""
+    ``plan`` takes this call's ``write_plan``, already computed. Rows that
+    share a destination all write the last one's value
+    (``last_writers``)."""
     b, t = rows.shape[:2]
     n, ps, h, d = kv_plane(pages).shape
-    if flat_idx is None:
-        flat_idx = flat_write_indices(page_table, pos, t, ps, valid)
-    idx = flat_idx.reshape(-1)
+    if plan is None:
+        plan = write_plan(page_table, pos, t, ps, n * ps, valid)
+    flat, src = plan
+    idx = flat.reshape(-1)
+    rows = rows.reshape(b * t, h, d).index_select(0, src)
     if is_weight_only(pages):
         qr, sr = quantize_kv(rows)
-        pages['int8'].view(n * ps, h, d).index_copy_(
-            0, idx, qr.reshape(b * t, h, d))
-        pages['scale'].view(n * ps, h).index_copy_(0, idx,
-                                                   sr.reshape(b * t, h))
+        pages['int8'].view(n * ps, h, d).index_copy_(0, idx, qr)
+        pages['scale'].view(n * ps, h).index_copy_(0, idx, sr)
         return pages
-    pages.view(n * ps, h, d).index_copy_(
-        0, idx, rows.reshape(b * t, h, d).to(pages.dtype))
+    pages.view(n * ps, h, d).index_copy_(0, idx, rows.to(pages.dtype))
     return pages
 
 

@@ -1,6 +1,6 @@
 """Weight-only int8 numerics for serving, shared by every weight consumer
-of the GPT serving path, and the int8 KV-cache rows of the dense decode
-cache and the page pool.
+of the GPT and MoE serving paths (``wo_bmm``: the MoE expert banks), and
+the int8 KV-cache rows of the dense decode cache and the page pool.
 
 Port of ``paddle_tpu/ops/weight_only.py``. A weight is either a raw tensor
 (``[in, out]`` for matmuls, ``[V, H]`` for the tied embedding) kept in the
@@ -69,6 +69,19 @@ def wo_matmul(y, w, cdt):
     if not is_weight_only(w):
         return y @ w.to(cdt)
     return (y @ w['int8'].to(cdt)) * w['scale'].to(cdt)
+
+
+def wo_bmm(a, w, cdt):
+    """Per-expert product ``[E, C, in] @ w``, where ``w`` is a raw expert
+    bank ``[E, in, out]`` or its weight-only form ``{'int8': [E, in, out],
+    'scale': [E, out]}`` (one scale per expert and output channel, the
+    MoE banks of ``models/moe_gpt.quantize_decode_params``), applied after
+    the product as ``scale[:, None, :]``, as the reference's
+    ``_expert_mm`` does."""
+    if not is_weight_only(w):
+        return torch.bmm(a, w.to(cdt))
+    return (torch.bmm(a, w['int8'].to(cdt))
+            * w['scale'][:, None, :].to(cdt))
 
 
 def wo_take(w, idx):

@@ -14,9 +14,11 @@ scheduler admits new sequences into free slots and retires finished ones
  - ``step``: all ``num_slots`` rows advance one token — inactive slots
    decode garbage into the trash page and their sample is discarded.
 
-Both run GPT's paged forward (models/gpt.py), whose attention is the
-Hopper kernel ``csrc/paged_decode.cu`` on the card (the plain PyTorch
-twin on the CPU): every layer of every prefill and step launches it once.
+Both run the model family's paged forward (``models/gpt.py``, or
+``models/moe_gpt.py`` for a ``MoEConfig``, whose FFN routes each call's
+rows through its experts), whose attention is the Hopper kernel
+``csrc/paged_decode.cu`` on the card (the plain PyTorch twin on the CPU):
+every layer of every prefill and step launches it once.
 
 KV state lives in a paged pool (``ops/paged_kv.py``) that the forward
 writes in place: fixed-size pages in one shared buffer, a per-slot page
@@ -39,8 +41,9 @@ registry, and request-scoped timelines.
 ``config.kv_cache_int8`` stores the pool as int8 banks with per-row
 scales (ops/paged_kv.py); attention then runs kernel 7.
 ``precision='int8_wo'`` quantizes the weights once, at construction
-(``models.gpt.quantize_decode_params``): the four block matrices and the
-tied embedding are served as int8 banks with per-channel scales.
+(the family's ``quantize_decode_params``): GPT's four block matrices, or
+MoE's attention matrices and expert banks, and the tied embedding are
+served as int8 banks with per-channel scales.
 
 With ``prefix_cache=True`` the engine indexes finished sequences' pages in
 a :class:`~.prefix_cache.PrefixCache` (tenant-namespaced trie over
@@ -49,13 +52,16 @@ with those pages pre-mapped and prefills only the uncached tail through
 the SAME captured prefill (the tail's start position is one of its device
 buffers: zero new captures, provable via ``_trace_count``); an exact
 ``(prompt, seed)`` repeat skips the prefill device call entirely and
-replays the recorded first token. Shared pages are refcounted by the
-allocator; mid-page divergence copies the page (copy-on-write) before any
-write, and cache residency is released LRU before any live slot is ever
-evicted for pages.
+replays the recorded first token; when it finds the queue empty and the
+scheduler running, ``submit`` admits it itself, so its first token is
+there before ``submit`` returns (the scheduler thread then only steps it).
+Shared pages are refcounted by the allocator; mid-page divergence copies
+the page (copy-on-write) before any write, and cache residency is
+released LRU before any live slot is ever evicted for pages.
 
 Not ported yet, each raising with its ROADMAP item: mesh sharding
-(``mesh=`` / ``mp>1``) and the telemetry HTTP plane (``telemetry_port=``).
+(``mesh=`` / ``mp>1``; for MoE, expert parallelism, step K) and the
+telemetry HTTP plane (``telemetry_port=``).
 
 Captured device calls (the reference's ``_build_fns``/``_fns_pair``): the
 prefill and the step are each one CUDA graph (``models.decode_cache.
@@ -86,6 +92,7 @@ from .. import fault
 from .. import observability as _obs
 from .. import resolve_device
 from ..models import gpt as _gpt
+from ..models import moe_gpt as _moe
 from ..models.decode_cache import CapturedFn
 from ..ops import paged_kv as _pkv
 from ..ops.weight_only import is_weight_only
@@ -115,14 +122,21 @@ def _not_ported(what, item):
         f'(ROADMAP Queue 1: {item})')
 
 
+def _family(cfg):
+    """The model module serving ``cfg``: ``models.moe_gpt`` for a MoE
+    config (the reference tells them by the config's class name), else
+    ``models.gpt``."""
+    return _moe if 'moe' in type(cfg).__name__.lower() else _gpt
+
+
 def _resolve_generation_model(net, config, forward_fn):
     """(params, config, forward_fn) as the reference's
     ``_resolve_generation_model`` takes them: a model with ``.config``
     (``models.gpt.GPTForCausalLM``, whose ``_decode_params()`` gives the
     parameters it serves: its own, or its int8 snapshot after
     ``enable_int8_decode()``) when ``config`` is None, else a ``(params,
-    config)`` pair; ``forward_fn`` defaults to GPT's
-    ``forward_with_cache``."""
+    config)`` pair; ``forward_fn`` defaults to the family's
+    ``forward_with_cache`` (GPT's, or MoE's for a ``MoEConfig``)."""
     if config is None:
         cfg = getattr(net, 'config', None)
         if cfg is None:
@@ -132,9 +146,7 @@ def _resolve_generation_model(net, config, forward_fn):
                   else net.param_dict())
     else:
         params, cfg = net, config
-    if 'moe' in type(cfg).__name__.lower():
-        raise _not_ported('a MoE model', 'step H, item 9: other models')
-    return params, cfg, forward_fn or _gpt.forward_with_cache
+    return params, cfg, forward_fn or _family(cfg).forward_with_cache
 
 
 def _to_device(tree, dev):
@@ -285,15 +297,15 @@ class _Slot:
 
 
 class GenerationEngine:
-    """Continuous-batching generation over one GPT model.
+    """Continuous-batching generation over one GPT or MoE GPT model.
 
     ``GenerationEngine(model)`` serves a ``models.gpt.GPTForCausalLM`` on
     the model's device; ``GenerationEngine(params, config, device=None)``
     a parameter dict (``models.gpt.init_params`` or ``params_from_numpy``)
-    with its ``models.gpt.GPTConfig``, on ``cuda`` unless ``device='cpu'``
-    is given (raising when there is no card). ``forward_fn`` replaces
-    GPT's ``forward_with_cache`` (same signature) for another model
-    family. ``submit(prompt)`` returns a
+    with its ``models.gpt.GPTConfig`` (or ``models.moe_gpt.init_params``
+    with its ``MoEConfig``), on ``cuda`` unless ``device='cpu'`` is given
+    (raising when there is no card). ``forward_fn`` replaces the family's
+    ``forward_with_cache`` (same signature). ``submit(prompt)`` returns a
     ``GenerationFuture`` immediately; the scheduler thread prefills it
     into a free slot and advances it one token per decode iteration
     alongside every other active sequence. Sampling knobs
@@ -318,6 +330,11 @@ class GenerationEngine:
                 f"GenerationEngine precision must be None/'float32'/"
                 f"'int8_wo', got {precision!r}")
         if mesh is not None or (mp is not None and int(mp) != 1):
+            cfg = config if config is not None else getattr(net, 'config',
+                                                             None)
+            if _family(cfg) is _moe:
+                raise _not_ported('a MoE model over a mesh (mesh= / mp>1)',
+                                  'step K, item 10: expert parallelism')
             raise _not_ported('mesh sharding (mesh= / mp>1)',
                               'item 1, deferred: mesh-sharded serving')
         if telemetry_port is not None:
@@ -329,11 +346,13 @@ class GenerationEngine:
             device = net.device
         self.device = resolve_device(device)
         params = _to_device(params, self.device)
+        fam = _family(cfg)
         if precision == 'int8_wo' and not is_weight_only(params['wte']):
-            # quantized once, here, on the engine's device; a model already
-            # snapshot (enable_int8_decode) passes through untouched
-            params = _gpt.quantize_decode_params(params)
-        self._params = _gpt.serving_params(params, cfg)
+            # quantized once, here, on the engine's device, by the config's
+            # family; a model already snapshot (enable_int8_decode) passes
+            # through untouched
+            params = fam.quantize_decode_params(params)
+        self._params = fam.serving_params(params, cfg)
         self.config = cfg
         self._precision = precision or 'float32'
 
@@ -673,6 +692,16 @@ class GenerationEngine:
                 rec.note('enqueue', depth=len(self._queue))
                 self._queue.append(req)
                 self._note('submitted')
+                if (self._thread is not None and len(self._queue) == 1
+                        and self._prefix is not None
+                        and self._prefix.full_hit(req.tenant, req.prompt,
+                                                  req.seed)):
+                    # a full hit with nobody ahead: admitted and its first
+                    # token emitted here, not after a wake-up of the
+                    # scheduler thread and another of this one (each
+                    # costs more than the admission itself)
+                    for idx in self._admit_locked():
+                        self._skip_prefill_locked(idx)
                 self._cv.notify_all()
         except Exception as e:
             rec.finish('rejected', e)
@@ -802,30 +831,14 @@ class GenerationEngine:
         slot = self._slots[idx]
         if slot is None:
             return
+        if slot.first_tok is not None:
+            with self._cv:
+                if self._slots[idx] is slot:
+                    self._skip_prefill_locked(idx)
+            return
         req = slot.req
         t0 = len(req.prompt)
-        if slot.cow is not None:
-            # copy-on-write: duplicate the shared mid-page before this
-            # sequence writes into it (on the stream the prefill and the
-            # steps run on, so it lands before them)
-            src, dst = slot.cow
-            slot.cow = None
-            _pkv.copy_page(self._pool, src, dst)
-        if slot.first_tok is not None:
-            # full prefix hit: every prompt row is already in mapped pages
-            # and the donor recorded the first sampled token for this seed:
-            # no device call at all, TTFT is the admission latency
-            tok = slot.first_tok
-            req.rec.note('prefill_skip', slot=idx, prompt_len=t0)
-            with self._cv:
-                if self._slots[idx] is not slot:
-                    return
-                slot.last_tok = tok
-                self._emit_locked(slot, tok)
-                if self._slot_finished(slot, tok):
-                    self._finish_slot_locked(idx)
-                self._update_gauges_locked()
-            return
+        self._copy_on_write(slot)
         start = slot.start
         tail = t0 - start               # uncached rows to prefill
         prompt = np.zeros((1, self.prefill_width), np.int32)
@@ -857,6 +870,30 @@ class GenerationEngine:
             if self._slot_finished(slot, tok):
                 self._finish_slot_locked(idx)
             self._update_gauges_locked()
+
+    def _copy_on_write(self, slot):
+        """Duplicate the shared mid-page the slot will write into, before
+        it does (on the stream the prefill and the steps run on, so the
+        copy lands before them)."""
+        if slot.cow is not None:
+            src, dst = slot.cow
+            slot.cow = None
+            _pkv.copy_page(self._pool, src, dst)
+
+    def _skip_prefill_locked(self, idx):
+        """A full prefix hit: every prompt row is already in mapped pages
+        and the donor recorded the first sampled token for this seed, so
+        no device call at all: TTFT is the admission latency."""
+        slot = self._slots[idx]
+        tok = slot.first_tok
+        self._copy_on_write(slot)
+        slot.req.rec.note('prefill_skip', slot=idx,
+                          prompt_len=len(slot.req.prompt))
+        slot.last_tok = tok
+        self._emit_locked(slot, tok)
+        if self._slot_finished(slot, tok):
+            self._finish_slot_locked(idx)
+        self._update_gauges_locked()
 
     def _decode_step(self):
         s = self.num_slots

@@ -56,7 +56,7 @@ def _ints(tokens):
     """Token ids as a list of Python ints (an array converts in one call:
     the admission path runs this on every prompt)."""
     if hasattr(tokens, 'tolist'):
-        tokens = tokens.tolist()
+        return tokens.tolist()      # a 1-D array: already Python ints
     return list(map(int, tokens))
 
 
@@ -166,37 +166,11 @@ class PrefixCache:
         the final page becomes the COW source since the re-prefilled row
         lands mid-page."""
         prompt = _ints(prompt)
-        t0 = len(prompt)
-        ps = self.page_size
         skey = int(seed) & 0xFFFFFFFF
         with self._lock:
             self._tick += 1
-            chain = []
-            parent_key = (tenant,)
-            for i in range(t0 // ps):
-                chunk = tuple(prompt[i * ps:(i + 1) * ps])
-                e = self._entries.get((parent_key, chunk))
-                if e is None:
-                    break
-                chain.append(e)
-                parent_key = e.key
-            match = len(chain) * ps
-            rest = tuple(prompt[match:])
-            next_tok = None
-            cow_entry = None
-            if rest:
-                cow_entry, next_tok = self._best_partial_locked(
-                    parent_key, rest, skey)
-            elif chain:
-                # page-aligned prompt fully covered by full chunks
-                tok = chain[-1].next_tok.get(skey)
-                if tok is not None:
-                    next_tok = int(tok)
-                else:
-                    # unknown first token: re-prefill the last prompt token;
-                    # its KV write lands in the final page -> COW it
-                    cow_entry = chain.pop()
-                    match -= ps
+            chain, match, cow_entry, next_tok = self._match_locked(
+                tenant, prompt, skey)
             if not chain and cow_entry is None:
                 self._n['misses'] += 1
                 return None
@@ -207,7 +181,7 @@ class PrefixCache:
                 covered = match + len(cow_entry.chunk)
                 # leave >= 1 token to prefill unless next_tok skips prefill
                 match = covered if next_tok is not None \
-                    else min(covered, t0 - 1)
+                    else min(covered, len(prompt) - 1)
             pages = [e.page for e in chain]
             if pages:
                 self._alloc.retain(pages)
@@ -217,6 +191,49 @@ class PrefixCache:
             return {'pages': pages, 'match': match,
                     'cow': cow_entry.page if cow_entry is not None else None,
                     'next_tok': next_tok}
+
+    def full_hit(self, tenant, prompt, seed):
+        """Whether ``acquire(tenant, prompt, seed)`` would be a full hit
+        (the whole prompt cached with its first token for ``seed``),
+        touching nothing: no LRU tick, no count, no reference."""
+        with self._lock:
+            return self._match_locked(tenant, _ints(prompt),
+                                      int(seed) & 0xFFFFFFFF)[3] is not None
+
+    def _match_locked(self, tenant, prompt, skey):
+        """``acquire``'s lookup, without its effects: (the matched full
+        entries, the tokens they cover, the partial entry to copy-on-write
+        or None, the recorded first token or None). A page-aligned prompt
+        whose first token is unknown gives up its last full entry as the
+        COW source, so one token re-prefills."""
+        ps = self.page_size
+        chain = []
+        parent_key = (tenant,)
+        for i in range(len(prompt) // ps):
+            chunk = tuple(prompt[i * ps:(i + 1) * ps])
+            e = self._entries.get((parent_key, chunk))
+            if e is None:
+                break
+            chain.append(e)
+            parent_key = e.key
+        match = len(chain) * ps
+        rest = tuple(prompt[match:])
+        next_tok = None
+        cow_entry = None
+        if rest:
+            cow_entry, next_tok = self._best_partial_locked(
+                parent_key, rest, skey)
+        elif chain:
+            # page-aligned prompt fully covered by full chunks
+            tok = chain[-1].next_tok.get(skey)
+            if tok is not None:
+                next_tok = int(tok)
+            else:
+                # unknown first token: re-prefill the last prompt token;
+                # its KV write lands in the final page -> COW it
+                cow_entry = chain.pop()
+                match -= ps
+        return chain, match, cow_entry, next_tok
 
     def _best_partial_locked(self, parent_key, rest, skey):
         """Longest partial child of ``parent_key`` whose chunk is a prefix

@@ -245,8 +245,10 @@ def test_engine_forward_fn_and_what_it_refuses(model):
     class MoEGPTConfig:                 # a MoE family's config
         pass
 
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1: step H'):
-        GenerationEngine(tp, MoEGPTConfig(), device='cpu')
+    # a MoE config is served since the MoE port; over a mesh it still
+    # raises, citing expert parallelism
+    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1: step K'):
+        GenerationEngine(tp, MoEGPTConfig(), device='cpu', mesh=object())
 
 
 def test_engine_eos_truncates_like_reference(model):

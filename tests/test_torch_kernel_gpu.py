@@ -888,3 +888,89 @@ def test_captured_engine_serves_again_after_a_device_failure(cuda):
     assert [f.result(timeout=300) for f in futs] == base
     eng.shutdown()
     assert eng._trace_count == 2
+
+
+# ---------------------------------------------------------------------------
+# MoE: the routing runs with static shapes, so it replays under capture
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype,int8', [(torch.bfloat16, False),
+                                        (torch.float32, False),
+                                        (torch.bfloat16, True)])
+def test_moe_ffn_replays_under_capture_with_fresh_inputs(cuda, dtype, int8):
+    """The gather-form moe_ffn captured once (a host sync, nonzero or a
+    data-dependent shape would fail the capture), then replayed with fresh
+    tokens: each replay equals the eager call on the same tokens, drops
+    and all (capacity factor 1.25)."""
+    from paddle_tpu_torch.models.decode_cache import CapturedFn
+    from paddle_tpu_torch.ops.weight_only import quantize_weight
+    from paddle_tpu_torch.parallel.moe import moe_ffn
+    g = torch.Generator(device='cuda').manual_seed(0)
+    b, s, h, f, e = 8, 64, 128, 256, 8
+    gw = torch.randn((h, e), generator=g, device='cuda').to(dtype)
+    wi = (0.1 * torch.randn((e, h, f), generator=g, device='cuda')).to(dtype)
+    wo = (0.1 * torch.randn((e, f, h), generator=g, device='cuda')).to(dtype)
+    if int8:
+        wi, wo = quantize_weight(wi, 1), quantize_weight(wo, 1)
+
+    def fn(x):
+        return moe_ffn(x, gw, wi, wo, capacity_factor=1.25)
+
+    cap = CapturedFn(fn, {'x': torch.zeros((b, s, h), dtype=dtype,
+                                           device='cuda')}, 'cuda')
+    assert cap.captured
+    for seed in (1, 2, 3):
+        x = torch.randn((b, s, h), generator=g, device='cuda').to(dtype)
+        y, aux = cap.replay(x=x)
+        want_y, want_aux = fn(x)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want_y), seed
+        assert torch.equal(aux, want_aux), seed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('int8', [False, True])
+def test_colliding_paged_writes_leave_the_cpus_pool(cuda, int8):
+    """Idle decode slots all write the trash page's row 0; the card's pool
+    must hold the last row's value, as the CPU's does, whatever order it
+    applies the colliding writes in: against a write of each destination's
+    last row alone (int8 banks: both quantized on the card, where a value
+    may round a step apart from the CPU's), and for bf16 against the
+    CPU's pool."""
+    from paddle_tpu_torch.ops import paged_kv
+    from paddle_tpu_torch.ops.weight_only import init_kv_bank
+    g = torch.Generator().manual_seed(3)
+    b, ps, n = 64, 128, 9
+    table = torch.zeros((b, 8), dtype=torch.int32)
+    table[:8, 0] = torch.arange(1, 9)
+    pos = torch.zeros(b, dtype=torch.int32)
+    pos[:8] = torch.arange(8) * 5
+    rows = torch.randn((b, 1, 4, 64), generator=g).to(torch.bfloat16)
+    pools = {}
+    for dev in ('cpu', 'cuda'):
+        pool = (init_kv_bank((n, ps, 4, 64), dev) if int8 else
+                torch.zeros((n, ps, 4, 64), dtype=torch.bfloat16,
+                            device=dev))
+        for _ in range(3):
+            paged_kv.paged_write(pool, rows.to(dev), table.to(dev),
+                                 pos.to(dev))
+        pools[dev] = pool
+    flat = paged_kv.flat_write_indices(table, pos, 1, ps).reshape(-1)
+    last = {d: i for i, d in enumerate(flat.tolist())}
+    assert len(last) < b                 # the idle slots collide
+    dst = torch.tensor(list(last), device='cuda')
+    src = torch.tensor(list(last.values()), device='cuda')
+    want = (init_kv_bank((n, ps, 4, 64), 'cuda') if int8 else
+            torch.zeros((n, ps, 4, 64), dtype=torch.bfloat16, device='cuda'))
+    # each destination as its own slot: table [page], pos its row
+    paged_kv.paged_write(want, rows.cuda()[src],
+                         (dst // ps).to(torch.int32)[:, None],
+                         (dst % ps).to(torch.int32))
+    torch.cuda.synchronize()
+    for k in (('int8', 'scale') if int8 else (None,)):
+        got = pools['cuda'][k] if int8 else pools['cuda']
+        exp = want[k] if int8 else want
+        assert torch.equal(got, exp), k
+    if not int8:
+        assert torch.equal(pools['cuda'].cpu(), pools['cpu'])

@@ -191,3 +191,38 @@ def test_int8_pool_layout_and_copy_page_match_reference():
         for k in ('int8', 'scale'):
             np.testing.assert_array_equal(got[plane][k].numpy(),
                                           np.asarray(want[plane][k]))
+
+
+@pytest.mark.parametrize('int8', [False, True])
+def test_colliding_writes_leave_the_last_rows_value_like_reference(int8):
+    # idle decode slots: every one writes the trash page's row 0 (its
+    # table all 0, pos 0), with different values, as a MoE step gives them
+    rng = np.random.RandomState(7)
+    ps, b = 4, 5
+    table = np.zeros((b, 3), np.int32)
+    table[1], table[3] = [2, 5, 0], [4, 1, 0]
+    pos = np.array([0, 6, 0, 2, 0], np.int32)
+    rows = rng.randn(b, 1, 2, 3).astype(np.float32)
+    src = tkv.last_writers(tkv.flat_write_indices(
+        torch.from_numpy(table), torch.from_numpy(pos), 1, ps), 6 * ps)
+    assert src.tolist() == [4, 1, 4, 3, 4]
+    if int8:
+        jbank = {'int8': jnp.zeros((6, ps, 2, 3), jnp.int8),
+                 'scale': jnp.zeros((6, ps, 2), jnp.float32)}
+        want = jkv.paged_write(jbank, jnp.asarray(rows), jnp.asarray(table),
+                               jnp.asarray(pos))
+        bank = two.init_kv_bank((6, ps, 2, 3), 'cpu')
+        tkv.paged_write(bank, torch.from_numpy(rows),
+                        torch.from_numpy(table), torch.from_numpy(pos))
+        for k in ('int8', 'scale'):
+            np.testing.assert_array_equal(bank[k].numpy(),
+                                          np.asarray(want[k]))
+        return
+    pool = np.zeros((6, ps, 2, 3), np.float32)
+    want = jkv.paged_write(jnp.asarray(pool), jnp.asarray(rows),
+                           jnp.asarray(table), jnp.asarray(pos))
+    tpool = torch.from_numpy(pool.copy())
+    tkv.paged_write(tpool, torch.from_numpy(rows), torch.from_numpy(table),
+                    torch.from_numpy(pos))
+    np.testing.assert_array_equal(tpool.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(tpool[0, 0].numpy(), rows[4, 0])

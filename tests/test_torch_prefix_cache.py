@@ -9,6 +9,8 @@ for the engine's life); tenants never share a page; the cache yields
 pages under pool pressure, honours its capacity and gives every page back
 on drain + clear; it is off by default and by ``PADDLE_TPU_GEN_PREFIX``."""
 import dataclasses
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -134,6 +136,31 @@ def test_trie_matches_reference_op_for_op():
     assert got[-2][2] == 15                      # every page free again
 
 
+def test_full_hit_check_agrees_with_acquire_and_touches_nothing():
+    """``full_hit`` says whether ``acquire`` would find the whole prompt
+    with its first token, and changes no count, LRU tick or reference."""
+    alloc = tkv.PageAllocator(16)
+    cache = PrefixCache(alloc, PS)
+    toks = list(range(1, 2 * PS + 5))
+    table = np.array(list(alloc.alloc(3)) + [0], np.int32)
+    cache.publish('t', toks, table, len(toks), prompt_len=PS + 3, seed=7,
+                  first_tok=42)
+    alloc.free([int(p) for p in table[:3]])
+    cases = [('t', toks[:PS + 3], 7), ('t', toks[:PS + 3], 7 + 2 ** 32),
+             ('t', toks[:PS + 3], 8), ('t', toks, 0),
+             ('t', toks[:PS] + [99, 98], 0), ('u', toks[:PS + 3], 7),
+             ('t', [5, 6, 7], 0)]
+    before = (cache.stats(), cache._tick, alloc.free_pages)
+    got = [cache.full_hit(t, np.array(p, np.int32), s) for t, p, s in cases]
+    assert (cache.stats(), cache._tick, alloc.free_pages) == before
+    assert got == [True, True, False, False, False, False, False]
+    for (t, p, s), full in zip(cases, got):
+        hit = cache.acquire(t, np.array(p, np.int32), s)
+        assert full == (hit is not None and hit['next_tok'] is not None)
+        if hit:
+            alloc.free(hit['pages'])
+
+
 # ---------------------------------------------------------------------------
 # the engine's reuse path
 # ---------------------------------------------------------------------------
@@ -221,6 +248,81 @@ def test_warm_repeat_captures_nothing_and_skips_the_prefill(model):
     evs = [e['ev'] for r in tobs.recorder().requests(outcome='ok')
            if r.get('engine') == labels['engine'] for e in r['timeline']]
     assert 'prefix_hit' in evs and 'prefill_skip' in evs
+
+
+def test_full_hit_is_admitted_by_submit(model):
+    """With the scheduler running and nobody queued, a full hit's first
+    token is there when ``submit`` returns; its copy-on-write page (the
+    prompt ends mid-page) is copied first, so later repeats, and a
+    one-token request that retires inside ``submit``, stream the same and
+    leave no page behind."""
+    jp, cfg, tp, tcfg = model
+    prompt = _prompt(5, 12)                      # ends mid-page: COW
+    with GenerationEngine(tp, tcfg, device='cpu', **_kw()) as eng:
+        cold = eng.submit(prompt, max_new_tokens=6, seed=3).result(
+            timeout=120)
+        fut = eng.submit(prompt, max_new_tokens=6, seed=3)
+        assert fut._count() >= 1
+        assert fut.result(timeout=120) == cold
+        one = eng.submit(prompt, max_new_tokens=1, seed=3)
+        assert one.done() and one.result() == cold[:1]
+        again = eng.submit(prompt, max_new_tokens=6, seed=3).result(
+            timeout=120)
+        st = eng.stats()
+        eng.clear_prefix_cache()
+        free = eng._alloc.free_pages
+    assert again == cold
+    assert st['prefix_full_hits'] == 3 and st['prefills'] == 1
+    assert free == eng.num_pages - 1
+
+
+def test_concurrent_submits_admit_full_hits_without_losing_pages(model):
+    """12 client threads (more than the cores) submit warm repeats and
+    fresh prompts at once, the interpreter switching threads every 10 us:
+    submits admitting full hits race the scheduler admitting the rest.
+    Every request completes with its length, every warm one opens with
+    its donor's first token, and drain + clear gives every page back."""
+    jp, cfg, tp, tcfg = model
+    warm = [(_prompt(60 + i, 9 + i), i) for i in range(4)]
+    out, errors = {}, []
+    with GenerationEngine(tp, tcfg, device='cpu',
+                          **_kw(num_pages=40)) as eng:
+        first = {s: eng.submit(p, max_new_tokens=4, seed=s).result(
+            timeout=120)[0] for p, s in warm}
+
+        def client(k):
+            try:
+                reqs = warm + [(_prompt(80 + k, 6), 100 + k)]
+                futs = [(s, eng.submit(p, max_new_tokens=4, seed=s))
+                        for p, s in reqs]
+                out[k] = [(s, f.result(timeout=120)) for s, f in futs]
+            except Exception as e:      # noqa: BLE001 - reported below
+                errors.append(e)
+
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-5)
+        try:
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(12)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+        finally:
+            sys.setswitchinterval(old)
+        assert not any(t.is_alive() for t in threads)
+        st = eng.stats()
+        eng.clear_prefix_cache()
+        free = eng._alloc.free_pages
+    assert not errors and len(out) == 12
+    for streams in out.values():
+        for s, toks in streams:
+            assert len(toks) == 4
+            if s in first:
+                assert toks[0] == first[s]
+    assert st['completed'] == len(warm) + 12 * (len(warm) + 1)
+    assert st['prefix_full_hits'] >= 12 * len(warm)
+    assert free == eng.num_pages - 1
 
 
 def test_cross_tenant_never_shares_pages(model):
