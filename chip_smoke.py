@@ -141,7 +141,22 @@ non-zero:
     ragged prompts at capacity factor 8, generate() streams equal, the
     first train step's gradients and a 6-step loss curve within phase
     12's tolerances, and the gather-form moe_ffn on the card within 1e-5
-    of the reference's einsum form on the card at [8, 1024] rows.
+    of the reference's einsum form on the card at [8, 1024] rows;
+20. the eager Paddle API (``import paddle_tpu_torch as paddle``) on the
+    card, no kernel of the seven on its path: (a) every case of
+    tests/torch_op_cases.py (the table the CPU tests hold against the JAX
+    package) card against CPU, integer and bool outputs equal, f32 within
+    1e-5 / 1e-6 elementwise and 1e-4 for reductions, matmul and linalg,
+    the random ops' dtype, range and moments on the card and equal streams
+    under one seed; (b) bench.py _child_eager's chain, 64x64 f32 x 300,
+    eager_ops_per_sec through the port and the same torch ops raw (the gap
+    is the wrapper's cost per op); (c) an eager SGD loop at the bench
+    GPT's MLP widths (x [8192, 1024], W1 [1024, 4096], W2 [4096, 1024],
+    loss.backward(), set_value under no_grad, clear_grad), 2 warm-up and
+    10 timed steps: step ms, busy share, peak memory, the loss falling;
+    at hidden 64 two steps card against CPU within 1e-4; (d) a
+    gradient-penalty step (paddle.grad(create_graph=True)) card against
+    CPU within 1e-5.
 Phase 3 also holds every kernel at the MoE paths' shapes (12 heads of 64).
 Every launch counter is set to 0 just before each main-path run (phases 4,
 6, 7, 9, 11, 13, 14, 15, 17 and 18) and read just after. Then one line of
@@ -2584,6 +2599,239 @@ def phase_moe_card_vs_cpu(moe, GenerationEngine, topt):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the eager Paddle API on the card
+# ---------------------------------------------------------------------------
+EAGER_ITERS = 300                  # bench.py _child_eager's chain length
+MLP = dict(hidden=1024, ffn=4096, rows=8192)   # the bench GPT's MLP widths
+MLP_LR = 2.0
+MLP_STEPS = 10
+
+
+def eager_op_sweep(paddle, cases):
+    """Every case of tests/torch_op_cases.py (the table the CPU tests hold
+    against the JAX package) through the port on the card and on the CPU:
+    integer and bool outputs equal, f32 within the case's tolerance
+    (elementwise 1e-5 / 1e-6, reductions, matmul and linalg 1e-4); then
+    every random op on the card: dtype, range and moments of 10^5 draws,
+    and the same values again under the same seed."""
+    worst = {'ew': 0.0, 'red': 0.0}
+    for c in cases.C:
+        paddle.set_device('gpu')
+        card = cases.flatten(c.run(paddle))
+        paddle.set_device('cpu')
+        host = cases.flatten(c.run(paddle))
+        try:
+            worst[c.kind] = max(worst[c.kind], cases.compare(c, card, host))
+        except AssertionError as e:
+            raise AssertionError(f'phase 20 case {c.name}: card vs CPU: '
+                                 f'{e}') from None
+    paddle.set_device('gpu')
+    for name, (call, *_) in cases.RANDOM.items():
+        paddle.seed(5)
+        first = cases.check_random(name, call(paddle))
+        if first._value.device.type != 'cuda':
+            raise AssertionError(f'phase 20 random {name} left the card')
+        paddle.seed(5)
+        if not np.array_equal(call(paddle).numpy(), first.numpy()):
+            raise AssertionError(f'phase 20 random {name}: another stream '
+                                 'under the same seed')
+    return {'cases': len(cases.C), 'random_ops': len(cases.RANDOM),
+            'max_abs_err': worst}
+
+
+def eager_rung(paddle):
+    """bench.py _child_eager's chain, (x.matmul(b) + x).multiply(b).tanh()
+    over 64x64 f32, 300 iterations, through the port and as raw torch ops
+    on the same tensors, in turns (port, raw, raw, port): ops/s of each
+    and the wrapper's cost per op; the two chains' results equal."""
+    rng = np.random.RandomState(0)
+    a = paddle.to_tensor(rng.rand(64, 64).astype('float32'))
+    b = paddle.to_tensor(rng.rand(64, 64).astype('float32'))
+    bv = b._value
+
+    def chain(x):
+        return (x.matmul(b) + x).multiply(b).tanh()
+
+    def raw(x):
+        return torch.tanh(torch.mul(torch.add(torch.matmul(x, bv), x), bv))
+
+    def run(step, x, read):
+        read(step(x))                    # warm caches
+        t0 = time.perf_counter()
+        for _ in range(EAGER_ITERS):
+            x = step(x)
+        out = read(x)
+        return out, 4 * EAGER_ITERS / (time.perf_counter() - t0)
+
+    rates = {'port': [], 'raw': []}
+    outs = {}
+    for who in ('port', 'raw', 'raw', 'port'):
+        if who == 'port':
+            out, rate = run(chain, a, lambda t: t.numpy())
+        else:
+            out, rate = run(raw, a._value, lambda t: t.cpu().numpy())
+        outs[who] = out
+        rates[who].append(rate)
+    if not np.array_equal(outs['port'], outs['raw']):
+        raise AssertionError('phase 20: the eager chain through the port '
+                             'differs from the same torch ops')
+    port_rate, raw_rate = (float(np.median(rates['port'])),
+                           float(np.median(rates['raw'])))
+    return {'eager_ops_per_sec': port_rate, 'raw_torch_ops_per_sec':
+            raw_rate, 'runs': rates,
+            'wrapper_us_per_op': 1e6 / port_rate - 1e6 / raw_rate}
+
+
+def busy_over_steps(fn, n=3):
+    """The device's busy share over n calls of fn, from torch.profiler: one
+    call first, outside the window (a window's first launches can go
+    missing: one full run of phase 20 lost the forward of a one-step
+    window, 20 kernels of 36), then the window, marked by record_function
+    and closed by a synchronize. Device time: the kernels and copies that
+    start inside it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+        with record_function('busy_window'):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    events = p.events()
+    win = next(e for e in events if e.name == 'busy_window')
+    t0, t1 = win.time_range.start, win.time_range.end
+    dev, kernels = {}, 0
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name != 'busy_window'      # its own device range
+                and t0 <= e.time_range.start <= t1):
+            dev[e.name] = (dev.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3)
+            kernels += 1
+    total = sum(dev.values())
+    if total <= 0:
+        raise AssertionError('the profiler saw no device time')
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    return {'window_ms': (t1 - t0) / 1e3, 'device_ms': total,
+            'busy_share': total / ((t1 - t0) / 1e3), 'steps': n,
+            'kernels_per_step': kernels / n,
+            'top': [(k[:90], v / n) for k, v in top]}
+
+
+def eager_mlp(paddle, cases, card):
+    """An eager training loop at the bench GPT's MLP widths: x [8192, 1024]
+    f32, W1 [1024, 4096], W2 [4096, 1024] with biases; each step the loss
+    in paddle ops, loss.backward(), an SGD update under paddle.no_grad()
+    through set_value, clear_grad(); 2 warm-up and 10 timed steps, the
+    loss falling; then the same at hidden 64, two steps on the card and on
+    the CPU within 1e-4."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    weights, x, y = cases.mlp_data(**MLP)
+    paddle.set_device('gpu')
+    params = [paddle.to_tensor(w, stop_gradient=False) for w in weights]
+    tx, ty = paddle.to_tensor(x), paddle.to_tensor(y)
+    losses = [cases.mlp_step(paddle, params, tx, ty, MLP_LR)
+              for _ in range(2)]
+    timed_losses, wall = timed(lambda: [
+        cases.mlp_step(paddle, params, tx, ty, MLP_LR)
+        for _ in range(MLP_STEPS)])
+    vals = [float(v) for v in losses + timed_losses]
+    if not all(math.isfinite(v) for v in vals) or not vals[-1] < vals[0]:
+        raise AssertionError(f'phase 20: the MLP loss did not fall: {vals}')
+    prof = busy_over_steps(lambda: cases.mlp_step(paddle, params, tx, ty,
+                                                  MLP_LR))
+    h, f, r = MLP['hidden'], MLP['ffn'], MLP['rows']
+    flops = 2 * r * h * f * 5         # 2 forward products, 3 backward
+    res = {'step_ms': wall * 1e3 / MLP_STEPS, 'losses': vals,
+           'peak_mem_gb': (torch.cuda.max_memory_allocated() - base) / 1e9,
+           'tflops': flops * MLP_STEPS / wall / 1e12, 'profile': prof}
+    del params, tx, ty
+    torch.cuda.empty_cache()
+
+    small = {}
+    weights, x, y = cases.mlp_data(64, 256, 512, seed=1)
+    for dev in ('gpu', 'cpu'):
+        paddle.set_device(dev)
+        params = [paddle.to_tensor(w, stop_gradient=False) for w in weights]
+        tx, ty = paddle.to_tensor(x), paddle.to_tensor(y)
+        ls = [float(cases.mlp_step(paddle, params, tx, ty, MLP_LR))
+              for _ in range(2)]
+        small[dev] = ls + [v for p in params for v in p.numpy().ravel()]
+    err = np.abs(np.subtract(small['gpu'], small['cpu'])).max() / max(
+        1.0, np.abs(small['cpu']).max())
+    if not err <= 1e-4:
+        raise AssertionError(f'phase 20: MLP at hidden 64, card vs CPU '
+                             f'after two steps {err:.3e} > 1e-4')
+    res['hidden64_card_vs_cpu'] = float(err)
+    paddle.set_device('gpu')
+    return res
+
+
+def eager_penalty(paddle, cases):
+    """tests/test_double_grad.py:51-68's gradient-penalty step through
+    paddle.grad(create_graph=True) on the card and on the CPU: the input
+    gradient, the penalty and the weight's gradient within 1e-5."""
+    out = {}
+    for dev in ('gpu', 'cpu'):
+        paddle.set_device(dev)
+        out[dev] = [t.numpy() for t in cases.gradient_penalty(paddle)]
+    err = max(float(np.abs(a - b).max()) for a, b in zip(out['gpu'],
+                                                         out['cpu']))
+    if not err <= 1e-5:
+        raise AssertionError(f'phase 20: gradient penalty card vs CPU '
+                             f'{err:.3e} > 1e-5')
+    paddle.set_device('gpu')
+    return {'max_abs_err': err, 'penalty': float(out['gpu'][1])}
+
+
+def phase_eager(card):
+    """Phase 20: the eager Paddle API (``import paddle_tpu_torch as
+    paddle``) on the card: (a) the op sweep card against CPU, (b) the
+    eager rung, (c) an eager training loop at the MLP widths, (d) a
+    gradient-penalty step."""
+    import paddle_tpu_torch as paddle
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), 'tests'))
+    import torch_op_cases as cases
+    t0 = time.perf_counter()
+    res = {'sweep': eager_op_sweep(paddle, cases)}
+    sw = res['sweep']
+    print(f'  (a) op sweep: {sw["cases"]} cases card against CPU, largest '
+          f'error elementwise {sw["max_abs_err"]["ew"]:.3e} (tol 1e-5 rel '
+          f'/ 1e-6 abs), reductions/matmul/linalg '
+          f'{sw["max_abs_err"]["red"]:.3e} (tol 1e-4); {sw["random_ops"]} '
+          'random ops held on the card', flush=True)
+    res['rung'] = rung = eager_rung(paddle)
+    print(f'  (b) eager rung (64x64 f32 chain, {EAGER_ITERS} iterations): '
+          f'eager_ops_per_sec {rung["eager_ops_per_sec"]:.0f}, raw torch '
+          f'{rung["raw_torch_ops_per_sec"]:.0f} ops/s, wrapper '
+          f'{rung["wrapper_us_per_op"]:.2f} us per op [{card}]', flush=True)
+    res['mlp'] = mlp = eager_mlp(paddle, cases, card)
+    prof = mlp['profile']
+    print(f'  (c) eager MLP step [{MLP["rows"]}, {MLP["hidden"]}] x '
+          f'[{MLP["hidden"]}, {MLP["ffn"]}] f32: {mlp["step_ms"]:.2f} ms a '
+          f'step ({mlp["tflops"]:.1f} TFLOP/s), busy '
+          f'{100 * prof["busy_share"]:.1f}% ({prof["device_ms"]:.2f} of '
+          f'{prof["window_ms"]:.2f} ms over {prof["steps"]} steps, '
+          f'{prof["kernels_per_step"]:.0f} kernels a step), peak '
+          f'{mlp["peak_mem_gb"]:.2f} GB above the phase\'s start, loss '
+          f'{mlp["losses"][0]:.5f} -> {mlp["losses"][-1]:.5f}; hidden 64 '
+          f'card vs CPU {mlp["hidden64_card_vs_cpu"]:.2e} [{card}]',
+          flush=True)
+    print('    device ms a step by kernel:', flush=True)
+    for name, ms in prof['top'][:5]:
+        print(f'    {ms:9.3f} ms  {name}', flush=True)
+    res['penalty'] = pen = eager_penalty(paddle, cases)
+    res['seconds'] = time.perf_counter() - t0
+    print(f'  (d) gradient penalty card vs CPU {pen["max_abs_err"]:.2e} '
+          f'(tol 1e-5); phase 20 took {res["seconds"]:.1f} s', flush=True)
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--report', default=None,
@@ -2685,6 +2933,8 @@ def main(argv=None):
     print('phase 19: MoE card against CPU at 2 layers', flush=True)
     report['moe_card_vs_cpu'] = phase_moe_card_vs_cpu(moe, GenerationEngine,
                                                       topt)
+    print('phase 20: the eager Paddle API on the card', flush=True)
+    report['eager'] = phase_eager(card)
 
     gen, fwd = report['generate'], report['forward']
     train = report['train']['launches']

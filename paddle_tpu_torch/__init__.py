@@ -20,6 +20,13 @@ whose attention backward runs ``csrc/flash_bwd.cu``.
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 with no card and no explicit CPU request they raise (``resolve_device``)
 instead of quietly running on the host.
+
+The eager Paddle API runs on the card too: ``import paddle_tpu_torch as
+paddle`` gives ``paddle.to_tensor``, ``Tensor.backward()``,
+``paddle.grad``, ``PyLayer`` and the ``paddle.tensor`` op library over
+torch's autograd, with the JAX package's module paths (``core/``,
+``autograd/``, ``device/``, ``tensor/``). ``paddle.set_device('cpu')``
+runs it on the host.
 """
 import torch
 
@@ -39,3 +46,24 @@ def resolve_device(device=None):
     if dev.type not in ('cuda', 'cpu'):
         raise ValueError(f'unsupported device {dev}; use cuda or cpu')
     return dev
+
+
+from .core.dtype import (  # noqa: E402,F401
+    bool, uint8, int8, int16, int32, int64, float16, bfloat16, float32,
+    float64, complex64, complex128)
+from .core.tensor import Tensor, to_tensor  # noqa: E402,F401
+from .autograd import no_grad, enable_grad  # noqa: E402,F401
+from .tensor import *  # noqa: E402,F401,F403
+from .tensor import fft, signal  # noqa: E402,F401
+from .tensor.random import seed, get_rng_state, set_rng_state  # noqa: E402,F401
+from .tensor import linalg  # noqa: E402,F401
+from . import autograd  # noqa: E402,F401
+from . import device  # noqa: E402,F401
+from .autograd import grad  # noqa: E402,F401
+from .device import (  # noqa: E402,F401
+    CPUPlace, CUDAPlace, TPUPlace, device_count, get_device,
+    is_compiled_with_cuda, set_device)
+from .compat_api import (  # noqa: E402,F401
+    VarBase, add_n, create_parameter, crop_tensor, diagonal, dtype,
+    get_default_dtype, in_dygraph_mode, scatter_, set_default_dtype,
+    set_grad_enabled, set_printoptions, t, tanh_, unique_consecutive, unstack)

@@ -43,7 +43,8 @@ def _forbidden(name):
 
 
 @pytest.mark.parametrize('path', sorted(PORT.rglob('*.py')) +
-                         [ROOT / 'chip_smoke.py'],
+                         [ROOT / 'chip_smoke.py',
+                          ROOT / 'tests' / 'torch_op_cases.py'],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = [n for n in _imports(path) if _forbidden(n)]
@@ -54,6 +55,18 @@ def test_the_scan_covers_the_training_modules():
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob('*.py')}
     assert {'optimizer/__init__.py', 'optimizer/optimizer.py',
             'ops/xent.py', 'ops/flash_attention.py'} <= scanned
+
+
+def test_the_scan_covers_the_eager_core():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob('*.py')}
+    assert {'core/dtype.py', 'core/tensor.py', 'core/dispatch.py',
+            'autograd/__init__.py', 'device/__init__.py', 'compat_api.py',
+            'tensor/__init__.py', 'tensor/register.py', 'tensor/math.py',
+            'tensor/manipulation.py', 'tensor/linalg.py', 'tensor/random.py',
+            'tensor/search.py', 'tensor/stat.py', 'tensor/logic.py',
+            'tensor/creation.py', 'tensor/einsum.py', 'tensor/attribute.py',
+            'tensor/inplace_and_array.py', 'tensor/fft.py',
+            'tensor/signal.py'} <= scanned
 
 
 def test_the_scan_sees_forbidden_imports(tmp_path):
