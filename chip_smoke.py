@@ -156,10 +156,46 @@ non-zero:
     10 timed steps: step ms, busy share, peak memory, the loss falling;
     at hidden 64 two steps card against CPU within 1e-4; (d) a
     gradient-penalty step (paddle.grad(create_graph=True)) card against
-    CPU within 1e-5.
+    CPU within 1e-5;
+21. fp8_matmul on the card (torch._scaled_mm on the fp8 tensor cores:
+    forward e4m3 x e4m3, dx e5m2 x e4m3, dw e4m3 x e5m2) against its twin
+    (the reference's quantize-dequantize product) at the bench GPT's four
+    block products over [8192, 1024] rows in bf16 from a warm meta: out,
+    dx and dw per row within 2^-6, the new scales and histories equal;
+    times of the product alone, a bf16 torch.matmul of the same shape, the
+    forward's quantize ops, the fp8 forward and the twin's, with TFLOP/s
+    and the bound (flops / 1,979 TFLOP/s or bytes / 3.35 TB/s);
+22. bench.py _child_fp8_train as it is: the bench GPT (bf16, flash, remat
+    'dots', xent_chunk 8192), [8, 1024], AdamW(1e-4), matmul_precision
+    'none' then 'fp8', 2 warm-up and 8 timed steps each:
+    base_tokens_per_sec, fp8_tokens_per_sec, fp8_speedup; step ms, peak
+    memory, a profiled window's busy share and device ms by kind (fp8
+    GEMMs, bf16 GEMMs, attention, the rest), host syncs a step (the fp8
+    step no more than the plain one); flash_fwd 48, flash_bwd_dq 24,
+    flash_bwd_dkv 24 a step, all tensor-core; 12 x 24 fp8 products a step
+    launch a kernel (4 matmuls x forward, dx, dw; the profiler's
+    aten::_scaled_mm calls) and 16 x 24 are requested (fp8.scaled_mm_calls:
+    the 'dots' recompute's forward products, answered by its cache);
+    losses finite and falling;
+23. phase 18's MoE train step with matmul_precision='fp8': kernels 1-3 as
+    phase 18, 8 x 12 fp8 products a step (qkv and proj: forward, the
+    whole-block recompute, dx, dw), the loss falling; tokens/s, step ms;
+24. fp8 training card against CPU at 2 layers in f32 (GPT as phase 12,
+    MoE as phase 19) from a warm fp8 state: each fp8 product of the first
+    step run again from its recorded inputs on the card and by the CPU
+    twin, out, dx, dw and the step's gradient of that weight within 5e-3
+    of the largest value, the product's and the step's new scales and
+    histories equal to the twin's; end to end the first loss within 1e-3
+    (relative), the new w scales 1e-5, each gradient's cosine >= 0.9 and
+    norm ratio <= 1.25, each of 6 steps' losses against the CPU's at the
+    card's parameters and state within 1e-3 (MoE 2e-3); the fp8 and
+    full-width curves of tests/test_precision.py's _gpt_curve setup on the
+    card within 5e-3 (at hidden 1024 the gap printed); auto_cast(dtype=
+    'float8') over paddle.matmul card against CPU, GradScaler.check_fp8 a
+    CUDA bool with no sync (sync debug mode 'error').
 Phase 3 also holds every kernel at the MoE paths' shapes (12 heads of 64).
 Every launch counter is set to 0 just before each main-path run (phases 4,
-6, 7, 9, 11, 13, 14, 15, 17 and 18) and read just after. Then one line of
+6, 7, 9, 11, 13, 14, 15, 17, 18, 22 and 23) and read just after. Then one line of
 kernel records (JSON), and the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the rest of the repository beside it, it
@@ -1167,9 +1203,11 @@ def profile_serving(eng, reqs, new):
 
 def profile_window(fn):
     """fn() once under torch.profiler: the window's wall time (to a
-    synchronize), the device time summed over every kernel and copy, and
-    the kernels that took most of it. The profiler adds host time of its
-    own, so the busy share it gives is a lower bound."""
+    synchronize), the device time summed over every kernel and copy, the
+    kernels that took most of it, the device ms each op's own kernels
+    took and how many calls of each op launched any (a call the
+    selective-checkpoint cache answers launches none). The profiler adds
+    host time of its own, so the busy share it gives is a lower bound."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
@@ -1177,17 +1215,23 @@ def profile_window(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev, n = {}, 0
+    dev, by_op, ran, n = {}, {}, {}, 0
     for e in p.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dev[e.name] = (dev.get(e.name, 0.0)
                           + e.time_range.elapsed_us() / 1e3)
             n += 1
+        else:      # the device time of the kernels each op launched itself
+            us = e.self_device_time_total
+            if us:
+                by_op[e.name] = by_op.get(e.name, 0.0) + us / 1e3
+                ran[e.name] = ran.get(e.name, 0) + 1
     total = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     return {'window_ms': wall * 1e3, 'device_ms': total,
             'busy_share': total / (wall * 1e3), 'kernels': n,
-            'top': [(k[:90], v) for k, v in top], 'by_name': dev}
+            'top': [(k[:90], v) for k, v in top], 'by_name': dev,
+            'by_op': by_op, 'ops_run': ran}
 
 
 def kernel_ms(prof, *names):
@@ -2832,6 +2876,618 @@ def phase_eager(card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 21-24: fp8 training
+# ---------------------------------------------------------------------------
+PEAK_FP8 = 1979e12          # dense fp8 tensor-core rate, H100 SXM
+FP8_ROWS = 8 * 1024         # the bench rung's [8, 1024] batch
+FP8_PRODUCTS = (('qkv', 1024, 3072), ('proj', 1024, 1024),
+                ('fc', 1024, 4096), ('out', 4096, 1024))
+FP8_ITERS = 20
+
+
+def fp8_run(fn, x, w, gy, meta):
+    """out, dx, dw and the new meta leaves of one fp8 product and its
+    backward from the output gradient ``gy``."""
+    x, w = x.detach().requires_grad_(), w.detach().requires_grad_()
+    m = {r: {k: t.detach().clone().requires_grad_() for k, t in v.items()}
+         for r, v in meta.items()}
+    leaves = [m[r][k] for r in 'xwg' for k in ('scale', 'ahist')]
+    out = fn(x, w, m)
+    grads = torch.autograd.grad(out, [x, w] + leaves, gy)
+    return [out.detach()] + list(grads)
+
+
+def rate(flops, ms):
+    return flops / (ms * 1e-3) / 1e12
+
+
+def phase_fp8_matmul(card):
+    """Phase 21: fp8_matmul on the card (torch._scaled_mm) against its twin
+    (the reference's quantize-dequantize product, run on the card) at the
+    bench GPT's four block products over [8192, 1024] rows, bf16, from a
+    warm meta: out, dx and dw per output row within 2^-6, the new (scale,
+    ahist) of x, w and g equal; then the times of one product."""
+    from paddle_tpu_torch.quantization import fp8
+    g = torch.Generator(device='cuda').manual_seed(21)
+    res = {}
+    for name, k, n in FP8_PRODUCTS:
+        x = torch.randn((8, 1024, k), generator=g, device='cuda').to(
+            torch.bfloat16)
+        w = (torch.randn((k, n), generator=g, device='cuda') * 0.02).to(
+            torch.bfloat16)
+        gy = (torch.randn((8, 1024, n), generator=g, device='cuda')
+              * 1e-4).to(torch.bfloat16)
+        # a warm meta: one twin step from a cold one
+        cold = fp8.init_matmul_meta(device='cuda')
+        new = iter(fp8_run(fp8.fp8_matmul_reference, x, w, gy, cold)[3:])
+        meta = {r: {kk: next(new).detach() for kk in ('scale', 'ahist')}
+                for r in 'xwg'}
+        calls = fp8.scaled_mm_calls
+        got = fp8_run(fp8.fp8_matmul, x, w, gy, meta)
+        if fp8.scaled_mm_calls - calls != 3:
+            raise AssertionError(f'{name}: {fp8.scaled_mm_calls - calls} '
+                                 '_scaled_mm calls, want 3')
+        want = fp8_run(fp8.fp8_matmul_reference, x, w, gy, meta)
+        errs = {o: kernel_err(a, b, 0.0 if o == 'out' else GRAD_FLOOR)[1]
+                for o, a, b in zip(('out', 'dx', 'dw'), got[:3], want[:3])}
+        state_equal = all(torch.equal(a, b) for a, b in zip(got[3:],
+                                                              want[3:]))
+        # times: the product alone, bf16 matmul, the forward's quantize
+        # ops, the fp8 forward and the twin's forward
+        x2 = x.reshape(-1, k)
+        sx, sw = meta['x']['scale'], meta['w']['scale']
+        qx = fp8._quantize(x2, fp8.E4M3, sx)
+        qw_t = fp8._quantize(w, fp8.E4M3, sw).t().contiguous()
+
+        def prep(_):
+            fp8._quantize(x2, fp8.E4M3, sx)
+            fp8._quantize(w, fp8.E4M3, sw).t().contiguous()
+            fp8.compute_scale(fp8.update_history(meta['x']['ahist'], x),
+                              fp8.E4M3)
+            fp8.compute_scale(fp8.update_history(meta['w']['ahist'], w),
+                              fp8.E4M3)
+        with torch.no_grad():
+            t = {'scaled_mm': cuda_ms(lambda _: torch._scaled_mm(
+                    qx, qw_t.t(), scale_a=sx, scale_b=sw,
+                    out_dtype=torch.bfloat16, use_fast_accum=False),
+                    FP8_ITERS),
+                 'bf16_matmul': cuda_ms(lambda _: torch.matmul(x2, w),
+                                        FP8_ITERS),
+                 'quantize_ops': cuda_ms(prep, FP8_ITERS),
+                 'fp8_forward': cuda_ms(
+                     lambda _: fp8.fp8_matmul(x, w, meta), FP8_ITERS),
+                 'twin_forward': cuda_ms(
+                     lambda _: fp8.fp8_matmul_reference(x, w, meta),
+                     FP8_ITERS)}
+        flops = 2.0 * FP8_ROWS * k * n
+        mm_bytes = FP8_ROWS * k + k * n + 2 * FP8_ROWS * n
+        bound = max(flops / PEAK_FP8, mm_bytes / HBM_BYTES_PER_S) * 1e3
+        bf16_bound = max(flops / PEAK_OPS_PER_S[torch.bfloat16],
+                         2 * mm_bytes / HBM_BYTES_PER_S) * 1e3
+        res[name] = {'k': k, 'n': n, 'gflop': flops / 1e9, 'errors': errs,
+                     'state_equal': state_equal, 'ms': t,
+                     'tflops': {kk: rate(flops, v) for kk, v in t.items()},
+                     'bound_ms': bound, 'bf16_bound_ms': bf16_bound}
+        print(f'  {name} [{FP8_ROWS}, {k}] x [{k}, {n}] ({flops / 1e9:.1f} '
+              f'GFLOP): out {errs["out"]:.2e}, dx {errs["dx"]:.2e}, dw '
+              f'{errs["dw"]:.2e} (tol {TOL[torch.bfloat16]:.4g}), new state '
+              f'{"equal" if state_equal else "DIFFERENT"}', flush=True)
+        print('    ms (TFLOP/s): ' + ', '.join(
+            f'{kk} {v:.4f} ({rate(flops, v):.0f})' for kk, v in t.items())
+            + f'; fp8 bound {bound:.4f} ms, bf16 bound {bf16_bound:.4f} ms '
+            f'[{card}]', flush=True)
+        if not (max(errs.values()) <= TOL[torch.bfloat16] and state_equal):
+            raise AssertionError(f'fp8_matmul {name} card vs twin: {errs}, '
+                                 f'state equal {state_equal}')
+        del x, w, gy, x2, qx, qw_t
+    torch.cuda.empty_cache()
+    return res
+
+
+def count_syncs(fn):
+    """Host syncs fn() makes, counted by torch's sync debug mode."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    return sum('synchroniz' in str(w.message) for w in caught)
+
+
+def device_ms_by_kind(prof):
+    """A profiled window's device ms split into the fp8 GEMMs (the kernels
+    aten::_scaled_mm launched), the other GEMMs (aten::mm / addmm / bmm:
+    bf16 products, the f32 LM-head loss), the attention kernels and the
+    rest (elementwise, reductions, copies: the quantize ops). cuBLAS's
+    kernel names do not all say their dtype, so the GEMMs go by the op
+    that launched them."""
+    ops = prof['by_op']
+    out = {'fp8_gemm': ops.get('aten::_scaled_mm', 0.0),
+           'other_gemm': sum(ops.get(o, 0.0) for o in (
+               'aten::mm', 'aten::addmm', 'aten::bmm', 'aten::baddbmm')),
+           'attention': sum(ms for name, ms in prof['by_name'].items()
+                            if 'flash_' in name)}
+    out['rest'] = prof['device_ms'] - sum(out.values())
+    return out
+
+
+def fp8_train_run(mod, cfg, topt, kernels, per_step, fp8_per_step, b, s,
+                  lr, n_timed, what, card):
+    """One train rung: ``mod.make_train_step`` at ``cfg`` from seed-0
+    weights, one counted step, one more warm-up, ``n_timed`` timed steps;
+    launches of kernels 1-3 and the fp8 products requested
+    (``fp8.scaled_mm_calls``) held per step; then a profiled window of 2
+    steps, in which the ``aten::_scaled_mm`` calls that launched a kernel
+    are held, and the syncs of one step. ``fp8_per_step``: (launched,
+    requested) a step."""
+    from paddle_tpu_torch.quantization import fp8
+    torch.cuda.reset_peak_memory_stats()
+    params = mod.init_params(cfg, torch.Generator(device='cuda').manual_seed(
+        0), 'cuda')
+    opt = topt.AdamW(learning_rate=lr)
+    st = {'p': params, 's': opt.functional_init(params),
+          'f8': (mod.init_fp8_state(cfg, 'cuda')
+                 if cfg.matmul_precision == 'fp8' else None)}
+    step = mod.make_train_step(cfg, opt)
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).to('cuda')
+    losses = []
+
+    def one():
+        if st['f8'] is None:
+            loss, st['p'], st['s'] = step(st['p'], st['s'], 0, lr, toks, toks)
+        else:
+            loss, st['p'], st['s'], st['f8'] = step(
+                st['p'], st['s'], st['f8'], 0, lr, toks, toks)
+        losses.append(loss)
+
+    zero_launches(kernels)
+    calls = fp8.scaled_mm_calls
+    one()
+    torch.cuda.synchronize()
+    expect_launches(f'one {what} step', launch_counts(kernels), per_step)
+    launched, requested = fp8_per_step
+    got = fp8.scaled_mm_calls - calls
+    if got != requested:
+        raise AssertionError(f'{what}: {got} fp8 products requested a step, '
+                             f'want {requested}')
+    one()
+    zero_launches(kernels)
+    calls = fp8.scaled_mm_calls
+    _, wall = timed(lambda: [one() for _ in range(n_timed)])
+    launches = launch_counts(kernels)
+    expect_launches(f'{n_timed} timed {what} steps', launches,
+                    {k: n_timed * v for k, v in per_step.items()})
+    tc = expect_tensor_core(f'{n_timed} timed {what} steps', kernels)
+    products = fp8.scaled_mm_calls - calls
+    if products != n_timed * requested:
+        raise AssertionError(f'{what}: {products} fp8 products requested in '
+                             f'{n_timed} steps, want {n_timed * requested}')
+    vals = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in vals) or not vals[-1] < vals[0]:
+        raise AssertionError(f'{what}: losses {vals}')
+    prof = profile_window(lambda: [one() for _ in range(2)])
+    ran = prof['ops_run'].get('aten::_scaled_mm', 0)
+    if ran != 2 * launched:
+        raise AssertionError(f'{what}: {ran} aten::_scaled_mm calls launched '
+                             f'a kernel in 2 profiled steps, want '
+                             f'{2 * launched}')
+    syncs = count_syncs(one)
+    torch.cuda.synchronize()
+    res = {'losses': vals, 'step_ms': wall * 1e3 / n_timed,
+           'tokens_per_s': b * s * n_timed / wall,
+           'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9,
+           'launches': launches, 'tensor_core_launches': tc,
+           'fp8_launched_per_step': ran / 2,
+           'fp8_requested_per_step': requested, 'syncs_per_step': syncs,
+           'profile': {k: v for k, v in prof.items()
+                       if k not in ('by_name', 'by_op', 'ops_run')},
+           'device_ms_by_kind': {k: v / 2 for k, v in
+                                 device_ms_by_kind(prof).items()}}
+    kinds = res['device_ms_by_kind']
+    print(f'  {what}: {res["step_ms"]:.1f} ms a step, '
+          f'{res["tokens_per_s"]:.0f} tokens/s, peak '
+          f'{res["peak_mem_gb"]:.2f} GB, {syncs} syncs a step, fp8 products '
+          f'{ran // 2} launched and {requested} requested a step [{card}]',
+          flush=True)
+    print(f'    profiled 2 steps: {prof["window_ms"] / 2:.1f} ms a step, '
+          f'device {prof["device_ms"] / 2:.1f} ms '
+          f'({100 * prof["busy_share"]:.1f}% busy); device ms a step: '
+          + ', '.join(
+              f'{k} {v:.2f}' for k, v in kinds.items()), flush=True)
+    print(f'    losses {" ".join(f"{x:.4f}" for x in vals)}', flush=True)
+    for name, ms in prof['top']:
+        print(f'    {ms / 2:9.3f} ms a step  {name}', flush=True)
+    del st
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_fp8_train(gpt, topt, kernels, card):
+    """Phase 22: bench.py _child_fp8_train as it is: the bench GPT (bf16,
+    flash, remat 'dots', xent_chunk 8192), B=8, S=1024, AdamW(1e-4),
+    matmul_precision 'none' then 'fp8', 2 warm-up and 8 timed steps
+    each: base_tokens_per_sec, fp8_tokens_per_sec, fp8_speedup. fp8
+    launches 12 x L products a step (4 matmuls x forward, dx, dw); the
+    'dots' recompute requests the 4 forward ones again and the policy's
+    cache answers them: 16 x L requested."""
+    res = {}
+    for prec in ('none', 'fp8'):
+        cfg = bench_config(gpt, remat=True, matmul_precision=prec)
+        L = cfg.num_layers
+        per_step = {'flash_fwd': 2 * L, 'flash_bwd_dq': L,
+                    'flash_bwd_dkv': L}
+        res[prec] = fp8_train_run(
+            gpt, cfg, topt, kernels, per_step,
+            (12 * L, 16 * L) if prec == 'fp8' else (0, 0), 8,
+            cfg.max_seq_len, 1e-4, 8,
+            f"train rung, matmul_precision='{prec}'", card)
+    none, f8 = res['none'], res['fp8']
+    rung = {'base_tokens_per_sec': none['tokens_per_s'],
+            'fp8_tokens_per_sec': f8['tokens_per_s'],
+            'fp8_speedup': f8['tokens_per_s'] / none['tokens_per_s']}
+    res['rung'] = rung
+    kf, kn = f8['device_ms_by_kind'], none['device_ms_by_kind']
+    quant = kf['rest'] - kn['rest']
+    res['quantize_device_ms_per_step'] = quant
+    print('  ' + json.dumps(rung), flush=True)
+    print(f'  device ms a step, fp8 against none: fp8 GEMMs {kf["fp8_gemm"]:.2f}'
+          f', other GEMMs {kf["other_gemm"]:.2f} against '
+          f'{kn["other_gemm"]:.2f} (the LM-head loss stays), the rest '
+          f'{kf["rest"]:.2f} against {kn["rest"]:.2f} (the quantize ops '
+          f'~{quant:.2f}); syncs a step {f8["syncs_per_step"]} against '
+          f'{none["syncs_per_step"]}', flush=True)
+    if f8['syncs_per_step'] > none['syncs_per_step']:
+        raise AssertionError(f'the fp8 step syncs {f8["syncs_per_step"]} '
+                             f'times, the plain one {none["syncs_per_step"]}')
+    return res
+
+
+def phase_moe_fp8_train(moe, topt, kernels, card):
+    """Phase 23: phase 18's MoE train step with matmul_precision='fp8':
+    qkv and proj on the fp8 tensor cores, each run forward, again in the
+    whole-block recompute, dx and dw: 8 x L products a step."""
+    cfg = moe.MoEConfig(remat=True, matmul_precision='fp8')
+    L = cfg.num_layers
+    per_step = {'flash_fwd': 2 * L, 'flash_bwd_dq': L, 'flash_bwd_dkv': L}
+    return fp8_train_run(moe, cfg, topt, kernels, per_step, (8 * L, 8 * L),
+                         8, cfg.max_seq_len, 2e-4, 4, 'moe fp8 train step',
+                         card)
+
+
+def to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_dev(v, dev) for k, v in tree.items()}
+    return tree.to(dev).clone()
+
+
+def fp8_grads(mod, cfg, params, f8, t, y):
+    """One fp8 backward as the train step takes it: (the loss, the
+    parameters' gradients, the new fp8 state's leaves)."""
+    from paddle_tpu_torch.models import gpt
+    live = [x.detach().clone().requires_grad_() for x in gpt._leaves(params)]
+    live_m = [x.detach().clone().requires_grad_() for x in gpt._leaves(f8)]
+    loss = mod.loss_fn(gpt._rebuild(params, live), t, y, cfg,
+                       fp8_state=gpt._rebuild(f8, live_m))
+    grads = torch.autograd.grad(loss, live + live_m)
+    return (loss.item(), [g.cpu() for g in grads[:len(live)]],
+            [g.cpu() for g in grads[len(live):]])
+
+
+def rel_err(a, b):
+    """max |a - b| over the largest |b|."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def grad_agreement(got, want):
+    """Each gradient against its reference: (the least cosine, the least
+    and the largest norm ratio) over the leaves; an all-zero or flipped
+    gradient gives a cosine of 0 or below."""
+    import torch.nn.functional as F
+    cos = [F.cosine_similarity(a.flatten().double(), b.flatten().double(),
+                               0).item() for a, b in zip(got, want)]
+    ratio = [(a.norm() / b.norm().clamp_min(1e-30)).item()
+             for a, b in zip(got, want)]
+    return min(cos), min(ratio), max(ratio)
+
+
+def noised(tree, seed):
+    """``tree``'s leaves times (1 + FP8_NOISE x a unit normal)."""
+    from paddle_tpu_torch.models import gpt
+    g = torch.Generator().manual_seed(seed)
+    return gpt._rebuild(tree, [
+        x * (1 + FP8_NOISE * torch.randn(x.shape, generator=g))
+        for x in gpt._leaves(tree)])
+
+
+def fp8_products(fn):
+    """fn() with every fp8_matmul call recorded: its x, w and meta as
+    they came in, and the output gradient its backward was handed. A
+    call whose output takes no gradient (a remat recompute's) is
+    dropped; -> (fn()'s result, the records in call order)."""
+    from paddle_tpu_torch.quantization import fp8
+    recs, orig = [], fp8.fp8_matmul
+
+    def record(x, w, meta):
+        out = orig(x, w, meta)
+        r = {'x': x.detach().clone(), 'w': w.detach().clone(),
+             'meta': {k: {kk: t.detach().clone() for kk, t in v.items()}
+                      for k, v in meta.items()}}
+        recs.append(r)
+        if out.requires_grad:
+            out.register_hook(lambda g: r.__setitem__('gy',
+                                                      g.detach().clone()))
+        return out
+    fp8.fp8_matmul = record
+    try:
+        res = fn()
+    finally:
+        fp8.fp8_matmul = orig
+    return res, [r for r in recs if 'gy' in r]
+
+
+def fp8_product_checks(recs, params, grads, new_state):
+    """Each recorded product of the card's step, run again on the card
+    and by the CPU twin from its recorded inputs: out, dx and dw against
+    the twin (of each one's largest value), its new (scale, ahist) of x,
+    w and g equal to the twin's; and the step's plumbing: the model's
+    gradient of that weight against the twin's dw, the model's new state
+    of that layer and matmul equal to the twin's. -> {(name, layer):
+    errors}."""
+    from paddle_tpu_torch.quantization import fp8
+    out = {}
+    for r in recs:
+        wc = r['w'].cpu()
+        (name, layer), = [(n, l) for n in new_state['blocks']
+                          for l, w in enumerate(params['blocks'][f'{n}_w'])
+                          if torch.equal(w, wc)]
+        got = fp8_run(fp8.fp8_matmul, r['x'], r['w'], r['gy'], r['meta'])
+        want = fp8_run(fp8.fp8_matmul_reference, r['x'].cpu(), wc,
+                       r['gy'].cpu(), to_dev(r['meta'], 'cpu'))
+        model = [new_state['blocks'][name][role][k][layer]
+                 for role in 'xwg' for k in ('scale', 'ahist')]
+        out[(name, layer)] = {
+            **{o: rel_err(a.cpu(), b) for o, a, b in zip(
+                ('out', 'dx', 'dw'), got[:3], want[:3])},
+            'state_equal': all(torch.equal(a.cpu(), b)
+                               for a, b in zip(got[3:], want[3:])),
+            'model_dw': rel_err(grads['blocks'][f'{name}_w'][layer],
+                                want[2]),
+            'model_state_equal': all(torch.equal(a, b)
+                                     for a, b in zip(model, want[3:]))}
+    return out
+
+
+# phase 24's bars, card against CPU. Held per product from the same
+# inputs (the first step's): out, dx, dw and the step's gradient of each
+# fp8 weight within 5e-3 of the largest value, the new state exact.
+# Held end to end: the first loss 1e-3 relative, the new w scales 1e-5
+# (amaxes of the same weights); the first step's gradients by cosine and
+# norm ratio; each of 6 steps' loss against the CPU's loss at the card's
+# parameters and state (the CPU follows the card: an fp8 forward turns
+# one ulp into an e4m3 step, so free-running curves part). MoE's top-k
+# routing flips on ties, so its step losses take twice GPT's bar. The
+# x and g scales end to end are printed only: each product's are exact.
+FP8_BARS = {'product': 5e-3, 'loss': 1e-3, 'w_scale': 1e-5,
+            'grad_cosine': 0.9, 'grad_norm_ratio': 1.25,
+            'step_loss': {'gpt': 1e-3, 'moe': 2e-3}}
+# relative noise on the CPU's parameters, the yardstick printed beside
+# each end-to-end error: the size of the card's fp8 products' own error
+# against exact products (2.5e-4 to 5e-4 a row at K 128-4096 in f32 on
+# the H100: the tensor cores' fp8 accumulation)
+FP8_NOISE = 2.0 ** -12
+
+
+def fp8_card_vs_cpu(mod, cfg, params, topt, toks, tgts, what):
+    """From a warm fp8 state: the first step's products, gradients and
+    new state, and 6 steps' losses, card against CPU (FP8_BARS); the
+    CPU at noised parameters (FP8_NOISE) is printed beside each
+    end-to-end error. The warm state is the CPU's after one backward a
+    matmul the gradient crosses, plus one: from the cold state (every
+    scale 1) e5m2 flushes gradients below 2^-16 to zero and each
+    matmul's recorded g amax is wrong until the one above it was
+    scaled."""
+    from paddle_tpu_torch.models import gpt
+    t_cpu, y_cpu = torch.from_numpy(toks), torch.from_numpy(tgts)
+    t, y = t_cpu.to('cuda'), y_cpu.to('cuda')
+    cold = warm = mod.init_fp8_state(cfg, 'cpu')
+    n_products = len(cold['blocks']) * cfg.num_layers
+    for _ in range(n_products + 1):
+        _, _, new = fp8_grads(mod, cfg, params, warm, t_cpu, y_cpu)
+        warm = gpt._rebuild(cold, new)
+    card, recs = fp8_products(lambda: fp8_grads(
+        mod, cfg, to_dev(params, 'cuda'), to_dev(warm, 'cuda'), t, y))
+    if len(recs) != n_products:
+        raise AssertionError(f'{what}: {len(recs)} fp8 products recorded, '
+                             f'want {n_products}')
+    cpu = fp8_grads(mod, cfg, params, warm, t_cpu, y_cpu)
+    noisy = fp8_grads(mod, cfg, noised(params, 11), warm, t_cpu, y_cpu)
+    prods = fp8_product_checks(recs, params, gpt._rebuild(params, card[1]),
+                               gpt._rebuild(cold, card[2]))
+
+    def end_to_end(got):
+        st, ref = gpt._rebuild(cold, got[2]), gpt._rebuild(cold, cpu[2])
+        cos, lo, hi = grad_agreement(got[1], cpu[1])
+        return {'loss': abs(got[0] - cpu[0]) / abs(cpu[0]),
+                'grad_cosine': cos,
+                'grad_norm_ratio': max(hi, 1 / max(lo, 1e-30)),
+                **{f'{r}_scale': max(rel_err(st['blocks'][n][r]['scale'],
+                                             ref['blocks'][n][r]['scale'])
+                                     for n in ref['blocks'])
+                   for r in 'xwg'}}
+    errs, spread = end_to_end(card), end_to_end(noisy)
+
+    p, f8 = to_dev(params, 'cuda'), to_dev(warm, 'cuda')
+    opt = topt.AdamW(learning_rate=1e-3, weight_decay=0.01)
+    state = opt.functional_init(p)
+    step = mod.make_train_step(cfg, opt)
+    curve, step_err, step_spread = [], [], []
+    for i in range(6):
+        pc, fc = to_dev(p, 'cpu'), to_dev(f8, 'cpu')
+        loss, p, state, f8 = step(p, state, f8, 0, 1e-3, t, y)
+        with torch.no_grad():
+            want = mod.loss_fn(pc, t_cpu, y_cpu, cfg, fp8_state=fc).item()
+            near = mod.loss_fn(noised(pc, 20 + i), t_cpu, y_cpu, cfg,
+                               fp8_state=fc).item()
+        curve.append(float(loss))
+        step_err.append(abs(curve[-1] - want) / abs(want))
+        step_spread.append(abs(near - want) / abs(want))
+
+    worst = {k: max(e[k] for e in prods.values())
+             for k in ('out', 'dx', 'dw', 'model_dw')}
+    exact = all(e['state_equal'] and e['model_state_equal']
+                for e in prods.values())
+    bars = FP8_BARS
+    ok = (max(worst.values()) <= bars['product'] and exact
+          and errs['loss'] <= bars['loss']
+          and errs['w_scale'] <= bars['w_scale']
+          and errs['grad_cosine'] >= bars['grad_cosine']
+          and errs['grad_norm_ratio'] <= bars['grad_norm_ratio']
+          and max(step_err) <= bars['step_loss'][what]
+          and curve[-1] < curve[0])
+    res = {'products': {f'{n}[{l}]': e for (n, l), e in prods.items()},
+           'products_worst': worst, 'products_state_exact': exact,
+           'errors': errs, 'cpu_noise_spread': spread,
+           'step_loss_errors': step_err,
+           'step_loss_cpu_noise_spread': step_spread, 'curve': curve,
+           'bars': dict(bars, step_loss=bars['step_loss'][what])}
+    print(f'  {what} fp8 card vs cpu (2 layers, f32, warm state): '
+          f'{n_products} products from their recorded inputs: out '
+          f'{worst["out"]:.2e}, dx {worst["dx"]:.2e}, dw {worst["dw"]:.2e}, '
+          f'the step\'s weight gradients {worst["model_dw"]:.2e} (bar '
+          f'{bars["product"]:.0e}), new state and the step\'s '
+          f'{"exact" if exact else "DIFFERENT"}', flush=True)
+    print(f'    end to end (cpu at {FP8_NOISE:.2e} parameter noise in '
+          f'brackets): loss {errs["loss"]:.2e} [{spread["loss"]:.2e}] (bar '
+          f'{bars["loss"]:.0e}), w scales {errs["w_scale"]:.2e} (bar '
+          f'{bars["w_scale"]:.0e}), grads cosine >= '
+          f'{errs["grad_cosine"]:.4f} [{spread["grad_cosine"]:.4f}] (bar '
+          f'{bars["grad_cosine"]}), norm ratio <= '
+          f'{errs["grad_norm_ratio"]:.4f} [{spread["grad_norm_ratio"]:.4f}] '
+          f'(bar {bars["grad_norm_ratio"]}); x scales {errs["x_scale"]:.2e} '
+          f'[{spread["x_scale"]:.2e}], g scales {errs["g_scale"]:.2e} '
+          f'[{spread["g_scale"]:.2e}] (printed only)', flush=True)
+    print(f'    6 steps: card {" ".join(f"{x:.5f}" for x in curve)}; each '
+          f'against the cpu at its parameters '
+          f'{" ".join(f"{x:.1e}" for x in step_err)} '
+          f'[{" ".join(f"{x:.1e}" for x in step_spread)}] (bar '
+          f'{bars["step_loss"][what]:.0e}) {"OK" if ok else "FAIL"}',
+          flush=True)
+    if not ok:
+        raise AssertionError(f'{what} fp8 card vs cpu: {res}')
+    return res
+
+
+def gpt_curve(gpt, topt, precision, dev, steps=6, **over):
+    """tests/test_precision.py's _gpt_curve on the port: vocab 64, hidden
+    32, 2 layers, 4 heads, f32, no flash, no remat, AdamW(1e-3), one
+    [8, 16] batch from a seed, 6 steps."""
+    kw = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+              max_seq_len=32, dtype='float32', use_flash=False, remat=False)
+    kw.update(over)
+    cfg = gpt.GPTConfig(matmul_precision=precision, **kw)
+    params = gpt.init_params(cfg, torch.Generator().manual_seed(0),
+                             'cpu')
+    params = {k: ({bk: bv.to(dev) for bk, bv in v.items()}
+                  if k == 'blocks' else v.to(dev))
+              for k, v in params.items()}
+    opt = topt.AdamW(learning_rate=1e-3)
+    state = opt.functional_init(params)
+    step = gpt.make_train_step(cfg, opt)
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (8, min(16, cfg.max_seq_len))).astype(
+            np.int32)).to(dev)
+    f8 = gpt.init_fp8_state(cfg, dev) if precision == 'fp8' else None
+    out = []
+    for _ in range(steps):
+        if f8 is None:
+            loss, params, state = step(params, state, 0, 1e-3, toks, toks)
+        else:
+            loss, params, state, f8 = step(params, state, f8, 0, 1e-3,
+                                           toks, toks)
+        out.append(float(loss))
+    return out
+
+
+def phase_fp8_card_vs_cpu(gpt, moe, topt):
+    """Phase 24: fp8 training card against CPU at 2 layers in f32 (GPT as
+    phase 12, MoE as phase 19); test_precision.py's fp8-vs-full-width
+    curve on the card; auto_cast(dtype='float8') and GradScaler.check_fp8
+    on the card."""
+    import paddle_tpu_torch as paddle
+    res = {}
+    cfg = bench_config(gpt, num_layers=2, dtype='float32', max_seq_len=256,
+                       matmul_precision='fp8')
+    params = gpt.init_params(cfg, torch.Generator().manual_seed(3), 'cpu')
+    rng = np.random.RandomState(5)
+    toks = rng.randint(0, cfg.vocab_size, (2, 256)).astype(np.int32)
+    tgts = rng.randint(0, cfg.vocab_size, (2, 256)).astype(np.int32)
+    res['gpt'] = fp8_card_vs_cpu(gpt, cfg, params, topt, toks, tgts, 'gpt')
+    mcfg = moe.MoEConfig(num_layers=2, dtype='float32', max_seq_len=256,
+                         matmul_precision='fp8')
+    mparams = moe.init_params(mcfg, torch.Generator().manual_seed(3), 'cpu')
+    mt = rng.randint(0, mcfg.vocab_size, (2, 256)).astype(np.int32)
+    my = rng.randint(0, mcfg.vocab_size, (2, 256)).astype(np.int32)
+    res['moe'] = fp8_card_vs_cpu(moe, mcfg, mparams, topt, mt, my, 'moe')
+
+    fp8c, base = (gpt_curve(gpt, topt, p, 'cuda') for p in ('fp8', 'none'))
+    gap = max(abs(a - b) for a, b in zip(fp8c, base))
+    wide = [gpt_curve(gpt, topt, p, 'cuda', 3, vocab_size=32768,
+                      hidden_size=1024, num_heads=16, max_seq_len=256)
+            for p in ('fp8', 'none')]
+    wide_gap = max(abs(a - b) for a, b in zip(*wide))
+    res['curve'] = {'fp8': fp8c, 'none': base, 'gap': gap,
+                    'hidden1024_gap': wide_gap}
+    print(f'  test_precision curve on the card (hidden 32, 6 steps): fp8 '
+          f'{" ".join(f"{x:.5f}" for x in fp8c)}, none '
+          f'{" ".join(f"{x:.5f}" for x in base)}, gap {gap:.2e} (tol 5e-3);'
+          f' at hidden 1024, 3 steps: gap {wide_gap:.2e} (printed only)',
+          flush=True)
+    if not (gap <= 5e-3 and base[-1] < base[0]):
+        raise AssertionError(f'fp8 curve on the card: {res["curve"]}')
+
+    # amp on the card: float8 auto_cast against the CPU, check_fp8 no sync
+    x = np.random.RandomState(7).randn(64, 96).astype('float32')
+    y = np.random.RandomState(8).randn(96, 48).astype('float32')
+    outs = {}
+    prev = paddle.device._current
+    try:
+        for dev in ('gpu', 'cpu'):
+            paddle.set_device(dev)
+            with paddle.amp.auto_cast(dtype='float8'):
+                o = paddle.matmul(paddle.to_tensor(x), paddle.to_tensor(y))
+            if str(o.dtype) != 'torch.bfloat16':
+                raise AssertionError(f'auto_cast float8 on {dev}: {o.dtype}')
+            outs[dev] = torch.from_numpy(o.numpy())
+    finally:
+        paddle.device._current = prev
+    amp_err = kernel_err(outs['gpu'], outs['cpu'])[1]
+    state = gpt.init_fp8_state(cfg, 'cuda')
+    state['blocks']['fc']['g']['ahist'][1, 0] = float('inf')
+    torch.cuda.synchronize()
+    scaler = paddle.amp.GradScaler()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        flag = scaler.check_fp8(state)
+        flag = flag | flag
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    on_card = flag.is_cuda and flag.dtype == torch.bool and bool(flag)
+    res['amp'] = {'float8_matmul_card_vs_cpu': amp_err,
+                  'check_fp8_cuda_bool_no_sync': on_card}
+    print(f'  amp on the card: auto_cast(float8) matmul card vs cpu '
+          f'{amp_err:.2e} of each row (tol {TOL[torch.bfloat16]:.4g}); '
+          f'check_fp8 a CUDA bool with no sync: {on_card}', flush=True)
+    if not (amp_err <= TOL[torch.bfloat16] and on_card):
+        raise AssertionError(f'amp on the card: {res["amp"]}')
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--report', default=None,
@@ -2935,12 +3591,25 @@ def main(argv=None):
                                                       topt)
     print('phase 20: the eager Paddle API on the card', flush=True)
     report['eager'] = phase_eager(card)
+    print('phase 21: fp8_matmul (torch._scaled_mm) against its twin at the '
+          'bench GPT\'s products', flush=True)
+    report['fp8_matmul'] = phase_fp8_matmul(card)
+    print('phase 22: the fp8 train rung at full width', flush=True)
+    report['fp8_train'] = phase_fp8_train(gpt, topt, counters, card)
+    print('phase 23: the MoE fp8 train step at full width', flush=True)
+    report['moe_fp8_train'] = phase_moe_fp8_train(moe, topt, counters, card)
+    print('phase 24: fp8 training card against CPU at 2 layers, and amp',
+          flush=True)
+    report['fp8_card_vs_cpu'] = phase_fp8_card_vs_cpu(gpt, moe, topt)
 
     gen, fwd = report['generate'], report['forward']
     train = report['train']['launches']
     wo, gwo = report['engine_int8_wo'], report['generate_int8_wo']
     pfx = report['prefix']
     ms, mt = report['moe_serving'], report['moe_train']['launches']
+    f8t = [report['fp8_train']['none']['launches'],
+           report['fp8_train']['fp8']['launches'],
+           report['moe_fp8_train']['launches']]
     main_path = {
         'paged_decode': report['engine']['launches']
         + wo['bf16_pool']['launches'] + pfx['bf16']['launches']
@@ -2956,9 +3625,12 @@ def main(argv=None):
         + gwo['int8']['launches'] + ms['generate int8 cache']['launches'],
         'flash_fwd': fwd['forward_launches']['flash_fwd']
         + fwd['launches']['flash_fwd'] + train['flash_fwd']
-        + gwo['window']['launches']['flash_fwd'] + mt['flash_fwd'],
-        'flash_bwd_dq': train['flash_bwd_dq'] + mt['flash_bwd_dq'],
-        'flash_bwd_dkv': train['flash_bwd_dkv'] + mt['flash_bwd_dkv'],
+        + gwo['window']['launches']['flash_fwd'] + mt['flash_fwd']
+        + sum(r['flash_fwd'] for r in f8t),
+        'flash_bwd_dq': train['flash_bwd_dq'] + mt['flash_bwd_dq']
+        + sum(r['flash_bwd_dq'] for r in f8t),
+        'flash_bwd_dkv': train['flash_bwd_dkv'] + mt['flash_bwd_dkv']
+        + sum(r['flash_bwd_dkv'] for r in f8t),
     }
     timed_shape = {'paged_decode': 'decode_T1',
                    'paged_decode_int8': 'decode_T1',

@@ -25,8 +25,13 @@ The eager Paddle API runs on the card too: ``import paddle_tpu_torch as
 paddle`` gives ``paddle.to_tensor``, ``Tensor.backward()``,
 ``paddle.grad``, ``PyLayer`` and the ``paddle.tensor`` op library over
 torch's autograd, with the JAX package's module paths (``core/``,
-``autograd/``, ``device/``, ``tensor/``). ``paddle.set_device('cpu')``
-runs it on the host.
+``autograd/``, ``device/``, ``tensor/``), and ``paddle.amp``
+(``auto_cast`` in bfloat16, float16 and float8, ``GradScaler``).
+``paddle.set_device('cpu')`` runs it on the host.
+
+fp8 training: ``GPTConfig(matmul_precision='fp8')`` (and MoE's) runs the
+block matmuls through ``quantization/fp8.py``'s delayed-scaling product,
+on the card's fp8 tensor cores.
 """
 import torch
 
@@ -67,3 +72,4 @@ from .compat_api import (  # noqa: E402,F401
     VarBase, add_n, create_parameter, crop_tensor, diagonal, dtype,
     get_default_dtype, in_dygraph_mode, scatter_, set_default_dtype,
     set_grad_enabled, set_printoptions, t, tanh_, unique_consecutive, unstack)
+from . import amp, quantization  # noqa: E402,F401

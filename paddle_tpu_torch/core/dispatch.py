@@ -17,8 +17,11 @@ float16), and two tensors of different dtypes meet at
 ``torch.promote_types`` whatever their ranks (torch's own rule would keep
 ``float16 * float32 0-d`` in float16; JAX gives float32).
 
-Left out (ROADMAP Queue 1): the amp cast hook (item 7) and the static
-replay stamping (item 12).
+``op`` calls ``amp_cast_hook`` (installed by ``amp/__init__.py``) with
+the body's name and its unwrapped positional arguments before the body, as
+the reference does (``paddle_tpu/core/dispatch.py:140-153``).
+
+Left out (ROADMAP Queue 1): the static replay stamping (item 12).
 """
 from __future__ import annotations
 
@@ -61,14 +64,22 @@ def apply_op(pure_fn, *args, **kwargs):
                             **{k: _unwrap(v) for k, v in kwargs.items()}))
 
 
+# amp/__init__.py installs a hook here that casts white-listed op inputs
+amp_cast_hook = None
+
+
 def op(pure_fn):
     """Decorator: expose a plain function over torch tensors as an eager
     op over Tensors (its ``name=`` argument is Paddle's, and ignored)."""
+    name = pure_fn.__name__
 
     @functools.wraps(pure_fn)
     def wrapper(*args, **kwargs):
         kwargs.pop('name', None)
-        return wrap_out(pure_fn(*[_unwrap(a) for a in args],
+        args = [_unwrap(a) for a in args]
+        if amp_cast_hook is not None:
+            args = amp_cast_hook(name, args)
+        return wrap_out(pure_fn(*args,
                                 **{k: _unwrap(v) for k, v in kwargs.items()}))
     wrapper.pure = pure_fn
     return wrapper

@@ -44,8 +44,14 @@ Weight-only int8 serving (``quantize_decode_params``,
 tied embedding as ``{'int8', 'scale'}`` banks (ops/weight_only.py), which
 every weight consumer takes in place of a raw tensor.
 
-Not ported yet (ROADMAP Queue 1): fp8 matmuls (item 5), quantized gradient
-all-reduce and tensor, sequence and pipeline parallelism (item 10).
+fp8 training (``matmul_precision='fp8'``): the four block matmuls run
+``quantization/fp8.py``'s e4m3/e5m2 delayed-scaling product (the fp8
+tensor cores on the card), with the scaling state (``init_fp8_state``)
+threaded through ``forward_hidden`` / ``loss_fn`` and the train step
+``step(params, opt_state, fp8_state, seed, lr, tokens, targets)``.
+
+Not ported yet (ROADMAP Queue 1): quantized gradient all-reduce and
+tensor, sequence and pipeline parallelism (item 10).
 """
 import dataclasses
 import functools
@@ -69,6 +75,7 @@ from ..ops.paged_kv import init_paged_pool, paged_write, write_plan
 from ..ops.weight_only import (init_kv_bank, is_weight_only, kv_layer,
                                kv_plane, quantize_kv, quantize_weight,
                                wo_lm_head, wo_matmul, wo_take)
+from ..quantization import fp8 as _fp8
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -301,24 +308,33 @@ def _layer_norm(x, g, b, eps=1e-5):
     return (x - m) * torch.rsqrt(v + eps) * g + b
 
 
-def _block_qkv(bp, y, nh, hd, cdt, kvh=None):
+def _mm(y, w, cdt, fp8_meta=None):
+    """One block matmul: raw or weight-only through ``wo_matmul``, or,
+    given an fp8 scaling meta, the e4m3/e5m2 delayed-scaling product over
+    the weight cast to the compute dtype first (``gpt.py:288``)."""
+    if fp8_meta is None:
+        return wo_matmul(y, w, cdt)
+    return _fp8.fp8_matmul(y, w.to(cdt), fp8_meta)
+
+
+def _block_qkv(bp, y, nh, hd, cdt, kvh=None, fp8_meta=None):
     """Fused QKV projection. Packing is per KV HEAD: [q_0..q_{g-1}|k|v]
     (g = query group size; g=1 is classic head-major MHA)."""
     B, S, _ = y.shape
     kvh = nh if kvh is None else kvh
     g = nh // kvh
-    qkv = wo_matmul(y, bp['qkv_w'], cdt) + bp['qkv_b'].to(cdt)
+    qkv = _mm(y, bp['qkv_w'], cdt, fp8_meta) + bp['qkv_b'].to(cdt)
     qkv = qkv.reshape(B, S, kvh, g + 2, hd)
     q = qkv[..., :g, :].reshape(B, S, nh, hd)
     return q, qkv[..., g, :], qkv[..., g + 1, :]
 
 
-def _block_mlp(bp, y, cdt):
+def _block_mlp(bp, y, cdt, fp8_fc=None, fp8_out=None):
     """fc -> gelu (tanh approximation) -> out projection (bias added by
     the caller)."""
-    y = F.gelu(wo_matmul(y, bp['fc_w'], cdt) + bp['fc_b'].to(cdt),
+    y = F.gelu(_mm(y, bp['fc_w'], cdt, fp8_fc) + bp['fc_b'].to(cdt),
                approximate='tanh')
-    return wo_matmul(y, bp['out_w'], cdt)
+    return _mm(y, bp['out_w'], cdt, fp8_out)
 
 
 def _attention(q, k, v, config, drop_seed=None):
@@ -352,19 +368,22 @@ def _attention(q, k, v, config, drop_seed=None):
     return torch.einsum('bhqk,bkhd->bqhd', p, v)
 
 
-def block_fn(bp, x, config, drop_seed=None):
-    """One transformer block of the plain forward (``gpt.py:320``, mp=1,
-    no fp8). bp: this layer's params (no leading L dim); x: [B, S, H];
-    ``drop_seed``: this layer's u32 dropout seed, or None."""
+def block_fn(bp, x, config, drop_seed=None, fp8_meta=None):
+    """One transformer block of the plain forward (``gpt.py:320``, mp=1).
+    bp: this layer's params (no leading L dim); x: [B, S, H];
+    ``drop_seed``: this layer's u32 dropout seed, or None; ``fp8_meta``:
+    this layer's ``{name: matmul meta}`` for ``FP8_MATMULS``, or None."""
     cdt = torch_dtype(config.dtype)
     B, S, h = x.shape
+    fm = fp8_meta or {}
     y = _layer_norm(x, bp['ln1_g'], bp['ln1_b']).to(cdt)
     q, k, v = _block_qkv(bp, y, config.num_heads, config.head_dim, cdt,
-                         config.kv_heads)
+                         config.kv_heads, fm.get('qkv'))
     a = _attention(q, k, v, config, drop_seed).reshape(B, S, h)
-    x = x + wo_matmul(a, bp['proj_w'], cdt) + bp['proj_b'].to(cdt)
+    x = x + _mm(a, bp['proj_w'], cdt, fm.get('proj')) + bp['proj_b'].to(cdt)
     y = _layer_norm(x, bp['ln2_g'], bp['ln2_b']).to(cdt)
-    return x + _block_mlp(bp, y, cdt) + bp['out_b'].to(cdt)
+    y = _block_mlp(bp, y, cdt, fm.get('fc'), fm.get('out'))
+    return x + y + bp['out_b'].to(cdt)
 
 
 def _layer(blocks, layer):
@@ -373,11 +392,16 @@ def _layer(blocks, layer):
     return {k: kv_layer(w, layer) for k, w in blocks.items()}
 
 
+_SAVED_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                  torch.ops.aten._scaled_mm.default)
+
+
 def _save_matmuls(ctx, op, *args, **kwargs):
     """Selective-checkpoint policy of ``remat_policy='dots'``: keep the
     outputs of the block matmuls (``y @ w`` lowers to ``aten.mm`` /
-    ``aten.addmm``), recompute everything else, kernel 1 included."""
-    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+    ``aten.addmm``; the fp8 products on the card to ``aten._scaled_mm``),
+    recompute everything else, kernel 1 and the fp8 casts included."""
+    if op in _SAVED_MATMULS:
         return _ckpt.CheckpointPolicy.MUST_SAVE
     return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -400,12 +424,16 @@ def _remat(body, config):
     return run
 
 
-def forward_hidden(params, tokens, config, dropout_seed=None):
+def forward_hidden(params, tokens, config, dropout_seed=None,
+                   fp8_state=None):
     """tokens [B, S] -> final hidden states [B, S, H] (pre-LM-head), a
     Python loop over the stacked blocks. ``dropout_seed`` (a u32, training
     only) turns on ``config.dropout`` with one derived seed per layer
-    (``per_layer_seeds``); None leaves it off. With ``config.remat`` and
-    autograd recording, each block runs under ``_remat``."""
+    (``per_layer_seeds``); None leaves it off. ``fp8_state``
+    (``init_fp8_state``, training only) gives each layer its slice of the
+    stacked metas; gradients w.r.t. it are the UPDATED state
+    (``quantization/fp8.py``). With ``config.remat`` and autograd
+    recording, each block runs under ``_remat``."""
     cdt = torch_dtype(config.dtype)
     B, S = tokens.shape
     L = config.num_layers
@@ -418,10 +446,11 @@ def forward_hidden(params, tokens, config, dropout_seed=None):
     body = block_fn
     if config.remat and torch.is_grad_enabled():
         body = _remat(block_fn, config)
+    metas = fp8_layers(fp8_state, L)
     pos = torch.arange(S, device=tokens.device)
     x = (wo_take(params['wte'], tokens.long()) + params['wpe'][pos]).to(cdt)
     for layer, bp in enumerate(layer_views(params['blocks'])):
-        x = body(bp, x, config, seeds[layer])
+        x = body(bp, x, config, seeds[layer], metas[layer])
     return _layer_norm(x, params['lnf_g'], params['lnf_b']).to(cdt)
 
 
@@ -437,21 +466,40 @@ def layer_views(blocks):
             for layer in range(blocks['ln1_g'].shape[0])]
 
 
+def fp8_layers(fp8_state, num_layers):
+    """The stacked fp8 metas as one ``{name: {role: {'scale', 'ahist'}}}``
+    a layer, from one unbind per stacked tensor (as ``layer_views``; the
+    scales 16-byte aligned, ``_fp8.layer_scales``); ``[None] *
+    num_layers`` without a state."""
+    if fp8_state is None:
+        return [None] * num_layers
+    views = {n: {r: {'scale': _fp8.layer_scales(role['scale']),
+                     'ahist': role['ahist'].unbind(0)}
+                 for r, role in meta.items()}
+             for n, meta in fp8_state['blocks'].items()}
+    return [{n: {r: {k: t[layer] for k, t in role.items()}
+                 for r, role in meta.items()} for n, meta in views.items()}
+            for layer in range(num_layers)]
+
+
 def forward(params, tokens, config, dropout_seed=None):
     """tokens [B, S] -> logits [B, S, V]."""
     x = forward_hidden(params, tokens, config, dropout_seed=dropout_seed)
     return wo_lm_head(x, params['wte'], x.dtype)
 
 
-def loss_fn(params, tokens, targets, config, dropout_seed=None):
+def loss_fn(params, tokens, targets, config, dropout_seed=None,
+            fp8_state=None):
     """Mean token cross-entropy (``gpt.py:418``), f32. ``dropout_seed``:
     the u32 the reference draws from its key (``jax.random.bits(key,
     (1,), uint32)[0]``), used only when ``config.dropout > 0``. With
     ``xent_chunk`` dividing the vocab, the blockwise LM-head loss
     (``ops/xent.py``) never builds the [B, S, V] logits; otherwise the
-    logits go through an f32 ``log_softmax``."""
+    logits go through an f32 ``log_softmax``. ``fp8_state``: see
+    ``forward_hidden``."""
     seed = dropout_seed if config.dropout > 0.0 else None
-    x = forward_hidden(params, tokens, config, dropout_seed=seed)
+    x = forward_hidden(params, tokens, config, dropout_seed=seed,
+                       fp8_state=fp8_state)
     if config.xent_chunk and config.vocab_size % config.xent_chunk == 0:
         B, S, H = x.shape
         return softmax_xent_blockwise(x.reshape(B * S, H), params['wte'],
@@ -474,8 +522,6 @@ def _check_trainable(config, mesh):
             later.append(f'{name} > 1 (item 10, distributed training)')
     if config.grad_quant not in (None, 'none'):
         later.append('grad_quant (item 10, the quantized dp all-reduce)')
-    if config.matmul_precision == 'fp8':
-        later.append("matmul_precision='fp8' (item 5, low precision)")
     if later:
         raise NotImplementedError('not ported yet: ' + '; '.join(later)
                                   + ' (ROADMAP Queue 1)')
@@ -498,15 +544,18 @@ def _rebuild(tree, leaves):
 
 
 def make_train_step(config, optimizer, mesh=None):
-    """The single-device train step (``gpt.py:888-897``):
+    """The single-device train step (``gpt.py:870-897``):
     ``step(params, opt_state, seed, lr, tokens, targets) -> (loss, params,
-    opt_state)``. ``seed`` is the step's u32 dropout seed (an int), used
-    only when ``config.dropout > 0``, in place of the reference's PRNG key
-    (see the module docstring). The loss and its gradients come from
-    autograd over ``loss_fn``; ``optimizer.functional_apply`` then updates
-    ``params`` and ``opt_state`` in place (the reference donates them) and
-    the same dicts are returned. A mesh, mp/sp/pp > 1, grad_quant and fp8
-    matmuls raise."""
+    opt_state)``, or with ``matmul_precision='fp8'`` ``step(params,
+    opt_state, fp8_state, seed, lr, tokens, targets) -> (loss, params,
+    opt_state, fp8_state)``. ``seed`` is the step's u32 dropout seed (an
+    int), used only when ``config.dropout > 0``, in place of the
+    reference's PRNG key (see the module docstring). The loss and its
+    gradients come from autograd over ``loss_fn``;
+    ``optimizer.functional_apply`` then updates ``params`` and
+    ``opt_state`` in place (the reference donates them), the new fp8
+    state is copied into ``fp8_state``, and the same dicts are returned.
+    A mesh, mp/sp/pp > 1 and grad_quant raise."""
     _check_trainable(config, mesh)
     return autograd_step(loss_fn, config, optimizer)
 
@@ -515,19 +564,60 @@ def autograd_step(loss, config, optimizer):
     """``step(params, opt_state, seed, lr, tokens, targets) -> (loss,
     params, opt_state)`` over ``loss(params, tokens, targets, config,
     seed)``: its gradients from autograd, then one ``optimizer.
-    functional_apply`` in place. GPT's and MoE's train steps."""
-    def step(params, opt_state, seed, lr, tokens, targets):
+    functional_apply`` in place. GPT's and MoE's train steps. With
+    ``matmul_precision='fp8'`` the step also takes ``fp8_state`` after
+    ``opt_state``: its leaves join the differentiated inputs, their
+    "gradients" are the new state (``quantization/fp8.py``), which is
+    copied into them in place."""
+    def run(params, fp8_state, seed, tokens, targets):
         leaves = _leaves(params)
+        metas = [] if fp8_state is None else _leaves(fp8_state)
+        kw = {}
         with torch.enable_grad():
             live = [p.detach().requires_grad_(True) for p in leaves]
+            live_m = [m.detach().requires_grad_(True) for m in metas]
+            if fp8_state is not None:
+                kw['fp8_state'] = _rebuild(fp8_state, live_m)
             value = loss(_rebuild(params, live), tokens, targets, config,
-                         seed if config.dropout > 0.0 else None)
-            grads = torch.autograd.grad(value, live)
+                         seed if config.dropout > 0.0 else None, **kw)
+            grads = torch.autograd.grad(value, live + live_m)
+        with torch.no_grad():
+            for m, new in zip(metas, grads[len(live):]):
+                m.copy_(new)
+        return value.detach(), _rebuild(params, grads[:len(live)])
+
+    if config.matmul_precision == 'fp8':
+        def fp8_step(params, opt_state, fp8_state, seed, lr, tokens,
+                     targets):
+            value, grads = run(params, fp8_state, seed, tokens, targets)
+            params, opt_state = optimizer.functional_apply(
+                params, grads, opt_state, lr)
+            return value, params, opt_state, fp8_state
+        return fp8_step
+
+    def step(params, opt_state, seed, lr, tokens, targets):
+        value, grads = run(params, None, seed, tokens, targets)
         params, opt_state = optimizer.functional_apply(
-            params, _rebuild(params, grads), opt_state, lr)
-        return value.detach(), params, opt_state
+            params, grads, opt_state, lr)
+        return value, params, opt_state
 
     return step
+
+
+# fp8 training state -------------------------------------------------------
+
+FP8_MATMULS = ('qkv', 'proj', 'fc', 'out')
+
+
+def init_fp8_state(config, device=None, matmuls=FP8_MATMULS):
+    """Delayed-scaling state for ``matmul_precision='fp8'``: one {x, w, g}
+    x {scale, amax history} meta per block matmul (``matmuls``), stacked
+    on the layer dim beside ``params['blocks']``, on ``device`` (the card
+    unless the caller names the CPU). Pass it to the fp8 train step as its
+    third argument; the step updates it in place and returns it."""
+    return {'blocks': {name: _fp8.init_matmul_meta(config.num_layers,
+                                                   device=device)
+                       for name in matmuls}}
 
 
 def init_kv_cache(config, batch, device=None):

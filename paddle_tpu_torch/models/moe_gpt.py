@@ -22,9 +22,13 @@ decode step's slots (idle ones included) compete for experts, and a
 padded prefill's padding rows take first-choice slots that decide which
 real rows keep their second choice.
 
+fp8 training (``matmul_precision='fp8'``) runs the dense attention
+matmuls, qkv and proj, through GPT's delayed-scaling product; the experts
+stay in the compute dtype, as in the reference (``moe_gpt.py:56-63``).
+
 Not ported yet (ROADMAP Queue 1): expert parallelism over a mesh
-(``param_specs``, ``place_params``; step K), ``mp``/``sp``/``pp`` > 1
-(item 10) and fp8 attention matmuls (item 5).
+(``param_specs``, ``place_params``; step K) and ``mp``/``sp``/``pp`` > 1
+(item 10).
 """
 import dataclasses
 import warnings
@@ -33,18 +37,18 @@ import torch
 
 from . import gpt as _gpt
 from .decode_cache import DecodeFnCache, tensor_key
-from .gpt import (_attention, _block_qkv, _layer_norm, cached_attention,
-                  check_param_shapes, init_kv_cache, layer_views,
+from .gpt import (_attention, _block_qkv, _layer_norm, _mm, cached_attention,
+                  check_param_shapes, fp8_layers, init_kv_cache, layer_views,
                   params_from_numpy, torch_dtype, validate_gqa)
 from ..ops.flash_attention import per_layer_seeds
-from ..ops.weight_only import (quantize_weight, wo_lm_head, wo_matmul,
-                               wo_take)
+from ..ops.weight_only import quantize_weight, wo_lm_head, wo_take
 from ..ops.xent import softmax_xent_blockwise
 from ..parallel.moe import moe_ffn
 
 __all__ = ['MoEConfig', 'init_params', 'params_from_numpy',
            'check_param_shapes', 'forward', 'forward_hidden', 'loss_fn',
-           'make_train_step', 'quantize_decode_params', 'serving_params',
+           'make_train_step', 'init_fp8_state', 'FP8_MATMULS',
+           'quantize_decode_params', 'serving_params',
            'init_kv_cache', 'forward_with_cache', 'make_decode_fns',
            'generate']
 
@@ -140,28 +144,33 @@ def _ffn(bp, y, config, cdt):
                    capacity_factor=config.capacity_factor)
 
 
-def block_fn(bp, x, config, drop_seed=None):
-    """One block of the plain forward (``moe_gpt.py:140``, no fp8). bp:
-    this layer's params; x [B, S, H]; ``drop_seed``: this layer's u32
-    dropout seed, or None. -> (x, this layer's aux loss)."""
+def block_fn(bp, x, config, drop_seed=None, fp8_meta=None):
+    """One block of the plain forward (``moe_gpt.py:140``). bp: this
+    layer's params; x [B, S, H]; ``drop_seed``: this layer's u32 dropout
+    seed, or None; ``fp8_meta``: this layer's qkv and proj metas, or None.
+    -> (x, this layer's aux loss)."""
     cdt = torch_dtype(config.dtype)
     B, S, h = x.shape
+    fm = fp8_meta or {}
     y = _layer_norm(x, bp['ln1_g'], bp['ln1_b']).to(cdt)
     q, k, v = _block_qkv(bp, y, config.num_heads, config.head_dim, cdt,
-                         config.kv_heads)
+                         config.kv_heads, fm.get('qkv'))
     a = _attention(q, k, v, config, drop_seed).reshape(B, S, h)
-    x = x + wo_matmul(a, bp['proj_w'], cdt) + bp['proj_b'].to(cdt)
+    x = x + _mm(a, bp['proj_w'], cdt, fm.get('proj')) + bp['proj_b'].to(cdt)
     y = _layer_norm(x, bp['ln2_g'], bp['ln2_b']).to(cdt)
     ff, aux = _ffn(bp, y, config, cdt)
     return x + ff, aux
 
 
-def forward_hidden(params, tokens, config, dropout_seed=None):
+def forward_hidden(params, tokens, config, dropout_seed=None,
+                   fp8_state=None):
     """tokens [B, S] -> (final hidden [B, S, H], aux load-balance loss
     summed over layers in f32). ``dropout_seed`` (a u32, training only)
-    turns on ``config.dropout`` with one derived seed per layer; with
-    ``config.remat`` and autograd recording, each whole block is
-    recomputed in the backward (the reference's ``jax.checkpoint``)."""
+    turns on ``config.dropout`` with one derived seed per layer;
+    ``fp8_state`` (``init_fp8_state``) gives each layer its qkv and proj
+    metas (see ``gpt.forward_hidden``); with ``config.remat`` and autograd
+    recording, each whole block is recomputed in the backward (the
+    reference's ``jax.checkpoint``)."""
     cdt = torch_dtype(config.dtype)
     B, S = tokens.shape
     L = config.num_layers
@@ -177,8 +186,9 @@ def forward_hidden(params, tokens, config, dropout_seed=None):
     pos = torch.arange(S, device=tokens.device)
     x = (wo_take(params['wte'], tokens.long()) + params['wpe'][pos]).to(cdt)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    metas = fp8_layers(fp8_state, L)
     for layer, bp in enumerate(layer_views(params['blocks'])):
-        x, a = body(bp, x, config, seeds[layer])
+        x, a = body(bp, x, config, seeds[layer], metas[layer])
         aux = aux + a
     return _layer_norm(x, params['lnf_g'], params['lnf_b']).to(cdt), aux
 
@@ -189,15 +199,28 @@ def forward(params, tokens, config, dropout_seed=None):
     return wo_lm_head(x, params['wte'], x.dtype), aux
 
 
-def loss_fn(params, tokens, targets, config, dropout_seed=None):
+FP8_MATMULS = ('qkv', 'proj')
+
+
+def init_fp8_state(config, device=None):
+    """Delayed-scaling state for ``matmul_precision='fp8'``: the dense
+    qkv and proj matmuls only (``moe_gpt.py:210-216``); as
+    ``gpt.init_fp8_state``."""
+    return _gpt.init_fp8_state(config, device, FP8_MATMULS)
+
+
+def loss_fn(params, tokens, targets, config, dropout_seed=None,
+            fp8_state=None):
     """Mean token cross-entropy plus ``aux_weight / num_layers`` times the
     aux loss (``moe_gpt.py:218``), f32. ``dropout_seed``: the u32 the
     reference draws from its key. With ``xent_chunk`` dividing the vocab,
     the blockwise LM-head loss (``ops/xent.py``); otherwise the full
-    logits through an f32 ``log_softmax``."""
+    logits through an f32 ``log_softmax``. ``fp8_state``: see
+    ``forward_hidden``."""
     seed = dropout_seed if config.dropout > 0.0 else None
     aux_scale = config.aux_weight / config.num_layers
-    x, aux = forward_hidden(params, tokens, config, seed)
+    x, aux = forward_hidden(params, tokens, config, seed,
+                            fp8_state=fp8_state)
     if config.xent_chunk and config.vocab_size % config.xent_chunk == 0:
         B, S, H = x.shape
         ce = softmax_xent_blockwise(x.reshape(B * S, H), params['wte'],
@@ -220,8 +243,6 @@ def _check_trainable(config, mesh):
     for name in ('mp', 'sp', 'pp'):
         if getattr(config, name) > 1:
             later.append(f'{name} > 1 (item 10, distributed training)')
-    if config.matmul_precision == 'fp8':
-        later.append("matmul_precision='fp8' (item 5, low precision)")
     if later:
         raise NotImplementedError('not ported yet: ' + '; '.join(later)
                                   + ' (ROADMAP Queue 1)')
@@ -230,9 +251,11 @@ def _check_trainable(config, mesh):
 def make_train_step(config, optimizer, mesh=None):
     """The single-device train step (``moe_gpt.py:425-452``):
     ``step(params, opt_state, seed, lr, tokens, targets) -> (loss, params,
-    opt_state)``, as ``gpt.make_train_step``: ``seed`` is the u32 dropout
-    seed, params and state are updated in place. A mesh, mp/sp/pp > 1 and
-    fp8 matmuls raise."""
+    opt_state)``, with ``matmul_precision='fp8'`` ``step(params,
+    opt_state, fp8_state, seed, lr, tokens, targets) -> (loss, params,
+    opt_state, fp8_state)``, as ``gpt.make_train_step``: ``seed`` is the
+    u32 dropout seed, params and states are updated in place. A mesh and
+    mp/sp/pp > 1 raise."""
     _check_trainable(config, mesh)
     return _gpt.autograd_step(loss_fn, config, optimizer)
 

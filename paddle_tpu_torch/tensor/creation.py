@@ -5,7 +5,7 @@ import numpy as np
 import torch
 
 from ..core import dtype as dtypes
-from ..core.dispatch import apply_op, op
+from ..core.dispatch import apply_op, op, promote, to_float
 from ..core.tensor import Tensor, to_tensor, wrap
 from ..device import current_device
 from .manipulation import _static_shape as _shape
@@ -125,7 +125,8 @@ def kron(x, y, name=None):
 
 @op
 def complex(real, imag, name=None):
-    return torch.complex(real, imag)
+    real, imag = promote(real, imag)
+    return torch.complex(to_float(real), to_float(imag))
 
 
 def assign(x, output=None):

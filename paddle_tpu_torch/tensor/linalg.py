@@ -58,14 +58,20 @@ def dist(x, y, p=2, name=None):
     return torch.pow(torch.sum(torch.pow(d, p)), 1.0 / p)
 
 
+def _symmetrize(x):
+    """``(x + xᴴ) / 2``: ``jnp.linalg``'s Hermitian solvers read both
+    triangles this way, where torch's read one."""
+    return (x + x.transpose(-1, -2).conj()) / 2
+
+
 @op
 def cond(x, p=None, name=None):
-    return torch.linalg.cond(x, p)
+    return torch.linalg.cond(to_float(x), p)
 
 
 @op
 def cholesky(x, upper=False, name=None):
-    L = torch.linalg.cholesky(x)
+    L = torch.linalg.cholesky(_symmetrize(x))
     return L.transpose(-1, -2).conj() if upper else L
 
 
@@ -81,7 +87,7 @@ def inverse(x, name=None):
 
 @op
 def pinv(x, rcond=1e-15, hermitian=False, name=None):
-    return torch.linalg.pinv(x, rtol=rcond, hermitian=hermitian)
+    return torch.linalg.pinv(to_float(x), rtol=rcond, hermitian=hermitian)
 
 
 @op
@@ -115,13 +121,13 @@ def matrix_rank(x, tol=None, hermitian=False, name=None):
 
 @op
 def svd(x, full_matrices=False, name=None):
-    u, s, vh = torch.linalg.svd(x, full_matrices=full_matrices)
+    u, s, vh = torch.linalg.svd(to_float(x), full_matrices=full_matrices)
     return u, s, vh.transpose(-1, -2).conj()
 
 
 @op
 def qr(x, mode='reduced', name=None):
-    q, r = torch.linalg.qr(x, mode=mode)
+    q, r = torch.linalg.qr(to_float(x), mode=mode)
     return r if mode == 'r' else (q, r)
 
 
@@ -132,7 +138,7 @@ def eig(x, name=None):
 
 @op
 def eigh(x, UPLO='L', name=None):
-    return tuple(torch.linalg.eigh(x, UPLO=UPLO))
+    return tuple(torch.linalg.eigh(_symmetrize(x), UPLO=UPLO))
 
 
 @op
@@ -142,7 +148,7 @@ def eigvals(x, name=None):
 
 @op
 def eigvalsh(x, UPLO='L', name=None):
-    return torch.linalg.eigvalsh(x, UPLO=UPLO)
+    return torch.linalg.eigvalsh(_symmetrize(x), UPLO=UPLO)
 
 
 @op
@@ -201,6 +207,8 @@ def histogram(input, bins=100, min=0, max=0, name=None):
     else:
         lo = torch.tensor(float(min), dtype=x.dtype, device=x.device)
         hi = torch.tensor(float(max), dtype=x.dtype, device=x.device)
+    flat = lo == hi              # an empty range widens by 0.5 each way
+    lo, hi = torch.where(flat, lo - 0.5, lo), torch.where(flat, hi + 0.5, hi)
     steps = torch.arange(bins + 1, dtype=x.dtype, device=x.device)
     edges = lo + (hi - lo) * (steps / bins)
     edges[-1] = hi

@@ -19,20 +19,51 @@ def _rsqrt(x):
     return torch.rsqrt(to_float(x))
 
 
+def _keep_bool(fn):
+    """``fn`` where bool inputs pass through unchanged (``jnp.abs``,
+    ``ceil``, ``floor`` and ``trunc`` of a bool are that bool)."""
+    return lambda x: x if x.dtype == torch.bool else fn(x)
+
+
+def _sign(x):
+    """``jnp.sign``: NaN and -0.0 stay as they are (``torch.sgn`` gives
+    0 at NaN); complex x / |x|."""
+    if x.is_complex() or not dtypes.is_floating(x.dtype):
+        return torch.sgn(x)
+    return torch.where(torch.isnan(x) | (x == 0), x, torch.sign(x))
+
+
+def _digamma(x):
+    """``jax.scipy.special.digamma``: NaN at 0 and the negative integers,
+    where torch gives +-inf at zero."""
+    x = to_float(x)
+    pole = (x <= 0) & (x == torch.floor(x))
+    return torch.where(pole, float('nan'), torch.digamma(x))
+
+
+def _angle(x):
+    """``jnp.angle``: atan2(0, x) for real x, so ``angle(-0.0)`` is pi."""
+    if x.is_complex():
+        return torch.angle(x)
+    x = to_float(x)
+    return torch.atan2(torch.zeros_like(x), x)
+
+
 # ---- table-generated unary ops --------------------------------------------
 _UNARY = {
-    'abs': torch.abs, 'acos': torch.acos, 'asin': torch.asin,
+    'abs': _keep_bool(torch.abs), 'acos': torch.acos, 'asin': torch.asin,
     'atan': torch.atan, 'acosh': torch.acosh, 'asinh': torch.asinh,
-    'atanh': torch.atanh, 'ceil': torch.ceil, 'cos': torch.cos,
+    'atanh': torch.atanh, 'ceil': _keep_bool(torch.ceil), 'cos': torch.cos,
     'cosh': torch.cosh, 'exp': torch.exp, 'expm1': torch.expm1,
-    'floor': torch.floor, 'log': torch.log, 'log2': torch.log2,
+    'floor': _keep_bool(torch.floor), 'log': torch.log, 'log2': torch.log2,
     'log10': torch.log10, 'log1p': torch.log1p, 'neg': torch.neg,
     'reciprocal': torch.reciprocal, 'round': torch.round, 'rsqrt': _rsqrt,
-    'sign': torch.sgn, 'sin': torch.sin, 'sinh': torch.sinh,
+    'sign': _sign, 'sin': torch.sin, 'sinh': torch.sinh,
     'sqrt': torch.sqrt, 'square': torch.square, 'tan': torch.tan,
     'tanh': torch.tanh, 'erf': torch.erf, 'erfinv': torch.erfinv,
-    'digamma': torch.digamma, 'lgamma': torch.lgamma, 'angle': torch.angle,
-    'conj': torch.conj_physical, 'trunc': torch.trunc, 'frac': _frac,
+    'digamma': _digamma, 'lgamma': torch.lgamma, 'angle': _angle,
+    'conj': torch.conj_physical, 'trunc': _keep_bool(torch.trunc),
+    'frac': _frac,
 }
 for _name, _fn in _UNARY.items():
     def _make(fn):
@@ -45,13 +76,58 @@ for _name, _fn in _UNARY.items():
 
 
 # ---- table-generated binary ops -------------------------------------------
+def _int_divmod(x, y):
+    """Integer floor division and modulo with XLA's results at a zero
+    divisor (``jnp.floor_divide``: x / 0 is -1 before the floor step;
+    ``jnp.mod``: x % 0 is 0) and INT_MIN / -1 wrapping, on every device
+    and with no host sync: torch raises on the CPU and leaves the card's
+    value undefined. Bool operands count as int32, as in the reference."""
+    if x.dtype == torch.bool:
+        x, y = x.to(torch.int32), y.to(torch.int32)
+    signed = x.dtype.is_signed
+    zero = y == 0
+    neg1 = (y == -1) if signed else torch.zeros_like(zero)
+    safe = torch.where(zero | neg1, torch.ones_like(y), y)
+    q = torch.div(x, safe, rounding_mode='trunc')
+    if signed:
+        q = torch.where(neg1, -x, q)
+    ones = -1 if signed else torch.iinfo(x.dtype).max     # all bits set
+    q = torch.where(zero, torch.full_like(q, ones), q)
+    r = torch.fmod(x, safe)
+    if signed:                   # jnp skips the floor step for unsigned
+        r_xla = torch.where(zero, x, r)        # XLA's x % 0 is x
+        step = (torch.sign(x) != torch.sign(y)) & (r_xla != 0)
+        q = torch.where(step, q - 1, q)
+    mod = torch.where((r != 0) & ((r < 0) != (safe < 0)), r + safe, r)
+    return q, mod
+
+
+def _floor_divide(x, y):
+    if dtypes.is_floating(x.dtype) or x.is_complex():
+        return torch.floor_divide(x, y)
+    return _int_divmod(x, y)[0]
+
+
+def _modulo(x, y):
+    if dtypes.is_floating(x.dtype) or x.is_complex():
+        return torch.remainder(x, y)
+    return _int_divmod(x, y)[1]
+
+
+def _pow(x, y):
+    if x.dtype == torch.bool:       # two bools: int32, as the reference
+        x = x.to(torch.int32)
+        y = y.to(torch.int32) if isinstance(y, torch.Tensor) else y
+    return torch.pow(x, y)
+
+
 # (torch function, takes a Python scalar as its second operand)
 _BINARY = {
     'add': (torch.add, True), 'subtract': (torch.sub, True),
     'multiply': (torch.mul, True), 'divide': (torch.true_divide, True),
-    'floor_divide': (torch.floor_divide, True),
-    'mod': (torch.remainder, True), 'remainder': (torch.remainder, True),
-    'floor_mod': (torch.remainder, True), 'pow': (torch.pow, True),
+    'floor_divide': (_floor_divide, False), 'mod': (_modulo, False),
+    'remainder': (_modulo, False), 'floor_mod': (_modulo, False),
+    'pow': (_pow, True),
     'maximum': (torch.maximum, False), 'minimum': (torch.minimum, False),
     'fmax': (torch.fmax, False), 'fmin': (torch.fmin, False),
     'atan2': (lambda x, y: torch.atan2(to_float(x), to_float(y)), False),
@@ -338,7 +414,7 @@ def diff(x, n=1, axis=-1, prepend=None, append=None, name=None):
 
 @op
 def heaviside(x, y, name=None):
-    return torch.heaviside(*promote(x, y))
+    return torch.heaviside(*promote(to_float(x), to_float(y)))
 
 
 @op

@@ -16,6 +16,8 @@ def argmax(x, axis=None, keepdim=False, dtype='int64', name=None):
     if axis is None:
         x = x.reshape(-1)
         axis = 0
+    if x.dtype == torch.bool:
+        x = x.to(torch.int32)
     out = torch.argmax(x, dim=axis).to(torch.int32)
     return torch.unsqueeze(out, axis) if keepdim else out
 
@@ -25,6 +27,8 @@ def argmin(x, axis=None, keepdim=False, dtype='int64', name=None):
     if axis is None:
         x = x.reshape(-1)
         axis = 0
+    if x.dtype == torch.bool:
+        x = x.to(torch.int32)
     out = torch.argmin(x, dim=axis).to(torch.int32)
     return torch.unsqueeze(out, axis) if keepdim else out
 

@@ -40,8 +40,13 @@ def _quantile(x, q, axis, keepdim, ignore_nan):
     else:
         dims = (axis % nd,)
     keep = [d for d in range(nd) if d not in dims]
-    moved = x.permute(*keep, *dims).reshape(
-        [x.shape[d] for d in keep] + [-1])
+    n_red = 1
+    for d in dims:
+        n_red *= x.shape[d]
+    # a 0-d x is one value; sizes spelled out, since -1 is ambiguous when
+    # a kept axis is empty
+    moved = (x.permute(*keep, *dims) if nd else x).reshape(
+        [x.shape[d] for d in keep] + [n_red])
     srt = torch.sort(moved, dim=-1).values          # NaN sorts last
     if ignore_nan:
         n = (~torch.isnan(moved)).sum(-1, keepdim=True)

@@ -974,3 +974,109 @@ def test_colliding_paged_writes_leave_the_cpus_pool(cuda, int8):
         assert torch.equal(got, exp), k
     if not int8:
         assert torch.equal(pools['cuda'].cpu(), pools['cpu'])
+
+
+# ---------------------------------------------------------------------------
+# fp8 training: torch._scaled_mm on the card against the twin on the CPU
+# ---------------------------------------------------------------------------
+
+def _fp8_operands(lead, k, n, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(*lead, k, generator=g).to(dtype)
+    w = (torch.randn(k, n, generator=g) * 0.05).to(dtype)
+    gy = torch.randn(*lead, n, generator=g).to(dtype)
+    return x, w, gy
+
+
+def _fp8_run(x, w, gy, meta, dev):
+    """out, dx, dw and the new meta of one fp8_matmul on ``dev``."""
+    from paddle_tpu_torch.quantization import fp8
+    x = x.to(dev).requires_grad_()
+    w = w.to(dev).requires_grad_()
+    m = {r: {k: t.to(dev).clone().requires_grad_() for k, t in v.items()}
+         for r, v in meta.items()}
+    leaves = [m[r][k] for r in 'xwg' for k in ('scale', 'ahist')]
+    out = fp8.fp8_matmul(x, w, m)
+    grads = torch.autograd.grad(out, [x, w] + leaves, gy.to(dev))
+    return [t.detach().float().cpu() for t in (out,) + grads]
+
+
+def _row_err(got, want):
+    if got.dim() < 2:
+        return (got - want).abs().max().item()
+    got, want = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+    return ((got - want).abs().amax(-1)
+            / want.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+# fp8 products: in bf16 the output's rounding dominates (the kernels'
+# 2^-6); an f32 output shows the tensor cores' fp8 accumulation, which
+# keeps fewer than f32's bits within each chunk of the contraction
+# (measured up to 5.1e-4 a row at K = 128)
+FP8_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 2.0 ** -10}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('lead,k,n', [((4, 64), 128, 384), ((3, 10), 40, 24)])
+def test_fp8_matmul_matches_twin(cuda, lead, k, n, dtype):
+    from paddle_tpu_torch.quantization import fp8
+    x, w, gy = _fp8_operands(lead, k, n, dtype, seed=k + n)
+    meta = fp8.init_matmul_meta(device='cpu')
+    for _ in range(2):                  # a cold meta, then a warm one
+        before = fp8.scaled_mm_calls
+        got = _fp8_run(x, w, gy, meta, 'cuda')
+        assert fp8.scaled_mm_calls == before + 3
+        want = _fp8_run(x, w, gy, meta, 'cpu')
+        for a, b in zip(got[:3], want[:3]):
+            assert _row_err(a, b) <= FP8_TOL[dtype]
+        for a, b in zip(got[3:], want[3:]):          # the new state: exact
+            assert torch.equal(a, b)
+        it = iter(want[3:])
+        meta = {r: {kk: next(it) for kk in ('scale', 'ahist')} for r in 'xwg'}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('remat,per_layer', [('none', 12), ('dots', 12),
+                                             ('block', 16)])
+def test_fp8_train_step_launches_and_pushes_once(cuda, remat, per_layer):
+    """12 fp8 products a layer a step reach the kernel (4 matmuls x
+    forward, dx, dw), 16 when the whole block is recomputed; under 'dots'
+    the recompute requests the 4 forward products again and the policy's
+    cache answers them. Each amax history is pushed once a step."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Runs(TorchDispatchMode):      # a cache hit never gets here
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func is torch.ops.aten._scaled_mm.default
+            return func(*args, **(kwargs or {}))
+
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.quantization import fp8
+    over = {'none': dict(remat=False), 'dots': dict(remat=True),
+            'block': dict(remat=True, remat_policy='full')}[remat]
+    cfg = gpt.GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                        num_heads=2, max_seq_len=128, xent_chunk=256,
+                        matmul_precision='fp8', **over)
+    params = gpt.init_params(cfg, torch.Generator(device='cuda').manual_seed(0),
+                             'cuda')
+    opt = topt.AdamW(learning_rate=1e-3)
+    state, f8 = opt.functional_init(params), gpt.init_fp8_state(cfg, 'cuda')
+    step = gpt.make_train_step(cfg, opt)
+    toks = torch.randint(0, 512, (2, 128), device='cuda', dtype=torch.int32)
+    losses = []
+    for i in range(2):
+        before = fp8.scaled_mm_calls
+        with Runs() as runs:
+            loss, params, state, f8 = step(params, state, f8, 0, 1e-3, toks,
+                                           toks)
+        losses.append(loss.item())
+        requested = per_layer + (4 if remat == 'dots' else 0)
+        assert fp8.scaled_mm_calls - before == requested * cfg.num_layers
+        assert runs.n == per_layer * cfg.num_layers
+        for meta in f8['blocks'].values():
+            for role in meta.values():
+                assert (role['ahist'] != 0).sum(1).tolist() == [i + 1] * 2
+    assert losses[1] < losses[0] and all(np.isfinite(losses))

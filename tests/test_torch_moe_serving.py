@@ -188,7 +188,7 @@ def test_what_still_raises():
         GenerationEngine(tp, tcfg, device='cpu', mesh=object())
     with pytest.raises(NotImplementedError, match='step K'):
         GenerationEngine(tp, tcfg, device='cpu', mp=2)
-    with pytest.raises(NotImplementedError, match='item 5'):
-        tmoe.make_train_step(dataclasses.replace(tcfg,
+    with pytest.raises(NotImplementedError, match='item 10'):
+        tmoe.make_train_step(dataclasses.replace(tcfg, sp=2,
                                                  matmul_precision='fp8'),
                              None)

@@ -54,7 +54,9 @@ def test_no_jax_or_reference_import(path):
 def test_the_scan_covers_the_training_modules():
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob('*.py')}
     assert {'optimizer/__init__.py', 'optimizer/optimizer.py',
-            'ops/xent.py', 'ops/flash_attention.py'} <= scanned
+            'ops/xent.py', 'ops/flash_attention.py',
+            'quantization/__init__.py', 'quantization/fp8.py',
+            'amp/__init__.py'} <= scanned
 
 
 def test_the_scan_covers_the_eager_core():

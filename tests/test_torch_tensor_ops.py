@@ -196,3 +196,27 @@ def test_numpy_is_a_copy():
     a = x.numpy()
     a[0] = 5
     assert x.numpy()[0] == 0
+
+
+def test_bool_stays_bool_where_the_reference_gives_int32():
+    """Known, deliberate difference: ``clone``, ``add_n`` and
+    ``masked_select_dense`` of bool keep bool (Paddle's documented dtype),
+    where the reference's ``x + 0`` gives int32."""
+    b = np.array([True, False, True])
+    for P, want in ((port, 'bool'), (ref, 'int32')):
+        x = P.to_tensor(b)
+        for out in (P.clone(x), P.add_n([x, x]), P.masked_select_dense(x, x)):
+            assert cases.dtype_name(out.dtype) == want
+            assert tuple(out.shape) == (3,)
+    np.testing.assert_array_equal(port.add_n([port.to_tensor(b)] * 2).numpy(),
+                                  b)
+
+
+def test_nonzero_of_a_0d_tensor_has_no_index_columns():
+    """Known, deliberate difference: ``nonzero`` of a true 0-d tensor has
+    shape [1, 0] (one hit, no axes to index), the reference's [1, 1]
+    (numpy's rule for 0-d input)."""
+    t = np.array(True)
+    assert tuple(port.nonzero(port.to_tensor(t)).shape) == (1, 0)
+    assert tuple(ref.nonzero(ref.to_tensor(t)).shape) == (1, 1)
+    assert tuple(port.nonzero(port.to_tensor(np.array(False))).shape) == (0, 0)

@@ -559,6 +559,47 @@ case('setitem', _setitems, [f(3, 4), f(4), boo(3, 4)])
 case('iterate', lambda P, x: [r for r in x], [f(3, 2)])
 
 
+# ---- edge cases the reference defines: 0-d and empty quantiles, special
+# values, integer division by zero, a flat histogram range, non-symmetric
+# input to the Hermitian solvers, bool and int32 promotions --------------------
+_SPECIAL = np.array([np.nan, 0., -0., -1., -2., np.inf, -np.inf, 1.5],
+                    'float32')
+case('quantile_0d', lambda P, x: [
+    P.median(x), P.nanmedian(x), P.quantile(x, 0.3), P.nanquantile(x, 0.3),
+    x.median(), P.quantile(x, [0.2, 0.7])], [np.array(2.5, 'float32')])
+case('quantile_empty_axis', lambda P, x: [
+    P.median(x, axis=-1), P.nanmedian(x, axis=-1),
+    P.quantile(x, 0.5, axis=-1), P.nanquantile(x, 0.25, axis=1)],
+    [np.zeros((0, 3), 'float32')])
+case('unary_special_values', lambda P, x: [
+    P.sign(x), x.sign(), P.digamma(x), P.angle(x)], [_SPECIAL])
+case('int_divmod_by_zero', lambda P, x, y, z, w: [
+    P.floor_divide(x, y), P.mod(x, y), P.remainder(x, y),
+    P.floor_mod(x, y), x // y, x % y, z // 0, z % 0,
+    P.floor_divide(w, P.full_like(w, -1)), P.mod(w, P.full_like(w, -1))],
+    [np.array([7, -7, 5, 0], 'int32'), np.array([2, 2, 0, 0], 'int32'),
+     np.array([5, -5, 0, 7], 'int32'),
+     np.array([-2 ** 31, 5, -6, 0], 'int32')])
+case('histogram_flat_range', lambda P, x, y: [
+    P.histogram(x, bins=4), P.histogram(y, bins=4, min=2, max=2)],
+    [np.full(3, 2.5, 'float32'), np.array([1., 2., 3.], 'float32')])
+case('heaviside_int', lambda P, x, y: P.heaviside(x, y),
+     [np.array([-1, 0, 3], 'int32'), np.array([5, 6, 7], 'int32')])
+case('hermitian_solvers_symmetrize', lambda P, x: [
+    P.linalg.eigvalsh(x), P.linalg.eigh(x)[0], P.linalg.cholesky(x)],
+    [np.array([[4., 1.], [3., 5.]], 'float32')], kind='red')
+case('bool_promotions', lambda P, x, y, z: [
+    P.abs(x), P.ceil(x), P.floor(x), P.trunc(x), P.argmax(x), P.argmin(x),
+    P.floor_divide(y, z), P.mod(y, z), P.pow(y, z),
+    P.floor_divide(y, x[:4]), P.mod(y, x[:4]), P.pow(y, y)],
+    [np.array([False, True, True, False, True]),
+     np.array([True, False, True, False]), np.array([True] * 4)])
+case('int32_to_float_linalg', lambda P, x: [
+    P.complex(x, x), P.linalg.svd(x)[1], P.abs(P.linalg.qr(x)[1]),
+    P.linalg.pinv(x), P.linalg.cond(x)],
+    [np.array([[2, 1], [1, 3]], 'int32')], kind='red')
+
+
 # ---- random ops: shape, dtype, range and the moments of N draws ------------------
 N = 100_000
 RANDOM = {
