@@ -192,17 +192,38 @@ non-zero:
     full-width curves of tests/test_precision.py's _gpt_curve setup on the
     card within 5e-3 (at hidden 1024 the gap printed); auto_cast(dtype=
     'float8') over paddle.matmul card against CPU, GradScaler.check_fp8 a
-    CUDA bool with no sync (sync debug mode 'error').
-Phase 3 also holds every kernel at the MoE paths' shapes (12 heads of 64).
-Every launch counter is set to 0 just before each main-path run (phases 4,
-6, 7, 9, 11, 13, 14, 15, 17, 18, 22 and 23) and read just after. Then one line of
-kernel records (JSON), and the last line ``{"ok": true, "device": {...}}``.
+    CUDA bool with no sync (sync debug mode 'error');
+25. an ERNIE-base masked-LM program written in paddle.nn
+    (tests/torch_nn_cases.py: ErnieConfig's widths, vocab 30522, hidden
+    768, 12 layers of 12 heads, FFN 3072, 132M parameters, random weights
+    from paddle.seed(0)) trained on one [8, 512] batch (lengths 256-512,
+    a bool key-padding mask, 15% of real positions masked) with
+    loss.backward(); opt.step(); opt.clear_grad(); sched.step() under
+    auto_cast(bfloat16), AdamW over LinearWarmup(PolynomialDecay(1e-4)),
+    weight decay 0.01, ClipGradByGlobalNorm(1.0), dropout 0.1: 2 warm-up
+    and 8 timed steps, each launching flash_fwd, flash_bwd_dq and
+    flash_bwd_dkv 12 times (scaled_dot_product_attention's kernel route,
+    with attention dropout), all tensor-core; step ms, tokens/s, MFU (6 x
+    parameters x tokens over 989 TFLOP/s), peak memory, a profiled step's
+    busy share, the loss falling;
+26. the same program at 2 layers in f32 (dropout 0, [2, 128]) card
+    against CPU from the same weights: the first loss, every gradient and
+    the parameters after two opt.step()s within 1e-4; then every case of
+    tests/torch_nn_cases.py (the table the CPU tests hold against the JAX
+    package) card against CPU: outputs within 2e-5, gradients 1e-4.
+Phase 3 also holds every kernel at the MoE paths' shapes (12 heads of 64),
+and kernels 1-3 at phase 25's (B=8, S=512, 12 heads of 64, its key-padding
+mask, dropout 0 and 0.1). Every launch counter is set to 0 just before
+each main-path run (phases 4, 6, 7, 9, 11, 13, 14, 15, 17, 18, 22, 23; in
+25 before each step) and read just after. Then one line of kernel records
+(JSON), and the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the rest of the repository beside it, it
 exits non-zero and prints no result.
 """
 import argparse
 import dataclasses
+import importlib
 import json
 import math
 import os
@@ -273,27 +294,38 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+# profiler sessions device_ms runs before it gives up on one that records
+# no device time
+PROFILE_ATTEMPTS = 3
+
+
 def device_ms(fn, iters, warmup=3):
     """Mean device time of fn(i) over ``iters`` calls: the summed duration
     of every kernel and copy the calls put on the card, from
     torch.profiler's CUDA activity. Unlike CUDA events around back-to-back
     calls it leaves out the gaps while the host prepares the next launch,
     which for a kernel of tens of microseconds can take longer than the
-    kernel itself."""
+    kernel itself. A profiler session that records no device activity at
+    all (CUPTI drops one now and then) is run again, up to
+    ``PROFILE_ATTEMPTS`` sessions."""
     from torch.profiler import ProfilerActivity, profile
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in p.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError('the profiler saw no device time')
-    return us / 1e3 / iters
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in p.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+        print('  (a profiler session saw no device time; profiling again)',
+              flush=True)
+    raise AssertionError('the profiler saw no device time in '
+                         f'{PROFILE_ATTEMPTS} sessions')
 
 
 # ---------------------------------------------------------------------------
@@ -725,6 +757,10 @@ DECODE_CASES = [
                                    s_max=1024, pos=0, dtype=BF16, int8=True),
      None),
 ]
+# phase 25's attention: B=8, S=512, 12 heads of 64, the batch's
+# key-padding mask (lens='ernie': tests/torch_nn_cases.mlm_batch's lengths)
+ERNIE_ATTN = dict(b=8, s=512, h=12, h_kv=12, d=64, dtype=BF16, causal=False,
+                  lens='ernie')
 FWD_CASES = [
     ('fwd_S1024', dict(b=8, s=1024, h=16, h_kv=16, d=64, dtype=BF16), True),
     ('fwd_S300_gqa_d128_f32', dict(b=2, s=300, h=8, h_kv=4, d=128,
@@ -742,6 +778,10 @@ FWD_CASES = [
     # the MoE train step's shape (phase 18: 12 heads of 64)
     ('moe_fwd_S1024', dict(b=8, s=1024, h=12, h_kv=12, d=64, dtype=BF16),
      False),
+    # the ERNIE-base masked-LM program's shape (phase 25): 12 heads of 64,
+    # bidirectional, its key-padding mask (lengths 256-512)
+    ('ernie_fwd_S512', dict(ERNIE_ATTN), True),
+    ('ernie_fwd_S512_drop0.1', dict(ERNIE_ATTN, drop=0.1), True),
 ]
 DROP_SEED = 2 ** 31 + 12345     # a u32 past the int32 range
 # kernels 2 and 3 (the flash backward): the train step's shape first
@@ -762,6 +802,8 @@ BWD_CASES = [
      False),
     ('moe_bwd_S1024', dict(b=8, s=1024, h=12, h_kv=12, d=64, dtype=BF16),
      False),
+    ('ernie_bwd_S512', dict(ERNIE_ATTN), True),
+    ('ernie_bwd_S512_drop0.1', dict(ERNIE_ATTN, drop=0.1), True),
 ]
 LSE_TOL = 1e-4     # lse is f32 from the same scores: order of sums only
 
@@ -837,11 +879,36 @@ def decode_sdpa_ms(c, iters):
         qt, ks[i % rot], vs[i % rot], attn_mask=mask, enable_gqa=gqa), iters)
 
 
+def tests_module(name):
+    """A numpy-only case module of tests/ (shared with the CPU tests)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests')
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module(name)
+
+
+def nn_cases():
+    """tests/torch_nn_cases.py: the nn case table and the ERNIE-width
+    program."""
+    return tests_module('torch_nn_cases')
+
+
+ERNIE_BATCH = dict(b=8, s=512, lo=256, hi=512, seed=0)
+
+
+def ernie_lens():
+    """The key lengths of phase 25's batch (numpy seed 0, 256-512)."""
+    C = nn_cases()
+    return [int(n) for n in C.mlm_batch(
+        C.ERNIE_BASE['vocab'], **ERNIE_BATCH)[4]]
+
+
 def fwd_case(b, s, h, h_kv, d, dtype, causal=True, masked=False, layers=1,
-             seed=0, drop=0.0):
+             seed=0, drop=0.0, lens=None):
     """q, k, v as ``_block_qkv`` gives them, per layer: strided views of
     one packed projection [B, S, H_kv, g+2, D] (q is copied when g > 1),
-    and dO per layer."""
+    and dO per layer. ``lens``: each batch row's key count ('ernie':
+    phase 25's), as an additive key-padding mask."""
     g = h // h_kv
     gen = torch.Generator(device='cuda').manual_seed(seed)
     parts = []
@@ -853,35 +920,63 @@ def fwd_case(b, s, h, h_kv, d, dtype, causal=True, masked=False, layers=1,
     dos = [torch.randn((b, s, h, d), generator=gen, device='cuda').to(dtype)
            for _ in range(layers)]
     kmask = None
-    if masked:
-        valid = torch.tensor([s, s - 77], device='cuda')[:b, None]
+    if lens == 'ernie':
+        lens = ernie_lens()
+    if masked and lens is None:
+        lens = [s, s - 77][:b]
+    if lens is not None:
+        valid = torch.tensor(lens, device='cuda')[:, None]
         kmask = torch.where(torch.arange(s, device='cuda')[None] < valid,
                             0.0, -1e30)
     return dict(parts=parts, dos=dos, causal=causal, kmask=kmask, drop=drop,
-                seed=DROP_SEED if drop else None)
+                seed=DROP_SEED if drop else None, lens=lens)
+
+
+def visible(c):
+    """(keys each query row sees summed over the batch, [rows], key rows
+    read per batch row)."""
+    q, k, _ = c['parts'][0]
+    b, s = q.shape[:2]
+    keys = c['lens'] or [s] * b
+    if c['causal']:
+        return b * (s * (s + 1) // 2), keys
+    return s * sum(keys), keys
 
 
 def fwd_bound(c):
-    """q, k, v and out each moved once, lse written once; 4*D flops per
-    (row, visible key, head)."""
+    """q and out moved once, the visible rows of k and v read once (a
+    masked batch row's keys past its length are not needed), the mask
+    read and lse written once; 4*D flops per (row, visible key, head)."""
     q, k, _ = c['parts'][0]
     b, s, h, d = q.shape
     es = q.element_size()
-    nbytes = (2 * q.numel() + 2 * k.numel()) * es + b * h * s * 4
-    vis = s * (s + 1) // 2 if c['causal'] else s * s
-    return bound_of(nbytes, 4 * d * h * b * vis, q.dtype)
+    vis, keys = visible(c)
+    kv = 2 * sum(keys) * k.shape[2] * d * es
+    mask = 0 if c['kmask'] is None else b * s * 4
+    nbytes = 2 * q.numel() * es + kv + mask + b * h * s * 4
+    return bound_of(nbytes, 4 * d * h * vis, q.dtype)
+
+
+def sdpa_mask(c):
+    """The case's key-padding mask as SDPA takes it (bool [B, 1, 1, S])."""
+    if c['kmask'] is None:
+        return None
+    return (c['kmask'] == 0)[:, None, None, :]
 
 
 def fwd_sdpa_ms(c, iters):
-    """Yardstick only: one F.scaled_dot_product_attention (causal, with
-    the case's dropout rate and its own random mask) over q, k, v made
-    contiguous in [B, H, S, D] beforehand, not timed."""
+    """Yardstick only: one F.scaled_dot_product_attention (the case's
+    causality, key-padding mask and dropout rate, its own random mask)
+    over q, k, v made contiguous in [B, H, S, D] beforehand, not
+    timed."""
     import torch.nn.functional as F
     rot = min(8, len(c['parts']))
     qkv = [[x.transpose(1, 2).contiguous() for x in c['parts'][i]]
            for i in range(rot)]
+    mask = sdpa_mask(c)
     return device_ms(lambda i: F.scaled_dot_product_attention(
-        *qkv[i % rot], is_causal=c['causal'], dropout_p=c['drop']), iters)
+        *qkv[i % rot], attn_mask=mask, is_causal=c['causal'],
+        dropout_p=c['drop']), iters)
 
 
 def dense_kernel_cases(fa, pa, timed_iters):
@@ -938,10 +1033,12 @@ def bwd_bound(c, dots):
     q, k, _ = c['parts'][0]
     b, s, h, d = q.shape
     es = q.element_size()
-    ins = (2 * q.numel() + 2 * k.numel()) * es + 2 * b * h * s * 4
+    vis, keys = visible(c)
+    kv = 2 * sum(keys) * k.shape[2] * d * es
+    mask = 0 if c['kmask'] is None else b * s * 4
+    ins = 2 * q.numel() * es + kv + mask + 2 * b * h * s * 4
     outs = q.numel() * es if dots == 3 else 2 * k.numel() * es
-    vis = s * (s + 1) // 2 if c['causal'] else s * s
-    return bound_of(ins + outs, dots * 2 * d * h * b * vis, q.dtype)
+    return bound_of(ins + outs, dots * 2 * d * h * vis, q.dtype)
 
 
 def sdpa_bwd_ms(c, iters):
@@ -951,6 +1048,8 @@ def sdpa_bwd_ms(c, iters):
     and dO made contiguous in [B, H, S, D] and its own forward's out and
     lse, all made beforehand and not timed."""
     rot = min(8, len(c['parts']))
+    if c['kmask'] is not None:
+        return sdpa_masked_bwd_ms(c, iters)
     ops = torch.ops.aten
     args = []
     for i in range(rot):
@@ -962,6 +1061,27 @@ def sdpa_bwd_ms(c, iters):
                      c['drop'], c['causal'], o[6], o[7]))
     return device_ms(lambda i: ops._scaled_dot_product_flash_attention_backward(
         *args[i % rot]), iters)
+
+
+def sdpa_masked_bwd_ms(c, iters):
+    """Yardstick for a masked case (PyTorch's flash backward takes no
+    mask): the backward of one F.scaled_dot_product_attention with the
+    case's key-padding mask and dropout (its memory-efficient kernel),
+    dq, dk and dv together, the forward run beforehand and not timed."""
+    import torch.nn.functional as F
+    rot = min(8, len(c['parts']))
+    mask = sdpa_mask(c)
+    runs = []
+    for i in range(rot):
+        q, k, v = (x.transpose(1, 2).contiguous().requires_grad_()
+                   for x in c['parts'][i])
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                             dropout_p=c['drop'])
+        runs.append((out, (q, k, v), c['dos'][i].transpose(1, 2)
+                     .contiguous()))
+    return device_ms(lambda i: torch.autograd.grad(
+        runs[i % rot][0], runs[i % rot][1], runs[i % rot][2],
+        retain_graph=True), iters)
 
 
 def bwd_kernel_cases(fa, timed_iters):
@@ -2838,9 +2958,7 @@ def phase_eager(card):
     eager rung, (c) an eager training loop at the MLP widths, (d) a
     gradient-penalty step."""
     import paddle_tpu_torch as paddle
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), 'tests'))
-    import torch_op_cases as cases
+    cases = tests_module('torch_op_cases')
     t0 = time.perf_counter()
     res = {'sweep': eager_op_sweep(paddle, cases)}
     sw = res['sweep']
@@ -3488,6 +3606,199 @@ def phase_fp8_card_vs_cpu(gpt, moe, topt):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 25-26: the ERNIE-base masked-LM program in paddle.nn
+# ---------------------------------------------------------------------------
+ERNIE_WARMUP, ERNIE_TIMED = 2, 8
+NN_CARD_OUT_TOL = 2e-5      # card vs CPU, f32: kernel 1's f32 tolerance
+NN_CARD_GRAD_TOL = 1e-4
+
+
+def phase_ernie_train(kernels, card):
+    """Phase 25: tests/torch_nn_cases.py's ERNIE-width masked-LM program
+    (ErnieConfig's defaults written in paddle.nn, 132M parameters, random
+    weights from paddle.seed(0)) trained on one numpy-seeded batch [8,
+    512] (lengths 256-512, a bool [8, 1, 1, 512] key-padding mask, 15% of
+    the real positions masked) with loss.backward(); opt.step();
+    opt.clear_grad(); sched.step() under auto_cast(bfloat16): AdamW(
+    LinearWarmup(PolynomialDecay(1e-4, 100), 10), weight decay 0.01,
+    ClipGradByGlobalNorm(1.0)). 2 warm-up and 8 timed steps, then a
+    profiled one, one with the optimizer profiled alone and one counting
+    host syncs (fewer than one a parameter); every step must launch
+    flash_fwd, flash_bwd_dq and flash_bwd_dkv once a layer (12 each), all
+    on the tensor-core instance."""
+    import paddle_tpu_torch as paddle
+    C = nn_cases()
+    paddle.set_device('gpu')
+    paddle.seed(0)
+    dims = C.ERNIE_BASE
+    L = dims['layers']
+    torch.cuda.reset_peak_memory_stats()
+    model = C.ernie_mlm(paddle, **dims)
+    n_params = sum(p.size for p in model.parameters())
+    toks, types_, mask, labels, lens = C.mlm_batch(dims['vocab'],
+                                                   **ERNIE_BATCH)
+    batch = [paddle.to_tensor(a) for a in (toks, types_, mask, labels)]
+    opt, sched = C.mlm_optimizer(paddle, model)
+    per_step = {'flash_fwd': L, 'flash_bwd_dq': L, 'flash_bwd_dkv': L}
+    losses, totals = [], {k: 0 for k in kernels}
+
+    def one(opt_profile=None):
+        """One step (mlm_step); with ``opt_profile`` (a dict) the
+        optimizer's part (step, clear_grad, the scheduler) runs alone in
+        a profiled window, whose record fills the dict."""
+        zero_launches(kernels)
+        if opt_profile is None:
+            losses.append(C.mlm_step(paddle, model, opt, sched, batch,
+                                     amp='bfloat16'))
+        else:
+            with paddle.amp.auto_cast(dtype='bfloat16'):
+                loss = model.loss(*batch)
+            loss.backward()
+            torch.cuda.synchronize()
+            opt_profile.update(profile_window(
+                lambda: (opt.step(), opt.clear_grad(), sched.step())))
+            losses.append(loss)
+        got = launch_counts(kernels)
+        want = {k: per_step.get(k, 0) for k in got}
+        tc = {k: kernels[k].tc_launches for k in TC_KERNELS}
+        if got != want or any(tc[k] != got[k] for k in TC_KERNELS):
+            raise AssertionError(f'ERNIE step {len(losses)}: launches '
+                                 f'{got}, tensor-core {tc}; want {want}, '
+                                 'all tensor-core')
+        for k, n in got.items():
+            totals[k] += n
+
+    for _ in range(ERNIE_WARMUP):
+        one()
+    _, wall = timed(lambda: [one() for _ in range(ERNIE_TIMED)])
+    prof = profile_window(one)
+    prof_opt = {}
+    one(prof_opt)
+    # the global-norm clip and the step read nothing back to the host
+    syncs = count_syncs(one)
+    n_tensors = len(model.parameters())
+    vals = [float(x) for x in losses]
+    if syncs >= n_tensors:
+        raise AssertionError(f'ERNIE: {syncs} host syncs in a step, one a '
+                             f'parameter or more ({n_tensors})')
+    if not all(math.isfinite(x) for x in vals):
+        raise AssertionError(f'ERNIE: a non-finite loss {vals}')
+    if not vals[-1] < vals[0]:
+        raise AssertionError(f'ERNIE: the loss did not fall: {vals}')
+    b, s = toks.shape
+    tok_s = b * s * ERNIE_TIMED / wall
+    attn_ms = {name: kernel_ms(prof, kern) for name, kern in (
+        ('flash_fwd', 'flash_fwd_tc_kernel'),
+        ('flash_bwd_dq', 'flash_bwd_dq_tc_kernel'),
+        ('flash_bwd_dkv', 'flash_bwd_dkv_tc_kernel'))}
+    res = {'params': n_params, 'losses': vals,
+           'step_ms': wall * 1e3 / ERNIE_TIMED, 'tokens_per_s': tok_s,
+           'real_tokens_per_step': int(lens.sum()),
+           'mfu': 6 * n_params * tok_s / PEAK_BF16,
+           'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9,
+           'launches': totals, 'steps': len(losses), 'profile': prof,
+           'attention_device_ms': attn_ms,
+           'device_ms_by_kind': device_ms_by_kind(prof),
+           'syncs_per_step': syncs,
+           'optimizer': {k: prof_opt[k] for k in (
+               'window_ms', 'device_ms', 'busy_share', 'kernels')}}
+    print(f'  ERNIE-base MLM ({n_params / 1e6:.1f}M params, [{b}, {s}], '
+          f'bf16 amp O1, dropout 0.1): {res["step_ms"]:.1f} ms a step, '
+          f'{tok_s:.0f} tokens/s ({res["real_tokens_per_step"]} real a '
+          f'step), MFU {100 * res["mfu"]:.2f}% of 989 TFLOP/s, peak '
+          f'{res["peak_mem_gb"]:.2f} GB [{card}]', flush=True)
+    print(f'  launches over {len(losses)} steps: {totals} ({L} each a '
+          f'step, all tensor-core); host syncs in a step {syncs} (over '
+          f'{n_tensors} parameters)', flush=True)
+    print(f'  losses {" ".join(f"{x:.4f}" for x in vals)}', flush=True)
+    print(f'  profiled step: window {prof["window_ms"]:.1f} ms, device busy '
+          f'{prof["device_ms"]:.1f} ms ({100 * prof["busy_share"]:.1f}%), '
+          f'{prof["kernels"]} kernel launches', flush=True)
+    for name, ms in prof['top']:
+        print(f'    {ms:9.3f} ms  {name}', flush=True)
+    print('  attention kernels in the profiled step, device ms: '
+          + ', '.join(f'{k} {v:.3f}' for k, v in attn_ms.items()),
+          flush=True)
+    kinds = res['device_ms_by_kind']
+    print('  device ms by kind: ' + ', '.join(
+        f'{k} {v:.2f}' for k, v in kinds.items() if k != 'fp8_gemm'),
+        flush=True)
+    po = res['optimizer']
+    print(f'  the optimizer alone (opt.step(), clear_grad, sched.step()): '
+          f'window {po["window_ms"]:.1f} ms, device {po["device_ms"]:.2f} '
+          f'ms, {po["kernels"]} kernel launches', flush=True)
+    del model, opt, batch
+    paddle.set_device('cpu')
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_ernie_card_vs_cpu():
+    """Phase 26: the program at 2 layers in f32 (ERNIE-base widths,
+    dropout 0, [2, 128], lengths 64-128) from the same weights on the
+    card and on the CPU: both losses, every first gradient, and the
+    parameters after two opt.step()s within 1e-4, each device's taken
+    less what AdamW in float64 makes of its own gradients
+    (torch_nn_cases.mlm_agreement: near AdamW's epsilon the update
+    amplifies a gradient's last bits by lr / eps); then every case of
+    the nn table card against CPU, outputs within 2e-5 and gradients
+    within 1e-4 of the part's largest value (at least 1)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import flash_attention as fa
+    C = nn_cases()
+    dims = dict(C.ERNIE_BASE, layers=2, dropout=0.0)
+    arrays = C.mlm_batch(dims['vocab'], 2, 128, 64, 128, seed=1)[:4]
+    paddle.set_device('cpu')
+    paddle.seed(0)
+    cpu_model = C.ernie_mlm(paddle, **dims)
+    sd = C.state_of(cpu_model)
+    want = C.mlm_two_steps(paddle, cpu_model, arrays)
+    paddle.set_device('gpu')
+    card_model = C.ernie_mlm(paddle, **dims)
+    card_model.set_state_dict(sd)
+    before = fa.flash_fwd.launches
+    got = C.mlm_two_steps(paddle, card_model, arrays)
+    kernel_runs = fa.flash_fwd.launches - before
+    fa.flash_fwd.launches = before
+    agree = C.mlm_agreement(got, want, sd)
+    print(f'  program card vs CPU (2 layers, f32, kernel 1 x '
+          f'{kernel_runs}): losses {agree["loss"]:.2e}, first gradients '
+          f'{agree["grad"]:.2e}, parameters after 2 steps beyond the '
+          f'gradients\' gaps {agree["param"]:.2e} (tol 1e-4); before '
+          f'taking the gaps out {agree["param_raw"]:.2e}, '
+          f'{agree["raw_beyond"]} entries over 1e-4, largest first '
+          f'gradient among them {agree["raw_beyond_grad_max"]:.2e} '
+          f'{"OK" if agree["ok"] else "FAIL"}', flush=True)
+    # two forwards (one a step) of 2 layers
+    if not agree['ok'] or kernel_runs != 2 * dims['layers']:
+        raise AssertionError(f'ERNIE card vs CPU: {agree}, kernel 1 ran '
+                             f'{kernel_runs} times (want '
+                             f'{2 * dims["layers"]})')
+    worst = {'out': 0.0, 'grad': 0.0, 'state': 0.0}
+    bad = []
+    for case in C.CASES:
+        paddle.set_device('cpu')
+        cpu = C.run(paddle, case)
+        paddle.set_device('gpu')
+        card_res = C.run(paddle, case, state=cpu['before'])
+        r = C.compare(card_res, cpu, case, out_tol=NN_CARD_OUT_TOL,
+                      grad_tol=NN_CARD_GRAD_TOL)
+        for k in worst:
+            worst[k] = max(worst[k], r[k])
+        if not r['ok']:
+            bad.append((case.name, r))
+    paddle.set_device('cpu')
+    print(f'  nn case table card vs CPU: {len(C.CASES)} cases, largest '
+          f'output {worst["out"]:.2e}, state {worst["state"]:.2e} (tol '
+          f'{NN_CARD_OUT_TOL:g}), gradient {worst["grad"]:.2e} (tol '
+          f'{NN_CARD_GRAD_TOL:g}) {"OK" if not bad else "FAIL"}',
+          flush=True)
+    if bad:
+        raise AssertionError(f'nn cases card vs CPU: {bad[:5]}')
+    return {'program': agree, 'cases': len(C.CASES), 'case_errors': worst}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--report', default=None,
@@ -3601,15 +3912,23 @@ def main(argv=None):
     print('phase 24: fp8 training card against CPU at 2 layers, and amp',
           flush=True)
     report['fp8_card_vs_cpu'] = phase_fp8_card_vs_cpu(gpt, moe, topt)
+    print('phase 25: the ERNIE-base masked-LM program (paddle.nn, '
+          'opt.step()) at full width', flush=True)
+    report['ernie_train'] = phase_ernie_train(counters, card)
+    print('phase 26: the ERNIE program and the nn case table, card '
+          'against CPU', flush=True)
+    report['ernie_card_vs_cpu'] = phase_ernie_card_vs_cpu()
 
     gen, fwd = report['generate'], report['forward']
     train = report['train']['launches']
     wo, gwo = report['engine_int8_wo'], report['generate_int8_wo']
     pfx = report['prefix']
     ms, mt = report['moe_serving'], report['moe_train']['launches']
+    # kernels 1-3's other training runs: the fp8 rung, MoE fp8, ERNIE
     f8t = [report['fp8_train']['none']['launches'],
            report['fp8_train']['fp8']['launches'],
-           report['moe_fp8_train']['launches']]
+           report['moe_fp8_train']['launches'],
+           report['ernie_train']['launches']]
     main_path = {
         'paged_decode': report['engine']['launches']
         + wo['bf16_pool']['launches'] + pfx['bf16']['launches']

@@ -32,6 +32,12 @@ torch's autograd, with the JAX package's module paths (``core/``,
 fp8 training: ``GPTConfig(matmul_precision='fp8')`` (and MoE's) runs the
 block matmuls through ``quantization/fp8.py``'s delayed-scaling product,
 on the card's fp8 tensor cores.
+
+``paddle.nn`` (``Layer``, ``Parameter``, the MLP and transformer layers;
+``scaled_dot_product_attention`` on the flash kernels), ``paddle.
+optimizer`` (the eager ``step()`` with groups, clipping, regularizers and
+the LR schedulers) and ``paddle.regularizer`` run Paddle programs that
+build a model from layers and train it with ``opt.step()``.
 """
 import torch
 
@@ -73,3 +79,5 @@ from .compat_api import (  # noqa: E402,F401
     get_default_dtype, in_dygraph_mode, scatter_, set_default_dtype,
     set_grad_enabled, set_printoptions, t, tanh_, unique_consecutive, unstack)
 from . import amp, quantization  # noqa: E402,F401
+from . import nn, optimizer, regularizer  # noqa: E402,F401
+from .nn.layer_base import ParamAttr  # noqa: E402,F401

@@ -96,9 +96,15 @@ def tanh_(x, name=None):
 
 def create_parameter(shape, dtype='float32', name=None, attr=None,
                      is_bias=False, default_initializer=None):
-    raise NotImplementedError(
-        'create_parameter is not ported yet (ROADMAP Queue 1 item 7: nn, '
-        'optimizer, amp, hapi)')
+    """A new trainable ``nn.Parameter`` on the current device, from
+    ``default_initializer`` (else zeros for a bias, Xavier normal for a
+    weight); ``attr`` is accepted and not read, as in the reference."""
+    from .nn.layer_base import Parameter
+    from .nn import initializer as I
+    init = default_initializer or (I.Constant(0.0) if is_bias
+                                   else I.XavierNormal())
+    return Parameter(init(tuple(shape), _dtype_mod.convert_dtype(dtype)),
+                     name=name)
 
 
 def set_printoptions(precision=None, threshold=None, edgeitems=None,

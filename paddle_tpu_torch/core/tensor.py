@@ -214,6 +214,13 @@ class Tensor:
         self._value = new
 
     def set_value(self, value):
+        """Copy ``value`` in, as Paddle's ``set_value`` does: the eager
+        optimizer updates a Parameter's storage in place, so no Tensor
+        takes another's storage here."""
+        if isinstance(value, Tensor):
+            value = value._value
+        if isinstance(value, torch.Tensor):
+            value = value.detach().clone()
         self._replace_value(value)
 
     def backward(self, grad_tensor=None, retain_graph=False):

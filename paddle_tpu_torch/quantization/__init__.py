@@ -3,7 +3,7 @@
 Ported: ``fp8``, the e4m3/e5m2 delayed-scaling matmul of the GPT and MoE
 train steps (``matmul_precision='fp8'``). The rest of the reference's
 names are Layer wrappers and calibration passes over ``nn`` layers, which
-is not ported yet: each one raises.
+wait with ``nn.quant`` for ROADMAP Queue 1 step J3: each one raises.
 """
 from . import fp8  # noqa: F401
 
@@ -12,8 +12,7 @@ __all__ = ['ImperativeQuantAware', 'PostTrainingQuantization',
            'convert_calibrated', 'WeightOnlyLinear', 'WeightOnlyConv2D',
            'WeightOnlyEmbedding', 'fp8']
 
-_TODO = ('is not ported yet (ROADMAP Queue 1 item 7: nn, optimizer, amp, '
-         'hapi)')
+_TODO = 'is not ported yet (ROADMAP Queue 1 item 7, step J3: the rest of nn)'
 
 
 def _deferred(name):

@@ -1080,3 +1080,89 @@ def test_fp8_train_step_launches_and_pushes_once(cuda, remat, per_layer):
             for role in meta.values():
                 assert (role['ahist'] != 0).sum(1).tolist() == [i + 1] * 2
     assert losses[1] < losses[0] and all(np.isfinite(losses))
+
+
+def _counts(fa):
+    return {k: (getattr(fa, k).launches, getattr(fa, k).tc_launches)
+            for k in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype,mask,drop', [
+    (torch.bfloat16, True, 0.1), (torch.float32, True, 0.0),
+    (torch.bfloat16, False, 0.0)])
+def test_multi_head_attention_runs_kernels_1_to_3(cuda, dtype, mask, drop):
+    """nn.MultiHeadAttention (12 heads of 64) on the card takes
+    scaled_dot_product_attention's kernel route: one launch each of
+    kernels 1, 2 and 3 (tensor-core in bf16, CUDA-core in f32), and its
+    output (and in f32 the input's gradient) agree with the same layer on
+    the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as port_device
+    from paddle_tpu_torch.ops import flash_attention as fa
+    prev = port_device._current
+    try:
+        rng = np.random.RandomState(0)
+        x = rng.randn(2, 96, 768).astype('float32')
+        m = (np.arange(96)[None] < np.array([[96], [40]]))[:, None, None]
+        res = {}
+        for dev in ('cpu', 'gpu'):
+            paddle.set_device(dev)
+            paddle.seed(0)
+            mha = paddle.nn.MultiHeadAttention(768, 12, dropout=drop)
+            if dev == 'gpu':
+                mha.set_state_dict(sd)
+            else:
+                sd = {k: v.numpy() for k, v in mha.state_dict().items()}
+            if dtype == torch.bfloat16:
+                mha.to(dtype='bfloat16')
+            xt = paddle.to_tensor(x, stop_gradient=False).astype(dtype)
+            xt.retain_grads()
+            before = _counts(fa)
+            out = mha(xt, attn_mask=paddle.to_tensor(m) if mask else None)
+            (out.astype('float32') ** 2).sum().backward()
+            after = _counts(fa)
+            res[dev] = (out.astype('float32').numpy(),
+                        xt.grad.astype('float32').numpy())
+        tc = int(dtype == torch.bfloat16)
+        assert {k: (a[0] - before[k][0], a[1] - before[k][1])
+                for k, a in after.items()} == {
+            k: (1, tc) for k in after}
+        if drop == 0.0:
+            bf16 = dtype == torch.bfloat16
+            for a, b in zip(res['gpu'], res['cpu'][:1] if bf16
+                            else res['cpu']):
+                tol = 2 ** -6 if bf16 else 1e-4
+                assert np.abs(a - b).max() <= tol * max(1.0, np.abs(b).max())
+    finally:
+        port_device._current = prev
+
+
+@pytest.mark.gpu
+def test_an_eager_nn_step_does_not_sync_the_host(cuda):
+    """A masked-LM step of paddle.nn layers under bf16 auto_cast, its
+    backward, ClipGradByGlobalNorm and AdamW.step() on the card read
+    nothing back to the host (sync debug mode 'error')."""
+    import sys
+    from pathlib import Path
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device as port_device
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_nn_cases as C
+    prev = port_device._current
+    try:
+        paddle.set_device('gpu')
+        model = C.ernie_mlm(paddle, vocab=512, hidden=128, layers=2,
+                            heads=2, ffn=256, max_seq_len=64)
+        batch = [paddle.to_tensor(a) for a in C.mlm_batch(
+            512, 2, 64, 32, 64, seed=0)[:4]]
+        opt, sched = C.mlm_optimizer(paddle, model)
+        C.mlm_step(paddle, model, opt, sched, batch, amp='bfloat16')
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            C.mlm_step(paddle, model, opt, sched, batch, amp='bfloat16')
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    finally:
+        port_device._current = prev

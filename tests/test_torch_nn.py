@@ -1,0 +1,746 @@
+"""paddle_tpu_torch.nn against the JAX package's paddle_tpu.nn, on the CPU.
+
+Every case of ``tests/torch_nn_cases.py`` (each layer and functional of
+the slice) runs in both packages on the same numpy inputs, the Layer's
+weights carried across by ``state_dict``: outputs and the state after the
+call within 1e-5, input and parameter gradients within 1e-4, each over
+the part's largest value (at least 1). The reference's gradients come
+from its own ``backward()``, traced under one ``jax.jit`` per chunk of
+cases (eagerly, each primitive compiles on first use: ~90 s here).
+
+Also: the Layer system (structured names, ``set_state_dict`` from the
+reference, ``functional_call`` with autograd on, hooks, ``to``, deep
+copies), initializers and dropout (held to what does not depend on the
+random stream, and to moments), the attention route, the reference's
+``tests/test_nn_layers.py`` flows, the names waiting for step J3, and the
+ERNIE-width masked-LM program at 2 layers against the same program in
+``paddle_tpu.nn``.
+"""
+import copy
+import importlib
+import inspect
+import types
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as ref
+import paddle_tpu_torch as port
+from paddle_tpu_torch import device as port_device
+from paddle_tpu_torch.nn.functional import sparse_attention as tsa
+from paddle_tpu_torch.ops import flash_attention as tfa
+
+import torch_nn_cases as C
+
+CHUNK = 70      # reference cases traced in one jax.jit
+
+
+@pytest.fixture(autouse=True)
+def port_on_cpu():
+    prev = port_device._current
+    port.set_device('cpu')
+    yield
+    port_device._current = prev
+
+
+def _reference_chunk(cases):
+    """The reference's results for ``cases``, traced in one jax.jit: each
+    case's forward and its own tape backward."""
+    objs = [C.prepare(ref, c) for c in cases]
+    befores = [C.state_of(o) for o, _ in objs]
+    # the reference memoizes interpolation tables as device arrays: clear
+    # them so no trace reuses another's
+    common = importlib.import_module('paddle_tpu.nn.functional.common')
+    for m in ('_nearest_index', '_area_weights', '_resize_taps'):
+        getattr(common, m).cache_clear()
+
+    def f(all_arrays):
+        return [C.forward_backward(ref, c, o, a, value=lambda t: t._value)
+                for c, (o, _), a in zip(cases, objs, all_arrays)]
+    outs = jax.jit(f)([a for _, a in objs])
+    for m in ('_nearest_index', '_area_weights', '_resize_taps'):
+        getattr(common, m).cache_clear()
+    res = jax.tree_util.tree_map(lambda x: np.asarray(x), outs)
+    for r, b in zip(res, befores):
+        r['before'] = b
+    return res
+
+
+@pytest.fixture(scope='module')
+def reference_results():
+    out = {}
+    for i in range(0, len(C.CASES), CHUNK):
+        chunk = C.CASES[i:i + CHUNK]
+        out.update(zip((c.name for c in chunk), _reference_chunk(chunk)))
+    return out
+
+
+@pytest.mark.parametrize('case', C.CASES, ids=str)
+def test_case_matches_the_reference(case, reference_results):
+    want = reference_results[case.name]
+    got = C.run(port, case, state=want['before'])
+    res = C.compare(got, want, case)
+    assert res['ok'], res
+
+
+def _names_used(fn):
+    """Attribute names a case's maker reads, through its closures."""
+    seen, stack = set(), [fn]
+    while stack:
+        f = stack.pop()
+        code = getattr(f, '__code__', None)
+        if code is None:
+            continue
+        codes = [code]
+        while codes:
+            c = codes.pop()
+            seen.update(c.co_names)
+            codes += [k for k in c.co_consts if isinstance(k, types.CodeType)]
+        stack += [cell.cell_contents for cell in (f.__closure__ or ())
+                  if callable(cell.cell_contents)]
+        stack += [v for v in (f.__defaults__ or ()) if callable(v)]
+    return seen
+
+
+def test_the_case_table_covers_every_ported_layer():
+    """Every public Layer class and functional of the slice has a case."""
+    used = set()
+    for c in C.CASES:
+        used |= _names_used(c.make)
+        used |= {part for part in c.name.replace('.', ' ').split()}
+    layers = [n for n, v in vars(port.nn).items()
+              if inspect.isclass(v) and issubclass(v, port.nn.Layer)
+              and v.__module__.rsplit('.', 1)[-1] in (
+                  'layer_activation', 'layer_common', 'layer_container',
+                  'layer_norm_layers', 'layer_loss', 'layer_transformer')]
+    funcs = [n for n, v in vars(port.nn.functional).items()
+             if not n.startswith('_') and callable(v)
+             and getattr(v, '__module__', '').rsplit('.', 1)[-1] in (
+                 'activation', 'common', 'norm', 'loss',
+                 'sparse_attention')]
+    # random by nature: held to statistics below
+    stochastic = {'Dropout2D', 'Dropout3D', 'AlphaDropout', 'dropout2d',
+                  'dropout3d', 'alpha_dropout', 'gumbel_softmax'}
+    assert len(layers) > 70 and len(funcs) > 70
+    assert [n for n in layers + funcs
+            if n not in used and n not in stochastic] == []
+
+
+# ---------------------------------------------------------------------------
+# the Layer system
+# ---------------------------------------------------------------------------
+
+def _composite(P):
+    nn = P.nn
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc = nn.Linear(4, 6)
+            self.bn = nn.BatchNorm1D(6)
+            self.seq = nn.Sequential(nn.ReLU(), nn.Linear(6, 3))
+            self.extra = self.create_parameter([3], is_bias=True)
+            self.register_buffer('steps', P.to_tensor(np.zeros(2, 'f4')))
+            self.register_buffer('scratch', P.to_tensor(np.ones(1, 'f4')),
+                                 persistable=False)
+
+        def forward(self, x):
+            return self.seq(self.bn(self.fc(x))) + self.extra
+    return Block()
+
+
+def test_structured_names_equal_the_reference():
+    r, t = _composite(ref), _composite(port)
+    assert [n for n, _ in t.named_parameters()] == [
+        n for n, _ in r.named_parameters()]
+    assert [n for n, _ in t.named_buffers()] == [
+        n for n, _ in r.named_buffers()]
+    assert list(t.state_dict()) == list(r.state_dict())
+    assert [n for n, _ in t.named_sublayers()] == [
+        n for n, _ in r.named_sublayers()]
+    assert 'scratch' not in ' '.join(t.state_dict())
+
+
+def test_set_state_dict_from_the_reference_keeps_trainable_leaves():
+    r, t = _composite(ref), _composite(port)
+    sd = {k: v.numpy() for k, v in r.state_dict().items()}
+    missing, unexpected = t.set_state_dict(dict(sd, bogus=np.zeros(1)))
+    assert missing == [] and unexpected == ['bogus']
+    for n, p in t.named_parameters():
+        np.testing.assert_array_equal(p.numpy(), sd[n])
+        assert p._value.is_leaf and p._value.requires_grad
+        assert not p.stop_gradient
+    for n, b in t.named_buffers():
+        if n in sd:
+            np.testing.assert_array_equal(b.numpy(), sd[n])
+    x = np.random.RandomState(0).randn(5, 4).astype('f4')
+    np.testing.assert_allclose(t(port.to_tensor(x)).numpy(),
+                               r(ref.to_tensor(x)).numpy(), rtol=1e-5,
+                               atol=1e-5)
+    t(port.to_tensor(x)).sum().backward()
+    assert all(p.grad is not None for p in t.parameters())
+
+
+def test_functional_call_keeps_autograd_on():
+    lin = port.nn.Linear(3, 2)
+    w = torch.randn(3, 2, requires_grad=True)
+    b = torch.zeros(2, requires_grad=True)
+    x = torch.randn(4, 3)
+    out, bufs = port.nn.functional_call(lin, {'weight': w, 'bias': b}, None,
+                                        x)
+    assert isinstance(out, torch.Tensor) and bufs == {}
+    gw, gb = torch.autograd.grad(out.square().sum(), (w, b))
+    np.testing.assert_allclose(gw.numpy(), (x.T @ (2 * out)).detach().numpy(),
+                               rtol=1e-5)
+    assert lin.weight._value is not w         # the layer's own restored
+    # the reference runs the same call as a pure function of its arrays
+    rlin = ref.nn.Linear(3, 2)
+    rout, _ = ref.nn.functional_call(
+        rlin, {'weight': w.detach().numpy(), 'bias': b.detach().numpy()},
+        None, x.numpy())
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(rout),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_functional_call_returns_the_new_buffers():
+    bn = port.nn.BatchNorm1D(3)
+    x = np.random.RandomState(1).randn(8, 3).astype('f4') * 2 + 1
+    bufs = port.nn.buffer_arrays(bn)
+    _, new = port.nn.functional_call(bn, port.nn.param_arrays(bn), bufs, x)
+    rbn = ref.nn.BatchNorm1D(3)
+    _, rnew = ref.nn.functional_call(rbn, ref.nn.param_arrays(rbn),
+                                     ref.nn.buffer_arrays(rbn), x)
+    assert list(new) == list(rnew) == ['_mean', '_variance']
+    for k in new:
+        np.testing.assert_allclose(new[k].numpy(), np.asarray(rnew[k]),
+                                   rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(bn._mean.numpy(), np.zeros(3))
+
+
+def test_hooks_train_eval_and_astype():
+    lin = port.nn.Linear(2, 2)
+    seen = []
+    h1 = lin.register_forward_pre_hook(
+        lambda l, inp: (inp[0] * 2,))
+    h2 = lin.register_forward_post_hook(
+        lambda l, inp, out: seen.append(out.shape) or out + 1)
+    x = port.to_tensor(np.ones((1, 2), 'f4'))
+    want = (2 * np.ones((1, 2))) @ lin.weight.numpy() + lin.bias.numpy() + 1
+    np.testing.assert_allclose(lin(x).numpy(), want, rtol=1e-6)
+    h1.remove()
+    h2.remove()
+    assert seen == [[1, 2]]
+    net = port.nn.Sequential(lin, port.nn.Dropout(0.5))
+    assert net.eval() is net and not net[1].training
+    assert net.train() is net and net[1].training
+    net.astype('bfloat16')
+    assert lin.weight.dtype == torch.bfloat16
+    assert lin.weight._value.is_leaf and not lin.weight.stop_gradient
+    lin.to(device='cpu', dtype='float32')
+    assert lin.weight.dtype == torch.float32
+
+
+def test_deep_copies_are_new_leaves_on_the_same_device():
+    layer = port.nn.TransformerEncoderLayer(8, 2, 16, dropout=0.0)
+    enc = port.nn.TransformerEncoder(layer, 3)
+    ps = [p for l in enc.layers for p in l.parameters()]
+    assert len({id(p._value) for p in ps}) == len(ps)
+    first = dict(enc.layers[0].named_parameters())
+    for l in enc.layers[1:]:
+        for n, p in l.named_parameters():
+            assert p._value.is_leaf and p._value.requires_grad
+            assert p._value.device == first[n]._value.device
+            assert p._value.data_ptr() != first[n]._value.data_ptr()
+            np.testing.assert_array_equal(p.numpy(), first[n].numpy())
+    assert [n for n, _ in enc.named_parameters()] == [
+        n for n, _ in ref.nn.TransformerEncoder(
+            ref.nn.TransformerEncoderLayer(8, 2, 16, dropout=0.0),
+            3).named_parameters()]
+    twin = copy.deepcopy(port.nn.Linear(2, 2))
+    assert twin.weight._value.is_leaf
+
+
+def test_create_parameter_and_param_attr():
+    p = port.create_parameter([3, 4])
+    assert isinstance(p, port.nn.Parameter) and p.shape == [3, 4]
+    assert not p.stop_gradient and p._value.is_leaf
+    b = port.create_parameter([4], is_bias=True, name='b0')
+    np.testing.assert_array_equal(b.numpy(), np.zeros(4))
+    assert b.name == 'b0'
+    lin = port.nn.Linear(2, 3, weight_attr=port.ParamAttr(
+        name='w', trainable=False, learning_rate=0.5,
+        regularizer=port.regularizer.L1Decay(0.1), need_clip=False,
+        initializer=port.nn.initializer.Constant(0.25)),
+        bias_attr=False)
+    assert lin.bias is None and [n for n, _ in lin.named_parameters()] == [
+        'weight']
+    w = lin.weight
+    assert w.name == 'w' and not w.trainable and w.stop_gradient
+    assert w.optimize_attr['learning_rate'] == 0.5 and not w.need_clip
+    assert isinstance(w.regularizer, port.regularizer.L1Decay)
+    np.testing.assert_array_equal(w.numpy(), np.full((2, 3), 0.25))
+
+
+def test_set_global_initializer():
+    I = port.nn.initializer
+    I.set_global_initializer(I.Constant(0.5), I.Constant(-0.5))
+    try:
+        l = port.nn.Linear(3, 3)
+        assert np.allclose(l.weight.numpy(), 0.5)
+        assert np.allclose(l.bias.numpy(), -0.5)
+        l2 = port.nn.Linear(3, 3, weight_attr=port.ParamAttr(
+            initializer=I.Constant(2.0)))
+        assert np.allclose(l2.weight.numpy(), 2.0)
+    finally:
+        I.set_global_initializer(None)
+    assert not np.allclose(port.nn.Linear(3, 3).weight.numpy(), 0.5)
+
+
+# ---------------------------------------------------------------------------
+# initializers and dropout: what does not depend on the random stream
+# exactly, the rest by its moments
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('shape', [(5,), (30, 20), (16, 8, 3, 3)])
+def test_fans_and_bounds_equal_the_reference(shape):
+    RI = importlib.import_module('paddle_tpu.nn.initializer')
+    TI = port.nn.initializer
+    assert TI._fans(shape) == RI._fans(shape)
+    fi, fo = RI._fans(shape)
+    assert TI.XavierNormal().std(shape) == pytest.approx(
+        np.sqrt(2.0 / (fi + fo)), rel=1e-12)
+    assert TI.XavierUniform(fan_in=7).limit(shape) == pytest.approx(
+        np.sqrt(6.0 / (7 + fo)), rel=1e-12)
+    assert TI.KaimingNormal(negative_slope=0.2).std(shape) == pytest.approx(
+        np.sqrt(2.0 / 1.04) / np.sqrt(fi), rel=1e-12)
+    assert TI.KaimingUniform().limit(shape) == pytest.approx(
+        np.sqrt(2.0) * np.sqrt(3.0 / fi), rel=1e-12)
+
+
+def test_deterministic_initializers_equal_the_reference():
+    for name, args, shape in [
+            ('Constant', (0.75,), (3, 4)), ('Bilinear', (), (2, 3, 4, 4)),
+            ('Bilinear', (), (1, 1, 5, 5)),
+            ('Assign', (np.arange(12, dtype='f4'),), (3, 4))]:
+        want = np.asarray(getattr(ref.nn.initializer, name)(*args)(shape))
+        got = getattr(port.nn.initializer, name)(*args)(shape)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert got.dtype == torch.float32
+    got = port.nn.initializer.Constant(2.0)((2,), torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+
+
+def test_dirac_and_orthogonal_structure():
+    d = port.nn.initializer.Dirac()((3, 3, 4, 6)).numpy()
+    centre = d[1, 1].copy()
+    d[1, 1] = 0
+    assert not d.any()
+    np.testing.assert_allclose(centre @ centre.T, np.eye(4), atol=1e-5)
+    with pytest.raises(ValueError):
+        port.nn.initializer.Dirac()((3, 3, 6, 4))
+    for shape in [(6, 4), (4, 6), (2, 3, 5)]:
+        q = port.nn.initializer.Orthogonal(gain=2.0)(shape).numpy()
+        m = q.reshape(-1, shape[-1])
+        gram = m.T @ m if m.shape[0] >= m.shape[1] else m @ m.T
+        np.testing.assert_allclose(gram, 4 * np.eye(len(gram)), atol=1e-4)
+
+
+@pytest.mark.parametrize('name,args,mean,std,lo,hi', [
+    ('Normal', (0.5, 2.0), 0.5, 2.0, None, None),
+    ('TruncatedNormal', (0.0, 1.0), 0.0, 0.8796, -2.0, 2.0),
+    ('Uniform', (-0.5, 1.5), 0.5, 2 / np.sqrt(12), -0.5, 1.5),
+    ('XavierNormal', (), 0.0, np.sqrt(2.0 / 600), None, None),
+    ('XavierUniform', (), 0.0, np.sqrt(6.0 / 600) / np.sqrt(3),
+     -np.sqrt(6.0 / 600), np.sqrt(6.0 / 600)),
+    ('KaimingNormal', (), 0.0, np.sqrt(2.0 / 300), None, None),
+    ('KaimingUniform', (), 0.0, np.sqrt(2.0 / 300),
+     -np.sqrt(6.0 / 300), np.sqrt(6.0 / 300)),
+])
+def test_random_initializers_moments(name, args, mean, std, lo, hi):
+    port.seed(3)
+    x = getattr(port.nn.initializer, name)(*args)((300, 300)).numpy()
+    assert x.shape == (300, 300) and x.dtype == np.float32
+    assert abs(x.mean() - mean) < 0.02 * max(std, 1e-3) * 10
+    assert abs(x.std() - std) / std < 0.02
+    if lo is not None:
+        assert x.min() >= lo - 1e-6 and x.max() <= hi + 1e-6
+    port.seed(3)
+    y = getattr(port.nn.initializer, name)(*args)((300, 300)).numpy()
+    np.testing.assert_array_equal(x, y)       # paddle.seed replays it
+
+
+def test_dropout_statistics_and_edges():
+    x = port.to_tensor(np.ones((200, 500), 'f4'), stop_gradient=False)
+    y = port.nn.functional.dropout(x, 0.3).numpy()
+    keep = y != 0
+    assert abs(keep.mean() - 0.7) < 0.01
+    np.testing.assert_allclose(y[keep], 1 / 0.7, rtol=1e-6)
+    y = port.nn.functional.dropout(x, 0.3, mode='downscale_in_infer')
+    assert set(np.unique(y.numpy())) <= {0.0, 1.0}
+    # axis: one draw per kept axis entry, shared along the others
+    y = port.nn.functional.dropout(x, 0.5, axis=0).numpy()
+    assert (y == y[:, :1]).all()
+    y = port.nn.functional.dropout2d(port.to_tensor(np.ones(
+        (4, 6, 3, 3), 'f4')), 0.5).numpy()
+    assert (y == y[:, :, :1, :1]).all()
+    for p in (0.0, 1.0):      # exact, the gradients too (p = 1: NaN both)
+        a = np.random.RandomState(0).randn(3, 4).astype('f4')
+        outs = []
+        for P in (port, ref):
+            t = P.to_tensor(a, stop_gradient=False)
+            o = P.nn.functional.dropout(t, p)
+            (o * 2).sum().backward()
+            outs.append((o.numpy(), t.grad.numpy()))
+        np.testing.assert_array_equal(outs[0][0], outs[1][0])
+        np.testing.assert_array_equal(outs[0][1], outs[1][1])
+    # alpha dropout: kept values a * x + b, dropped ones a * alpha' + b
+    z = np.random.RandomState(1).randn(400, 400).astype('f4')
+    out = port.nn.functional.alpha_dropout(port.to_tensor(z), 0.2).numpy()
+    alpha_p = -1.6732632423543772 * 1.0507009873554805
+    a = 1.0 / (1.0507009873554805 * ((1 - 0.2) * (1 + 0.2 * alpha_p ** 2))
+               ** 0.5)
+    b = -a * alpha_p * 0.2
+    dropped = np.isclose(out, a * alpha_p + b, rtol=0, atol=1e-6)
+    assert abs(dropped.mean() - 0.2) < 0.01
+    np.testing.assert_allclose(out[~dropped], a * z[~dropped] + b,
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_attention_dropout_on_both_routes():
+    """Dropout 0.4 on the kernel route (the hash mask of a seed from the
+    port's CPU generator, replayed by the backward) and the plain route:
+    each row's output is its keys' values under the kept, rescaled
+    probabilities; the share kept is 0.6 on both."""
+    rng = np.random.RandomState(0)
+    shares = {}
+    for d in (64, 4):
+        q = port.to_tensor(rng.randn(2, 64, 2, d).astype('f4') * 0.1)
+        v = port.to_tensor(np.ones((2, 64, 2, d), 'f4'))
+        out = port.nn.functional.scaled_dot_product_attention(
+            q, q, v, dropout_p=0.4).numpy()
+        shares[d] = out.mean()
+        port.seed(9)
+        a = port.nn.functional.scaled_dot_product_attention(
+            q, q, v, dropout_p=0.4).numpy()
+        port.seed(9)
+        b = port.nn.functional.scaled_dot_product_attention(
+            q, q, v, dropout_p=0.4).numpy()
+        np.testing.assert_array_equal(a, b)
+    assert abs(shares[64] - 1.0) < 0.03 and abs(shares[4] - 1.0) < 0.03
+
+
+# ---------------------------------------------------------------------------
+# the attention route
+# ---------------------------------------------------------------------------
+
+def _qkv(d, dtype=torch.float32, h=2, s=8):
+    g = torch.Generator().manual_seed(0)
+    return [torch.randn(2, s, h, d, generator=g).to(dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize('d,dtype,mask,drop,kernel', [
+    (64, torch.float32, None, 0.0, True),
+    (128, torch.bfloat16, 'keys', 0.1, True),
+    (256, torch.float32, 'keys4d', 0.0, True),
+    (64, torch.float16, None, 0.0, False),
+    (4, torch.float32, None, 0.0, False),
+    (64, torch.float32, 'dense', 0.0, False),
+    (64, torch.float32, 'perhead', 0.0, False),
+    (64, torch.float32, None, 1.0, False),
+])
+def test_the_route_is_decided_from_shapes_and_dtypes(d, dtype, mask, drop,
+                                                     kernel, monkeypatch):
+    q, k, v = _qkv(d, dtype)
+    m = {None: None, 'keys': torch.ones(2, 8, dtype=torch.bool),
+         'keys4d': torch.zeros(2, 1, 1, 8),
+         'dense': torch.zeros(8, 8)[None, None],
+         'perhead': torch.ones(2, 2, 8, dtype=torch.bool)}[mask]
+    assert tsa.kernel_route(q, k, v, m, drop) is kernel
+    calls = []
+    real = tfa.flash_attention
+    monkeypatch.setattr(tfa, 'flash_attention',
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    out = port.nn.functional.scaled_dot_product_attention(
+        port.to_tensor(q), k, v, attn_mask=m, dropout_p=drop)
+    assert out.shape == [2, 8, 2, d] and out.dtype == dtype
+    assert bool(calls) is kernel
+
+
+def test_mha_of_head_dim_4_takes_the_plain_route(monkeypatch):
+    calls = []
+    monkeypatch.setattr(tfa, 'flash_attention',
+                        lambda *a, **k: calls.append(1))
+    x = port.randn([2, 5, 16])
+    assert port.nn.MultiHeadAttention(16, 4)(x).shape == [2, 5, 16]
+    assert calls == []
+
+
+def test_sdpa_amp_hook_sees_the_op_by_name(monkeypatch):
+    from paddle_tpu_torch.core import dispatch
+    seen = []
+    prev = dispatch.amp_cast_hook
+    monkeypatch.setattr(dispatch, 'amp_cast_hook',
+                        lambda n, a: seen.append(n) or prev(n, a))
+    q, k, v = _qkv(64)
+    port.nn.functional.scaled_dot_product_attention(q, k, v)
+    assert seen == ['scaled_dot_product_attention']
+
+
+# ---------------------------------------------------------------------------
+# the reference's tests/test_nn_layers.py flows (no conv, pooling or RNN)
+# ---------------------------------------------------------------------------
+
+def test_reference_flows_linear_norms_losses():
+    nn, F = port.nn, port.nn.functional
+    lin = nn.Linear(4, 3)
+    x = port.randn([2, 4])
+    np.testing.assert_allclose(
+        lin(x).numpy(), x.numpy() @ lin.weight.numpy() + lin.bias.numpy(),
+        rtol=1e-5)
+    bn = nn.BatchNorm2D(3)
+    x = port.randn([4, 3, 5, 5]) * 3 + 2
+    assert np.allclose(bn(x).numpy().mean(axis=(0, 2, 3)), 0, atol=1e-4)
+    assert not np.allclose(bn._mean.numpy(), 0)
+    assert bn.eval()(x).shape == [4, 3, 5, 5]
+    y = nn.LayerNorm(8)(port.randn([2, 4, 8]) * 5 + 3).numpy()
+    assert np.allclose(y.mean(-1), 0, atol=1e-4)
+    assert np.allclose(y.std(-1), 1, atol=1e-2)
+    x = port.randn([2, 4, 6, 6])
+    assert nn.GroupNorm(2, 4)(x).shape == [2, 4, 6, 6]
+    assert nn.InstanceNorm2D(4)(x).shape == [2, 4, 6, 6]
+    emb = nn.Embedding(10, 4)
+    assert emb(port.to_tensor(np.array([[1, 2], [3, 4]]))).shape == [2, 2, 4]
+    do = nn.Dropout(0.5)
+    do.eval()
+    assert np.allclose(do(port.ones([10, 10])).numpy(), 1.0)
+    do.train()
+    assert set(np.unique(do(port.ones([10, 10])).numpy())) <= {0.0, 2.0}
+    x = port.to_tensor(np.array([-2., 0., 2.], 'float32'))
+    assert np.allclose(nn.ReLU()(x).numpy(), [0, 0, 2])
+    assert np.allclose(F.softmax(x).numpy().sum(), 1, rtol=1e-5)
+    assert np.allclose(nn.LeakyReLU(0.1)(x).numpy(), [-0.2, 0, 2])
+    assert np.allclose(F.gelu(port.zeros([1])).numpy(), 0)
+    logits = port.to_tensor(np.array([[2., 1., 0.1]], 'float32'))
+    ce = nn.CrossEntropyLoss()(logits, port.to_tensor(np.array([0])))
+    assert np.allclose(ce.numpy(), -np.log(np.exp(2) / np.exp(
+        [2, 1, 0.1]).sum()), rtol=1e-5)
+    a = port.to_tensor(np.array([1., 2.], 'float32'))
+    b = port.to_tensor(np.array([1.5, 2.5], 'float32'))
+    assert np.allclose(nn.MSELoss()(a, b).numpy(), 0.25)
+    assert np.allclose(nn.L1Loss()(a, b).numpy(), 0.5)
+    p = port.to_tensor(np.array([0.8, 0.3], 'float32'))
+    t = port.to_tensor(np.array([1., 0.], 'float32'))
+    assert np.allclose(nn.BCELoss()(p, t).numpy(),
+                       -(np.log(0.8) + np.log(0.7)) / 2, rtol=1e-5)
+
+
+def test_reference_flows_containers_transformer_clip_weight_norm():
+    nn = port.nn
+    m = nn.Sequential(nn.Linear(4, 8), nn.ReLU(), nn.Linear(8, 2))
+    assert len(m.parameters()) == 4 and len(m.state_dict()) == 4
+    m2 = nn.Sequential(nn.Linear(4, 8), nn.ReLU(), nn.Linear(8, 2))
+    m2.set_state_dict(m.state_dict())
+    x = port.randn([2, 4])
+    assert np.allclose(m(x).numpy(), m2(x).numpy())
+    ll = nn.LayerList([nn.Linear(2, 2) for _ in range(3)])
+    assert len(ll) == 3 and len(ll.parameters()) == 6
+    model = nn.Transformer(d_model=16, nhead=2, num_encoder_layers=2,
+                           num_decoder_layers=2, dim_feedforward=32)
+    assert model(port.randn([2, 6, 16]), port.randn([2, 4, 16])).shape == [
+        2, 4, 16]
+    mha = nn.MultiHeadAttention(16, 4)
+    x = port.randn([2, 5, 16])
+    x.stop_gradient = False
+    mha(x).sum().backward()
+    assert x.grad is not None and mha.q_proj.weight.grad is not None
+    gs = nn.ClipGradByGlobalNorm(1.0).clip_arrays([torch.ones(10) * 10])
+    assert np.allclose(np.linalg.norm(gs[0].numpy()), 1.0, rtol=1e-4)
+    lin = nn.Linear(4, 3)
+    want = lin(port.ones([1, 4])).numpy()
+    nn.utils.weight_norm(lin)
+    assert np.allclose(lin(port.ones([1, 4])).numpy(), want, rtol=1e-4)
+    assert 'weight_g' in dict(lin.named_parameters())
+    nn.utils.remove_weight_norm(lin)
+    assert np.allclose(lin(port.ones([1, 4])).numpy(), want, rtol=1e-4)
+
+
+def test_syncbn_is_batchnorm_in_one_process():
+    nn = port.nn
+    net = nn.Sequential(nn.Linear(3, 8), nn.BatchNorm1D(8), nn.ReLU())
+    net2 = nn.SyncBatchNorm.convert_sync_batchnorm(net)
+    assert isinstance(net2[1], nn.SyncBatchNorm)
+    x = port.to_tensor(np.random.RandomState(0).rand(6, 3).astype('f4'))
+    out = net2(x).numpy()
+    assert out.shape == (6, 8) and np.isfinite(out).all()
+    bn = nn.BatchNorm1D(8)
+    bn.set_state_dict(net2[1].state_dict())
+    bn.train()
+    # one more step of the same statistics as plain BatchNorm
+    h = net2[0](x)
+    np.testing.assert_allclose(net2[1](h).numpy(), bn(h).numpy(),
+                               rtol=1e-6)
+
+
+def test_clip_helpers_match_the_reference():
+    rng = np.random.RandomState(4)
+    gs = [rng.randn(3, 4).astype('f4') * 3, rng.randn(5).astype('f4')]
+    for name, args in [('ClipGradByValue', (0.5,)),
+                       ('ClipGradByValue', (0.5, -0.1)),
+                       ('ClipGradByNorm', (1.0,)),
+                       ('ClipGradByGlobalNorm', (2.0,))]:
+        want = getattr(ref.nn, name)(*args).clip_arrays(
+            [jax.numpy.asarray(g) for g in gs])
+        got = getattr(port.nn, name)(*args).clip_arrays(
+            [torch.from_numpy(g) for g in gs] + [None])
+        assert got[-1] is None
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                       atol=1e-7)
+        pairs = getattr(port.nn, name)(*args)(
+            [(None, port.to_tensor(g)) for g in gs])
+        for (_, a), b in zip(pairs, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                       atol=1e-7)
+    for norm_type in (2.0, float('inf')):
+        outs = []
+        for P in (port, ref):
+            ps = [P.nn.Parameter(g) for g in gs]
+            for p in ps:
+                (p * P.to_tensor(gs[0].ravel()[:p.size].reshape(
+                    p.shape))).sum().backward()
+            total = P.nn.clip_grad_norm_(ps, 1.5, norm_type)
+            outs.append([float(total.numpy())] + [p.grad.numpy()
+                                                  for p in ps])
+        for a, b in zip(*outs):
+            np.testing.assert_allclose(a, b, rtol=1e-6)
+
+
+def test_spectral_norm_reparameterization():
+    lin = port.nn.Linear(5, 4)
+    w = lin.weight.numpy()
+    port.nn.utils.spectral_norm(lin, n_power_iterations=30)
+    sigma = np.linalg.svd(w, compute_uv=False)[0]
+    np.testing.assert_allclose(lin.weight.numpy(), w / sigma, rtol=1e-4)
+    assert 'weight_orig' in dict(lin.named_parameters())
+
+
+# ---------------------------------------------------------------------------
+# names: every public name of the reference's nn, optimizer and regularizer
+# exists; the step-J3 ones raise
+# ---------------------------------------------------------------------------
+
+_MODULES = ['nn', 'nn.functional', 'nn.initializer', 'nn.utils', 'nn.clip',
+            'optimizer', 'optimizer.lr', 'regularizer']
+
+
+@pytest.mark.parametrize('mod', _MODULES)
+def test_no_public_name_of_the_reference_is_missing(mod):
+    r = importlib.import_module(f'paddle_tpu.{mod}')
+    t = importlib.import_module(f'paddle_tpu_torch.{mod}')
+    own = []
+    for n in dir(r):
+        v = getattr(r, n)
+        if n.startswith('_'):
+            continue
+        origin = (v.__name__ if isinstance(v, types.ModuleType)
+                  else getattr(v, '__module__', '') or '')
+        if origin.startswith(('paddle_tpu.nn', 'paddle_tpu.optimizer',
+                              'paddle_tpu.regularizer',
+                              'paddle_tpu.utils.deprecated')):
+            own.append(n)
+    assert own
+    assert [n for n in own if not hasattr(t, n)] == []
+    for n in ('nn', 'optimizer', 'regularizer', 'ParamAttr'):
+        assert hasattr(port, n)
+
+
+def _j3_names():
+    out = []
+    for mod in ('nn.layer_conv', 'nn.layer_pooling', 'nn.layer_rnn',
+                'nn.decode', 'nn.quant', 'nn.functional.conv',
+                'nn.functional.pooling', 'nn.functional.extension'):
+        r = importlib.import_module(f'paddle_tpu.{mod}')
+        out += [(mod, n) for n in dir(r) if not n.startswith('_')
+                and getattr(getattr(r, n), '__module__', '') == r.__name__]
+    return out + [('nn', 'HSigmoidLoss'), ('nn', 'MaxUnPool2D')]
+
+
+def test_every_step_j3_name_raises_citing_step_j3():
+    names = _j3_names()
+    assert len(names) == 69
+    for mod, n in names:
+        obj = getattr(importlib.import_module(f'paddle_tpu_torch.{mod}'), n)
+        with pytest.raises(NotImplementedError, match='step J3'):
+            obj(1, 2)
+        top = mod.split('.')
+        holder = port
+        for part in top:
+            holder = getattr(holder, part)
+        assert getattr(holder, n) is obj
+    with pytest.raises(NotImplementedError, match='step J3'):
+        port.quantization.WeightOnlyLinear(port.nn.Linear(2, 2))
+
+
+# ---------------------------------------------------------------------------
+# the ERNIE-width masked-LM program at 2 layers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('heads,route', [(4, 'plain'), (1, 'kernel twin')])
+def test_ernie_program_matches_the_reference(heads, route, monkeypatch):
+    """hidden 64 with 4 heads of 16 (the plain route) and 1 head of 64
+    (kernels 1-3's twins), 2 layers, f32, dropout 0: the first loss, every
+    gradient, and the parameters after two ``opt.step()``s within 1e-4.
+    The schedule is the recipe's, at a peak of 1e-2 and no warm-up, so
+    both steps move the weights. Where a gradient is near
+    AdamW's epsilon (k_proj's bias, 0 by the softmax's shift invariance),
+    Adam's update amplifies its last bits by lr / eps, so the parameters
+    are held after taking out what AdamW, in float64, makes of each
+    package's own gradients (``torch_nn_cases.mlm_agreement``)."""
+    dims = dict(vocab=97, hidden=64, layers=2, heads=heads, ffn=128,
+                max_seq_len=16, dropout=0.0)
+    calls = []
+    real = tfa.flash_attention
+    monkeypatch.setattr(tfa, 'flash_attention',
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    arrays = C.mlm_batch(97, 3, 16, 9, 16, seed=0, mask_share=0.3)[:4]
+    rmodel = C.ernie_mlm(ref, **dims)
+    sd = {k: v.numpy() for k, v in rmodel.state_dict().items()}
+    # the reference's eager program (its tape backward and two steps),
+    # traced once
+    want = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda a: C.mlm_two_steps(ref, rmodel, a, lambda t: t._value))(
+            arrays))
+    tmodel = C.ernie_mlm(port, **dims)
+    tmodel.set_state_dict(sd)
+    got = C.mlm_two_steps(port, tmodel, arrays)
+    assert bool(calls) is (route == 'kernel twin')
+    assert len(got[1][0]) == 5 + 2 * 16 + 2
+    res = C.mlm_agreement(got, want, sd)
+    assert res['ok'], res
+    print(f'{route}: parameters {res["param"]:.2e} apart beyond the '
+          f'gradient gaps ({res["param_raw"]:.2e} before), '
+          f'{res["raw_beyond"]} entries over 1e-4 before, largest first '
+          f'gradient among them {res["raw_beyond_grad_max"]:.2e}')
+    for n, v in got[3].items():
+        assert not np.array_equal(v, sd[n]), n      # the steps moved it
+
+
+def test_ernie_program_trains_in_bfloat16_amp():
+    """The same program under auto_cast(bfloat16) with dropout 0.1, as the
+    card runs it: the linears in bf16, the loss f32 and falling."""
+    dims = dict(vocab=97, hidden=64, layers=2, heads=1, ffn=128,
+                max_seq_len=16, dropout=0.1)
+    model = C.ernie_mlm(port, **dims)
+    toks, types_, mask, labels, _ = C.mlm_batch(97, 3, 16, 9, 16, seed=1,
+                                                 mask_share=0.3)
+    batch = [port.to_tensor(a) for a in (toks, types_, mask, labels)]
+    with port.amp.auto_cast(dtype='bfloat16'):
+        assert model(*batch[:3]).dtype == torch.bfloat16
+    opt, sched = C.mlm_optimizer(port, model, peak=3e-3, warmup=2)
+    losses = [float(C.mlm_step(port, model, opt, sched, batch,
+                               amp='bfloat16').numpy()) for _ in range(8)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert all(p.dtype == torch.float32 and p._value.is_leaf
+               for p in model.parameters())

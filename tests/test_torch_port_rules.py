@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -44,7 +45,8 @@ def _forbidden(name):
 
 @pytest.mark.parametrize('path', sorted(PORT.rglob('*.py')) +
                          [ROOT / 'chip_smoke.py',
-                          ROOT / 'tests' / 'torch_op_cases.py'],
+                          ROOT / 'tests' / 'torch_op_cases.py',
+                          ROOT / 'tests' / 'torch_nn_cases.py'],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = [n for n in _imports(path) if _forbidden(n)]
@@ -54,9 +56,16 @@ def test_no_jax_or_reference_import(path):
 def test_the_scan_covers_the_training_modules():
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob('*.py')}
     assert {'optimizer/__init__.py', 'optimizer/optimizer.py',
+            'optimizer/lr.py', 'regularizer.py',
             'ops/xent.py', 'ops/flash_attention.py',
             'quantization/__init__.py', 'quantization/fp8.py',
             'amp/__init__.py'} <= scanned
+    nn = {str(p.relative_to(PORT)) for p in (PORT / 'nn').rglob('*.py')}
+    assert nn <= scanned and {
+        'nn/__init__.py', 'nn/layer_base.py', 'nn/initializer.py',
+        'nn/layer_common.py', 'nn/layer_transformer.py', 'nn/clip.py',
+        'nn/functional/sparse_attention.py',
+        'nn/functional/common.py'} <= nn
 
 
 def test_the_scan_covers_the_eager_core():
@@ -266,3 +275,55 @@ def test_a_header_edit_changes_every_build_digest(tmp_path):
     hdr.write_bytes(hdr.read_bytes() + b'\n// one more line\n')
     after = {n: _build.source_digest(n, csrc) for n in names}
     assert all(before[n] != after[n] for n in names)
+
+
+def test_layers_and_the_eager_optimizer_raise_without_a_card(monkeypatch):
+    """A Layer's parameters, and so the eager optimizer over them, are
+    made on the current device: the card unless the CPU was chosen."""
+    from paddle_tpu_torch import device as port_device
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    monkeypatch.setattr(port_device, '_current', None)
+    with pytest.raises(RuntimeError, match="set_device\\('cpu'\\)"):
+        paddle_tpu_torch.nn.Linear(2, 2)
+    with pytest.raises(RuntimeError, match="set_device\\('cpu'\\)"):
+        paddle_tpu_torch.nn.Parameter(np.ones(2, 'float32'))
+    paddle_tpu_torch.set_device('cpu')
+    lin = paddle_tpu_torch.nn.Linear(2, 2)
+    opt = paddle_tpu_torch.optimizer.SGD(parameters=lin.parameters())
+    lin(paddle_tpu_torch.ones([1, 2])).sum().backward()
+    opt.step()
+    assert lin.weight._value.device.type == 'cpu'
+
+
+def test_sdpa_on_the_kernel_route_raises_when_kernel_1_cannot_load(
+        monkeypatch):
+    """A CUDA call whose route is the kernels launches kernel 1 or raises;
+    the plain paths never run for it."""
+    from paddle_tpu_torch.nn.functional import sparse_attention as tsa
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as tfa
+
+    def no_library(name):
+        raise RuntimeError(f'nvcc not found building {name}')
+
+    def plain(*a, **k):
+        raise AssertionError('a CUDA tensor on the kernel route ran a '
+                             'plain path')
+
+    monkeypatch.setattr(_build, 'load', no_library)
+    monkeypatch.setattr(tfa, '_libs', {})
+    for mod, name in ((tfa, 'flash_fwd_reference'),
+                      (tfa, 'attention_reference'), (tsa, '_sdpa_plain')):
+        monkeypatch.setattr(mod, name, plain)
+
+    def card(shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype).as_subclass(_CudaStandIn)
+
+    q = card((2, 8, 4, 64))
+    mask = card((2, 1, 1, 8), torch.bool)
+    before = tfa.flash_fwd.launches
+    with pytest.raises(RuntimeError, match='nvcc not found building '
+                       'flash_fwd'):
+        paddle_tpu_torch.nn.functional.scaled_dot_product_attention(
+            q, q, q, attn_mask=mask)
+    assert tfa.flash_fwd.launches == before

@@ -69,8 +69,16 @@ def test_fft_and_signal_names_all_defer(module):
 
 
 def test_create_parameter_waits_for_item_7():
-    with pytest.raises(NotImplementedError, match='item 7'):
-        port.create_parameter([2, 2])
+    """Ported with nn (ROADMAP Queue 1 item 7, step J1): a trainable
+    Parameter as the reference's, zeros for a bias."""
+    w = port.create_parameter([2, 3], name='w')
+    r = ref.create_parameter([2, 3])
+    assert isinstance(w, port.nn.Parameter) and w.shape == r.shape
+    assert w.dtype == port.float32 and not w.stop_gradient and w.name == 'w'
+    assert w._value.is_leaf
+    b = port.create_parameter([3], is_bias=True)
+    np.testing.assert_array_equal(b.numpy(), ref.create_parameter(
+        [3], is_bias=True).numpy())
 
 
 def test_every_public_tensor_attribute_has_a_counterpart():

@@ -127,9 +127,18 @@ def test_optimizer_skips_a_missing_gradient_and_casts_the_gradient():
 
 
 def test_unported_optimizer_paths_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 7'):
-        topt.AdamW(grad_clip=object())
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 7'):
-        topt.AdamW().step()
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 7'):
-        topt.Adam(parameters=[torch.zeros(2)])
+    """Ported with the eager optimizer (ROADMAP Queue 1 item 7, step J1):
+    ``grad_clip`` clips functional_apply's gradients, ``step()`` with no
+    parameters does nothing, and ``parameters=`` takes any list, stepping
+    only its Parameters (raw torch tensors are skipped, as the reference
+    skips non-Parameters)."""
+    from paddle_tpu_torch import nn as tnn
+    p = {'w': torch.ones(4)}
+    opt = topt.SGD(learning_rate=1.0, grad_clip=tnn.ClipGradByValue(0.25))
+    opt.functional_apply(p, {'w': torch.full((4,), 3.0)},
+                         opt.functional_init(p))
+    assert torch.equal(p['w'], torch.full((4,), 0.75))
+    topt.AdamW().step()
+    raw = torch.zeros(2)
+    topt.Adam(parameters=[raw]).step()
+    assert torch.equal(raw, torch.zeros(2))
