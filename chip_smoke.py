@@ -7,8 +7,9 @@ Phases, all of them on every run, in order; any failure raises and exits
 non-zero:
  1. the card: nvidia-smi name and power limit, torch's device name/count;
  2. build every kernel of the port from the sources in the checkout, one
-    nvcc (sm_90a) for each source, all started together; print the build
-    time and ptxas report;
+    nvcc (sm_90a) for each source, all started together, and beside them
+    the DataLoader's native worker pool (native/dataloader.cpp, g++); print
+    the build time and ptxas report;
  3. each kernel against its plain PyTorch twin on the card, at the shapes
     its main path gives it, plus GQA, float32 and other head-dim cases;
     max abs error against the stated tolerance (scaled to each output
@@ -210,12 +211,29 @@ non-zero:
     against CPU from the same weights: the first loss, every gradient and
     the parameters after two opt.step()s within 1e-4; then every case of
     tests/torch_nn_cases.py (the table the CPU tests hold against the JAX
-    package) card against CPU: outputs within 2e-5, gradients 1e-4.
+    package) card against CPU: outputs within 2e-5, gradients 1e-4;
+27. phase 25's program as hapi's paddle.Model(net), prepare(the same
+    AdamW, schedule and clip; the masked-LM cross entropy on float32
+    logits), fed by paddle.io.DataLoader over a map dataset of 32 rows
+    [., 512] (batch 8, shuffle, num_workers=2: the native pool;
+    prefetch_to_device), fit 2 epochs (8 steps) under auto_cast(bfloat16)
+    with save_dir in a temp dir and log_freq 4; evaluate and predict on 8
+    rows; <save_dir>/final read into a fresh Model whose predict logits
+    equal the first's bit for bit: each train step launches flash_fwd,
+    flash_bwd_dq, flash_bwd_dkv 12 times, all tensor-core, each eval or
+    predict batch flash_fwd 12 times and no backward, a non-logging step
+    makes no host sync; step ms against phase 25's, the data wait, the
+    checkpoint's bytes, save and load ms;
+28. that Model at 2 layers in f32 ([2, 128]) card against CPU from the
+    same weights: 3 shuffled fit steps' losses and parameters within 1e-4
+    (mlm_agreement), .pdparams / .pdopt written on either device loading on
+    the other bit-exact, evaluate's Accuracy equal.
 Phase 3 also holds every kernel at the MoE paths' shapes (12 heads of 64),
 and kernels 1-3 at phase 25's (B=8, S=512, 12 heads of 64, its key-padding
 mask, dropout 0 and 0.1). Every launch counter is set to 0 just before
 each main-path run (phases 4, 6, 7, 9, 11, 13, 14, 15, 17, 18, 22, 23; in
-25 before each step) and read just after. Then one line of kernel records
+25 and 27 before each step, in 27 also before evaluate and each predict)
+and read just after. Then one line of kernel records
 (JSON), and the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the rest of the repository beside it, it
@@ -229,6 +247,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3799,6 +3818,437 @@ def phase_ernie_card_vs_cpu():
     return {'program': agree, 'cases': len(C.CASES), 'case_errors': worst}
 
 
+# ---------------------------------------------------------------------------
+# phases 27-28: hapi's Model over the ERNIE program, fed by paddle.io
+# ---------------------------------------------------------------------------
+HAPI_ROWS, HAPI_BATCH, HAPI_EPOCHS, HAPI_LOG_FREQ = 32, 8, 2, 4
+HAPI_INPUTS = ['tokens', 'types', 'mask']
+
+
+class _StepProbe:
+    """A hapi callback that zeroes the launch counters as each train step
+    begins and reads them, the host syncs torch's sync debug mode caught
+    and the in-flight window's waits (``train.inflight_waits``) as it
+    ends; and the host times of step begins and ends."""
+
+    def __init__(self, paddle, kernels, caught):
+        from paddle_tpu_torch import observability as obs
+        waits = obs.counter('train.inflight_waits')
+        probe = self
+        self.steps, self.begins, self.ends, self.losses = [], [], [], []
+
+        class CB(paddle.callbacks.Callback):
+            def on_train_batch_begin(self, step, logs=None):
+                probe.begins.append(time.perf_counter())
+                zero_launches(kernels)
+                probe._at = (len(caught), waits.value)
+
+            def on_train_batch_end(self, step, logs=None):
+                probe.ends.append(time.perf_counter())
+                probe.losses.append(logs['loss'])
+                probe.steps.append({
+                    'step': step,
+                    'launches': launch_counts(kernels),
+                    'tc': {k: kernels[k].tc_launches for k in TC_KERNELS},
+                    'syncs': sum('synchroniz' in str(w.message)
+                                 for w in caught[probe._at[0]:]),
+                    'window_waits': waits.value - probe._at[1],
+                    'logged': isinstance(logs['loss'], float)})
+        self.cb = CB()
+
+
+def _hist(name):
+    from paddle_tpu_torch import observability as obs
+    h = obs.histogram(name)
+    return h.count, h.sum
+
+
+def _hapi_feeds(paddle, C, model, arrays, kernels, per_step):
+    """The data wait of phase 27's fit with the native pool
+    (``num_workers=2``) against the producer thread alone (0), both under
+    fit's prefetch: one epoch each, in the order 0, 2, 2, 0. The wait of a
+    step is the host time from the previous step's end (the epoch's
+    begin, for the first) to its begin. Returns {workers: [runs]} and the
+    launches, 12 of each of kernels 1-3 a step, all held."""
+    from paddle_tpu_torch import observability as obs
+    pooled = obs.counter('data.native_batches')
+    feeds, launched = {0: [], 2: []}, {k: 0 for k in kernels}
+    for workers in (0, 2, 2, 0):
+        loader = paddle.io.DataLoader(C.mlm_rows(paddle, arrays),
+                                      batch_size=HAPI_BATCH, shuffle=True,
+                                      num_workers=workers)
+        marks = []
+
+        class Marks(paddle.callbacks.Callback):
+            def on_epoch_begin(self, epoch, logs=None):
+                marks.append(('end', time.perf_counter()))
+
+            def on_train_batch_begin(self, step, logs=None):
+                marks.append(('begin', time.perf_counter()))
+
+            def on_train_batch_end(self, step, logs=None):
+                marks.append(('end', time.perf_counter()))
+        zero_launches(kernels)
+        p0 = pooled.value
+        with paddle.amp.auto_cast(dtype='bfloat16'):
+            _, secs = timed(lambda: model.fit(
+                loader, epochs=1, log_freq=HAPI_LOG_FREQ, verbose=0,
+                callbacks=[Marks()]))
+        got = launch_counts(kernels)
+        n = HAPI_ROWS // HAPI_BATCH
+        want = {k: n * per_step.get(k, 0) for k in got}
+        if got != want or any(kernels[k].tc_launches != want[k]
+                              for k in TC_KERNELS):
+            raise AssertionError(f'hapi feed num_workers={workers}: '
+                                 f'launches {got}, want {want}')
+        if pooled.value - p0 != (n if workers else 0):
+            raise AssertionError(f'hapi feed num_workers={workers}: '
+                                 f'{pooled.value - p0} pool batches')
+        waits = [1e3 * (b[1] - a[1]) for a, b in zip(marks, marks[1:])
+                 if a[0] == 'end' and b[0] == 'begin']
+        feeds[workers].append({'first_wait_ms': waits[0],
+                               'later_wait_ms': sum(waits[1:])
+                               / len(waits[1:]),
+                               'fit_ms_per_step': 1e3 * secs / n})
+        for k in got:
+            launched[k] += got[k]
+    return feeds, launched
+
+
+def phase_hapi(kernels, card, bare_step_ms):
+    """Phase 27: phase 25's ERNIE-base program as paddle.Model(net):
+    prepare(AdamW over mlm_optimizer's schedule and clip, the masked-LM
+    cross entropy on float32 logits), fed by paddle.io.DataLoader over a
+    map dataset of 32 rows of mlm_batch at [., 512] (lengths 256-512),
+    batch 8, shuffle, num_workers=2 (the native pool), prefetch_to_device
+    (fit's own); fit 2 epochs (8 steps) under auto_cast(bfloat16) with
+    save_dir in a temp dir, log_freq 4 and the LRScheduler callback by
+    step; then evaluate and predict on 8 rows; then <save_dir>/final read
+    into a fresh Model whose predict logits must equal the first's bit for
+    bit. Each train step launches flash_fwd, flash_bwd_dq, flash_bwd_dkv
+    12 times, all tensor-core; each eval or predict batch flash_fwd 12
+    times and no backward; a non-logging step makes no host sync (sync
+    debug mode; the in-flight window's event waits are counted apart); the
+    losses finite; every fit batch from the native pool
+    (``data.native_batches``), with no warned degrade and no failed save.
+    Then the data wait with the pool against without it
+    (``_hapi_feeds``)."""
+    import shutil
+    import tempfile
+    import warnings
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import observability as obs
+    C = nn_cases()
+    paddle.set_device('gpu')
+    paddle.seed(0)
+    np.random.seed(0)
+    dims = C.ERNIE_BASE
+    L, V = dims['layers'], dims['vocab']
+    arrays = C.mlm_batch(V, HAPI_ROWS, 512, 256, 512, seed=0)[:4]
+    held = C.mlm_batch(V, HAPI_BATCH, 512, 256, 512, seed=1)[:4]
+    net = C.ernie_mlm(paddle, **dims)
+    opt, sched = C.mlm_optimizer(paddle, net)
+    model = paddle.Model(net, inputs=HAPI_INPUTS, labels=['labels'])
+    model.prepare(opt, C.mlm_loss(paddle, V))
+    loader = paddle.io.DataLoader(C.mlm_rows(paddle, arrays),
+                                  batch_size=HAPI_BATCH, shuffle=True,
+                                  num_workers=2)
+    held_loader = paddle.io.DataLoader(C.mlm_rows(paddle, held),
+                                       batch_size=HAPI_BATCH)
+    save_dir = tempfile.mkdtemp(prefix='chip_smoke_hapi_')
+    per_step = {'flash_fwd': L, 'flash_bwd_dq': L, 'flash_bwd_dkv': L}
+    # host time of the step's two parts, enqueue only (no sync): the
+    # forward and backward, and the update (functional_apply)
+    host = {'_loss_and_grads': [], '_apply': []}
+
+    def host_timed(name):
+        inner = getattr(model, name)
+
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = inner(*a, **k)
+            host[name].append(time.perf_counter() - t0)
+            return out
+        setattr(model, name, run)
+    for name in host:
+        host_timed(name)
+    per_eval = {'flash_fwd': L}
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            probe = _StepProbe(paddle, kernels, caught)
+            waits0, saves0 = _hist('train.data_wait_ms'), _hist(
+                'ckpt.save_ms')
+            pooled = obs.counter('data.native_batches')
+            pooled0 = pooled.value
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                with paddle.amp.auto_cast(dtype='bfloat16'):
+                    _, fit_s = timed(lambda: model.fit(
+                        loader, epochs=HAPI_EPOCHS, log_freq=HAPI_LOG_FREQ,
+                        save_dir=save_dir, save_freq=HAPI_EPOCHS,
+                        verbose=0, callbacks=[
+                            probe.cb,
+                            paddle.callbacks.LRScheduler(by_step=True)]))
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+        steps = probe.steps
+        if len(steps) != HAPI_EPOCHS * HAPI_ROWS // HAPI_BATCH:
+            raise AssertionError(f'hapi fit ran {len(steps)} steps')
+        # every batch from the native pool, and no warned degrade or
+        # failed save behind a passing fit; other warnings are shown
+        fit_warnings = [f'{w.category.__name__}: {w.message}' for w in caught
+                        if 'synchroniz' not in str(w.message)]
+        if pooled.value - pooled0 != len(steps) or any(
+                'native DataLoader worker pool' in m or 'checkpoint' in m
+                for m in fit_warnings):
+            raise AssertionError(
+                f'hapi fit: {pooled.value - pooled0} of {len(steps)} batches '
+                f'from the native pool; warnings {fit_warnings}')
+        for m in dict.fromkeys(fit_warnings):
+            print(f'  warning during fit: {m}', flush=True)
+        for s in steps:
+            want = {k: per_step.get(k, 0) for k in s['launches']}
+            if s['launches'] != want or any(s['tc'][k] != want[k]
+                                            for k in TC_KERNELS):
+                raise AssertionError(f'hapi step {s}: want {want}, all '
+                                     'tensor-core')
+        logged = [s['syncs'] for s in steps if s['logged']]
+        quiet = [s['syncs'] for s in steps if not s['logged']]
+        if not quiet or max(quiet) >= 1 or min(logged) < 1:
+            raise AssertionError(f'hapi host syncs: logging steps {logged}, '
+                                 f'the others {quiet} (want none)')
+        n_w, s_w = (a - b for a, b in zip(_hist('train.data_wait_ms'),
+                                          waits0))
+        n_s, s_s = (a - b for a, b in zip(_hist('ckpt.save_ms'), saves0))
+        if n_s != 4:                   # <save_dir>/0 and final, two files
+            raise AssertionError(f'hapi fit saved {n_s} files, want 4')
+        # host time between step ends inside an epoch: the loop's pace
+        per_epoch = len(steps) // HAPI_EPOCHS
+        inner = [i for i in range(len(steps)) if i % per_epoch]
+        step_ms = 1e3 * sum(probe.ends[i] - probe.ends[i - 1]
+                            for i in inner) / len(inner)
+        # of which inside the step (train_batch, the loss read at a log
+        # point, the callbacks' ends) and between steps (the data wait,
+        # the loop, the callbacks' begins)
+        in_step_ms = 1e3 * sum(probe.ends[i] - probe.begins[i]
+                               for i in inner) / len(inner)
+        grads_ms, update_ms = (1e3 * sum(host[n][i] for i in inner)
+                               / len(inner)
+                               for n in ('_loss_and_grads', '_apply'))
+
+        def held_run(fn):
+            zero_launches(kernels)
+            with paddle.amp.auto_cast(dtype='bfloat16'):
+                out, secs = timed(fn)
+            got = launch_counts(kernels)
+            want = {k: per_eval.get(k, 0) for k in got}
+            if got != want or kernels['flash_fwd'].tc_launches != L:
+                raise AssertionError(f'hapi eval/predict batch: launches '
+                                     f'{got}, want {want}, tensor-core')
+            return out, secs, got
+
+        ev, ev_s, ev_n = held_run(lambda: model.evaluate(held_loader,
+                                                         verbose=0))
+        pred, pred_s, pred_n = held_run(lambda: model.predict(held_loader))
+        final = os.path.join(save_dir, 'final')
+        sizes = {ext: os.path.getsize(final + ext)
+                 for ext in ('.pdparams', '.pdopt')}
+        paddle.seed(1)
+        fresh = C.ernie_mlm(paddle, **dims)
+        opt2, _ = C.mlm_optimizer(paddle, fresh)
+        model2 = paddle.Model(fresh, inputs=HAPI_INPUTS, labels=['labels'])
+        model2.prepare(opt2, C.mlm_loss(paddle, V))
+        _, load_s = timed(lambda: model2.load(final))
+        pred2, _, pred2_n = held_run(lambda: model2.predict(held_loader))
+        logits, logits2 = pred[0][0], pred2[0][0]
+        # phase 25's bare loop on this model and batch shape, in this
+        # phase: its host time split as hapi's
+        batch = [paddle.to_tensor(a[:HAPI_BATCH]) for a in arrays]
+        bare = []
+
+        def bare_step():
+            t0 = time.perf_counter()
+            with paddle.amp.auto_cast(dtype='bfloat16'):
+                loss = net.loss(*batch)
+            loss.backward()
+            t1 = time.perf_counter()
+            opt.step()
+            opt.clear_grad()
+            sched.step()
+            bare.append((t1 - t0, time.perf_counter() - t1))
+        net.train()                    # predict left it in eval mode
+        for _ in range(2):
+            bare_step()
+        bare.clear()
+        _, bare_s = timed(lambda: [bare_step() for _ in range(5)])
+        bare_here = {'step_ms': 1e3 * bare_s / 5,
+                     'forward_backward_host_ms':
+                     1e3 * sum(b[0] for b in bare) / 5,
+                     'update_host_ms': 1e3 * sum(b[1] for b in bare) / 5}
+        same = bool(np.array_equal(logits, logits2))
+        opt_same = all(torch.equal(a, model2._opt_state[n][k])
+                       for n, st in model._opt_state.items()
+                       for k, a in st.items())
+        feeds, feed_n = _hapi_feeds(paddle, C, model, arrays, kernels,
+                                    per_step)
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    losses = [float(x) for x in probe.losses]
+    eval_loss = ev.get('loss')
+    if not all(map(math.isfinite, losses + [eval_loss])) or logits.shape != (
+            HAPI_BATCH, 512, V) or not np.isfinite(logits).all():
+        raise AssertionError(f'hapi: losses {losses}, eval loss '
+                             f'{eval_loss}, logits {logits.shape}')
+    if not same or not opt_same:
+        raise AssertionError(f'hapi: the reloaded model\'s logits equal '
+                             f'{same}, optimizer state equal {opt_same}')
+    totals = {k: sum(s['launches'][k] for s in steps) + ev_n[k] + pred_n[k]
+              + pred2_n[k] + feed_n[k] for k in kernels}
+    res = {'steps': len(steps), 'fit_s': fit_s, 'step_ms': step_ms,
+           'in_step_ms': in_step_ms, 'between_steps_ms': step_ms - in_step_ms,
+           'forward_backward_host_ms': grads_ms, 'update_host_ms': update_ms,
+           'bare_here': bare_here,
+           'bare_step_ms': bare_step_ms,
+           'overhead_ms': step_ms - bare_step_ms,
+           'data_wait_ms': s_w / max(n_w, 1), 'data_waits': n_w,
+           'data_wait_p50_ms': obs.histogram('train.data_wait_ms')
+           .percentile(50),
+           'syncs_logged': logged, 'syncs_quiet': quiet,
+           'window_waits': [s['window_waits'] for s in steps],
+           'losses': losses, 'eval': ev, 'eval_s': ev_s,
+           'predict_s': pred_s, 'bytes': sizes,
+           'save_ms_per_file': s_s / max(n_s, 1), 'saves': n_s,
+           'load_ms': 1e3 * load_s, 'launches': totals,
+           'reload_logits_equal': same, 'feeds': feeds,
+           'fit_warnings': fit_warnings}
+    print(f'  hapi fit: {len(steps)} steps in {fit_s:.2f} s (two saves of '
+          f'<save_dir>/0 and final included); {step_ms:.1f} ms a step '
+          f'between step ends against phase 25\'s bare loop '
+          f'{bare_step_ms:.1f} ms (hapi over it {step_ms - bare_step_ms:+.1f}'
+          f' ms); data wait {res["data_wait_ms"]:.3f} ms a step over '
+          f'{n_w} waits (median {res["data_wait_p50_ms"]:.3f}); of a step '
+          f'{in_step_ms:.1f} ms inside it, {step_ms - in_step_ms:.1f} ms '
+          f'between steps [{card}]', flush=True)
+    print(f'  inside a step, host time: forward and backward '
+          f'{grads_ms:.1f} ms, the update (functional_apply) {update_ms:.1f}'
+          f' ms, the rest {in_step_ms - grads_ms - update_ms:.1f} ms; '
+          f'phase 25\'s loop on this model in this phase '
+          f'{bare_here["step_ms"]:.1f} ms a step (5 steps, host: loss and '
+          f'backward {bare_here["forward_backward_host_ms"]:.1f} ms, '
+          f'opt.step, clear_grad, sched.step '
+          f'{bare_here["update_host_ms"]:.1f} ms)', flush=True)
+    print(f'  host syncs a step (sync debug mode): logging steps {logged}, '
+          f'the others {quiet}; in-flight window waits a step '
+          f'{res["window_waits"]}', flush=True)
+    print(f'  losses {" ".join(f"{x:.4f}" for x in losses)}', flush=True)
+    for w, runs in feeds.items():
+        first, later, fit_ms = (' / '.join(f'{r[k]:.3f}' for r in runs)
+                                for k in ('first_wait_ms', 'later_wait_ms',
+                                          'fit_ms_per_step'))
+        print(f'  data wait under prefetch, num_workers={w} (runs in the '
+              f'order 0 2 2 0): first batch {first} ms, later batches '
+              f'{later} ms each; fit {fit_ms} ms a step [{card}]',
+              flush=True)
+    print(f'  launches a train step {per_step} (all tensor-core), a held '
+          f'batch evaluate {ev_n["flash_fwd"]} / predict '
+          f'{pred_n["flash_fwd"]} flash_fwd; eval loss {eval_loss:.4f} '
+          f'({1e3 * ev_s:.1f} ms), predict {1e3 * pred_s:.1f} ms', flush=True)
+    print(f'  checkpoint: .pdparams {sizes[".pdparams"]} B, .pdopt '
+          f'{sizes[".pdopt"]} B; {n_s} file saves at '
+          f'{res["save_ms_per_file"]:.1f} ms each; Model.load '
+          f'{res["load_ms"]:.1f} ms; reloaded predict logits equal bit for '
+          f'bit: {same}', flush=True)
+    del model, model2, net, fresh, opt, opt2, pred, pred2, batch
+    paddle.set_device('cpu')
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_hapi_card_vs_cpu():
+    """Phase 28: the program at 2 layers in f32 (dropout 0, [2, 128],
+    lengths 64-128) as a hapi Model from the same weights on the card and
+    on the CPU, fit 3 shuffled steps under one np.random.seed (AdamW at
+    peak 1e-2): the losses and the parameters after the steps within 1e-4
+    through torch_nn_cases.mlm_agreement, as phase 26; a .pdparams /
+    .pdopt pair written on the card loads on the CPU bit-exact, and the
+    reverse; evaluate's Accuracy equal on both devices from the same
+    weights."""
+    import shutil
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import flash_attention as fa
+    C = nn_cases()
+    dims = dict(C.ERNIE_BASE, layers=2, dropout=0.0)
+    V = dims['vocab']
+    arrays = C.mlm_batch(V, 6, 128, 64, 128, seed=1)[:4]
+    before = {k: getattr(fa, k).launches for k in TC_KERNELS}
+
+    def hapi_model(net):
+        opt, _ = C.mlm_optimizer(paddle, net, peak=1e-2, warmup=0)
+        calls = C.record_applies(opt)
+        model = paddle.Model(net, inputs=HAPI_INPUTS, labels=['labels'])
+        model.prepare(opt, C.mlm_loss(paddle, V),
+                      metrics=paddle.metric.Accuracy())
+        return model, calls
+
+    def fit(net):
+        model, calls = hapi_model(net)
+        loader = paddle.io.DataLoader(C.mlm_rows(paddle, arrays),
+                                      batch_size=2, shuffle=True)
+        np.random.seed(3)
+        return model, C.fit_record(paddle, model, loader, 1, calls)
+
+    paddle.set_device('cpu')
+    paddle.seed(0)
+    cpu_net = C.ernie_mlm(paddle, **dims)
+    sd = C.state_of(cpu_net)
+    cpu_model, want = fit(cpu_net)
+    paddle.set_device('gpu')
+    card_net = C.ernie_mlm(paddle, **dims)
+    card_net.set_state_dict(sd)
+    card_model, got = fit(card_net)
+    agree = C.mlm_agreement(got, want, sd)
+    d = tempfile.mkdtemp(prefix='chip_smoke_hapi_')
+    try:
+        exact = {}
+        for src, dst_dev, tag in ((card_model, 'cpu', 'card->cpu'),
+                                  (cpu_model, 'gpu', 'cpu->card')):
+            src.save(os.path.join(d, tag))
+            paddle.set_device(dst_dev)
+            paddle.seed(5)
+            dst, _ = hapi_model(C.ernie_mlm(paddle, **dims))
+            dst.load(os.path.join(d, tag))
+            exact[tag] = all(torch.equal(
+                v._value.cpu(), dst.network.state_dict()[k]._value.cpu())
+                for k, v in src.network.state_dict().items()) and all(
+                torch.equal(a.cpu(), dst._opt_state[n][k].cpu())
+                for n, st in src._opt_state.items() for k, a in st.items())
+            if tag == 'cpu->card':
+                card_copy = dst
+        held = paddle.io.DataLoader(C.mlm_rows(paddle, arrays), batch_size=2)
+        ev_card = card_copy.evaluate(held, verbose=0)
+        paddle.set_device('cpu')
+        ev_cpu = cpu_model.evaluate(held, verbose=0)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        paddle.set_device('cpu')
+        for k, n in before.items():
+            getattr(fa, k).launches = n
+    print(f'  hapi card vs CPU (2 layers, f32, 3 steps): losses '
+          f'{agree["loss"]:.2e}, first gradients {agree["grad"]:.2e}, '
+          f'parameters beyond the gradients\' gaps {agree["param"]:.2e} '
+          f'(tol 1e-4; raw {agree["param_raw"]:.2e}); checkpoints '
+          f'bit-exact {exact}; evaluate card {ev_card} CPU {ev_cpu} '
+          f'{"OK" if agree["ok"] else "FAIL"}', flush=True)
+    if not agree['ok'] or not all(exact.values()) or \
+            ev_card['acc'] != ev_cpu['acc'] or len(got[0]) != 3:
+        raise AssertionError(f'hapi card vs CPU: {agree}, checkpoints '
+                             f'{exact}, evaluate {ev_card} / {ev_cpu}')
+    return {'program': agree, 'checkpoints_exact': exact,
+            'evaluate': {'card': ev_card, 'cpu': ev_cpu}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--report', default=None,
@@ -3811,6 +4261,7 @@ def main(argv=None):
     # the port itself: absent when this script stands alone
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.models import moe_gpt as moe
+    from paddle_tpu_torch.io import native_loader
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
@@ -3835,10 +4286,16 @@ def main(argv=None):
 
     report = {'card': card}
     t0 = time.perf_counter()
+    # the DataLoader's native pool (g++) builds beside the nvcc builds
+    pool = threading.Thread(target=native_loader.get_lib)
+    pool.start()
     _build.build(SOURCES)
+    pool.join()
+    native_loader.get_lib()            # raises if the pool's build failed
     secs = time.perf_counter() - t0
     print(f'phase 2: built {", ".join(SOURCES)} (nvcc sm_90a, in parallel) '
-          f'in {secs:.1f} s', flush=True)
+          f'and the native DataLoader pool ({native_loader.lib_path().name}, '
+          f'g++) in {secs:.1f} s', flush=True)
     for name in SOURCES:
         log = _build.build_log[name]
         print(f'  {name}: nvcc {log["seconds"]:.1f} s', flush=True)
@@ -3918,17 +4375,26 @@ def main(argv=None):
     print('phase 26: the ERNIE program and the nn case table, card '
           'against CPU', flush=True)
     report['ernie_card_vs_cpu'] = phase_ernie_card_vs_cpu()
+    print('phase 27: hapi Model.fit / evaluate / predict of the ERNIE '
+          'program at full width, fed by paddle.io', flush=True)
+    report['hapi'] = phase_hapi(counters, card,
+                                report['ernie_train']['step_ms'])
+    print('phase 28: hapi card against CPU, and checkpoints across devices',
+          flush=True)
+    report['hapi_card_vs_cpu'] = phase_hapi_card_vs_cpu()
 
     gen, fwd = report['generate'], report['forward']
     train = report['train']['launches']
     wo, gwo = report['engine_int8_wo'], report['generate_int8_wo']
     pfx = report['prefix']
     ms, mt = report['moe_serving'], report['moe_train']['launches']
-    # kernels 1-3's other training runs: the fp8 rung, MoE fp8, ERNIE
+    # kernels 1-3's other training runs: the fp8 rung, MoE fp8, ERNIE, and
+    # hapi's fit, evaluate and predicts
     f8t = [report['fp8_train']['none']['launches'],
            report['fp8_train']['fp8']['launches'],
            report['moe_fp8_train']['launches'],
-           report['ernie_train']['launches']]
+           report['ernie_train']['launches'],
+           report['hapi']['launches']]
     main_path = {
         'paged_decode': report['engine']['launches']
         + wo['bf16_pool']['launches'] + pfx['bf16']['launches']

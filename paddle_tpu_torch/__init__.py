@@ -38,6 +38,14 @@ on the card's fp8 tensor cores.
 optimizer`` (the eager ``step()`` with groups, clipping, regularizers and
 the LR schedulers) and ``paddle.regularizer`` run Paddle programs that
 build a model from layers and train it with ``opt.step()``.
+
+``paddle.io`` (datasets, samplers, the DataLoader over the native worker
+pool, ``prefetch_to_device``), ``paddle.save`` / ``paddle.load`` (the JAX
+package's file format, atomic and CRC-checked), ``utils.checkpoint``,
+``paddle.metric`` and hapi's ``paddle.Model`` (``fit`` / ``evaluate`` /
+``predict``, the callbacks, ``AutoResume``) run the training loop users
+write on top of layers; ``paddle.fft`` and ``paddle.signal`` run on
+``torch.fft``.
 """
 import torch
 
@@ -81,3 +89,10 @@ from .compat_api import (  # noqa: E402,F401
 from . import amp, quantization  # noqa: E402,F401
 from . import nn, optimizer, regularizer  # noqa: E402,F401
 from .nn.layer_base import ParamAttr  # noqa: E402,F401
+from . import io, metric, reader, sparsity, utils  # noqa: E402,F401
+from .framework_io import save, load  # noqa: E402,F401
+from .hapi.model import Model  # noqa: E402,F401
+from .hapi import summary, flops, callbacks  # noqa: E402,F401
+from . import hapi  # noqa: E402,F401
+from . import callbacks as callbacks_mod  # noqa: E402,F401
+from .batch import batch  # noqa: E402,F401

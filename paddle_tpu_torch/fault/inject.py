@@ -6,9 +6,11 @@ mid-operation) or ``delay:<secs>`` (sleep at the point then continue — a
 stall, not a failure). ``PADDLE_FAULT_SEED`` makes firing decisions
 reproducible; ``PADDLE_FAULT_MAX`` caps how many faults fire per process.
 
-Instrumented point in the port: ``gen.step`` (serving.GenerationEngine,
+Instrumented points in the port: ``gen.step`` (serving.GenerationEngine,
 entry of every prefill and decode device call — inside the engine's
-CircuitBreaker, so armed faults exercise the breaker-opening path).
+CircuitBreaker, so armed faults exercise the breaker-opening path),
+``ckpt.write`` / ``ckpt.commit`` (framework_io.save, before the payload /
+manifest os.replace) and ``dataloader.step`` (per batch).
 
 When no spec is armed, ``inject()`` is a single falsy-dict check.
 """
@@ -104,6 +106,14 @@ def inject(point):
         time.sleep(delay)       # a stall, not a failure — then proceed
         return
     raise InjectedFault(point)
+
+
+def active_points():
+    return dict(_points)
+
+
+def fired_count():
+    return _fired
 
 
 reload()

@@ -1,6 +1,7 @@
 """paddle_tpu_torch.observability — metrics, spans and request traces for
-the serving path (port of the part of ``paddle_tpu/observability`` the
-GenerationEngine calls).
+the serving and training paths (port of the part of
+``paddle_tpu/observability`` the GenerationEngine and hapi's ``Model``
+call).
 
 - registry: Counter / Gauge / Histogram, ``registry()``, ``enabled()``
 - trace:    ``span()`` / ``record_event()`` into a bounded event ring
@@ -14,8 +15,10 @@ attribution.
 """
 from .registry import (NULL_METRIC, Counter, Gauge, Histogram,  # noqa: F401
                        MetricsRegistry, counter, enabled, find, gauge,
-                       percentile, registry)
-from .trace import NULL_SPAN, Span, record_event, span, trace_events  # noqa: F401
+                       histogram, percentile, registry, snapshot,
+                       to_prometheus)
+from .trace import (NULL_SPAN, Span, dump_trace, record_event,  # noqa: F401
+                    span, trace_events)
 from .reqtrace import (NULL_RECORD, FlightRecorder,  # noqa: F401
                        RequestRecord, recorder, start_request)
 from .server import add_readiness, readiness, remove_readiness  # noqa: F401

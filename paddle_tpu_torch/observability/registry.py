@@ -1,8 +1,9 @@
 """Process-wide metrics registry: Counter / Gauge / Histogram.
 
 Port of the part of ``paddle_tpu/observability/registry.py`` the serving
-path uses (the Prometheus/JSON export waits for the telemetry HTTP plane,
-ROADMAP Queue 1). Metric families are created on first use and keyed by
+and training paths use: the series, and their JSON snapshot and
+Prometheus text for hapi's ``MetricsExporter`` (the telemetry HTTP plane
+that serves them waits for ROADMAP Queue 1 step F). Metric families are created on first use and keyed by
 (name, labels); the same (name, labels) pair always returns the same
 child, so independent call sites accumulate into one series.
 
@@ -13,6 +14,7 @@ engine's own stats) construct private unregistered instances instead.
 import collections
 import os
 import threading
+import time
 
 DEFAULT_WINDOW = 4096
 
@@ -189,6 +191,48 @@ class MetricsRegistry:
     def histogram(self, name, labels=None, window=DEFAULT_WINDOW):
         return self._child('histogram', name, labels, window=window)
 
+    def _items(self):
+        """[(name, type, [child, ...])] in name order."""
+        with self._lock:
+            return [(n, t, list(ch.values()))
+                    for n, (t, ch) in sorted(self._families.items())]
+
+    def snapshot(self):
+        """JSON-serializable view of every registered series, keyed by
+        name and labels."""
+        out = {'ts': time.time(),
+               'counters': {}, 'gauges': {}, 'histograms': {}}
+        for name, t, children in self._items():
+            for c in children:
+                key = name + _prom_labels(c.labels)
+                out[t + 's'][key] = (
+                    {'count': c.count, 'sum': c.sum,
+                     'p50': c.percentile(50), 'p99': c.percentile(99)}
+                    if t == 'histogram' else c.value)
+        return out
+
+    def to_prometheus(self):
+        """Prometheus text exposition format (histograms as summaries)."""
+        lines = []
+        for name, t, children in self._items():
+            pname = _prom_name(name)
+            lines.append(f'# TYPE {pname} '
+                         f'{"summary" if t == "histogram" else t}')
+            for c in children:
+                lbl = _prom_labels(c.labels)
+                if t == 'histogram':
+                    for q in (50, 90, 99):
+                        v = c.percentile(q)
+                        if v is not None:
+                            ql = _prom_labels(dict(c.labels,
+                                                   quantile=str(q / 100.0)))
+                            lines.append(f'{pname}{ql} {v}')
+                    lines.append(f'{pname}_sum{lbl} {c.sum}')
+                    lines.append(f'{pname}_count{lbl} {c.count}')
+                else:
+                    lines.append(f'{pname}{lbl} {c.value}')
+        return '\n'.join(lines) + ('\n' if lines else '')
+
     def find(self, name, labels=None):
         """The existing child for (name, labels) or ``None`` — never
         creates a family."""
@@ -198,6 +242,22 @@ class MetricsRegistry:
             if fam is None:
                 return None
             return fam[1].get(lk)
+
+
+def _prom_name(name):
+    return ''.join(ch if (ch.isalnum() or ch in '_:') else '_'
+                   for ch in name)
+
+
+def _prom_labels(labels):
+    if not labels:
+        return ''
+    parts = []
+    for k, v in sorted(labels.items()):
+        val = (str(v).replace('\\', '\\\\').replace('"', '\\"')
+               .replace('\n', '\\n'))
+        parts.append(f'{_prom_name(str(k))}="{val}"')
+    return '{' + ','.join(parts) + '}'
 
 
 _default = MetricsRegistry()
@@ -220,7 +280,21 @@ def gauge(name, labels=None):
     return _default.gauge(name, labels)
 
 
+def histogram(name, labels=None):
+    if not cfg.enabled:
+        return NULL_METRIC
+    return _default.histogram(name, labels)
+
+
 def find(name, labels=None):
     if not cfg.enabled:
         return None
     return _default.find(name, labels)
+
+
+def snapshot():
+    return _default.snapshot()
+
+
+def to_prometheus():
+    return _default.to_prometheus()

@@ -4,11 +4,12 @@
 ``span("gen.decode_step", slots=n)`` is a context manager that records
 the enclosed region as a Chrome trace-event dict (``ph: 'X'``) in a
 bounded process-wide ring; ``record_event()`` adds instants (``ph:
-'i'``). The Chrome-trace file export and profiler annotations wait for
-the telemetry plane (ROADMAP Queue 1). When observability is disabled,
+'i'``); ``dump_trace`` writes the ring as a Chrome-trace file. Profiler
+annotations wait for the telemetry plane (ROADMAP Queue 1 step F). When observability is disabled,
 ``span()`` returns one shared no-op singleton.
 """
 import collections
+import json
 import os
 import threading
 import time
@@ -97,3 +98,16 @@ def trace_events():
     """Copy of the event ring (Chrome trace-event dicts)."""
     with _lock:
         return list(_events)
+
+
+def dump_trace(path):
+    """Write the span ring as Chrome-trace JSON (chrome://tracing,
+    Perfetto). Returns the event count written."""
+    events = trace_events()
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, 'w') as f:
+        json.dump({'traceEvents': events, 'displayTimeUnit': 'ms'}, f,
+                  default=str)
+    return len(events)

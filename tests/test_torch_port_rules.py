@@ -80,6 +80,16 @@ def test_the_scan_covers_the_eager_core():
             'tensor/signal.py'} <= scanned
 
 
+def test_the_scan_covers_io_checkpoints_and_hapi():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob('*.py')}
+    assert {'io/__init__.py', 'io/native_loader.py', 'framework_io.py',
+            'utils/__init__.py', 'utils/checkpoint.py', 'metric/__init__.py',
+            'hapi/__init__.py', 'hapi/model.py', 'hapi/callbacks.py',
+            'callbacks.py', 'batch.py', 'reader.py', 'fault/retry.py',
+            'fault/errors.py', 'fault/__init__.py', 'sparsity/__init__.py',
+            'tensor/fft.py', 'tensor/signal.py'} <= scanned
+
+
 def test_the_scan_sees_forbidden_imports(tmp_path):
     f = tmp_path / 'probe.py'
     f.write_text('import jax.numpy as jnp\nfrom paddle_tpu.ops import x\n'

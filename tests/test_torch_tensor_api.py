@@ -1,7 +1,8 @@
 """The eager API surface of paddle_tpu_torch against the JAX package's:
 every public callable of ``paddle_tpu.tensor`` and every public attribute
 of its Tensor has a counterpart (only the listed deferrals raise, citing
-their ROADMAP item), the device rule, and the dtype canonicalization."""
+their ROADMAP item; fft and signal are ported), the device rule, and the
+dtype canonicalization."""
 import inspect
 
 import numpy as np
@@ -21,7 +22,15 @@ DEFERRED = {
     'array_write': ('item 12', lambda f: f(port.to_tensor([1.0]), 0)),
     'array_length': ('item 12', lambda f: f([])),
 }
-DEFERRED_MODULES = {'fft': 'item 6', 'signal': 'item 6'}
+# ported with step I's rest (ROADMAP Queue 1 item 6): module -> the call
+# of each public name on a float32 signal that does not take it alone
+# (istft takes stft's result)
+PORTED_MODULES = {'fft': {'fftfreq': lambda f, x: f(8),
+                          'rfftfreq': lambda f, x: f(8)},
+                  'signal': {'frame': lambda f, x: f(x, 4, 2),
+                             'overlap_add': lambda f, x: f(
+                                 x.reshape([4, 4]), 2),
+                             'stft': lambda f, x: f(x, 8)}}
 
 
 @pytest.fixture(autouse=True)
@@ -55,17 +64,31 @@ def test_only_the_listed_deferrals_raise(name):
         call(getattr(port_tensor, name))
 
 
-@pytest.mark.parametrize('module', sorted(DEFERRED_MODULES))
+@pytest.mark.parametrize('module', sorted(PORTED_MODULES))
 def test_fft_and_signal_names_all_defer(module):
+    """Ported with step I's rest (ROADMAP Queue 1 item 6; the name is the
+    deferral test's): every public name of the reference's fft / signal
+    module has a counterpart that runs, with the reference's shape and
+    dtype."""
     ref_mod, port_mod = getattr(ref, module), getattr(port, module)
     names = [n for n in _public_callables(ref_mod)
              if getattr(getattr(ref_mod, n), '__module__', '').endswith(
                  module)]
-    assert names
+    assert len(names) == {'fft': 16, 'signal': 4}[module]
+    a = np.random.RandomState(1).rand(16).astype('float32')
+    if module == 'fft':         # fft2 and friends want two axes
+        a = a.reshape(4, 4)
     for n in names:
-        with pytest.raises(NotImplementedError,
-                           match=DEFERRED_MODULES[module]):
-            getattr(port_mod, n)(port.to_tensor([1.0]))
+        call = PORTED_MODULES[module].get(n, lambda f, x: f(x))
+        if n == 'istft':
+            got = port_mod.istft(port_mod.stft(port.to_tensor(a), 8), 8)
+            want = ref_mod.istft(ref_mod.stft(ref.to_tensor(a), 8), 8)
+        else:
+            got = call(getattr(port_mod, n), port.to_tensor(a))
+            want = call(getattr(ref_mod, n), ref.to_tensor(a))
+        assert got.shape == list(want.shape), n
+        assert str(got.dtype).replace('torch.', '') == str(
+            want.dtype).replace('paddle_tpu.', ''), n
 
 
 def test_create_parameter_waits_for_item_7():

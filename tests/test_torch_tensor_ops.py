@@ -114,10 +114,18 @@ def test_reference_operators_and_methods_on_the_port():
 
 
 def test_fft_and_signal_wait_for_their_slice():
-    x = port.to_tensor(np.ones(8, 'float32'))
-    for fn in (port.fft.fft, port.fft.rfft, port.signal.stft):
-        with pytest.raises(NotImplementedError, match='item 6'):
-            fn(x)
+    """Ported with step I's rest (ROADMAP Queue 1 item 6): the calls that
+    raised before run, in complex64 as the reference's, and agree with it
+    (the op table holds every fft and signal name)."""
+    a = np.random.RandomState(0).rand(32).astype('float32')
+    for name in ('fft.fft', 'fft.rfft', 'signal.stft'):
+        mod, fn = name.split('.')
+        args = (8,) if mod == 'signal' else ()
+        got = getattr(getattr(port, mod), fn)(port.to_tensor(a), *args)
+        want = getattr(getattr(ref, mod), fn)(ref.to_tensor(a), *args)
+        assert got.dtype == port.complex64 and got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want._value),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
 
 
 # ---- random ops -------------------------------------------------------------

@@ -126,7 +126,7 @@ def test_optimizer_skips_a_missing_gradient_and_casts_the_gradient():
     assert p['b'].dtype == torch.float32 and (p['b'] < 1).all()
 
 
-def test_unported_optimizer_paths_raise_naming_the_roadmap():
+def test_eager_optimizer_paths_ported_in_j1():
     """Ported with the eager optimizer (ROADMAP Queue 1 item 7, step J1):
     ``grad_clip`` clips functional_apply's gradients, ``step()`` with no
     parameters does nothing, and ``parameters=`` takes any list, stepping

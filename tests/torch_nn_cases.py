@@ -661,6 +661,66 @@ def mlm_step(P, model, opt, sched, batch, amp=None):
     return loss
 
 
+def mlm_loss(P, vocab):
+    """hapi's loss for the program: cross entropy (ignore_index -100) of
+    float32 logits [B, S, vocab] against labels [B, S]."""
+    ce = P.nn.CrossEntropyLoss(ignore_index=-100)
+
+    def loss(logits, labels):
+        return ce(logits.astype('float32').reshape([-1, vocab]),
+                  labels.reshape([-1]))
+    return loss
+
+
+def mlm_rows(P, arrays):
+    """A map dataset over ``mlm_batch``'s arrays, one row an item
+    (tokens, types, key-padding mask, labels): what ``P.io.DataLoader``
+    batches for ``P.Model(program).fit``."""
+    class Rows(P.io.Dataset):
+        def __getitem__(self, i):
+            return tuple(a[i] for a in arrays)
+
+        def __len__(self):
+            return len(arrays[0])
+    return Rows()
+
+
+def _torch_np(t):
+    """A torch tensor on any device as a float32 (or its own dtype)
+    ndarray."""
+    return _np(t.detach().cpu())
+
+
+def record_applies(opt, value=_torch_np):
+    """Wrap the port's ``opt.functional_apply`` (what hapi's step calls) ->
+    a list that gets (gradients by name, learning rate) of each update,
+    through ``value``."""
+    calls, inner = [], opt.functional_apply
+
+    def apply(params, grads, opt_state, lr=None):
+        calls.append(({n: value(g) for n, g in grads.items()
+                       if g is not None}, float(lr)))
+        return inner(params, grads, opt_state, lr)
+    opt.functional_apply = apply
+    return calls
+
+
+def fit_record(P, model, loader, epochs, calls, value=_np, **kw):
+    """``model.fit(loader, epochs, log_freq=1)`` -> (each step's loss, each
+    update's gradients, their learning rates, the state dict after),
+    ``mlm_agreement``'s form; ``calls`` from ``record_applies``."""
+    losses = []
+
+    class Losses(P.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            losses.append(float(logs['loss']))
+
+    model.fit(loader, epochs=epochs, log_freq=1, verbose=0,
+              callbacks=[Losses()], **kw)
+    return (losses, [g for g, _ in calls], [lr for _, lr in calls],
+            {k: value(v) for k, v in model.network.state_dict().items()})
+
+
 def mlm_two_steps(P, model, arrays, value=_np, peak=1e-2, warmup=0):
     """Two steps of the program, with no warm-up so that both move the
     weights, each ``mlm_step`` with its gradients read before
@@ -686,7 +746,8 @@ def mlm_two_steps(P, model, arrays, value=_np, peak=1e-2, warmup=0):
 def adamw_steps(start, grads, lrs, beta1=0.9, beta2=0.999, eps=1e-8,
                 coeff=0.01, clip_norm=1.0):
     """``mlm_optimizer``'s steps in float64 numpy: per step the global-norm
-    clip, the decoupled decay, then Adam's update -> parameters by name
+    clip (none when ``clip_norm`` is None), the decoupled decay (none at
+    ``coeff`` 0: plain Adam), then Adam's update -> parameters by name
     (``start``'s entries without a gradient as they were)."""
     p = {n: np.asarray(v, np.float64) for n, v in start.items()}
     m = {n: 0.0 for n in grads[0]}
@@ -694,7 +755,8 @@ def adamw_steps(start, grads, lrs, beta1=0.9, beta2=0.999, eps=1e-8,
     for t, (gs, lr) in enumerate(zip(grads, lrs), 1):
         norm = np.sqrt(sum(np.square(np.asarray(g, np.float64)).sum()
                            for g in gs.values()))
-        scale = clip_norm / max(norm, clip_norm)
+        scale = 1.0 if clip_norm is None else clip_norm / max(norm,
+                                                                clip_norm)
         for n, g in gs.items():
             g = np.asarray(g, np.float64) * scale
             m[n] = beta1 * m[n] + (1 - beta1) * g
@@ -704,7 +766,7 @@ def adamw_steps(start, grads, lrs, beta1=0.9, beta2=0.999, eps=1e-8,
     return p
 
 
-def mlm_agreement(got, want, start):
+def mlm_agreement(got, want, start, **adamw):
     """How far ``mlm_two_steps``' results are apart, from the parameters
     ``start`` -> {'loss': relative, each step's, 'grad': each first
     gradient's largest error over its largest value (at least 1),
@@ -719,6 +781,8 @@ def mlm_agreement(got, want, start):
     entries that cancel to ~1e-9). So each package's parameters are taken
     less what ``adamw_steps`` makes of its own gradients, in float64, and
     the two remainders must agree within 1e-4: every entry, none exempt.
+    ``adamw`` goes to ``adamw_steps`` (another optimizer's decay, clip,
+    betas or eps); any number of steps.
     'raw_beyond' counts the entries more than 1e-4 apart before that, and
     'raw_beyond_grad_max' is the largest first gradient among them."""
     (gl, gg, glr, gp), (wl, wg, wlr, wp) = got, want
@@ -726,7 +790,8 @@ def mlm_agreement(got, want, start):
         raise AssertionError('the two programs name their weights apart')
     if not np.allclose(glr, wlr, rtol=1e-6, atol=0):
         raise AssertionError(f'learning rates {glr} against {wlr}')
-    pg, pw = adamw_steps(start, gg, glr), adamw_steps(start, wg, wlr)
+    pg, pw = (adamw_steps(start, gg, glr, **adamw),
+              adamw_steps(start, wg, wlr, **adamw))
     res = {'loss': max(abs(float(a) - float(b)) / abs(float(b))
                        for a, b in zip(gl, wl)),
            'grad': 0.0, 'param': 0.0, 'param_raw': 0.0, 'raw_beyond': 0,

@@ -600,6 +600,42 @@ case('int32_to_float_linalg', lambda P, x: [
     [np.array([[2, 1], [1, 3]], 'int32')], kind='red')
 
 
+# ---- fft and signal (ROADMAP step I's rest) --------------------------------------
+case('fft_1d', lambda P, x, i: [
+    P.fft.fft(x), P.fft.ifft(x), P.fft.fft(x, n=6, axis=0),
+    P.fft.ifft(x, norm='ortho'), P.fft.rfft(x), P.fft.rfft(x, n=10),
+    P.fft.irfft(P.fft.rfft(x)), P.fft.irfft(P.fft.rfft(x), n=9),
+    P.fft.hfft(P.fft.rfft(x)), P.fft.ihfft(x), P.fft.fft(i),
+    P.fft.rfft(x, norm='forward')], [f(3, 8), i32(4)], 'red')
+case('fft_nd', lambda P, x: [
+    P.fft.fft2(x), P.fft.ifft2(x), P.fft.fftn(x), P.fft.ifftn(x, axes=[0]),
+    P.fft.rfft2(x), P.fft.irfft2(P.fft.rfft2(x)),
+    P.fft.fft2(x, s=[4, 4], axes=(0, 1)), P.fft.fftn(x, s=[2, 6])],
+    [f(2, 4, 6)], 'red')
+case('fft_shift_freq', lambda P, x: [
+    P.fft.fftshift(x), P.fft.ifftshift(x), P.fft.fftshift(x, axes=[1]),
+    P.fft.fftfreq(8, 0.5), P.fft.rfftfreq(9), P.fft.fftfreq(5)],
+    [f(3, 5)])
+case('signal_frame_overlap_add', lambda P, x, y: [
+    P.signal.frame(x, 4, 2), P.signal.frame(y, 3, 1),
+    P.signal.overlap_add(P.signal.frame(x, 4, 2), 2),
+    P.signal.overlap_add(f32_frames(P, y), 3)],
+    [f(2, 12), f(10)], 'red')
+case('signal_stft_istft', lambda P, x, w: [
+    P.signal.stft(x, 16), P.signal.stft(x, 16, 4, 12, window=w),
+    P.signal.stft(x, 8, center=False, onesided=False, normalized=True),
+    P.signal.istft(P.signal.stft(x, 16), 16, length=64),
+    P.signal.istft(P.signal.stft(x, 16, 4, 12, window=w), 16, 4, 12,
+                   window=w),
+    P.signal.stft(x, 16, pad_mode='constant')],
+    [f(2, 64), pos(12)], 'red')
+
+
+def f32_frames(P, y):
+    """A [5, 4] frame stack from a 1-D signal of 10, for overlap_add."""
+    return P.reshape(y[:8], [4, 2]).transpose([1, 0]).tile([3, 1])[:5]
+
+
 # ---- random ops: shape, dtype, range and the moments of N draws ------------------
 N = 100_000
 RANDOM = {
