@@ -227,13 +227,39 @@ non-zero:
 28. that Model at 2 layers in f32 ([2, 128]) card against CPU from the
     same weights: 3 shuffled fit steps' losses and parameters within 1e-4
     (mlm_agreement), .pdparams / .pdopt written on either device loading on
-    the other bit-exact, evaluate's Accuracy equal.
+    the other bit-exact, evaluate's Accuracy equal;
+29. ResNet-50 (vision.models.resnet50(num_classes=1000), 25.6M
+    parameters) through hapi as examples/train_resnet.py trains it:
+    paddle.Model(net).prepare(AdamW(1e-3) with ClipGradByGlobalNorm(1.0),
+    CrossEntropyLoss, Accuracy), fit under auto_cast(bfloat16) over a
+    TensorDataset of 256 rows [3, 224, 224] (numpy seed 0), batch 64, 2
+    epochs (8 steps), num_workers=0: ms a step between step ends,
+    images/s, MFU (3 x the forward FLOPs of each conv's and the fc's
+    output shapes x images/s over 989 TFLOP/s), peak memory, a profiled
+    step's busy share, launches and device ms by kind (convs, BatchNorm,
+    GEMMs, the rest, the optimizer), host syncs (none in train_batch; the
+    loop reads Accuracy's count every step, as the reference's fit does,
+    and the loss at log points), every BatchNorm's running statistics
+    moved, no kernel of the seven launched; evaluate and predict on 64
+    held rows,
+    Model.save / Model.load into a fresh Model with equal predict logits;
+    resnet18's predict ms at batch 1 and 32;
+30. float32 with torch's default TF32 flags (cuDNN's allow_tf32 on):
+    every case of tests/torch_nn_cases.py's J3_CASES (conv, pooling, the
+    functional extensions, RNNs, dynamic_decode, quantization) card
+    against CPU, outputs within 2e-5 and gradients 1e-4 (bfloat16 cases
+    at their own tolerance); LeNet, resnet18 and mobilenet_v2(scale=0.5)
+    through 3 hapi fit steps from the same weights, losses, parameters
+    (beyond Adam's epsilon gaps) and the first step's running statistics
+    within 2e-5;
+    a resnet18 .pdparams written on either device loading on the other
+    bit-exact.
 Phase 3 also holds every kernel at the MoE paths' shapes (12 heads of 64),
 and kernels 1-3 at phase 25's (B=8, S=512, 12 heads of 64, its key-padding
 mask, dropout 0 and 0.1). Every launch counter is set to 0 just before
 each main-path run (phases 4, 6, 7, 9, 11, 13, 14, 15, 17, 18, 22, 23; in
-25 and 27 before each step, in 27 also before evaluate and each predict)
-and read just after. Then one line of kernel records
+25, 27 and 29 before each step, in 27 also before evaluate and each
+predict) and read just after. Then one line of kernel records
 (JSON), and the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the rest of the repository beside it, it
@@ -4249,6 +4275,508 @@ def phase_hapi_card_vs_cpu():
             'evaluate': {'card': ev_card, 'cpu': ev_cpu}}
 
 
+# ---------------------------------------------------------------------------
+# phases 29-30: the vision model zoo (conv, pooling, BatchNorm) through hapi
+# ---------------------------------------------------------------------------
+RESNET_ROWS, RESNET_BATCH, RESNET_EPOCHS, RESNET_LOG_FREQ = 256, 64, 2, 2
+RESNET_IMAGE = (3, 224, 224)
+# the autograd nodes BatchNorm's forward makes (port nn/functional/norm.py)
+BN_NODES = ('MeanBackward', 'SubBackward', 'PowBackward', 'RsqrtBackward',
+            'AddBackward', 'MulBackward', 'ViewBackward',
+            'UnsafeViewBackward', 'ReshapeAliasBackward')
+
+
+def conv_fc_flops(paddle, net, image):
+    """Forward FLOPs of one image through ``net``, from each Conv2D's and
+    Linear's real output shape: 2 a multiply-add."""
+    nn = paddle.nn
+    total = [0]
+
+    def hook(layer, inputs, out):
+        n_out = int(np.prod(out.shape))
+        if isinstance(layer, nn.Conv2D):
+            k = layer._kernel_size
+            total[0] += (2 * n_out * (layer._in_channels // layer._groups)
+                         * k[0] * k[1])
+        else:
+            total[0] += 2 * n_out * layer.weight.shape[0]
+    hooks = [l.register_forward_post_hook(hook) for l in net.sublayers()
+             if isinstance(l, (nn.Conv2D, nn.Linear))]
+    was = net.training
+    net.eval()
+    with paddle.no_grad():
+        net(paddle.zeros([1] + list(image)))
+    for h in hooks:
+        h.remove()
+    if was:
+        net.train()
+    return total[0]
+
+
+def _events_device_ms(events, pick):
+    return sum(e.device_time_total for e in events if pick(e)) / 1e3
+
+
+def profile_vision_step(paddle, model, inputs, labels):
+    """One hapi train step of ``model`` (under the caller's amp), its two
+    parts profiled apart: the forward and backward (``_loss_and_grads``)
+    and the update (``_apply``, the optimizer). Device ms by kind: cuDNN's
+    convolutions (the kernels of ``aten::cudnn_convolution`` and
+    ``aten::convolution_backward``), BatchNorm (its layers' forward, in
+    record_function ranges, and the backward nodes of the ops inside them,
+    matched by autograd sequence number), the GEMMs (the fc), the rest of
+    the forward and backward (ReLU, the residual adds, pooling, the loss),
+    and the optimizer's window."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    nn = paddle.nn
+    bn_cls = nn.layer_norm_layers._BatchNormBase
+    bn_forward = bn_cls.forward
+
+    def tagged(self, x):
+        with record_function('paddle::batch_norm'):
+            return bn_forward(self, x)
+    out = {}
+    bn_cls.forward = tagged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            _, _, grads = model._loss_and_grads(inputs, labels)
+            torch.cuda.synchronize()
+            grads_wall = time.perf_counter() - t0
+    finally:
+        bn_cls.forward = bn_forward
+    events = p.events()
+    seqs = set()
+    for e in events:
+        a = e.cpu_parent
+        while a is not None and a.name != 'paddle::batch_norm':
+            a = a.cpu_parent
+        if a is not None and e.sequence_nr >= 0:
+            seqs.add(e.sequence_nr)
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_op = {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA and \
+                e.self_device_time_total:
+            by_op[e.name] = by_op.get(e.name, 0.0) + \
+                e.self_device_time_total / 1e3
+    bn = _events_device_ms(events, lambda e: e.name == 'paddle::batch_norm')
+    bn += _events_device_ms(events, lambda e: e.name.startswith(
+        'autograd::engine::evaluate_function') and e.sequence_nr in seqs
+        and any(n in e.name for n in BN_NODES))
+    conv = sum(by_op.get(o, 0.0) for o in (
+        'aten::cudnn_convolution', 'aten::convolution_backward'))
+    gemm = sum(by_op.get(o, 0.0) for o in ('aten::mm', 'aten::addmm'))
+    out['forward_backward'] = {
+        'window_ms': grads_wall * 1e3, 'device_ms': total,
+        'kernels': len(kernels), 'busy_share': total / (grads_wall * 1e3)}
+    opt = profile_window(lambda: model._apply(grads))
+    out['optimizer'] = {k: opt[k] for k in ('window_ms', 'device_ms',
+                                            'kernels', 'busy_share')}
+    out['device_ms_by_kind'] = {
+        'conv': conv, 'batch_norm': bn, 'gemm': gemm,
+        'rest': total - conv - bn - gemm, 'optimizer': opt['device_ms']}
+    out['launches_per_step'] = len(kernels) + opt['kernels']
+    out['device_ms'] = total + opt['device_ms']
+    out['window_ms'] = out['forward_backward']['window_ms'] + opt['window_ms']
+    out['busy_share'] = out['device_ms'] / out['window_ms']
+    return out
+
+
+def bn_statistics(net):
+    return {k: v._value.detach().clone() for k, v in net.state_dict().items()
+            if k.endswith(('_mean', '_variance'))}
+
+
+def phase_resnet_hapi(kernels, card):
+    """Phase 29: ResNet-50 (vision.models.resnet50(num_classes=1000),
+    25.6M parameters, random weights from paddle.seed(0)) through hapi as
+    examples/train_resnet.py trains it: paddle.Model(net).prepare(AdamW(
+    1e-3, grad_clip=ClipGradByGlobalNorm(1.0)), CrossEntropyLoss(),
+    Accuracy(), amp_configs='O1'), fit under auto_cast(bfloat16) over a
+    TensorDataset of 256 rows [3, 224, 224] (numpy seed 0, labels in [0,
+    1000)), batch 64, 2 epochs (8 steps), num_workers=0, log_freq 2.
+    Prints ms a step between step ends and images/s, MFU (3 x forward
+    FLOPs counted from each conv's and the fc's output shapes x images/s
+    over 989 TFLOP/s), peak memory, a profiled step's busy share, device
+    ms by kind and launches, host syncs (train_batch must make none; the
+    loop reads Accuracy's count each step and the loss at log points);
+    then evaluate and predict on 64 held rows (seed 1), and
+    Model.save / Model.load into a fresh Model whose predict logits must
+    equal; then predict of resnet18 at batch 1 and 32. Fails on a
+    non-finite loss, a BatchNorm whose running statistics did not move in
+    fit, a kernel of the seven launched, or unequal reloaded logits."""
+    import shutil
+    import tempfile
+    import warnings
+    import paddle_tpu_torch as paddle
+    nn = paddle.nn
+    paddle.set_device('gpu')
+    paddle.seed(0)
+    np.random.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    net = paddle.vision.models.resnet50(num_classes=1000)
+    n_params = sum(p.size for p in net.parameters())
+    flops_img = conv_fc_flops(paddle, net, RESNET_IMAGE)
+    rs = np.random.RandomState(0)
+    data = paddle.io.TensorDataset([
+        paddle.to_tensor(rs.randn(RESNET_ROWS, *RESNET_IMAGE)
+                         .astype('float32'), place='cpu'),
+        paddle.to_tensor(rs.randint(0, 1000, (RESNET_ROWS, 1))
+                         .astype('int64'), place='cpu')])
+    hs = np.random.RandomState(1)
+    held = paddle.io.TensorDataset([
+        paddle.to_tensor(hs.randn(RESNET_BATCH, *RESNET_IMAGE)
+                         .astype('float32'), place='cpu'),
+        paddle.to_tensor(hs.randint(0, 1000, (RESNET_BATCH, 1))
+                         .astype('int64'), place='cpu')])
+
+    def hapi_model(network):
+        model = paddle.Model(network)
+        model.prepare(paddle.optimizer.AdamW(
+            1e-3, parameters=model.parameters(),
+            grad_clip=nn.ClipGradByGlobalNorm(1.0)), nn.CrossEntropyLoss(),
+            paddle.metric.Accuracy(), amp_configs='O1')
+        return model
+    model = hapi_model(net)
+    stats0 = bn_statistics(net)
+    save_dir = tempfile.mkdtemp(prefix='chip_smoke_resnet_')
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            probe = _StepProbe(paddle, kernels, caught)
+            # the syncs of train_batch itself, apart from the loop's reads
+            # (the loss at log points, Accuracy's count every step)
+            in_step, train_batch = [], model.train_batch
+
+            def counted(*a, **k):
+                n0 = len(caught)
+                out = train_batch(*a, **k)
+                in_step.append(sum('synchroniz' in str(w.message)
+                                   for w in caught[n0:]))
+                return out
+            model.train_batch = counted
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                with paddle.amp.auto_cast(dtype='bfloat16'):
+                    _, fit_s = timed(lambda: model.fit(
+                        data, batch_size=RESNET_BATCH, epochs=RESNET_EPOCHS,
+                        num_workers=0, log_freq=RESNET_LOG_FREQ, verbose=0,
+                        callbacks=[probe.cb]))
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+                model.train_batch = train_batch
+        steps = probe.steps
+        per_epoch = RESNET_ROWS // RESNET_BATCH
+        if len(steps) != RESNET_EPOCHS * per_epoch:
+            raise AssertionError(f'resnet fit ran {len(steps)} steps')
+        launched = [s for s in steps if any(s['launches'].values())]
+        if launched:
+            raise AssertionError(f'resnet fit launched a kernel of the '
+                                 f'seven: {launched[0]}')
+        logged = [s['syncs'] for s in steps if s['logged']]
+        quiet = [s['syncs'] for s in steps if not s['logged']]
+        # train_batch none; the loop reads Accuracy's count every step (one
+        # sync, as the reference's fit does) and the loss at log points
+        if len(in_step) != len(steps) or any(in_step) or not quiet or \
+                set(quiet) != {1} or set(logged) != {2}:
+            raise AssertionError(f'resnet host syncs: in train_batch '
+                                 f'{in_step} (want none), whole steps: '
+                                 f'logging {logged} (want 2: the loss and '
+                                 f'Accuracy), the others {quiet} (want 1)')
+        stats1 = bn_statistics(net)
+        still = [k for k, v in stats0.items() if torch.equal(v, stats1[k])]
+        if still or len(stats0) != 2 * 53:
+            raise AssertionError(f'resnet fit: {len(still)} of '
+                                 f'{len(stats0)} BatchNorm statistics did '
+                                 f'not move ({still[:4]})')
+        # host time between step ends, each epoch's first step left out
+        inner = [i for i in range(len(steps)) if i % per_epoch]
+        gaps = [probe.ends[i] - probe.ends[i - 1] for i in inner]
+        warm = [probe.ends[i] - probe.ends[i - 1] for i in inner
+                if i >= per_epoch]
+        step_ms = 1e3 * sum(warm) / len(warm)
+        images_s = RESNET_BATCH * 1e3 / step_ms
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        x, y = (paddle.to_tensor(t.numpy()[:RESNET_BATCH])._value
+                for t in data.tensors)
+        with paddle.amp.auto_cast(dtype='bfloat16'):
+            prof = profile_vision_step(paddle, model, [x], [y])
+        ev, ev_s = timed(lambda: model.evaluate(held, batch_size=RESNET_BATCH,
+                                                verbose=0))
+        pred, pred_s = timed(lambda: model.predict(
+            held, batch_size=RESNET_BATCH))
+        path = os.path.join(save_dir, 'resnet50')
+        _, save_s = timed(lambda: model.save(path))
+        paddle.seed(7)
+        model2 = hapi_model(paddle.vision.models.resnet50(num_classes=1000))
+        _, load_s = timed(lambda: model2.load(path))
+        pred2 = model2.predict(held, batch_size=RESNET_BATCH)
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    losses = [float(v) for v in probe.losses]
+    logits, logits2 = pred[0][0], pred2[0][0]
+    same = bool(np.array_equal(logits, logits2))
+    if not all(map(math.isfinite, losses + [ev['loss']])) or \
+            logits.shape != (RESNET_BATCH, 1000) or \
+            not np.isfinite(logits).all():
+        raise AssertionError(f'resnet: losses {losses}, eval {ev}, logits '
+                             f'{logits.shape}')
+    if not same:
+        raise AssertionError('resnet: the reloaded model\'s logits differ')
+    # resnet18 served: predict at batch 1 and 32 (bench.py _child_predictor
+    # serves batch 1), f32, after two warm-up calls
+    paddle.seed(3)
+    small = paddle.Model(paddle.vision.models.resnet18())
+    small.prepare()
+    serve = {}
+    for b in (1, 32):
+        xb = np.random.RandomState(b).randn(b, *RESNET_IMAGE).astype(
+            'float32')
+        for _ in range(2):
+            small.predict_batch([xb])
+        reps = 10
+        _, secs = timed(lambda: [small.predict_batch([xb])
+                                 for _ in range(reps)])
+        serve[b] = 1e3 * secs / reps
+    kinds = prof['device_ms_by_kind']
+    res = {'params': n_params, 'forward_flops_per_image': flops_img,
+           'losses': losses, 'fit_s': fit_s, 'step_ms': step_ms,
+           'step_ms_all_inner': [1e3 * g for g in gaps],
+           'images_per_s': images_s,
+           'mfu': 3 * flops_img * images_s / PEAK_BF16,
+           'peak_mem_gb': peak_gb, 'profile': prof,
+           'syncs_in_train_batch': in_step, 'syncs_logged': logged,
+           'syncs_quiet': quiet,
+           'bn_statistics_moved': len(stats0), 'eval': ev,
+           'eval_ms': 1e3 * ev_s, 'predict_ms': 1e3 * pred_s,
+           'save_s': save_s, 'load_s': load_s, 'reload_logits_equal': same,
+           'resnet18_predict_ms': serve,
+           'launches': {k: 0 for k in kernels}}
+    print(f'  ResNet-50 ({n_params / 1e6:.2f}M params, '
+          f'{flops_img / 1e9:.3f} GFLOP a forward image) through '
+          f'Model.fit, {[RESNET_BATCH, *RESNET_IMAGE]}, bf16 amp O1, AdamW + '
+          f'global-norm clip: {step_ms:.1f} ms a step (epoch 2, between '
+          f'step ends), {images_s:.1f} images/s, MFU '
+          f'{100 * res["mfu"]:.2f}% of 989 TFLOP/s, peak {peak_gb:.2f} GB '
+          f'[{card}]', flush=True)
+    print(f'  every inner step, ms: '
+          + ' '.join(f'{1e3 * g:.1f}' for g in gaps)
+          + f'; fit {fit_s:.2f} s for {len(steps)} steps', flush=True)
+    print(f'  profiled step: forward+backward window '
+          f'{prof["forward_backward"]["window_ms"]:.1f} ms, device '
+          f'{prof["forward_backward"]["device_ms"]:.1f} ms; update window '
+          f'{prof["optimizer"]["window_ms"]:.1f} ms, device '
+          f'{prof["optimizer"]["device_ms"]:.2f} ms; busy '
+          f'{100 * prof["busy_share"]:.1f}%, {prof["launches_per_step"]} '
+          f'launches a step', flush=True)
+    print('  device ms by kind: ' + ', '.join(
+        f'{k} {v:.2f}' for k, v in kinds.items()), flush=True)
+    print(f'  host syncs: in train_batch {in_step}; whole steps (the loop '
+          f'reads Accuracy each step, the loss at log points) logging '
+          f'{logged}, the others {quiet}; {len(stats0)} BatchNorm statistics '
+          f'all moved', flush=True)
+    print(f'  losses {" ".join(f"{v:.4f}" for v in losses)}; evaluate '
+          f'{ev} in {1e3 * ev_s:.1f} ms, predict {1e3 * pred_s:.1f} ms; save '
+          f'{save_s:.2f} s, load {load_s:.2f} s, reloaded logits equal: '
+          f'{same}', flush=True)
+    print(f'  resnet18 predict (f32): batch 1 {serve[1]:.2f} ms, batch 32 '
+          f'{serve[32]:.2f} ms [{card}]', flush=True)
+    del model, model2, net, small, pred, pred2, x, y, data, held
+    paddle.set_device('cpu')
+    torch.cuda.empty_cache()
+    return res
+
+
+VISION_CARD_TOL = 2e-5      # card vs CPU, f32, a part's largest value
+VISION_CARD_STEPS = 3
+
+
+def _vision_fit(paddle, C, make, start, dev, xs, ys):
+    """``VISION_CARD_STEPS`` hapi fit steps (Adam 1e-4, batch 2, in
+    order) of ``make(paddle)`` from the weights ``start`` on ``dev``,
+    dropout at p 0 (its mask is each device's draw) -> (the running
+    statistics after the first step, ``fit_record``'s tuple)."""
+    paddle.set_device(dev)
+    paddle.seed(0)
+    net = make(paddle)
+    for layer in net.sublayers():
+        if isinstance(layer, paddle.nn.Dropout):
+            layer.p = 0.0
+    net.set_state_dict(start)
+    model = paddle.Model(net)
+    opt = paddle.optimizer.Adam(1e-4, parameters=net.parameters())
+    calls = C.record_applies(opt)
+    model.prepare(opt, paddle.nn.CrossEntropyLoss())
+    loader = paddle.io.DataLoader(paddle.io.TensorDataset(
+        [paddle.to_tensor(xs, place='cpu'),
+         paddle.to_tensor(ys, place='cpu')]), batch_size=2)
+    first, train_batch = {}, model.train_batch
+
+    def record_first(*a, **k):
+        out = train_batch(*a, **k)
+        if not first:
+            first.update(C.state_of(net))
+        return out
+    model.train_batch = record_first
+    return first, C.fit_record(paddle, model, loader, 1, calls)
+
+
+def _vision_agreement(got, want, start, stats):
+    """mlm_agreement (plain Adam) over the parameters of two
+    ``_vision_fit`` runs, and the largest gap of the running statistics
+    over each one's largest value (at least 1) after the first step and
+    after the last."""
+    (got_first, got), (want_first, want) = got, want
+    params = [k for k in start if k not in stats]
+    agree = nn_cases().mlm_agreement(
+        got[:3] + ({k: got[3][k] for k in params},),
+        want[:3] + ({k: want[3][k] for k in params},),
+        {k: start[k] for k in params}, coeff=0.0, clip_norm=None)
+
+    def gap(a, b):
+        return max([float(np.abs(a[k] - b[k]).max())
+                    / max(1.0, float(np.abs(b[k]).max()))
+                    for k in stats] + [0.0])
+    agree['stats_first'] = gap(got_first, want_first)
+    agree['stats_last'] = gap(got[3], want[3])
+    return agree
+
+
+def phase_vision_card_vs_cpu():
+    """Phase 30, float32 with torch's default TF32 flags (cuDNN's
+    allow_tf32 on: the port's float32 convs must turn it off themselves):
+    every case of torch_nn_cases.J3_CASES card against CPU (outputs
+    within 2e-5 and gradients within 1e-4 of the part's largest value,
+    bfloat16 cases within their own tolerance); LeNet [2, 1, 28, 28],
+    resnet18 and mobilenet_v2(scale=0.5) [2, 3, 64, 64] through 3 hapi
+    fit steps (Adam 1e-4, dropout at p 0) from the same weights on both:
+    losses within 2e-5 (relative), the parameters within 2e-5 beyond what
+    float64 Adam makes of each device's own gradients
+    (torch_nn_cases.mlm_agreement, as phase 28), the first gradients
+    within 1e-4, the running statistics after the first step within 2e-5
+    of each one's largest value (later steps' statistics come from weights
+    that Adam's epsilon gaps part: printed); each gap beyond 4 x what the
+    card's own run moves when its input moves by 1e-7 (train-mode
+    BatchNorm over 8 values: ~5e-5 for mobilenet_v2); a resnet18
+    .pdparams written on the card loads on the CPU bit-exact, and the
+    reverse."""
+    import shutil
+    import tempfile
+    import paddle_tpu_torch as paddle
+    C = nn_cases()
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True          # torch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        worst, bad = {'out': 0.0, 'grad': 0.0, 'state': 0.0}, []
+        for case in C.J3_CASES:
+            paddle.set_device('cpu')
+            cpu = C.run(paddle, case)
+            paddle.set_device('gpu')
+            card_res = C.run(paddle, case, state=cpu['before'])
+            r = C.compare(card_res, cpu, case, *(
+                case.tol or (NN_CARD_OUT_TOL, NN_CARD_GRAD_TOL)))
+            if case.tol is None:
+                for k in worst:
+                    worst[k] = max(worst[k], r[k])
+            if not r['ok']:
+                bad.append((case.name, r))
+        print(f'  J3 case table card vs CPU (cudnn.allow_tf32 True): '
+              f'{len(C.J3_CASES)} cases, largest f32 output '
+              f'{worst["out"]:.2e}, state {worst["state"]:.2e} (tol '
+              f'{NN_CARD_OUT_TOL:g}), gradient {worst["grad"]:.2e} (tol '
+              f'{NN_CARD_GRAD_TOL:g}) {"OK" if not bad else "FAIL"}',
+              flush=True)
+        if bad:
+            raise AssertionError(f'J3 cases card vs CPU: {bad[:5]}')
+        models = {
+            'lenet': (lambda P: P.vision.models.LeNet(), (1, 28, 28)),
+            'resnet18': (lambda P: P.vision.models.resnet18(num_classes=10),
+                         (3, 64, 64)),
+            'mobilenet_v2': (lambda P: P.vision.models.mobilenet_v2(
+                scale=0.5, num_classes=10), (3, 64, 64))}
+        agreement = {}
+        for name, (make, image) in models.items():
+            rs = np.random.RandomState(4)
+            xs = rs.randn(2 * VISION_CARD_STEPS, *image).astype('float32')
+            ys = rs.randint(0, 10, (2 * VISION_CARD_STEPS, 1)).astype('int64')
+            nudged = (xs * (1 + 1e-7 * np.random.RandomState(5).randn(
+                *xs.shape))).astype('float32')
+            paddle.set_device('cpu')
+            paddle.seed(0)
+            start = C.state_of(make(paddle))
+            runs = {run: _vision_fit(paddle, C, make, start, dev, data, ys)
+                    for run, dev, data in (('cpu', 'cpu', xs),
+                                           ('card', 'gpu', xs),
+                                           ('nudged', 'gpu', nudged))}
+            stats = [k for k in start if k.endswith(('_mean', '_variance'))]
+            agree = _vision_agreement(runs['card'], runs['cpu'], start,
+                                      stats)
+            floor = _vision_agreement(runs['nudged'], runs['card'], start,
+                                      stats)
+            agree['floor'] = floor
+            agreement[name] = agree
+            # a train-mode BatchNorm over few values turns a 1e-7 change of
+            # the input into ~1e-5 of the result: each gap is held within
+            # its tolerance beyond 4 x the card's own move under that change
+            limits = {'loss': VISION_CARD_TOL, 'param': VISION_CARD_TOL,
+                      'grad': 1e-4, 'stats_first': VISION_CARD_TOL}
+            ok = all(agree[k] <= t + 4 * floor[k] for k, t in limits.items()) \
+                and len(runs['card'][1][0]) == VISION_CARD_STEPS
+            print(f'  {name} hapi card vs CPU ({VISION_CARD_STEPS} steps, '
+                  f'f32): losses {agree["loss"]:.2e}, first gradients '
+                  f'{agree["grad"]:.2e}, parameters beyond Adam\'s gaps '
+                  f'{agree["param"]:.2e} (raw {agree["param_raw"]:.2e}), '
+                  f'running statistics after step 1 '
+                  f'{agree["stats_first"]:.2e} (after step '
+                  f'{VISION_CARD_STEPS}, from weights the raw gaps part, '
+                  f'{agree["stats_last"]:.2e}); the card against itself '
+                  f'with the input moved by 1e-7: losses {floor["loss"]:.2e},'
+                  f' gradients {floor["grad"]:.2e}, parameters '
+                  f'{floor["param"]:.2e}, statistics '
+                  f'{floor["stats_first"]:.2e} (tol {VISION_CARD_TOL:g}, '
+                  f'gradients 1e-4, each beyond 4 x that move) '
+                  f'{"OK" if ok else "FAIL"}', flush=True)
+            if not ok:
+                raise AssertionError(f'{name} hapi card vs CPU: {agree}')
+        d = tempfile.mkdtemp(prefix='chip_smoke_vision_')
+        try:
+            exact = {}
+            for src_dev, dst_dev in (('gpu', 'cpu'), ('cpu', 'gpu')):
+                paddle.set_device(src_dev)
+                paddle.seed(5)
+                src = paddle.vision.models.resnet18()
+                src.train()
+                src(paddle.to_tensor(np.random.RandomState(8).randn(
+                    2, 3, 64, 64).astype('float32')))   # the stats move
+                path = os.path.join(d, f'{src_dev}.pdparams')
+                paddle.save(src.state_dict(), path)
+                paddle.set_device(dst_dev)
+                dst = paddle.vision.models.resnet18()
+                dst.set_state_dict(paddle.load(path))
+                exact[f'{src_dev}->{dst_dev}'] = all(
+                    torch.equal(v._value.cpu(),
+                                dst.state_dict()[k]._value.cpu())
+                    for k, v in src.state_dict().items())
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        print(f'  resnet18 .pdparams across devices bit-exact: {exact}',
+              flush=True)
+        if not all(exact.values()):
+            raise AssertionError(f'resnet18 checkpoints: {exact}')
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+        paddle.set_device('cpu')
+    return {'cases': len(C.J3_CASES), 'case_errors': worst,
+            'models': agreement, 'checkpoints_exact': exact}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--report', default=None,
@@ -4382,6 +4910,12 @@ def main(argv=None):
     print('phase 28: hapi card against CPU, and checkpoints across devices',
           flush=True)
     report['hapi_card_vs_cpu'] = phase_hapi_card_vs_cpu()
+    print('phase 29: ResNet-50 through hapi Model.fit at full width',
+          flush=True)
+    report['resnet_hapi'] = phase_resnet_hapi(counters, card)
+    print('phase 30: conv, pooling, RNN, decoding, quantization and the '
+          'vision models, card against CPU', flush=True)
+    report['vision_card_vs_cpu'] = phase_vision_card_vs_cpu()
 
     gen, fwd = report['generate'], report['forward']
     train = report['train']['launches']

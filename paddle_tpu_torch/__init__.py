@@ -33,11 +33,13 @@ fp8 training: ``GPTConfig(matmul_precision='fp8')`` (and MoE's) runs the
 block matmuls through ``quantization/fp8.py``'s delayed-scaling product,
 on the card's fp8 tensor cores.
 
-``paddle.nn`` (``Layer``, ``Parameter``, the MLP and transformer layers;
-``scaled_dot_product_attention`` on the flash kernels), ``paddle.
-optimizer`` (the eager ``step()`` with groups, clipping, regularizers and
-the LR schedulers) and ``paddle.regularizer`` run Paddle programs that
-build a model from layers and train it with ``opt.step()``.
+``paddle.nn`` (``Layer``, ``Parameter``, the MLP, transformer, conv,
+pooling, RNN and quantized layers; ``scaled_dot_product_attention`` on
+the flash kernels), ``paddle.optimizer`` (the eager ``step()`` with
+groups, clipping, regularizers and the LR schedulers), ``paddle.
+regularizer`` and ``paddle.vision.models`` (LeNet, ResNet, VGG,
+MobileNet) run Paddle programs that build a model from layers and train
+it with ``opt.step()``.
 
 ``paddle.io`` (datasets, samplers, the DataLoader over the native worker
 pool, ``prefetch_to_device``), ``paddle.save`` / ``paddle.load`` (the JAX
@@ -96,3 +98,11 @@ from .hapi import summary, flops, callbacks  # noqa: E402,F401
 from . import hapi  # noqa: E402,F401
 from . import callbacks as callbacks_mod  # noqa: E402,F401
 from .batch import batch  # noqa: E402,F401
+
+
+def __getattr__(name):
+    """``paddle.vision`` on first use, as the reference imports it."""
+    if name == 'vision':
+        import importlib
+        return importlib.import_module('.vision', __name__)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

@@ -40,13 +40,26 @@ def summary(net, input_size=None, dtypes=None, input=None):
 
 
 def flops(net, input_size, custom_ops=None, print_detail=False):
-    """Rough FLOPs estimate: 2 * in * out for each Linear. (The
-    reference's Conv2D term joins with conv, ROADMAP Queue 1 step J3: a
-    Conv2D cannot be built in the port yet.)"""
-    from ..nn import Linear
+    """Rough FLOPs estimate: 2 * in * out for each Linear, and for each
+    Conv2D 2 * kh * kw * in * out over its output's spatial size / groups,
+    the size taken as the input's shrunk by each conv's stride in layer
+    order (the reference's estimate, as rough)."""
+    from ..nn import Conv2D, Linear
     total = 0
+    spatial = None
+    if isinstance(input_size, (list, tuple)) and len(input_size) == 4:
+        spatial = (input_size[2], input_size[3])
     for _, layer in net.named_sublayers(include_self=True):
-        if isinstance(layer, Linear):
+        if isinstance(layer, Conv2D):
+            k = layer._kernel_size
+            if spatial:
+                st = (layer._stride if isinstance(layer._stride, int)
+                      else layer._stride[0])
+                spatial = (spatial[0] // st, spatial[1] // st)
+                total += (2 * k[0] * k[1] * layer._in_channels
+                          * layer._out_channels * spatial[0] * spatial[1]
+                          // layer._groups)
+        elif isinstance(layer, Linear):
             total += 2 * layer.in_features * layer.out_features
     if print_detail:
         print(f'FLOPs: {total:,}')

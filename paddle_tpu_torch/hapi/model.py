@@ -33,6 +33,7 @@ import torch
 from .. import observability as _obs
 from ..core.nest import map_nested
 from ..core.tensor import Tensor, wrap
+from ..device import current_device
 from ..io import DataLoader, Dataset
 from ..nn.layer_base import functional_call
 
@@ -142,7 +143,13 @@ class Model:
         """(loss, outputs, gradients by parameter name): gradients of the
         Parameters that require one, None for the rest."""
         named = list(self.network.named_parameters())
-        out, _ = functional_call(self.network, None, None, *inputs)
+        out, buffers = functional_call(self.network, None, None, *inputs)
+        # functional_call restores the buffers; the step keeps what the
+        # forward made of them (BatchNorm's running statistics), as the
+        # reference's step does
+        for n, b in self.network.named_buffers():
+            if b is not None and n in buffers:
+                b._value = buffers[n]
         loss = self._compute_loss(out, labels)
         live = [(n, p._value) for n, p in named if p._value.requires_grad]
         got = torch.autograd.grad(loss, [v for _, v in live],
@@ -200,12 +207,13 @@ class Model:
 
     @staticmethod
     def _as_device(t):
-        """Tensor / torch tensor / host data -> a torch tensor (host data
-        on the current place)."""
+        """Tensor / torch tensor / host data -> a torch tensor on the
+        current place (a batch of a dataset kept on the host moves there,
+        as the reference's arrays land on its device)."""
         if isinstance(t, Tensor):
-            return t._value
+            t = t._value
         if isinstance(t, torch.Tensor):
-            return t
+            return t.to(current_device())
         return Tensor(t)._value
 
     # ---- public batch APIs ----------------------------------------------

@@ -1,11 +1,9 @@
 """paddle.nn. Port of ``paddle_tpu/nn/__init__.py``.
 
-Ported: the Layer system (``layer_base``), initializers, the activation,
-common, norm, loss and attention functionals, their layers, containers,
-the transformer stack, gradient clipping and ``nn.utils``. Conv, pooling,
-RNN, decoding, the quantized layers, the functional extensions,
-``HSigmoidLoss`` and ``MaxUnPool2D`` wait for ROADMAP Queue 1 step J3:
-each name exists and raises (``_deferred.py``).
+The Layer system (``layer_base``), initializers, the activation,
+common, norm, loss, attention, conv and pooling functionals and their
+layers, containers, the transformer stack, RNNs, decoding, the quantized
+layers, the functional extensions, gradient clipping and ``nn.utils``.
 """
 from .layer_base import (  # noqa: F401
     Layer, Parameter, ParamAttr, functional_call, param_arrays, buffer_arrays)
@@ -50,9 +48,35 @@ from .layer_rnn import _CellBase as RNNCellBase  # noqa: F401
 from . import layer_loss as loss  # noqa: F401
 from .utils import spectral_norm, weight_norm, remove_weight_norm  # noqa: F401
 from . import quant  # noqa: F401
-from ._deferred import install as _install
 
-_install(globals(), layers=('HSigmoidLoss', 'MaxUnPool2D'))
+
+class HSigmoidLoss(Layer):
+    """Hierarchical sigmoid loss over the default tree
+    (``functional.hsigmoid_loss``)."""
+
+    def __init__(self, feature_size, num_classes, weight_attr=None,
+                 bias_attr=None, is_custom=False, is_sparse=False, name=None):
+        super().__init__()
+        self.num_classes = num_classes
+        self.weight = self.create_parameter((num_classes - 1, feature_size),
+                                            weight_attr)
+        self.bias = self.create_parameter((num_classes - 1, 1), bias_attr,
+                                          is_bias=True)
+
+    def forward(self, input, label, path_table=None, path_code=None):
+        return functional.hsigmoid_loss(input, label, self.num_classes,
+                                        self.weight, self.bias)
+
+
+class MaxUnPool2D(Layer):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format='NCHW', output_size=None, name=None):
+        super().__init__()
+        self._args = (kernel_size, stride, padding, data_format, output_size)
+
+    def forward(self, x, indices):
+        k, s, p, df, osz = self._args
+        return functional.max_unpool2d(x, indices, k, s, p, df, osz)
 
 
 def deprecated(update_to='', since='', reason=''):

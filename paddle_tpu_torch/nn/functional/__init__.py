@@ -1,6 +1,4 @@
-"""paddle.nn.functional. Port of ``paddle_tpu/nn/functional/__init__.py``
-(conv, pooling and the extensions wait for ROADMAP Queue 1 step J3 and
-raise)."""
+"""paddle.nn.functional. Port of ``paddle_tpu/nn/functional/__init__.py``."""
 from .activation import *  # noqa: F401,F403
 from .common import *  # noqa: F401,F403
 from .conv import (  # noqa: F401

@@ -90,6 +90,31 @@ def test_the_scan_covers_io_checkpoints_and_hapi():
             'tensor/fft.py', 'tensor/signal.py'} <= scanned
 
 
+def test_the_scan_covers_vision_and_the_rest_of_nn():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob('*.py')}
+    vision = {str(p.relative_to(PORT)) for p in (PORT / 'vision').rglob(
+        '*.py')}
+    assert vision <= scanned and {
+        'vision/__init__.py', 'vision/models/__init__.py',
+        'vision/models/lenet.py', 'vision/models/resnet.py',
+        'vision/models/vgg.py', 'vision/models/mobilenet.py',
+        'vision/datasets.py', 'vision/transforms.py', 'vision/ops.py',
+        'vision/image.py'} <= vision
+    assert {'nn/functional/conv.py', 'nn/functional/pooling.py',
+            'nn/functional/extension.py', 'nn/layer_conv.py',
+            'nn/layer_pooling.py', 'nn/layer_rnn.py', 'nn/decode.py',
+            'nn/quant.py'} <= scanned
+
+
+def test_the_vision_models_raise_without_a_card(monkeypatch):
+    from paddle_tpu_torch import device as port_device
+    from paddle_tpu_torch.vision import models
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    monkeypatch.setattr(port_device, '_current', None)
+    with pytest.raises(RuntimeError, match="set_device\\('cpu'\\)"):
+        models.resnet18()
+
+
 def test_the_scan_sees_forbidden_imports(tmp_path):
     f = tmp_path / 'probe.py'
     f.write_text('import jax.numpy as jnp\nfrom paddle_tpu.ops import x\n'

@@ -22,11 +22,16 @@ SEQ = (2, 5, 16)              # [batch, seq, embed]
 
 
 class Case:
-    """``const``: indices of float inputs that take no gradient."""
+    """``const``: indices of float inputs that take no gradient; ``tol``:
+    (output, gradient) tolerances of a case in bfloat16 (else the
+    caller's); ``eager``: the reference reads a value back to the host
+    in the call, so it runs outside ``jax.jit``."""
 
-    def __init__(self, name, make, inputs, train=True, const=()):
+    def __init__(self, name, make, inputs, train=True, const=(), tol=None,
+                 eager=False):
         self.name, self.make, self.inputs = name, make, inputs
         self.train, self.const = train, tuple(const)
+        self.tol, self.eager = tol, eager
 
     def __repr__(self):
         return self.name
@@ -455,6 +460,379 @@ def _Cross(nn):
         def forward(self, q, kv, mask):
             return self.attn(q, kv, kv, attn_mask=mask)
     return Cross()
+
+
+# ---- step J3: conv, pooling, extensions, RNN, decoding, quantization --------
+# A list of its own (``J3_CASES``): ``tests/test_torch_nn_conv_rnn.py``
+# holds it against the JAX package, ``chip_smoke.py`` phase 30 card
+# against CPU.
+J3_CASES = []
+BF16 = (1e-2, 3e-2)             # one bfloat16 rounding of the output
+
+
+def add_j3(name, make, *inputs, **kw):
+    J3_CASES.append(Case(name, make, list(inputs), **kw))
+
+
+def parent(nn):
+    """The module holding a case's ``nn`` (its package) or ``F`` (nn)."""
+    import importlib
+    return importlib.import_module(nn.__name__.rsplit('.', 1)[0])
+
+
+def bf16(f):
+    """``f(F, *xs)`` over the float inputs cast to bfloat16."""
+    return fn(lambda F, *xs: f(F, *[x.astype('bfloat16') for x in xs]))
+
+
+def seeded(net, seed=0):
+    """``net`` with every parameter drawn from a numpy seed (its order
+    in ``state_dict``), so that both packages start equal before a pass
+    that depends on the weights (calibration)."""
+    rng = np.random.RandomState(seed)
+    sd = net.state_dict()
+    net.set_state_dict({k: (0.5 * rng.randn(*v.shape)).astype('float32')
+                        for k, v in sd.items()
+                        if 'float' in str(v.dtype)})
+    return net
+
+
+def _dim(make, axis):
+    """The size along ``axis`` of what an input maker draws (a conv's
+    output channels, for its bias)."""
+    return make(np.random.RandomState(0)).shape[axis]
+
+
+_X1 = normal(2, 4, 9)                          # NCL
+_X2 = normal(2, 4, 7, 8)                       # NCHW
+_X3 = normal(1, 2, 4, 5, 6)                    # NCDHW
+_W2 = normal(6, 4, 3, 3, scale=0.3)
+for _n, _kw, _x, _w in [
+        ('conv1d', dict(stride=2, padding=1), _X1, normal(6, 4, 3)),
+        ('conv1d_nlc_same', dict(stride=2, padding='SAME',
+                                 data_format='NLC'), normal(2, 9, 4),
+         normal(6, 4, 3)),
+        ('conv2d', dict(padding=1), _X2, _W2),
+        ('conv2d_stride_dilation', dict(stride=2, dilation=2,
+                                        padding=[1, 2]),
+         normal(2, 4, 9, 10), _W2),
+        ('conv2d_groups', dict(groups=2, padding=1), _X2,
+         normal(6, 2, 3, 3)),
+        ('conv2d_depthwise', dict(groups=4, stride=2, padding=1), _X2,
+         normal(4, 1, 3, 3)),
+        ('conv2d_asym', dict(padding=[0, 1, 2, 0]), _X2, _W2),
+        ('conv1d_nested', dict(padding=[[0, 0], [0, 0], [1, 2]]), _X1,
+         normal(6, 4, 3)),
+        ('conv3d_nested', dict(padding=[[0, 0], [0, 0], [1, 0], [0, 2],
+                                        [2, 1]]), _X3,
+         normal(3, 2, 2, 3, 3)),
+        ('conv2d_same', dict(stride=2, padding='SAME'), _X2, _W2),
+        ('conv2d_valid', dict(stride=(1, 2), padding='VALID'), _X2, _W2),
+        ('conv2d_nhwc', dict(stride=2, padding=1, data_format='NHWC'),
+         normal(2, 7, 8, 4), _W2),
+        ('conv3d', dict(stride=(1, 2, 1), padding=1), _X3,
+         normal(3, 2, 2, 3, 3)),
+        ('conv3d_ndhwc', dict(padding='SAME', data_format='NDHWC'),
+         normal(1, 4, 5, 6, 2), normal(3, 2, 2, 3, 3))]:
+    _f = 'conv' + _n[4:6]
+    add_j3(f'F.{_n}', fn(lambda F, x, w, b, _f=_f, _kw=_kw: getattr(F, _f)(
+        x, w, b, **_kw)), _x, _w, normal(_dim(_w, 0)))
+add_j3('F.conv2d_bf16', bf16(lambda F, x, w, b: F.conv2d(
+    x, w, b, stride=2, padding=1)), _X2, _W2, normal(6), tol=BF16)
+add_j3('F.conv2d_nobias', fn(lambda F, x, w: F.conv2d(x, w, padding=1)),
+       _X2, _W2)
+for _n, _kw, _x, _w in [
+        ('conv1d_transpose', dict(stride=2, padding=1, output_padding=1),
+         normal(2, 4, 5), normal(4, 3, 3)),
+        ('conv2d_transpose', dict(stride=2, padding=1), normal(2, 4, 5, 6),
+         normal(4, 3, 3, 3)),
+        ('conv2d_transpose_opad', dict(stride=3, padding=[1, 0],
+                                       output_padding=2),
+         normal(2, 4, 5, 6), normal(4, 3, 3, 3)),
+        ('conv2d_transpose_groups', dict(stride=2, dilation=2, groups=2,
+                                         padding=[1, 0, 0, 2]),
+         normal(2, 4, 5, 6), normal(4, 3, 3, 3)),
+        ('conv2d_transpose_wide', dict(padding=3), normal(2, 4, 5, 6),
+         normal(4, 3, 3, 3)),
+        ('conv2d_transpose_nhwc', dict(stride=2, padding=1,
+                                       data_format='NHWC'),
+         normal(2, 5, 6, 4), normal(4, 3, 3, 3)),
+        ('conv3d_transpose', dict(stride=(2, 1, 2), padding=1),
+         normal(1, 2, 3, 4, 3), normal(2, 3, 3, 2, 3))]:
+    _f = 'conv' + _n[4:6] + '_transpose'
+    add_j3(f'F.{_n}', fn(lambda F, x, w, b, _f=_f, _kw=_kw: getattr(F, _f)(
+        x, w, b, **_kw)), _x, _w, normal(_dim(_w, 1) * _kw.get('groups', 1)))
+add_j3('F.conv2d_transpose_bf16', bf16(lambda F, x, w: F.conv2d_transpose(
+    x, w, stride=2, padding=1)), normal(2, 4, 5, 6), normal(4, 3, 3, 3),
+    tol=BF16)
+for _l, _make, _x in [
+        ('Conv1D', lambda nn: nn.Conv1D(4, 6, 3, padding=1), _X1),
+        ('Conv2D', lambda nn: nn.Conv2D(4, 6, 3, stride=2, padding=1), _X2),
+        ('Conv2D_nobias_groups', lambda nn: nn.Conv2D(
+            4, 6, (3, 2), groups=2, bias_attr=False), _X2),
+        ('Conv2D_nhwc', lambda nn: nn.Conv2D(4, 6, 3, padding='SAME',
+                                             data_format='NHWC'),
+         normal(2, 7, 8, 4)),
+        ('Conv3D', lambda nn: nn.Conv3D(2, 3, 2), _X3),
+        ('Conv1DTranspose', lambda nn: nn.Conv1DTranspose(4, 3, 3, stride=2),
+         _X1),
+        ('Conv2DTranspose', lambda nn: nn.Conv2DTranspose(
+            4, 6, 3, stride=2, padding=1, output_padding=1, groups=2), _X2),
+        ('Conv3DTranspose', lambda nn: nn.Conv3DTranspose(2, 3, 2, stride=2),
+         _X3)]:
+    add_j3(f'nn.{_l}', lambda nn, F, _m=_make: _m(nn), _x)
+
+# pooling: numeric and string padding, wide and nested pads, NHWC,
+# integers, adaptive bins that do not divide
+for _n, _f, _kw, _x in [
+        ('max_pool1d', 'max_pool1d', dict(kernel_size=3, stride=2,
+                                          padding=1), _X1),
+        ('max_pool2d', 'max_pool2d', dict(kernel_size=3, stride=2,
+                                          padding=1), _X2),
+        ('max_pool2d_same', 'max_pool2d', dict(kernel_size=3, stride=2,
+                                               padding='SAME'), _X2),
+        ('max_pool2d_wide', 'max_pool2d', dict(kernel_size=3, padding=2),
+         _X2),
+        ('max_pool2d_nested', 'max_pool2d', dict(
+            kernel_size=(2, 3), stride=(2, 1), padding=[(1, 0), (0, 2)]),
+         _X2),
+        ('max_pool2d_nhwc', 'max_pool2d', dict(kernel_size=2,
+                                               data_format='NHWC'),
+         normal(2, 7, 8, 4)),
+        ('max_pool2d_ignored', 'max_pool2d', dict(
+            kernel_size=3, stride=2, ceil_mode=True, return_mask=True), _X2),
+        ('max_pool3d', 'max_pool3d', dict(kernel_size=2, stride=(1, 2, 2)),
+         _X3),
+        ('avg_pool1d', 'avg_pool1d', dict(kernel_size=3, stride=2,
+                                          padding=1), _X1),
+        ('avg_pool2d', 'avg_pool2d', dict(kernel_size=3, stride=2,
+                                          padding=1), _X2),
+        ('avg_pool2d_inclusive', 'avg_pool2d', dict(
+            kernel_size=3, stride=2, padding=1, exclusive=False), _X2),
+        ('avg_pool2d_same', 'avg_pool2d', dict(kernel_size=3, stride=2,
+                                               padding='SAME'), _X2),
+        ('avg_pool2d_wide', 'avg_pool2d', dict(kernel_size=3, padding=2),
+         _X2),
+        ('avg_pool2d_nested', 'avg_pool2d', dict(
+            kernel_size=(2, 3), padding=[(1, 0), (0, 2)]), _X2),
+        ('avg_pool2d_ignored', 'avg_pool2d', dict(
+            kernel_size=3, ceil_mode=True, divisor_override=2), _X2),
+        ('avg_pool2d_nhwc', 'avg_pool2d', dict(kernel_size=2, padding=1,
+                                               data_format='NHWC'),
+         normal(2, 7, 8, 4)),
+        ('avg_pool3d', 'avg_pool3d', dict(kernel_size=2, padding=1), _X3),
+        ('adaptive_avg_pool1d', 'adaptive_avg_pool1d', dict(output_size=4),
+         _X1),
+        ('adaptive_avg_pool2d', 'adaptive_avg_pool2d', dict(
+            output_size=(3, 5)), _X2),
+        ('adaptive_avg_pool2d_none', 'adaptive_avg_pool2d', dict(
+            output_size=[None, 3]), _X2),
+        ('adaptive_avg_pool2d_nhwc', 'adaptive_avg_pool2d', dict(
+            output_size=3, data_format='NHWC'), normal(2, 7, 8, 4)),
+        ('adaptive_avg_pool3d', 'adaptive_avg_pool3d', dict(
+            output_size=(3, 2, 4)), _X3),
+        ('adaptive_max_pool1d', 'adaptive_max_pool1d', dict(output_size=4),
+         _X1),
+        ('adaptive_max_pool2d', 'adaptive_max_pool2d', dict(
+            output_size=(3, 5)), _X2),
+        ('adaptive_max_pool3d', 'adaptive_max_pool3d', dict(
+            output_size=(3, 2, 4)), _X3)]:
+    add_j3(f'F.{_n}', fn(lambda F, x, _f=_f, _kw=_kw: getattr(F, _f)(
+        x, **_kw)), _x)
+add_j3('F.max_pool2d_int', fn(lambda F, x: F.max_pool2d(x, 3, 2, 1)),
+       ints(2, 3, 7, 8, hi=1000))
+add_j3('F.adaptive_max_pool2d_int', fn(lambda F, x: F.adaptive_max_pool2d(
+    x, 3)), ints(2, 3, 7, 8, hi=1000))
+for _l, _args, _x in [
+        ('MaxPool1D', (3, 2, 1), _X1), ('MaxPool2D', (3, 2, 1), _X2),
+        ('MaxPool3D', (2,), _X3), ('AvgPool1D', (2,), _X1),
+        ('AvgPool2D', (3, 1, 1), _X2), ('AvgPool3D', (2, 1), _X3),
+        ('AdaptiveAvgPool1D', (3,), _X1), ('AdaptiveAvgPool2D', ((1, 1),),
+                                           _X2),
+        ('AdaptiveAvgPool3D', (2,), _X3), ('AdaptiveMaxPool1D', (3,), _X1),
+        ('AdaptiveMaxPool2D', (3,), _X2), ('AdaptiveMaxPool3D', (2,), _X3)]:
+    add_j3(f'nn.{_l}', lambda nn, F, _l=_l, _a=_args: getattr(nn, _l)(*_a),
+           _x)
+
+# the functional extensions
+add_j3('F.sequence_mask', fn(lambda F, n: F.sequence_mask(n, maxlen=6)),
+       const(np.array([3, 1, 4], 'int32')))
+add_j3('F.sequence_mask_auto', fn(lambda F, n: F.sequence_mask(
+    n, dtype='float32')), const(np.array([[3, 1], [4, 2]], 'int32')),
+    eager=True)
+add_j3('F.diag_embed', fn(lambda F, x: F.diag_embed(x, offset=1)),
+       normal(2, 3))
+add_j3('F.diag_embed_dims', fn(lambda F, x: F.diag_embed(
+    x, offset=-1, dim1=0, dim2=2)), normal(2, 3))
+add_j3('F.gather_tree', fn(lambda F, i, p: F.gather_tree(i, p)),
+       ints(4, 2, 3, hi=9), ints(4, 2, 3, hi=3))
+_UNPOOL = np.stack([np.stack([np.random.RandomState(7 * n + c).permutation(
+    16)[:4].reshape(2, 2) for c in range(3)]) for n in range(2)])
+add_j3('F.max_unpool2d', fn(lambda F, x, i: F.max_unpool2d(x, i, 2)),
+       normal(2, 3, 2, 2), const(_UNPOOL.astype('int32')))
+add_j3('F.hsigmoid_loss', fn(lambda F, x, y, w, b: F.hsigmoid_loss(
+    x, y, 7, w, b)), normal(4, 5), const(np.array([0, 3, 5, 6], 'int32')),
+    normal(6, 5), normal(6, 1))
+add_j3('F.margin_cross_entropy', fn(
+    lambda F, x, y: F.margin_cross_entropy(x, y)),
+    uniform(4, 6, lo=-0.9, hi=0.9), ints(4, hi=6))
+add_j3('F.margin_cross_entropy_softmax', fn(
+    lambda F, x, y: F.margin_cross_entropy(
+        x, y, margin1=0.9, margin2=0.3, margin3=0.1, scale=8.0,
+        return_softmax=True, reduction=None)),
+    uniform(4, 6, lo=-0.9, hi=0.9), ints(4, 1, hi=6))
+add_j3('F.elu_', fn(lambda F, x: F.elu_(x, 0.5)), normal(*E))
+add_j3('F.tanh_', fn(lambda F, x: F.tanh_(x)), normal(*E))
+add_j3('nn.HSigmoidLoss', lambda nn, F: nn.HSigmoidLoss(5, 6), normal(4, 5),
+       const(np.array([0, 3, 5, 2], 'int32')))
+add_j3('nn.MaxUnPool2D', lambda nn, F: nn.MaxUnPool2D(2), normal(2, 3, 2, 2),
+       const(_UNPOOL.astype('int32')))
+
+
+# RNNs: 2 layers bidirectional, both time_major, with initial states; the
+# cells; RNN / BiRNN; dynamic_decode over an LSTMCell
+def _Stateful(nn, rnn, states):
+    """A Layer calling ``rnn(x, initial states)`` with ``states`` inputs
+    after x (two of them, (h, c), for an LSTM)."""
+    class Stateful(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.rnn = rnn
+
+        def forward(self, x, *s):
+            init = tuple(s) if states == 2 else (s[0] if s else None)
+            return self.rnn(x, init)
+    return Stateful()
+
+
+for _l, _kw, _states in [
+        ('SimpleRNN', dict(num_layers=2, direction='bidirect'), 1),
+        ('SimpleRNN_time_major', dict(time_major=True), 0),
+        ('LSTM', dict(num_layers=2, direction='bidirect', time_major=True),
+         2),
+        ('LSTM_batch_major', dict(num_layers=2), 0),
+        ('GRU', dict(num_layers=2, direction='bidirectional'), 1),
+        ('GRU_time_major', dict(num_layers=2, direction='bidirect',
+                                time_major=True), 0)]:
+    _dirs = 2 if 'direction' in _kw else 1
+    _ins = [normal(5, 2, 4) if _kw.get('time_major') else normal(2, 5, 4)]
+    _ins += [normal(_kw.get('num_layers', 1) * _dirs, 2, 6)] * _states
+    # the reference closes over the initial states (its tape gives them no
+    # gradient, layer_rnn.py:105-110); the port's get one: held apart
+    add_j3(f'nn.{_l}', lambda nn, F, _l=_l, _kw=_kw, _s=_states: _Stateful(
+        nn, getattr(nn, _l.split('_')[0])(4, 6, **_kw), _s), *_ins,
+        const=range(1, 1 + _states))
+for _l, _states in [('SimpleRNNCell', 1), ('LSTMCell', 2), ('GRUCell', 1),
+                    ('GRUCell_zero', 0)]:
+    add_j3(f'nn.{_l}', lambda nn, F, _l=_l, _s=_states: _Stateful(
+        nn, getattr(nn, _l.split('_')[0])(4, 6), _s), normal(3, 4),
+        *[normal(3, 6)] * _states)
+add_j3('nn.RNN', lambda nn, F: _Stateful(nn, nn.RNN(nn.LSTMCell(4, 6)), 2),
+       normal(2, 5, 4), normal(2, 6), normal(2, 6))
+add_j3('nn.RNN_reverse_time_major', lambda nn, F: nn.RNN(
+    nn.GRUCell(4, 6), is_reverse=True, time_major=True), normal(5, 2, 4))
+add_j3('nn.BiRNN', lambda nn, F: nn.BiRNN(nn.SimpleRNNCell(4, 6),
+                                          nn.GRUCell(4, 6)), normal(2, 5, 4))
+add_j3('nn.RNNCellBase', lambda nn, F: _Stateful(nn, nn.RNNCellBase(4, 6), 1),
+       normal(3, 4), normal(3, 6))
+
+
+def _Decoder(nn, end_token):
+    """dynamic_decode over an LSTMCell with an embedding and an output
+    projection from initial states (h, c) -> (ids, scores)."""
+    class Decoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(7, 4)
+            self.cell = nn.LSTMCell(4, 6)
+            self.out = nn.Linear(6, 7)
+
+        def forward(self, h, c):
+            dec = nn.BeamSearchDecoder(self.cell, 0, end_token, 3,
+                                       embedding_fn=self.emb,
+                                       output_fn=self.out)
+            return nn.dynamic_decode(dec, inits=(h, c), max_step_num=6)
+    return Decoder()
+
+
+add_j3('nn.dynamic_decode', lambda nn, F: _Decoder(nn, 1),
+       normal(2, 6, scale=2.0), normal(2, 6, scale=2.0), eager=True)
+add_j3('nn.BeamSearchDecoder.tile_beam_merge_with_batch', fn(
+    lambda F, x: parent(F).BeamSearchDecoder.tile_beam_merge_with_batch(
+        x, 3)), normal(2, 3, 2))
+
+
+# quantization: the fake quantizers, the wrappers, the weight-only layers
+# and the passes over a small conv net
+def _ConvNet(nn):
+    return nn.Sequential(nn.Conv2D(3, 4, 3, padding=1), nn.ReLU(),
+                         nn.MaxPool2D(2), nn.Conv2D(4, 4, 1),
+                         nn.AdaptiveAvgPool2D(1), nn.Flatten(),
+                         nn.Linear(4, 5))
+
+
+_IMG3 = normal(2, 3, 6, 6)
+add_j3('quant.fake_quantize_abs_max', fn(
+    lambda F, x: parent(F).quant.fake_quantize_abs_max(x)),
+    normal(*E, scale=3.0))
+add_j3('quant.fake_channel_wise_quantize_abs_max', fn(
+    lambda F, x: parent(F).quant.fake_channel_wise_quantize_abs_max(
+        x, bits=4, axis=1)), normal(*E, scale=3.0))
+add_j3('quant.fake_quantize_moving_average_abs_max', fn(
+    lambda F, x: parent(F).quant.fake_quantize_moving_average_abs_max(
+        x, 2.0)), normal(*E, scale=3.0))
+add_j3('quant.FakeQuantAbsMax', lambda nn, F: nn.quant.FakeQuantAbsMax(6),
+       normal(*E))
+add_j3('quant.QuantizedLinear', lambda nn, F: nn.quant.QuantizedLinear(
+    nn.Linear(7, 4), weight_quantize_type='abs_max'), normal(*E))
+add_j3('quant.QuantizedConv2D', lambda nn, F: nn.quant.QuantizedConv2D(
+    nn.Conv2D(3, 4, 3, padding=1),
+    activation_quantize_type='moving_average_abs_max'), _IMG3)
+add_j3('quant.WeightOnlyLinear', lambda nn, F: nn.quant.WeightOnlyLinear(
+    nn.Linear(7, 4)), normal(*E))
+add_j3('quant.WeightOnlyConv2D', lambda nn, F: nn.quant.WeightOnlyConv2D(
+    nn.Conv2D(3, 4, 3, padding=1, data_format='NHWC')), normal(2, 6, 6, 3))
+add_j3('quant.WeightOnlyEmbedding', lambda nn, F: nn.quant.WeightOnlyEmbedding(
+    nn.Embedding(9, 6, padding_idx=2)), ints(2, 5, hi=9))
+add_j3('quant.quantize_model', lambda nn, F: nn.quant.quantize_model(
+    _ConvNet(nn)), _IMG3)
+add_j3('quant.weight_only_quantize',
+       lambda nn, F: nn.quant.weight_only_quantize(_ConvNet(nn)), _IMG3,
+       train=False)
+def calibrated_net(P):
+    """``_ConvNet`` with seeded weights, QAT wrappers with moving-average
+    scales observed over one batch, converted (``convert_calibrated``)."""
+    net = P.nn.quant.quantize_model(
+        seeded(_ConvNet(P.nn)),
+        activation_quantize_type='moving_average_abs_max')
+    net(P.to_tensor(calibration_batches(1)[0]))
+    return P.nn.quant.convert_calibrated(net)
+
+
+add_j3('quant.convert_calibrated', lambda nn, F: calibrated_net(parent(nn)),
+       _IMG3, train=False)
+add_j3('quantization.ImperativeQuantAware', lambda nn, F: parent(
+    nn).quantization.ImperativeQuantAware().quantize(_ConvNet(nn)), _IMG3)
+add_j3('quantization.quantize_weights', lambda nn, F: parent(
+    nn).quantization.quantize_weights(_ConvNet(nn)), _IMG3, train=False)
+
+
+def calibration_batches(n=3):
+    rng = np.random.RandomState(11)
+    return [rng.randn(2, 3, 6, 6).astype('float32') for _ in range(n)]
+
+
+def ptq_net(P):
+    """``_ConvNet`` with seeded weights through PostTrainingQuantization
+    over ``calibration_batches``."""
+    net = seeded(_ConvNet(P.nn))
+    return P.quantization.PostTrainingQuantization(
+        net, sample_generator=lambda: iter(calibration_batches()),
+        batch_nums=2).quantize()
+
+
+add_j3('quantization.PostTrainingQuantization', lambda nn, F: ptq_net(
+    parent(nn)), _IMG3, train=False)
 
 
 # ---- the run ---------------------------------------------------------------
