@@ -253,13 +253,53 @@ non-zero:
     (beyond Adam's epsilon gaps) and the first step's running statistics
     within 2e-5;
     a resnet18 .pdparams written on either device loading on the other
-    bit-exact.
+    bit-exact;
+31. ERNIE-base served (models.ernie.ErnieModel(ErnieConfig()): vocab
+    30522, hidden 768, 12 layers of 12 heads, FFN 3072, bf16 over f32,
+    110.1M parameters, random weights from paddle.seed(0)):
+    InferenceEngine(max_batch_size=64, max_delay_ms=2.0) warmed with
+    'all_buckets' over [((128,), 'int64')] x 3 (7 captures), then 160
+    requests of 1-17 rows shaped as tools/serve_bench.py shapes them (ids
+    in [5, 30522), real lengths 32-128, the mask 1 up to them, id 0 after;
+    numpy seed 0) submitted from one thread and awaited: 0 captures and
+    12 kernel-1 launches a batch, all tensor-core; requests/s, rows/s,
+    latency p50/p99, queue wait, rows a batch, the padded share, the
+    traffic's busy share (profiled), peak memory, one bucket-64 forward's
+    device ms by kind (GEMMs, kernel 1, casts, the readback, the rest);
+    outputs against the Layer's within 2^-6 a row; the Predictor over
+    jit.save's files with attach_layer, one request at a time
+    (requests/s); the layer-free Predictor over the .pt2 program at batch
+    1 and 16 (within 2^-6 a row of the Layer, 12 kernel-1 launches a
+    call) and its p50 at batch 1; bench.py's _child_predictor (resnet18
+    layer-free p50, a chain's device ms at batch 1, 8, 32) and
+    _child_serve_int8wo (f32 against int8_wo p50, captures within the
+    ladder); tools/warmup_check.py's cold start over ERNIE-base at
+    max_batch_size 8 in two fresh processes (this script with
+    --warmup-child): times to first response, the prebuild report, 0
+    captures during the warm process's traffic;
+32. ERNIE-base pretrained: pretrain_loss at [8, 512] (real lengths
+    256-512, ~15% of the real positions as MLM labels, NSP labels), remat,
+    dropout 0.1 through kernel 1's dropout, AdamW(1e-4, weight_decay
+    0.01), 10 steps (2 untimed): kernel 1 24 launches a step (remat reruns
+    it), kernels 2 and 3 12, all tensor-core; step ms, tokens/s, MFU (6 x
+    110.1M, embeddings included, x tokens/s over 989 TFLOP/s), peak
+    memory, busy share, device ms by kind; the losses finite and the last
+    3's mean below the first;
+33. ERNIE at 2 layers in f32 (hidden 256, 4 heads of 64, vocab 1024), card
+    against CPU: the engine's outputs per request against each device's
+    Layer and across the devices; the layer-free Predictor, its .pt2 and
+    .pdparams saved on either device and run on both; pretrain_loss and
+    its gradients (dropout 0 and 0.1) and one TranslatedLayer fine-tuning
+    step against the same step on the Layer, within 2e-5 a row.
 Phase 3 also holds every kernel at the MoE paths' shapes (12 heads of 64),
-and kernels 1-3 at phase 25's (B=8, S=512, 12 heads of 64, its key-padding
-mask, dropout 0 and 0.1). Every launch counter is set to 0 just before
-each main-path run (phases 4, 6, 7, 9, 11, 13, 14, 15, 17, 18, 22, 23; in
-25, 27 and 29 before each step, in 27 also before evaluate and each
-predict) and read just after. Then one line of kernel records
+kernels 1-3 at phase 25's (B=8, S=512, 12 heads of 64, its key-padding
+mask, dropout 0 and 0.1), and kernel 1 at phase 31's serving shapes (B 64
+and 1, S 128, 12 heads of 64, key lengths 32-128). Every launch counter is
+set to 0 just before each main-path run (phases 4, 6, 7, 9, 11, 13, 14,
+15, 17, 18, 22, 23, 31, 32; in 25, 27, 29 and 32 before each step, in 27
+also before evaluate and each predict, in 31 before the engine's traffic,
+the Predictor's and each layer-free call, in 33 before the TranslatedLayer
+step) and read just after. Then one line of kernel records
 (JSON), and the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the rest of the repository beside it, it
@@ -806,6 +846,9 @@ DECODE_CASES = [
 # key-padding mask (lens='ernie': tests/torch_nn_cases.mlm_batch's lengths)
 ERNIE_ATTN = dict(b=8, s=512, h=12, h_kv=12, d=64, dtype=BF16, causal=False,
                   lens='ernie')
+# phase 31's attention: 12 heads of 64 over S=128, row lengths 32-128
+ERNIE_SERVE_ATTN = dict(s=128, h=12, h_kv=12, d=64, dtype=BF16, causal=False)
+SERVE_LENS = [int(n) for n in np.random.RandomState(1).randint(32, 129, 64)]
 FWD_CASES = [
     ('fwd_S1024', dict(b=8, s=1024, h=16, h_kv=16, d=64, dtype=BF16), True),
     ('fwd_S300_gqa_d128_f32', dict(b=2, s=300, h=8, h_kv=4, d=128,
@@ -827,6 +870,12 @@ FWD_CASES = [
     # bidirectional, its key-padding mask (lengths 256-512)
     ('ernie_fwd_S512', dict(ERNIE_ATTN), True),
     ('ernie_fwd_S512_drop0.1', dict(ERNIE_ATTN, drop=0.1), True),
+    # ERNIE-base served (phase 31): the engine's buckets 64 and 1 at S=128,
+    # bidirectional, a key-padding mask of row lengths 32-128
+    ('ernie_serve_B64_S128', dict(ERNIE_SERVE_ATTN, b=64,
+                                  lens=SERVE_LENS), True),
+    ('ernie_serve_B1_S128', dict(ERNIE_SERVE_ATTN, b=1, lens=SERVE_LENS[:1]),
+     True),
 ]
 DROP_SEED = 2 ** 31 + 12345     # a u32 past the int32 range
 # kernels 2 and 3 (the flash backward): the train step's shape first
@@ -4777,11 +4826,743 @@ def phase_vision_card_vs_cpu():
             'models': agreement, 'checkpoints_exact': exact}
 
 
+# ---------------------------------------------------------------------------
+# phases 31-33: ERNIE-base served (InferenceEngine, the Predictor, warmup)
+# and pretrained
+# ---------------------------------------------------------------------------
+
+SERVE = dict(requests=160, lo=1, hi=17, s=128, len_lo=32, len_hi=128,
+             seed=0)
+SERVE_MAX_BATCH, SERVE_DELAY_MS = 64, 2.0
+SERVE_TOL = 2.0 ** -6       # bf16 outputs against the Layer's, a row
+PREDICTOR_P50_CALLS = 30
+COLD_MAX_BATCH = 8
+
+
+def serve_requests(vocab, requests, lo, hi, s, len_lo, len_hi, seed):
+    """tools/serve_bench.py's stream shaped for ERNIE: ``requests``
+    requests of lo-hi rows (numpy seed), each row ``s`` ids in [5, vocab),
+    a real length drawn from len_lo-len_hi, the mask 1 up to it and the id
+    0 after; token types 0. -> [(ids, types, mask)] int64."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for rows in rs.randint(lo, hi + 1, size=requests):
+        ids = rs.randint(5, vocab, (rows, s)).astype(np.int64)
+        lens = rs.randint(len_lo, len_hi + 1, rows)
+        mask = (np.arange(s)[None] < lens[:, None]).astype(np.int64)
+        out.append((np.where(mask > 0, ids, 0), np.zeros_like(ids), mask))
+    return out
+
+
+def row_err(got, want):
+    """The largest |got - want| of each output row (the last dim) over
+    that row's largest |want|, the worst row; host arrays or tensors."""
+    g = torch.as_tensor(np.asarray(got, dtype=np.float32))
+    w = torch.as_tensor(np.asarray(want, dtype=np.float32))
+    return kernel_err(g, w)[1]
+
+
+def layer_outputs(paddle, net, req):
+    """The Layer's direct forward of one request on its device, as host
+    float32 arrays."""
+    with paddle.no_grad():
+        outs = net(*[paddle.to_tensor(a) for a in req])
+    return [o.astype('float32').numpy() for o in outs]
+
+
+def serving_kinds(prof):
+    """A profiled forward's device ms by kind: the GEMMs (by the ops that
+    launched them), kernel 1, the casts (weights to bf16 each forward, and
+    activations), the readback (device to host copies) and the rest
+    (LayerNorm, GELU, embeddings, elementwise)."""
+    ops, names = prof['by_op'], prof['by_name']
+    out = {'gemm': sum(ops.get(o, 0.0) for o in (
+               'aten::mm', 'aten::addmm', 'aten::bmm', 'aten::baddbmm')),
+           'kernel1': sum(ms for n, ms in names.items() if 'flash_' in n),
+           'readback': sum(ms for n, ms in names.items()
+                           if 'DtoH' in n or 'Device -> ' in n)}
+    # aten::copy_ launched the casts and the readback's copy
+    out['casts'] = max(0.0, ops.get('aten::copy_', 0.0) - out['readback'])
+    out['rest'] = prof['device_ms'] - sum(out.values())
+    return out
+
+
+def phase_ernie_serving(kernels, card):
+    """Phase 31: ERNIE-base served (see the module docstring)."""
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference, jit, serving
+    from paddle_tpu_torch.models import ernie
+    from paddle_tpu_torch.static import InputSpec
+    paddle.set_device('gpu')
+    paddle.seed(0)
+    cfg = ernie.ErnieConfig()
+    torch.cuda.reset_peak_memory_stats()
+    net = ernie.ErnieModel(cfg)
+    n_params = sum(p.size for p in net.parameters())
+    reqs = serve_requests(cfg.vocab_size, **SERVE)
+    rows = sum(r[0].shape[0] for r in reqs)
+    res = {'params': n_params, 'requests': len(reqs), 'rows': rows}
+    L = cfg.num_layers
+
+    # the engine: 7 captures at warmup, none from traffic
+    eng = serving.InferenceEngine(net, max_batch_size=SERVE_MAX_BATCH,
+                                  max_delay_ms=SERVE_DELAY_MS,
+                                  queue_capacity=4 * len(reqs))
+    t0 = time.perf_counter()
+    report = eng.warmup('all_buckets',
+                        input_spec=[((SERVE['s'],), 'int64')] * 3)
+    res['warmup_s'] = time.perf_counter() - t0
+    n_buckets = len(serving.bucket_sizes(SERVE_MAX_BATCH))
+    if eng._trace_count != n_buckets or report['prebuilt'] != n_buckets:
+        raise AssertionError(f'engine warmup: {eng._trace_count} captures, '
+                             f'report {report}; want {n_buckets}')
+
+    def traffic():
+        eng._stats.reset()
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        futs = [eng.submit(*r) for r in reqs]
+        outs = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        return outs, wall, eng.stats(), launch_counts(kernels)
+
+    outs, wall, st, got = traffic()
+    if eng._trace_count != n_buckets:
+        raise AssertionError(f'engine: {eng._trace_count - n_buckets} '
+                             'captures during traffic, want 0')
+    expect_launches('engine traffic', got, {'flash_fwd': L * st['batches']})
+    expect_tensor_core('engine traffic', kernels)
+    res['launches'] = got
+    for (h, p), r in zip(outs, reqs):
+        n = r[0].shape[0]
+        if h.shape != (n, SERVE['s'], cfg.hidden_size) or \
+                p.shape != (n, cfg.hidden_size) or h.dtype != np.float32:
+            raise AssertionError(f'engine output shapes {h.shape} '
+                                 f'{p.shape} {h.dtype} for {n} rows')
+        if not (np.isfinite(h).all() and np.isfinite(p).all()):
+            raise AssertionError('engine: a non-finite output')
+    errs = [max(row_err(o, w) for o, w in zip(
+        outs[i], layer_outputs(paddle, net, reqs[i]))) for i in range(8)]
+    res['vs_layer_row_err'] = max(errs)
+    if not res['vs_layer_row_err'] <= SERVE_TOL:
+        raise AssertionError(f'engine outputs against the Layer\'s: row '
+                             f'error {errs} (tol {SERVE_TOL:g})')
+    res.update(requests_per_s=len(reqs) / wall, rows_per_s=rows / wall,
+               wall_s=wall,
+               **{k: st[k] for k in (
+                   'latency_ms_p50', 'latency_ms_p99', 'queue_wait_ms_p50',
+                   'queue_wait_ms_p99', 'avg_batch_size', 'pad_waste_pct',
+                   'batches', 'exec_ms_p50', 'compiles')})
+    # a second pass profiled: the busy share over the whole traffic
+    prof = profile_window(lambda: traffic())
+    res['busy_share'] = prof['busy_share']
+    res['traffic_profile'] = {k: prof[k] for k in (
+        'window_ms', 'device_ms', 'busy_share', 'kernels', 'top')}
+    # one full bucket's forward, eager, profiled by kind with its readback
+    padded = [torch.as_tensor(serving.pad_rows(np.concatenate(
+        [r[i] for r in reqs])[:SERVE_MAX_BATCH], SERVE_MAX_BATCH),
+        device='cuda') for i in range(3)]
+
+    def one_batch():
+        with torch.no_grad():
+            return serving.engine.host_outputs(eng._forward(*padded))
+    one_batch()
+    bprof = profile_window(one_batch)
+    res['bucket64_ms_by_kind'] = serving_kinds(bprof)
+    res['bucket64_device_ms'] = bprof['device_ms']
+    res['readback_bytes'] = SERVE_MAX_BATCH * SERVE['s'] * \
+        cfg.hidden_size * 4
+    res['peak_mem_gb'] = torch.cuda.max_memory_allocated() / 1e9
+    eng.shutdown()
+    print(f'  ERNIE-base ({n_params / 1e6:.1f}M params, bf16 over f32) in '
+          f'InferenceEngine(max_batch_size={SERVE_MAX_BATCH}, max_delay_ms='
+          f'{SERVE_DELAY_MS}): {n_buckets} captures at warmup '
+          f'({res["warmup_s"]:.2f} s), 0 from traffic [{card}]', flush=True)
+    print(f'  {len(reqs)} requests ({rows} rows of {SERVE["s"]}): '
+          f'{res["requests_per_s"]:.1f} requests/s, {res["rows_per_s"]:.1f} '
+          f'rows/s; latency p50 {st["latency_ms_p50"]} ms p99 '
+          f'{st["latency_ms_p99"]} ms, queue wait p50 '
+          f'{st["queue_wait_ms_p50"]} ms; {st["batches"]} batches, '
+          f'{st["avg_batch_size"]} rows a batch, padded share '
+          f'{st["pad_waste_pct"]}%; kernel 1 {got["flash_fwd"]} launches '
+          f'({L} a batch); outputs vs the Layer row error '
+          f'{res["vs_layer_row_err"]:.3e}', flush=True)
+    print(f'  traffic profiled: window {prof["window_ms"]:.1f} ms, device '
+          f'{prof["device_ms"]:.1f} ms (busy {100 * prof["busy_share"]:.1f}'
+          f'%); peak memory {res["peak_mem_gb"]:.2f} GB', flush=True)
+    print('  one bucket-64 forward, eager, device ms by kind: ' + ', '.join(
+        f'{k} {v:.3f}' for k, v in res['bucket64_ms_by_kind'].items())
+        + f' (total {bprof["device_ms"]:.3f}; readback '
+        f'{res["readback_bytes"] / 1e6:.1f} MB of float32)', flush=True)
+
+    # the Predictor: jit.save, then attach_layer one request at a time
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_ernie_')
+    path = os.path.join(tmp, 'ernie')
+    t0 = time.perf_counter()
+    jit.save(net, path, input_spec=[InputSpec([-1, SERVE['s']],
+                                              'int64')] * 3)
+    res['jit_save_s'] = time.perf_counter() - t0
+    with open(path + '.pdmodel') as f:
+        meta = json.load(f)
+    if not (meta.get('exported') and meta.get('poly_batch')):
+        raise AssertionError(f'jit.save: no dynamic program {meta}')
+    pred = inference.create_predictor(inference.Config(path + '.pdmodel'))
+    pred.attach_layer(ernie.ErnieModel(cfg))
+    for n in sorted({r[0].shape[0] for r in reqs}):     # every shape warm
+        pred.run([np.repeat(a[:1], n, axis=0) for a in reqs[0]])
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    for r in reqs:
+        pred.run(list(r))
+    pwall = time.perf_counter() - t0
+    got = launch_counts(kernels)
+    expect_launches('Predictor.run (attach_layer) traffic', got,
+                    {'flash_fwd': L * len(reqs)})
+    res['predictor'] = {'requests_per_s': len(reqs) / pwall,
+                        'captures': pred._trace_count, 'launches': got}
+    print(f'  Predictor.run + attach_layer, one request at a time: '
+          f'{len(reqs) / pwall:.1f} requests/s ({pred._trace_count} '
+          f'captures, one a row count); the engine '
+          f'{res["requests_per_s"] / (len(reqs) / pwall):.2f}x', flush=True)
+    del pred
+    # the layer-free Predictor over the .pt2 program
+    lf = inference.create_predictor(inference.Config(path + '.pdmodel'))
+    lf_launches = 0
+    for n in (1, 16):
+        req = serve_requests(cfg.vocab_size, 1, n, n, SERVE['s'], 32, 128,
+                             seed=7 + n)[0]
+        zero_launches(kernels)
+        out = lf.run(list(req))
+        got = launch_counts(kernels)
+        expect_launches(f'layer-free Predictor at batch {n}', got,
+                        {'flash_fwd': L})
+        expect_tensor_core(f'layer-free Predictor at batch {n}', kernels)
+        lf_launches += got['flash_fwd']
+        err = max(row_err(o, w) for o, w in zip(
+            out, layer_outputs(paddle, net, req)))
+        res[f'layer_free_b{n}_row_err'] = err
+        if not err <= SERVE_TOL:
+            raise AssertionError(f'layer-free Predictor at batch {n}: row '
+                                 f'error {err} against the Layer')
+    req1 = [a[:1] for a in reqs[0]]
+    lat = []
+    for _ in range(PREDICTOR_P50_CALLS):
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        lf.run(req1)
+        lat.append(time.perf_counter() - t0)
+        lf_launches += kernels['flash_fwd'].launches
+    lat.sort()
+    res['layer_free'] = {'p50_ms_b1': lat[len(lat) // 2] * 1e3,
+                         'launches': lf_launches}
+    print(f'  layer-free Predictor (.pt2, torch.export): batch 1 and 16 vs '
+          f'the Layer row errors {res["layer_free_b1_row_err"]:.3e}, '
+          f'{res["layer_free_b16_row_err"]:.3e}; {L} kernel-1 launches a '
+          f'call; p50 {res["layer_free"]["p50_ms_b1"]:.2f} ms at batch 1 '
+          f'over {PREDICTOR_P50_CALLS} calls; jit.save '
+          f'{res["jit_save_s"]:.1f} s', flush=True)
+    del lf
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    res['bench_predictor'] = bench_predictor_rung(paddle, card)
+    res['bench_int8wo'] = bench_int8wo_rung(paddle, card)
+    res['cold_start'] = cold_start(card)
+    del net, eng
+    paddle.set_device('cpu')
+    torch.cuda.empty_cache()
+    return res
+
+
+def bench_predictor_rung(paddle, card):
+    """bench.py _child_predictor as it is: resnet18 saved with
+    InputSpec([1, 3, 224, 224]), served layer-free, p50 over 30 calls;
+    device ms at batch 1, 8 and 32 from a chain of 40 dependent forwards
+    timed once."""
+    import tempfile
+
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.nn.layer_base import (buffer_arrays,
+                                                functional_call,
+                                                param_arrays)
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.vision import models as vmodels
+    paddle.seed(0)
+    net = vmodels.resnet18()
+    net.eval()
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_resnet18_')
+    path = os.path.join(tmp, 'resnet18')
+    jit.save(net, path, input_spec=[InputSpec([1, 3, 224, 224],
+                                              'float32')])
+    pred = inference.create_predictor(inference.Config(path + '.pdmodel'))
+    if pred._exec is None:
+        raise AssertionError('resnet18: jit.save exported no program')
+    x = np.random.RandomState(0).rand(1, 3, 224, 224).astype('float32')
+    out = pred.run([x])
+    with paddle.no_grad():
+        want = net(paddle.to_tensor(x)).numpy()
+    err = row_err(out[0], want)
+    if not err <= TOL[torch.float32] * 10:
+        raise AssertionError(f'resnet18 layer-free vs the Layer: {err}')
+    lat = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        out = pred.run([x])
+        lat.append(time.perf_counter() - t0)
+    lat.sort()
+    res = {'p50_ms': lat[len(lat) // 2] * 1e3, 'vs_layer_row_err': err}
+    params, bufs = param_arrays(net), buffer_arrays(net)
+
+    def chain_ms(batch, k=40):
+        xx = torch.rand((batch, 3, 224, 224), device='cuda')
+        with torch.no_grad():
+            y = functional_call(net, params, bufs, xx)[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(k):
+                # output -> input: the chain serializes on the device
+                y = functional_call(net, params, bufs, xx + y.sum() * 0)[0]
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / k * 1e3
+    for b in (1, 8, 32):
+        res[f'device_ms_b{b}'] = chain_ms(b)
+    print(f'  bench _child_predictor: resnet18 layer-free p50 '
+          f'{res["p50_ms"]:.2f} ms (vs the Layer {err:.2e}); device ms '
+          f'batch 1 {res["device_ms_b1"]:.2f}, 8 {res["device_ms_b8"]:.2f}, '
+          f'32 {res["device_ms_b32"]:.2f} [{card}]', flush=True)
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def bench_int8wo_rung(paddle, card):
+    """bench.py _child_serve_int8wo as it is: an MLP (256 -> 512 -> 64)
+    served by InferenceEngine in float32 and in int8_wo over 64 requests
+    of 1-8 rows: per-request p50, captures within ceil(log2 8) + 1."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = nn.Linear(256, 512)
+            self.fc2 = nn.Linear(512, 64)
+
+        def forward(self, x):
+            return self.fc2(nn.functional.relu(self.fc1(x)))
+
+    paddle.seed(0)
+    net = Net()
+    rng = np.random.RandomState(0)
+    max_batch = 8
+    sizes = [int(rng.randint(1, max_batch + 1)) for _ in range(64)]
+    out = {}
+    for name, kw in (('f32', {}), ('int8wo', {'precision': 'int8_wo'})):
+        eng = InferenceEngine(net, max_batch_size=max_batch,
+                              autostart=False, **kw)
+        eng.start()
+        try:
+            for b in (1, 2, 4, 8):   # warm every pow2 bucket
+                eng.submit(rng.randn(b, 256).astype('float32')) \
+                   .result(timeout=120)
+            lats = []
+            for n in sizes:
+                x = rng.randn(n, 256).astype('float32')
+                t0 = time.perf_counter()
+                eng.submit(x).result(timeout=120)
+                lats.append((time.perf_counter() - t0) * 1e3)
+            out[f'serve_{name}_p50_ms'] = sorted(lats)[len(lats) // 2]
+            out[f'{name}_compiles'] = eng.stats()['compiles']
+        finally:
+            eng.shutdown(drain=False)
+    bound = math.ceil(math.log2(max_batch)) + 1
+    if out['int8wo_compiles'] > bound:
+        raise AssertionError(f'int8_wo engine: {out["int8wo_compiles"]} '
+                             f'captures > {bound}')
+    print(f'  bench _child_serve_int8wo: p50 f32 '
+          f'{out["serve_f32_p50_ms"]:.3f} ms, int8_wo '
+          f'{out["serve_int8wo_p50_ms"]:.3f} ms; captures '
+          f'{out["int8wo_compiles"]} (<= {bound}) [{card}]', flush=True)
+    return out
+
+
+def _cold_traffic(vocab):
+    """tools/warmup_check.py's traffic at ERNIE's shapes: a first request
+    of 3 rows, then 1, 2, 4, 5, 8, 7 and 3 rows."""
+    first = serve_requests(vocab, 1, 3, 3, SERVE['s'], 32, 128, seed=11)[0]
+    rest = [serve_requests(vocab, 1, n, n, SERVE['s'], 32, 128,
+                           seed=12 + i)[0]
+            for i, n in enumerate((1, 2, 4, 5, COLD_MAX_BATCH,
+                                   COLD_MAX_BATCH - 1, 3))]
+    return first, rest
+
+
+def warmup_child(mode, tmp):
+    """One process of the cold-start check (run by ``cold_start``): ERNIE-
+    base at max_batch_size 8 served cold inside ``warmup.capture()``
+    (saving the manifest), or warm from it. Prints one JSON line."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import serving, warmup
+    from paddle_tpu_torch.models import ernie
+    paddle.set_device('gpu')
+    paddle.seed(0)
+    net = ernie.ErnieModel(ernie.ErnieConfig())
+    first, rest = _cold_traffic(net.config.vocab_size)
+    manifest_path = os.path.join(tmp, 'manifest.json')
+    out = {'mode': mode}
+    # the process's one-time start (CUDA context, cuBLAS, the kernels'
+    # libraries, the operator's first dispatch), paid by both processes
+    # alike, outside what is compared
+    t0 = time.perf_counter()
+    with paddle.no_grad():
+        net(*[paddle.to_tensor(a) for a in first])
+    torch.cuda.synchronize()
+    out['process_start_ms'] = 1e3 * (time.perf_counter() - t0)
+
+    def drive(engine):
+        t0 = time.perf_counter()
+        engine.submit(*first).result(timeout=300)
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        for f in [engine.submit(*r) for r in rest]:
+            f.result(timeout=300)
+        return first_ms
+    if mode == 'cold':
+        with warmup.capture() as manifest:
+            engine = serving.InferenceEngine(
+                net, max_batch_size=COLD_MAX_BATCH, max_delay_ms=0.5)
+            out['first_request_ms'] = drive(engine)
+            engine.shutdown()
+        manifest.save(manifest_path)
+        out['manifest_entries'] = len(manifest)
+        out['captures'] = engine._trace_count
+    else:
+        t0 = time.perf_counter()
+        engine = serving.InferenceEngine(
+            net, max_batch_size=COLD_MAX_BATCH, max_delay_ms=0.5,
+            warmup=manifest_path)
+        out['prebuild_ms'] = 1e3 * (time.perf_counter() - t0)
+        out['prebuilt'] = engine._cache.prebuilt
+        before = engine._trace_count
+        out['first_request_ms'] = drive(engine)
+        out['captures_during_traffic'] = engine._trace_count - before
+        out['misses'] = engine._cache.misses
+        engine.shutdown()
+    print(json.dumps(out), flush=True)
+
+
+def cold_start(card):
+    """tools/warmup_check.py's protocol over ERNIE-base: two fresh
+    processes, the first serving cold inside warmup.capture() and saving
+    the manifest, the second building its engine with warmup=<manifest>;
+    the warm process must capture nothing during traffic."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_warmup_')
+    res = {}
+    try:
+        for mode in ('cold', 'warm'):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 '--warmup-child', mode, '--dir', tmp],
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f'{mode} process failed:\n'
+                                     f'{proc.stdout[-2000:]}\n'
+                                     f'{proc.stderr[-4000:]}')
+            res[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+            res[mode]['process_s'] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cold, warm = res['cold'], res['warm']
+    if warm['captures_during_traffic'] != 0 or warm['misses'] != 0:
+        raise AssertionError(f'warm process captured during traffic: '
+                             f'{warm}')
+    if warm['prebuilt'] != cold['manifest_entries']:
+        raise AssertionError(f'warm process prebuilt {warm["prebuilt"]} of '
+                             f'{cold["manifest_entries"]} entries')
+    print(f'  cold start (tools/warmup_check.py protocol, max_batch_size '
+          f'{COLD_MAX_BATCH}): first response cold '
+          f'{cold["first_request_ms"]:.1f} ms, warm '
+          f'{warm["first_request_ms"]:.1f} ms; the manifest\'s '
+          f'{cold["manifest_entries"]} entries prebuilt in '
+          f'{warm["prebuild_ms"]:.1f} ms; 0 captures during the warm '
+          f'process\'s traffic; each process\'s start (one eager forward '
+          f'first) {cold["process_start_ms"]:.0f} / '
+          f'{warm["process_start_ms"]:.0f} ms [{card}]', flush=True)
+    return res
+
+
+PRETRAIN = dict(b=8, s=512, lo=256, hi=512, mlm_share=0.15, seed=0)
+PRETRAIN_STEPS, PRETRAIN_WARMUP = 10, 2
+MASK_ID = 3
+
+
+def pretrain_batch(vocab, b, s, lo, hi, mlm_share, seed):
+    """A pretraining batch [b, s] (numpy seed): real lengths lo-hi, the
+    second half of each row token type 1, ~mlm_share of the real positions
+    after [CLS] masked (input id MASK_ID, label the original id; -100
+    elsewhere), NSP labels 0/1. -> (ids, types, mask, mlm, nsp, lens)."""
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(lo, hi + 1, b)
+    pos = np.arange(s)[None]
+    mask = (pos < lens[:, None]).astype(np.int64)
+    ids = np.where(mask > 0, rs.randint(5, vocab, (b, s)), 0)
+    types = ((pos >= (lens[:, None] // 2)) & (mask > 0)).astype(np.int64)
+    pick = (rs.rand(b, s) < mlm_share) & (mask > 0) & (pos > 0)
+    mlm = np.where(pick, ids, -100)
+    ids = np.where(pick, MASK_ID, ids)
+    nsp = rs.randint(0, 2, b)
+    return ids, types, mask, mlm, nsp, lens
+
+
+def ernie_train_step(ernie, cfg, topt):
+    """(params, state, step(seed) -> loss): ERNIE's pretrain_loss, the
+    gradients by torch.autograd.grad and AdamW's functional update in
+    place."""
+    def make(params, batch, lr=1e-4):
+        opt = topt.AdamW(learning_rate=lr, weight_decay=0.01)
+        names = ['p%d' % i for i in range(len(ernie.leaves(params)))]
+        leaves = [t.requires_grad_() for t in ernie.leaves(params)]
+        named = dict(zip(names, leaves))
+        state = opt.functional_init(named)
+
+        def step(seed):
+            p = ernie.from_leaves(leaves)
+            loss = ernie.pretrain_loss(p, *batch, cfg, dropout_seed=seed)
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                opt.functional_apply(named, dict(zip(names, grads)), state,
+                                     lr)
+            return loss.detach()
+        return step
+    return make
+
+
+def phase_ernie_pretrain(kernels, card):
+    """Phase 32: ERNIE-base pretrained (see the module docstring)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import ernie
+    cfg = ernie.ErnieConfig(dropout=0.1)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    params = ernie.init_params(cfg, gen, 'cuda')
+    n_params = ernie.num_params(cfg)
+    ids, types, mask, mlm, nsp, lens = pretrain_batch(cfg.vocab_size,
+                                                      **PRETRAIN)
+    batch = [torch.as_tensor(a, device='cuda')
+             for a in (ids, types, mask, mlm, nsp)]
+    step = ernie_train_step(ernie, cfg, topt)(params, batch)
+    L = cfg.num_layers
+    # remat reruns kernel 1 in the backward
+    per_step = {'flash_fwd': 2 * L, 'flash_bwd_dq': L, 'flash_bwd_dkv': L}
+    losses, totals = [], {k: 0 for k in kernels}
+
+    def one():
+        zero_launches(kernels)
+        losses.append(step(DROP_SEED + len(losses)))
+        got = launch_counts(kernels)
+        want = {k: per_step.get(k, 0) for k in got}
+        tc = {k: kernels[k].tc_launches for k in TC_KERNELS}
+        if got != want or any(tc[k] != got[k] for k in TC_KERNELS):
+            raise AssertionError(f'pretrain step {len(losses)}: launches '
+                                 f'{got}, tensor-core {tc}; want {want}, '
+                                 'all tensor-core')
+        for k, n in got.items():
+            totals[k] += n
+
+    for _ in range(PRETRAIN_WARMUP):
+        one()
+    _, wall = timed(lambda: [one() for _ in range(PRETRAIN_STEPS
+                                                  - PRETRAIN_WARMUP)])
+    n_timed = PRETRAIN_STEPS - PRETRAIN_WARMUP
+    vals = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in vals):
+        raise AssertionError(f'pretrain: a non-finite loss {vals}')
+    if not np.mean(vals[-3:]) < vals[0]:
+        raise AssertionError(f'pretrain: the loss did not fall {vals}')
+    prof = profile_window(one)
+    busy = busy_over_steps(one, n=2)
+    b, s = ids.shape
+    tok_s = b * s * n_timed / wall
+    res = {'params': n_params, 'losses': vals,
+           'step_ms': wall * 1e3 / n_timed, 'tokens_per_s': tok_s,
+           'real_tokens_per_step': int(lens.sum()),
+           'mfu': 6 * n_params * tok_s / PEAK_BF16,
+           'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9,
+           'launches': totals, 'launches_per_step': per_step,
+           'busy_share': busy['busy_share'],
+           'device_ms_by_kind': device_ms_by_kind(prof),
+           'profile': {k: prof[k] for k in ('window_ms', 'device_ms',
+                                             'busy_share', 'kernels',
+                                             'top')}}
+    print(f'  ERNIE-base pretrain_loss ({n_params / 1e6:.1f}M params, '
+          f'[{b}, {s}], remat, dropout 0.1, AdamW(1e-4, wd 0.01)): '
+          f'{res["step_ms"]:.1f} ms a step, {tok_s:.0f} tokens/s '
+          f'({res["real_tokens_per_step"]} real a step), MFU '
+          f'{100 * res["mfu"]:.2f}% (6 x {n_params / 1e6:.1f}M, embeddings '
+          f'included, x tokens/s over 989 TFLOP/s), peak '
+          f'{res["peak_mem_gb"]:.2f} GB, busy {100 * busy["busy_share"]:.1f}'
+          f'% [{card}]', flush=True)
+    print(f'  launches a step {per_step} (kernel 1 twice: remat), all '
+          f'tensor-core; losses {" ".join(f"{x:.4f}" for x in vals)}',
+          flush=True)
+    print('  device ms by kind (a profiled step): ' + ', '.join(
+        f'{k} {v:.2f}' for k, v in res['device_ms_by_kind'].items()
+        if k != 'fp8_gemm'), flush=True)
+    del params, batch, step
+    torch.cuda.empty_cache()
+    return res
+
+
+# 4 heads of 64: the kernels take head dims 64, 128 and 256
+ERNIE_SMALL = dict(vocab_size=1024, hidden_size=256, num_layers=2,
+                   num_heads=4, max_seq_len=128, dtype='float32')
+ERNIE_CARD_TOL = 2e-5       # f32, card against CPU, a row (outputs, grads)
+
+
+def _ernie_pair(paddle, ernie, cfg):
+    """The same random ErnieModel weights on the card and on the CPU."""
+    paddle.set_device('cpu')
+    paddle.seed(0)
+    cpu = ernie.ErnieModel(cfg)
+    paddle.set_device('gpu')
+    card = ernie.ErnieModel(cfg)
+    card.set_state_dict(cpu.state_dict())
+    return card, cpu
+
+
+def phase_ernie_serving_card_vs_cpu(kernels):
+    """Phase 33: ERNIE at 2 layers in f32 (hidden 256, 4 heads of 64,
+    vocab 1024), card against CPU (see the module docstring). -> the launches
+    of the TranslatedLayer fine-tuning step."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference, jit, optimizer as topt, serving
+    from paddle_tpu_torch.models import ernie
+    from paddle_tpu_torch.static import InputSpec
+    cfg = ernie.ErnieConfig(**ERNIE_SMALL)
+    net_card, net_cpu = _ernie_pair(paddle, ernie, cfg)
+    reqs = serve_requests(cfg.vocab_size, 12, 1, 9, 64, 16, 64, seed=3)
+    res = {}
+
+    def held(what, err, tol=ERNIE_CARD_TOL):
+        res[what] = err
+        if not err <= tol:
+            raise AssertionError(f'{what}: {err} > {tol}')
+
+    # the engine on each device against that device's Layer
+    sides = (('card', 'gpu', net_card), ('cpu', 'cpu', net_cpu))
+    served = {}
+    for label, dev, net in sides:
+        paddle.set_device(dev)
+        eng = serving.InferenceEngine(net, max_batch_size=8)
+        served[label] = [f.result(timeout=300)
+                         for f in [eng.submit(*r) for r in reqs]]
+        eng.shutdown()
+        held(f'engine_vs_layer_{label}', max(
+            row_err(o, w) for out, r in zip(served[label], reqs)
+            for o, w in zip(out, layer_outputs(paddle, net, r))))
+    held('engine_card_vs_cpu', max(
+        row_err(a, b) for x, y in zip(served['card'], served['cpu'])
+        for a, b in zip(x, y)))
+    # .pt2 and .pdparams saved on one device, served on the other
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_ernie_small_')
+    spec = [InputSpec([-1, 64], 'int64')] * 3
+    try:
+        for src, sdev, net in sides:
+            paddle.set_device(sdev)
+            path = os.path.join(tmp, f'ernie_{src}')
+            jit.save(net, path, input_spec=spec)
+            for dst, ddev, ref in sides:
+                config = inference.Config(path + '.pdmodel')
+                if ddev == 'cpu':
+                    config.disable_gpu()
+                else:
+                    config.enable_use_gpu()
+                paddle.set_device(ddev)
+                pred = inference.create_predictor(config)
+                held(f'layer_free_saved_on_{src}_run_on_{dst}', max(
+                    row_err(o, w) for r in reqs[:4]
+                    for o, w in zip(pred.run(list(r)),
+                                    layer_outputs(paddle, ref, r))))
+        # one TranslatedLayer fine-tuning step against the Layer's
+        paddle.set_device('gpu')
+        tl = jit.load(os.path.join(tmp, 'ernie_card'))
+        if type(tl).__name__ != 'TranslatedLayer':
+            raise AssertionError(f'jit.load gave a {type(tl).__name__}')
+        req = [paddle.to_tensor(a) for a in reqs[1]]
+        got = {}
+        for what, layer in (('translated', tl), ('layer', net_card)):
+            layer.eval()
+            opt = topt.SGD(learning_rate=0.5, parameters=layer.parameters())
+            zero_launches(kernels)
+            h, pooled = layer(*req)
+            loss = (h * h).mean() + pooled.sum()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            got[what] = ({n: p.numpy() for n, p in
+                          layer.state_dict().items()},
+                         launch_counts(kernels))
+        launches = got['translated'][1]
+        expect_launches('TranslatedLayer fine-tuning step', launches,
+                        {'flash_fwd': cfg.num_layers,
+                         'flash_bwd_dq': cfg.num_layers,
+                         'flash_bwd_dkv': cfg.num_layers})
+        held('translated_step_vs_layer', max(
+            row_err(got['translated'][0][n], got['layer'][0][n])
+            for n in got['layer'][0]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # pretrain_loss and its gradients, card against CPU, dropout 0 and 0.1
+    for drop in (0.0, 0.1):
+        c = ernie.ErnieConfig(**dict(ERNIE_SMALL, dropout=drop))
+        gen = torch.Generator().manual_seed(1)
+        p_cpu = ernie.init_params(c, gen, 'cpu')
+        batch = pretrain_batch(c.vocab_size, 2, 128, 64, 128, 0.15, seed=5)
+        vals = {}
+        for label, dev in (('card', 'cuda'), ('cpu', 'cpu')):
+            leaves = [t.to(dev).requires_grad_() for t in
+                      ernie.leaves(p_cpu)]
+            b = [torch.as_tensor(a, device=dev) for a in batch[:5]]
+            loss = ernie.pretrain_loss(ernie.from_leaves(leaves), *b, c,
+                                       dropout_seed=DROP_SEED)
+            grads = torch.autograd.grad(loss, leaves)
+            vals[label] = (float(loss.detach()), [g.cpu() for g in grads])
+        held(f'pretrain_loss_drop{drop}',
+             abs(vals['card'][0] - vals['cpu'][0]) / abs(vals['cpu'][0]))
+        held(f'pretrain_grads_drop{drop}', max(
+            kernel_err(g.reshape(-1, g.shape[-1]) if g.dim() > 1
+                       else g[None], w.reshape(-1, w.shape[-1])
+                       if w.dim() > 1 else w[None], GRAD_FLOOR)[1]
+            for g, w in zip(vals['card'][1], vals['cpu'][1])))
+    print('  ERNIE at 2 layers f32, card against CPU: ' + ', '.join(
+        f'{k} {v:.2e}' for k, v in res.items())
+        + f' (tol {ERNIE_CARD_TOL:g} a row)', flush=True)
+    paddle.set_device('cpu')
+    torch.cuda.empty_cache()
+    return res, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--report', default=None,
                     help='also write the full report (JSON) to this path')
+    ap.add_argument('--warmup-child', choices=('cold', 'warm'),
+                    default=None, help=argparse.SUPPRESS)
+    ap.add_argument('--dir', default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.warmup_child:
+        # one process of phase 31's cold-start check
+        if not torch.cuda.is_available():
+            return 2
+        warmup_child(args.warmup_child, args.dir)
+        return 0
 
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -4916,6 +5697,19 @@ def main(argv=None):
     print('phase 30: conv, pooling, RNN, decoding, quantization and the '
           'vision models, card against CPU', flush=True)
     report['vision_card_vs_cpu'] = phase_vision_card_vs_cpu()
+    print('phase 31: ERNIE-base served: InferenceEngine, the Predictor '
+          '(attach_layer and layer-free over jit.save\'s program), the '
+          'bench rungs and the cold start', flush=True)
+    report['ernie_serving'] = phase_ernie_serving(counters, card)
+    print('phase 32: ERNIE-base pretrained (pretrain_loss, [8, 512])',
+          flush=True)
+    report['ernie_pretrain'] = phase_ernie_pretrain(counters, card)
+    print('phase 33: ERNIE serving and pretraining, card against CPU',
+          flush=True)
+    report['ernie_serving_card_vs_cpu'], tl_launches = \
+        phase_ernie_serving_card_vs_cpu(counters)
+    report['ernie_serving_card_vs_cpu']['translated_launches'] = \
+        tl_launches
 
     gen, fwd = report['generate'], report['forward']
     train = report['train']['launches']
@@ -4924,11 +5718,17 @@ def main(argv=None):
     ms, mt = report['moe_serving'], report['moe_train']['launches']
     # kernels 1-3's other training runs: the fp8 rung, MoE fp8, ERNIE, and
     # hapi's fit, evaluate and predicts
+    es = report['ernie_serving']
     f8t = [report['fp8_train']['none']['launches'],
            report['fp8_train']['fp8']['launches'],
            report['moe_fp8_train']['launches'],
            report['ernie_train']['launches'],
-           report['hapi']['launches']]
+           report['hapi']['launches'],
+           # this slice: the engine's traffic, the Predictor's, the
+           # layer-free program's, pretraining, the TranslatedLayer step
+           es['launches'], es['predictor']['launches'],
+           {'flash_fwd': es['layer_free']['launches']},
+           report['ernie_pretrain']['launches'], tl_launches]
     main_path = {
         'paged_decode': report['engine']['launches']
         + wo['bf16_pool']['launches'] + pfx['bf16']['launches']
@@ -4947,9 +5747,9 @@ def main(argv=None):
         + gwo['window']['launches']['flash_fwd'] + mt['flash_fwd']
         + sum(r['flash_fwd'] for r in f8t),
         'flash_bwd_dq': train['flash_bwd_dq'] + mt['flash_bwd_dq']
-        + sum(r['flash_bwd_dq'] for r in f8t),
+        + sum(r.get('flash_bwd_dq', 0) for r in f8t),
         'flash_bwd_dkv': train['flash_bwd_dkv'] + mt['flash_bwd_dkv']
-        + sum(r['flash_bwd_dkv'] for r in f8t),
+        + sum(r.get('flash_bwd_dkv', 0) for r in f8t),
     }
     timed_shape = {'paged_decode': 'decode_T1',
                    'paged_decode_int8': 'decode_T1',

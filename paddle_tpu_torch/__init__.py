@@ -41,6 +41,13 @@ regularizer`` and ``paddle.vision.models`` (LeNet, ResNet, VGG,
 MobileNet) run Paddle programs that build a model from layers and train
 it with ``opt.step()``.
 
+``paddle.jit.save`` / ``load`` (the forward exported with
+``torch.export``), ``paddle.inference`` (the Predictor, layer-free over the
+exported program or over an attached Layer on CUDA graphs),
+``paddle.serving.InferenceEngine`` (dynamic batching over one captured
+graph per bucket), ``paddle.warmup`` (capture manifests) and
+``models.ernie`` (ERNIE, served and pretrained) serve a trained model.
+
 ``paddle.io`` (datasets, samplers, the DataLoader over the native worker
 pool, ``prefetch_to_device``), ``paddle.save`` / ``paddle.load`` (the JAX
 package's file format, atomic and CRC-checked), ``utils.checkpoint``,
@@ -98,11 +105,16 @@ from .hapi import summary, flops, callbacks  # noqa: E402,F401
 from . import hapi  # noqa: E402,F401
 from . import callbacks as callbacks_mod  # noqa: E402,F401
 from .batch import batch  # noqa: E402,F401
+from . import jit, static  # noqa: E402,F401
+
+_LAZY = ('vision', 'inference', 'models', 'serving', 'warmup')
 
 
 def __getattr__(name):
-    """``paddle.vision`` on first use, as the reference imports it."""
-    if name == 'vision':
+    """``paddle.vision``, ``paddle.inference``, ``paddle.models``,
+    ``paddle.serving`` and ``paddle.warmup`` on first use, as the reference
+    imports them."""
+    if name in _LAZY:
         import importlib
-        return importlib.import_module('.vision', __name__)
+        return importlib.import_module(f'.{name}', __name__)
     raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

@@ -17,9 +17,16 @@ sync in a step (the loss stays a device scalar, read to a float only at
 ``window`` steps back (counted by ``train.inflight_waits``).
 ``PADDLE_TPU_SYNC_EXECUTOR=1`` reads every step's loss (a sync a step).
 
+Serving: ``serving_engine()`` builds (and caches) a
+``serving.InferenceEngine`` over the network, and ``predict(engine=True)``
+routes the batches through it. ``prepare(warmup=)``, ``fit(warmup=)`` and
+``prebuild_warmup`` replay a warmup manifest (``warmup.prebuild(...,
+model=self)``): the steps here are eager, so there is nothing to build for
+its train and eval entries, which count as ``untargeted`` (ROADMAP known
+differences).
+
 Not ported, each raising NotImplementedError citing its ROADMAP Queue 1
-step: ``prepare(strategy=)`` (step K), warmup manifests, the serving
-engine and ``predict(engine=)`` (step E), ``fit(telemetry_port=)`` (step
+step: ``prepare(strategy=)`` (step K), ``fit(telemetry_port=)`` (step
 F). The goodput ledger, ``perf.note_step`` / ``sweep_hbm`` and
 ``StepTimer`` are step F's too; ASP sparsity masks are step M's.
 """
@@ -105,6 +112,8 @@ class Model:
         except ValueError:
             self._inflight_window = 2
         self.stop_training = False
+        self._engine = None
+        self._engine_kwargs = None
 
     # ---- setup -----------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
@@ -114,18 +123,35 @@ class Model:
         the calls in ``paddle.amp.auto_cast``."""
         if strategy is not None:
             raise _deferred('Model.prepare(strategy=)', 'K')
-        if warmup is not None:
-            raise _deferred('Model.prepare(warmup=)', 'E')
         self._optimizer = optimizer
         self._loss = loss
         self._metrics = _to_list(metrics)
         self._opt_init_pending = True
+        if warmup is not None:
+            self.prebuild_warmup(warmup)
 
     def prebuild_warmup(self, manifest):
-        raise _deferred('Model.prebuild_warmup', 'E')
+        """Replay a warmup manifest (a ``warmup.Manifest`` or a path)
+        against this Model; returns the prebuild report. The port's steps
+        are eager, so its train/eval entries count as ``untargeted``. Also
+        reachable as ``prepare(warmup=)`` / ``fit(warmup=)``."""
+        from .. import warmup as _warmup_mod
+        return _warmup_mod.prebuild(manifest, model=self)
 
     def serving_engine(self, **kwargs):
-        raise _deferred('Model.serving_engine (InferenceEngine)', 'E')
+        """Lazily build (and cache) a ``serving.InferenceEngine`` over this
+        model's network: the dynamic-batching path for online traffic
+        (``predict(..., engine=True)`` routes through it). Other kwargs
+        than the cached engine's rebuild it."""
+        if self._engine is not None and kwargs and \
+                kwargs != self._engine_kwargs:
+            self._engine.shutdown()
+            self._engine = None
+        if self._engine is None:
+            from ..serving import InferenceEngine
+            self._engine = InferenceEngine(self, **kwargs)
+            self._engine_kwargs = kwargs
+        return self._engine
 
     # ---- the step ----------------------------------------------------------
     def _compute_loss(self, outputs, labels):
@@ -306,7 +332,7 @@ class Model:
         if telemetry_port is not None:
             raise _deferred('Model.fit(telemetry_port=)', 'F')
         if warmup is not None:
-            raise _deferred('Model.fit(warmup=)', 'E')
+            self.prebuild_warmup(warmup)
         loader = self._as_loader(train_data, batch_size, shuffle)
         eval_loader = self._as_loader(eval_data, batch_size, False)
         callbacks = list(callbacks or [])
@@ -477,9 +503,12 @@ class Model:
         ``bucket_pad`` (default on) pads a ragged tail batch up to the
         nominal batch size (repeating the last row) and slices the outputs
         back, so every batch has one shape. Outputs stay on the device
-        until the end: no host round trip per batch."""
+        until the end: no host round trip per batch. ``engine`` routes the
+        batches through a ``serving.InferenceEngine`` instead: an engine,
+        or ``True`` for ``self.serving_engine()``."""
         if engine is not None:
-            raise _deferred('Model.predict(engine=)', 'E')
+            return self._predict_engine(test_data, batch_size, engine,
+                                        stack_outputs)
         loader = self._as_loader(test_data, batch_size, False)
         device_outs = []
         nominal = None
@@ -507,6 +536,43 @@ class Model:
         outputs = [[_host(o) for o in outs] for outs in device_outs]
         n_out = len(outputs[0])
         grouped = [[o[i] for o in outputs] for i in range(n_out)]
+        if stack_outputs:
+            grouped = [np.concatenate(g, axis=0) for g in grouped]
+        return grouped
+
+    def _predict_engine(self, test_data, batch_size, engine, stack_outputs):
+        from ..serving.errors import QueueFullError
+        loader = self._as_loader(test_data, batch_size, False)
+        eng = self.serving_engine() if engine is True else engine
+        # a bounded in-flight window: submitting the whole loader up front
+        # would trip the engine's own admission control. Results are
+        # consumed in submission order, so output order is kept.
+        window = max(1, getattr(eng, 'queue_capacity', 256) // 2)
+        pending = collections.deque()
+        outputs = []
+
+        def consume(f):
+            res = f.result()
+            outputs.append(res if isinstance(res, list) else [res])
+
+        for batch in loader:
+            inputs, _ = self._split_batch(batch)
+            while len(pending) >= window:
+                consume(pending.popleft())
+            while True:
+                try:
+                    pending.append(eng.submit(*inputs))
+                    break
+                except QueueFullError as e:
+                    # other submitters (or split chunks) filled the
+                    # queue: drain one of ours and retry
+                    if pending:
+                        consume(pending.popleft())
+                    else:
+                        time.sleep((e.retry_after_ms or 1.0) / 1e3)
+        while pending:
+            consume(pending.popleft())
+        grouped = [[o[i] for o in outputs] for i in range(len(outputs[0]))]
         if stack_outputs:
             grouped = [np.concatenate(g, axis=0) for g in grouped]
         return grouped

@@ -30,6 +30,7 @@ buffers: a CPU tensor has no graphs, and that is the device asked for, not
 a fallback. A failed capture or replay raises; nothing falls back to the
 eager path on the card.
 """
+import gc
 import os
 import threading
 import weakref
@@ -193,6 +194,11 @@ class CapturedFn:
                 self.fn(**self.buffers)
         before = _counter_values()
         graph = torch.cuda.CUDAGraph()
+        # no garbage collection while capturing: a collection in the
+        # middle would free unreachable graphs (an engine dropped in a
+        # reference cycle), and destroying a graph invalidates the capture
+        gc_was = gc.isenabled()
+        gc.disable()
         try:
             # thread_local: the engine captures on its scheduler thread
             # while other threads may use the card
@@ -201,6 +207,8 @@ class CapturedFn:
                                   capture_error_mode='thread_local'):
                 out = self.fn(**self.buffers)
         finally:
+            if gc_was:
+                gc.enable()
             after = _counter_values()
             for (k, a), n in before.items():
                 setattr(k, a, n)

@@ -61,6 +61,10 @@ class Counter:
         with self._lock:
             self._value += n
 
+    def reset(self):
+        with self._lock:
+            self._value = 0
+
     @property
     def value(self):
         with self._lock:
@@ -116,6 +120,12 @@ class Histogram:
         with self._lock:
             return percentile(self._samples, q)
 
+    def reset(self):
+        with self._lock:
+            self._samples.clear()
+            self._count = 0
+            self._sum = 0.0
+
     @property
     def count(self):
         with self._lock:
@@ -149,6 +159,9 @@ class _NullMetric:
         pass
 
     def observe(self, v):
+        pass
+
+    def reset(self):
         pass
 
     def percentile(self, q):

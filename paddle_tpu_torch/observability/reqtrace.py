@@ -40,7 +40,7 @@ class RequestRecord:
 
     __slots__ = ('rid', 'kind', 'engine', 'attrs', 'wall_start', 'timeline',
                  'outcome', 'error', 'duration_ms', '_mono0', '_lock',
-                 '_recorder')
+                 '_parts_left', '_recorder')
 
     def __init__(self, rid, kind, engine='', attrs=None, recorder=None):
         self.rid = rid
@@ -54,6 +54,7 @@ class RequestRecord:
         self.error = None            # error class name on failure
         self.duration_ms = None
         self._lock = threading.Lock()
+        self._parts_left = 1
         self._recorder = recorder
 
     def _ms(self):
@@ -86,6 +87,18 @@ class RequestRecord:
                                       't_last_ms': now_ms, 'steps': 1,
                                       'last_pos': int(pos)})
         return self
+
+    def expect_parts(self, n):
+        """A split request retires once per chunk; the record finishes on
+        the last chunk (``part_retired`` returning True)."""
+        with self._lock:
+            self._parts_left = max(1, int(n))
+        return self
+
+    def part_retired(self):
+        with self._lock:
+            self._parts_left -= 1
+            return self._parts_left <= 0
 
     def finish(self, outcome, error=None):
         """Seal the record (idempotent — the first outcome wins) and hand
@@ -124,6 +137,12 @@ class _NullRecord:
 
     def note_decode(self, pos):
         return self
+
+    def expect_parts(self, n):
+        return self
+
+    def part_retired(self):
+        return False
 
     def finish(self, outcome, error=None):
         return self

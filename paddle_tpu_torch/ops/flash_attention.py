@@ -26,8 +26,11 @@ as the page size: the split-K decode for T <= 16 (twins
 ``flash_decode_int8_split_reference``), the tensor-core prefill for bf16
 at head dim 64/128, and the CUDA-core tile for the rest.
 
-``_Flash`` (a ``torch.autograd.Function``, the counterpart of the
-reference's ``_flash`` custom_vjp) joins kernel 1 to kernels 2 and 3.
+``flash_op`` (the operator ``torch.ops.paddle_tpu_torch.flash_attention``,
+the counterpart of the reference's ``_flash`` custom_vjp) joins kernel 1
+to kernels 2 and 3, and is what ``flash_attention`` calls: a
+``torch.export`` program holds it as one node (``jit.save``), and a CUDA
+graph captures the kernel launch it makes.
 
 In bfloat16, kernel 1 and kernels 2 and 3 (head dim 64 or 128) run on the
 tensor cores (``wgmma`` fed by TMA, ``csrc/tc_attention.cuh``); float32
@@ -66,6 +69,7 @@ range themselves.
 """
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -208,7 +212,7 @@ def _key_mask_normalizable(mask, b, s_k):
     [.., S_q, S_k] mask is not, and takes the plain path."""
     if mask is None:
         return False
-    shape = tuple(int(x) for x in mask.shape)
+    shape = tuple(mask.shape)
     if not shape or shape[-1] != s_k or len(shape) > 4:
         return False
     return (len(shape) == 1 or
@@ -939,26 +943,51 @@ def _flash_bwd(q, k, v, g, out, lse, causal, q_off=0, kv_valid=None,
     return dq, dk, dv
 
 
-class _Flash(torch.autograd.Function):
-    """Kernel 1 with kernels 2 and 3 as its backward (the reference's
-    ``_flash`` custom_vjp). The forward saves q, k, v, out and lse (the
-    mask and the seed ride on ``ctx``); the key mask and the seed get no
-    gradient."""
+@torch.library.custom_op('paddle_tpu_torch::flash_attention',
+                         mutates_args=())
+def flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             kmask: Optional[torch.Tensor], causal: bool, q_off: int,
+             kv_valid: Optional[int], drop_rate: float,
+             seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 1 as one PyTorch operator (``torch.ops.paddle_tpu_torch.
+    flash_attention``), with kernels 2 and 3 as its registered backward:
+    the counterpart of the reference's ``_flash`` custom_vjp. A CPU tensor
+    runs the twins. Being an operator, not a Python function, it is one
+    node of a ``torch.export`` program (its fake implementation gives the
+    shapes) and launches the hand-written kernel wherever that program
+    runs on the card. ``seed`` is the u32 dropout seed (ignored when
+    ``drop_rate`` is 0). -> (out [B,S_q,H,D] contiguous in q's dtype, lse
+    [B,H,S_q] f32)."""
+    out, lse = _flash_fwd(q, k, v, causal, q_off, kv_valid, kmask,
+                          drop_rate, seed if drop_rate else None)
+    return out.contiguous(), lse.contiguous()
 
-    @staticmethod
-    def forward(ctx, q, k, v, kmask, causal, q_off, kv_valid, drop_rate,
-                seed):
-        out, lse = _flash_fwd(q, k, v, causal, q_off, kv_valid, kmask,
-                              drop_rate, seed)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, q_off, kv_valid, kmask, drop_rate, seed)
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd(q, k, v, g, out, lse, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None
+@flash_op.register_fake
+def _flash_op_shapes(q, k, v, kmask, causal, q_off, kv_valid, drop_rate,
+                     seed):
+    b, s_q, h, d = q.shape
+    return (q.new_empty((b, s_q, h, d)),
+            q.new_empty((b, h, s_q), dtype=torch.float32))
+
+
+def _flash_op_setup(ctx, inputs, output):
+    q, k, v, kmask, causal, q_off, kv_valid, drop_rate, seed = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.args = (causal, q_off, kv_valid, kmask, drop_rate,
+                seed if drop_rate else None)
+
+
+def _flash_op_backward(ctx, g, g_lse):
+    """The forward saved q, k, v, out and lse (the mask and the seed ride
+    on ``ctx``); the key mask and the seed get no gradient, nor does lse
+    feed one back (nothing differentiates through it)."""
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = _flash_bwd(q, k, v, g, out, lse, *ctx.args)
+    return dq, dk, dv, None, None, None, None, None, None
+
+
+flash_op.register_autograd(_flash_op_backward, setup_context=_flash_op_setup)
 
 
 def decode_attention(q, k_cache, v_cache, pos):
@@ -997,11 +1026,13 @@ def flash_attention(q, k, v, causal=False, mask=None, dropout_rate=0.0,
     without a kernel instance raises."""
     drop = _check_dropout(dropout_rate, dropout_seed)
     seed = int(_u32(dropout_seed)) if drop else None
-    b, s_q = int(q.shape[0]), int(q.shape[1])
-    s_k = int(k.shape[1])
+    # sizes stay as torch gives them (no int()): under torch.export a
+    # dynamic batch is a symbol, and int() would pin it to the example's
+    b, s_q, s_k = q.shape[0], q.shape[1], k.shape[1]
     if ((mask is not None and not _key_mask_normalizable(mask, b, s_k))
             or (causal and s_q > s_k)):
         return attention_reference(q, k, v, causal, mask, drop, seed)
     kmask = _normalize_key_mask(mask, b, s_k) if mask is not None else None
-    q_off = (s_k - s_q) if causal else 0
-    return _Flash.apply(q, k, v, kmask, causal, q_off, None, drop, seed)
+    q_off = int(s_k - s_q) if causal else 0
+    return flash_op(q, k, v, kmask, causal, q_off, None, drop,
+                    0 if seed is None else seed)[0]

@@ -9,9 +9,9 @@ batches and convert the wrappers into weight-only int8 layers;
 ``quantize_weights`` snapshots any Layer's Linear / Conv2D / Embedding
 weights to int8. ``fp8`` is the e4m3/e5m2 delayed-scaling matmul of the
 GPT and MoE train steps (``matmul_precision='fp8'``).
-
-Not ported: ``save_quantized_model`` exports through ``jit.save``, which
-waits for ROADMAP Queue 1 step L, and raises.
+``save_quantized_model`` exports the quantized model through ``jit.save``
+(``.pdparams``, ``.pdmodel`` and the ``torch.export`` program ``.pt2``,
+the fake-quant ops traced into it).
 """
 import numpy as np
 
@@ -25,12 +25,6 @@ __all__ = ['ImperativeQuantAware', 'PostTrainingQuantization',
            'quant_post_dynamic', 'quantize_weights', 'weight_only_quantize',
            'convert_calibrated', 'WeightOnlyLinear', 'WeightOnlyConv2D',
            'WeightOnlyEmbedding', 'fp8']
-
-
-def _jit_save_deferred(what):
-    return NotImplementedError(
-        f'{what} exports through jit.save, which is not ported yet '
-        '(ROADMAP Queue 1 step L)')
 
 
 def quantize_weights(layer):
@@ -96,7 +90,17 @@ class ImperativeQuantAware:
                                  layer_types=want, **self._kw)
 
     def save_quantized_model(self, layer, path, input_spec=None, **config):
-        raise _jit_save_deferred('ImperativeQuantAware.save_quantized_model')
+        """Export the QAT model through jit.save: the fake-quant ops are
+        traced into the program, so the Predictor serves the quantized
+        numerics."""
+        was = layer.training
+        layer.eval()
+        try:
+            from ..jit import save
+            save(layer, path, input_spec=input_spec, **config)
+        finally:
+            if was:
+                layer.train()
 
 
 def quant_post_dynamic(model, sample_inputs=None, batch_nums=8,
@@ -162,5 +166,6 @@ class PostTrainingQuantization:
                                   weight_quantize_type=wt, moving_rate=mr)
 
     def save_quantized_model(self, save_model_path, input_spec=None):
-        raise _jit_save_deferred(
-            'PostTrainingQuantization.save_quantized_model')
+        from ..jit import save
+        self._model.eval()
+        save(self._model, save_model_path, input_spec=input_spec)

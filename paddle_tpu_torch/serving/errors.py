@@ -41,3 +41,20 @@ class DeadlineExceededError(RetryError):
 
 class EngineClosedError(RuntimeError):
     """submit() after shutdown(): the scheduler thread is gone."""
+
+
+class HBMAdmissionError(RuntimeError):
+    """A ModelHost refused to admit a model: its device-memory footprint
+    plus live usage does not fit under the host watermark, and no cold
+    model was left to evict. (The model host itself waits for ROADMAP
+    Queue 1 step F; the error type is what callers catch.)"""
+
+    def __init__(self, model, needed_bytes, free_bytes, watermark_bytes):
+        super().__init__(
+            f'model {model!r} needs {needed_bytes} HBM bytes but only '
+            f'{free_bytes} fit under the {watermark_bytes}-byte watermark '
+            f'(no evictable cold models remain)')
+        self.model = model
+        self.needed_bytes = int(needed_bytes)
+        self.free_bytes = int(free_bytes)
+        self.watermark_bytes = int(watermark_bytes)

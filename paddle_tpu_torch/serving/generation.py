@@ -81,6 +81,7 @@ Env knobs: ``PADDLE_TPU_GEN_SLOTS`` (default 8),
 """
 import itertools
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -545,10 +546,27 @@ class GenerationEngine:
     def _fn(self, kind):
         """The engine's captured ``kind`` ('prefill' or 'step'), captured
         on first use (``warmup()`` does both before traffic)."""
+        self._maybe_record()
         cap = self._fns.get(kind)
         if cap is None:
             cap = self._fns[kind] = self._build_fn(kind)
         return cap
+
+    def _manifest_entries(self):
+        from ..warmup.manifest import generation_entry
+        geom = dict(slots=self.num_slots, page_size=self.page_size,
+                    num_pages=self.num_pages,
+                    prefill_width=self.prefill_width,
+                    table_width=self.p_max)
+        return [generation_entry('gen_prefill', **geom),
+                generation_entry('gen_decode', **geom)]
+
+    def _maybe_record(self):
+        """Record both functions into an active ``warmup.capture()``."""
+        wm = sys.modules.get('paddle_tpu_torch.warmup.manifest')
+        if wm is not None and wm.capturing():
+            for e in self._manifest_entries():
+                wm.record(e)
 
     @torch.no_grad()
     def _prefill_call(self, prompt, start, valid, table, seed):
@@ -565,6 +583,24 @@ class GenerationEngine:
         return self._fn('step').replay(tok=tok, pos=pos, table=table,
                                        seeds=seeds)
 
+    def _warm(self, kind):
+        """Capture ``kind`` ('prefill' or 'step') if it is not yet, and
+        replay it once into the trash page. -> True when this captured."""
+        new = kind not in self._fns
+        s, p_max = self.num_slots, self.p_max
+        if kind == 'prefill':
+            self._prefill_call(np.zeros((1, self.prefill_width), np.int32),
+                               np.zeros((1,), np.int32),
+                               np.ones((1,), np.int32),
+                               np.zeros((1, p_max), np.int32),
+                               np.zeros((1,), np.int64)).cpu()
+        else:
+            self._step_call(np.zeros((s,), np.int32),
+                            np.zeros((s,), np.int32),
+                            np.zeros((s, p_max), np.int32),
+                            np.zeros((s,), np.int64)).cpu()
+        return new
+
     def warmup(self):
         """Capture the prefill and the decode step before traffic (a live
         call after this captures nothing), replay each once into the trash
@@ -572,19 +608,10 @@ class GenerationEngine:
         functions captured now, 'already_cached': those captured before,
         'seconds': ...}``."""
         t0 = time.perf_counter()
-        kinds = ('prefill', 'step')
-        cached = sum(k in self._fns for k in kinds)
-        s, p_max = self.num_slots, self.p_max
-        self._prefill_call(np.zeros((1, self.prefill_width), np.int32),
-                           np.zeros((1,), np.int32),
-                           np.ones((1,), np.int32),
-                           np.zeros((1, p_max), np.int32),
-                           np.zeros((1,), np.int64)).cpu()
-        self._step_call(np.zeros((s,), np.int32), np.zeros((s,), np.int32),
-                        np.zeros((s, p_max), np.int32),
-                        np.zeros((s,), np.int64)).cpu()
+        built = [self._warm(kind) for kind in ('prefill', 'step')]
         self._warmed = True
-        return {'prebuilt': len(kinds) - cached, 'already_cached': cached,
+        return {'prebuilt': sum(built),
+                'already_cached': len(built) - sum(built),
                 'seconds': time.perf_counter() - t0}
 
     # ---- lifecycle -------------------------------------------------------

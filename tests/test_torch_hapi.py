@@ -547,11 +547,6 @@ def test_every_deferral_names_its_step():
     net = _mlp(port)
     model = port.Model(net)
     calls = [('K', lambda: model.prepare(strategy=object())),
-             ('E', lambda: model.prepare(warmup='manifest.json')),
-             ('E', lambda: model.prebuild_warmup('manifest.json')),
-             ('E', lambda: model.serving_engine()),
-             ('E', lambda: model.predict([], engine=True)),
-             ('E', lambda: model.fit([], warmup='manifest.json')),
              ('F', lambda: model.fit([], telemetry_port=0)),
              ('M', lambda: port.sparsity.prune_model(net)),
              ('M', lambda: port.sparsity.decorate(None))]

@@ -22,6 +22,8 @@ the step-J3 names.
 """
 import importlib
 import inspect
+import os
+import tempfile
 
 import jax
 import numpy as np
@@ -177,9 +179,24 @@ def test_quantization_passes_validate_as_the_reference():
         with pytest.raises(TypeError):
             P.nn.quant.weight_only_quantize(P.nn.Linear(2, 2),
                                             layer_types=(P.nn.ReLU,))
-    with pytest.raises(NotImplementedError, match='step L'):
-        port.quantization.ImperativeQuantAware().save_quantized_model(
-            port.nn.Linear(2, 2), 'x')
+    # save_quantized_model exports through jit.save: the state, the
+    # metadata and the torch.export program, the fake-quant ops traced in
+    quanter = port.quantization.ImperativeQuantAware()
+    net = quanter.quantize(port.nn.Sequential(port.nn.Linear(2, 2)))
+    x = np.array([[0.5, -1.0]], 'float32')
+    net(port.to_tensor(x))            # a training step's activation scale
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, 'qat')
+        quanter.save_quantized_model(
+            net, path, input_spec=[port.static.InputSpec([-1, 2])])
+        for ext in ('.pdparams', '.pdmodel', '.pt2'):
+            assert os.path.exists(path + ext), ext
+        got = port.inference.create_predictor(
+            port.inference.Config(path + '.pdmodel')).run([x])[0]
+    net.eval()
+    np.testing.assert_allclose(got, net(port.to_tensor(x)).numpy(),
+                               atol=1e-6)
+    assert np.abs(got).max() > 0.01
 
 
 # ---------------------------------------------------------------------------

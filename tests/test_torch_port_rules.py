@@ -68,6 +68,17 @@ def test_the_scan_covers_the_training_modules():
         'nn/functional/common.py'} <= nn
 
 
+def test_the_scan_covers_the_serving_and_export_modules():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob('*.py')}
+    assert {'jit/__init__.py', 'static/__init__.py', 'static/input_spec.py',
+            'static/nn.py', 'static/amp.py', 'inference/__init__.py',
+            'warmup/__init__.py', 'warmup/manifest.py', 'warmup/prebuild.py',
+            'serving/engine.py', 'serving/bucketing.py',
+            'serving/bucket_cache.py', 'serving/batcher.py',
+            'serving/metrics.py', 'models/ernie.py',
+            '_deferred.py'} <= scanned
+
+
 def test_the_scan_covers_the_eager_core():
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob('*.py')}
     assert {'core/dtype.py', 'core/tensor.py', 'core/dispatch.py',
