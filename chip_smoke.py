@@ -290,16 +290,38 @@ non-zero:
     Layer and across the devices; the layer-free Predictor, its .pt2 and
     .pdparams saved on either device and run on both; pretrain_loss and
     its gradients (dropout 0 and 0.1) and one TranslatedLayer fine-tuning
-    step against the same step on the Layer, within 2e-5 a row.
+    step against the same step on the Layer, within 2e-5 a row;
+34. the telemetry plane, over phase 31's model and requests (built once):
+    a span's host cost outside and inside a torch.profiler capture;
+    InferenceEngine(max_batch_size=64, max_delay_ms=2.0,
+    telemetry_port=0): /healthz 200 at once, /readyz 503 before warmup and
+    200 after; perf.flops{fn=serving.bucket64}, counted on the bucket's
+    warm-up run, within 20% of the analytic count; the traffic without
+    and with a scraper GETting /metrics every 100 ms (each scrape parsed
+    by the port's promparse, the serve_* series present, the request
+    counter never falling), requests/s of both printed; /debug/trace?ms=50
+    inside traffic holds serve.batch spans; /debug/requests?id= an ok
+    timeline; /debug/slo a p99 rule on serve.queue_wait_ms;
+    /debug/profile?ms=300 during traffic: categories plus idle within 5%
+    of the window, matmul time above 0, every port kernel in the capture
+    classified as known, perf.mfu_measured finite, the busy share beside
+    phase 31's, perf.mfu{fn=serving.bucket64} in (0, 1]; kernel 1 12
+    launches a batch, all tensor-core; then Model.fit(telemetry_port=0) of
+    an MLP, 20 steps with one paddle.save in a callback: /debug/goodput's
+    ratio in (0, 1], checkpoint badput >= 80% of ckpt.save_ms,
+    perf.hbm_used_bytes{device=cuda:0} equal to torch.cuda.memory_stats'
+    allocated bytes at the sweep, the StepTimer's phases within the wall
+    time.
 Phase 3 also holds every kernel at the MoE paths' shapes (12 heads of 64),
 kernels 1-3 at phase 25's (B=8, S=512, 12 heads of 64, its key-padding
 mask, dropout 0 and 0.1), and kernel 1 at phase 31's serving shapes (B 64
 and 1, S 128, 12 heads of 64, key lengths 32-128). Every launch counter is
 set to 0 just before each main-path run (phases 4, 6, 7, 9, 11, 13, 14,
-15, 17, 18, 22, 23, 31, 32; in 25, 27, 29 and 32 before each step, in 27
-also before evaluate and each predict, in 31 before the engine's traffic,
-the Predictor's and each layer-free call, in 33 before the TranslatedLayer
-step) and read just after. Then one line of kernel records
+15, 17, 18, 22, 23, 31, 32, 34; in 25, 27, 29 and 32 before each step,
+in 27 also before evaluate and each predict, in 31 before the engine's
+traffic, the Predictor's and each layer-free call, in 33 before the
+TranslatedLayer step, in 34 before the engine's traffic and before the
+profiled traffic) and read just after. Then one line of kernel records
 (JSON), and the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the rest of the repository beside it, it
@@ -5070,10 +5092,11 @@ def phase_ernie_serving(kernels, card):
     res['bench_predictor'] = bench_predictor_rung(paddle, card)
     res['bench_int8wo'] = bench_int8wo_rung(paddle, card)
     res['cold_start'] = cold_start(card)
-    del net, eng
+    del eng
     paddle.set_device('cpu')
     torch.cuda.empty_cache()
-    return res
+    # the model and its traffic serve phase 34 too (built once)
+    return res, (net, cfg, reqs)
 
 
 def bench_predictor_rung(paddle, card):
@@ -5549,6 +5572,442 @@ def phase_ernie_serving_card_vs_cpu(kernels):
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 34: the telemetry plane on the card
+# ---------------------------------------------------------------------------
+
+SCRAPE_EVERY_S = 0.1        # the scraper's period during traffic
+PROFILE_MS = 300            # /debug/profile's window
+TRACE_MS = 50               # /debug/trace's window
+FLOPS_TOL = 0.2             # perf.flops{fn=serving.bucket64} vs analytic
+DEVTIME_SUM_TOL = 0.05      # categories + idle against the window
+CKPT_BOOKED = 0.8           # checkpoint badput over ckpt.save_ms
+SPAN_ITERS = 20000
+FIT_STEPS, FIT_BATCH, FIT_SAVE_AT = 20, 64, 10
+
+
+def http_get(url, timeout=120):
+    """(status, body) of a GET, an error status included."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def span_us(obs, forward=True):
+    """Host microseconds a span costs (enter and exit, into the ring), with
+    or without its record_function range."""
+    from paddle_tpu_torch.observability import trace
+    saved = (trace._profiler_mod, trace._profiler_checked)
+    if not forward:
+        trace._profiler_mod, trace._profiler_checked = None, True
+    try:
+        t0 = time.perf_counter()
+        for _ in range(SPAN_ITERS):
+            with obs.span('chip_smoke.span'):
+                pass
+        return (time.perf_counter() - t0) / SPAN_ITERS * 1e6
+    finally:
+        trace._profiler_mod, trace._profiler_checked = saved
+        obs.reset_trace()
+
+
+def span_costs(obs, rounds=3):
+    """A span's host cost outside a capture (as it runs, and with ranges
+    off: the least of ``rounds`` alternating measurements each) and
+    inside a torch.profiler capture."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.observability import trace
+    off, on = [], []
+    for _ in range(rounds):
+        off.append(span_us(obs, forward=False))
+        on.append(span_us(obs))
+    out = {'host_only_us': min(off), 'ranged_us': min(on),
+           # False: outside a capture a span opens no range
+           'range_outside_capture': trace._capturing()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        out['in_capture_us'] = span_us(obs)
+    return out
+
+
+def bucket64_flops(cfg, rows):
+    """Analytic FLOPs of one ERNIE forward over ``rows`` sequences: 2 x the
+    12·H² weights of a layer's products x tokens, and the dense attention
+    4·B·S²·H a layer (kernel 1's formula), plus the pooler."""
+    h, s, L = cfg.hidden_size, SERVE['s'], cfg.num_layers
+    return (2 * rows * s * 12 * h * h * L + 4 * rows * s * s * h * L
+            + 2 * rows * h * h)
+
+
+def scrape_loop(url, engine_label, stop, out):
+    """GET /metrics every SCRAPE_EVERY_S until ``stop``: each body parsed
+    by the port's promparse, the serve_* series present, and the request
+    counter never falling."""
+    from paddle_tpu_torch.observability import promparse
+    key = f'serve_requests_submitted{{engine={engine_label}}}'
+    last = -1
+    while not stop.is_set():
+        t0 = time.perf_counter()
+        code, body = http_get(url + '/metrics')
+        if code != 200:
+            raise AssertionError(f'/metrics answered {code}')
+        snap = promparse.parse_text(body.decode())
+        n = snap['counters'].get(key)
+        if n is None or n < last:
+            raise AssertionError(f'scrape {len(out)}: {key} = {n} after '
+                                 f'{last}')
+        if not any(k.startswith('serve_latency_ms')
+                   for k in snap['histograms']):
+            raise AssertionError('a scrape without serve_latency_ms')
+        last = n
+        out.append((time.perf_counter() - t0) * 1e3)
+        stop.wait(SCRAPE_EVERY_S)
+
+
+def in_thread(fn):
+    """fn() on a thread -> (thread, result dict); the thread re-raises
+    nothing: ``result['error']`` holds what fn raised."""
+    res = {}
+
+    def run():
+        try:
+            res['value'] = fn()
+        except BaseException as e:       # reported by the caller
+            res['error'] = e
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, res
+
+
+def joined(t, res, what):
+    t.join()
+    if 'error' in res:
+        raise AssertionError(f'{what}: {res["error"]!r}') from res['error']
+    return res.get('value')
+
+
+def telemetry_serving(obs, serving, net, cfg, reqs, kernels, card,
+                      busy31):
+    """Phase 34 (a) and (b): the plane during ERNIE-base traffic, and a
+    live profile."""
+    from paddle_tpu_torch.observability import devtime, perf
+    L = cfg.num_layers
+    res = {}
+    eng = serving.InferenceEngine(net, max_batch_size=SERVE_MAX_BATCH,
+                                  max_delay_ms=SERVE_DELAY_MS,
+                                  queue_capacity=4 * len(reqs),
+                                  telemetry_port=0)
+    base = eng.telemetry.url
+    label = eng._stats.labels['engine']
+    try:
+        t0 = time.perf_counter()
+        code_h, _ = http_get(base + '/healthz')
+        res['healthz_ms'] = (time.perf_counter() - t0) * 1e3
+        code_r, _ = http_get(base + '/readyz')
+        if (code_h, code_r) != (200, 503):
+            raise AssertionError(f'before warmup /healthz {code_h}, '
+                                 f'/readyz {code_r}; want 200, 503')
+        t0 = time.perf_counter()
+        eng.warmup('all_buckets', input_spec=[((SERVE['s'],), 'int64')] * 3)
+        res['warmup_s'] = time.perf_counter() - t0
+        code_r, body = http_get(base + '/readyz')
+        if code_r != 200 or not json.loads(body)['checks'][
+                eng._probe_name]['ready']:
+            raise AssertionError(f'after warmup /readyz {code_r} {body!r}')
+        # perf.flops of the bucket-64 graph, counted on its warm-up run
+        rec = perf.analyzed('serving.bucket64')
+        want = bucket64_flops(cfg, SERVE_MAX_BATCH)
+        res['bucket64_flops'] = rec['flops']
+        res['bucket64_flops_analytic'] = want
+        res['bucket64_hbm'] = rec['hbm']
+        if abs(rec['flops'] / want - 1) > FLOPS_TOL:
+            raise AssertionError(f'perf.flops{{fn=serving.bucket64}} '
+                                 f'{rec["flops"]:.4g}, analytic '
+                                 f'{want:.4g}')
+
+        def traffic():
+            t0 = time.perf_counter()
+            futs = [eng.submit(*r) for r in reqs]
+            outs = [f.result(timeout=300) for f in futs]
+            return futs, outs, time.perf_counter() - t0
+
+        eng._stats.reset()
+        zero_launches(kernels)
+        # the traffic without and with a scraper: plain, scraped, scraped,
+        # plain, after one unscored pass (the first after warmup runs
+        # slower)
+        walls, scrapes = {'plain': [], 'scraped': []}, []
+        traffic()
+        for mode in ('plain', 'scraped', 'scraped', 'plain'):
+            if mode == 'scraped':
+                stop = threading.Event()
+                st, sres = in_thread(lambda: scrape_loop(
+                    base, label, stop, scrapes))
+                time.sleep(2 * SCRAPE_EVERY_S)
+            futs, outs, wall = traffic()
+            walls[mode].append(wall)
+            if mode == 'scraped':
+                stop.set()
+                joined(st, sres, 'the scraper')
+        wall_plain = sum(walls['plain']) / 2
+        wall_scraped = sum(walls['scraped']) / 2
+        # a /debug/trace window inside traffic: passes until it answers
+        tt, tres = in_thread(lambda: http_get(
+            base + f'/debug/trace?ms={TRACE_MS}'))
+        while tt.is_alive():
+            traffic()
+        joined(tt, tres, '/debug/trace')
+        got = launch_counts(kernels)
+        batches = eng.stats()['batches']
+        expect_launches('phase 34 traffic (four passes and the trace\'s)',
+                        got,
+                        {'flash_fwd': L * batches})
+        expect_tensor_core('phase 34 traffic', kernels)
+        res['launches'] = got
+        for (h, p), r in zip(outs, reqs):
+            if h.shape != (r[0].shape[0], SERVE['s'], cfg.hidden_size) or \
+                    not np.isfinite(h).all():
+                raise AssertionError('phase 34: an engine output')
+        if len(scrapes) < 2:
+            raise AssertionError(f'{len(scrapes)} scrapes during traffic')
+        res.update(requests_per_s_plain=len(reqs) / wall_plain,
+                   requests_per_s_scraped=len(reqs) / wall_scraped,
+                   walls_s=walls,
+                   scrapes=len(scrapes), scrape_ms_p50=sorted(scrapes)[
+                       len(scrapes) // 2], scrape_ms_max=max(scrapes))
+        code, body = tres['value']
+        doc = json.loads(body)
+        n_batch = sum(1 for e in doc['traceEvents']
+                      if e.get('name') == 'serve.batch')
+        if code != 200 or n_batch == 0:
+            raise AssertionError(f'/debug/trace?ms={TRACE_MS}: {code}, '
+                                 f'{n_batch} serve.batch spans')
+        res['trace_serve_batch_spans'] = n_batch
+        rid = futs[0].request_id
+        code, body = http_get(base + f'/debug/requests?id={rid}')
+        recs = json.loads(body)['requests']
+        evs = [e['ev'] for e in recs[0]['timeline']] if recs else []
+        if code != 200 or recs[0]['outcome'] != 'ok' or not (
+                evs.index('enqueue') < evs.index('admit')
+                < evs.index('retire')):
+            raise AssertionError(f'/debug/requests?id={rid}: {code} {evs}')
+        w = obs.slo.watcher()
+        w.rule('queue_wait_p99', 'serve.queue_wait_ms', 250.0,
+               labels={'engine': label}, stat='p99')
+        w.evaluate()
+        code, body = http_get(base + '/debug/slo')
+        slo_doc = json.loads(body)
+        if code != 200 or [r['rule'] for r in slo_doc['rules']] != [
+                'queue_wait_p99'] or slo_doc['rules'][0]['last_value'] \
+                is None:
+            raise AssertionError(f'/debug/slo: {code} {slo_doc}')
+        res['slo'] = slo_doc['rules'][0]
+
+        # (b) a live profile during traffic: passes until the capture ends
+        zero_launches(kernels)
+        b0 = eng.stats()['batches']
+        pt, pres = in_thread(lambda: http_get(
+            base + f'/debug/profile?ms={PROFILE_MS}'))
+        passes = 0
+        while pt.is_alive():
+            traffic()
+            passes += 1
+        code, body = joined(pt, pres, '/debug/profile')
+        summary = json.loads(body)
+        if code != 200:
+            raise AssertionError(f'/debug/profile: {code} {summary}')
+        got = launch_counts(kernels)
+        expect_launches('phase 34 profiled traffic', got,
+                        {'flash_fwd': L * (eng.stats()['batches'] - b0)})
+        for k, v in got.items():
+            res['launches'][k] += v
+        dv = summary['devtime']
+        cats = dv['categories_ms']
+        total = sum(cats.values())
+        if abs(total / dv['window_ms'] - 1) > DEVTIME_SUM_TOL or \
+                abs(dv['window_ms'] / PROFILE_MS - 1) > DEVTIME_SUM_TOL:
+            raise AssertionError(f'devtime: categories + idle {total} ms '
+                                 f'over a {dv["window_ms"]} ms window')
+        if not cats['matmul'] > 0:
+            raise AssertionError(f'devtime: no matmul time {cats}')
+        trace = devtime.load_trace(os.path.join(summary['artifact_dir'],
+                                                'capture.pt.trace.json'))
+        port_names = {e['name'] for e in trace['traceEvents']
+                      if e.get('cat') == 'kernel' and any(
+                          n in e['name'] for n in devtime.PORT_KERNELS)}
+        cls = devtime.classifier()
+        unknown = [n for n in port_names
+                   if not cls.classify(n, cat='kernel')[1]]
+        if not port_names or unknown:
+            raise AssertionError(f'devtime: port kernels in the capture '
+                                 f'{sorted(port_names)}, unknown {unknown}')
+        graph_launches = sum(1 for e in trace['traceEvents']
+                             if e.get('name') == 'cudaGraphLaunch')
+        g = obs.snapshot()['gauges']
+        mfu_measured = g.get('perf.mfu_measured')
+        mfu = g.get('perf.mfu{fn=serving.bucket64}')
+        if mfu_measured is None or not math.isfinite(mfu_measured):
+            raise AssertionError(f'perf.mfu_measured {mfu_measured}; '
+                                 f'{dv["mfu_measured"]}')
+        if mfu is None or not 0 < mfu <= 1:
+            raise AssertionError(f'perf.mfu{{fn=serving.bucket64}} {mfu}')
+        res.update(profile={k: dv[k] for k in (
+            'window_ms', 'busy_ms', 'idle_pct', 'categories_ms',
+            'unknown_events', 'unknown_names', 'mfu_measured', 'events')},
+            profile_wall_ms=summary['wall_ms'],
+            profile_dir=summary['artifact_dir'],
+            profile_all_threads=summary['all_threads'],
+            profile_passes=passes, port_kernel_names=sorted(port_names),
+            graph_launches=graph_launches, mfu_measured=mfu_measured,
+            mfu_bucket64=mfu, busy_share_profile=dv['busy_ms']
+            / dv['window_ms'], busy_share_phase31=busy31)
+    finally:
+        eng.shutdown()
+    print(f'  InferenceEngine(max_batch_size={SERVE_MAX_BATCH}, '
+          f'telemetry_port=0): /healthz 200 in {res["healthz_ms"]:.1f} ms, '
+          f'/readyz 503 -> 200 across warmup ({res["warmup_s"]:.2f} s) '
+          f'[{card}]', flush=True)
+    print(f'  {len(reqs)} requests: {res["requests_per_s_plain"]:.1f} '
+          f'requests/s without a scraper, '
+          f'{res["requests_per_s_scraped"]:.1f} with /metrics scraped every '
+          f'{SCRAPE_EVERY_S * 1e3:.0f} ms (two passes each, in the order '
+          f'plain, scraped, scraped, plain: ' + ', '.join(
+              f'{k} {[round(len(reqs) / w, 1) for w in v]}'
+              for k, v in res['walls_s'].items())
+          + f'; {res["scrapes"]} scrapes, p50 '
+          f'{res["scrape_ms_p50"]:.2f} ms, max {res["scrape_ms_max"]:.2f} '
+          f'ms); kernel 1 {res["launches"]["flash_fwd"]} launches ({L} a '
+          f'batch, all tensor-core); /debug/trace?ms={TRACE_MS}: '
+          f'{res["trace_serve_batch_spans"]} serve.batch spans; /debug/slo '
+          f'queue_wait_p99 = {res["slo"]["last_value"]} ms', flush=True)
+    print(f'  perf.flops{{fn=serving.bucket64}} {res["bucket64_flops"]:.4g} '
+          f'against analytic {res["bucket64_flops_analytic"]:.4g}; hbm '
+          f'bytes {res["bucket64_hbm"]}; perf.mfu{{fn=serving.bucket64}} '
+          f'{res["mfu_bucket64"]:.4f}', flush=True)
+    p = res['profile']
+    print(f'  /debug/profile?ms={PROFILE_MS} over {res["profile_passes"]} '
+          f'traffic passes (all threads: {res["profile_all_threads"]}; '
+          f'wall {res["profile_wall_ms"]:.0f} ms, {p["events"]} events, '
+          f'{res["graph_launches"]} cudaGraphLaunch): window '
+          f'{p["window_ms"]} ms, ' + ', '.join(
+              f'{k} {v}' for k, v in p['categories_ms'].items())
+          + f' ms; busy {100 * res["busy_share_profile"]:.1f}% (phase 31\'s '
+          f'hand-wired window: {100 * busy31:.1f}%); unknown kernels '
+          f'{p["unknown_events"]} {p["unknown_names"]}; perf.mfu_measured '
+          f'{res["mfu_measured"]:.4f}; port kernels '
+          f'{res["port_kernel_names"]}', flush=True)
+    return res
+
+
+def telemetry_hapi(paddle, obs, card):
+    """Phase 34 (c): Model.fit(telemetry_port=0) of a small MLP with one
+    paddle.save in a callback: goodput, checkpoint badput, the memory
+    sweep and the StepTimer."""
+    import tempfile
+    from paddle_tpu_torch.observability import perf
+    from paddle_tpu_torch.profiler import StepTimer
+    rs = np.random.RandomState(0)
+    xs = rs.randn(FIT_STEPS * FIT_BATCH, 512).astype(np.float32)
+    ys = rs.randint(0, 10, (FIT_STEPS * FIT_BATCH, 1)).astype(np.int64)
+
+    class Data(paddle.io.Dataset):
+        def __len__(self):
+            return len(xs)
+
+        def __getitem__(self, i):
+            return xs[i], ys[i]
+
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_fit_')
+    paddle.seed(0)
+    net = paddle.nn.Sequential(paddle.nn.Linear(512, 2048), paddle.nn.ReLU(),
+                               paddle.nn.Linear(2048, 10))
+
+    class SaveOnce(paddle.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            if step == FIT_SAVE_AT:
+                paddle.save(net.state_dict(), os.path.join(tmp, 'mid'))
+
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.Adam(learning_rate=1e-3,
+                                        parameters=net.parameters()),
+                  paddle.nn.CrossEntropyLoss())
+    model._step_timer = timer = StepTimer()
+    obs.goodput.reset_goodput()
+    model.fit(Data(), epochs=1, batch_size=FIT_BATCH, verbose=0,
+              shuffle=False, log_freq=5, telemetry_port=0,
+              callbacks=[SaveOnce()])
+    res = {}
+    try:
+        code, body = http_get(model.telemetry.url + '/debug/goodput')
+        gp = json.loads(body)
+        if code != 200 or not 0 < gp['ratio'] <= 1 or \
+                gp['steps'] != FIT_STEPS:
+            raise AssertionError(f'/debug/goodput: {code} {gp}')
+        save_ms = obs.find('ckpt.save_ms').sum
+        booked = 1e3 * gp['badput_s']['checkpoint']
+        if not booked >= CKPT_BOOKED * save_ms:
+            raise AssertionError(f'checkpoint badput {booked} ms of '
+                                 f'ckpt.save_ms {save_ms}')
+        during = obs.find('perf.hbm_used_bytes', {'device': 'cuda:0'})
+        if during is None or not during.value > 0:
+            raise AssertionError('fit swept no device memory')
+        used = perf.sweep_hbm()['cuda:0']
+        stats = torch.cuda.memory_stats()['allocated_bytes.all.current']
+        gauge = obs.find('perf.hbm_used_bytes', {'device': 'cuda:0'}).value
+        if not used == gauge == stats:
+            raise AssertionError(f'perf.hbm_used_bytes {gauge} (sweep '
+                                 f'{used}), memory_stats {stats}')
+        s = timer.summary()
+        phases_ms = sum(s.get(f'{p}_ms_mean', 0.0) * s['steps']
+                        for p in StepTimer.PHASES)
+        if s['steps'] != FIT_STEPS or not phases_ms <= s['wall_s'] * 1e3:
+            raise AssertionError(f'StepTimer: {s}')
+        res.update(goodput=gp, ckpt_save_ms=save_ms,
+                   checkpoint_badput_ms=booked, hbm_used_bytes=gauge,
+                   timer=s, phases_ms=phases_ms,
+                   train_step_flops=perf.analyzed('hapi.train_step')['flops'])
+    finally:
+        model.telemetry.stop()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f'  Model.fit(telemetry_port=0), MLP 512-2048-10, {FIT_STEPS} '
+          f'steps of {FIT_BATCH}, one paddle.save: goodput ratio '
+          f'{res["goodput"]["ratio"]} (badput s {res["goodput"]["badput_s"]}'
+          f'); checkpoint badput {res["checkpoint_badput_ms"]:.2f} ms of '
+          f'ckpt.save_ms {res["ckpt_save_ms"]:.2f}; perf.hbm_used_bytes'
+          f'{{device=cuda:0}} {res["hbm_used_bytes"]} = memory_stats; '
+          f'StepTimer phases {res["phases_ms"]:.1f} ms of '
+          f'{res["timer"]["wall_s"] * 1e3:.1f} ms [{card}]', flush=True)
+    return res
+
+
+def phase_telemetry(kernels, card, served, busy31):
+    """Phase 34: the telemetry plane on the card (see the module
+    docstring)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import serving
+    net, cfg, reqs = served
+    paddle.set_device('gpu')
+    obs.reset()
+    res = {'span': span_costs(obs)}
+    print(f'  a span: {res["span"]["ranged_us"]:.2f} us as it runs '
+          f'(a range outside a capture: '
+          f'{res["span"]["range_outside_capture"]}), '
+          f'{res["span"]["host_only_us"]:.2f} us with ranges off, '
+          f'{res["span"]["in_capture_us"]:.2f} us inside a torch.profiler '
+          f'capture (its record_function range open) [{card}]', flush=True)
+    res.update(telemetry_serving(obs, serving, net, cfg, reqs, kernels,
+                                 card, busy31))
+    res['hapi'] = telemetry_hapi(paddle, obs, card)
+    paddle.set_device('cpu')
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--report', default=None,
@@ -5700,7 +6159,7 @@ def main(argv=None):
     print('phase 31: ERNIE-base served: InferenceEngine, the Predictor '
           '(attach_layer and layer-free over jit.save\'s program), the '
           'bench rungs and the cold start', flush=True)
-    report['ernie_serving'] = phase_ernie_serving(counters, card)
+    report['ernie_serving'], served = phase_ernie_serving(counters, card)
     print('phase 32: ERNIE-base pretrained (pretrain_loss, [8, 512])',
           flush=True)
     report['ernie_pretrain'] = phase_ernie_pretrain(counters, card)
@@ -5710,6 +6169,11 @@ def main(argv=None):
         phase_ernie_serving_card_vs_cpu(counters)
     report['ernie_serving_card_vs_cpu']['translated_launches'] = \
         tl_launches
+    print('phase 34: the telemetry plane on the card: ERNIE-base served, '
+          'scraped and profiled live; hapi fit with telemetry', flush=True)
+    report['telemetry'] = phase_telemetry(
+        counters, card, served, report['ernie_serving']['busy_share'])
+    del served
 
     gen, fwd = report['generate'], report['forward']
     train = report['train']['launches']
@@ -5728,7 +6192,9 @@ def main(argv=None):
            # layer-free program's, pretraining, the TranslatedLayer step
            es['launches'], es['predictor']['launches'],
            {'flash_fwd': es['layer_free']['launches']},
-           report['ernie_pretrain']['launches'], tl_launches]
+           report['ernie_pretrain']['launches'], tl_launches,
+           # phase 34: the engine's traffic under the telemetry plane
+           report['telemetry']['launches']]
     main_path = {
         'paged_decode': report['engine']['launches']
         + wo['bf16_pool']['launches'] + pfx['bf16']['launches']

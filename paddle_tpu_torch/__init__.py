@@ -106,6 +106,7 @@ from . import hapi  # noqa: E402,F401
 from . import callbacks as callbacks_mod  # noqa: E402,F401
 from .batch import batch  # noqa: E402,F401
 from . import jit, static  # noqa: E402,F401
+from . import profiler  # noqa: E402,F401
 
 _LAZY = ('vision', 'inference', 'models', 'serving', 'warmup')
 

@@ -3,8 +3,8 @@
 
 Every time source is injectable (clock/sleep/rng) so backoff schedules are
 exactly reproducible under a fake clock in tests — no real sleeping, no
-wall-clock flakiness. The goodput ledger's requeue badput waits for ROADMAP
-step F.
+wall-clock flakiness. Each backoff wait books requeue badput on the goodput
+ledger.
 """
 import random as _random
 import time
@@ -58,4 +58,9 @@ def retry(fn, *, retries=3, deadline=None, backoff=0.1, factor=2.0,
                               error=type(e).__name__)
             if on_retry is not None:
                 on_retry(attempt, e, delay)
+            t0 = time.perf_counter()
             sleep(delay)
+            # the backoff wait is live-but-idle wall time: requeue badput
+            # on the goodput ledger. Booked as MEASURED, not scheduled, so
+            # an injected fake sleep (tests) books ~nothing
+            _obs.goodput.note_badput('requeue', time.perf_counter() - t0)

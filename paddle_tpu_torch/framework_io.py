@@ -223,6 +223,9 @@ def save(obj, path, protocol=4, **configs):
     _obs.counter('ckpt.saves').inc()
     _obs.counter('ckpt.bytes_written').inc(len(payload) + len(manifest))
     _obs.histogram('ckpt.save_ms').observe(1e3 * sp.duration)
+    # every blocking save steals training wall-clock: checkpoint badput on
+    # the goodput ledger (counts toward the ratio only while fit() runs)
+    _obs.goodput.note_badput('checkpoint', sp.duration)
 
 
 # ---- restricted unpickling --------------------------------------------------

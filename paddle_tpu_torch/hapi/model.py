@@ -25,13 +25,24 @@ model=self)``): the steps here are eager, so there is nothing to build for
 its train and eval entries, which count as ``untargeted`` (ROADMAP known
 differences).
 
-Not ported, each raising NotImplementedError citing its ROADMAP Queue 1
-step: ``prepare(strategy=)`` (step K), ``fit(telemetry_port=)`` (step
-F). The goodput ledger, ``perf.note_step`` / ``sweep_hbm`` and
-``StepTimer`` are step F's too; ASP sparsity masks are step M's.
+Telemetry, as the reference's ``fit``: ``fit(telemetry_port=N)`` serves
+the HTTP plane (``self.telemetry``); the goodput ledger's run window, data
+stalls (``goodput.data_iter``), compile badput (a step during which a
+kernel library was built or loaded, or a CUDA graph captured: the eager
+step traces nothing), ``perf.note_step('hapi.train_step', ...)``,
+``perf.sweep_hbm()`` at log points and ``self._step_timer``'s phases
+(``profiler.StepTimer``; a raising step books nothing). The first run of
+each step kind is counted by ``perf.measure`` (``hapi.train_step``,
+``hapi.accum_step``, ``hapi.apply_accum``, ``hapi.eval_step``): a step
+that already runs, never an extra one, since a step updates the
+Parameters in place.
+
+Not ported, raising NotImplementedError citing its ROADMAP Queue 1 step:
+``prepare(strategy=)`` (step K); ASP sparsity masks are step M's.
 """
 import collections
 import os
+import sys
 import time
 
 import numpy as np
@@ -63,6 +74,16 @@ def _touch_heartbeat():
             os.utime(path, None)
     except OSError:
         pass
+
+
+def _compile_events():
+    """Kernel libraries loaded and CUDA graphs captured so far in the
+    process: what moves during a step that pays a build ('compile'
+    badput)."""
+    b = sys.modules.get('paddle_tpu_torch.ops._build')
+    dc = sys.modules.get('paddle_tpu_torch.models.decode_cache')
+    return ((b.loads if b is not None else 0)
+            + (dc.captures if dc is not None else 0))
 
 
 def _to_list(x):
@@ -114,6 +135,8 @@ class Model:
         self.stop_training = False
         self._engine = None
         self._engine_kwargs = None
+        self._step_timer = None     # attach a profiler.StepTimer before fit
+        self.telemetry = _obs.NULL_SERVER
 
     # ---- setup -----------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
@@ -259,25 +282,32 @@ class Model:
         self._opt_init_pending = False
         inputs = [self._as_device(t) for t in _to_list(inputs)]
         labels = [self._as_device(t) for t in _to_list(labels)]
-        loss, out, grads = self._loss_and_grads(inputs, labels)
-        self._last_outputs = out
         if not update or self._grad_acc is not None:
             # gradient merge: accumulate, and on the last micro step apply
             # the average
-            if self._grad_acc is None:
-                self._grad_acc = {
-                    n: torch.zeros_like(p._value)
-                    for n, p in self.network.named_parameters()}
-                self._accum_count = 0
-            with torch.no_grad():
-                for n, g in grads.items():
-                    if g is not None:
-                        self._grad_acc[n].add_(g)
+            with _obs.perf.measure('hapi.accum_step') as m:
+                loss, out, grads = self._loss_and_grads(inputs, labels)
+                if self._grad_acc is None:
+                    self._grad_acc = {
+                        n: torch.zeros_like(p._value)
+                        for n, p in self.network.named_parameters()}
+                    self._accum_count = 0
+                with torch.no_grad():
+                    for n, g in grads.items():
+                        if g is not None:
+                            self._grad_acc[n].add_(g)
+                m.set_outputs((loss, out))
+            self._last_outputs = out
             self._accum_count += 1
             if update:
-                self._flush_grad_acc()
+                with _obs.perf.measure('hapi.apply_accum'):
+                    self._flush_grad_acc()
         else:
-            self._apply(grads)
+            with _obs.perf.measure('hapi.train_step') as m:
+                loss, out, grads = self._loss_and_grads(inputs, labels)
+                self._apply(grads)
+                m.set_outputs((loss, out))
+            self._last_outputs = out
         return self._finish_step(loss)
 
     def _flush_grad_acc(self):
@@ -303,11 +333,12 @@ class Model:
         _obs.counter('train.eval_batches').inc()
         inputs = [self._as_device(t) for t in _to_list(inputs)]
         labels = [self._as_device(t) for t in _to_list(labels)]
-        with torch.no_grad():
+        with torch.no_grad(), _obs.perf.measure('hapi.eval_step') as m:
             out, _ = functional_call(self.network, None, None, *inputs)
             loss = None
             if self._loss is not None and labels:
                 loss = self._compute_loss(out, labels)
+            m.set_outputs((loss, out))
         return ([_host(loss)] if loss is not None else None), out
 
     def predict_batch(self, inputs):
@@ -330,7 +361,10 @@ class Model:
             warmup=None, telemetry_port=None):
         from .callbacks import AutoResume, CallbackList, ModelCheckpoint
         if telemetry_port is not None:
-            raise _deferred('Model.fit(telemetry_port=)', 'F')
+            # fit-time telemetry opt-in: serve /metrics (+ /healthz,
+            # /debug/*) for this training run; lives until process exit
+            # (daemon thread), reachable at self.telemetry.url
+            self.telemetry = _obs.serve_telemetry(port=telemetry_port)
         if warmup is not None:
             self.prebuild_warmup(warmup)
         loader = self._as_loader(train_data, batch_size, shuffle)
@@ -370,12 +404,19 @@ class Model:
                 skip_steps = info['step'] + 1
             it_count = info.get('global_step', 0)
         use_prefetch = self._async and isinstance(loader, DataLoader)
+        timer = self._step_timer
         step_ms = _obs.histogram('train.step_ms')
         wait_ms = _obs.histogram('train.data_wait_ms')
         step_counter = _obs.counter('train.steps')
         loss_gauge = _obs.gauge('train.loss')
         from ..optimizer.lr import LRScheduler, ReduceOnPlateau
         with _obs.span('train.fit', epochs=epochs, start_epoch=start_epoch):
+            # always-on goodput accounting: the run window opens here;
+            # steps, data stalls and compile steps are classified below,
+            # checkpoint / preemption / requeue badput arrives from the
+            # checkpoint and retry paths
+            goodput = _obs.goodput.ledger()
+            goodput.run_start()
             for epoch in range(start_epoch, epochs):
                 if auto_resume is not None:
                     # deterministic per-epoch shuffle so a resumed lifetime
@@ -388,8 +429,15 @@ class Model:
                 for m in self._metrics:
                     m.reset()
                 logs = {}
-                batch_iter = (loader.prefetch_to_device() if use_prefetch
-                              else iter(loader))
+                prefetch_gen = (loader.prefetch_to_device() if use_prefetch
+                                else None)
+                # innermost wrapper: the raw loader / prefetch wait, so a
+                # blocking wait above the stall floor books as data_stall
+                batch_iter = goodput.data_iter(
+                    prefetch_gen if prefetch_gen is not None else loader)
+                if timer is not None:
+                    batch_iter = timer.timed_iter('data', batch_iter)
+                batch_iter = iter(batch_iter)
                 try:
                     step_idx = -1
                     while True:
@@ -406,27 +454,53 @@ class Model:
                         inputs, labels = self._split_batch(batch)
                         do_update = (step_idx + 1) % \
                             accumulate_grad_batches == 0
-                        with _obs.span('train.step', step=it_count) as sp:
-                            loss = self.train_batch(inputs, labels,
-                                                    update=do_update)
+                        t0 = time.perf_counter()
+                        builds = _compile_events()
+                        try:
+                            with _obs.span('train.step', step=it_count) as sp:
+                                loss = self.train_batch(inputs, labels,
+                                                        update=do_update)
+                        except BaseException:
+                            # a raising step books no partial duration
+                            # into the phase histograms
+                            if timer is not None:
+                                timer.abort_step()
+                            raise
                         step_ms.observe(1e3 * sp.duration)
                         step_counter.inc()
+                        _obs.perf.note_step('hapi.train_step', sp.duration)
+                        if _compile_events() > builds:
+                            # the step built a kernel or captured a graph:
+                            # its whole wall time is compile badput
+                            goodput.note_badput('compile', sp.duration)
+                        goodput.note_step(sp.duration)
+                        if timer is not None:
+                            timer.add('dispatch', time.perf_counter() - t0)
                         lval = loss[0]
                         if not self._async or step_idx % log_freq == 0:
                             # deferred loss readback: the device scalar is
                             # read only at logging points (every step when
                             # synchronous, where it is a float already)
+                            t0 = time.perf_counter()
                             lval = float(lval)
+                            if timer is not None:
+                                timer.add('readback',
+                                          time.perf_counter() - t0)
                             loss_gauge.set(lval)
+                            if step_idx % log_freq == 0:
+                                # the device memory sweep at log points
+                                _obs.perf.sweep_hbm()
                         logs = {'loss': lval, 'step': step_idx}
                         self._update_metrics(logs, labels)
                         cbks.on_batch_end('train', step_idx, logs)
+                        if timer is not None:
+                            timer.step_done()
                         it_count += 1
                         if num_iters is not None and it_count >= num_iters:
                             break
                 finally:
-                    if use_prefetch:
-                        batch_iter.close()   # stop the producer thread
+                    if prefetch_gen is not None:
+                        prefetch_gen.close()   # stop the producer thread
                 # flush a partial gradient-merge cycle so stale grads never
                 # leak into the next epoch with a wrong divisor
                 self._flush_grad_acc()
@@ -443,6 +517,7 @@ class Model:
                 _obs.counter('train.epochs').inc()
                 if self.stop_training:
                     break
+            goodput.run_end()
         self._drain_inflight()
         cbks.on_end('train', logs)
 

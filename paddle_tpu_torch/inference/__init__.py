@@ -214,8 +214,7 @@ class Predictor:
                                device=self.device)
                 for n, (shape, dt) in zip(names, shapes_key)}
 
-        def infer(**b):
-            xs = [b[n] for n in names]
+        def forward(xs):
             if low is not None:
                 # inputs match the lowered parameters' dtype
                 xs = [x.to(low) if dtypes.is_floating(x.dtype) else x
@@ -223,6 +222,19 @@ class Predictor:
             with torch.no_grad():
                 out, _ = functional_call(layer, params, buffers, *xs)
             return tuple(out) if isinstance(out, (list, tuple)) else (out,)
+
+        from .. import observability as _obs
+        label = 'predictor.' + ';'.join(
+            'x'.join(map(str, shape)) or 'scalar'
+            for shape, _ in shapes_key)
+
+        def infer(**b):
+            # this feed key's first eager run (before its capture) is
+            # counted: perf.flops{fn=predictor.<shapes>}
+            with _obs.perf.measure(label, pyname='infer') as m:
+                out = forward([b[n] for n in names])
+                m.set_outputs(out)
+            return out
         fn = CapturedFn(infer, bufs, self.device)
         self._trace_count += 1
         self._compiled[shapes_key] = fn

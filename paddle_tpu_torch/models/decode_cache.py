@@ -107,6 +107,7 @@ def clear_decode_caches():
 # ---------------------------------------------------------------------------
 
 WARMUP_RUNS = 2          # eager runs on the side stream before the capture
+captures = 0             # CUDA graphs captured so far in the process
 _COUNTERS = ('launches', 'split_launches', 'tc_launches')
 _capture_streams = {}
 
@@ -186,6 +187,8 @@ class CapturedFn:
         return self.graph is not None
 
     def _capture(self):
+        global captures
+        captures += 1
         dev = self.device
         side = _capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))

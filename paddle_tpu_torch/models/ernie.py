@@ -189,6 +189,11 @@ def encode(params, tokens, token_type=None, attn_mask=None, config=None,
     with one derived seed per layer (``per_layer_seeds``)."""
     cdt = torch_dtype(config.dtype)
     S = tokens.shape[1]
+    if S > config.max_seq_len:
+        # the reference's position gather clamps; on the card an index
+        # past ``wpe`` would end the process's CUDA context
+        raise ValueError(f'{S} tokens exceed max_seq_len '
+                         f'{config.max_seq_len}')
     tokens = tokens.long()
     tt = (token_type.long() if token_type is not None
           else torch.zeros_like(tokens))

@@ -29,6 +29,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _lock = threading.Lock()
 _libs = {}
+loads = 0          # libraries loaded (built first when needed) so far
 # name -> {'seconds': build time (0.0 when an earlier build was reused),
 #          'ptxas': the compiler's register / shared-memory report}
 build_log = {}
@@ -107,4 +108,6 @@ def load(name):
             return lib
         _build_locked([name])
         lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        global loads
+        loads += 1
         return lib

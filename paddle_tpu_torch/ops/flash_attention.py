@@ -978,16 +978,76 @@ def _flash_op_setup(ctx, inputs, output):
                 seed if drop_rate else None)
 
 
+@torch.library.custom_op('paddle_tpu_torch::flash_attention_backward',
+                         mutates_args=())
+def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 g: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                 kmask: Optional[torch.Tensor], causal: bool, q_off: int,
+                 kv_valid: Optional[int], drop_rate: float,
+                 seed: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """Kernels 2 and 3 as one PyTorch operator (``torch.ops.
+    paddle_tpu_torch.flash_attention_backward``): ``flash_op``'s
+    registered backward, so a dispatch mode (the FLOP counter of
+    ``observability.perf``) sees the backward as one operator on the card
+    and on the CPU alike. -> (dq, dk, dv)."""
+    dq, dk, dv = _flash_bwd(q, k, v, g, out, lse, causal, q_off, kv_valid,
+                            kmask, drop_rate, seed)
+    return dq.contiguous(), dk.contiguous(), dv.contiguous()
+
+
+@flash_bwd_op.register_fake
+def _flash_bwd_op_shapes(q, k, v, g, out, lse, kmask, causal, q_off,
+                         kv_valid, drop_rate, seed):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
 def _flash_op_backward(ctx, g, g_lse):
     """The forward saved q, k, v, out and lse (the mask and the seed ride
     on ``ctx``); the key mask and the seed get no gradient, nor does lse
     feed one back (nothing differentiates through it)."""
     q, k, v, out, lse = ctx.saved_tensors
-    dq, dk, dv = _flash_bwd(q, k, v, g, out, lse, *ctx.args)
+    causal, q_off, kv_valid, kmask, drop_rate, seed = ctx.args
+    dq, dk, dv = flash_bwd_op(q, k, v, g, out, lse, kmask, causal, q_off,
+                              kv_valid, drop_rate, seed)
     return dq, dk, dv, None, None, None, None, None, None
 
 
 flash_op.register_autograd(_flash_op_backward, setup_context=_flash_op_setup)
+
+
+def attention_flops(q_shape, k_shape, causal, passes=2):
+    """The dense FLOP count of attention over [B, S_q, H, D] queries and
+    [B, S_k, ...] keys: ``passes`` products of 2·B·H·S_q·S_k·D (2 for the
+    forward, QKᵀ and PV; 5 for the backward: the recomputed QKᵀ, dP, dV,
+    dK and dQ), halved when causal. The count the reference's CPU path
+    makes through its einsums."""
+    b, s_q, h, d = q_shape
+    flops = passes * 2 * b * h * s_q * k_shape[1] * d
+    return flops // 2 if causal else flops
+
+
+def _register_flop_formulas():
+    """Kernel 1 and its backward in ``torch.utils.flop_counter``'s table
+    (the counter cannot see into a custom operator)."""
+    try:
+        from torch.utils.flop_counter import register_flop_formula
+    except ImportError:
+        return
+
+    @register_flop_formula(torch.ops.paddle_tpu_torch.flash_attention)
+    def _fwd_flops(q_shape, k_shape, v_shape, kmask, causal, *args,
+                   out_shape=None, **kwargs):
+        return attention_flops(q_shape, k_shape, causal)
+
+    @register_flop_formula(
+        torch.ops.paddle_tpu_torch.flash_attention_backward)
+    def _bwd_flops(q_shape, k_shape, v_shape, g_shape, out_shape_, lse,
+                   kmask, causal, *args, out_shape=None, **kwargs):
+        return attention_flops(q_shape, k_shape, causal, passes=5)
+
+
+_register_flop_formulas()
 
 
 def decode_attention(q, k_cache, v_cache, pos):

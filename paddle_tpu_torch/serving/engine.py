@@ -34,11 +34,19 @@ Robustness is built from the fault primitives:
 Observability: every admission/flush/latency event lands in
 ``ServingStats``; ``engine.stats()`` is the one-stop snapshot.
 
-Not ported, each raising NotImplementedError citing its ROADMAP Queue 1
-step: the telemetry HTTP plane (``telemetry_port=``, step F), mesh
-sharding (``mesh=`` / ``mp>1``, step K), and the perf/roofline calls
-(step F). ``PADDLE_TPU_COMPILE_CACHE`` is not read: a CUDA graph cannot
-outlive its process (ROADMAP known differences).
+Telemetry: ``telemetry_port=N`` starts the HTTP plane
+(``observability.serve_telemetry``; 0 picks a free port, read back from
+``engine.telemetry.port``) and ``shutdown`` stops it. Each bucket's
+forward is counted once by ``perf.measure`` on its first eager run (the
+first warm-up run before its capture; a graph's replay cannot be
+counted) into ``perf.flops{fn=serving.bucketN}``; steady-state batches
+feed ``perf.note_step`` and run inside a ``record_function`` range named
+after the label (``perf.program_range``), which ``/debug/profile`` counts.
+
+Not ported, raising NotImplementedError citing its ROADMAP Queue 1 step:
+mesh sharding (``mesh=`` / ``mp>1``, step K). ``PADDLE_TPU_COMPILE_CACHE``
+is not read: a CUDA graph cannot outlive its process (ROADMAP known
+differences).
 
 Env knobs: ``PADDLE_TPU_SERVE_MAX_BATCH`` (default 16),
 ``PADDLE_TPU_SERVE_MAX_DELAY_MS`` (default 2.0).
@@ -121,6 +129,16 @@ def lower_tree(tree, low):
     if low is None:
         return dict(tree)
     return {k: (v.to(low) if dtypes.is_floating(v.dtype) else v)
+            for k, v in tree.items()}
+
+
+def owned_tree(tree, low):
+    """``lower_tree`` that never shares a floating tensor's storage:
+    floating tensors cast to ``low``, or cloned when ``low`` is None or
+    already their dtype (quantized banks, already new, pass through)."""
+    return {k: ((v.to(low, copy=True) if low is not None else v.clone())
+                if isinstance(v, torch.Tensor) and dtypes.is_floating(v.dtype)
+                else v)
             for k, v in tree.items()}
 
 
@@ -211,9 +229,6 @@ class InferenceEngine:
                  input_spec=None, telemetry_port=None, mesh=None, mp=None):
         if mesh is not None or (mp is not None and int(mp) != 1):
             raise _not_ported('mesh sharding (mesh= / mp>1)', 'K')
-        if telemetry_port is not None:
-            raise _not_ported('the telemetry HTTP plane (telemetry_port=)',
-                              'F')
         layer, params, buffers, precision, example_spec = \
             _resolve_backend(net, precision)
         if precision not in _PRECISIONS:
@@ -236,8 +251,11 @@ class InferenceEngine:
                     self._wo_dtypes[k] = v.dtype
         # buffers too: an f32 BN running stat would re-promote activations
         # back to f32 mid-network (same rule as the Predictor)
-        self._params = lower_tree(params, low)
-        self._buffers = lower_tree({k: v.detach()
+        # the engine keeps the weights it was built with, as the
+        # reference's arrays: an in-place step on the Layer after
+        # construction must not reach what the graphs read
+        self._params = owned_tree(params, low)
+        self._buffers = owned_tree({k: v.detach()
                                     for k, v in buffers.items()}, low)
 
         self.max_batch_size = int(max_batch_size if max_batch_size is not None
@@ -263,10 +281,15 @@ class InferenceEngine:
         self._draining = False
         self._example_spec = input_spec if input_spec is not None \
             else example_spec
-        # readiness: warm AND breaker closed AND queue below capacity
+        # readiness + optional telemetry plane: the engine advertises one
+        # /readyz probe (warm AND breaker closed AND queue below capacity);
+        # telemetry_port=N additionally starts the HTTP server (0 = pick a
+        # free port, read it back from engine.telemetry.port)
         self._warmed = False
         self._probe_name = f'serving.{self._stats.labels["engine"]}'
         _obs.add_readiness(self._probe_name, self._readiness_probe)
+        self.telemetry = (_obs.serve_telemetry(port=telemetry_port)
+                          if telemetry_port is not None else _obs.NULL_SERVER)
         if warmup is not None:
             # capture before submit() is ever accepted: the first real
             # request must find its graph already in the bucket cache
@@ -306,8 +329,16 @@ class InferenceEngine:
                                device=self.device)
                 for n, (shape, dt) in zip(names, sig)}
 
+        label = f'serving.bucket{bucket}'
+
         def fn(**b):
-            return self._forward(*[b[n] for n in names])
+            # the bucket's first eager run (a warm-up run before the
+            # capture, or the CPU's run) is counted: perf.flops{fn}
+            with _obs.perf.measure(label, precision=self._precision,
+                                   pyname='forward') as m:
+                out = self._forward(*[b[n] for n in names])
+                m.set_outputs(out)
+            return out
         wm = sys.modules.get('paddle_tpu_torch.warmup.manifest')
         if wm is not None and wm.capturing():
             wm.record(wm.serving_bucket_entry(
@@ -384,6 +415,7 @@ class InferenceEngine:
         if self._thread is not None:
             self._thread.join(timeout)
         _obs.remove_readiness(self._probe_name)
+        self.telemetry.stop()
 
     def __enter__(self):
         return self.start()
@@ -538,13 +570,17 @@ class InferenceEngine:
         padded = [pad_rows(c, bucket) for c in cols]
         t0 = time.perf_counter()
         misses_before = self._cache.misses
+        perf_label = f'serving.bucket{bucket}'
 
         def device_call():
             fault.inject('serving.dispatch')
             fn = self._cache.get(bucket, sig, self._precision)
-            outs = fn.replay(**{f'x{i}': p for i, p in enumerate(padded)})
-            # ONE host readback for the whole batch, then host-side slicing
-            return host_outputs(outs)
+            with _obs.perf.program_range(perf_label):
+                outs = fn.replay(**{f'x{i}': p
+                                    for i, p in enumerate(padded)})
+                # ONE host readback for the whole batch, then host-side
+                # slicing
+                return host_outputs(outs)
 
         span_kw = {'bucket': bucket, 'rows': rows, 'requests': len(live)}
         if _obs.enabled():
@@ -565,6 +601,10 @@ class InferenceEngine:
             _obs.histogram('serve.first_exec_ms', blbl).observe(1e3 * exec_s)
         else:
             _obs.histogram('serve.bucket_exec_ms', blbl).observe(1e3 * exec_s)
+            # steady-state wall time only: a capture-inclusive first
+            # execution would poison the live MFU join
+            _obs.perf.note_step(perf_label, exec_s,
+                                precision=self._precision)
         _obs.counter('serve.bucket_rows', blbl).inc(rows)
         _obs.counter('serve.bucket_padded_rows', blbl).inc(bucket)
         done_t = self._clock()

@@ -59,9 +59,12 @@ Shared pages are refcounted by the allocator; mid-page divergence copies
 the page (copy-on-write) before any write, and cache residency is
 released LRU before any live slot is ever evicted for pages.
 
-Not ported yet, each raising with its ROADMAP item: mesh sharding
-(``mesh=`` / ``mp>1``; for MoE, expert parallelism, step K) and the
-telemetry HTTP plane (``telemetry_port=``).
+Telemetry: ``telemetry_port=N`` starts the HTTP plane
+(``observability.serve_telemetry``; 0 picks a free port, read back from
+``engine.telemetry.port``), stopped at ``shutdown``.
+
+Not ported yet, raising with its ROADMAP item: mesh sharding (``mesh=`` /
+``mp>1``; for MoE, expert parallelism, step K).
 
 Captured device calls (the reference's ``_build_fns``/``_fns_pair``): the
 prefill and the step are each one CUDA graph (``models.decode_cache.
@@ -338,9 +341,6 @@ class GenerationEngine:
                                   'step K, item 10: expert parallelism')
             raise _not_ported('mesh sharding (mesh= / mp>1)',
                               'item 1, deferred: mesh-sharded serving')
-        if telemetry_port is not None:
-            raise _not_ported('the telemetry HTTP plane (telemetry_port=)',
-                              'item 1, deferred: telemetry HTTP plane')
         params, cfg, self._forward_fn = _resolve_generation_model(
             net, config, forward_fn)
         if device is None and config is None:
@@ -417,10 +417,14 @@ class GenerationEngine:
                                   'prefix_full_hits', 'prefix_tokens_saved',
                                   'prefix_evictions')}
         self._make_metrics()
-        # readiness: warm AND breaker closed AND queue below capacity
+        # readiness + optional telemetry plane (same contract as
+        # InferenceEngine: /readyz = warm AND breaker closed AND queue
+        # below capacity; telemetry_port=0 picks a free port)
         self._warmed = False
         self._probe_name = f'serving.{self.labels["engine"]}'
         _obs.add_readiness(self._probe_name, self._readiness_probe)
+        self.telemetry = (_obs.serve_telemetry(port=telemetry_port)
+                          if telemetry_port is not None else _obs.NULL_SERVER)
 
     def _readiness_probe(self):
         with self._lock:
@@ -659,6 +663,7 @@ class GenerationEngine:
             with self._lock:
                 self._prefix.clear()
         _obs.remove_readiness(self._probe_name)
+        self.telemetry.stop()
 
     def __enter__(self):
         return self.start()

@@ -122,9 +122,12 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
-        with _obs.span('ckpt.restore', step=step):
+        with _obs.span('ckpt.restore', step=step) as sp:
             out = fio.load(_step_path(self.directory, step))
         _obs.counter('ckpt.restores').inc()
+        # restoring after a preemption/relaunch is recovery time, not
+        # training: preemption badput on the goodput ledger
+        _obs.goodput.note_badput('preemption', sp.duration)
         return out
 
     def wait(self):

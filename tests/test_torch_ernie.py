@@ -87,6 +87,42 @@ def test_encode_matches_the_reference(weights, masked, use_flash):
     _close(got.numpy(), want)
 
 
+def test_encode_past_max_seq_len_raises_where_the_reference_clamps(weights):
+    """Past ``max_seq_len`` the reference's position gather clamps (rows
+    past it take the last position); the port raises ValueError before
+    any gather, as GPT's forward does, where the index would end the
+    process's CUDA context on the card (ROADMAP known differences)."""
+    rc, pc = _cfgs(max_seq_len=8)
+    ids = _batch()[0][:, :12]
+    want = np.asarray(jax.jit(lambda p, i: rern.encode(p, i, None, None,
+                                                       rc))(weights, ids))
+    assert want.shape == (B, 12, 64) and np.isfinite(want).all()
+    with pytest.raises(ValueError, match='max_seq_len'):
+        pern.encode(pern.params_from_numpy(weights, 'cpu'), _t(ids), None,
+                    None, pc)
+    # at max_seq_len exactly both packages agree
+    want8 = jax.jit(lambda p, i: rern.encode(p, i, None, None, rc))(
+        weights, ids[:, :8])
+    got8 = pern.encode(pern.params_from_numpy(weights, 'cpu'),
+                       _t(ids[:, :8]), None, None, pc)
+    _close(got8.numpy(), want8)
+
+
+def test_an_id_past_the_vocabulary_is_nan_there_and_an_error_here(weights):
+    """A token id >= vocab_size: the reference's ``jnp.take`` fills NaN,
+    which attention spreads to every row; the port's gather raises
+    IndexError (checking ids on the card would cost a host sync)."""
+    rc, pc = _cfgs()
+    ids = _batch()[0].copy()
+    ids[0, 3] = SMALL['vocab_size']
+    want = np.asarray(jax.jit(lambda p, i: rern.encode(p, i, None, None,
+                                                       rc))(weights, ids))
+    assert np.isnan(want[0]).all()
+    with pytest.raises(IndexError):
+        pern.encode(pern.params_from_numpy(weights, 'cpu'), _t(ids), None,
+                    None, pc)
+
+
 def test_bf16_encode_near_the_reference(weights):
     """bf16 compute over f32 parameters: the reference's dtype steps
     (LayerNorm's statistics in bf16, the f32 gain promoting, the cast

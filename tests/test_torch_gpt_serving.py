@@ -9,6 +9,8 @@ behaviour equal to the reference engine's. Sampled streams cannot match jax.rand
 held to their own contract: a pure function of (seed, position)."""
 import dataclasses
 
+import urllib.request
+
 import numpy as np
 import pytest
 
@@ -383,10 +385,21 @@ def test_injected_fault_fails_the_request_and_the_engine_recovers(model):
 def test_unported_options_raise_naming_the_roadmap(model):
     _, _, tp, tcfg = model
     # int8_wo over a mesh keeps raising, as in the reference
-    for kw in (dict(mp=2), dict(mesh=object()), dict(telemetry_port=0),
+    for kw in (dict(mp=2), dict(mesh=object()),
                dict(precision='int8_wo', mesh=object())):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             GenerationEngine(tp, tcfg, device='cpu', **_kw(**kw))
+    # the telemetry plane is ported: telemetry_port=0 serves the plane on
+    # a free port until shutdown
+    eng = GenerationEngine(tp, tcfg, device='cpu', autostart=False,
+                           telemetry_port=0, **_kw())
+    url = eng.telemetry.url
+    with urllib.request.urlopen(url + '/healthz', timeout=30) as r:
+        assert r.status == 200
+    eng.shutdown()
+    assert eng.telemetry not in tobs.servers()
+    with pytest.raises(OSError):
+        urllib.request.urlopen(url + '/healthz', timeout=5)
     # the int8 page pool is ported: kv_cache_int8 builds an engine
     eng = GenerationEngine(tp, dataclasses.replace(tcfg, kv_cache_int8=True),
                            device='cpu', autostart=False, **_kw())

@@ -544,15 +544,29 @@ def test_the_sync_executor_reads_every_loss(monkeypatch):
 
 
 def test_every_deferral_names_its_step():
+    """strategy= waits for step K and sparsity for step M; step F's
+    ``fit(telemetry_port=)`` is ported: the run serves the telemetry plane
+    (``model.telemetry``)."""
+    import urllib.request
     net = _mlp(port)
     model = port.Model(net)
     calls = [('K', lambda: model.prepare(strategy=object())),
-             ('F', lambda: model.fit([], telemetry_port=0)),
              ('M', lambda: port.sparsity.prune_model(net)),
              ('M', lambda: port.sparsity.decorate(None))]
     for step, call in calls:
         with pytest.raises(NotImplementedError, match=f'step {step}'):
             call()
+    xs, ys = _data(8, seed=5)
+    model.prepare(_optimizer(port, 'sgd', net), port.nn.CrossEntropyLoss())
+    model.fit(_dataset(port, xs, ys), epochs=1, batch_size=8, verbose=0,
+              telemetry_port=0)
+    try:
+        assert model.telemetry in obs.servers()
+        with urllib.request.urlopen(model.telemetry.url + '/debug/goodput',
+                                    timeout=30) as r:
+            assert json.loads(r.read())['runs'] >= 1
+    finally:
+        model.telemetry.stop()
 
 
 def test_summary_and_flops_equal_the_references():

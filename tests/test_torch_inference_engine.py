@@ -321,6 +321,35 @@ def test_injected_dispatch_faults_open_the_circuit_then_recover():
         eng.shutdown()
 
 
+def test_engine_keeps_its_weights_after_the_layer_trains():
+    """An engine serves the weights it was built with: three SGD steps on
+    the Layer afterwards move neither package's served output (the port
+    once served the Layer's live float32 weights)."""
+    nets = _pair()
+    x = _x(4, seed=3)
+    outs = {}
+    for P, net, E in zip((ref, port), nets, (RefEngine, InferenceEngine)):
+        eng = E(net, max_batch_size=8)
+        try:
+            before = eng.submit(x).result(timeout=60)
+            opt = P.optimizer.SGD(learning_rate=0.5,
+                                  parameters=net.parameters())
+            for _ in range(3):
+                loss = (net(P.to_tensor(x)) ** 2).mean()
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+            after = eng.submit(x).result(timeout=60)
+            live = _fwd(P, net, x)
+        finally:
+            eng.shutdown()
+        np.testing.assert_array_equal(after, before)
+        assert np.abs(live - after).max() > 0.1     # the Layer did move
+        outs[P.__name__] = after
+    np.testing.assert_allclose(outs['paddle_tpu_torch'], outs['paddle_tpu'],
+                               atol=TOL)
+
+
 def test_readiness_probe_warm_and_closed():
     from paddle_tpu_torch import observability as obs
     eng = InferenceEngine(_mlp(port), max_batch_size=4, autostart=False)
@@ -362,9 +391,28 @@ def test_bf16_engine_lowers_inputs_and_returns_float32():
 
 
 def test_deferred_arguments_name_their_step():
+    """mesh= / mp> 1 wait for step K, the fleet router, the model host and
+    a fleet plane on the telemetry server for step F (F2);
+    ``telemetry_port=`` is ported: the engine serves the plane until its
+    shutdown."""
+    from paddle_tpu_torch import observability as obs
     net = _mlp(port)
+    eng = InferenceEngine(net, max_batch_size=4, telemetry_port=0,
+                          autostart=False)
+    try:
+        assert eng.telemetry.port > 0 and eng.telemetry in obs.servers()
+        import urllib.request
+        with urllib.request.urlopen(eng.telemetry.url + '/healthz',
+                                    timeout=30) as r:
+            assert r.status == 200
+    finally:
+        eng.shutdown()
+    assert eng.telemetry not in obs.servers()
     with pytest.raises(NotImplementedError, match='step F'):
-        InferenceEngine(net, telemetry_port=0)
+        obs.serve_telemetry(port=0, fleetobs=object())
+    for name in ('FleetObs', 'MetricFederator'):
+        with pytest.raises(NotImplementedError, match='step F'):
+            getattr(obs, name)()
     with pytest.raises(NotImplementedError, match='step K'):
         InferenceEngine(net, mp=2)
     with pytest.raises(NotImplementedError, match='step K'):
