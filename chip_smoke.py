@@ -311,17 +311,54 @@ non-zero:
     ratio in (0, 1], checkpoint badput >= 80% of ckpt.save_ms,
     perf.hbm_used_bytes{device=cuda:0} equal to torch.cuda.memory_stats'
     allocated bytes at the sweep, the StepTimer's phases within the wall
-    time.
+    time;
+35. the control planes at phase 4's bench GPT (8 slots, page 128,
+    prefill width 1024; the params built once, shared by every factory
+    call): 16 greedy requests of phase 4's prompts() (seed 0) with 32 new
+    tokens each, first through a single engine; (a) ReplicaSet(initial=2)
+    behind a FleetRouter, each replica warmed: every stream equal to the
+    single engine's, both replicas served, no capture from traffic;
+    requests/s, latency p50/p99, requests a replica; (b) the same
+    requests with fleet.failover armed once while the streams decode: 0
+    lost, 0 duplicate token indices, exactly 1 replica killed, streams
+    equal to (a)'s, the failover p99 over (a)'s (tools/fleet_drill.py's
+    limit 5, printed); (c) one replica with an Autoscaler (queue-wait p99
+    above 50 ms, debounce 1) under a 12-request burst: a second replica
+    spawns, warm (2 captures) before it is routable, its first request
+    adds no capture and builds no kernel (ops/_build's load count),
+    fleet.scale_up_ms; then a third engine warms up (its eager runs on
+    the capture stream) while the two replicas decode the 16 requests:
+    the replicas step during that warm-up, every stream equals the
+    single engine's, and so does the third engine's first; (d) ModelHost:
+    the footprints of a bench-GPT engine and of ERNIE-base's (phase 31's
+    model, one captured bucket of 64) read from the engines by a host at
+    its default watermark, each at least the allocator's growth across
+    its deploy on the otherwise idle card, then a host whose
+    watermark fits any two of two bench GPTs and ERNIE: deploying the
+    third evicts the LRU, ERNIE answers a 64-row batch (12 kernel-1
+    launches, tensor-core, within 2^-6 a row of the Layer), a submit to
+    the evicted model swaps it in with its earlier output, 0 captures
+    past the swap-in and no kernel build, the allocator's bytes over the
+    baseline at or under the watermark after every step, an explicit
+    eviction freeing at least the pool's bytes; swap-in ms, bytes freed;
+    (e) FleetObs over (a)-(b)'s router and the host, served on port 0:
+    each federated counter equal to its replicas' sum, /debug/fleet
+    listing the replicas and the hosted models, /debug/requests?id= of a
+    request moved in (b) stitched over two attempts. Launch counters are
+    zeroed before each of (a)-(d) and read after: kernel 6 launches ==
+    24 x (the engines' prefills + steps) + 24 x 6 for each warm-up
+    (2 eager runs and a replay for each of the two captures), kernel 1
+    in (d) 12 x (the batch + 3 for the bucket's warm-up).
 Phase 3 also holds every kernel at the MoE paths' shapes (12 heads of 64),
 kernels 1-3 at phase 25's (B=8, S=512, 12 heads of 64, its key-padding
 mask, dropout 0 and 0.1), and kernel 1 at phase 31's serving shapes (B 64
 and 1, S 128, 12 heads of 64, key lengths 32-128). Every launch counter is
 set to 0 just before each main-path run (phases 4, 6, 7, 9, 11, 13, 14,
-15, 17, 18, 22, 23, 31, 32, 34; in 25, 27, 29 and 32 before each step,
+15, 17, 18, 22, 23, 31, 32, 34, 35; in 25, 27, 29 and 32 before each step,
 in 27 also before evaluate and each predict, in 31 before the engine's
 traffic, the Predictor's and each layer-free call, in 33 before the
 TranslatedLayer step, in 34 before the engine's traffic and before the
-profiled traffic) and read just after. Then one line of kernel records
+profiled traffic, in 35 before each of (a)-(d)) and read just after. Then one line of kernel records
 (JSON), and the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the rest of the repository beside it, it
@@ -6008,6 +6045,528 @@ def phase_telemetry(kernels, card, served, busy31):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 35: the control planes (fleet router, model host, fleet plane)
+# ---------------------------------------------------------------------------
+
+FLEET = dict(requests=16, lo=16, hi=400, seed=0)   # phase 4's prompts()
+FLEET_NEW = 32
+FLEET_BURST = 12                 # (c): the burst that must scale up
+FLEET_QWAIT_MS = 50.0            # (c): the scale-up rule's p99 threshold
+DRILL_P99_RATIO = 5.0            # tools/fleet_drill.py's failover limit
+
+
+def fleet_wave(router, reqs, new, arm=None):
+    """Submit every request through ``router`` at once and wait for all.
+    ``arm()`` runs once the first token of any stream is out (mid-decode).
+    -> (streams, latencies ms: submit to the stream's end)."""
+    done = {}
+    t0 = time.perf_counter()
+    futs = [router.submit(p, max_new_tokens=new) for p in reqs]
+    for i, f in enumerate(futs):
+        f._subscribe(lambda kind, *a, i=i: kind == 'finish'
+                     and done.setdefault(i, time.perf_counter()))
+    if arm is not None:
+        while not any(f._count() for f in futs):
+            time.sleep(0.001)
+        arm()
+    streams = [f.result(timeout=600) for f in futs]
+    lat = [(done[i] - t0) * 1e3 for i in range(len(futs))]
+    return streams, lat, futs
+
+
+def device_bytes():
+    return torch.cuda.memory_stats()['allocated_bytes.all.current']
+
+
+def warmup_runs(captured):
+    """A warm-up's runs of one captured function: WARMUP_RUNS eager runs
+    before the capture, then one replay (the capture launches nothing)."""
+    from paddle_tpu_torch.models.decode_cache import WARMUP_RUNS
+    return (WARMUP_RUNS if captured else 0) + 1
+
+
+def served_calls(engines):
+    """Each engine's prefills and steps so far, by id."""
+    return {id(e): e.stats()['prefills'] + e.stats()['steps']
+            for e in engines}
+
+
+def fleet_launch_want(L, engines, builds, since=None):
+    """Kernel 6's launches over ``engines`` (their prefills and steps,
+    past ``since``: ``served_calls`` before) and ``builds`` warm-ups (each
+    the prefill's and the step's) since the counters were zeroed."""
+    since = since or {}
+    served = sum(n - since.get(k, 0)
+                 for k, n in served_calls(engines).items())
+    return L * (served + builds * 2 * warmup_runs(
+        engines[0]._fns['step'].captured))
+
+
+def phase_control_planes(kernels, card, served):
+    """Phase 35: the fleet router, the model host and the fleet plane at
+    full width (see the module docstring)."""
+    import gc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import fault, serving
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import warmup
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.observability import fleetobs, promparse
+    from paddle_tpu_torch.ops import _build
+    ernie_net, ernie_cfg, _ = served
+    paddle.set_device('gpu')
+    obs.set_enabled(True)
+    obs.reset()
+    cfg = bench_config(gpt)
+    L = cfg.num_layers
+    params = gpt.init_params(
+        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+    reqs = prompts(FLEET['requests'], FLEET['lo'], FLEET['hi'],
+                   cfg.vocab_size, FLEET['seed'])
+    new = FLEET_NEW
+    lens = [len(p) for p in reqs]
+
+    def gen_factory():
+        # the closure holds the params; each engine casts its own
+        # serving copy and owns its pool and graphs
+        return serving.GenerationEngine(params, cfg, num_slots=8,
+                                        page_size=128, prefill_width=1024)
+
+    res = {'prompt_lens': [min(lens), max(lens)], 'requests': len(reqs)}
+    print(f'  {len(reqs)} greedy requests of {min(lens)}-{max(lens)}-token '
+          f'prompts, {new} new tokens each; bench GPT, 8 slots, page 128, '
+          f'prefill width 1024 [{card}]', flush=True)
+
+    # a single engine's streams: what every replica must equal
+    single = gen_factory()
+    try:
+        single.warmup()
+        want = [f.result(timeout=600) for f in
+                [single.submit(p, max_new_tokens=new) for p in reqs]]
+    finally:
+        single.shutdown()
+    del single
+
+    # (a) two replicas behind the router
+    rs = serving.ReplicaSet(gen_factory, initial=2)
+    for rep in rs.snapshot():
+        rep.engine.warmup()
+    router = serving.FleetRouter(rs)
+    fobs = fleetobs.FleetObs(name='smoke').watch_router(router)
+    host = None
+    try:
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        streams, lat, _ = fleet_wave(router, reqs, new)
+        wall = time.perf_counter() - t0
+        got = launch_counts(kernels)
+        engines = [r.engine for r in rs.snapshot()]
+        per_rep = {r.name: r.engine.stats()['submitted']
+                   for r in rs.snapshot()}
+        if streams != want:
+            bad = [i for i, (a, b) in enumerate(zip(streams, want)) if a != b]
+            raise AssertionError(f'(a) fleet streams differ from the single '
+                                 f'engine\'s for requests {bad}')
+        expect_launches('(a) fleet', got, {'paged_decode': fleet_launch_want(
+            L, engines, 0)})
+        if any(e.stats()['traces'] != 2 for e in engines):
+            raise AssertionError('(a) a replica captured during traffic')
+        if sorted(per_rep.values())[0] == 0:
+            raise AssertionError(f'(a) routing left a replica idle: '
+                                 f'{per_rep}')
+        res['fleet'] = {'requests_per_s': len(reqs) / wall,
+                        'latency_ms_p50': float(np.percentile(lat, 50)),
+                        'latency_ms_p99': p99(lat), 'wall_s': wall,
+                        'per_replica': per_rep,
+                        'launches': got['paged_decode']}
+        print(f'  (a) fleet of 2: {res["fleet"]["requests_per_s"]:.2f} '
+              f'requests/s, latency p50 {res["fleet"]["latency_ms_p50"]:.1f}'
+              f' ms, p99 {res["fleet"]["latency_ms_p99"]:.1f} ms, requests '
+              f'a replica {per_rep}, kernel 6 launches '
+              f'{got["paged_decode"]}; streams equal the single engine\'s '
+              f'[{card}]', flush=True)
+        fobs.federator.collect()       # both replicas seen fresh
+
+        # (b) the same requests, one replica killed mid-decode
+        since = served_calls(engines)
+        zero_launches(kernels)
+        killed0 = obs.find('fleet.replicas_killed', {'fleet': rs.name})
+        killed0 = killed0.value if killed0 is not None else 0
+
+        def arm():
+            fault.configure('fleet.failover:1.0', seed=7, max_faults=1)
+
+        try:
+            streams_b, lat_b, futs_b = fleet_wave(router, reqs, new, arm=arm)
+        finally:
+            fault.configure(None)
+        got = launch_counts(kernels)
+        killed = obs.find('fleet.replicas_killed', {'fleet': rs.name})
+        killed = (killed.value if killed is not None else 0) - killed0
+        states = sorted(r.state for r in rs.snapshot())
+        # a stream short of its tokens lost some; one past them emitted a
+        # token index twice
+        lost = sum(len(s) < new for s in streams_b)
+        dups = sum(max(0, len(s) - new) for s in streams_b)
+        if lost or dups or killed != 1 or states != ['dead', 'ready']:
+            raise AssertionError(f'(b) failover: {lost} lost, {dups} '
+                                 f'duplicate tokens, {killed} killed, '
+                                 f'states {states}')
+        if streams_b != streams:
+            bad = [i for i, (a, b) in enumerate(zip(streams_b, streams))
+                   if a != b]
+            raise AssertionError(f'(b) failed-over streams differ from '
+                                 f'(a)\'s for requests {bad}')
+        # the killed replica's calls before it died, the survivor's after
+        expect_launches('(b) failover', got, {'paged_decode':
+                        fleet_launch_want(L, engines, 0, since)})
+        failover = obs.find('fleet.failover', {'fleet': rs.name})
+        rids = [f.request_id for f in futs_b]
+        recs = [obs.recorder().lookup(rid) for rid in rids]
+        moved = [r['id'] for r in recs if r is not None and any(
+            e['ev'] == 'failover' for e in r['timeline'])]
+        if not moved:
+            raise AssertionError('(b) no request records a failover')
+        ratio = p99(lat_b) / p99(lat)
+        res['failover'] = {'lost': lost, 'duplicates': dups,
+                           'killed': killed,
+                           'failovers': failover.value if failover else 0,
+                           'latency_ms_p99': p99(lat_b),
+                           'p99_ratio': ratio,
+                           'launches': got['paged_decode'],
+                           'moved': len(moved)}
+        print(f'  (b) failover: 0 lost, {dups} duplicate token indices, '
+              f'{killed} replica killed, {len(moved)} requests moved '
+              f'({res["failover"]["failovers"]} failovers), streams equal '
+              f'(a)\'s; p99 {p99(lat_b):.1f} ms, {ratio:.2f} x the healthy '
+              f'p99 (the drill\'s limit: {DRILL_P99_RATIO:g}); kernel 6 '
+              f'launches {got["paged_decode"]} [{card}]', flush=True)
+
+        # (c) warm scale-up
+        res['scale_up'] = scale_up_run(serving, obs, _build, gen_factory,
+                                       kernels, reqs, want, L, card)
+
+        # (d) the model host
+        host, res['host'] = host_run(serving, obs, warmup, _build,
+                                     gen_factory, ernie_net, ernie_cfg,
+                                     kernels, reqs, L, card)
+
+        # (e) the fleet plane over the router of (a)-(b) and the host
+        fobs.watch_host(host)
+        res['fleetobs'] = fleetobs_run(fobs, promparse, rs, host, moved[0],
+                                       card)
+    finally:
+        router.close(drain=False)
+        if host is not None:
+            host.close(drain=False)
+        obs.shutdown_telemetry()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    paddle.set_device('cpu')
+    return res
+
+
+def scale_up_run(serving, obs, _build, gen_factory, kernels, reqs, want, L,
+                 card):
+    """Phase 35 (c): one replica, an Autoscaler on the queue-wait p99; a
+    burst must spawn a second replica, warm before it is routable, whose
+    first request adds no capture and builds no kernel."""
+    rs = serving.ReplicaSet(gen_factory, initial=1, min_replicas=1,
+                            max_replicas=2)
+    rs.snapshot()[0].engine.warmup()
+    asc = serving.Autoscaler(qwait_p99_ms=FLEET_QWAIT_MS, idle_s=60.0,
+                             cooldown_s=0.5, debounce=1)
+    router = serving.FleetRouter(rs, autoscaler=asc)
+    try:
+        zero_launches(kernels)
+        loads = _build.loads
+        futs = [router.submit(p, max_new_tokens=FLEET_NEW)
+                for p in reqs[:FLEET_BURST]]
+        deadline = time.perf_counter() + 120
+        while len(rs.snapshot()) < 2:
+            if time.perf_counter() > deadline:
+                raise AssertionError('(c) the queue-wait breach never '
+                                     'scaled up')
+            time.sleep(0.005)
+        spawned = rs.snapshot()[1].engine
+        traces = spawned.stats()['traces']
+        first = spawned.submit(reqs[0], max_new_tokens=FLEET_NEW).result(
+            timeout=600)
+        out = [f.result(timeout=600) for f in futs]
+        got = launch_counts(kernels)
+        engines = [r.engine for r in rs.snapshot()]
+        if (traces, spawned.stats()['traces']) != (2, 2) or \
+                not spawned._warmed:
+            raise AssertionError(f'(c) spawned replica: {traces} captures '
+                                 f'when it joined, '
+                                 f'{spawned.stats()["traces"]} after its '
+                                 'first request; want 2, 2')
+        if _build.loads != loads:
+            raise AssertionError('(c) the scale-up built a kernel')
+        if first != want[0] or out != want[:FLEET_BURST]:
+            raise AssertionError('(c) streams differ from the single '
+                                 'engine\'s')
+        expect_launches('(c) scale-up', got, {'paged_decode':
+                        fleet_launch_want(L, engines, 1)})
+        h = obs.find('fleet.scale_up_ms', {'fleet': rs.name})
+        res = {'scale_up_ms': h.percentile(50), 'spawns': h.count,
+               'spawned_requests': spawned.stats()['submitted'],
+               'launches': got['paged_decode']}
+        res['beside'] = warm_beside_decode(router, engines, gen_factory,
+                                           kernels, reqs, want, L)
+    finally:
+        router.close(drain=False)
+    print(f'  (c) scale-up under a {FLEET_BURST}-request burst (queue-wait '
+          f'p99 > {FLEET_QWAIT_MS:g} ms): fleet.scale_up_ms '
+          f'{res["scale_up_ms"]:.1f} (factory + 2 captures); the new '
+          f'replica served {res["spawned_requests"]} requests, 0 captures '
+          f'and no kernel build from its first; kernel 6 launches '
+          f'{res["launches"]}; a third engine\'s warm-up ('
+          f'{res["beside"]["warmup_ms"]:.1f} ms) beside the replicas\' '
+          f'decode of {len(reqs)} requests ({res["beside"]["steps"]} '
+          f'steps meanwhile): every stream and its first equal the single '
+          f'engine\'s; kernel 6 launches {res["beside"]["launches"]} '
+          f'[{card}]', flush=True)
+    return res
+
+
+def warm_beside_decode(router, engines, gen_factory, kernels, reqs, want,
+                       L):
+    """Phase 35 (c), second part: a new engine's warm-up runs (eager, on
+    the capture stream) while ``router``'s replicas replay their graphs
+    on the default stream; the streams must not notice."""
+    extra = gen_factory()
+    try:
+        seen = {}
+
+        def warm():
+            steps0 = sum(e.stats()['steps'] for e in engines)
+            t0 = time.perf_counter()
+            extra.warmup()
+            seen['warmup_ms'] = (time.perf_counter() - t0) * 1e3
+            seen['steps'] = sum(e.stats()['steps'] for e in engines) - steps0
+
+        since = served_calls(engines)
+        zero_launches(kernels)
+        streams, _, _ = fleet_wave(router, reqs, FLEET_NEW, arm=warm)
+        first = extra.submit(reqs[0], max_new_tokens=FLEET_NEW).result(
+            timeout=600)
+        got = launch_counts(kernels)
+        if not seen['steps']:
+            raise AssertionError('(c) the replicas took no step during the '
+                                 'third engine\'s warm-up')
+        if streams != want or first != want[0]:
+            bad = [i for i, (a, b) in enumerate(zip(streams, want)) if a != b]
+            raise AssertionError(f'(c) beside a warm-up: streams {bad} '
+                                 f'(first equal: {first == want[0]}) differ '
+                                 f'from the single engine\'s')
+        if extra.stats()['traces'] != 2:
+            raise AssertionError(f'(c) the third engine captured '
+                                 f'{extra.stats()["traces"]}, want 2')
+        want_l = (fleet_launch_want(L, engines, 0, since)
+                  + fleet_launch_want(L, [extra], 1))
+        expect_launches('(c) beside a warm-up', got,
+                        {'paged_decode': want_l})
+    finally:
+        extra.shutdown()
+    return {**seen, 'launches': got['paged_decode']}
+
+
+def host_run(serving, obs, warmup, _build, gen_factory, ernie_net,
+             ernie_cfg, kernels, reqs, L, card):
+    """Phase 35 (d): three models on one host whose watermark fits two."""
+    import gc
+
+    import paddle_tpu_torch as paddle
+    entry = warmup.manifest.serving_bucket_entry(
+        SERVE_MAX_BATCH, (((SERVE['s'],), 'int64'),) * 3, 'float32',
+        max_batch=SERVE_MAX_BATCH)
+
+    def ernie_factory():
+        return serving.InferenceEngine(
+            ernie_net, max_batch_size=SERVE_MAX_BATCH,
+            max_delay_ms=SERVE_DELAY_MS, warmup=warmup.Manifest([entry]))
+
+    # 64 rows of phase 31's request shape: bucket 64 in one batch
+    batch = serve_requests(ernie_cfg.vocab_size, 1, SERVE_MAX_BATCH,
+                           SERVE_MAX_BATCH, SERVE['s'], SERVE['len_lo'],
+                           SERVE['len_hi'], 3)[0]
+    want = layer_outputs(paddle, ernie_net, batch)
+    # the footprints, read from the engines by a host at its default
+    # watermark (what the allocator could hand out); on this otherwise
+    # idle card each must cover the allocator's growth across its deploy
+    probe = serving.ModelHost(name='probe')
+    grown = {}
+    try:
+        for name, factory in (('gen', gen_factory),
+                              ('ernie', ernie_factory)):
+            b0 = device_bytes()
+            probe.deploy(name, factory)
+            grown[name] = device_bytes() - b0
+        fp = {k: d['footprint_bytes'] for k, d in probe.models().items()}
+        default_wm = probe.watermark_bytes
+    finally:
+        probe.close()
+    del probe
+    gc.collect()
+    for name in fp:
+        if fp[name] < grown[name]:
+            raise AssertionError(f'(d) {name}: footprint {fp[name]} bytes, '
+                                 f'below the allocator\'s growth '
+                                 f'{grown[name]} across its deploy')
+    f_gen, f_e = fp['gen'], fp['ernie']
+    wm = max(2 * f_gen, f_gen + f_e) + min(f_gen, f_e) // 2
+    base = device_bytes()
+    res = {'footprint_gen': f_gen, 'footprint_ernie': f_e,
+           'growth_gen': grown['gen'], 'growth_ernie': grown['ernie'],
+           'default_watermark': default_wm, 'watermark': wm, 'steps': []}
+    host = serving.ModelHost(wm, name='smokehost')
+
+    def step(what):
+        used = device_bytes() - base
+        states = {k: d['state'] for k, d in host.models().items()}
+        res['steps'].append((what, used, states))
+        if used > wm or host.stats()['hbm_used_bytes'] > wm:
+            raise AssertionError(f'(d) {what}: {used} bytes allocated over '
+                                 f'the baseline, host accounts '
+                                 f'{host.stats()["hbm_used_bytes"]}; '
+                                 f'watermark {wm}')
+        return states
+
+    zero_launches(kernels)
+    loads = _build.loads
+    gen_reqs, gen_builds, ernie_batches = 0, 0, 0
+    host.deploy('g1', gen_factory, footprint_bytes=f_gen)
+    gen_builds += 1
+    before = host.submit('g1', reqs[1], max_new_tokens=FLEET_NEW).result(
+        timeout=600)
+    gen_reqs += 1
+    step('deploy g1')
+    host.deploy('g2', gen_factory, footprint_bytes=f_gen)
+    gen_builds += 1
+    host.submit('g2', reqs[2], max_new_tokens=FLEET_NEW).result(timeout=600)
+    gen_reqs += 1
+    step('deploy g2')
+    host.deploy('ernie', ernie_factory, footprint_bytes=f_e)
+    states = step('deploy ernie')
+    if states != {'g1': 'evicted', 'g2': 'live', 'ernie': 'live'}:
+        raise AssertionError(f'(d) deploying the third model: {states}, '
+                             'want the LRU g1 evicted')
+    h, p = host.submit('ernie', *batch).result(timeout=600)
+    ernie_batches += 1
+    err = max(row_err(h, want[0]), row_err(p, want[1]))
+    if not err <= SERVE_TOL:
+        raise AssertionError(f'(d) ERNIE through the host: row error {err}')
+    step('ernie batch')
+    t0 = time.perf_counter()
+    after = host.submit('g1', reqs[1], max_new_tokens=FLEET_NEW).result(
+        timeout=600)
+    res['swap_in_submit_ms'] = (time.perf_counter() - t0) * 1e3
+    gen_reqs += 1
+    gen_builds += 1
+    states = step('swap-in g1')
+    eng = host._models['g1'].engine
+    if states != {'g1': 'live', 'g2': 'evicted', 'ernie': 'live'}:
+        raise AssertionError(f'(d) swap-in of g1: {states}, want the LRU '
+                             'g2 evicted')
+    if after != before:
+        raise AssertionError('(d) g1\'s output after its swap-in differs '
+                             'from before its eviction')
+    if eng.stats()['traces'] != 2 or _build.loads != loads:
+        raise AssertionError(f'(d) swapped-in g1: {eng.stats()["traces"]} '
+                             f'captures (want 2, all at swap-in), '
+                             f'{_build.loads - loads} kernel builds')
+    pool = sum(t.numel() * t.element_size() for t in eng._pool.values())
+    runs = warmup_runs(eng._fns['step'].captured)
+    del eng
+    used0 = device_bytes()
+    host.evict('g1')
+    freed = used0 - device_bytes()
+    step('evict g1')
+    if freed < pool:
+        raise AssertionError(f'(d) evicting g1 freed {freed} bytes, less '
+                             f'than its pool\'s {pool}')
+    got = launch_counts(kernels)
+    want_l = {'paged_decode': L * (gen_reqs * FLEET_NEW
+                                   + gen_builds * 2 * runs),
+              'flash_fwd': ernie_cfg.num_layers * (ernie_batches + runs)}
+    expect_launches('(d) host', got, want_l)
+    expect_tensor_core('(d) host', kernels)
+    swap = obs.find('host.swap_in_ms', {'host': host.name})
+    res.update(swap_in_ms=swap.percentile(50), freed_bytes=freed,
+               pool_bytes=pool, ernie_row_err=err, launches=got,
+               swap_ins=host.stats()['swap_ins'],
+               evictions=host.stats()['evictions'])
+    print(f'  (d) host: footprints bench GPT {f_gen / 1e9:.3f} GB, ERNIE-base '
+          f'{f_e / 1e9:.3f} GB (read from the engines; the allocator grew '
+          f'{grown["gen"] / 1e9:.3f} and {grown["ernie"] / 1e9:.3f} GB '
+          f'across their deploys), watermark '
+          f'{wm / 1e9:.3f} GB (default {default_wm / 1e9:.1f} GB); deploying '
+          f'the third evicted the LRU; swap-in {res["swap_in_ms"]:.1f} ms '
+          f'(the submit {res["swap_in_submit_ms"]:.1f} ms), output equal to '
+          f'before; evicting g1 freed {freed / 1e9:.3f} GB (its pool '
+          f'{pool / 1e9:.3f} GB); at most '
+          f'{max(s[1] for s in res["steps"]) / 1e9:.3f} GB over the '
+          f'baseline; ERNIE row error {err:.2e}; launches {got} [{card}]',
+          flush=True)
+    return host, res
+
+
+def fleetobs_run(fobs, promparse, rs, host, moved_rid, card):
+    """Phase 35 (e): FleetObs serving the router's replicas and the host."""
+    srv = fobs.serve(port=0)
+    try:
+        code, body = http_get(srv.url + '/metrics')
+        if code != 200:
+            raise AssertionError(f'(e) /metrics {code}')
+        snap = promparse.parse_text(body.decode())
+        rows = {}           # (family, labels but replica) -> replica values
+        for key, val in snap['counters'].items():
+            labels = dict(snap['labels'][key])
+            rep = labels.pop('replica', None)
+            row = rows.setdefault((key.split('{')[0],
+                                   tuple(sorted(labels.items()))), {})
+            row[rep] = val
+        checked = 0
+        for (name, _), row in sorted(rows.items()):
+            val = row.pop(None, None)
+            parts = list(row.values())
+            if parts and val is not None:
+                if val != sum(parts):
+                    raise AssertionError(f'(e) {name} {val}, replicas sum '
+                                         f'{sum(parts)}')
+                checked += 1
+        tok = snap['counters'].get('gen_tokens')
+        if not checked or not tok:
+            raise AssertionError('(e) no federated counter to check')
+        code, body = http_get(srv.url + '/debug/fleet')
+        table = json.loads(body)
+        reps = sorted(r['replica'] for r in table['replicas'])
+        if reps != sorted(r.name for r in rs.snapshot()) or \
+                sorted(table['hosts'][0]['models']) != ['ernie', 'g1', 'g2']:
+            raise AssertionError(f'(e) /debug/fleet {table}')
+        code, body = http_get(srv.url + '/debug/requests?id=' + moved_rid)
+        st = json.loads(body)['stitched']
+        if len(st['attempts']) < 2 or st['attempts'][0]['outcome'] != \
+                'failover':
+            raise AssertionError(f'(e) stitched {st}')
+    finally:
+        srv.stop()
+    res = {'counters_checked': checked, 'gen_tokens': tok,
+           'attempts': len(st['attempts']),
+           'replicas': [a['replica'] for a in st['attempts']]}
+    print(f'  (e) FleetObs: {checked} federated counters each equal their '
+          f'replicas\' sum (gen_tokens {tok}); /debug/fleet lists '
+          f'{len(reps)} replicas and the host\'s 3 models; the moved '
+          f'request {moved_rid} stitched over {len(st["attempts"])} '
+          f'attempts {res["replicas"]} [{card}]', flush=True)
+    return res
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--report', default=None,
@@ -6173,6 +6732,11 @@ def main(argv=None):
           'scraped and profiled live; hapi fit with telemetry', flush=True)
     report['telemetry'] = phase_telemetry(
         counters, card, served, report['ernie_serving']['busy_share'])
+    print('phase 35: the control planes on the card: the bench GPT over two '
+          'replicas through failover and warm scale-up, a model host\'s '
+          'LRU swap-in, the fleet plane', flush=True)
+    report['control_planes'] = cp = phase_control_planes(counters, card,
+                                                         served)
     del served
 
     gen, fwd = report['generate'], report['forward']
@@ -6194,11 +6758,17 @@ def main(argv=None):
            {'flash_fwd': es['layer_free']['launches']},
            report['ernie_pretrain']['launches'], tl_launches,
            # phase 34: the engine's traffic under the telemetry plane
-           report['telemetry']['launches']]
+           report['telemetry']['launches'],
+           # phase 35: the host's ERNIE model (its warm-up and batch)
+           {'flash_fwd': cp['host']['launches']['flash_fwd']}]
     main_path = {
         'paged_decode': report['engine']['launches']
         + wo['bf16_pool']['launches'] + pfx['bf16']['launches']
-        + ms['bf16 pool']['launches'] + ms['int8_wo']['launches'],
+        + ms['bf16 pool']['launches'] + ms['int8_wo']['launches']
+        # phase 35: the fleet, its failover, the scale-up and the host
+        + cp['fleet']['launches'] + cp['failover']['launches']
+        + cp['scale_up']['launches'] + cp['scale_up']['beside']['launches']
+        + cp['host']['launches']['paged_decode'],
         'paged_decode_int8': report['engine_int8']['launches']
         + wo['int8_pool']['launches'] + pfx['int8']['launches']
         + ms['int8 pool']['launches'],

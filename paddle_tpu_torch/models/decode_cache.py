@@ -20,10 +20,11 @@ buffers (parameters, a KV cache or pool) must stay where it is while the
 graph lives; owners zero such state in place rather than reallocate it.
 
 The kernel wrappers count their launches in Python, which a replay does not
-run. So the capture records each counter's delta (the launches the graph
-holds), puts the counters back (a capture launches nothing), and every
-replay adds the delta: the counters still count the launches the device
-ran.
+run. So the capture collects the launches it records into a tally of its
+own thread (``ops.flash_attention.tally``: a capture launches nothing,
+and other threads' launches and replays go on counting meanwhile), and
+every replay adds that tally: the counters still count the launches the
+device ran.
 
 On the CPU a ``CapturedFn`` runs its function eagerly from the same
 buffers: a CPU tensor has no graphs, and that is the device asked for, not
@@ -37,6 +38,8 @@ import weakref
 from collections import OrderedDict
 
 import torch
+
+from ..ops import flash_attention as _fa
 
 _REGISTRY = weakref.WeakSet()
 _REGISTRY_LOCK = threading.Lock()
@@ -108,8 +111,9 @@ def clear_decode_caches():
 
 WARMUP_RUNS = 2          # eager runs on the side stream before the capture
 captures = 0             # CUDA graphs captured so far in the process
-_COUNTERS = ('launches', 'split_launches', 'tc_launches')
 _capture_streams = {}
+_capture_locks = {}
+_capture_locks_lock = threading.Lock()
 
 
 def kernel_wrappers():
@@ -121,11 +125,6 @@ def kernel_wrappers():
             pa.paged_flash_decode_int8)
 
 
-def _counter_values():
-    return {(k, a): getattr(k, a) for k in kernel_wrappers()
-            for a in _COUNTERS if hasattr(k, a)}
-
-
 def _capture_stream(dev):
     """One side stream a device for every warm-up and capture, so the
     per-stream buffers the kernels keep (the split-K tickets) are made once
@@ -134,6 +133,51 @@ def _capture_stream(dev):
     if s is None:
         s = _capture_streams[dev] = torch.cuda.Stream(dev)
     return s
+
+
+def capture_lock(dev):
+    """The lock that serializes every capture, with its warm-up runs, on
+    device ``dev``. All of a device's captures share one side stream (and
+    its split-K tickets): two engines capturing at once, say a fleet's new
+    replica beside another's first-use capture, would record each other's
+    launches. It does not hold off replays, which run on the default
+    stream beside a warm-up and merge through other tickets (see
+    ``ops.paged_attention._tickets``). Whatever frees graphs outside a
+    capture (``release``) takes it too."""
+    dev = torch.device(dev)
+    with _capture_locks_lock:
+        lock = _capture_locks.get(dev)
+        if lock is None:
+            lock = _capture_locks[dev] = threading.Lock()
+        return lock
+
+
+def release(dev):
+    """Collect unreachable objects (a dropped engine, its graphs and their
+    memory pools sit in reference cycles) while no capture runs on
+    ``dev``: destroying a graph in the middle of another's capture would
+    invalidate it."""
+    with capture_lock(dev):
+        gc.collect()
+
+
+def held_bytes(ptrs, fns):
+    """Device bytes the caching allocator has handed out for the storages
+    at ``ptrs`` (their blocks, as it rounds them) and for the graphs of
+    the captured functions ``fns`` (the segments of their private pools,
+    whole: their outputs and intermediates, which no other allocation can
+    use while they live)."""
+    pools = {tuple(f.pool) for f in fns if f.graph is not None}
+    ptrs = set(ptrs)
+    total = 0
+    for seg in torch.cuda.memory_snapshot():
+        if tuple(seg['segment_pool_id']) in pools:
+            total += seg['total_size']
+            continue
+        total += sum(b['size'] for b in seg['blocks']
+                     if b['address'] in ptrs
+                     and b['state'] == 'active_allocated')
+    return total
 
 
 def tensor_key(tree):
@@ -174,6 +218,7 @@ class CapturedFn:
         self.buffers = dict(buffers)
         self.device = torch.device(device)
         self.graph = None
+        self.pool = None         # the graph's private memory pool
         self.delta = {}
         self.out = None
         self._staging = {}
@@ -187,6 +232,10 @@ class CapturedFn:
         return self.graph is not None
 
     def _capture(self):
+        with capture_lock(self.device):
+            self._capture_locked()
+
+    def _capture_locked(self):
         global captures
         captures += 1
         dev = self.device
@@ -195,8 +244,8 @@ class CapturedFn:
         with torch.cuda.stream(side):
             for _ in range(WARMUP_RUNS):
                 self.fn(**self.buffers)
-        before = _counter_values()
         graph = torch.cuda.CUDAGraph()
+        pool = torch.cuda.graph_pool_handle()
         # no garbage collection while capturing: a collection in the
         # middle would free unreachable graphs (an engine dropped in a
         # reference cycle), and destroying a graph invalidates the capture
@@ -204,21 +253,19 @@ class CapturedFn:
         gc.disable()
         try:
             # thread_local: the engine captures on its scheduler thread
-            # while other threads may use the card
-            with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(),
-                                  stream=side,
-                                  capture_error_mode='thread_local'):
+            # while other threads may use the card; the launches recorded
+            # go to this capture's tally, while other threads' replays
+            # count as they run
+            with _fa.tally() as delta, \
+                    torch.cuda.graph(graph, pool=pool, stream=side,
+                                     capture_error_mode='thread_local'):
                 out = self.fn(**self.buffers)
         finally:
             if gc_was:
                 gc.enable()
-            after = _counter_values()
-            for (k, a), n in before.items():
-                setattr(k, a, n)
         torch.cuda.current_stream(dev).wait_stream(side)
-        self.delta = {key: after[key] - n for key, n in before.items()
-                      if after[key] != n}
-        self.graph, self.out = graph, out
+        self.delta = {key: n for key, n in delta.items() if n}
+        self.graph, self.pool, self.out = graph, pool, out
 
     def _stage(self, name, value):
         """Copy one input into its buffer: a tensor on the buffer's device
@@ -256,6 +303,5 @@ class CapturedFn:
         if self.graph is None:
             return self.fn(**self.buffers)
         self.graph.replay()
-        for (k, a), n in self.delta.items():
-            setattr(k, a, getattr(k, a) + n)
+        _fa.add_tally(self.delta)
         return self.out

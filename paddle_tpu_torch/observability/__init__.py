@@ -36,8 +36,12 @@ Env knobs:
   ``metrics.prom`` / ``trace.json`` into ``<dir>`` at process exit.
 - ``PADDLE_TPU_OBS_TRACE_CAP`` bounds the span ring buffer (default 1e5).
 
-Not ported yet: the fleet plane of ``fleetobs`` (federation, stitching:
-ROADMAP Queue 1 step F2); its names raise NotImplementedError.
+The fleet plane (``fleetobs``): ``MetricFederator`` merges the metrics of
+a fleet's replicas, a model host's models, registries and remote
+``/metrics`` URLs with semantic aggregates; ``stitch`` rebuilds one
+request's timeline across failover attempts; ``FleetObs`` serves both
+(``FleetObs().watch_router(router).serve(port=0)``, or
+``serve_telemetry(fleetobs=...)``).
 """
 import atexit
 import os

@@ -22,14 +22,20 @@ Endpoints:
   the spans recorded in the next N ms (clamped); ``?cap=N`` bounds the
   ring for the capture via ``set_trace_cap``.
 - ``GET /debug/slo`` — every SLO watcher rule's ok/firing state.
-- ``GET /debug/fleet`` — 404: no fleet plane can be attached yet (ROADMAP
-  Queue 1 step F2), as the reference answers without one.
+- ``GET /debug/fleet`` — replica + host tables when a
+  :class:`~.fleetobs.FleetObs` plane is attached (404 otherwise).
 - ``GET /debug/profile?ms=N`` — a bounded ``torch.profiler`` capture
   (``fleetobs.capture_profile``): one at a time (a concurrent request gets
   **409**), summary JSON with the inline ``devtime`` attribution; 503
   when observability is disabled.
 - ``GET /debug/goodput`` — the training goodput ledger
   (``goodput.snapshot()``).
+
+A server with a ``FleetObs`` attached (``serve_telemetry(fleetobs=...)``
+or ``FleetObs.serve()``) federates: ``/metrics`` returns the AGGREGATED
+fleet exposition (per-replica series + semantic aggregates + staleness)
+instead of the process registry, and ``/debug/requests?id=`` adds a
+``stitched`` cross-replica timeline next to the raw records.
 
 Start one with ``observability.serve_telemetry(port=0)`` (port 0 picks a
 free port; read it back from ``server.port``), or let an engine own one:
@@ -138,7 +144,10 @@ class _Handler(BaseHTTPRequestHandler):
 
     # ---- endpoints -------------------------------------------------------
     def _metrics(self, q):
-        self._send(200, to_prometheus(), PROM_CONTENT_TYPE)
+        fobs = self.server._telemetry.fleetobs
+        body = (fobs.to_prometheus() if fobs is not None
+                else to_prometheus())
+        self._send(200, body, PROM_CONTENT_TYPE)
 
     def _healthz(self, q):
         srv = self.server._telemetry
@@ -158,8 +167,14 @@ class _Handler(BaseHTTPRequestHandler):
                             rid=rid,
                             limit=int(limit) if limit else None,
                             tenant=q.get('tenant') or None)
-        self._send_json(200, {'count': len(reqs), 'capacity': rec.capacity,
-                              'requests': reqs})
+        out = {'count': len(reqs), 'capacity': rec.capacity,
+               'requests': reqs}
+        fobs = self.server._telemetry.fleetobs
+        if rid and fobs is not None:
+            # the fleet view: every part of a failed-over/hedged/split
+            # request (local + peers) merged into one timeline
+            out['stitched'] = fobs.stitch(rid)
+        self._send_json(200, out)
 
     def _debug_trace(self, q):
         ms = min(max(float(q.get('ms', 250.0)), 0.0), MAX_TRACE_WINDOW_MS)
@@ -193,8 +208,12 @@ class _Handler(BaseHTTPRequestHandler):
                               'rules': rules})
 
     def _debug_fleet(self, q):
-        self._send_json(404, {'error': 'no fleet observability plane '
-                                       'attached to this server'})
+        fobs = self.server._telemetry.fleetobs
+        if fobs is None:
+            self._send_json(404, {'error': 'no fleet observability plane '
+                                           'attached to this server'})
+            return
+        self._send_json(200, fobs.fleet_table())
 
     def _debug_profile(self, q):
         ms = float(q.get('ms', 500.0))
@@ -233,10 +252,8 @@ class TelemetryServer:
     telemetry plane is an operator surface, not a public one."""
 
     def __init__(self, port=0, host='127.0.0.1', fleetobs=None):
-        if fleetobs is not None:
-            raise _fleet_deferred()
         self.host = host
-        self.fleetobs = None
+        self.fleetobs = fleetobs        # FleetObs plane (or None)
         self._httpd = ThreadingHTTPServer((host, int(port)), _Handler)
         self._httpd.daemon_threads = True
         self._httpd._telemetry = self
@@ -305,18 +322,12 @@ _servers_lock = threading.Lock()
 _servers = []
 
 
-def _fleet_deferred():
-    return NotImplementedError(
-        'serve_telemetry(fleetobs=): the fleet observability plane is not '
-        'ported to paddle_tpu_torch yet (ROADMAP Queue 1 step F2)')
-
-
 def serve_telemetry(port=0, host='127.0.0.1', fleetobs=None):
-    """Start a telemetry server (daemon thread) and return it. Returns
-    ``NULL_SERVER`` when observability is disabled — fully inert.
-    ``fleetobs=`` (the reference's fleet face) raises: step F2."""
-    if fleetobs is not None:
-        raise _fleet_deferred()
+    """Start a telemetry server (daemon thread) and return it. Attaching a
+    ``FleetObs`` plane (``fleetobs=``) turns this server into the fleet
+    face: federated ``/metrics``, ``/debug/fleet``, stitched
+    ``/debug/requests?id=``. Returns ``NULL_SERVER`` when observability is
+    disabled — fully inert."""
     if not cfg.enabled:
         return NULL_SERVER
     srv = TelemetryServer(port=port, host=host, fleetobs=fleetobs).start()

@@ -67,8 +67,10 @@ The port needs no padding to block multiples (the reference's
 ``_pad_seq``): the kernels and the twins mask the ragged edge of the key
 range themselves.
 """
+import contextlib
 import ctypes
 import math
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -742,10 +744,50 @@ def _decode_launch(q, k, v, pos, ks=None, vs=None):
     return out, INSTANCE[flag.value]
 
 
+_launch_lock = threading.Lock()
+_tally = threading.local()
+
+
+def add_launches(kernel, **counts):
+    """Add ``counts`` (counter name -> launches: ``launches`` and the
+    instance counters) to a kernel wrapper's counters. While this thread
+    captures a CUDA graph they go to the capture's tally instead (see
+    ``tally``). Safe across threads: replicas launch and replay on
+    scheduler threads of their own."""
+    tl = getattr(_tally, 'counts', None)
+    if tl is not None:
+        for a, n in counts.items():
+            tl[(kernel, a)] = tl.get((kernel, a), 0) + n
+        return
+    with _launch_lock:
+        for a, n in counts.items():
+            setattr(kernel, a, getattr(kernel, a) + n)
+
+
+def add_tally(counts):
+    """Add a capture's tally ((wrapper, counter) -> launches) to the
+    counters: what one replay of its graph launches."""
+    with _launch_lock:
+        for (kernel, a), n in counts.items():
+            setattr(kernel, a, getattr(kernel, a) + n)
+
+
+@contextlib.contextmanager
+def tally():
+    """Collect this thread's launches into the yielded dict ((wrapper,
+    counter) -> launches) instead of the counters: a capture launches
+    nothing, its replays do. Other threads count as before."""
+    prev = getattr(_tally, 'counts', None)
+    _tally.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _tally.counts = prev
+
+
 def _count(kernel, inst):
-    kernel.launches += 1
-    kernel.split_launches += inst == 'split-k'
-    kernel.tc_launches += inst == 'tensor-core'
+    add_launches(kernel, launches=1, split_launches=int(inst == 'split-k'),
+                 tc_launches=int(inst == 'tensor-core'))
 
 
 def flash_decode(q, k_cache, v_cache, pos):
@@ -815,8 +857,7 @@ def flash_fwd(q, k, v, causal, q_off=0, kv_valid=None, kmask=None,
             _DTYPE_CODE[q.dtype], *_drop_args(drop_rate, seed),
             ctypes.byref(tc), _stream(dev))
     _launch_done(lib, err, 'flash_fwd')
-    flash_fwd.launches += 1
-    flash_fwd.tc_launches += tc.value
+    add_launches(flash_fwd, launches=1, tc_launches=tc.value)
     return out, lse
 
 
@@ -874,8 +915,7 @@ def flash_bwd_dq(q, k, v, g, lse, delta, causal, q_off=0, kv_valid=None,
     those of the tensor-core kernel."""
     (dq,), tc = _bwd_launch('flash_bwd_dq', q, k, v, g, lse, delta, causal,
                             q_off, kv_valid, kmask, drop_rate, seed)
-    flash_bwd_dq.launches += 1
-    flash_bwd_dq.tc_launches += tc
+    add_launches(flash_bwd_dq, launches=1, tc_launches=tc)
     return dq
 
 
@@ -895,8 +935,7 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, causal, q_off=0, kv_valid=None,
     (dk, dv), tc = _bwd_launch('flash_bwd_dkv', q, k, v, g, lse, delta,
                                causal, q_off, kv_valid, kmask, drop_rate,
                                seed)
-    flash_bwd_dkv.launches += 1
-    flash_bwd_dkv.tc_launches += tc
+    add_launches(flash_bwd_dkv, launches=1, tc_launches=tc)
     return dk, dv
 
 

@@ -271,17 +271,25 @@ def _sm_count(dev):
 
 
 def _tickets(dev, n):
-    """At least ``n`` int32 zeros on ``dev`` for the split-K decode's merge
-    on the current stream, kept across calls (each launch leaves them zero;
-    one buffer a stream, so launches that may overlap never share one). A
-    buffer outgrown by a larger launch stays allocated: a captured CUDA
-    graph may hold its address."""
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
-    bufs = _ticket_bufs.setdefault(key, [])
-    if not bufs or bufs[-1].numel() < n:
-        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
-                                device=dev))
-    return bufs[-1]
+    """At least ``n`` int32 zeros on ``dev`` for the split-K decode's merge,
+    kept across calls (each launch leaves them zero). Launches that may
+    overlap never share a buffer. A stream has two: one for its eager
+    launches, which run in its order, and one for the launches captured
+    on it, which every graph captured there holds. Those graphs replay
+    one after another on the replaying thread's stream (the default one),
+    and may run beside an eager launch on the capture stream (another
+    engine's warm-up runs). An eager launch grows both buffers, so the
+    capture that follows a warm-up allocates nothing. A buffer outgrown
+    by a larger launch stays allocated: a captured graph may hold its
+    address."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    captured = torch.cuda.is_current_stream_capturing()
+    for kind in ((True,) if captured else (False, True)):
+        bufs = _ticket_bufs.setdefault((dev, stream, kind), [])
+        if not bufs or bufs[-1].numel() < n:
+            bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
+                                    device=dev))
+    return _ticket_bufs[(dev, stream, captured)][-1]
 
 
 def split_scratch(b, t, h, h_kv, d, p_max, dev):

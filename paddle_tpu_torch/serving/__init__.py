@@ -31,9 +31,21 @@ pool)::
 
 ``GenerationEngine(..., precision='int8_wo')`` serves weight-only int8
 matrices; ``prefix_cache=True`` reuses the KV pages of earlier requests
-(``PrefixCache``). The fleet router, the model host and sharded serving
-are not ported yet: their names exist and raise citing ROADMAP Queue 1
-steps F and K.
+(``PrefixCache``).
+
+The control planes: ``ReplicaSet`` / ``FleetRouter`` / ``Autoscaler``
+(``fleet.py``: replicas of one model behind one front door, failover,
+shedding, warm scale-up) and ``ModelHost`` (``host.py``: several models
+under one device-memory watermark, LRU eviction and swap-in, lanes and
+tenant quotas, ``model@host`` targets)::
+
+    rs = serving.ReplicaSet(lambda: serving.GenerationEngine(
+        params, cfg, num_slots=8, page_size=128), initial=2)
+    router = serving.FleetRouter(rs)
+    toks = router.submit(prompt_ids, max_new_tokens=32).result()
+
+Sharded serving is not ported yet: its names exist and raise citing
+ROADMAP Queue 1 step K.
 """
 from .. import _deferred
 from .bucketing import (bucket_for, bucket_sizes, input_signature,  # noqa: F401
@@ -45,13 +57,11 @@ from .metrics import ServingStats  # noqa: F401
 from .engine import InferenceEngine  # noqa: F401
 from .generation import GenerationEngine, GenerationFuture  # noqa: F401
 from .prefix_cache import PrefixCache  # noqa: F401
+from .host import (HostedModel, ModelHost, get_host,  # noqa: F401
+                   resolve_target)
+from .fleet import (Autoscaler, FleetRouter, Replica,  # noqa: F401
+                    ReplicaSet)
 
-_deferred.install(
-    globals(), 'is not ported yet (ROADMAP Queue 1 step F: fleet serving '
-    'and the model host)',
-    functions=('get_host', 'resolve_target'),
-    classes=('ReplicaSet', 'FleetRouter', 'Autoscaler', 'Replica',
-             'ModelHost', 'HostedModel'))
 _deferred.install(
     globals(), 'is not ported yet (ROADMAP Queue 1 step K: mesh-sharded '
     'serving)',

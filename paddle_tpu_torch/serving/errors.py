@@ -46,8 +46,7 @@ class EngineClosedError(RuntimeError):
 class HBMAdmissionError(RuntimeError):
     """A ModelHost refused to admit a model: its device-memory footprint
     plus live usage does not fit under the host watermark, and no cold
-    model was left to evict. (The model host itself waits for ROADMAP
-    Queue 1 step F; the error type is what callers catch.)"""
+    model was left to evict."""
 
     def __init__(self, model, needed_bytes, free_bytes, watermark_bytes):
         super().__init__(

@@ -430,7 +430,8 @@ class GenerationEngine:
         with self._lock:
             depth = len(self._queue)
             closed = self._closed
-        warm = self._warmed
+        # warm: warmup() ran, or traffic has captured both functions
+        warm = self._warmed or len(self._fns) == 2
         breaker = self._breaker.state
         ready = (warm and breaker == 'closed'
                  and depth < self.queue_capacity and not closed)
@@ -674,7 +675,8 @@ class GenerationEngine:
 
     # ---- admission -------------------------------------------------------
     def submit(self, prompt, max_new_tokens=32, deadline_ms=None, seed=0,
-               tenant='default'):
+               tenant='default', *, _record=None, _enqueue_t=None,
+               _deadline_t=_UNSET):
         """Enqueue one sequence. ``prompt`` is a 1-D token id sequence of
         length 1..prefill_width; returns a ``GenerationFuture``. Tokens
         stop at ``eos_id`` (emitted), ``max_new_tokens``, or the context
@@ -682,7 +684,13 @@ class GenerationEngine:
         ``tenant`` namespaces the prefix cache: KV pages are only ever
         reused within one tenant's own traffic. A deadline that has
         already passed raises ``DeadlineExceededError`` here instead of
-        queueing."""
+        queueing.
+
+        The underscore params are the fleet router's resubmission hooks:
+        a failed-over request keeps its original ``RequestRecord``,
+        submit-time enqueue timestamp, and absolute deadline, so
+        queue-wait accounting and deadline enforcement stay truthful
+        across replicas (timestamps from this engine's clock domain)."""
         arr = np.asarray(prompt, dtype=np.int32).reshape(-1)
         t0 = int(arr.size)
         if not 1 <= t0 <= self.prefill_width:
@@ -697,21 +705,30 @@ class GenerationEngine:
         deadline_ms = (deadline_ms if deadline_ms is not None
                        else self.default_deadline_ms)
         now = self._clock()
-        deadline_t = (now + deadline_ms / 1e3
-                      if deadline_ms is not None else None)
+        enqueue_t = _enqueue_t if _enqueue_t is not None else now
+        if _deadline_t is not _UNSET:
+            deadline_t = _deadline_t
+        else:
+            deadline_t = (now + deadline_ms / 1e3
+                          if deadline_ms is not None else None)
         fut = GenerationFuture()
-        rec = _obs.start_request('gen', engine=self.labels['engine'],
-                                 prompt_len=t0, max_new=eff)
+        if _record is not None:
+            rec = _record
+        else:
+            rec = _obs.start_request('gen', engine=self.labels['engine'],
+                                     prompt_len=t0, max_new=eff)
         fut.request_id = rec.rid
         if deadline_t is not None and now >= deadline_t:
             # already unmeetable: fail fast instead of queueing a request
             # the admitter would only expire after it reached a slot
-            err = DeadlineExceededError(0.0, float(deadline_ms))
+            waited = (now - enqueue_t) * 1e3
+            limit = (deadline_t - enqueue_t) * 1e3
+            err = DeadlineExceededError(waited, limit)
             self._note('expired')
-            rec.note('expire', waited_ms=0.0, fast_fail=True)
+            rec.note('expire', waited_ms=round(waited, 3), fast_fail=True)
             rec.finish('expired', err)
             raise err
-        req = _Request(arr, eff, int(seed) & 0xFFFFFFFF, fut, now,
+        req = _Request(arr, eff, int(seed) & 0xFFFFFFFF, fut, enqueue_t,
                        deadline_t, rec=rec, tenant=str(tenant))
         try:
             with self._cv:
@@ -897,6 +914,8 @@ class GenerationEngine:
         self._h['prefill'].observe(1e3 * (time.perf_counter() - wall0))
         self._n['prefills'] += 1
         with self._cv:
+            if self._slots[idx] is not slot:
+                return      # failed by shutdown(drain=False) meanwhile
             slot.last_tok = tok
             self._emit_locked(slot, tok)
             if self._slot_finished(slot, tok):

@@ -12,6 +12,7 @@ the reference), ERNIE served through the engine, hapi's
 ``serving_engine()`` and ``predict(engine=True)``, and the deferred
 arguments.
 """
+import json
 import math
 import threading
 import time
@@ -391,8 +392,9 @@ def test_bf16_engine_lowers_inputs_and_returns_float32():
 
 
 def test_deferred_arguments_name_their_step():
-    """mesh= / mp> 1 wait for step K, the fleet router, the model host and
-    a fleet plane on the telemetry server for step F (F2);
+    """mesh= / mp> 1 and mesh replicas wait for step K; the fleet router,
+    the model host, the federator and a fleet plane on the telemetry
+    server (step F2) are ported: each constructs and serves;
     ``telemetry_port=`` is ported: the engine serves the plane until its
     shutdown."""
     from paddle_tpu_torch import observability as obs
@@ -408,19 +410,43 @@ def test_deferred_arguments_name_their_step():
     finally:
         eng.shutdown()
     assert eng.telemetry not in obs.servers()
-    with pytest.raises(NotImplementedError, match='step F'):
-        obs.serve_telemetry(port=0, fleetobs=object())
-    for name in ('FleetObs', 'MetricFederator'):
-        with pytest.raises(NotImplementedError, match='step F'):
-            getattr(obs, name)()
     with pytest.raises(NotImplementedError, match='step K'):
         InferenceEngine(net, mp=2)
     with pytest.raises(NotImplementedError, match='step K'):
         InferenceEngine(net, mesh=object())
-    for name, step in (('FleetRouter', 'F'), ('ModelHost', 'F'),
-                       ('MeshReplica', 'K')):
-        with pytest.raises(NotImplementedError, match=f'step {step}'):
-            getattr(serving, name)()
+    with pytest.raises(NotImplementedError, match='step K'):
+        serving.MeshReplica()
+    # step F2: a router over one replica answers, a host serves the same
+    # model, the federator collects both, and the plane serves /debug/fleet
+    rs = serving.ReplicaSet(replicas=[InferenceEngine(
+        net, max_batch_size=4, max_delay_ms=0.5)])
+    router = serving.FleetRouter(rs, tick_s=0.01)
+    host = serving.ModelHost(hbm_watermark_bytes=1 << 26, name='deferral')
+    fobs = obs.FleetObs(name='deferral').watch_router(router) \
+        .watch_host(host)
+    srv = obs.serve_telemetry(port=0, fleetobs=fobs)
+    try:
+        host.deploy('mlp', lambda: InferenceEngine(net, max_batch_size=4,
+                                                   max_delay_ms=0.5))
+        want = _fwd(port, net, _x(3))
+        np.testing.assert_allclose(router.submit(_x(3)).result(timeout=60),
+                                   want, rtol=1e-6)
+        np.testing.assert_allclose(
+            router.submit(_x(3), target='mlp@deferral').result(timeout=60),
+            want, rtol=1e-6)
+        snap = obs.MetricFederator(name='deferral').add_replica_set(rs) \
+            .add_host(host).collect()
+        assert snap.aggregate('serve_requests_submitted') == 2
+        import urllib.request
+        with urllib.request.urlopen(srv.url + '/debug/fleet',
+                                    timeout=30) as r:
+            table = json.loads(r.read())
+        assert len(table['replicas']) == 1
+        assert table['hosts'][0]['resident'] == ['mlp']
+    finally:
+        srv.stop()
+        router.close()
+        host.close()
 
 
 # ---------------------------------------------------------------------------

@@ -265,7 +265,13 @@ def _mlp(P, out=4):
                            P.nn.Linear(16, out))
 
 
-def test_serving_buckets_counted_at_warmup_and_joined_in_steady_state():
+def test_serving_buckets_counted_at_warmup_and_joined_in_steady_state(
+        monkeypatch):
+    # the bucket-4 forward is 1,536 FLOPs: at the CPU row's nominal 1e12
+    # FLOP/s the gauge (rounded to 6 places) reads 0 for any batch slower
+    # than ~3 ms, which a loaded host gives. A nominal peak of 1e9 keeps
+    # the join visible up to ~50 minutes a batch.
+    monkeypatch.setenv(perf.ENV_PEAK_FLOPS, '1e9')
     ref.seed(0)
     rnet = _mlp(ref)
     net = _mlp(port)
