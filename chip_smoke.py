@@ -4,7 +4,13 @@
     python3 chip_smoke.py [--report PATH]
 
 Phases, all of them on every run, in order; any failure raises and exits
-non-zero:
+non-zero. Each phase prints its wall seconds on a line of its own as it
+ends ("phase N: S s"; the report's ``phase_seconds``), and a line before
+the card's names the total and the longest phases. Some earlier paths run
+cut to keep the whole run inside its time budget (MOE_SERVE_LAYERS,
+FP8_RUNG_LAYERS, MOE_FP8_LAYERS, CURVE_STEPS, PREDICTOR_LAYERS,
+TIMED_ITERS); each is driven as before and its launch checks are computed
+from the cut depth:
  1. the card: nvidia-smi name and power limit, torch's device name/count;
  2. build every kernel of the port from the sources in the checkout, one
     nvcc (sm_90a) for each source, all started together, and beside them
@@ -85,7 +91,7 @@ non-zero:
     24, flash_bwd_dkv 24, every flash_fwd, flash_bwd_dq and flash_bwd_dkv
     launch on the tensor-core instance; the loss finite and falling;
 12. the train step card against CPU at 2 layers in float32: the first
-    step's gradients and a 6-step loss curve, dropout 0 and 0.1;
+    step's gradients and a 3-step loss curve, dropout 0 and 0.1;
 13. GenerationEngine(model, precision='int8_wo') at full width with the
     requests of phase 4, on captured graphs, over the bf16 pool and then
     the int8 pool: paged_decode / paged_decode_int8 launches == 24 x
@@ -118,18 +124,18 @@ non-zero:
     x10): the int8_wo engine's and int8 generate()'s greedy streams equal,
     the prefix-cache engine's cold and warm waves equal.
 17. the MoE GPT at MoEConfig()'s full width (vocab 50304, hidden 768, 12
-    layers, 12 heads, 8 experts, FFN 3072, bf16 over f32 params, 520.9M
-    parameters, random weights from a seed): GenerationEngine((params,
+    heads, 8 experts, FFN 3072, bf16 over f32 params) cut to 4 of its 12
+    layers (random weights from a seed): GenerationEngine((params,
     cfg), num_slots=8, page_size=128) with phase 4's requests, all queued
     before the scheduler starts (a MoE step routes its slots together),
     eager then on its two captured graphs, streams equal, over the bf16
     pool, the int8 pool and with precision='int8_wo': paged_decode /
-    paged_decode_int8 launches == 12 x (prefills + steps), prefills
+    paged_decode_int8 launches == 4 x (prefills + steps), prefills
     tensor-core and steps split-K; tokens/s, TTFT p50, mean step, a
     profiled rerun's busy share; then moe_gpt.generate() at B=8, T0=128,
     128 greedy tokens, bf16 and int8 cache, captured and eager:
-    flash_decode / flash_decode_int8 launches == 12 x 128 (12 prefill
-    launches tensor-core, 12 x 127 steps split-K), tokens equal;
+    flash_decode / flash_decode_int8 launches == 4 x 128 (4 prefill
+    launches tensor-core, 4 x 127 steps split-K), tokens equal;
 18. the MoE train step at full width: [8, 1024], AdamW(2e-4,
     weight_decay=0.01), remat on, dropout 0, the full-logits loss (50304
     is not a multiple of xent_chunk 8192); 2 warm-up and 6 timed steps:
@@ -140,7 +146,7 @@ non-zero:
 19. MoE card against CPU at 2 layers in f32: engine streams equal at the
     default capacity with prompts that fill the prefill width and with
     ragged prompts at capacity factor 8, generate() streams equal, the
-    first train step's gradients and a 6-step loss curve within phase
+    first train step's gradients and a 3-step loss curve within phase
     12's tolerances, and the gather-form moe_ffn on the card within 1e-5
     of the reference's einsum form on the card at [8, 1024] rows;
 20. the eager Paddle API (``import paddle_tpu_torch as paddle``) on the
@@ -166,21 +172,23 @@ non-zero:
     times of the product alone, a bf16 torch.matmul of the same shape, the
     forward's quantize ops, the fp8 forward and the twin's, with TFLOP/s
     and the bound (flops / 1,979 TFLOP/s or bytes / 3.35 TB/s);
-22. bench.py _child_fp8_train as it is: the bench GPT (bf16, flash, remat
-    'dots', xent_chunk 8192), [8, 1024], AdamW(1e-4), matmul_precision
-    'none' then 'fp8', 2 warm-up and 8 timed steps each:
+22. bench.py _child_fp8_train with the bench GPT (bf16, flash, remat
+    'dots', xent_chunk 8192) cut to 8 of its 24 layers, [8, 1024],
+    AdamW(1e-4), matmul_precision 'none' then 'fp8', 2 warm-up and 8 timed
+    steps each:
     base_tokens_per_sec, fp8_tokens_per_sec, fp8_speedup; step ms, peak
     memory, a profiled window's busy share and device ms by kind (fp8
     GEMMs, bf16 GEMMs, attention, the rest), host syncs a step (the fp8
-    step no more than the plain one); flash_fwd 48, flash_bwd_dq 24,
-    flash_bwd_dkv 24 a step, all tensor-core; 12 x 24 fp8 products a step
+    step no more than the plain one); flash_fwd 16, flash_bwd_dq 8,
+    flash_bwd_dkv 8 a step, all tensor-core; 12 x 8 fp8 products a step
     launch a kernel (4 matmuls x forward, dx, dw; the profiler's
-    aten::_scaled_mm calls) and 16 x 24 are requested (fp8.scaled_mm_calls:
+    aten::_scaled_mm calls) and 16 x 8 are requested (fp8.scaled_mm_calls:
     the 'dots' recompute's forward products, answered by its cache);
     losses finite and falling;
-23. phase 18's MoE train step with matmul_precision='fp8': kernels 1-3 as
-    phase 18, 8 x 12 fp8 products a step (qkv and proj: forward, the
-    whole-block recompute, dx, dw), the loss falling; tokens/s, step ms;
+23. phase 18's MoE train step with matmul_precision='fp8', cut to 4 of its
+    12 layers: flash_fwd 8, flash_bwd_dq 4, flash_bwd_dkv 4 a step, 8 x 4
+    fp8 products a step (qkv and proj: forward, the whole-block
+    recompute, dx, dw), the loss falling; tokens/s, step ms;
 24. fp8 training card against CPU at 2 layers in f32 (GPT as phase 12,
     MoE as phase 19) from a warm fp8 state: each fp8 product of the first
     step run again from its recorded inputs on the card and by the CPU
@@ -188,7 +196,7 @@ non-zero:
     of the largest value, the product's and the step's new scales and
     histories equal to the twin's; end to end the first loss within 1e-3
     (relative), the new w scales 1e-5, each gradient's cosine >= 0.9 and
-    norm ratio <= 1.25, each of 6 steps' losses against the CPU's at the
+    norm ratio <= 1.25, each of 3 steps' losses against the CPU's at the
     card's parameters and state within 1e-3 (MoE 2e-3); the fp8 and
     full-width curves of tests/test_precision.py's _gpt_curve setup on the
     card within 5e-3 (at hidden 1024 the gap printed); auto_cast(dtype=
@@ -267,10 +275,11 @@ non-zero:
     traffic's busy share (profiled), peak memory, one bucket-64 forward's
     device ms by kind (GEMMs, kernel 1, casts, the readback, the rest);
     outputs against the Layer's within 2^-6 a row; the Predictor over
-    jit.save's files with attach_layer, one request at a time
-    (requests/s); the layer-free Predictor over the .pt2 program at batch
-    1 and 16 (within 2^-6 a row of the Layer, 12 kernel-1 launches a
-    call) and its p50 at batch 1; bench.py's _child_predictor (resnet18
+    jit.save's weights with attach_layer, one request at a time
+    (requests/s); the layer-free Predictor over the .pt2 program of ERNIE
+    at full width and 2 layers (jit.save timed) at batch 1 and 16 (within
+    2^-6 a row of its Layer, 2 kernel-1 launches a call) and its p50 at
+    batch 1; bench.py's _child_predictor (resnet18
     layer-free p50, a chain's device ms at batch 1, 8, 32) and
     _child_serve_int8wo (f32 against int8_wo p50, captures within the
     ladder); tools/warmup_check.py's cold start over ERNIE-base at
@@ -348,7 +357,37 @@ non-zero:
     zeroed before each of (a)-(d) and read after: kernel 6 launches ==
     24 x (the engines' prefills + steps) + 24 x 6 for each warm-up
     (2 eager runs and a replay for each of the two captures), kernel 1
-    in (d) 12 x (the batch + 3 for the bucket's warm-up).
+    in (d) 12 x (the batch + 3 for the bucket's warm-up);
+36. detection and OCR at full width (the reference classes' defaults,
+    random weights from paddle.seed(0), each part's seconds printed): (a)
+    PPYOLOE() (80 classes, width 32, reg_max 16, 8,400 anchors) at [8, 3,
+    640, 640] f32 with TF32 off, 5 Adam steps of net.loss(net(x), ...) on
+    synthetic boxes (up to 16 an image, examples/train_detection.py's),
+    the loss finite: step ms, images/s, peak memory, a profiled step's
+    device ms by kind (convs, BatchNorm, the TAL assign, the rest); (b)
+    the served detector (decode, the best score, nms_static(iou 0.5,
+    max_out 100, unroll=True)) through jit.save at [1, 3, 640, 640]:
+    the export's seconds (under 30), exactly one nms_static node in the
+    program, the layer-free Predictor's keep and valid equal to the
+    Layer's and its boxes and scores within 2e-5, its p50 at batch 1;
+    nms_static launches 1 for the Layer and 1 a Predictor run; (c) the
+    NMS kernel (csrc/nms.cu) against its twin exactly, at the served
+    decode's 8,400 boxes, a dense-overlap case and with category_idxs:
+    the kernel's device ms, the operator's, the twin's and the bound; (d)
+    SVTRLite() and CRNN() at [64, 1, 32, 320] (80 time steps), 5 Adam
+    steps of nn.CTCLoss on glyph strips (examples/train_ocr.py's), the
+    loss finite and falling, step ms, peak memory, an eval forward at
+    batch 1 and 64;
+37. this slice card against CPU in float32 (TF32 off): PPYOLOE(
+    num_classes=4, width=8, reg_max=8) at [2, 3, 64, 64] with its decode,
+    SVTRLite(num_classes=12, dim=32, num_heads=2) and CRNN(num_classes=
+    11) at [2, 1, 32, 64] with nn.CTCLoss from the same weights: eval
+    outputs, the train-mode loss and every gradient within 2e-5 of the
+    part's largest value beyond 4 x the card's own move under a 1e-7
+    nudge of the input; the vision-op table of tests/torch_vision_cases.py
+    and the detection losses within 2e-5; nms_static and nms over its NMS
+    cases (ties, categories, max_out below and above the count, dense
+    overlap, 2,100 boxes) exactly equal.
 Phase 3 also holds every kernel at the MoE paths' shapes (12 heads of 64),
 kernels 1-3 at phase 25's (B=8, S=512, 12 heads of 64, its key-padding
 mask, dropout 0 and 0.1), and kernel 1 at phase 31's serving shapes (B 64
@@ -358,13 +397,15 @@ set to 0 just before each main-path run (phases 4, 6, 7, 9, 11, 13, 14,
 in 27 also before evaluate and each predict, in 31 before the engine's
 traffic, the Predictor's and each layer-free call, in 33 before the
 TranslatedLayer step, in 34 before the engine's traffic and before the
-profiled traffic, in 35 before each of (a)-(d)) and read just after. Then one line of kernel records
+profiled traffic, in 35 before each of (a)-(d), in 36 before the served
+Layer's call and the Predictor's runs) and read just after. Then one line of kernel records
 (JSON), and the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card, or without the rest of the repository beside it, it
 exits non-zero and prints no result.
 """
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -388,13 +429,24 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
 # see hundreds of keys read ~0.05 while pos-0 rows read ~3, so one flat
 # absolute limit would be loose for the first and tight for the second.
 TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 2e-5}
-TIMED_ITERS = 240                  # launches per kernel timing
+TIMED_ITERS = 60                   # launches per kernel timing (cut from
+                                   # 240 for the time budget)
 LAYERS = 24                        # timing rotates over one pool per layer,
                                    # as the engine does (each call finds its
                                    # pages cold in L2)
 
 
-SOURCES = ('paged_decode', 'flash_decode', 'flash_fwd', 'flash_bwd')
+# Cuts that keep the whole run inside its time budget (<= 700 s on one
+# H100): every path is still driven and every kernel held against
+# its twin, at a smaller depth or with fewer steps; each launch check is
+# computed from the cut depth.
+MOE_SERVE_LAYERS = 4       # phase 17's MoE serving (MoEConfig(): 12)
+FP8_RUNG_LAYERS = 8        # phase 22's fp8 rung (the bench GPT: 24)
+MOE_FP8_LAYERS = 4         # phase 23's MoE fp8 train step (12)
+CURVE_STEPS = 3            # phases 12, 19, 24: card-vs-CPU loss curves (6)
+PREDICTOR_LAYERS = 2       # phase 31's layer-free Predictor program (12)
+
+SOURCES = ('paged_decode', 'flash_decode', 'flash_fwd', 'flash_bwd', 'nms')
 SOURCE_OF = {   # kernel -> its source; kernels sharing a template share one
     'paged_decode': 'paddle_tpu_torch/csrc/paged_decode.cu',
     'paged_decode_int8': 'paddle_tpu_torch/csrc/paged_decode.cu',
@@ -403,6 +455,7 @@ SOURCE_OF = {   # kernel -> its source; kernels sharing a template share one
     'flash_fwd': 'paddle_tpu_torch/csrc/flash_fwd.cu',
     'flash_bwd_dq': 'paddle_tpu_torch/csrc/flash_bwd.cu',
     'flash_bwd_dkv': 'paddle_tpu_torch/csrc/flash_bwd.cu',
+    'nms_static': 'paddle_tpu_torch/csrc/nms.cu',
 }
 REPLACES = {    # the TPU kernel each one ports
     'paged_decode': 'paddle_tpu/ops/paged_attention.py:70',
@@ -412,6 +465,8 @@ REPLACES = {    # the TPU kernel each one ports
     'flash_fwd': 'paddle_tpu/ops/flash_attention.py:236',
     'flash_bwd_dq': 'paddle_tpu/ops/flash_attention.py:427',
     'flash_bwd_dkv': 'paddle_tpu/ops/flash_attention.py:479',
+    'nms_static': 'paddle_tpu/vision/ops.py:22 nms_static (XLA fori_loop; '
+                  'not a Pallas kernel)',
 }
 
 
@@ -1649,12 +1704,15 @@ def generate_run(gpt, m, prompt, new, kname, kernels, card, what):
     if inst != want:
         raise AssertionError(f'generate {what} {mode}: {kname} instances '
                              f'{inst}, want {want}')
-    # once more, uncounted: how far one run's time is from the next
-    again, wall2 = timed(lambda: m.generate(prompt, max_new_tokens=new,
-                                            temperature=0))
-    if not torch.equal(again, out):
-        raise AssertionError(f'generate {what} {mode}: a second run gave '
-                             'other tokens')
+    # once more, uncounted: how far one run's time is from the next (on
+    # graphs only: an eager run takes ~4 s at full width)
+    wall2 = None
+    if m._capture:
+        again, wall2 = timed(lambda: m.generate(prompt, max_new_tokens=new,
+                                                temperature=0))
+        if not torch.equal(again, out):
+            raise AssertionError(f'generate {what} {mode}: a second run gave '
+                                 'other tokens')
     # the same run in its two parts: the model's prefill and loop, each
     # timed to a synchronize
     entry = m._decode_entry(b, t0, 0, None, None, False)
@@ -1677,8 +1735,9 @@ def generate_run(gpt, m, prompt, new, kname, kernels, card, what):
     prof = rec['profile'] = profile_window(lambda: entry['loop'](
         entry['params'], first, pos0, entry['cache'], None, 16))
     prof['kernel_ms'] = kernel_ms(prof, 'split_kernel', 'attn_tile_kernel')
+    again_s = '' if wall2 is None else f' (again: {wall2:.3f} s)'
     print(f'  generate {what} {mode}: {b} x {new} tokens in {wall:.3f} s'
-          f' (again: {wall2:.3f} s); {rec["tokens_per_s"]:.1f} tokens/s, '
+          f'{again_s}; {rec["tokens_per_s"]:.1f} tokens/s, '
           f'prefill {rec["prefill_ms"]:.2f} ms, mean step '
           f'{rec["step_ms_mean"]:.2f} ms; {kname} instances {inst} '
           f'[{card}]', flush=True)
@@ -2153,7 +2212,7 @@ def phase_train_card_vs_cpu(gpt, topt):
             state = opt.functional_init(p)
             step = gpt.make_train_step(cfg, opt)
             curve = []
-            for i in range(6):
+            for i in range(CURVE_STEPS):
                 loss, p, state = step(p, state, seeds[i + 1], 1e-3, t, y)
                 curve.append(float(loss))
             curves[dev] = curve
@@ -2164,7 +2223,8 @@ def phase_train_card_vs_cpu(gpt, topt):
         ok = (g_err <= TRAIN_GRAD_TOL and l_err <= TRAIN_LOSS_TOL
               and curves['cpu'][-1] < curves['cpu'][0])
         print(f'  train card vs cpu (2 layers, f32, dropout {drop}): grads '
-              f'{g_err:.2e} (tol {TRAIN_GRAD_TOL:g}), 6-step losses '
+              f'{g_err:.2e} (tol {TRAIN_GRAD_TOL:g}), {CURVE_STEPS}-step '
+              f'losses '
               f'{l_err:.2e} (tol {TRAIN_LOSS_TOL:g}): card '
               f'{" ".join(f"{x:.5f}" for x in curves["cuda"])} '
               f'{"OK" if ok else "FAIL"}', flush=True)
@@ -2683,7 +2743,7 @@ def phase_moe_serving(moe, GenerationEngine, kernels, card):
     moe_gpt.generate() at B=8, T0=128, 128 greedy tokens, bf16 and int8
     cache, captured and eager, tokens equal."""
     from paddle_tpu_torch.models.decode_cache import clear_decode_caches
-    cfg = moe.MoEConfig()
+    cfg = moe.MoEConfig(num_layers=MOE_SERVE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     params = moe.init_params(cfg, torch.Generator(device='cuda').manual_seed(
         0), 'cuda')
@@ -2876,7 +2936,7 @@ def phase_moe_card_vs_cpu(moe, GenerationEngine, topt):
         state = opt.functional_init(p)
         step = moe.make_train_step(tcfg, opt)
         curve = []
-        for i in range(6):
+        for i in range(CURVE_STEPS):
             loss, p, state = step(p, state, 0, 1e-3, t, y)
             curve.append(float(loss))
         curves[dev] = curve
@@ -2887,7 +2947,8 @@ def phase_moe_card_vs_cpu(moe, GenerationEngine, topt):
     ok = (g_err <= TRAIN_GRAD_TOL and l_err <= TRAIN_LOSS_TOL
           and curves['cpu'][-1] < curves['cpu'][0])
     print(f'  moe train card vs cpu (2 layers, f32): grads {g_err:.2e} (tol '
-          f'{TRAIN_GRAD_TOL:g}), 6-step losses {l_err:.2e} (tol '
+          f'{TRAIN_GRAD_TOL:g}), {CURVE_STEPS}-step losses {l_err:.2e} '
+          f'(tol '
           f'{TRAIN_LOSS_TOL:g}): card '
           f'{" ".join(f"{x:.5f}" for x in curves["cuda"])} '
           f'{"OK" if ok else "FAIL"}', flush=True)
@@ -3388,7 +3449,8 @@ def phase_fp8_train(gpt, topt, kernels, card):
     cache answers them: 16 x L requested."""
     res = {}
     for prec in ('none', 'fp8'):
-        cfg = bench_config(gpt, remat=True, matmul_precision=prec)
+        cfg = bench_config(gpt, remat=True, matmul_precision=prec,
+                           num_layers=FP8_RUNG_LAYERS)
         L = cfg.num_layers
         per_step = {'flash_fwd': 2 * L, 'flash_bwd_dq': L,
                     'flash_bwd_dkv': L}
@@ -3422,7 +3484,8 @@ def phase_moe_fp8_train(moe, topt, kernels, card):
     """Phase 23: phase 18's MoE train step with matmul_precision='fp8':
     qkv and proj on the fp8 tensor cores, each run forward, again in the
     whole-block recompute, dx and dw: 8 x L products a step."""
-    cfg = moe.MoEConfig(remat=True, matmul_precision='fp8')
+    cfg = moe.MoEConfig(remat=True, matmul_precision='fp8',
+                        num_layers=MOE_FP8_LAYERS)
     L = cfg.num_layers
     per_step = {'flash_fwd': 2 * L, 'flash_bwd_dq': L, 'flash_bwd_dkv': L}
     return fp8_train_run(moe, cfg, topt, kernels, per_step, (8 * L, 8 * L),
@@ -3598,7 +3661,7 @@ def fp8_card_vs_cpu(mod, cfg, params, topt, toks, tgts, what):
     state = opt.functional_init(p)
     step = mod.make_train_step(cfg, opt)
     curve, step_err, step_spread = [], [], []
-    for i in range(6):
+    for i in range(CURVE_STEPS):
         pc, fc = to_dev(p, 'cpu'), to_dev(f8, 'cpu')
         loss, p, state, f8 = step(p, state, f8, 0, 1e-3, t, y)
         with torch.no_grad():
@@ -3643,7 +3706,8 @@ def fp8_card_vs_cpu(mod, cfg, params, topt, toks, tgts, what):
           f'(bar {bars["grad_norm_ratio"]}); x scales {errs["x_scale"]:.2e} '
           f'[{spread["x_scale"]:.2e}], g scales {errs["g_scale"]:.2e} '
           f'[{spread["g_scale"]:.2e}] (printed only)', flush=True)
-    print(f'    6 steps: card {" ".join(f"{x:.5f}" for x in curve)}; each '
+    print(f'    {CURVE_STEPS} steps: card '
+          f'{" ".join(f"{x:.5f}" for x in curve)}; each '
           f'against the cpu at its parameters '
           f'{" ".join(f"{x:.1e}" for x in step_err)} '
           f'[{" ".join(f"{x:.1e}" for x in step_spread)}] (bar '
@@ -4425,36 +4489,41 @@ def _events_device_ms(events, pick):
     return sum(e.device_time_total for e in events if pick(e)) / 1e3
 
 
-def profile_vision_step(paddle, model, inputs, labels):
-    """One hapi train step of ``model`` (under the caller's amp), its two
-    parts profiled apart: the forward and backward (``_loss_and_grads``)
-    and the update (``_apply``, the optimizer). Device ms by kind: cuDNN's
-    convolutions (the kernels of ``aten::cudnn_convolution`` and
-    ``aten::convolution_backward``), BatchNorm (its layers' forward, in
-    record_function ranges, and the backward nodes of the ops inside them,
-    matched by autograd sequence number), the GEMMs (the fc), the rest of
-    the forward and backward (ReLU, the residual adds, pooling, the loss),
-    and the optimizer's window."""
+@contextlib.contextmanager
+def tagged_profile(paddle, tags=()):
+    """torch.profiler over the body, with every BatchNorm layer's forward
+    in a ``paddle::batch_norm`` range and each (module, name) of ``tags``
+    wrapped in a ``paddle::<name>`` range. Yields (the profiler, the start
+    time); the profiler's ``kernels`` are the device events, set on exit."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    nn = paddle.nn
-    bn_cls = nn.layer_norm_layers._BatchNormBase
-    bn_forward = bn_cls.forward
+    bn_cls = paddle.nn.layer_norm_layers._BatchNormBase
+    saved = [(bn_cls, 'forward', bn_cls.forward)] + [
+        (mod, name, getattr(mod, name)) for mod, name in tags]
 
-    def tagged(self, x):
-        with record_function('paddle::batch_norm'):
-            return bn_forward(self, x)
-    out = {}
-    bn_cls.forward = tagged
+    def ranged(fn, label):
+        def run(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return run
+    bn_cls.forward = ranged(bn_cls.forward, 'paddle::batch_norm')
+    for mod, name, fn in saved[1:]:
+        setattr(mod, name, ranged(fn, f'paddle::{name}'))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as p:
-            t0 = time.perf_counter()
-            _, _, grads = model._loss_and_grads(inputs, labels)
-            torch.cuda.synchronize()
-            grads_wall = time.perf_counter() - t0
+            yield p, time.perf_counter()
     finally:
-        bn_cls.forward = bn_forward
-    events = p.events()
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    p.kernels = [e for e in p.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def tagged_device_ms(events):
+    """(device ms of every kernel, device ms by op (each op's own
+    kernels), BatchNorm's device ms: its forward ranges and the backward
+    nodes of the ops inside them, matched by autograd sequence number, the
+    events)."""
     seqs = set()
     for e in events:
         a = e.cpu_parent
@@ -4462,9 +4531,8 @@ def profile_vision_step(paddle, model, inputs, labels):
             a = a.cpu_parent
         if a is not None and e.sequence_nr >= 0:
             seqs.add(e.sequence_nr)
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    total = sum(e.time_range.elapsed_us() for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     by_op = {}
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA and \
@@ -4475,9 +4543,29 @@ def profile_vision_step(paddle, model, inputs, labels):
     bn += _events_device_ms(events, lambda e: e.name.startswith(
         'autograd::engine::evaluate_function') and e.sequence_nr in seqs
         and any(n in e.name for n in BN_NODES))
+    return total, by_op, bn, events
+
+
+def profile_vision_step(paddle, model, inputs, labels):
+    """One hapi train step of ``model`` (under the caller's amp), its two
+    parts profiled apart: the forward and backward (``_loss_and_grads``)
+    and the update (``_apply``, the optimizer). Device ms by kind: cuDNN's
+    convolutions (the kernels of ``aten::cudnn_convolution`` and
+    ``aten::convolution_backward``), BatchNorm (its layers' forward, in
+    record_function ranges, and the backward nodes of the ops inside them,
+    matched by autograd sequence number), the GEMMs (the fc), the rest of
+    the forward and backward (ReLU, the residual adds, pooling, the loss),
+    and the optimizer's window."""
+    with tagged_profile(paddle) as (p, t0):
+        _, _, grads = model._loss_and_grads(inputs, labels)
+        torch.cuda.synchronize()
+        grads_wall = time.perf_counter() - t0
+    total, by_op, bn, _ = tagged_device_ms(p.events())
+    kernels = p.kernels
     conv = sum(by_op.get(o, 0.0) for o in (
         'aten::cudnn_convolution', 'aten::convolution_backward'))
     gemm = sum(by_op.get(o, 0.0) for o in ('aten::mm', 'aten::addmm'))
+    out = {}
     out['forward_backward'] = {
         'window_ms': grads_wall * 1e3, 'device_ms': total,
         'kernels': len(kernels), 'busy_share': total / (grads_wall * 1e3)}
@@ -4701,6 +4789,24 @@ def phase_resnet_hapi(kernels, card):
 
 VISION_CARD_TOL = 2e-5      # card vs CPU, f32, a part's largest value
 VISION_CARD_STEPS = 3
+NUDGE = 1e-7                # the input's relative move that sets the floor
+NUDGE_SLACK = 4
+
+
+def nudged(x):
+    """``x`` moved by ``NUDGE`` relative, from a fixed seed."""
+    return (x * (1 + NUDGE * np.random.RandomState(5).randn(
+        *x.shape))).astype('float32')
+
+
+def within_nudge_floor(gaps, floor, limits):
+    """Phases 30 and 37: a train-mode BatchNorm over few values turns a
+    1e-7 change of the input into ~1e-5 of the result, so each gap (card
+    against CPU) is held within its tolerance beyond ``NUDGE_SLACK`` x
+    ``floor``, what the card's own result moves when its input is
+    ``nudged``."""
+    return all(gaps[k] <= t + NUDGE_SLACK * floor[k]
+               for k, t in limits.items())
 
 
 def _vision_fit(paddle, C, make, start, dev, xs, ys):
@@ -4813,15 +4919,13 @@ def phase_vision_card_vs_cpu():
             rs = np.random.RandomState(4)
             xs = rs.randn(2 * VISION_CARD_STEPS, *image).astype('float32')
             ys = rs.randint(0, 10, (2 * VISION_CARD_STEPS, 1)).astype('int64')
-            nudged = (xs * (1 + 1e-7 * np.random.RandomState(5).randn(
-                *xs.shape))).astype('float32')
             paddle.set_device('cpu')
             paddle.seed(0)
             start = C.state_of(make(paddle))
             runs = {run: _vision_fit(paddle, C, make, start, dev, data, ys)
                     for run, dev, data in (('cpu', 'cpu', xs),
                                            ('card', 'gpu', xs),
-                                           ('nudged', 'gpu', nudged))}
+                                           ('nudged', 'gpu', nudged(xs)))}
             stats = [k for k in start if k.endswith(('_mean', '_variance'))]
             agree = _vision_agreement(runs['card'], runs['cpu'], start,
                                       stats)
@@ -4829,12 +4933,9 @@ def phase_vision_card_vs_cpu():
                                       stats)
             agree['floor'] = floor
             agreement[name] = agree
-            # a train-mode BatchNorm over few values turns a 1e-7 change of
-            # the input into ~1e-5 of the result: each gap is held within
-            # its tolerance beyond 4 x the card's own move under that change
             limits = {'loss': VISION_CARD_TOL, 'param': VISION_CARD_TOL,
                       'grad': 1e-4, 'stats_first': VISION_CARD_TOL}
-            ok = all(agree[k] <= t + 4 * floor[k] for k, t in limits.items()) \
+            ok = within_nudge_floor(agree, floor, limits) \
                 and len(runs['card'][1][0]) == VISION_CARD_STEPS
             print(f'  {name} hapi card vs CPU ({VISION_CARD_STEPS} steps, '
                   f'f32): losses {agree["loss"]:.2e}, first gradients '
@@ -5056,17 +5157,11 @@ def phase_ernie_serving(kernels, card):
         + f' (total {bprof["device_ms"]:.3f}; readback '
         f'{res["readback_bytes"] / 1e6:.1f} MB of float32)', flush=True)
 
-    # the Predictor: jit.save, then attach_layer one request at a time
+    # the Predictor: jit.save's weights, then attach_layer one request at a
+    # time (no program: attach_layer runs the Layer on graphs)
     tmp = tempfile.mkdtemp(prefix='chip_smoke_ernie_')
     path = os.path.join(tmp, 'ernie')
-    t0 = time.perf_counter()
-    jit.save(net, path, input_spec=[InputSpec([-1, SERVE['s']],
-                                              'int64')] * 3)
-    res['jit_save_s'] = time.perf_counter() - t0
-    with open(path + '.pdmodel') as f:
-        meta = json.load(f)
-    if not (meta.get('exported') and meta.get('poly_batch')):
-        raise AssertionError(f'jit.save: no dynamic program {meta}')
+    jit.save(net, path)
     pred = inference.create_predictor(inference.Config(path + '.pdmodel'))
     pred.attach_layer(ernie.ErnieModel(cfg))
     for n in sorted({r[0].shape[0] for r in reqs}):     # every shape warm
@@ -5086,8 +5181,24 @@ def phase_ernie_serving(kernels, card):
           f'captures, one a row count); the engine '
           f'{res["requests_per_s"] / (len(reqs) / pwall):.2f}x', flush=True)
     del pred
-    # the layer-free Predictor over the .pt2 program
-    lf = inference.create_predictor(inference.Config(path + '.pdmodel'))
+    # the layer-free Predictor over the .pt2 program of ERNIE at full width
+    # and PREDICTOR_LAYERS layers (the export's trace time grows with the
+    # depth: 43.5-76.0 s at 12 layers)
+    paddle.seed(1)
+    lcfg = ernie.ErnieConfig(num_layers=PREDICTOR_LAYERS)
+    lnet = ernie.ErnieModel(lcfg)
+    lnet.eval()
+    lpath = os.path.join(tmp, 'ernie_lf')
+    t0 = time.perf_counter()
+    jit.save(lnet, lpath, input_spec=[InputSpec([-1, SERVE['s']],
+                                                'int64')] * 3)
+    res['jit_save_s'] = time.perf_counter() - t0
+    with open(lpath + '.pdmodel') as f:
+        meta = json.load(f)
+    if not (meta.get('exported') and meta.get('poly_batch')):
+        raise AssertionError(f'jit.save: no dynamic program {meta}')
+    LL = lcfg.num_layers
+    lf = inference.create_predictor(inference.Config(lpath + '.pdmodel'))
     lf_launches = 0
     for n in (1, 16):
         req = serve_requests(cfg.vocab_size, 1, n, n, SERVE['s'], 32, 128,
@@ -5096,11 +5207,11 @@ def phase_ernie_serving(kernels, card):
         out = lf.run(list(req))
         got = launch_counts(kernels)
         expect_launches(f'layer-free Predictor at batch {n}', got,
-                        {'flash_fwd': L})
+                        {'flash_fwd': LL})
         expect_tensor_core(f'layer-free Predictor at batch {n}', kernels)
         lf_launches += got['flash_fwd']
         err = max(row_err(o, w) for o, w in zip(
-            out, layer_outputs(paddle, net, req)))
+            out, layer_outputs(paddle, lnet, req)))
         res[f'layer_free_b{n}_row_err'] = err
         if not err <= SERVE_TOL:
             raise AssertionError(f'layer-free Predictor at batch {n}: row '
@@ -5116,13 +5227,14 @@ def phase_ernie_serving(kernels, card):
     lat.sort()
     res['layer_free'] = {'p50_ms_b1': lat[len(lat) // 2] * 1e3,
                          'launches': lf_launches}
-    print(f'  layer-free Predictor (.pt2, torch.export): batch 1 and 16 vs '
+    print(f'  layer-free Predictor (.pt2, torch.export, ERNIE at hidden '
+          f'{lcfg.hidden_size}, {LL} layers): batch 1 and 16 vs '
           f'the Layer row errors {res["layer_free_b1_row_err"]:.3e}, '
-          f'{res["layer_free_b16_row_err"]:.3e}; {L} kernel-1 launches a '
+          f'{res["layer_free_b16_row_err"]:.3e}; {LL} kernel-1 launches a '
           f'call; p50 {res["layer_free"]["p50_ms_b1"]:.2f} ms at batch 1 '
           f'over {PREDICTOR_P50_CALLS} calls; jit.save '
           f'{res["jit_save_s"]:.1f} s', flush=True)
-    del lf
+    del lf, lnet
     import shutil
     shutil.rmtree(tmp, ignore_errors=True)
 
@@ -6567,6 +6679,545 @@ def fleetobs_run(fobs, promparse, rs, host, moved_rid, card):
 
 
 
+# ---------------------------------------------------------------------------
+# phases 36-37: detection and OCR (PP-YOLOE, SVTR-lite, CRNN), NMS
+# ---------------------------------------------------------------------------
+
+DET = dict(batch=8, size=640, classes=80, max_boxes=16, steps=5, lr=2e-3)
+DET_MAX_OUT = 100            # COCO's detections-per-image cap
+DET_IOU = 0.5
+OCR = dict(batch=64, width=320, steps=5, lr=1e-3)
+PREDICT_ITERS = 20
+NMS_ITERS = 20
+EXPORT_MAX_S = 30.0
+NMS_OPS_PER_PAIR = 14        # the IoU and its compare, f32, csrc/nms.cu
+
+
+def served_detector(paddle, det, max_out=DET_MAX_OUT):
+    """The reference's served detector (examples/train_detection.py,
+    tests/test_detection_train.py): decode, the best score a box,
+    nms_static(unroll=True) over the first image."""
+    class Served(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.det = det
+
+        def forward(self, x):
+            boxes, scores = self.det.decode(self.det(x))
+            best = scores[0].max(axis=-1)
+            keep, valid = paddle.vision.ops.nms_static(
+                boxes[0], best, iou_threshold=DET_IOU, max_out=max_out,
+                unroll=True)
+            return boxes, scores, keep, valid
+    return Served()
+
+
+def profile_detection_step(paddle, step):
+    """One train step under torch.profiler. Device ms by kind: cuDNN's
+    convolutions (``aten::cudnn_convolution``, ``aten::convolution_
+    backward``), BatchNorm (its layers' forward in record_function ranges
+    and the backward nodes of the ops inside them, matched by autograd
+    sequence number, as phase 29), the TAL assignment (its own range; it
+    runs on detached scores, so it has no backward) and the rest (SiLU,
+    the heads' reshapes, the losses, the optimizer)."""
+    from paddle_tpu_torch.vision import detection
+    with tagged_profile(paddle, [(detection, 'task_aligned_assign')]) as (
+            p, t0):
+        loss = step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    total, by_op, bn, events = tagged_device_ms(p.events())
+    kernels = p.kernels
+    tal = _events_device_ms(
+        events, lambda e: e.name == 'paddle::task_aligned_assign')
+    conv = sum(by_op.get(o, 0.0) for o in (
+        'aten::cudnn_convolution', 'aten::convolution_backward'))
+    return float(loss), {
+        'window_ms': wall * 1e3, 'device_ms': total, 'kernels': len(kernels),
+        'busy_share': total / (wall * 1e3),
+        'device_ms_by_kind': {'conv': conv, 'batch_norm': bn,
+                              'tal_assign': tal,
+                              'rest': total - conv - bn - tal}}
+
+
+def detection_train(paddle, V, card):
+    """(a): PPYOLOE() at [8, 3, 640, 640] f32, 5 Adam steps on one batch of
+    synthetic boxes; steps 1-3 timed, step 4 profiled."""
+    from paddle_tpu_torch.models import PPYOLOE
+    paddle.seed(0)
+    net = PPYOLOE()
+    n_params = sum(int(np.prod(p.shape)) for p in net.parameters())
+    opt = paddle.optimizer.Adam(learning_rate=DET['lr'],
+                                parameters=net.parameters())
+    batch = V.synth_detection_batch(np.random.RandomState(0), DET['batch'],
+                                    DET['size'], DET['classes'],
+                                    max_boxes=DET['max_boxes'])
+    x, gb, gl, gm = (paddle.to_tensor(a) for a in batch)
+
+    def step():
+        loss = net.loss(net(x), gb, gl, gm)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(DET['steps'] - 1):
+        loss, s = timed(lambda: float(step()))
+        losses.append(loss)
+        secs.append(s)
+    loss, prof = profile_detection_step(paddle, step)
+    losses.append(loss)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f'PP-YOLOE losses not finite: {losses}')
+    step_ms = 1e3 * float(np.mean(secs[1:]))
+    k = prof['device_ms_by_kind']
+    print(f'  (a) PPYOLOE() ({n_params / 1e6:.2f}M parameters, 80 classes, '
+          f'width 32, reg_max 16, 8,400 anchors) at [8, 3, 640, 640] f32, '
+          f'TF32 off, {int(batch[3].sum())} boxes: {DET["steps"]} Adam '
+          f'steps, step {step_ms:.1f} ms (steps 1-3; step 0 '
+          f'{1e3 * secs[0]:.1f}), {DET["batch"] / step_ms * 1e3:.1f} '
+          f'images/s, peak {peak:.2f} GB, losses '
+          f'{[round(v, 3) for v in losses]}; profiled step '
+          f'{prof["window_ms"]:.1f} ms, device {prof["device_ms"]:.1f} ms '
+          f'(busy {prof["busy_share"]:.1%}, {prof["kernels"]} kernels): '
+          f'conv {k["conv"]:.1f}, BatchNorm {k["batch_norm"]:.1f}, TAL '
+          f'assign {k["tal_assign"]:.1f}, rest {k["rest"]:.1f} ms [{card}]',
+          flush=True)
+    return net, {'params': n_params, 'step_ms': step_ms,
+                 'step0_ms': 1e3 * secs[0],
+                 'images_per_s': DET['batch'] / step_ms * 1e3,
+                 'peak_gb': peak, 'losses': losses, 'profile': prof}
+
+
+def served_export(paddle, net, V, kernels, card, tmp):
+    """(b): the served detector through jit.save at [1, 3, 640, 640]: one
+    nms_static node, the layer-free Predictor equal to the Layer, its p50
+    at batch 1."""
+    from paddle_tpu_torch import inference
+    net.eval()
+    served = served_detector(paddle, net)
+    served.eval()
+    path = os.path.join(tmp, 'ppyoloe')
+    spec = [paddle.static.InputSpec([1, 3, DET['size'], DET['size']],
+                                    'float32')]
+    t0 = time.perf_counter()
+    paddle.jit.save(served, path, input_spec=spec)
+    export_s = time.perf_counter() - t0
+    ep = torch.export.load(path + '.pt2')
+    targets = [str(n.target) for n in ep.graph.nodes
+               if n.op == 'call_function']
+    n_nms = targets.count('paddle_tpu_torch.nms_static.default')
+    if n_nms != 1:
+        raise AssertionError(f'the served program holds {n_nms} nms_static '
+                             'nodes, not 1')
+    if export_s > EXPORT_MAX_S:
+        raise AssertionError(f'jit.save of the served detector took '
+                             f'{export_s:.1f} s (over {EXPORT_MAX_S:g})')
+    xq = V.synth_detection_batch(np.random.RandomState(1), 1, DET['size'],
+                                 DET['classes'])[0]
+    nms_k = kernels['nms_static']
+    nms_k.launches = 0
+    with paddle.no_grad():
+        want = [t._value for t in served(paddle.to_tensor(xq))]
+    layer_launches, nms_k.launches = nms_k.launches, 0
+    pred = inference.create_predictor(inference.Config(path + '.pdmodel'))
+    got = pred.run([xq])
+    pred_launches = nms_k.launches
+    if (layer_launches, pred_launches) != (1, 1):
+        raise AssertionError(f'nms_static launches: the Layer '
+                             f'{layer_launches}, the Predictor\'s run '
+                             f'{pred_launches}; want 1 and 1')
+    keep_w, keep_g = want[2].cpu().numpy(), np.asarray(got[2])
+    valid_w, valid_g = int(want[3]), int(np.asarray(got[3]))
+    if not (np.array_equal(keep_w, keep_g) and valid_w == valid_g):
+        raise AssertionError(f'Predictor keep/valid differ from the Layer: '
+                             f'{valid_g} vs {valid_w}')
+    errs = [float(np.abs(np.asarray(g) - w.cpu().numpy()).max())
+            / max(1.0, float(w.abs().max())) for g, w in zip(got[:2],
+                                                             want[:2])]
+    if max(errs) > VISION_CARD_TOL:
+        raise AssertionError(f'Predictor boxes/scores off the Layer: {errs}')
+    times = []
+    for _ in range(PREDICT_ITERS):
+        t0 = time.perf_counter()
+        pred.run([xq])
+        times.append(time.perf_counter() - t0)
+    p50 = 1e3 * float(np.median(times))
+    launches = layer_launches + nms_k.launches
+    expect_launches('served PP-YOLOE (the Layer, the Predictor)',
+                    {'nms_static': launches},
+                    {'nms_static': 2 + PREDICT_ITERS})
+    print(f'  (b) served PP-YOLOE (decode, best score, nms_static(iou 0.5, '
+          f'max_out {DET_MAX_OUT}, unroll=True)): jit.save {export_s:.1f} s, '
+          f'{len(targets)} nodes, 1 nms_static; Predictor keep/valid equal '
+          f'to the Layer ({valid_g} kept of 8,400), boxes/scores within '
+          f'{max(errs):.1e}; layer-free p50 at batch 1 {p50:.2f} ms '
+          f'[{card}]', flush=True)
+    boxes, scores = want[0][0], want[1][0].amax(-1)
+    return (boxes, scores), {'export_s': export_s, 'nodes': len(targets),
+                             'valid': valid_g, 'predictor_p50_ms': p50,
+                             'box_err': max(errs), 'launches': launches}
+
+
+def nms_pairs_needed(scores, keep, valid, max_out):
+    """The (box, kept box) IoU tests greedy NMS needs on this data: each
+    box in score order is tested against the boxes kept before it, up to
+    the box that fills ``max_out`` (or the last box)."""
+    s = scores.float().cpu().numpy()
+    n = s.shape[0]
+    rank = np.empty(n, np.int64)
+    rank[np.argsort(-s, kind='stable')] = np.arange(n)
+    kept = np.sort(rank[keep.cpu().numpy()[:int(valid)]])
+    stop = int(kept[-1]) + 1 if int(valid) == max_out else n
+    return int(np.sum(stop - 1 - kept))
+
+
+def nms_bound(n, max_out, pairs):
+    """The least time of the mask pass and the sweep together: the sorted
+    boxes and the order read once, keep and valid written once (the
+    bitmask is this design's own, not the function's), and the IoU and
+    its compare for the ``pairs`` tests this run's data needs."""
+    nbytes = 16 * n + 4 * n + 4 * max_out + 4
+    ops = NMS_OPS_PER_PAIR * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                 else 'operations')
+
+
+def nms_against_twin(V, served_boxes, card):
+    """(c): the kernel against its twin, exactly: the served decode's 8,400
+    boxes, a dense overlap case and categories; the kernel's device ms and
+    the twin's."""
+    from paddle_tpu_torch.ops import nms as nms_mod
+    rng = np.random.RandomState(3)
+    boxes, scores = served_boxes
+    n = boxes.shape[0]
+    base = V.random_boxes(rng, 40, size=640.0, lo=60.0, hi=200.0)
+    dense = torch.from_numpy((base[rng.randint(0, 40, 4000)] + rng.normal(
+        0, 6.0, (4000, 4))).astype('f4')).cuda()
+    cases = {
+        'served_8400': (boxes, scores, None),
+        'dense_4000': (dense, torch.rand(4000, generator=torch.Generator()
+                                         .manual_seed(0)).cuda(), None),
+        'categories_8400': (boxes, scores, torch.from_numpy(
+            rng.randint(0, 80, n).astype('i4')).cuda()),
+    }
+    recs = {}
+    for name, (b, s, cat) in cases.items():
+        got = nms_mod.nms_static_cuda(b, s, DET_IOU, DET_MAX_OUT, cat)
+        want = nms_mod.nms_static_reference(b, s, DET_IOU, DET_MAX_OUT, cat)
+        torch.cuda.synchronize()
+        equal = (torch.equal(got[0].cpu(), want[0].cpu())
+                 and int(got[1]) == int(want[1]))
+        if not equal:
+            raise AssertionError(f'nms kernel vs twin ({name}): keep/valid '
+                                 f'differ ({int(got[1])} vs {int(want[1])})')
+        recs[name] = {'n': int(b.shape[0]), 'valid': int(got[1]),
+                      'max_abs_err': 0}
+    b, s, _ = cases['served_8400']
+    prof = profile_window(lambda: [nms_mod.nms_static_cuda(
+        b, s, DET_IOU, DET_MAX_OUT) for _ in range(NMS_ITERS)])
+    mask_ms = kernel_ms(prof, 'nms_mask_kernel') / NMS_ITERS
+    sweep_ms = kernel_ms(prof, 'nms_sweep_kernel') / NMS_ITERS
+    ms = mask_ms + sweep_ms
+    op_ms = prof['device_ms'] / NMS_ITERS
+    want, plain_s = timed(lambda: nms_mod.nms_static_reference(
+        b, s, DET_IOU, DET_MAX_OUT))
+    pairs = nms_pairs_needed(s, want[0], want[1], DET_MAX_OUT)
+    bound_ms, bound_by = nms_bound(n, DET_MAX_OUT, pairs)
+    rec = dict(recs['served_8400'], ms=ms, mask_ms=mask_ms,
+               sweep_ms=sweep_ms, op_ms=op_ms, pairs_needed=pairs,
+               plain_ms=plain_s * 1e3, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=None)
+    recs['served_8400'] = rec
+    print(f'  (c) nms kernel vs twin, exactly equal: ' + ', '.join(
+        f'{k} (n {r["n"]}, {r["valid"]} kept)' for k, r in recs.items())
+        + f'; n {n}: kernel {ms:.4f} ms (mask pass {mask_ms:.4f}, sweep '
+        f'{sweep_ms:.4f}; the operator with its sort {op_ms:.4f}), twin '
+        f'{plain_s * 1e3:.2f} ms, bound {bound_ms:.6f} ms ({bound_by}; '
+        f'{pairs:,} IoU tests needed of {n * (n - 1) // 2:,} pairs) '
+        f'[{card}]', flush=True)
+    return recs
+
+
+def ocr_train(paddle, V, name, make, classes, card):
+    """(d): SVTRLite() / CRNN() at [64, 1, 32, 320] (80 time steps), 5 Adam
+    steps of nn.CTCLoss on glyph strips: step ms, finite and falling loss;
+    eval forwards at batch 1 and 64."""
+    paddle.seed(0)
+    net = make()
+    opt = paddle.optimizer.Adam(learning_rate=OCR['lr'],
+                                parameters=net.parameters())
+    ctc = paddle.nn.CTCLoss(blank=0)
+    x, labels, in_len, lab_len = (paddle.to_tensor(a) for a in V.ocr_batch(
+        np.random.RandomState(2), OCR['batch'], OCR['width'], classes))
+
+    def step():
+        logits = net(x)
+        loss = ctc(paddle.transpose(logits, [1, 0, 2]), labels, in_len,
+                   lab_len)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(OCR['steps']):
+        loss, s = timed(lambda: float(step()))
+        losses.append(loss)
+        secs.append(s)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f'{name} CTC losses not finite and falling: '
+                             f'{losses}')
+    net.eval()
+    evals = {}
+    with paddle.no_grad():
+        for b in (1, OCR['batch']):
+            xb = paddle.to_tensor(x.numpy()[:b])
+            logits, _ = timed(lambda: net(xb))
+            _, s = timed(lambda: net(xb))
+            if list(logits.shape) != [b, OCR['width'] // 4, classes]:
+                raise AssertionError(f'{name} logits {logits.shape}')
+            evals[b] = s * 1e3
+    step_ms = 1e3 * float(np.mean(secs[1:]))
+    print(f'  (d) {name} at [64, 1, 32, 320] (T 80, {classes} classes): '
+          f'step {step_ms:.1f} ms (steps 1-4; step 0 {secs[0] * 1e3:.1f}), '
+          f'peak {peak:.2f} GB, CTC losses {[round(v, 3) for v in losses]}; '
+          f'eval forward batch 1 {evals[1]:.2f} ms, batch 64 '
+          f'{evals[OCR["batch"]]:.2f} ms [{card}]', flush=True)
+    return {'step_ms': step_ms, 'step0_ms': secs[0] * 1e3, 'peak_gb': peak,
+            'losses': losses, 'eval_ms': evals}
+
+
+def phase_detection_ocr(kernels, card):
+    """Phase 36: detection and OCR at full width (the reference classes'
+    defaults, random weights from seed 0): (a) PP-YOLOE training, (b) the
+    served PP-YOLOE through jit.save and the layer-free Predictor, (c) the
+    NMS kernel against its twin, (d) SVTR-lite and CRNN training and eval.
+    Each part prints its seconds."""
+    import shutil
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import CRNN, SVTRLite
+    V = tests_module('torch_vision_cases')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paddle.set_device('gpu')
+    out, secs = {}, {}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_det_')
+    try:
+        t0 = time.perf_counter()
+        net, out['train'] = detection_train(paddle, V, card)
+        secs['train'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served_boxes, out['served'] = served_export(paddle, net, V, kernels,
+                                                    card, tmp)
+        secs['served'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out['nms'] = nms_against_twin(V, served_boxes, card)
+        secs['nms'] = time.perf_counter() - t0
+        del net, served_boxes
+        torch.cuda.empty_cache()
+        for name, make, classes in (('SVTRLite()', SVTRLite, 96),
+                                    ('CRNN()', CRNN, 96)):
+            t0 = time.perf_counter()
+            out[name] = ocr_train(paddle, V, name, make, classes, card)
+            secs[name] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print('  parts: ' + ', '.join(f'{k} {v:.1f} s' for k, v in secs.items()),
+          flush=True)
+    out['part_seconds'] = secs
+    out['launches'] = out['served']['launches']
+    return out
+
+
+def _card_cpu_gap(card_vals, cpu_vals):
+    """The largest |card - cpu| of each part over its largest value (at
+    least 1), over matching lists of arrays."""
+    return max(float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+               for a, b in zip(card_vals, cpu_vals))
+
+
+def _slice_model_run(paddle, make, start, dev, x, loss_of):
+    """(eval outputs, train loss, gradients by name) of ``make(paddle)``
+    from the state ``start`` on ``dev``."""
+    paddle.set_device(dev)
+    net = make(paddle)
+    net.set_state_dict(start)
+    net.eval()
+    with paddle.no_grad():
+        outs = net(paddle.to_tensor(x))
+        if hasattr(net, 'decode'):     # the detector: its heads and decode
+            outs = [t for pair in outs for t in pair] + list(
+                net.decode(outs, conf_thresh=0.1))
+        elif not isinstance(outs, (list, tuple)):
+            outs = [outs]
+    outs = [t.numpy() for t in outs]
+    net.train()
+    loss = loss_of(paddle, net, paddle.to_tensor(x))
+    loss.backward()
+    grads = {n: p.grad.numpy() for n, p in net.named_parameters()
+             if p.grad is not None}
+    return outs, float(loss), grads
+
+
+def phase_detection_card_vs_cpu():
+    """Phase 37: this slice card against CPU in float32 (TF32 off): the
+    reference tests' small models (PPYOLOE(num_classes=4, width=8,
+    reg_max=8) at [2, 3, 64, 64] with decode, SVTRLite(num_classes=12,
+    dim=32, num_heads=2) and CRNN(num_classes=11) at [2, 1, 32, 64] with
+    nn.CTCLoss) from the same weights: eval outputs, the train-mode loss
+    and every gradient within 2e-5 of the part's largest value beyond 4 x
+    what the card's own result moves when the input moves by 1e-7 (phase
+    30's rule for train-mode BatchNorm); the vision-op table
+    (torch_vision_cases.op_cases) and the detection losses within 2e-5;
+    nms_static and nms over torch_vision_cases.nms_cases exactly equal."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision import detection as D
+    V = tests_module('torch_vision_cases')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, bad = {}, []
+    det_batch = V.synth_detection_batch(np.random.RandomState(0), 2, 64, 4)
+    ocr = V.ocr_batch(np.random.RandomState(2), 2, 64, 12)
+
+    def det_loss(P, net, x):
+        gb, gl, gm = (P.to_tensor(a) for a in det_batch[1:])
+        return net.loss(net(x), gb, gl, gm)
+
+    def det_make(P):
+        return P.models.PPYOLOE(num_classes=4, width=8, reg_max=8)
+
+    def ctc_loss(P, net, x):
+        logits = net(x)
+        return P.nn.CTCLoss(blank=0)(
+            P.transpose(logits, [1, 0, 2]), P.to_tensor(ocr[1]),
+            P.to_tensor(ocr[2]), P.to_tensor(ocr[3]))
+    models = {
+        'PPYOLOE': (det_make, det_batch[0], det_loss),
+        'SVTRLite': (lambda P: P.models.SVTRLite(num_classes=12, dim=32,
+                                                 num_heads=2), ocr[0],
+                     ctc_loss),
+        'CRNN': (lambda P: P.models.CRNN(num_classes=11), ocr[0], ctc_loss),
+    }
+    for name, (make, x, loss_of) in models.items():
+        paddle.set_device('cpu')
+        paddle.seed(0)
+        start = {k: v.numpy() for k, v in make(paddle).state_dict().items()}
+        cpu = _slice_model_run(paddle, make, start, 'cpu', x, loss_of)
+        card = _slice_model_run(paddle, make, start, 'gpu', x, loss_of)
+        moved = _slice_model_run(paddle, make, start, 'gpu', nudged(x),
+                                 loss_of)
+        names = sorted(cpu[2])
+        gaps = {'out': _card_cpu_gap(card[0], cpu[0]),
+                'loss': abs(card[1] - cpu[1]) / max(1.0, abs(cpu[1])),
+                'grad': _card_cpu_gap([card[2][k] for k in names],
+                                      [cpu[2][k] for k in names])}
+        floor = {'out': _card_cpu_gap(moved[0], card[0]),
+                 'loss': abs(moved[1] - card[1]) / max(1.0, abs(card[1])),
+                 'grad': _card_cpu_gap([moved[2][k] for k in names],
+                                       [card[2][k] for k in names])}
+        ok = within_nudge_floor(gaps, floor, dict.fromkeys(
+            gaps, VISION_CARD_TOL))
+        out[name] = {'gaps': gaps, 'floor': floor, 'ok': ok}
+        print(f'  {name}: eval out {gaps["out"]:.1e}, loss '
+              f'{gaps["loss"]:.1e}, gradients {gaps["grad"]:.1e} (tol '
+              f'{VISION_CARD_TOL:g} beyond 4 x the card\'s move under a '
+              f'1e-7 nudge: {floor["out"]:.1e} / {floor["loss"]:.1e} / '
+              f'{floor["grad"]:.1e}) {"OK" if ok else "FAIL"}', flush=True)
+        if not ok:
+            bad.append((name, gaps, floor))
+    worst = 0.0
+    for case, (fn_name, args, kw) in V.op_cases().items():
+        fn = getattr(paddle.vision.ops, fn_name)
+        res = []
+        for dev in ('cpu', 'gpu'):
+            paddle.set_device(dev)
+            t = (lambda a: paddle.to_tensor(a) if isinstance(a, np.ndarray)
+                 and a.dtype == np.float32 else a)
+            r = fn(*[t(a) for a in args], **{k: t(v) for k, v in kw.items()})
+            res.append([v.numpy() for v in (r if isinstance(r, (list, tuple))
+                                             else [r])])
+        gap = _card_cpu_gap(res[1], res[0])
+        worst = max(worst, gap)
+        if gap > VISION_CARD_TOL:
+            bad.append((case, gap))
+    rng = np.random.RandomState(6)
+    pred, tgt = V.random_boxes(rng, 64), V.random_boxes(rng, 64)
+    logits = rng.randn(64, 6).astype('f4')
+    score = np.where(rng.rand(64, 6) < 0.2, rng.rand(64, 6), 0).astype('f4')
+    dist = rng.randn(64, 4, 9).astype('f4')
+    t = (rng.rand(64, 4) * 8).astype('f4')
+    losses = {'pairwise_iou': (D.pairwise_iou, pred, tgt),
+              'giou_loss': (D.giou_loss, pred, tgt),
+              'varifocal_loss': (D.varifocal_loss, logits, score),
+              'distribution_focal_loss': (D.distribution_focal_loss, dist,
+                                          t),
+              'dfl_decode': (D.dfl_decode, dist)}
+    for lname, (fn, *args) in losses.items():
+        res = [fn(*[torch.from_numpy(a).to(dev) for a in args]).cpu().numpy()
+               for dev in ('cpu', 'cuda')]
+        gap = _card_cpu_gap([res[1]], [res[0]])
+        worst = max(worst, gap)
+        if gap > VISION_CARD_TOL:
+            bad.append((lname, gap))
+    out['ops_and_losses_worst'] = worst
+    n_nms = 0
+    for name, boxes, scores, cats, thr, max_out in V.nms_cases():
+        res = []
+        for dev in ('cpu', 'gpu'):
+            paddle.set_device(dev)
+            k, v = paddle.vision.ops.nms_static(boxes, scores, thr, max_out,
+                                                category_idxs=cats)
+            e = paddle.vision.ops.nms(boxes, thr, scores, category_idxs=cats,
+                                      top_k=max_out)
+            res.append((k.numpy(), int(v.numpy()), e.numpy()))
+        if not (np.array_equal(res[0][0], res[1][0])
+                and res[0][1] == res[1][1]
+                and np.array_equal(res[0][2], res[1][2])):
+            bad.append(('nms ' + name, res[0][1], res[1][1]))
+        n_nms += 1
+    print(f'  the vision-op table ({len(V.op_cases())} cases) and the '
+          f'detection losses: largest gap {worst:.1e} (tol '
+          f'{VISION_CARD_TOL:g}); nms_static and nms over {n_nms} cases '
+          f'(up to 2,100 boxes): card equal to CPU '
+          f'{"OK" if not any(str(b[0]).startswith("nms") for b in bad) else "FAIL"}',
+          flush=True)
+    paddle.set_device('gpu')
+    if bad:
+        raise AssertionError(f'phase 37: card against CPU: {bad[:6]}')
+    return out
+
+
+class PhaseClock:
+    """``with phase(n, title):`` prints the phase's title as it starts and
+    its wall seconds on a line of their own as it ends, and keeps them in
+    ``seconds`` (phase number -> seconds) for the report."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    @contextlib.contextmanager
+    def __call__(self, n, title):
+        print(f'phase {n}: {title}', flush=True)
+        t0 = time.perf_counter()
+        ok = False
+        try:
+            yield
+            ok = True
+        finally:
+            secs = time.perf_counter() - t0
+            self.seconds[str(n)] = secs
+            print(f'phase {n}: {secs:.1f} s' + ('' if ok else ', failed'),
+                  flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--report', default=None,
@@ -6591,6 +7242,7 @@ def main(argv=None):
     from paddle_tpu_torch.io import native_loader
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import nms as nms_mod
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.serving import GenerationEngine
@@ -6602,142 +7254,151 @@ def main(argv=None):
                 'flash_decode_int8': fa.flash_decode_int8,
                 'flash_fwd': fa.flash_fwd,
                 'flash_bwd_dq': fa.flash_bwd_dq,
-                'flash_bwd_dkv': fa.flash_bwd_dkv}
+                'flash_bwd_dkv': fa.flash_bwd_dkv,
+                'nms_static': nms_mod.nms_static_cuda}
 
     t_start = time.perf_counter()
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
-    print(f'phase 1: card {card!r}; torch {torch.__version__} cuda '
-          f'{torch.version.cuda}; device {kind!r} x {count}', flush=True)
+    phase = PhaseClock()
+    with phase(1, 'the card'):
+        card = card_line()
+        kind = torch.cuda.get_device_name(0)
+        count = torch.cuda.device_count()
+        print(f'  card {card!r}; torch {torch.__version__} cuda '
+              f'{torch.version.cuda}; device {kind!r} x {count}', flush=True)
 
-    report = {'card': card}
-    t0 = time.perf_counter()
-    # the DataLoader's native pool (g++) builds beside the nvcc builds
-    pool = threading.Thread(target=native_loader.get_lib)
-    pool.start()
-    _build.build(SOURCES)
-    pool.join()
-    native_loader.get_lib()            # raises if the pool's build failed
-    secs = time.perf_counter() - t0
-    print(f'phase 2: built {", ".join(SOURCES)} (nvcc sm_90a, in parallel) '
-          f'and the native DataLoader pool ({native_loader.lib_path().name}, '
-          f'g++) in {secs:.1f} s', flush=True)
-    for name in SOURCES:
-        log = _build.build_log[name]
-        print(f'  {name}: nvcc {log["seconds"]:.1f} s', flush=True)
-        for line in log['ptxas'].splitlines():
-            if 'registers' in line or 'spill' in line:
-                print(f'    ptxas: {line.strip()}', flush=True)
-    report['build_s'] = secs
-    print('phase 3: kernels against their plain twins on the card',
-          flush=True)
-    report['kernel'] = kr = kernel_cases(pa, TIMED_ITERS)
-    report['dense_kernels'] = dk = dense_kernel_cases(fa, pa, TIMED_ITERS)
-    report['bwd_kernels'] = bk = bwd_kernel_cases(fa, TIMED_ITERS)
-    print('phase 4: GenerationEngine at full width', flush=True)
-    report['engine'] = phase_engine(gpt, GenerationEngine, counters,
-                                    card)
-    print('phase 5: card against CPU at 2 layers', flush=True)
-    report['card_vs_cpu'] = phase_card_vs_cpu(gpt, GenerationEngine)
-    print('phase 6: dense generate() at full width', flush=True)
-    model, report['generate'] = phase_generate(gpt, counters, card)
-    print('phase 7: forward() and the sliding window at full width',
-          flush=True)
-    report['forward'] = phase_forward_sliding(gpt, model, counters, card)
-    del model
-    torch.cuda.empty_cache()
-    print('phase 8: generate() card against CPU at 2 layers', flush=True)
-    report['generate_card_vs_cpu'] = phase_generate_card_vs_cpu(gpt)
-    print('phase 9: GenerationEngine over the int8 page pool at full width',
-          flush=True)
-    report['engine_int8'] = phase_engine_int8(gpt, GenerationEngine,
+    report = {'card': card, 'phase_seconds': phase.seconds}
+    with phase(2, 'build the kernels and the native DataLoader pool'):
+        t0 = time.perf_counter()
+        # the DataLoader's native pool (g++) builds beside the nvcc builds
+        pool = threading.Thread(target=native_loader.get_lib)
+        pool.start()
+        _build.build(SOURCES)
+        pool.join(timeout=600)
+        native_loader.get_lib()        # raises if the pool's build failed
+        secs = time.perf_counter() - t0
+        print(f'  built {", ".join(SOURCES)} (nvcc sm_90a, in parallel) and '
+              f'the native DataLoader pool '
+              f'({native_loader.lib_path().name}, g++) in {secs:.1f} s',
+              flush=True)
+        for name in SOURCES:
+            log = _build.build_log[name]
+            print(f'  {name}: nvcc {log["seconds"]:.1f} s', flush=True)
+            for line in log['ptxas'].splitlines():
+                if 'registers' in line or 'spill' in line:
+                    print(f'    ptxas: {line.strip()}', flush=True)
+        report['build_s'] = secs
+    with phase(3, 'kernels against their plain twins on the card'):
+        report['kernel'] = kr = kernel_cases(pa, TIMED_ITERS)
+        report['dense_kernels'] = dk = dense_kernel_cases(fa, pa,
+                                                          TIMED_ITERS)
+        report['bwd_kernels'] = bk = bwd_kernel_cases(fa, TIMED_ITERS)
+    with phase(4, 'GenerationEngine at full width'):
+        report['engine'] = phase_engine(gpt, GenerationEngine, counters,
+                                        card)
+    with phase(5, 'card against CPU at 2 layers'):
+        report['card_vs_cpu'] = phase_card_vs_cpu(gpt, GenerationEngine)
+    with phase(6, 'dense generate() at full width'):
+        model, report['generate'] = phase_generate(gpt, counters, card)
+    with phase(7, 'forward() and the sliding window at full width'):
+        report['forward'] = phase_forward_sliding(gpt, model, counters,
+                                                  card)
+        del model
+        torch.cuda.empty_cache()
+    with phase(8, 'generate() card against CPU at 2 layers'):
+        report['generate_card_vs_cpu'] = phase_generate_card_vs_cpu(gpt)
+    with phase(9, 'GenerationEngine over the int8 page pool at full width'):
+        report['engine_int8'] = phase_engine_int8(gpt, GenerationEngine,
+                                                  counters, card)
+    with phase(10, 'int8 engine card against CPU at 2 layers'):
+        report['engine_int8_card_vs_cpu'] = phase_engine_int8_card_vs_cpu(
+            gpt, GenerationEngine)
+    with phase(11, 'the train step at full width'):
+        report['train'] = phase_train(gpt, topt, counters, card)
+    with phase(12, 'the train step card against CPU at 2 layers'):
+        report['train_card_vs_cpu'] = phase_train_card_vs_cpu(gpt, topt)
+    with phase(13, 'GenerationEngine(precision=\'int8_wo\') at full width'):
+        report['engine_int8_wo'] = phase_engine_int8_wo(
+            gpt, GenerationEngine, counters, card, report['engine'])
+    with phase(14, 'generate() over int8 weights (enable_int8_decode) at '
+                   'full width'):
+        report['generate_int8_wo'] = phase_generate_int8_wo(gpt, counters,
+                                                            card)
+    with phase(15, 'the prefix cache at full width'):
+        report['prefix'] = phase_prefix_cache(gpt, GenerationEngine,
                                               counters, card)
-    print('phase 10: int8 engine card against CPU at 2 layers', flush=True)
-    report['engine_int8_card_vs_cpu'] = phase_engine_int8_card_vs_cpu(
-        gpt, GenerationEngine)
-    print('phase 11: the train step at full width', flush=True)
-    report['train'] = phase_train(gpt, topt, counters, card)
-    print('phase 12: the train step card against CPU at 2 layers',
-          flush=True)
-    report['train_card_vs_cpu'] = phase_train_card_vs_cpu(gpt, topt)
-    print('phase 13: GenerationEngine(precision=\'int8_wo\') at full width',
-          flush=True)
-    report['engine_int8_wo'] = phase_engine_int8_wo(
-        gpt, GenerationEngine, counters, card, report['engine'])
-    print('phase 14: generate() over int8 weights (enable_int8_decode) at '
-          'full width', flush=True)
-    report['generate_int8_wo'] = phase_generate_int8_wo(gpt, counters, card)
-    print('phase 15: the prefix cache at full width', flush=True)
-    report['prefix'] = phase_prefix_cache(gpt, GenerationEngine, counters,
-                                          card)
-    print('phase 16: int8 weights and the prefix cache, card against CPU at '
-          '2 layers', flush=True)
-    report['slice_card_vs_cpu'] = phase_slice_card_vs_cpu(gpt,
-                                                          GenerationEngine)
-    print('phase 17: MoE serving at full width (GenerationEngine and '
-          'generate())', flush=True)
-    report['moe_serving'] = phase_moe_serving(moe, GenerationEngine,
-                                              counters, card)
-    print('phase 18: the MoE train step at full width', flush=True)
-    report['moe_train'] = phase_moe_train(moe, topt, counters, card)
-    print('phase 19: MoE card against CPU at 2 layers', flush=True)
-    report['moe_card_vs_cpu'] = phase_moe_card_vs_cpu(moe, GenerationEngine,
-                                                      topt)
-    print('phase 20: the eager Paddle API on the card', flush=True)
-    report['eager'] = phase_eager(card)
-    print('phase 21: fp8_matmul (torch._scaled_mm) against its twin at the '
-          'bench GPT\'s products', flush=True)
-    report['fp8_matmul'] = phase_fp8_matmul(card)
-    print('phase 22: the fp8 train rung at full width', flush=True)
-    report['fp8_train'] = phase_fp8_train(gpt, topt, counters, card)
-    print('phase 23: the MoE fp8 train step at full width', flush=True)
-    report['moe_fp8_train'] = phase_moe_fp8_train(moe, topt, counters, card)
-    print('phase 24: fp8 training card against CPU at 2 layers, and amp',
-          flush=True)
-    report['fp8_card_vs_cpu'] = phase_fp8_card_vs_cpu(gpt, moe, topt)
-    print('phase 25: the ERNIE-base masked-LM program (paddle.nn, '
-          'opt.step()) at full width', flush=True)
-    report['ernie_train'] = phase_ernie_train(counters, card)
-    print('phase 26: the ERNIE program and the nn case table, card '
-          'against CPU', flush=True)
-    report['ernie_card_vs_cpu'] = phase_ernie_card_vs_cpu()
-    print('phase 27: hapi Model.fit / evaluate / predict of the ERNIE '
-          'program at full width, fed by paddle.io', flush=True)
-    report['hapi'] = phase_hapi(counters, card,
-                                report['ernie_train']['step_ms'])
-    print('phase 28: hapi card against CPU, and checkpoints across devices',
-          flush=True)
-    report['hapi_card_vs_cpu'] = phase_hapi_card_vs_cpu()
-    print('phase 29: ResNet-50 through hapi Model.fit at full width',
-          flush=True)
-    report['resnet_hapi'] = phase_resnet_hapi(counters, card)
-    print('phase 30: conv, pooling, RNN, decoding, quantization and the '
-          'vision models, card against CPU', flush=True)
-    report['vision_card_vs_cpu'] = phase_vision_card_vs_cpu()
-    print('phase 31: ERNIE-base served: InferenceEngine, the Predictor '
-          '(attach_layer and layer-free over jit.save\'s program), the '
-          'bench rungs and the cold start', flush=True)
-    report['ernie_serving'], served = phase_ernie_serving(counters, card)
-    print('phase 32: ERNIE-base pretrained (pretrain_loss, [8, 512])',
-          flush=True)
-    report['ernie_pretrain'] = phase_ernie_pretrain(counters, card)
-    print('phase 33: ERNIE serving and pretraining, card against CPU',
-          flush=True)
-    report['ernie_serving_card_vs_cpu'], tl_launches = \
-        phase_ernie_serving_card_vs_cpu(counters)
-    report['ernie_serving_card_vs_cpu']['translated_launches'] = \
-        tl_launches
-    print('phase 34: the telemetry plane on the card: ERNIE-base served, '
-          'scraped and profiled live; hapi fit with telemetry', flush=True)
-    report['telemetry'] = phase_telemetry(
-        counters, card, served, report['ernie_serving']['busy_share'])
-    print('phase 35: the control planes on the card: the bench GPT over two '
-          'replicas through failover and warm scale-up, a model host\'s '
-          'LRU swap-in, the fleet plane', flush=True)
-    report['control_planes'] = cp = phase_control_planes(counters, card,
-                                                         served)
-    del served
+    with phase(16, 'int8 weights and the prefix cache, card against CPU at '
+                   '2 layers'):
+        report['slice_card_vs_cpu'] = phase_slice_card_vs_cpu(
+            gpt, GenerationEngine)
+    with phase(17, f'MoE serving at full width, {MOE_SERVE_LAYERS} layers '
+                   '(GenerationEngine and generate())'):
+        report['moe_serving'] = phase_moe_serving(moe, GenerationEngine,
+                                                  counters, card)
+    with phase(18, 'the MoE train step at full width'):
+        report['moe_train'] = phase_moe_train(moe, topt, counters, card)
+    with phase(19, 'MoE card against CPU at 2 layers'):
+        report['moe_card_vs_cpu'] = phase_moe_card_vs_cpu(
+            moe, GenerationEngine, topt)
+    with phase(20, 'the eager Paddle API on the card'):
+        report['eager'] = phase_eager(card)
+    with phase(21, 'fp8_matmul (torch._scaled_mm) against its twin at the '
+                   'bench GPT\'s products'):
+        report['fp8_matmul'] = phase_fp8_matmul(card)
+    with phase(22, f'the fp8 train rung at full width, {FP8_RUNG_LAYERS} '
+                   'layers'):
+        report['fp8_train'] = phase_fp8_train(gpt, topt, counters, card)
+    with phase(23, f'the MoE fp8 train step at full width, '
+                   f'{MOE_FP8_LAYERS} layers'):
+        report['moe_fp8_train'] = phase_moe_fp8_train(moe, topt, counters,
+                                                      card)
+    with phase(24, 'fp8 training card against CPU at 2 layers, and amp'):
+        report['fp8_card_vs_cpu'] = phase_fp8_card_vs_cpu(gpt, moe, topt)
+    with phase(25, 'the ERNIE-base masked-LM program (paddle.nn, '
+                   'opt.step()) at full width'):
+        report['ernie_train'] = phase_ernie_train(counters, card)
+    with phase(26, 'the ERNIE program and the nn case table, card against '
+                   'CPU'):
+        report['ernie_card_vs_cpu'] = phase_ernie_card_vs_cpu()
+    with phase(27, 'hapi Model.fit / evaluate / predict of the ERNIE '
+                   'program at full width, fed by paddle.io'):
+        report['hapi'] = phase_hapi(counters, card,
+                                    report['ernie_train']['step_ms'])
+    with phase(28, 'hapi card against CPU, and checkpoints across devices'):
+        report['hapi_card_vs_cpu'] = phase_hapi_card_vs_cpu()
+    with phase(29, 'ResNet-50 through hapi Model.fit at full width'):
+        report['resnet_hapi'] = phase_resnet_hapi(counters, card)
+    with phase(30, 'conv, pooling, RNN, decoding, quantization and the '
+                   'vision models, card against CPU'):
+        report['vision_card_vs_cpu'] = phase_vision_card_vs_cpu()
+    with phase(31, 'ERNIE-base served: InferenceEngine, the Predictor '
+                   '(attach_layer and layer-free over jit.save\'s program), '
+                   'the bench rungs and the cold start'):
+        report['ernie_serving'], served = phase_ernie_serving(counters,
+                                                              card)
+    with phase(32, 'ERNIE-base pretrained (pretrain_loss, [8, 512])'):
+        report['ernie_pretrain'] = phase_ernie_pretrain(counters, card)
+    with phase(33, 'ERNIE serving and pretraining, card against CPU'):
+        report['ernie_serving_card_vs_cpu'], tl_launches = \
+            phase_ernie_serving_card_vs_cpu(counters)
+        report['ernie_serving_card_vs_cpu']['translated_launches'] = \
+            tl_launches
+    with phase(34, 'the telemetry plane on the card: ERNIE-base served, '
+                   'scraped and profiled live; hapi fit with telemetry'):
+        report['telemetry'] = phase_telemetry(
+            counters, card, served, report['ernie_serving']['busy_share'])
+    with phase(35, 'the control planes on the card: the bench GPT over two '
+                   'replicas through failover and warm scale-up, a model '
+                   'host\'s LRU swap-in, the fleet plane'):
+        report['control_planes'] = cp = phase_control_planes(counters, card,
+                                                             served)
+        del served
+    with phase(36, 'detection and OCR at full width: PP-YOLOE trained and '
+                   'served through jit.save with NMS as one operator, the '
+                   'NMS kernel against its twin, SVTR-lite and CRNN'):
+        report['detection'] = det = phase_detection_ocr(counters, card)
+    with phase(37, 'detection and OCR, the vision ops and NMS, card against '
+                   'CPU'):
+        report['detection_card_vs_cpu'] = phase_detection_card_vs_cpu()
 
     gen, fwd = report['generate'], report['forward']
     train = report['train']['launches']
@@ -6793,7 +7454,10 @@ def main(argv=None):
                    'flash_decode_int8': 'decode_T1_int8',
                    'flash_fwd': 'fwd_S1024', 'flash_bwd_dq': 'bwd_S1024',
                    'flash_bwd_dkv': 'bwd_S1024'}
-    cases = dict(dk, **kr, **bk)
+    main_path['nms_static'] = det['launches']
+    cases = dict(dk, **kr, **bk, nms_static={
+        f'nms_{k}': v for k, v in det['nms'].items()})
+    timed_shape['nms_static'] = 'nms_served_8400'
     kernels = []
     for name in SOURCE_OF:
         recs = cases[name]
@@ -6812,6 +7476,11 @@ def main(argv=None):
             'shapes': {k: v for k, v in recs.items() if 'ms' in v},
         })
     report['seconds'] = time.perf_counter() - t_start
+    print(f'phases: {len(phase.seconds)} in {report["seconds"]:.1f} s '
+          f'(longest: ' + ', '.join(
+              f'{n} {s:.1f} s' for n, s in sorted(
+                  phase.seconds.items(), key=lambda kv: -kv[1])[:8]) + ')',
+          flush=True)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

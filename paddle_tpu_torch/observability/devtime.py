@@ -58,6 +58,9 @@ PORT_KERNELS = ('flash_fwd_tc_kernel', 'flash_bwd_dq_kernel',
                 'flash_bwd_dkv_kernel', 'flash_bwd_dq_tc_kernel',
                 'flash_bwd_dkv_tc_kernel', 'paged_decode_kernel',
                 'attn_tile_kernel', 'split_kernel', 'prefill_tc_kernel')
+# the port's kernels that multiply no matrices: NMS's IoU bitmask and sweep
+# (``csrc/nms.cu``), elementwise work and a reduction
+PORT_COMPUTE_KERNELS = ('nms_mask_kernel', 'nms_sweep_kernel')
 
 # Device-time categories, in attribution priority order (highest first).
 # 'idle' is derived (window minus busy union), never matched.
@@ -106,11 +109,13 @@ _V2_OP_RULES = (
     ('copy', re.compile(r'^Memcpy|^Memset|memcpy|memset', re.I)),
 )
 # the kernels PyTorch's own operators launch (elementwise, reductions,
-# norms, indexing, RNG, sort, cat, cuDNN's non-GEMM work)
+# norms, indexing, RNG, sort, cat, cuDNN's non-GEMM work), and the port's
+# kernels that multiply no matrices
 _V2_COMPUTE = re.compile(
     r'at::native|^void at::|elementwise|vectorized|reduce|norm|softmax'
     r'|gelu|index|gather|scatter|embedding|fill|copy|cat_|CatArray'
-    r'|distribution|philox|sort|radix|scan|topk|cudnn|cunn_|triton_',
+    r'|distribution|philox|sort|radix|scan|topk|cudnn|cunn_|triton_'
+    r'|\b(?:' + '|'.join(PORT_COMPUTE_KERNELS) + r')\b',
     re.I)
 # in a Kineto trace every event off the device categories is host work
 _V2_HOST = re.compile(r'^$')

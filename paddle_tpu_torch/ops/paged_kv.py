@@ -228,7 +228,7 @@ def copy_page(pool, src, dst):
     src, dst = int(src), int(dst)
     for plane in pool.values():
         for arr in (plane.values() if is_weight_only(plane) else (plane,)):
-            arr[:, dst].copy_(arr[:, src])
+            arr.select(1, dst).copy_(arr.select(1, src))
     return pool
 
 

@@ -742,14 +742,13 @@ class GenerationEngine:
                 self._queue.append(req)
                 self._note('submitted')
                 if (self._thread is not None and len(self._queue) == 1
-                        and self._prefix is not None
-                        and self._prefix.full_hit(req.tenant, req.prompt,
-                                                  req.seed)):
+                        and self._prefix is not None):
                     # a full hit with nobody ahead: admitted and its first
                     # token emitted here, not after a wake-up of the
                     # scheduler thread and another of this one (each
-                    # costs more than the admission itself)
-                    for idx in self._admit_locked():
+                    # costs more than the admission itself); anything
+                    # less than a full hit stays queued for the scheduler
+                    for idx in self._admit_locked(full_only=True):
                         self._skip_prefill_locked(idx)
                 self._cv.notify_all()
         except Exception as e:
@@ -797,7 +796,10 @@ class GenerationEngine:
             if any(s is not None for s in self._slots):
                 self._decode_step()
 
-    def _admit_locked(self):
+    def _admit_locked(self, full_only=False):
+        """Admit queued requests into free slots, in order. ``full_only``
+        admits the head only when it is a full prefix hit (the caller
+        emits its first token at once) and leaves anything else queued."""
         out = []
         while self._queue:
             free_idx = next((i for i, s in enumerate(self._slots)
@@ -827,18 +829,29 @@ class GenerationEngine:
                 self._note('failed')
                 continue
             # longest cached prefix: matched full pages arrive retained
-            # (this slot's references); the COW source page stays owned by
-            # the cache and is copied into a private page before any write
-            hit = (self._prefix.acquire(req.tenant, req.prompt, req.seed)
+            # (this slot's references); the COW source page stays the
+            # cache's and is copied into a private page before any write
+            hit = (self._prefix.acquire(req.tenant, req.prompt, req.seed,
+                                        full_only=full_only)
                    if self._prefix is not None else None)
+            if full_only and hit is None:
+                break
             shared = hit['pages'] if hit else []
             cow_src = hit['cow'] if hit else None
+            held = list(shared)
+            if cow_src is not None:
+                # the pending copy holds its source until it is queued on
+                # the stream: the allocation below, or a later one, may
+                # drop the cache's hold, and a page reallocated and written
+                # first would be copied
+                self._alloc.retain([cow_src])
+                held.append(cow_src)
             # the COW destination is one of the `need` logical pages and
             # comes out of the fresh allocation (pages[0] below)
             pages = self._alloc_with_release_locked(need - len(shared))
             if pages is None:
-                if shared:
-                    self._alloc.free(shared)    # undo; re-acquired on retry
+                if held:
+                    self._alloc.free(held)      # undo; re-acquired on retry
                 break       # active slots will free pages; retry next round
             self._queue.popleft()
             table = np.zeros((self.p_max,), np.int32)
@@ -880,14 +893,15 @@ class GenerationEngine:
         slot = self._slots[idx]
         if slot is None:
             return
-        if slot.first_tok is not None:
-            with self._cv:
-                if self._slots[idx] is slot:
-                    self._skip_prefill_locked(idx)
-            return
+        with self._cv:
+            if self._slots[idx] is not slot:
+                return      # failed by shutdown(drain=False) meanwhile
+            if slot.first_tok is not None:
+                self._skip_prefill_locked(idx)
+                return
+            self._copy_on_write(slot)
         req = slot.req
         t0 = len(req.prompt)
-        self._copy_on_write(slot)
         start = slot.start
         tail = t0 - start               # uncached rows to prefill
         prompt = np.zeros((1, self.prefill_width), np.int32)
@@ -925,26 +939,28 @@ class GenerationEngine:
     def _copy_on_write(self, slot):
         """Duplicate the shared mid-page the slot will write into, before
         it does (on the stream the prefill and the steps run on, so the
-        copy lands before them)."""
+        copy lands before them), then drop the source's hold."""
         if slot.cow is not None:
             src, dst = slot.cow
             slot.cow = None
             _pkv.copy_page(self._pool, src, dst)
+            self._alloc.free([src])
 
     def _skip_prefill_locked(self, idx):
         """A full prefix hit: every prompt row is already in mapped pages
         and the donor recorded the first sampled token for this seed, so
-        no device call at all: TTFT is the admission latency."""
+        no device call at all: TTFT is the admission latency. The
+        copy-on-write waits for the slot's first step (or its publish),
+        off the submitting thread."""
         slot = self._slots[idx]
         tok = slot.first_tok
-        self._copy_on_write(slot)
         slot.req.rec.note('prefill_skip', slot=idx,
                           prompt_len=len(slot.req.prompt))
         slot.last_tok = tok
         self._emit_locked(slot, tok)
         if self._slot_finished(slot, tok):
             self._finish_slot_locked(idx)
-        self._update_gauges_locked()
+            self._update_gauges_locked()
 
     def _decode_step(self):
         s = self.num_slots
@@ -959,6 +975,7 @@ class GenerationEngine:
             for i, slot in enumerate(self._slots):
                 if slot is None:
                     continue
+                self._copy_on_write(slot)   # a full hit's, before its step
                 tok[i] = slot.last_tok
                 pos[i] = slot.pos
                 table[i] = slot.table
@@ -1022,6 +1039,9 @@ class GenerationEngine:
 
     def _free_slot_locked(self, idx):
         slot = self._slots[idx]
+        if slot.cow is not None:        # never copied: drop the hold
+            self._alloc.free([slot.cow[0]])
+            slot.cow = None
         pages = [int(p) for p in slot.table if p != _pkv.TRASH_PAGE]
         if pages:
             self._alloc.free(pages)
@@ -1033,6 +1053,7 @@ class GenerationEngine:
         published page is still live when the cache retains it)."""
         if self._prefix is None:
             return
+        self._copy_on_write(slot)       # the rows it publishes, in place
         req = slot.req
         t0 = len(req.prompt)
         # KV row p >= t0 holds the (p - t0)-th generated token; the final

@@ -142,8 +142,12 @@ class PrefixCache:
                     self._evict_leaves_locked(over)
 
     # ---- lookup / acquire ------------------------------------------------
-    def acquire(self, tenant, prompt, seed):
+    def acquire(self, tenant, prompt, seed, full_only=False):
         """Longest cached prefix of ``prompt`` under ``tenant``.
+        ``full_only`` takes it only when it is a full hit (the whole
+        prompt cached with its first token for ``seed``), and otherwise
+        returns ``None`` touching nothing: no LRU tick, no count, no
+        reference.
 
         Returns ``None`` on a miss, else a dict:
           ``pages``    — page ids to map read-only, in logical order; each
@@ -168,9 +172,11 @@ class PrefixCache:
         prompt = _ints(prompt)
         skey = int(seed) & 0xFFFFFFFF
         with self._lock:
-            self._tick += 1
             chain, match, cow_entry, next_tok = self._match_locked(
                 tenant, prompt, skey)
+            if full_only and next_tok is None:
+                return None
+            self._tick += 1
             if not chain and cow_entry is None:
                 self._n['misses'] += 1
                 return None
@@ -191,14 +197,6 @@ class PrefixCache:
             return {'pages': pages, 'match': match,
                     'cow': cow_entry.page if cow_entry is not None else None,
                     'next_tok': next_tok}
-
-    def full_hit(self, tenant, prompt, seed):
-        """Whether ``acquire(tenant, prompt, seed)`` would be a full hit
-        (the whole prompt cached with its first token for ``seed``),
-        touching nothing: no LRU tick, no count, no reference."""
-        with self._lock:
-            return self._match_locked(tenant, _ints(prompt),
-                                      int(seed) & 0xFFFFFFFF)[3] is not None
 
     def _match_locked(self, tenant, prompt, skey):
         """``acquire``'s lookup, without its effects: (the matched full

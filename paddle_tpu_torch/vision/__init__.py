@@ -1,8 +1,8 @@
-"""paddle.vision. Port of ``paddle_tpu/vision/__init__.py``.
-
-Ported: ``models`` (LeNet, ResNet, VGG, MobileNetV1/V2). ``datasets``,
-``transforms``, ``ops``, ``detection`` and the image backend wait for
-ROADMAP Queue 1 item 9, step H (rest): each name exists and raises.
+"""paddle.vision. Port of ``paddle_tpu/vision/__init__.py``: the models
+(LeNet, ResNet, VGG, MobileNetV1/V2), datasets, transforms (tensor, PIL and
+cv2 backends), ops (NMS as one operator, ROI align and pooling, YOLO box
+and loss, deformable conv), the detection losses and the image backend.
+Pillow and OpenCV are imported only when an input takes their backend.
 """
 from . import datasets  # noqa: F401
 from . import detection  # noqa: F401

@@ -56,6 +56,9 @@ def _clean():
         o.reset()
     with _server._probes_lock:
         probes0 = dict(_server._probes)
+    # both packages' gauge-semantics tables are module-level: a test file
+    # run before this one in the same process may have registered entries
+    semantics0 = [dict(fo._GAUGE_SEMANTICS) for _, fo in BOTH]
     yield
     fault.configure(None)
     for o, _ in BOTH:
@@ -65,6 +68,9 @@ def _clean():
     with _server._probes_lock:
         _server._probes.clear()
         _server._probes.update(probes0)
+    for (_, fo), table in zip(BOTH, semantics0):
+        fo._GAUGE_SEMANTICS.clear()
+        fo._GAUGE_SEMANTICS.update(table)
     port_device._current = prev
 
 
@@ -168,7 +174,11 @@ def test_counters_sum_bit_equal_and_replica_rows():
     assert got['counters']['serve_requests'] == 7
 
 
-def test_gauge_semantics_min_mean_sum_and_registration():
+def test_gauge_semantics_min_mean_sum_and_registration(monkeypatch):
+    for _, fo in BOTH:
+        # the default ('sum') is what the loop starts from
+        monkeypatch.delitem(fo._GAUGE_SEMANTICS, 'data_prefetch_depth',
+                            raising=False)
     for o, fo in BOTH:
         fed = _two_replica_metrics(o, fo)
         snap = fed.collect()

@@ -53,6 +53,35 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f'{path.relative_to(ROOT)} imports {bad}'
 
 
+# the two transform backends' own modules: imported only for an input
+# that takes their backend (vision/transforms/functional.py's _route)
+IMAGE_BACKENDS = {'vision/transforms/functional_pil.py': 'PIL',
+                  'vision/transforms/functional_cv2.py': 'cv2'}
+
+
+def _top_level_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ''
+
+
+@pytest.mark.parametrize('path', sorted(PORT.rglob('*.py')),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_pil_or_cv2_import_at_module_level(path):
+    """Pillow and OpenCV are not on the card's machine: no module of the
+    port imports them when it is imported, but each backend's own module
+    (which only an input of that backend imports)."""
+    allowed = IMAGE_BACKENDS.get(str(path.relative_to(PORT)))
+    bad = [n for n in _top_level_imports(path)
+           if n.split('.')[0] in ('PIL', 'cv2')
+           and n.split('.')[0] != allowed]
+    assert not bad, f'{path.relative_to(ROOT)} imports {bad} at import time'
+
+
 def test_the_scan_covers_the_training_modules():
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob('*.py')}
     assert {'optimizer/__init__.py', 'optimizer/optimizer.py',
@@ -109,8 +138,14 @@ def test_the_scan_covers_vision_and_the_rest_of_nn():
         'vision/__init__.py', 'vision/models/__init__.py',
         'vision/models/lenet.py', 'vision/models/resnet.py',
         'vision/models/vgg.py', 'vision/models/mobilenet.py',
-        'vision/datasets.py', 'vision/transforms.py', 'vision/ops.py',
-        'vision/image.py'} <= vision
+        'vision/datasets/__init__.py', 'vision/transforms/__init__.py',
+        'vision/transforms/functional.py',
+        'vision/transforms/functional_pil.py',
+        'vision/transforms/functional_cv2.py',
+        'vision/transforms/transforms.py', 'vision/ops.py',
+        'vision/detection.py', 'vision/image.py'} <= vision
+    assert {'models/ppyolo_lite.py', 'models/svtr.py', 'models/crnn.py',
+            'ops/nms.py'} <= scanned
     assert {'nn/functional/conv.py', 'nn/functional/pooling.py',
             'nn/functional/extension.py', 'nn/layer_conv.py',
             'nn/layer_pooling.py', 'nn/layer_rnn.py', 'nn/decode.py',

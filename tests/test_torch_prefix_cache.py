@@ -137,8 +137,10 @@ def test_trie_matches_reference_op_for_op():
 
 
 def test_full_hit_check_agrees_with_acquire_and_touches_nothing():
-    """``full_hit`` says whether ``acquire`` would find the whole prompt
-    with its first token, and changes no count, LRU tick or reference."""
+    """``acquire(..., full_only=True)`` takes the prefix only when the
+    whole prompt is cached with its first token for the seed, and then
+    agrees with ``acquire``; on anything less it returns None and changes
+    no count, LRU tick or reference."""
     alloc = tkv.PageAllocator(16)
     cache = PrefixCache(alloc, PS)
     toks = list(range(1, 2 * PS + 5))
@@ -150,9 +152,16 @@ def test_full_hit_check_agrees_with_acquire_and_touches_nothing():
              ('t', toks[:PS + 3], 8), ('t', toks, 0),
              ('t', toks[:PS] + [99, 98], 0), ('u', toks[:PS + 3], 7),
              ('t', [5, 6, 7], 0)]
-    before = (cache.stats(), cache._tick, alloc.free_pages)
-    got = [cache.full_hit(t, np.array(p, np.int32), s) for t, p, s in cases]
-    assert (cache.stats(), cache._tick, alloc.free_pages) == before
+    got = []
+    for t, p, s in cases:
+        before = (cache.stats(), cache._tick, alloc.free_pages)
+        full = cache.acquire(t, np.array(p, np.int32), s, full_only=True)
+        got.append(full is not None)
+        if full is None:
+            assert (cache.stats(), cache._tick, alloc.free_pages) == before
+            continue
+        alloc.free(full['pages'])
+        assert full['next_tok'] == 42 and full['match'] == PS + 3
     assert got == [True, True, False, False, False, False, False]
     for (t, p, s), full in zip(cases, got):
         hit = cache.acquire(t, np.array(p, np.int32), s)
@@ -253,9 +262,9 @@ def test_warm_repeat_captures_nothing_and_skips_the_prefill(model):
 def test_full_hit_is_admitted_by_submit(model):
     """With the scheduler running and nobody queued, a full hit's first
     token is there when ``submit`` returns; its copy-on-write page (the
-    prompt ends mid-page) is copied first, so later repeats, and a
-    one-token request that retires inside ``submit``, stream the same and
-    leave no page behind."""
+    prompt ends mid-page) is copied before the slot's first step, or
+    before a one-token request that retires inside ``submit`` publishes
+    it, so later repeats stream the same and no page is left behind."""
     jp, cfg, tp, tcfg = model
     prompt = _prompt(5, 12)                      # ends mid-page: COW
     with GenerationEngine(tp, tcfg, device='cpu', **_kw()) as eng:
@@ -274,6 +283,33 @@ def test_full_hit_is_admitted_by_submit(model):
     assert again == cold
     assert st['prefix_full_hits'] == 3 and st['prefills'] == 1
     assert free == eng.num_pages - 1
+
+
+def test_copy_on_write_source_is_held_until_the_copy(model):
+    """A full hit admitted with its copy-on-write still pending keeps the
+    source page allocated after the cache lets it go (cleared here), so
+    no later allocation can take and overwrite it first; the copy then
+    runs at the slot's first step, the stream equals the cold one, and
+    the hold is given back."""
+    jp, cfg, tp, tcfg = model
+    prompt = _prompt(7, 12)                      # ends mid-page: COW
+    eng = GenerationEngine(tp, tcfg, device='cpu', autostart=False, **_kw())
+    first = eng.submit(prompt, max_new_tokens=6, seed=2)
+    eng._drain_inline()                          # on this thread
+    cold = first.result(timeout=120)
+    fut = eng.submit(prompt, max_new_tokens=6, seed=2)
+    with eng._cv:
+        (idx,) = eng._admit_locked()
+        src, dst = eng._slots[idx].cow
+        assert eng._alloc.refcount(src) >= 2     # the cache's + the hold
+        eng._prefix.clear()
+        assert eng._alloc.refcount(src) == 1     # held, not free
+        eng._skip_prefill_locked(idx)
+        assert eng._slots[idx].cow == (src, dst)   # not copied yet
+    eng._drain_inline()
+    assert fut.result(timeout=120) == cold
+    eng.shutdown()                               # and clears the cache
+    assert eng._alloc.free_pages == eng.num_pages - 1
 
 
 def test_concurrent_submits_admit_full_hits_without_losing_pages(model):
