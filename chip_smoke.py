@@ -9,8 +9,8 @@ ends ("phase N: S s"; the report's ``phase_seconds``), and a line before
 the card's names the total and the longest phases. Some earlier paths run
 cut to keep the whole run inside its time budget (MOE_SERVE_LAYERS,
 FP8_RUNG_LAYERS, MOE_FP8_LAYERS, CURVE_STEPS, PREDICTOR_LAYERS,
-TIMED_ITERS); each is driven as before and its launch checks are computed
-from the cut depth:
+PREDICTOR_REQUESTS, COLD_LAYERS, TIMED_ITERS); each is driven as before
+and its launch checks are computed from the cut depth:
  1. the card: nvidia-smi name and power limit, torch's device name/count;
  2. build every kernel of the port from the sources in the checkout, one
     nvcc (sm_90a) for each source, all started together, and beside them
@@ -41,7 +41,11 @@ from the cut depth:
     flash_fwd (forward() over
     [8, 1024], and with dropout 0.1), flash_bwd_dq and flash_bwd_dkv (the
     train step's backward over [8, 1024], and with dropout 0.1; library:
-    PyTorch's own flash backward, for the two together);
+    PyTorch's own flash backward, for the two together); and the sp ring's
+    hops (phase 38's sp2, [8, 512] a hop, 16 heads of 64): kernel 1 on a
+    past kv block (dense) and on the diagonal block (causal), kernels 2
+    and 3 on both fed the MERGED lse of the two hops and the delta of the
+    merged output, as the ring's backward feeds them;
  4. the serving path at full width: the bench GPT (vocab 32768, hidden
     1024, 24 layers, 16 heads, bf16, random weights from a seed) as a
     GPTForCausalLM in GenerationEngine(model, num_slots=8, page_size=128)
@@ -282,10 +286,15 @@ from the cut depth:
     batch 1; bench.py's _child_predictor (resnet18
     layer-free p50, a chain's device ms at batch 1, 8, 32) and
     _child_serve_int8wo (f32 against int8_wo p50, captures within the
-    ladder); tools/warmup_check.py's cold start over ERNIE-base at
+    ladder); tools/warmup_check.py's cold start over ERNIE at
     max_batch_size 8 in two fresh processes (this script with
     --warmup-child): times to first response, the prebuild report, 0
-    captures during the warm process's traffic;
+    captures during the warm process's traffic; each part's seconds
+    printed. Cut for the time budget: the attach_layer Predictor serves
+    the first PREDICTOR_REQUESTS (40) of the 160 requests, and the
+    cold-start processes serve ERNIE at full width and COLD_LAYERS (2) of
+    its 12 layers, the warm process started beside the cold one (it
+    imports, then waits for the manifest before it touches the card);
 32. ERNIE-base pretrained: pretrain_loss at [8, 512] (real lengths
     256-512, ~15% of the real positions as MLM labels, NSP labels), remat,
     dropout 0.1 through kernel 1's dropout, AdamW(1e-4, weight_decay
@@ -387,13 +396,34 @@ from the cut depth:
     nudge of the input; the vision-op table of tests/torch_vision_cases.py
     and the detection losses within 2e-5; nms_static and nms over its NMS
     cases (ties, categories, max_out below and above the count, dense
-    overlap, 2,100 boxes) exactly equal.
+    overlap, 2,100 boxes) exactly equal;
+38. the hybrid-parallel train step (models/gpt.py's mesh path) with 2
+    ranks on the one card: the bench GPT's width (vocab 32768, hidden
+    1024, 16 heads, S 1024, global batch 8, bf16 over f32 params, flash,
+    remat 'dots', AdamW(2e-4, weight_decay=0.01)) at 4 layers, first one
+    rank (make_train_step(cfg, opt), no mesh: the yardstick), then 2 ranks
+    spawned by paddle.distributed.spawn (backend 'gloo': NCCL refuses two
+    ranks of one communicator on one device; gloo carries all-reduce and
+    broadcast on CUDA tensors, and the port stages its point-to-point ops
+    and gathers through pinned host buffers), each layout 2 steps: dp2,
+    dp2 with grad_quant='int8', mp2, sp2 (ring flash attention, S_local
+    512), pp2 GPipe and pp2 1F1B (4 microbatches, 2 layers a stage). Per
+    layout and rank: the step ms, the bytes and calls staged a step, the
+    launches of kernels 1-3 a step held exactly to mesh_launches_want (a
+    dp or mp rank 8 / 4 / 4; sp2's rank 0 8 / 4 / 4 and rank 1 16 / 8 / 8,
+    its one and two hops a layer; a pp2 stage 16 / 8 / 8) and all
+    tensor-core; step 1's loss within MESH_BF16_TOL (2^-8, relative) of
+    the single rank's; then the same layouts in f32 at 2 layers (one a
+    stage), AdamW epsilon 1e-6: step 1's loss and the gathered parameters
+    after 2 steps within 1e-4 of the single rank's (int8: its step-2 loss
+    within 5e-3 of the full-width one, the reference's bound).
 Phase 3 also holds every kernel at the MoE paths' shapes (12 heads of 64),
 kernels 1-3 at phase 25's (B=8, S=512, 12 heads of 64, its key-padding
 mask, dropout 0 and 0.1), and kernel 1 at phase 31's serving shapes (B 64
 and 1, S 128, 12 heads of 64, key lengths 32-128). Every launch counter is
 set to 0 just before each main-path run (phases 4, 6, 7, 9, 11, 13, 14,
 15, 17, 18, 22, 23, 31, 32, 34, 35; in 25, 27, 29 and 32 before each step,
+in 38 before each step on each rank,
 in 27 also before evaluate and each predict, in 31 before the engine's
 traffic, the Predictor's and each layer-free call, in 33 before the
 TranslatedLayer step, in 34 before the engine's traffic and before the
@@ -963,6 +993,8 @@ ERNIE_ATTN = dict(b=8, s=512, h=12, h_kv=12, d=64, dtype=BF16, causal=False,
 # phase 31's attention: 12 heads of 64 over S=128, row lengths 32-128
 ERNIE_SERVE_ATTN = dict(s=128, h=12, h_kv=12, d=64, dtype=BF16, causal=False)
 SERVE_LENS = [int(n) for n in np.random.RandomState(1).randint(32, 129, 64)]
+# one hop of the sp ring at phase 38's sp2: B 8, S_local 512, 16 heads of 64
+RING_HOP = dict(b=8, s=512, h=16, h_kv=16, d=64, dtype=BF16)
 FWD_CASES = [
     ('fwd_S1024', dict(b=8, s=1024, h=16, h_kv=16, d=64, dtype=BF16), True),
     ('fwd_S300_gqa_d128_f32', dict(b=2, s=300, h=8, h_kv=4, d=128,
@@ -990,6 +1022,10 @@ FWD_CASES = [
                                   lens=SERVE_LENS), True),
     ('ernie_serve_B1_S128', dict(ERNIE_SERVE_ATTN, b=1, lens=SERVE_LENS[:1]),
      True),
+    # the sp ring's hops (phase 38's sp2: S_local 512 of the bench GPT's
+    # 1024): a past kv block (dense) and the diagonal block (causal)
+    ('ring_hop_fwd_S512_past', dict(RING_HOP, causal=False), True),
+    ('ring_hop_fwd_S512_diag', dict(RING_HOP), True),
 ]
 DROP_SEED = 2 ** 31 + 12345     # a u32 past the int32 range
 # kernels 2 and 3 (the flash backward): the train step's shape first
@@ -1335,6 +1371,53 @@ def bwd_kernel_cases(fa, timed_iters):
                 instance='tensor-core' if tc else 'cuda-core')
         del c, fwd, delta
         torch.cuda.empty_cache()
+    return results
+
+
+def ring_bwd_cases(fa, timed_iters):
+    """Kernels 2 and 3 as the sp ring runs them (rank 1 of phase 38's sp2):
+    one q block against a past kv block (dense) and its own (causal), fed
+    the MERGED lse of both hops and delta = rowsum(out * dO) of the merged
+    output (``parallel.ring_attention.merge``), each held to its twin on
+    the same inputs; the dense hop timed over LAYERS rotating inputs."""
+    from paddle_tpu_torch.parallel.ring_attention import merge
+    results = {'flash_bwd_dq': {}, 'flash_bwd_dkv': {}}
+    c = fwd_case(layers=LAYERS, causal=False, **RING_HOP)
+    n = len(c['parts'])
+    hops = []
+    for i in range(n):
+        q, kp, vp = c['parts'][i]
+        _, kd, vd = c['parts'][(i + 1) % n]
+        o = torch.zeros(q.shape, device='cuda')
+        lse = torch.full(q.shape[:1] + q.shape[2:3] + q.shape[1:2],
+                         -math.inf, device='cuda')
+        for k, v, causal in ((kp, vp, False), (kd, vd, True)):
+            o, lse = merge(o, lse, *fa.flash_fwd(q, k, v, causal))
+        out = o.to(q.dtype)
+        hops.append(((kp, vp), (kd, vd), lse,
+                     fa.bwd_delta(out, c['dos'][i])))
+    for hop, causal in (('past', False), ('diag', True)):
+        def inputs(i, _hop=hop, _causal=causal):
+            j = i % n
+            kv = hops[j][0] if _hop == 'past' else hops[j][1]
+            return (c['parts'][j][0], *kv, c['dos'][j], hops[j][2],
+                    hops[j][3], _causal)
+        for kname, dots, pick in (('flash_bwd_dq', 3, lambda r: r[0]),
+                                  ('flash_bwd_dkv', 4, lambda r: r[1:])):
+            kern = getattr(fa, kname)
+            timing = None
+            if hop == 'past':
+                timing = dict(iters=max(4, timed_iters // 4),
+                              bound=bwd_bound(c, dots),
+                              library=lambda it: sdpa_bwd_ms(c, it))
+            results[kname][f'ring_hop_bwd_S512_{hop}'] = hold_kernel(
+                kname, f'ring_hop_bwd_S512_{hop} (merged lse)', kern,
+                lambda i, _k=kern, _in=inputs: _k(*_in(i)),
+                lambda i, _in=inputs, _p=pick: _p(
+                    fa.flash_bwd_reference(*_in(i))),
+                TOL[BF16], timing, floor=GRAD_FLOOR, instance='tensor-core')
+    del c, hops
+    torch.cuda.empty_cache()
     return results
 
 
@@ -4997,6 +5080,11 @@ SERVE_MAX_BATCH, SERVE_DELAY_MS = 64, 2.0
 SERVE_TOL = 2.0 ** -6       # bf16 outputs against the Layer's, a row
 PREDICTOR_P50_CALLS = 30
 COLD_MAX_BATCH = 8
+# cut for the time budget: the attach_layer Predictor serves the first 40
+# of the 160 requests one at a time, and the cold-start processes serve
+# ERNIE at full width and 2 of its 12 layers
+PREDICTOR_REQUESTS = 40
+COLD_LAYERS = 2
 
 
 def serve_requests(vocab, requests, lo, hi, s, len_lo, len_hi, seed):
@@ -5057,6 +5145,7 @@ def phase_ernie_serving(kernels, card):
     from paddle_tpu_torch.static import InputSpec
     paddle.set_device('gpu')
     paddle.seed(0)
+    marks = [('start', time.perf_counter())]
     cfg = ernie.ErnieConfig()
     torch.cuda.reset_peak_memory_stats()
     net = ernie.ErnieModel(cfg)
@@ -5157,6 +5246,7 @@ def phase_ernie_serving(kernels, card):
         + f' (total {bprof["device_ms"]:.3f}; readback '
         f'{res["readback_bytes"] / 1e6:.1f} MB of float32)', flush=True)
 
+    marks.append(('engine', time.perf_counter()))
     # the Predictor: jit.save's weights, then attach_layer one request at a
     # time (no program: attach_layer runs the Layer on graphs)
     tmp = tempfile.mkdtemp(prefix='chip_smoke_ernie_')
@@ -5168,19 +5258,21 @@ def phase_ernie_serving(kernels, card):
         pred.run([np.repeat(a[:1], n, axis=0) for a in reqs[0]])
     zero_launches(kernels)
     t0 = time.perf_counter()
-    for r in reqs:
+    preqs = reqs[:PREDICTOR_REQUESTS]
+    for r in preqs:
         pred.run(list(r))
     pwall = time.perf_counter() - t0
     got = launch_counts(kernels)
     expect_launches('Predictor.run (attach_layer) traffic', got,
-                    {'flash_fwd': L * len(reqs)})
-    res['predictor'] = {'requests_per_s': len(reqs) / pwall,
+                    {'flash_fwd': L * len(preqs)})
+    res['predictor'] = {'requests_per_s': len(preqs) / pwall,
                         'captures': pred._trace_count, 'launches': got}
     print(f'  Predictor.run + attach_layer, one request at a time: '
-          f'{len(reqs) / pwall:.1f} requests/s ({pred._trace_count} '
+          f'{len(preqs) / pwall:.1f} requests/s ({pred._trace_count} '
           f'captures, one a row count); the engine '
-          f'{res["requests_per_s"] / (len(reqs) / pwall):.2f}x', flush=True)
+          f'{res["requests_per_s"] / (len(preqs) / pwall):.2f}x', flush=True)
     del pred
+    marks.append(('predictor', time.perf_counter()))
     # the layer-free Predictor over the .pt2 program of ERNIE at full width
     # and PREDICTOR_LAYERS layers (the export's trace time grows with the
     # depth: 43.5-76.0 s at 12 layers)
@@ -5238,9 +5330,17 @@ def phase_ernie_serving(kernels, card):
     import shutil
     shutil.rmtree(tmp, ignore_errors=True)
 
+    marks.append(('layer_free', time.perf_counter()))
     res['bench_predictor'] = bench_predictor_rung(paddle, card)
+    marks.append(('bench_predictor', time.perf_counter()))
     res['bench_int8wo'] = bench_int8wo_rung(paddle, card)
+    marks.append(('bench_int8wo', time.perf_counter()))
     res['cold_start'] = cold_start(card)
+    marks.append(('cold_start', time.perf_counter()))
+    res['part_seconds'] = {n: t - marks[i][1]
+                           for i, (n, t) in enumerate(marks[1:])}
+    print('  phase 31 parts (s): ' + ', '.join(
+        f'{n} {v:.1f}' for n, v in res['part_seconds'].items()), flush=True)
     del eng
     paddle.set_device('cpu')
     torch.cuda.empty_cache()
@@ -5372,17 +5472,25 @@ def _cold_traffic(vocab):
 
 
 def warmup_child(mode, tmp):
-    """One process of the cold-start check (run by ``cold_start``): ERNIE-
-    base at max_batch_size 8 served cold inside ``warmup.capture()``
-    (saving the manifest), or warm from it. Prints one JSON line."""
+    """One process of the cold-start check (run by ``cold_start``): ERNIE
+    (full width, COLD_LAYERS layers) at max_batch_size 8 served cold
+    inside ``warmup.capture()`` (saving the manifest), or warm from it.
+    The warm process starts beside the cold one: it imports, then waits
+    for the manifest before it touches the card. Prints one JSON line."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch import serving, warmup
     from paddle_tpu_torch.models import ernie
+    manifest_path = os.path.join(tmp, 'manifest.json')
+    if mode == 'warm':
+        deadline = time.perf_counter() + 600
+        while not os.path.exists(manifest_path):
+            if time.perf_counter() > deadline:
+                raise TimeoutError('no manifest from the cold process')
+            time.sleep(0.05)
     paddle.set_device('gpu')
     paddle.seed(0)
-    net = ernie.ErnieModel(ernie.ErnieConfig())
+    net = ernie.ErnieModel(ernie.ErnieConfig(num_layers=COLD_LAYERS))
     first, rest = _cold_traffic(net.config.vocab_size)
-    manifest_path = os.path.join(tmp, 'manifest.json')
     out = {'mode': mode}
     # the process's one-time start (CUDA context, cuBLAS, the kernels'
     # libraries, the operator's first dispatch), paid by both processes
@@ -5425,28 +5533,34 @@ def warmup_child(mode, tmp):
 
 
 def cold_start(card):
-    """tools/warmup_check.py's protocol over ERNIE-base: two fresh
-    processes, the first serving cold inside warmup.capture() and saving
-    the manifest, the second building its engine with warmup=<manifest>;
-    the warm process must capture nothing during traffic."""
+    """tools/warmup_check.py's protocol over ERNIE (full width,
+    COLD_LAYERS layers): two fresh processes, the first serving cold
+    inside warmup.capture() and saving the manifest, the second building
+    its engine with warmup=<manifest>; the warm process must capture
+    nothing during traffic. Both start at once (the warm one waits for the
+    manifest after its imports)."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix='chip_smoke_warmup_')
     res = {}
+    t0 = time.perf_counter()
+    procs = {mode: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--warmup-child', mode,
+         '--dir', tmp], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for mode in ('cold', 'warm')}
     try:
-        for mode in ('cold', 'warm'):
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__),
-                 '--warmup-child', mode, '--dir', tmp],
-                capture_output=True, text=True, timeout=600)
+        for mode, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
             if proc.returncode != 0:
                 raise AssertionError(f'{mode} process failed:\n'
-                                     f'{proc.stdout[-2000:]}\n'
-                                     f'{proc.stderr[-4000:]}')
-            res[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+                                     f'{out[-2000:]}\n{err[-4000:]}')
+            res[mode] = json.loads(out.strip().splitlines()[-1])
             res[mode]['process_s'] = time.perf_counter() - t0
     finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     cold, warm = res['cold'], res['warm']
     if warm['captures_during_traffic'] != 0 or warm['misses'] != 0:
@@ -7195,6 +7309,264 @@ def phase_detection_card_vs_cpu():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 38: the hybrid-parallel train step, 2 ranks on the one card
+# ---------------------------------------------------------------------------
+
+MESH_B, MESH_S = 8, 1024   # the global batch of the phase (bench GPT)
+MESH_LAYERS = 4            # the bf16 run's depth: pp2 has 2 layers a stage
+MESH_F32_LAYERS = 2        # the f32 run held to the single rank: 1 a stage
+MESH_STEPS = 2
+MESH_LR = 2e-4
+# (name, HybridTopology degrees, GPTConfig overrides) of the 2 ranks
+MESH_LAYOUTS = [
+    ('dp2', dict(dp=2), {}),
+    ('dp2_int8', dict(dp=2), dict(grad_quant='int8')),
+    ('mp2', dict(mp=2), dict(mp=2)),
+    ('sp2', dict(sp=2), dict(sp=2)),
+    ('pp2_gpipe', dict(pp=2), dict(pp=2, n_microbatches=4)),
+    ('pp2_1f1b', dict(pp=2), dict(pp=2, n_microbatches=4,
+                                  pp_schedule='1f1b')),
+]
+# step 1's loss of a bf16 layout against the single rank's, relative: the
+# layouts sum the same bf16 products in other orders (mp: two half-width
+# partial sums meet in a bf16 all-reduce; sp: the hops' bf16 outputs merge
+# in f32; pp: 4 microbatches), so they agree with one rank to the rounding
+# of the bf16 activations, which the mean over 8,192 tokens averages down:
+# 2**-8 is one bf16 rounding step of the loss itself
+MESH_BF16_TOL = 2.0 ** -8
+MESH_F32_TOL = 1e-4        # the CPU tests' tolerance, f32 (TF32 off)
+# the f32 run's AdamW epsilon: at 1e-8 a gradient that is zero but for f32
+# rounding moves its weight by up to lr / 2 whatever the layout
+MESH_F32_EPS = 1e-6
+INT8_CURVE_TOL = 5e-3      # the reference's bound of int8 against f32 wire
+
+
+def mesh_config(gpt, dtype, layers, **over):
+    return bench_config(gpt, num_layers=layers, dtype=dtype, remat=True,
+                        remat_policy='dots', use_flash=True, **over)
+
+
+def mesh_params(gpt, cfg):
+    """The global parameters from a CPU generator of seed 0 (every process
+    draws the same), on the card."""
+    p = gpt.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
+    return {k: ({b: t.cuda() for b, t in v.items()} if k == 'blocks'
+                else v.cuda()) for k, v in p.items()}
+
+
+def mesh_batch(vocab):
+    rs = np.random.RandomState(38)
+    toks = rs.randint(0, vocab, (MESH_B, MESH_S)).astype(np.int32)
+    tgts = rs.randint(0, vocab, (MESH_B, MESH_S)).astype(np.int32)
+    return torch.from_numpy(toks).cuda(), torch.from_numpy(tgts).cuda()
+
+
+def mesh_launches_want(over, rank, layers):
+    """Kernels 1-3 a step on one rank of a layout, remat on. One rank (dp,
+    mp): kernel 1 twice a layer (the forward and the backward's
+    recompute), kernels 2 and 3 once. sp2 (causal ring, S_local 512): rank
+    r runs r + 1 hops a layer (rank 0 the diagonal only, rank 1 the past
+    block and the diagonal), each hop once in the forward and once in the
+    recompute, kernels 2 and 3 once a hop: rank 0 2L / L / L, rank 1 4L /
+    2L / 2L. pp2 (GPipe or 1F1B, m = 4 microbatches, L / 2 layers a
+    stage): each microbatch's stage runs once without autograd and once
+    recomputed in its backward tick: kernel 1 2 x (L / 2) x m, kernels 2
+    and 3 (L / 2) x m."""
+    if over.get('sp', 1) > 1:
+        hops = rank + 1
+        return {'flash_fwd': 2 * layers * hops,
+                'flash_bwd_dq': layers * hops,
+                'flash_bwd_dkv': layers * hops}
+    if over.get('pp', 1) > 1:
+        n = (layers // 2) * over['n_microbatches']
+        return {'flash_fwd': 2 * n, 'flash_bwd_dq': n, 'flash_bwd_dkv': n}
+    return {'flash_fwd': 2 * layers, 'flash_bwd_dq': layers,
+            'flash_bwd_dkv': layers}
+
+
+def mesh_steps(step, params, state, toks, tgts, kernels, mesh=None):
+    """MESH_STEPS steps: each one's loss, ms (host clock to a sync),
+    kernels 1-3's launches and tensor-core launches, and the bytes and
+    calls the one-card transport staged."""
+    recs = []
+    for i in range(MESH_STEPS):
+        zero_launches(kernels)
+        if mesh is not None:
+            mesh.reset_staged()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, params, state = step(params, state, 1000 + i, MESH_LR, toks,
+                                   tgts)
+        loss = loss.item()
+        torch.cuda.synchronize()
+        recs.append({'loss': loss, 'ms': (time.perf_counter() - t0) * 1e3,
+                     'launches': {n: kernels[n].launches
+                                  for n in TC_KERNELS},
+                     'tc': {n: kernels[n].tc_launches for n in TC_KERNELS},
+                     'staged': (mesh.staged() if mesh is not None
+                                else {'calls': 0, 'bytes': 0})})
+    return recs, params
+
+
+def mesh_rank(tmp):
+    """One rank of phase 38 (run by paddle.distributed.spawn): every
+    layout in bf16 at MESH_LAYERS and in f32 at MESH_F32_LAYERS; the f32
+    parameters after the steps, gathered, against the single rank's that
+    the parent saved. Writes rank<r>.json in ``tmp``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import flash_attention as fa
+    dist.init_parallel_env()
+    rank = dist.get_rank()
+    kernels = {n: getattr(fa, n) for n in TC_KERNELS}
+    out = {'rank': rank, 'bf16': {}, 'f32': {}}
+    yard = torch.load(os.path.join(tmp, 'single_f32.pt'), map_location='cuda')
+    for dtype, layers, key in (('bfloat16', MESH_LAYERS, 'bf16'),
+                               ('float32', MESH_F32_LAYERS, 'f32')):
+        full = mesh_params(gpt, mesh_config(gpt, dtype, layers))
+        toks, tgts = mesh_batch(full['wte'].shape[0])
+        for name, deg, over in MESH_LAYOUTS:
+            topo = dist.HybridTopology(**deg)
+            cfg = mesh_config(gpt, dtype, layers, **over)
+            params = gpt.place_params(full, cfg, topo.mesh)
+            opt = topt.AdamW(learning_rate=MESH_LR, weight_decay=0.01,
+                             **({'epsilon': MESH_F32_EPS} if key == 'f32'
+                                else {}))
+            state = opt.functional_init(params)
+            step = gpt.make_train_step(cfg, opt, topo.mesh)
+            recs, params = mesh_steps(step, params, state, toks, tgts,
+                                      kernels, topo.mesh)
+            rec = {'steps': recs}
+            if key == 'f32':
+                got = gpt.gather_params(params, cfg, topo.mesh)
+                rec['param_err'] = max(
+                    (got['blocks'][b] - yard['blocks'][b]).abs().max().item()
+                    for b in got['blocks'])
+                rec['param_err'] = max(rec['param_err'], *(
+                    (got[k] - yard[k]).abs().max().item()
+                    for k in got if k != 'blocks'))
+            out[key][name] = rec
+            del params, state, step
+            torch.cuda.empty_cache()
+        del full
+        torch.cuda.empty_cache()
+    with open(os.path.join(tmp, f'rank{rank}.json'), 'w') as f:
+        json.dump(out, f)
+
+
+def phase_mesh_train(kernels, card):
+    """Phase 38 (see the module docstring): the single rank's steps here,
+    then 2 ranks spawned on the one card over gloo with the host-staged
+    transport, every layout against the single rank."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import gpt
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_mesh_')
+    single = {}
+    try:
+        for dtype, layers, key in (('bfloat16', MESH_LAYERS, 'bf16'),
+                                   ('float32', MESH_F32_LAYERS, 'f32')):
+            cfg = mesh_config(gpt, dtype, layers)
+            params = mesh_params(gpt, cfg)
+            opt = topt.AdamW(learning_rate=MESH_LR, weight_decay=0.01,
+                             **({'epsilon': MESH_F32_EPS} if key == 'f32'
+                                else {}))
+            state = opt.functional_init(params)
+            toks, tgts = mesh_batch(cfg.vocab_size)
+            recs, params = mesh_steps(gpt.make_train_step(cfg, opt), params,
+                                      state, toks, tgts, kernels)
+            single[key] = recs
+            if key == 'bf16':
+                expect_launches('single rank, a step', recs[-1]['launches'],
+                                mesh_launches_want({}, 0, layers))
+            else:
+                torch.save({k: ({b: t.cpu() for b, t in v.items()}
+                                if k == 'blocks' else v.cpu())
+                            for k, v in params.items()},
+                           os.path.join(tmp, 'single_f32.pt'))
+            print(f'  single rank {key} ({layers} layers): losses '
+                  f'{[round(r["loss"], 6) for r in recs]}, step ms '
+                  f'{[round(r["ms"], 1) for r in recs]}', flush=True)
+            del params, state
+            torch.cuda.empty_cache()
+        # gloo's two ranks meet over the loopback interface
+        os.environ.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+        t0 = time.perf_counter()
+        dist.spawn(mesh_rank, (tmp,), nprocs=2, backend='gloo')
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f'rank{r}.json')) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {'single': single, 'spawn_s': spawn_s, 'layouts': {},
+           'launches': {n: 0 for n in TC_KERNELS}}
+    print(f'  2 ranks spawned on {card!r} (gloo, host-staged p2p and '
+          f'gathers): {spawn_s:.1f} s with both runs', flush=True)
+    base = single['bf16'][0]['loss']
+    base32 = [r['loss'] for r in single['f32']]
+    for name, _, over in MESH_LAYOUTS:
+        lay = {}
+        for r, out in enumerate(ranks):
+            recs = out['bf16'][name]['steps']
+            want = mesh_launches_want(over, r, MESH_LAYERS)
+            for i, rec in enumerate(recs):
+                expect_launches(f'{name} rank {r} step {i + 1}',
+                                rec['launches'], want)
+                if rec['tc'] != rec['launches']:
+                    raise AssertionError(f'{name} rank {r}: CUDA-core '
+                                         f'launches {rec}')
+                for n in TC_KERNELS:
+                    res['launches'][n] += rec['launches'][n]
+            gap = abs(recs[0]['loss'] - base) / abs(base)
+            if not gap <= MESH_BF16_TOL:
+                raise AssertionError(f'{name} rank {r}: bf16 step-1 loss '
+                                     f'{recs[0]["loss"]} vs one rank\'s '
+                                     f'{base} ({gap:.3e} > '
+                                     f'{MESH_BF16_TOL:g})')
+            f32 = out['f32'][name]
+            l32 = [s['loss'] for s in f32['steps']]
+            if not abs(l32[0] - base32[0]) <= MESH_F32_TOL:
+                raise AssertionError(f'{name} rank {r}: f32 step-1 loss '
+                                     f'{l32[0]} vs {base32[0]}')
+            if name == 'dp2_int8':
+                # the int8 wire rounds the gradients: its curve is held
+                # to the full-width one within the reference's bound
+                if not abs(l32[1] - base32[1]) <= INT8_CURVE_TOL:
+                    raise AssertionError(f'{name}: f32 step-2 loss '
+                                         f'{l32[1]} vs {base32[1]}')
+            elif not f32['param_err'] <= MESH_F32_TOL:
+                raise AssertionError(f'{name} rank {r}: f32 parameters '
+                                     f'after {MESH_STEPS} steps off by '
+                                     f'{f32["param_err"]:.3e}')
+            lay[r] = {'loss': [s['loss'] for s in recs],
+                      'ms': [s['ms'] for s in recs],
+                      'staged': recs[-1]['staged'], 'launches': want,
+                      'bf16_loss_gap': gap, 'f32_losses': l32,
+                      'f32_param_err': f32['param_err']}
+            print(f'  {name} rank {r}: step ms '
+                  f'{[round(s["ms"], 1) for s in recs]}, staged a step '
+                  f'{recs[-1]["staged"]["bytes"]} B in '
+                  f'{recs[-1]["staged"]["calls"]} calls, kernels 1-3 a '
+                  f'step {want}; bf16 step-1 loss {recs[0]["loss"]:.6f} '
+                  f'(one rank {base:.6f}, gap {gap:.2e} <= '
+                  f'{MESH_BF16_TOL:g}); f32 losses '
+                  f'{[round(x, 6) for x in l32]} (one rank '
+                  f'{[round(x, 6) for x in base32]}), params off by '
+                  f'{f32["param_err"]:.2e}', flush=True)
+        res['layouts'][name] = lay
+    return res
+
+
 class PhaseClock:
     """``with phase(n, title):`` prints the phase's title as it starts and
     its wall seconds on a line of their own as it ends, and keeps them in
@@ -7292,6 +7664,8 @@ def main(argv=None):
         report['dense_kernels'] = dk = dense_kernel_cases(fa, pa,
                                                           TIMED_ITERS)
         report['bwd_kernels'] = bk = bwd_kernel_cases(fa, TIMED_ITERS)
+        for kname, recs in ring_bwd_cases(fa, TIMED_ITERS).items():
+            bk[kname].update(recs)
     with phase(4, 'GenerationEngine at full width'):
         report['engine'] = phase_engine(gpt, GenerationEngine, counters,
                                         card)
@@ -7399,6 +7773,10 @@ def main(argv=None):
     with phase(37, 'detection and OCR, the vision ops and NMS, card against '
                    'CPU'):
         report['detection_card_vs_cpu'] = phase_detection_card_vs_cpu()
+    with phase(38, 'the hybrid-parallel train step: 2 ranks on the card '
+                   '(dp2, dp2 int8, mp2, sp2 ring, pp2 GPipe and 1F1B) '
+                   'against one rank'):
+        report['mesh_train'] = mt38 = phase_mesh_train(counters, card)
 
     gen, fwd = report['generate'], report['forward']
     train = report['train']['launches']
@@ -7442,11 +7820,15 @@ def main(argv=None):
         'flash_fwd': fwd['forward_launches']['flash_fwd']
         + fwd['launches']['flash_fwd'] + train['flash_fwd']
         + gwo['window']['launches']['flash_fwd'] + mt['flash_fwd']
-        + sum(r['flash_fwd'] for r in f8t),
+        + sum(r['flash_fwd'] for r in f8t)
+        # phase 38: both ranks' steps of every bf16 layout
+        + mt38['launches']['flash_fwd'],
         'flash_bwd_dq': train['flash_bwd_dq'] + mt['flash_bwd_dq']
-        + sum(r.get('flash_bwd_dq', 0) for r in f8t),
+        + sum(r.get('flash_bwd_dq', 0) for r in f8t)
+        + mt38['launches']['flash_bwd_dq'],
         'flash_bwd_dkv': train['flash_bwd_dkv'] + mt['flash_bwd_dkv']
-        + sum(r.get('flash_bwd_dkv', 0) for r in f8t),
+        + sum(r.get('flash_bwd_dkv', 0) for r in f8t)
+        + mt38['launches']['flash_bwd_dkv'],
     }
     timed_shape = {'paged_decode': 'decode_T1',
                    'paged_decode_int8': 'decode_T1',

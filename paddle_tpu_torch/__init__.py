@@ -108,13 +108,14 @@ from .batch import batch  # noqa: E402,F401
 from . import jit, static  # noqa: E402,F401
 from . import profiler  # noqa: E402,F401
 
-_LAZY = ('vision', 'inference', 'models', 'serving', 'warmup')
+_LAZY = ('vision', 'inference', 'models', 'serving', 'warmup',
+         'distributed')
 
 
 def __getattr__(name):
     """``paddle.vision``, ``paddle.inference``, ``paddle.models``,
-    ``paddle.serving`` and ``paddle.warmup`` on first use, as the reference
-    imports them."""
+    ``paddle.serving``, ``paddle.warmup`` and ``paddle.distributed`` on
+    first use, as the reference imports them."""
     if name in _LAZY:
         import importlib
         return importlib.import_module(f'.{name}', __name__)

@@ -38,7 +38,7 @@ that already runs, never an extra one, since a step updates the
 Parameters in place.
 
 Not ported, raising NotImplementedError citing its ROADMAP Queue 1 step:
-``prepare(strategy=)`` (step K); ASP sparsity masks are step M's.
+``prepare(strategy=)`` (step K4); ASP sparsity masks are step M's.
 """
 import collections
 import os
@@ -145,7 +145,7 @@ class Model:
         labels) and the metrics of ``fit`` / ``evaluate``. Under amp, wrap
         the calls in ``paddle.amp.auto_cast``."""
         if strategy is not None:
-            raise _deferred('Model.prepare(strategy=)', 'K')
+            raise _deferred('Model.prepare(strategy=)', 'K4')
         self._optimizer = optimizer
         self._loss = loss
         self._metrics = _to_list(metrics)

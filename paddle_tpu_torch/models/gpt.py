@@ -50,8 +50,13 @@ tensor cores on the card), with the scaling state (``init_fp8_state``)
 threaded through ``forward_hidden`` / ``loss_fn`` and the train step
 ``step(params, opt_state, fp8_state, seed, lr, tokens, targets)``.
 
-Not ported yet (ROADMAP Queue 1): quantized gradient all-reduce and
-tensor, sequence and pipeline parallelism (item 10).
+Hybrid-parallel training (``make_train_step(config, opt, mesh)``, step
+K1): one process a rank over ``torch.distributed``, the reference's
+explicit-collective route for every layout: dp, Megatron mp (``block_fn``
+with the mesh), sp (ring flash attention, kernels 1-3 a hop), GPipe or
+1F1B pp, and the quantized dp all-reduce (``grad_quant``);
+``place_params`` / ``gather_params`` move between the global parameters
+and a rank's blocks.
 """
 import dataclasses
 import functools
@@ -337,18 +342,39 @@ def _block_mlp(bp, y, cdt, fp8_fc=None, fp8_out=None):
     return _mm(y, bp['out_w'], cdt, fp8_out)
 
 
-def _attention(q, k, v, config, drop_seed=None):
-    """Causal self-attention of the plain forward (the reference's
-    ``_attention`` without sequence parallelism). q [B,S,H,D], k/v
-    [B,S,H_kv,D]. ``use_flash`` runs kernel 1 with kernels 2 and 3 as its
-    backward (their twins on the CPU); ``use_flash=False`` runs the
-    reference's own einsum path (``gpt.py:277-285``): scores in the
-    compute dtype, f32 softmax. ``drop_seed`` (a u32, training only) turns
-    on ``config.dropout``: in the kernels on the flash path, through the
-    same counter-hash mask in ``attention_reference`` otherwise."""
+def _attention(q, k, v, config, drop_seed=None, mesh=None):
+    """Causal self-attention of the forward (the reference's
+    ``_attention``, ``gpt.py:221-285``). q [B,S,H,D], k/v [B,S,H_kv,D].
+    ``use_flash`` runs kernel 1 with kernels 2 and 3 as its backward
+    (their twins on the CPU); ``use_flash=False`` runs the reference's own
+    einsum path (``gpt.py:277-285``): scores in the compute dtype, f32
+    softmax. ``drop_seed`` (a u32, training only) turns on
+    ``config.dropout``: in the kernels on the flash path, through the
+    same counter-hash mask in ``attention_reference`` otherwise. With
+    ``config.sp > 1`` (and the train step's ``mesh``) q, k, v are this
+    rank's sequence block and attention runs the ring over the mesh's sp
+    axis: ``ring_flash_attention`` (kernels 1-3 a hop; GQA kv blocks
+    rotate un-repeated) with ``use_flash``, the plain ``ring_attention``
+    over repeated kv heads without it."""
     if config.sp > 1:
-        raise NotImplementedError('sequence parallelism (sp > 1) is not '
-                                  'ported yet (ROADMAP Queue 1 item 10)')
+        from ..parallel.ring_attention import (ring_attention,
+                                               ring_flash_attention)
+        if mesh is None:
+            raise ValueError('sp > 1 runs inside the mesh train step '
+                             '(make_train_step(config, opt, mesh))')
+        drop = config.dropout > 0.0 and drop_seed is not None
+        if config.use_flash:
+            return ring_flash_attention(
+                q, k, v, 'sp', causal=True,
+                drop_rate=config.dropout if drop else 0.0,
+                seed=drop_seed if drop else None, mesh=mesh)
+        if drop:
+            raise NotImplementedError(
+                'attention dropout under sequence parallelism needs the '
+                'ring flash path (use_flash=True, 128-multiple local '
+                'shard) — or set dropout=0')
+        k, v = repeat_kv(k, v, int(q.shape[2]))
+        return ring_attention(q, k, v, 'sp', causal=True, mesh=mesh)
     if config.dropout > 0.0 and drop_seed is not None:
         if config.use_flash:
             return flash_attention(q, k, v, causal=True,
@@ -368,21 +394,38 @@ def _attention(q, k, v, config, drop_seed=None):
     return torch.einsum('bhqk,bkhd->bqhd', p, v)
 
 
-def block_fn(bp, x, config, drop_seed=None, fp8_meta=None):
-    """One transformer block of the plain forward (``gpt.py:320``, mp=1).
-    bp: this layer's params (no leading L dim); x: [B, S, H];
-    ``drop_seed``: this layer's u32 dropout seed, or None; ``fp8_meta``:
-    this layer's ``{name: matmul meta}`` for ``FP8_MATMULS``, or None."""
+def block_fn(bp, x, config, drop_seed=None, fp8_meta=None, mesh=None):
+    """One transformer block (``gpt.py:320-356``). bp: this layer's params
+    (no leading L dim); x: [B, S, H]; ``drop_seed``: this layer's u32
+    dropout seed, or None; ``fp8_meta``: this layer's ``{name: matmul
+    meta}`` for ``FP8_MATMULS``, or None. ``mesh`` (the mesh train step's,
+    the reference's ``explicit_mp``): with ``config.mp > 1`` the qkv/fc
+    weights are this rank's column blocks and proj/out its row blocks,
+    Megatron's f/g pair over the mesh's mp axis around each; with
+    ``config.sp > 1`` attention runs the ring over its sp axis."""
     cdt = torch_dtype(config.dtype)
     B, S, h = x.shape
+    mp = config.mp if mesh is not None else 1
+    nh, kvh = config.num_heads // mp, config.kv_heads // mp
     fm = fp8_meta or {}
+    if mp > 1:
+        from ..parallel.tp_ad import f_identity, g_allreduce
+        grp = mesh.group('mp')
     y = _layer_norm(x, bp['ln1_g'], bp['ln1_b']).to(cdt)
-    q, k, v = _block_qkv(bp, y, config.num_heads, config.head_dim, cdt,
-                         config.kv_heads, fm.get('qkv'))
-    a = _attention(q, k, v, config, drop_seed).reshape(B, S, h)
-    x = x + _mm(a, bp['proj_w'], cdt, fm.get('proj')) + bp['proj_b'].to(cdt)
+    if mp > 1:
+        y = f_identity(y, grp)
+    q, k, v = _block_qkv(bp, y, nh, config.head_dim, cdt, kvh, fm.get('qkv'))
+    a = _attention(q, k, v, config, drop_seed, mesh).reshape(B, S, h // mp)
+    a = _mm(a, bp['proj_w'], cdt, fm.get('proj'))
+    if mp > 1:
+        a = g_allreduce(a, grp)
+    x = x + a + bp['proj_b'].to(cdt)
     y = _layer_norm(x, bp['ln2_g'], bp['ln2_b']).to(cdt)
+    if mp > 1:
+        y = f_identity(y, grp)
     y = _block_mlp(bp, y, cdt, fm.get('fc'), fm.get('out'))
+    if mp > 1:
+        y = g_allreduce(y, grp)
     return x + y + bp['out_b'].to(cdt)
 
 
@@ -511,22 +554,6 @@ def loss_fn(params, tokens, targets, config, dropout_seed=None,
     return -ll.mean()
 
 
-def _check_trainable(config, mesh):
-    """Raise on the train-step options that are not ported, naming their
-    ROADMAP items."""
-    later = []
-    if mesh is not None:
-        later.append('a device mesh (item 10, distributed training)')
-    for name in ('mp', 'sp', 'pp'):
-        if getattr(config, name) > 1:
-            later.append(f'{name} > 1 (item 10, distributed training)')
-    if config.grad_quant not in (None, 'none'):
-        later.append('grad_quant (item 10, the quantized dp all-reduce)')
-    if later:
-        raise NotImplementedError('not ported yet: ' + '; '.join(later)
-                                  + ' (ROADMAP Queue 1)')
-
-
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -544,20 +571,30 @@ def _rebuild(tree, leaves):
 
 
 def make_train_step(config, optimizer, mesh=None):
-    """The single-device train step (``gpt.py:870-897``):
-    ``step(params, opt_state, seed, lr, tokens, targets) -> (loss, params,
-    opt_state)``, or with ``matmul_precision='fp8'`` ``step(params,
-    opt_state, fp8_state, seed, lr, tokens, targets) -> (loss, params,
-    opt_state, fp8_state)``. ``seed`` is the step's u32 dropout seed (an
-    int), used only when ``config.dropout > 0``, in place of the
+    """The train step (``gpt.py:832-1044``): ``step(params, opt_state,
+    seed, lr, tokens, targets) -> (loss, params, opt_state)``, or with
+    ``matmul_precision='fp8'`` (one device) ``step(params, opt_state,
+    fp8_state, seed, lr, tokens, targets) -> (loss, params, opt_state,
+    fp8_state)``. ``seed`` is the step's u32 (an int), used for attention
+    dropout and the quantized all-reduce's rounding, in place of the
     reference's PRNG key (see the module docstring). The loss and its
-    gradients come from autograd over ``loss_fn``;
-    ``optimizer.functional_apply`` then updates ``params`` and
-    ``opt_state`` in place (the reference donates them), the new fp8
-    state is copied into ``fp8_state``, and the same dicts are returned.
-    A mesh, mp/sp/pp > 1 and grad_quant raise."""
-    _check_trainable(config, mesh)
-    return autograd_step(loss_fn, config, optimizer)
+    gradients come from autograd; ``optimizer.functional_apply`` then
+    updates ``params`` and ``opt_state`` in place (the reference donates
+    them), and the same dicts are returned.
+
+    Without a mesh, and with mp = sp = pp = 1 and no grad_quant, this is
+    the single-device step over ``loss_fn``. Otherwise ``mesh`` (a
+    ``distributed.topology.Mesh`` or ``HybridTopology``; default the
+    process topology's) runs the hybrid-parallel step: ``params`` and
+    ``opt_state`` are this rank's blocks (``place_params``), every rank
+    passes the global batch and the step takes its (dp, sp) block, the
+    loss is the global mean on every rank. See ``_mesh_train_step``."""
+    if mesh is None and _uses_mesh(config):
+        from ..distributed.topology import get_mesh
+        mesh = get_mesh()
+    if mesh is None:
+        return autograd_step(loss_fn, config, optimizer)
+    return _mesh_train_step(config, optimizer, getattr(mesh, 'mesh', mesh))
 
 
 def autograd_step(loss, config, optimizer):
@@ -601,6 +638,254 @@ def autograd_step(loss, config, optimizer):
             params, grads, opt_state, lr)
         return value, params, opt_state
 
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Hybrid-parallel train step (step K1)
+# ---------------------------------------------------------------------------
+
+# Logical axis names per parameter (parallel/partitioner.py), the
+# reference's (``gpt.py:177-190``): the Megatron column/row and pipeline
+# layout falls out of one rules table.
+LOGICAL_AXES = {
+    'wte': ('vocab', 'embed'),
+    'wpe': ('positions', 'embed'),
+    'blocks': {
+        'ln1_g': ('layers', 'embed'), 'ln1_b': ('layers', 'embed'),
+        'qkv_w': ('layers', 'embed', 'heads'),
+        'qkv_b': ('layers', 'heads'),
+        'proj_w': ('layers', 'heads', 'embed'),
+        'proj_b': ('layers', 'embed'),
+        'ln2_g': ('layers', 'embed'), 'ln2_b': ('layers', 'embed'),
+        'fc_w': ('layers', 'embed', 'mlp'), 'fc_b': ('layers', 'mlp'),
+        'out_w': ('layers', 'mlp', 'embed'), 'out_b': ('layers', 'embed'),
+    },
+    'lnf_g': ('embed',), 'lnf_b': ('embed',),
+}
+
+
+def _uses_mesh(config):
+    """The layouts only the mesh step runs: mp/sp/pp > 1 or a quantized
+    gradient all-reduce."""
+    return (config.mp > 1 or config.sp > 1 or config.pp > 1
+            or config.grad_quant not in (None, 'none'))
+
+
+def _uses_shard_map(config):
+    """The reference's explicit-collective layouts (``gpt.py:822-827``)."""
+    return (config.sp > 1 or config.pp > 1
+            or config.grad_quant not in (None, 'none'))
+
+
+def _partitioner(config, explicit):
+    from ..parallel.partitioner import Partitioner, model_rules
+    return Partitioner(rules=model_rules(
+        mp=config.mp, pp=config.pp, sp=config.sp, explicit=explicit))
+
+
+def param_specs(config):
+    """PartitionSpecs of the reference's GSPMD path (vocab and heads over
+    'mp'), from LOGICAL_AXES through the rules table."""
+    return _partitioner(config, explicit=False).tree_specs(LOGICAL_AXES)
+
+
+def train_specs(config):
+    """PartitionSpecs of the parameters the port's mesh step takes: the
+    explicit-collective rules (vocab replicated; 'mp', 'pp' only where >
+    1) for every layout. The reference takes these for its shard_map
+    layouts and ``param_specs`` for dp/mp, which the port also runs on the
+    explicit route (ROADMAP "Known, deliberate differences")."""
+    return _partitioner(config, explicit=True).tree_specs(LOGICAL_AXES)
+
+
+def place_params(params, config, mesh):
+    """This rank's blocks of the global parameter dict (every rank passes
+    the same global dict), by ``train_specs``: copies, which the step
+    updates in place."""
+    from ..optimizer.optimizer import tree_map
+    from ..parallel.partitioner import shard
+    mesh = getattr(mesh, 'mesh', mesh)
+    return tree_map(lambda x, s: shard(x, s, mesh).clone(), params,
+                    train_specs(config))
+
+
+def gather_params(params, config, mesh):
+    """The global parameter dict from every rank's blocks (all-gathered
+    over each sharded dim's axis): the counterpart of reading a sharded
+    ``jax.Array`` whole, for tests and checkpoints."""
+    from ..parallel.partitioner import unshard_tree
+    return unshard_tree(params, train_specs(config), getattr(mesh, 'mesh',
+                                                             mesh))
+
+
+def _check_mesh(config, mesh):
+    """The reference's refusals (``gpt.py:855-868``, ``:908-910``), and the
+    config's degrees against the mesh's."""
+    if config.dropout > 0.0 and config.pp > 1:
+        raise NotImplementedError(
+            'attention dropout under pipeline parallelism is not '
+            'implemented — set dropout=0, or use dp/mp/sp layouts')
+    if config.matmul_precision == 'fp8':
+        if _uses_shard_map(config):
+            raise NotImplementedError(
+                "matmul_precision='fp8' under the explicit-collective "
+                '(shard_map) layouts (sp/pp/grad_quant) is not implemented '
+                '— use the GSPMD dp/mp path or matmul_precision=none')
+        raise NotImplementedError(
+            "matmul_precision='fp8' over a dp/mp mesh is not ported yet "
+            '(ROADMAP Queue 1 step K2)')
+    if (config.pp > 1 and config.pp_schedule == '1f1b'
+            and config.grad_quant != 'none'):
+        raise NotImplementedError(
+            'grad_quant under the fused 1F1B schedule is not '
+            "implemented — use pp_schedule='gpipe' or grad_quant='none'")
+    for ax in ('mp', 'sp', 'pp'):
+        if mesh.axis_size(ax) != getattr(config, ax):
+            raise ValueError(
+                f'config.{ax}={getattr(config, ax)} but the mesh has '
+                f'{ax}={mesh.axis_size(ax)} ({mesh})')
+
+
+_SHARED = ('lnf_b', 'lnf_g', 'wpe', 'wte')
+
+
+def _mesh_train_step(config, optimizer, mesh):
+    """The hybrid-parallel step over ``mesh`` (``gpt.py:832-1109``), one
+    process a rank, on the explicit-collective route for every layout:
+
+     - the batch: this rank's (dp, sp) block of the global ``tokens`` /
+       ``targets``;
+     - the forward: the embedding at this sp block's positions, the
+       rank's layers (Megatron mp inside ``block_fn``, the sp ring inside
+       ``_attention``), or with pp > 1 the GPipe pipeline over them
+       (``pipeline_apply``; the loss kept on the last stage) or the fused
+       1F1B schedule (``pp_schedule='1f1b'``); then the final norm, the
+       tied head over the whole vocab and the f32 cross-entropy mean;
+     - after the backward: the loss and the shared parameters' gradients
+       summed over pp, then the loss and every gradient averaged over dp
+       (through ``quant_collectives.psum_tree`` with ``grad_quant``) and
+       sp;
+     - ``optimizer.functional_apply`` on this rank's blocks, in place.
+
+    Dropout seeds follow the reference's folds (``gpt.py:929-944``): the
+    step's seed mixed with the dp index (and the mp index), one seed a
+    layer, the ring folding in its (q rank, kv rank) pair; the quantized
+    all-reduce rounds from ``mix_seed(seed ^ 0xA5A5F00D)``."""
+    from ..distributed import collective as coll
+    from ..distributed import quant_collectives as qc
+    from ..ops.flash_attention import mix_seed
+    from ..optimizer.optimizer import tree_map
+    from ..parallel.partitioner import shard
+    from ..parallel.pipeline import (last_stage_mask, pipeline_apply,
+                                     pipeline_train_1f1b)
+    _check_mesh(config, mesh)
+    quant = config.grad_quant
+    data_spec = _partitioner(config, explicit=True).spec(('batch', 'length'))
+    needs_seed = config.dropout > 0.0 or quant in ('int8', 'int4')
+    cdt = torch_dtype(config.dtype)
+    sp_idx = mesh.axis_index('sp')
+    pp_grp = mesh.group('pp')
+
+    def embed(sh, tok):
+        s = tok.shape[1]
+        pos = sp_idx * s + torch.arange(s, device=tok.device)
+        return (sh['wte'][tok.long()] + sh['wpe'][pos]).to(cdt)
+
+    def head_loss(sh, x, tgt):
+        x = _layer_norm(x, sh['lnf_g'], sh['lnf_b']).to(cdt)
+        logits = x @ sh['wte'].t().to(cdt)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -logp.gather(-1, tgt.long()[..., None])[..., 0].mean()
+
+    def stage_fn(blocks, x):
+        # a pipeline stage: recomputed whole in its backward tick, so its
+        # layers run without a checkpoint of their own
+        for bp in layer_views(blocks):
+            x = block_fn(bp, x, config, mesh=mesh)
+        return x
+
+    def layer_seeds(seed):
+        if not (config.dropout > 0.0 and seed is not None):
+            return [None] * config.num_layers
+        seed_eff = mix_seed((int(seed) + _mul32(
+            torch.tensor(mesh.axis_index('dp')), 0x165667B1)) & _M32)
+        if config.mp > 1:
+            seed_eff = mix_seed((seed_eff + _mul32(
+                torch.tensor(mesh.axis_index('mp')), 0xD3A2646D)) & _M32)
+        return per_layer_seeds(seed_eff, config.num_layers).tolist()
+
+    def spmd_loss(params, tok, tgt, seed):
+        x = embed(params, tok)
+        if config.pp > 1:
+            x = pipeline_apply(stage_fn, params['blocks'], x,
+                               config.n_microbatches, 'pp', mesh)
+        else:
+            body = (_remat(block_fn, config)
+                    if config.remat and torch.is_grad_enabled()
+                    else block_fn)
+            seeds = layer_seeds(seed)
+            for layer, bp in enumerate(layer_views(params['blocks'])):
+                x = body(bp, x, config, seeds[layer], None, mesh)
+        loss = head_loss(params, x, tgt)
+        if config.pp > 1:
+            # the head is valid on the last stage only; the psum over pp
+            # comes after the backward
+            loss = loss * float(last_stage_mask('pp', mesh))
+        return loss
+
+    def reduce(loss, grads, seed):
+        for ax in ('dp', 'sp'):
+            grp = mesh.group(ax)
+            if ax == 'sp' and config.sp == 1:
+                continue
+            loss = coll.pmean(loss, grp)
+            if ax == 'dp' and quant != 'none':
+                qseed = (int(mix_seed((int(seed) ^ 0xA5A5F00D) & _M32))
+                         if needs_seed and seed is not None else None)
+                grads = qc.psum_tree(grads, grp, mode=quant, seed=qseed,
+                                     stochastic=qseed is not None, mean=True)
+            elif grp is not None and grp.nranks > 1:
+                grads = tree_map(lambda g, _g=grp: coll.pmean(g, _g), grads)
+        return loss, grads
+
+    def valgrad(params, tok, tgt, seed):
+        leaves = _leaves(params)
+        with torch.enable_grad():
+            live = [p.detach().requires_grad_() for p in leaves]
+            loss = spmd_loss(_rebuild(params, live), tok, tgt, seed)
+            got = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = _rebuild(params, [torch.zeros_like(p) if g is None else g
+                                  for p, g in zip(leaves, got)])
+        loss = loss.detach()
+        if config.pp > 1:
+            loss = coll.psum(loss, pp_grp)
+            grads = {k: (v if k == 'blocks' else coll.psum(v, pp_grp))
+                     for k, v in grads.items()}
+        return reduce(loss, grads, seed)
+
+    def grads_1f1b(params, tok, tgt, seed):
+        shared = {k: params[k].detach().requires_grad_() for k in _SHARED}
+        blocks = {k: v.detach().requires_grad_()
+                  for k, v in params['blocks'].items()}
+        loss, g_blocks, g_shared = pipeline_train_1f1b(
+            stage_fn, embed, head_loss, blocks, shared, tok, tgt,
+            config.n_microbatches, 'pp', mesh)
+        return reduce(loss, dict(g_shared, blocks=g_blocks), seed)
+
+    run = (grads_1f1b if config.pp > 1 and config.pp_schedule == '1f1b'
+           else valgrad)
+
+    def step(params, opt_state, seed, lr, tokens, targets):
+        dev = params['wte'].device
+        tok = shard(torch.as_tensor(tokens), data_spec, mesh).to(dev)
+        tgt = shard(torch.as_tensor(targets), data_spec, mesh).to(dev)
+        loss, grads = run(params, tok, tgt, seed if needs_seed else None)
+        params, opt_state = optimizer.functional_apply(params, grads,
+                                                       opt_state, lr)
+        return loss, params, opt_state
+
+    step.mesh = mesh
     return step
 
 

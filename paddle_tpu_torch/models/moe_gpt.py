@@ -27,7 +27,7 @@ matmuls, qkv and proj, through GPT's delayed-scaling product; the experts
 stay in the compute dtype, as in the reference (``moe_gpt.py:56-63``).
 
 Not ported yet (ROADMAP Queue 1): expert parallelism over a mesh
-(``param_specs``, ``place_params``; step K) and ``mp``/``sp``/``pp`` > 1
+(``param_specs``, ``place_params``; step K2) and ``mp``/``sp``/``pp`` > 1
 (item 10).
 """
 import dataclasses
@@ -239,10 +239,11 @@ def _check_trainable(config, mesh):
     later = []
     if mesh is not None:
         later.append('a device mesh (item 10, distributed training; '
-                     'expert parallelism: step K)')
+                     'the MoE mesh and expert parallelism: step K2)')
     for name in ('mp', 'sp', 'pp'):
         if getattr(config, name) > 1:
-            later.append(f'{name} > 1 (item 10, distributed training)')
+            later.append(f'{name} > 1 (item 10, distributed training: '
+                         'step K2)')
     if later:
         raise NotImplementedError('not ported yet: ' + '; '.join(later)
                                   + ' (ROADMAP Queue 1)')

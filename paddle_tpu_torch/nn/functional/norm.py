@@ -7,7 +7,7 @@ batch variance (torch's ``F.batch_norm`` weighs momentum the other way
 round and keeps the unbiased variance, so it is not used). Its
 ``mesh_axis`` (SyncBatchNorm) takes the single-process statistics, as the
 reference's eager fallback does; across processes it raises (ROADMAP
-Queue 1 step K).
+Queue 1 step K4).
 """
 import torch
 
@@ -112,7 +112,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     if mesh_axis is not None and _cross_process():
         raise NotImplementedError(
             'SyncBatchNorm across processes is not ported yet (ROADMAP '
-            'Queue 1 step K); in one process it is BatchNorm')
+            'Queue 1 step K4); in one process it is BatchNorm')
     chan_axis = 1 if data_format.startswith('NC') else -1
     use_batch_stats = training and not use_global_stats
     # the running statistics are constants of the graph, as in the

@@ -2,7 +2,7 @@
 
 ``SyncBatchNorm`` is ``BatchNorm`` in a single process, as the
 reference's eager fallback is (``functional/norm.py``); its
-cross-process statistics wait for ROADMAP Queue 1 step K.
+cross-process statistics wait for ROADMAP Queue 1 step K4.
 """
 import torch
 
@@ -82,7 +82,7 @@ class BatchNorm3D(_BatchNormBase):
 class SyncBatchNorm(_BatchNormBase):
     """BatchNorm whose statistics would be reduced across processes; in
     one process it is BatchNorm (across processes ``batch_norm`` raises,
-    ROADMAP Queue 1 step K)."""
+    ROADMAP Queue 1 step K4)."""
 
     def __init__(self, num_features, momentum=0.9, epsilon=1e-05,
                  weight_attr=None, bias_attr=None, data_format='NCHW',

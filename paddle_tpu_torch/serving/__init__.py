@@ -45,7 +45,7 @@ tenant quotas, ``model@host`` targets)::
     toks = router.submit(prompt_ids, max_new_tokens=32).result()
 
 Sharded serving is not ported yet: its names exist and raise citing
-ROADMAP Queue 1 step K.
+ROADMAP Queue 1 step K3.
 """
 from .. import _deferred
 from .bucketing import (bucket_for, bucket_sizes, input_signature,  # noqa: F401
@@ -63,7 +63,7 @@ from .fleet import (Autoscaler, FleetRouter, Replica,  # noqa: F401
                     ReplicaSet)
 
 _deferred.install(
-    globals(), 'is not ported yet (ROADMAP Queue 1 step K: mesh-sharded '
+    globals(), 'is not ported yet (ROADMAP Queue 1 step K3: mesh-sharded '
     'serving)',
     functions=('sharded_generation_engine', 'sharded_inference_engine'),
     classes=('MeshReplica',))

@@ -44,7 +44,7 @@ feed ``perf.note_step`` and run inside a ``record_function`` range named
 after the label (``perf.program_range``), which ``/debug/profile`` counts.
 
 Not ported, raising NotImplementedError citing its ROADMAP Queue 1 step:
-mesh sharding (``mesh=`` / ``mp>1``, step K). ``PADDLE_TPU_COMPILE_CACHE``
+mesh sharding (``mesh=`` / ``mp>1``, step K3). ``PADDLE_TPU_COMPILE_CACHE``
 is not read: a CUDA graph cannot outlive its process (ROADMAP known
 differences).
 

@@ -1046,7 +1046,7 @@ class FleetRouter:
             inflight = len(self._inflight)
             parked = len(self._parked)
         # every replica is one card: mesh-sharded replicas wait for
-        # ROADMAP Queue 1 step K
+        # ROADMAP Queue 1 step K3
         return {'fleet': self.name, 'kind': self.set.kind,
                 'replicas': alive, 'replicas_ready': ready,
                 'inflight': inflight, 'parked': parked,

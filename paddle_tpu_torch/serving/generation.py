@@ -64,7 +64,7 @@ Telemetry: ``telemetry_port=N`` starts the HTTP plane
 ``engine.telemetry.port``), stopped at ``shutdown``.
 
 Not ported yet, raising with its ROADMAP item: mesh sharding (``mesh=`` /
-``mp>1``; for MoE, expert parallelism, step K).
+``mp>1``; for MoE, expert parallelism, step K3).
 
 Captured device calls (the reference's ``_build_fns``/``_fns_pair``): the
 prefill and the step are each one CUDA graph (``models.decode_cache.
@@ -338,7 +338,7 @@ class GenerationEngine:
                                                              None)
             if _family(cfg) is _moe:
                 raise _not_ported('a MoE model over a mesh (mesh= / mp>1)',
-                                  'step K, item 10: expert parallelism')
+                                  'step K3, item 10: expert parallelism')
             raise _not_ported('mesh sharding (mesh= / mp>1)',
                               'item 1, deferred: mesh-sharded serving')
         params, cfg, self._forward_fn = _resolve_generation_model(

@@ -52,7 +52,7 @@ The fleet router targets hosted models as ``model@host``
 process-local registry (``get_host`` / ``resolve_target``).
 
 Not ported yet: ``deploy(mp=N)`` (mesh-sharded models, ROADMAP Queue 1
-step K) raises.
+step K3) raises.
 """
 import itertools
 import threading
@@ -385,11 +385,11 @@ class ModelHost:
         evicting every cold model.
 
         ``mp=N`` (a mesh-sharded model) is not ported yet: it raises
-        citing ROADMAP Queue 1 step K."""
+        citing ROADMAP Queue 1 step K3."""
         if mp is not None and int(mp) != 1:
             raise NotImplementedError(
                 'ModelHost.deploy(mp=N): mesh-sharded models are not '
-                'ported to paddle_tpu_torch yet (ROADMAP Queue 1 step K)')
+                'ported to paddle_tpu_torch yet (ROADMAP Queue 1 step K3)')
         try:
             fault.inject('host.admit')
         except InjectedFault:

@@ -183,15 +183,29 @@ def test_six_step_train_curve_matches_reference_with_dropout(interpret):
 
 
 def test_unported_train_options_raise_naming_the_roadmap():
-    _, _, tcfg, _ = _model('mha')
+    """Step K1 ported the mesh step: grad_quant and an explicit mesh train
+    here on a mesh of one rank (the layouts of several ranks are held in
+    tests/test_torch_gpt_parallel.py); mp/sp/pp > 1 need a mesh of that
+    degree; fp8 under sp raises the reference's own message."""
+    from paddle_tpu_torch.distributed import HybridTopology
+    cfg, jp, tcfg, tp = _model('mha')
+    toks, tgts = _batch(2)
+    tt, ty = torch.from_numpy(toks), torch.from_numpy(tgts)
+    mesh = HybridTopology().mesh
+    for over, where in ((dict(grad_quant='int8'), None), ({}, mesh)):
+        opt = topt.AdamW(learning_rate=2e-3)
+        params = jax.tree_util.tree_map(np.copy, jp)
+        p = tgpt.params_from_numpy(params, tcfg, 'cpu')
+        step = tgpt.make_train_step(dataclasses.replace(tcfg, **over), opt,
+                                    where)
+        state = opt.functional_init(p)
+        losses = [step(p, state, 7, 2e-3, tt, ty)[0].item()
+                  for _ in range(2)]
+        assert np.isfinite(losses).all() and losses[1] < losses[0]
     opt = topt.AdamW()
-    for over in (dict(mp=2), dict(sp=2), dict(pp=2),
-                 dict(grad_quant='int8')):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
+    for over in (dict(mp=2), dict(sp=2), dict(pp=2)):
+        with pytest.raises(ValueError, match='mesh'):
             tgpt.make_train_step(dataclasses.replace(tcfg, **over), opt)
-    # fp8 runs on one device; with sp > 1 it waits for item 10
-    with pytest.raises(NotImplementedError, match='item 10'):
+    with pytest.raises(NotImplementedError, match='shard_map'):
         tgpt.make_train_step(
             dataclasses.replace(tcfg, matmul_precision='fp8', sp=2), opt)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tgpt.make_train_step(tcfg, opt, mesh=object())

@@ -46,7 +46,8 @@ def _forbidden(name):
 @pytest.mark.parametrize('path', sorted(PORT.rglob('*.py')) +
                          [ROOT / 'chip_smoke.py',
                           ROOT / 'tests' / 'torch_op_cases.py',
-                          ROOT / 'tests' / 'torch_nn_cases.py'],
+                          ROOT / 'tests' / 'torch_nn_cases.py',
+                          ROOT / 'tests' / 'torch_parallel_cases.py'],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = [n for n in _imports(path) if _forbidden(n)]
