@@ -24,7 +24,7 @@ from .collective import (  # noqa: F401
 from .topology import (  # noqa: F401
     HybridTopology, get_mesh, get_topology, set_topology)
 from .parallel import (  # noqa: F401
-    MultiprocessContext, init_parallel_env, spawn)
+    MultiprocessContext, default_backend, init_parallel_env, spawn)
 from . import fleet  # noqa: F401
 from . import quant_collectives  # noqa: F401
 

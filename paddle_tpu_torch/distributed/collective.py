@@ -30,11 +30,16 @@ host copies, the result is copied back. The choice is made from (backend,
 op) by ``_staged``, before any call, never after a failed one; a group
 counts what it staged (``staged_calls``, ``staged_bytes``: both
 directions). On NCCL nothing is staged.
+
+Fault injection: ``all_reduce``, ``all_gather``, ``broadcast``,
+``reduce_scatter``, ``alltoall`` and ``barrier`` fire the
+``collective.entry`` point on entry, as the reference's do.
 """
 import torch
 import torch.distributed as dist
 
 from ..core.tensor import Tensor
+from ..fault.inject import inject
 
 
 class ReduceOp:
@@ -309,11 +314,13 @@ def _put(tensor, value):
 
 
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, use_calc_stream=True):
+    inject('collective.entry')
     return _put(tensor, reduce_tensor(_raw(tensor), _resolve(group), op))
 
 
 def all_gather(tensor_list, tensor, group=None, use_calc_stream=True,
                axis=0):
+    inject('collective.entry')
     out = gather_tensor(_raw(tensor), _resolve(group))
     if tensor_list is not None:
         wrap = isinstance(tensor, Tensor)
@@ -324,6 +331,7 @@ def all_gather(tensor_list, tensor, group=None, use_calc_stream=True,
 
 
 def broadcast(tensor, src=0, group=None, use_calc_stream=True):
+    inject('collective.entry')
     grp = _resolve(group)
     pos = grp.ranks.index(src) if grp is not None and src in grp.ranks else 0
     return _put(tensor, broadcast_tensor(_raw(tensor), grp, pos))
@@ -353,6 +361,7 @@ def scatter(tensor, tensor_list=None, src=0, group=None,
 
 
 def reduce_scatter(output, input_list, op=ReduceOp.SUM, group=None):
+    inject('collective.entry')
     grp = _resolve(group)
     stacked = torch.cat([_raw(t) for t in input_list])
     out = (stacked.clone() if _single(grp)
@@ -365,6 +374,7 @@ def reduce_scatter(output, input_list, op=ReduceOp.SUM, group=None):
 def alltoall(in_tensor_list, out_tensor_list=None, group=None,
              use_calc_stream=True):
     """Rank i's j-th tensor goes to rank j's i-th slot."""
+    inject('collective.entry')
     grp = _resolve(group)
     xs = [_raw(t) for t in in_tensor_list]
     stacked = torch.stack(xs)
@@ -400,6 +410,7 @@ def recv(tensor, src=0, group=None, use_calc_stream=True):
 
 
 def barrier(group=None):
+    inject('collective.entry')
     grp = _resolve(group)
     if not _single(grp):
         dist.barrier(group=grp.pg)

@@ -8,8 +8,13 @@ workers (multiprocessing's ``spawn`` method), each with the reference's
 trainer env contract (``PADDLE_TRAINERS_NUM``, ``PADDLE_TRAINER_ID``,
 ``PADDLE_LOCAL_RANK``, ``PADDLE_MASTER``) and a ``torch.distributed``
 store of its own: a ``FileStore`` in a fresh temp directory, so that
-workers of several spawns at once (pytest-xdist) never meet on a port.
-The backend is the caller's: ``'gloo'`` or ``'nccl'``, never picked.
+workers of several spawns at once (pytest-xdist) never meet on a port
+(``master_port=`` is accepted and handed to the workers as
+``MASTER_PORT``; the meeting stays on the FileStore). The backend is the
+caller's ``'gloo'`` or ``'nccl'``; without one, ``spawn`` picks it before
+any worker starts (``default_backend``): NCCL when each rank has a card
+of its own, else gloo (NCCL refuses two ranks of a communicator on one
+card).
 """
 import datetime
 import os
@@ -18,6 +23,7 @@ import tempfile
 import time
 import traceback
 
+import torch
 import torch.distributed as dist
 
 BACKENDS = ('gloo', 'nccl')
@@ -60,7 +66,16 @@ def init_parallel_env(backend=None):
     return ParallelEnv()
 
 
-def _spawn_target(func, args, rank, nprocs, store, backend, errq):
+def default_backend(nprocs):
+    """The backend ``spawn`` picks for ``nprocs`` workers on this host:
+    'nccl' when every rank has a card of its own, 'gloo' when the ranks
+    would share one or there is none."""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return 'nccl' if cards >= nprocs else 'gloo'
+
+
+def _spawn_target(func, args, rank, nprocs, store, backend, errq,
+                  master_port=None):
     """Worker body (top level, so that it pickles): the env contract,
     then ``func(*args)``; its traceback goes to the parent on failure.
     The process group, if ``func`` made one, is torn down either way."""
@@ -70,6 +85,10 @@ def _spawn_target(func, args, rank, nprocs, store, backend, errq):
     os.environ['PADDLE_MASTER'] = '127.0.0.1'
     os.environ[_STORE_ENV] = store
     os.environ[_BACKEND_ENV] = backend
+    if master_port is not None:
+        os.environ['MASTER_PORT'] = str(master_port)
+    if backend == 'nccl':
+        torch.cuda.set_device(rank)
     try:
         func(*args)
         errq.put((rank, None))
@@ -140,18 +159,22 @@ def spawn(func, args=(), nprocs=-1, join=True, daemon=False, backend=None,
     ``nprocs`` > 1 starts that many workers, each calling ``func(*args)``
     with the env contract set (``func`` calls ``init_parallel_env()``,
     which reads it), over a FileStore in a fresh temp directory with
-    ``backend`` ('gloo' or 'nccl'). With ``join`` it waits and re-raises
-    the first worker's failure; else it returns the
-    ``MultiprocessContext``."""
+    ``backend`` ('gloo' or 'nccl'; None: ``default_backend(nprocs)``, an
+    NCCL rank on card ``rank``). ``master_port=`` reaches the workers as
+    ``MASTER_PORT``. With ``join`` it waits and re-raises the first
+    worker's failure; else it returns the ``MultiprocessContext``."""
     if nprocs is not None and (nprocs == 0 or nprocs < -1):
         raise ValueError(f'spawn: nprocs must be -1 (all local devices) or '
                          f'a positive worker count, got {nprocs}')
     if nprocs is None or nprocs in (-1, 1):
         func(*args)
         return None
+    if backend is None:
+        backend = default_backend(nprocs)
     if backend not in BACKENDS:
         raise ValueError(f"spawn: backend must be one of {BACKENDS} for "
                          f"{nprocs} workers, got {backend!r}")
+    master_port = options.get('master_port')
     import multiprocessing as mp
     ctx = mp.get_context('spawn')
     errq = ctx.Queue()
@@ -161,7 +184,7 @@ def spawn(func, args=(), nprocs=-1, join=True, daemon=False, backend=None,
     for rank in range(nprocs):
         p = ctx.Process(target=_spawn_target,
                         args=(func, args, rank, nprocs, store, backend,
-                              errq),
+                              errq, master_port),
                         daemon=daemon)
         p.start()
         procs.append(p)

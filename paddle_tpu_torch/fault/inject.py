@@ -10,7 +10,9 @@ Instrumented points in the port: ``gen.step`` (serving.GenerationEngine,
 entry of every prefill and decode device call — inside the engine's
 CircuitBreaker, so armed faults exercise the breaker-opening path),
 ``ckpt.write`` / ``ckpt.commit`` (framework_io.save, before the payload /
-manifest os.replace) and ``dataloader.step`` (per batch).
+manifest os.replace), ``dataloader.step`` (per batch) and
+``collective.entry`` (distributed.collective's all_reduce, all_gather,
+broadcast, reduce_scatter, alltoall and barrier).
 
 When no spec is armed, ``inject()`` is a single falsy-dict check.
 """

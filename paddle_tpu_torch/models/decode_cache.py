@@ -161,16 +161,18 @@ def release(dev):
         gc.collect()
 
 
-def held_bytes(ptrs, fns):
+def held_bytes(ptrs, fns, device=None):
     """Device bytes the caching allocator has handed out for the storages
     at ``ptrs`` (their blocks, as it rounds them) and for the graphs of
     the captured functions ``fns`` (the segments of their private pools,
     whole: their outputs and intermediates, which no other allocation can
-    use while they live)."""
+    use while they live); with ``device``, on that card only."""
     pools = {tuple(f.pool) for f in fns if f.graph is not None}
     ptrs = set(ptrs)
     total = 0
     for seg in torch.cuda.memory_snapshot():
+        if device is not None and seg['device'] != device.index:
+            continue
         if tuple(seg['segment_pool_id']) in pools:
             total += seg['total_size']
             continue

@@ -16,7 +16,9 @@ the tanh approximation (``jax.nn.gelu``'s default); the key-padding mask
 
 Attention is bidirectional: with ``use_flash`` it runs kernel 1 on the card
 (``ops.flash_attention``, its twin on the CPU) with the bias as the
-kernel's key mask, and kernels 2 and 3 as its backward; ``use_flash=False``
+kernel's key mask, and kernels 2 and 3 as its backward, where a kernel
+instance takes the shape (``kernel_takes``: head dim 64/128/256, f32 or
+bf16, the reference's gate); ``use_flash=False``, or another head dim,
 runs the reference's plain path (``attention_reference``). No mask keeps
 the kernels' no-mask path.
 
@@ -39,7 +41,7 @@ from torch.utils import checkpoint as _ckpt
 from ..nn.layer_base import Layer, Parameter
 from ..core.tensor import Tensor, wrap
 from ..ops.flash_attention import (attention_reference, flash_attention,
-                                   per_layer_seeds)
+                                   kernel_takes, per_layer_seeds)
 from .gpt import _to_tensor, torch_dtype
 
 BLOCK_KEYS = ('fc_b', 'fc_w', 'ln1_b', 'ln1_g', 'ln2_b', 'ln2_g', 'out_b',
@@ -162,7 +164,7 @@ def _block(bp, x, mask_bias, config, drop_seed=None):
     q, k, v = (t.reshape(B, S, nh, hd) for t in qkv.split(h, dim=-1))
     drop = config.dropout if drop_seed is not None else 0.0
     mask = None if mask_bias is None else mask_bias.float()
-    if config.use_flash:
+    if config.use_flash and kernel_takes(q, k, v):
         a = flash_attention(q, k, v, causal=False, mask=mask,
                             dropout_rate=drop, dropout_seed=drop_seed)
     else:

@@ -73,6 +73,7 @@ from .. import resolve_device
 from .decode_cache import CapturedFn, DecodeFnCache, tensor_key
 from ..ops.flash_attention import (_M32, _mul32, attention_reference,
                                    decode_attention, flash_attention,
+                                   kernel_takes,
                                    per_layer_seeds, repeat_kv)
 from ..ops.xent import softmax_xent_blockwise
 from ..ops.paged_attention import paged_attention
@@ -313,42 +314,50 @@ def _layer_norm(x, g, b, eps=1e-5):
     return (x - m) * torch.rsqrt(v + eps) * g + b
 
 
-def _mm(y, w, cdt, fp8_meta=None):
+def _mm(y, w, cdt, fp8_meta=None, groups=None):
     """One block matmul: raw or weight-only through ``wo_matmul``, or,
     given an fp8 scaling meta, the e4m3/e5m2 delayed-scaling product over
-    the weight cast to the compute dtype first (``gpt.py:288``)."""
+    the weight cast to the compute dtype first (``gpt.py:288``); a mesh
+    step's ``groups`` reduce each operand's amax over the ranks holding
+    its blocks (``fp8.fp8_matmul``)."""
     if fp8_meta is None:
         return wo_matmul(y, w, cdt)
-    return _fp8.fp8_matmul(y, w.to(cdt), fp8_meta)
+    if groups is None:
+        return _fp8.fp8_matmul(y, w.to(cdt), fp8_meta)
+    return _fp8.fp8_matmul(y, w.to(cdt), fp8_meta, groups)
 
 
-def _block_qkv(bp, y, nh, hd, cdt, kvh=None, fp8_meta=None):
+def _block_qkv(bp, y, nh, hd, cdt, kvh=None, fp8_meta=None, groups=None):
     """Fused QKV projection. Packing is per KV HEAD: [q_0..q_{g-1}|k|v]
     (g = query group size; g=1 is classic head-major MHA)."""
     B, S, _ = y.shape
     kvh = nh if kvh is None else kvh
     g = nh // kvh
-    qkv = _mm(y, bp['qkv_w'], cdt, fp8_meta) + bp['qkv_b'].to(cdt)
+    qkv = _mm(y, bp['qkv_w'], cdt, fp8_meta, groups) + bp['qkv_b'].to(cdt)
     qkv = qkv.reshape(B, S, kvh, g + 2, hd)
     q = qkv[..., :g, :].reshape(B, S, nh, hd)
     return q, qkv[..., g, :], qkv[..., g + 1, :]
 
 
-def _block_mlp(bp, y, cdt, fp8_fc=None, fp8_out=None):
+def _block_mlp(bp, y, cdt, fp8_fc=None, fp8_out=None, groups=(None, None)):
     """fc -> gelu (tanh approximation) -> out projection (bias added by
-    the caller)."""
-    y = F.gelu(_mm(y, bp['fc_w'], cdt, fp8_fc) + bp['fc_b'].to(cdt),
-               approximate='tanh')
-    return _mm(y, bp['out_w'], cdt, fp8_out)
+    the caller); ``groups``: the fp8 amax groups of the column and the row
+    product (``_fp8_groups``)."""
+    y = F.gelu(_mm(y, bp['fc_w'], cdt, fp8_fc, groups[0])
+               + bp['fc_b'].to(cdt), approximate='tanh')
+    return _mm(y, bp['out_w'], cdt, fp8_out, groups[1])
 
 
 def _attention(q, k, v, config, drop_seed=None, mesh=None):
     """Causal self-attention of the forward (the reference's
     ``_attention``, ``gpt.py:221-285``). q [B,S,H,D], k/v [B,S,H_kv,D].
     ``use_flash`` runs kernel 1 with kernels 2 and 3 as its backward
-    (their twins on the CPU); ``use_flash=False`` runs the reference's own
-    einsum path (``gpt.py:277-285``): scores in the compute dtype, f32
-    softmax. ``drop_seed`` (a u32, training only) turns on
+    (their twins on the CPU) where a kernel instance takes the shape
+    (``kernel_takes``: head dim 64/128/256, f32/bf16; the reference's
+    ``flash_attention_available`` gate, ``gpt.py:270-276``);
+    ``use_flash=False``, or a shape no instance takes, runs the
+    reference's own einsum path (``gpt.py:277-285``): scores in the
+    compute dtype, f32 softmax. ``drop_seed`` (a u32, training only) turns on
     ``config.dropout``: in the kernels on the flash path, through the
     same counter-hash mask in ``attention_reference`` otherwise. With
     ``config.sp > 1`` (and the train step's ``mesh``) q, k, v are this
@@ -356,6 +365,7 @@ def _attention(q, k, v, config, drop_seed=None, mesh=None):
     axis: ``ring_flash_attention`` (kernels 1-3 a hop; GQA kv blocks
     rotate un-repeated) with ``use_flash``, the plain ``ring_attention``
     over repeated kv heads without it."""
+    flash = config.use_flash and kernel_takes(q, k, v)
     if config.sp > 1:
         from ..parallel.ring_attention import (ring_attention,
                                                ring_flash_attention)
@@ -363,7 +373,7 @@ def _attention(q, k, v, config, drop_seed=None, mesh=None):
             raise ValueError('sp > 1 runs inside the mesh train step '
                              '(make_train_step(config, opt, mesh))')
         drop = config.dropout > 0.0 and drop_seed is not None
-        if config.use_flash:
+        if flash:
             return ring_flash_attention(
                 q, k, v, 'sp', causal=True,
                 drop_rate=config.dropout if drop else 0.0,
@@ -376,13 +386,13 @@ def _attention(q, k, v, config, drop_seed=None, mesh=None):
         k, v = repeat_kv(k, v, int(q.shape[2]))
         return ring_attention(q, k, v, 'sp', causal=True, mesh=mesh)
     if config.dropout > 0.0 and drop_seed is not None:
-        if config.use_flash:
+        if flash:
             return flash_attention(q, k, v, causal=True,
                                    dropout_rate=config.dropout,
                                    dropout_seed=drop_seed)
         return attention_reference(q, k, v, True, None, config.dropout,
                                    drop_seed)
-    if config.use_flash:
+    if flash:
         return flash_attention(q, k, v, causal=True)
     k, v = repeat_kv(k, v, int(q.shape[2]))
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -394,6 +404,47 @@ def _attention(q, k, v, config, drop_seed=None, mesh=None):
     return torch.einsum('bhqk,bkhd->bqhd', p, v)
 
 
+def _fp8_groups(config, mesh):
+    """The fp8 amax groups of a mesh step's (column, row) products: each
+    an (x, w, g) triple of the ``Group``s whose ranks hold blocks of that
+    operand (a column product's x is this dp block, replicated over mp,
+    its w and its output gradient split over mp; a row product's x is
+    split over mp, its output gradient summed by g, so replicated over
+    mp). None outside a mesh."""
+    if mesh is None:
+        return None, None
+    dp = mesh.group('dp')
+    if config.mp == 1:
+        return (dp, None, dp), (dp, None, dp)
+    mp, both = mesh.group('mp'), mesh.group(('dp', 'mp'))
+    return (dp, mp, both), (both, mp, dp)
+
+
+def attention_residual(bp, x, config, drop_seed=None, fp8_meta=None,
+                       mesh=None):
+    """The attention half of a block: ``x + proj(attention(ln1(x))) +
+    proj_b`` (``gpt.py:320-340``), MoE's too. ``mesh``: the mesh train
+    step's (see ``block_fn``)."""
+    cdt = torch_dtype(config.dtype)
+    B, S, h = x.shape
+    mp = config.mp if mesh is not None else 1
+    nh, kvh = config.num_heads // mp, config.kv_heads // mp
+    fm = fp8_meta or {}
+    col, row = _fp8_groups(config, mesh) if fm else (None, None)
+    y = _layer_norm(x, bp['ln1_g'], bp['ln1_b']).to(cdt)
+    if mp > 1:
+        from ..parallel.tp_ad import f_identity, g_allreduce
+        grp = mesh.group('mp')
+        y = f_identity(y, grp)
+    q, k, v = _block_qkv(bp, y, nh, config.head_dim, cdt, kvh, fm.get('qkv'),
+                         col)
+    a = _attention(q, k, v, config, drop_seed, mesh).reshape(B, S, h // mp)
+    a = _mm(a, bp['proj_w'], cdt, fm.get('proj'), row)
+    if mp > 1:
+        a = g_allreduce(a, grp)
+    return x + a + bp['proj_b'].to(cdt)
+
+
 def block_fn(bp, x, config, drop_seed=None, fp8_meta=None, mesh=None):
     """One transformer block (``gpt.py:320-356``). bp: this layer's params
     (no leading L dim); x: [B, S, H]; ``drop_seed``: this layer's u32
@@ -402,28 +453,20 @@ def block_fn(bp, x, config, drop_seed=None, fp8_meta=None, mesh=None):
     the reference's ``explicit_mp``): with ``config.mp > 1`` the qkv/fc
     weights are this rank's column blocks and proj/out its row blocks,
     Megatron's f/g pair over the mesh's mp axis around each; with
-    ``config.sp > 1`` attention runs the ring over its sp axis."""
+    ``config.sp > 1`` attention runs the ring over its sp axis; fp8
+    products reduce their amax over the ranks holding each operand's
+    blocks (``_fp8_groups``)."""
     cdt = torch_dtype(config.dtype)
-    B, S, h = x.shape
     mp = config.mp if mesh is not None else 1
-    nh, kvh = config.num_heads // mp, config.kv_heads // mp
     fm = fp8_meta or {}
+    x = attention_residual(bp, x, config, drop_seed, fm, mesh)
+    y = _layer_norm(x, bp['ln2_g'], bp['ln2_b']).to(cdt)
     if mp > 1:
         from ..parallel.tp_ad import f_identity, g_allreduce
         grp = mesh.group('mp')
-    y = _layer_norm(x, bp['ln1_g'], bp['ln1_b']).to(cdt)
-    if mp > 1:
         y = f_identity(y, grp)
-    q, k, v = _block_qkv(bp, y, nh, config.head_dim, cdt, kvh, fm.get('qkv'))
-    a = _attention(q, k, v, config, drop_seed, mesh).reshape(B, S, h // mp)
-    a = _mm(a, bp['proj_w'], cdt, fm.get('proj'))
-    if mp > 1:
-        a = g_allreduce(a, grp)
-    x = x + a + bp['proj_b'].to(cdt)
-    y = _layer_norm(x, bp['ln2_g'], bp['ln2_b']).to(cdt)
-    if mp > 1:
-        y = f_identity(y, grp)
-    y = _block_mlp(bp, y, cdt, fm.get('fc'), fm.get('out'))
+    y = _block_mlp(bp, y, cdt, fm.get('fc'), fm.get('out'),
+                   _fp8_groups(config, mesh) if fm else (None, None))
     if mp > 1:
         y = g_allreduce(y, grp)
     return x + y + bp['out_b'].to(cdt)
@@ -573,9 +616,9 @@ def _rebuild(tree, leaves):
 def make_train_step(config, optimizer, mesh=None):
     """The train step (``gpt.py:832-1044``): ``step(params, opt_state,
     seed, lr, tokens, targets) -> (loss, params, opt_state)``, or with
-    ``matmul_precision='fp8'`` (one device) ``step(params, opt_state,
-    fp8_state, seed, lr, tokens, targets) -> (loss, params, opt_state,
-    fp8_state)``. ``seed`` is the step's u32 (an int), used for attention
+    ``matmul_precision='fp8'`` (one device or a dp/mp mesh)
+    ``step(params, opt_state, fp8_state, seed, lr, tokens, targets) ->
+    (loss, params, opt_state, fp8_state)``. ``seed`` is the step's u32 (an int), used for attention
     dropout and the quantized all-reduce's rounding, in place of the
     reference's PRNG key (see the module docstring). The loss and its
     gradients come from autograd; ``optimizer.functional_apply`` then
@@ -726,15 +769,11 @@ def _check_mesh(config, mesh):
         raise NotImplementedError(
             'attention dropout under pipeline parallelism is not '
             'implemented — set dropout=0, or use dp/mp/sp layouts')
-    if config.matmul_precision == 'fp8':
-        if _uses_shard_map(config):
-            raise NotImplementedError(
-                "matmul_precision='fp8' under the explicit-collective "
-                '(shard_map) layouts (sp/pp/grad_quant) is not implemented '
-                '— use the GSPMD dp/mp path or matmul_precision=none')
+    if config.matmul_precision == 'fp8' and _uses_shard_map(config):
         raise NotImplementedError(
-            "matmul_precision='fp8' over a dp/mp mesh is not ported yet "
-            '(ROADMAP Queue 1 step K2)')
+            "matmul_precision='fp8' under the explicit-collective "
+            '(shard_map) layouts (sp/pp/grad_quant) is not implemented '
+            '— use the GSPMD dp/mp path or matmul_precision=none')
     if (config.pp > 1 and config.pp_schedule == '1f1b'
             and config.grad_quant != 'none'):
         raise NotImplementedError(
@@ -771,15 +810,26 @@ def _mesh_train_step(config, optimizer, mesh):
     Dropout seeds follow the reference's folds (``gpt.py:929-944``): the
     step's seed mixed with the dp index (and the mp index), one seed a
     layer, the ring folding in its (q rank, kv rank) pair; the quantized
-    all-reduce rounds from ``mix_seed(seed ^ 0xA5A5F00D)``."""
+    all-reduce rounds from ``mix_seed(seed ^ 0xA5A5F00D)``.
+
+    ``matmul_precision='fp8'`` (dp/mp only, as the reference's GSPMD path)
+    takes ``step(params, opt_state, fp8_state, seed, lr, tokens,
+    targets)``: each product's amax is reduced over the ranks holding its
+    operand's blocks (``_fp8_groups``) and each rank differentiates its
+    share of the global mean (its tokens' loss over the global count, the
+    gradients then summed over dp), so an output gradient is the
+    reference's at these rows and every rank's new state is the
+    reference's; ``fp8_state`` is replicated and updated in place."""
     from ..distributed import collective as coll
     from ..distributed import quant_collectives as qc
     from ..ops.flash_attention import mix_seed
     from ..optimizer.optimizer import tree_map
-    from ..parallel.partitioner import shard
     from ..parallel.pipeline import (last_stage_mask, pipeline_apply,
                                      pipeline_train_1f1b)
     _check_mesh(config, mesh)
+    fp8 = config.matmul_precision == 'fp8'
+    if fp8 and config.mp > 1:
+        mesh.group(('dp', 'mp'))         # every rank builds it, here
     quant = config.grad_quant
     data_spec = _partitioner(config, explicit=True).spec(('batch', 'length'))
     needs_seed = config.dropout > 0.0 or quant in ('int8', 'int4')
@@ -805,17 +855,7 @@ def _mesh_train_step(config, optimizer, mesh):
             x = block_fn(bp, x, config, mesh=mesh)
         return x
 
-    def layer_seeds(seed):
-        if not (config.dropout > 0.0 and seed is not None):
-            return [None] * config.num_layers
-        seed_eff = mix_seed((int(seed) + _mul32(
-            torch.tensor(mesh.axis_index('dp')), 0x165667B1)) & _M32)
-        if config.mp > 1:
-            seed_eff = mix_seed((seed_eff + _mul32(
-                torch.tensor(mesh.axis_index('mp')), 0xD3A2646D)) & _M32)
-        return per_layer_seeds(seed_eff, config.num_layers).tolist()
-
-    def spmd_loss(params, tok, tgt, seed):
+    def spmd_loss(params, tok, tgt, seed, fp8_state=None):
         x = embed(params, tok)
         if config.pp > 1:
             x = pipeline_apply(stage_fn, params['blocks'], x,
@@ -824,9 +864,10 @@ def _mesh_train_step(config, optimizer, mesh):
             body = (_remat(block_fn, config)
                     if config.remat and torch.is_grad_enabled()
                     else block_fn)
-            seeds = layer_seeds(seed)
+            seeds = mesh_layer_seeds(config, mesh, seed)
+            metas = fp8_layers(fp8_state, config.num_layers)
             for layer, bp in enumerate(layer_views(params['blocks'])):
-                x = body(bp, x, config, seeds[layer], None, mesh)
+                x = body(bp, x, config, seeds[layer], metas[layer], mesh)
         loss = head_loss(params, x, tgt)
         if config.pp > 1:
             # the head is valid on the last stage only; the psum over pp
@@ -873,18 +914,81 @@ def _mesh_train_step(config, optimizer, mesh):
             config.n_microbatches, 'pp', mesh)
         return reduce(loss, dict(g_shared, blocks=g_blocks), seed)
 
+    def valgrad_fp8(params, fp8_state, tok, tgt, seed):
+        # this rank's share of the global mean (dp blocks are equal), so
+        # every output gradient is the reference's at these rows
+        leaves, metas = _leaves(params), _leaves(fp8_state)
+        dp = mesh.axis_size('dp')
+        with torch.enable_grad():
+            live = [p.detach().requires_grad_() for p in leaves]
+            live_m = [m.detach().requires_grad_() for m in metas]
+            loss = spmd_loss(_rebuild(params, live), tok, tgt, seed,
+                             _rebuild(fp8_state, live_m))
+            got = torch.autograd.grad(loss / dp, live + live_m)
+        with torch.no_grad():
+            for m, new in zip(metas, got[len(live):]):
+                m.copy_(new)
+        grads = _rebuild(params, list(got[:len(live)]))
+        if dp > 1:
+            grp = mesh.group('dp')
+            loss = coll.pmean(loss.detach(), grp)
+            grads = tree_map(lambda g: coll.psum(g, grp), grads)
+        return loss.detach(), grads
+
     run = (grads_1f1b if config.pp > 1 and config.pp_schedule == '1f1b'
            else valgrad)
 
-    def step(params, opt_state, seed, lr, tokens, targets):
+    def grads_fn(params, fp8_state, tok, tgt, seed):
+        seed = seed if needs_seed else None
+        if fp8:
+            return valgrad_fp8(params, fp8_state, tok, tgt, seed)
+        return run(params, tok, tgt, seed)
+
+    return mesh_step(optimizer, mesh, data_spec, grads_fn, fp8)
+
+
+def mesh_layer_seeds(config, mesh, seed):
+    """One dropout seed a layer on this rank of a mesh step, by the
+    reference's folds (``gpt.py:929-944``): the step's seed mixed with the
+    dp index, then (mp > 1) with the mp index. Nones without dropout or a
+    seed. Shared by GPT's and MoE's mesh steps."""
+    from ..ops.flash_attention import mix_seed
+    if not (config.dropout > 0.0 and seed is not None):
+        return [None] * config.num_layers
+    seed_eff = mix_seed((int(seed) + _mul32(
+        torch.tensor(mesh.axis_index('dp')), 0x165667B1)) & _M32)
+    if config.mp > 1:
+        seed_eff = mix_seed((seed_eff + _mul32(
+            torch.tensor(mesh.axis_index('mp')), 0xD3A2646D)) & _M32)
+    return per_layer_seeds(seed_eff, config.num_layers).tolist()
+
+
+def mesh_step(optimizer, mesh, data_spec, grads_fn, fp8):
+    """A mesh step around ``grads_fn(params, fp8_state, tok, tgt, seed) ->
+    (loss, grads)`` (fp8_state None unless ``fp8``): this rank's block
+    (``data_spec``) of the global batch on the parameters' device, then
+    ``optimizer.functional_apply`` in place. ``step(params, opt_state,
+    seed, lr, tokens, targets) -> (loss, params, opt_state)``, with fp8
+    ``step(params, opt_state, fp8_state, seed, lr, tokens, targets) ->
+    (..., fp8_state)``. Shared by GPT's and MoE's mesh steps."""
+    from ..parallel.partitioner import shard
+
+    def run(params, opt_state, fp8_state, seed, lr, tokens, targets):
         dev = params['wte'].device
         tok = shard(torch.as_tensor(tokens), data_spec, mesh).to(dev)
         tgt = shard(torch.as_tensor(targets), data_spec, mesh).to(dev)
-        loss, grads = run(params, tok, tgt, seed if needs_seed else None)
+        loss, grads = grads_fn(params, fp8_state, tok, tgt, seed)
         params, opt_state = optimizer.functional_apply(params, grads,
                                                        opt_state, lr)
         return loss, params, opt_state
 
+    if fp8:
+        def step(params, opt_state, fp8_state, seed, lr, tokens, targets):
+            return run(params, opt_state, fp8_state, seed, lr, tokens,
+                       targets) + (fp8_state,)
+    else:
+        def step(params, opt_state, seed, lr, tokens, targets):
+            return run(params, opt_state, None, seed, lr, tokens, targets)
     step.mesh = mesh
     return step
 
@@ -994,23 +1098,30 @@ def cached_attention(x, q, k, v, k_cache, v_cache, pos, proj_w, proj_b, cdt,
     paged cache computes the same rows, so every call here goes through
     the paged kernel."""
     B, T, h = x.shape
+    a = cached_attend(q, k, v, k_cache, v_cache, pos, page_table, valid,
+                      flat_idx)
+    return (x + wo_matmul(a.reshape(B, T, h), proj_w, cdt) + proj_b.to(cdt),
+            k_cache, v_cache)
+
+
+def cached_attend(q, k, v, k_cache, v_cache, pos, page_table=None,
+                  valid=None, flat_idx=None):
+    """``cached_attention``'s write and attention, without the projection:
+    -> [B, T, H, D]."""
+    T = q.shape[1]
     if page_table is not None:
         paged_write(k_cache, k, page_table, pos, valid, flat_idx)
         paged_write(v_cache, v, page_table, pos, valid, flat_idx)
-        a = paged_attention(q.contiguous(), k_cache, v_cache, page_table,
-                            pos, valid)
-    else:
-        s_max = int(kv_plane(k_cache).shape[1])
-        idx = (flat_idx if flat_idx is not None
-               else dense_rows(pos, T, s_max, x.device))
-        _dense_write(k_cache, k, idx)
-        _dense_write(v_cache, v, idx)
-        if isinstance(pos, int) and pos == 0:
-            a = flash_attention(q, k, v, causal=True)
-        else:
-            a = decode_attention(q, k_cache, v_cache, pos)
-    return (x + wo_matmul(a.reshape(B, T, h), proj_w, cdt) + proj_b.to(cdt),
-            k_cache, v_cache)
+        return paged_attention(q.contiguous(), k_cache, v_cache, page_table,
+                               pos, valid)
+    s_max = int(kv_plane(k_cache).shape[1])
+    idx = (flat_idx if flat_idx is not None
+           else dense_rows(pos, T, s_max, q.device))
+    _dense_write(k_cache, k, idx)
+    _dense_write(v_cache, v, idx)
+    if isinstance(pos, int) and pos == 0 and kernel_takes(q, k, v):
+        return flash_attention(q, k, v, causal=True)
+    return decode_attention(q, k_cache, v_cache, pos)
 
 
 def _cached_block(bp, x, k_cache, v_cache, pos, config, page_table=None,
@@ -1041,41 +1152,59 @@ def paged_forward_with_cache(params, tokens, cache, pos, config,
     ``last_only`` (each slot's last REAL row when ``valid`` is given) —
     with the table/valid passed through."""
     cdt = torch_dtype(config.dtype)
-    B, T = tokens.shape
+    T = tokens.shape[1]
     dev = tokens.device
     pos_v = pos.to(device=dev, dtype=torch.int32).reshape(-1)
-    page_table = cache['page_table']
-    valid = cache.get('valid')
-    ppos = torch.clamp(pos_v.long()[:, None]
-                       + torch.arange(T, device=dev)[None, :],
-                       0, config.max_seq_len - 1)                # [B, T]
-    x = (wo_take(params['wte'], tokens.long())
-         + params['wpe'][ppos]).to(cdt)
-    k_pool, v_pool = cache['k'], cache['v']
-    # every layer writes the same rows: compute their pool offsets (and
-    # which row supplies each one) once
-    n_pages, ps = kv_plane(k_pool).shape[1:3]
-    flat_idx = write_plan(page_table, pos_v, T, ps, n_pages * ps, valid)
+    page_table, valid = cache['page_table'], cache.get('valid')
     # the attention kernels read valid on the device, as int32
     valid_v = (None if valid is None
                else valid.to(device=dev, dtype=torch.int32).reshape(-1))
+    x = (wo_take(params['wte'], tokens.long())
+         + params['wpe'][_row_positions(pos_v, T, config)]).to(cdt)
+    k_pool, v_pool = cache['k'], cache['v']
+    flat_idx = _paged_plan(page_table, pos_v, T, k_pool, valid_v)
     for layer in range(config.num_layers):
         x, _, _ = block(_layer(params['blocks'], layer), x,
                         kv_layer(k_pool, layer), kv_layer(v_pool, layer),
                         pos_v, config, page_table, valid_v, flat_idx)
     if last_only:
-        if valid is not None:
-            # per-slot prompt lengths: pick each slot's last REAL row
-            idx = torch.clamp(valid.to(dev).long() - 1, 0, T - 1)
-            x = x[torch.arange(B, device=dev), idx][:, None]
-        else:
-            x = x[:, -1:]
+        x = _last_rows(x, valid_v)
     x = _layer_norm(x, params['lnf_g'], params['lnf_b']).to(cdt)
-    logits = wo_lm_head(x, params['wte'], cdt)
+    return (wo_lm_head(x, params['wte'], cdt),
+            _paged_out(k_pool, v_pool, page_table, valid))
+
+
+def _row_positions(pos_v, T, config):
+    """[B, T] absolute positions of T rows from each slot's ``pos_v``,
+    clamped into the position table."""
+    return torch.clamp(pos_v.long()[:, None]
+                       + torch.arange(T, device=pos_v.device)[None, :],
+                       0, config.max_seq_len - 1)
+
+
+def _paged_plan(page_table, pos_v, T, k_pool, valid):
+    """Every layer writes the same rows: their pool offsets (and which row
+    supplies each one), computed once a call (``write_plan``)."""
+    n_pages, ps = kv_plane(k_pool).shape[1:3]
+    return write_plan(page_table, pos_v, T, ps, n_pages * ps, valid)
+
+
+def _last_rows(x, valid):
+    """[B, 1, H]: each slot's last REAL row (per-slot prompt lengths
+    ``valid``), or the last row without it."""
+    if valid is None:
+        return x[:, -1:]
+    idx = torch.clamp(valid.to(x.device).long() - 1, 0, x.shape[1] - 1)
+    return x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+
+
+def _paged_out(k_pool, v_pool, page_table, valid):
+    """The cache a paged forward returns: the pools written in place, the
+    table and ``valid`` passed through."""
     out = {'k': k_pool, 'v': v_pool, 'page_table': page_table}
     if valid is not None:
         out['valid'] = valid
-    return logits, out
+    return out
 
 
 def forward_with_cache(params, tokens, cache, pos, config: GPTConfig,
@@ -1115,6 +1244,132 @@ def forward_with_cache(params, tokens, cache, pos, config: GPTConfig,
         x = x[:, -1:]
     x = _layer_norm(x, params['lnf_g'], params['lnf_b']).to(cdt)
     return wo_lm_head(x, params['wte'], cdt), cache
+
+
+# ---------------------------------------------------------------------------
+# The paged forward over a serving mesh (parallel/mesh_engine.py): one
+# process, N shards. Replicated work runs once a device, a shard's
+# Megatron block (its heads over its own pool, its FFN columns) once a
+# shard, and the row-parallel partials meet in ``ctx.psum``.
+# ---------------------------------------------------------------------------
+
+def _firsts(ctx):
+    """{device: the first shard on it}: replicated work runs there once."""
+    out = {}
+    for i, d in enumerate(ctx.devices):
+        out.setdefault(d, i)
+    return out
+
+
+def _owners(ctx, kind):
+    """The shards computing a ``kind`` ('heads', 'mlp') of a layer: all of
+    them when it is split over the mesh, else shard 0 alone (a fallback
+    keeps the whole product on every shard)."""
+    return (range(ctx.size) if ctx.split.get(kind, False) else range(1))
+
+
+def mesh_attention_residual(bps, x, kcs, vcs, pos, config, page_table, valid,
+                            flat_idx, ctx):
+    """The attention half of a block over the mesh: ``x`` and the inputs
+    ``{device: tensor}``, ``bps`` / ``kcs`` / ``vcs`` a shard's layer
+    params and pool planes each. Each owning shard writes and attends its
+    heads (kernel 6 or 7 over its own pool), projects them through its
+    rows of ``proj_w``; the partials sum on every device."""
+    cdt = torch_dtype(config.dtype)
+    B, T, h = next(iter(x.values())).shape
+    n = ctx.size if ctx.split.get('heads', False) else 1
+    firsts = _firsts(ctx)
+    y = {d: _layer_norm(x[d], bps[i]['ln1_g'], bps[i]['ln1_b']).to(cdt)
+         for d, i in firsts.items()}
+    parts = []
+    for i in _owners(ctx, 'heads'):
+        d, bp = ctx.devices[i], bps[i]
+        q, k, v = _block_qkv(bp, y[d], config.num_heads // n,
+                             config.head_dim, cdt, config.kv_heads // n)
+        a = cached_attend(q, k, v, kcs[i], vcs[i], pos[d], page_table[d],
+                          valid[d], flat_idx[d])
+        parts.append(wo_matmul(a.reshape(B, T, h // n), bp['proj_w'], cdt))
+    a = ctx.psum(parts)
+    return {d: x[d] + a[d] + bps[i]['proj_b'].to(cdt)
+            for d, i in firsts.items()}
+
+
+def mesh_cached_block(bps, x, kcs, vcs, pos, config, page_table, valid,
+                      flat_idx, ctx):
+    """``_cached_block`` over the mesh: the attention half, then each
+    owning shard's FFN columns and rows, the partials summed."""
+    cdt = torch_dtype(config.dtype)
+    x = mesh_attention_residual(bps, x, kcs, vcs, pos, config, page_table,
+                                valid, flat_idx, ctx)
+    firsts = _firsts(ctx)
+    y = {d: _layer_norm(x[d], bps[i]['ln2_g'], bps[i]['ln2_b']).to(cdt)
+         for d, i in firsts.items()}
+    f = ctx.psum([_block_mlp(bps[i], y[ctx.devices[i]], cdt)
+                  for i in _owners(ctx, 'mlp')])
+    return {d: x[d] + f[d] + bps[i]['out_b'].to(cdt)
+            for d, i in firsts.items()}
+
+
+def mesh_forward_with_cache(shards, tokens, cache, pos, config,
+                            last_only=False, *, ctx, block=mesh_cached_block):
+    """``paged_forward_with_cache`` over a serving mesh: ``shards`` the
+    per-shard parameter dicts (``ctx.shards(placed)``), ``cache`` the
+    per-shard pools ``{'k', 'v': [pool a shard]}`` with the (replicated)
+    ``page_table`` / ``valid``. The tied embedding and head run over the
+    vocab blocks (a masked lookup summed, the logits' columns
+    concatenated) when the vocab is split. -> (logits on the first
+    shard's device, cache)."""
+    cdt = torch_dtype(config.dtype)
+    T = tokens.shape[1]
+    firsts = _firsts(ctx)
+    d0 = ctx.devices[0]
+
+    def put(t):
+        return None if t is None else {d: t.to(d) for d in firsts}
+
+    pos_v = pos.to(dtype=torch.int32).reshape(-1)
+    page_table, valid = cache['page_table'], cache.get('valid')
+    tok, pos_d = put(tokens.long()), put(pos_v)
+    ppos_d = put(_row_positions(pos_v, T, config))
+    table_d = put(page_table)
+    valid_d = (put(valid.to(dtype=torch.int32).reshape(-1))
+               if valid is not None else {d: None for d in firsts})
+    k_pools, v_pools = cache['k'], cache['v']
+    plan = {d: _paged_plan(table_d[d], pos_d[d], T, k_pools[0], valid_d[d])
+            for d in firsts}
+    if ctx.split.get('vocab', False):
+        V = sum(int(sh['wte'].shape[0]) for sh in shards)
+        off = [i * (V // ctx.size) for i in range(ctx.size)]
+        emb = ctx.psum([_masked_take(sh['wte'], tok[ctx.devices[i]] - off[i])
+                        for i, sh in enumerate(shards)])
+    else:
+        emb = {d: wo_take(shards[i]['wte'], tok[d])
+               for d, i in firsts.items()}
+    x = {d: (emb[d] + shards[i]['wpe'][ppos_d[d]]).to(cdt)
+         for d, i in firsts.items()}
+    for layer in range(config.num_layers):
+        bps = [_layer(sh['blocks'], layer) for sh in shards]
+        x = block(bps, x, [kv_layer(p, layer) for p in k_pools],
+                  [kv_layer(p, layer) for p in v_pools], pos_d, config,
+                  table_d, valid_d, plan, ctx)
+    x = x[d0]
+    if last_only:
+        x = _last_rows(x, valid_d[d0])
+    x = _layer_norm(x, shards[0]['lnf_g'], shards[0]['lnf_b']).to(cdt)
+    if ctx.split.get('vocab', False):
+        logits = torch.cat([wo_lm_head(x.to(sh['wte'].device), sh['wte'],
+                                       cdt).to(d0) for sh in shards], dim=-1)
+    else:
+        logits = wo_lm_head(x, shards[0]['wte'], cdt)
+    return logits, _paged_out(k_pools, v_pools, page_table, valid)
+
+
+def _masked_take(wte, local):
+    """Rows of a vocab block for ids ``local`` (ids minus the block's
+    first), zero for ids outside it."""
+    inside = (local >= 0) & (local < wte.shape[0])
+    rows = wte[torch.where(inside, local, torch.zeros_like(local))]
+    return rows * inside[..., None].to(rows.dtype)
 
 
 # ---------------------------------------------------------------------------

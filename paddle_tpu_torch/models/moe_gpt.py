@@ -26,9 +26,15 @@ fp8 training (``matmul_precision='fp8'``) runs the dense attention
 matmuls, qkv and proj, through GPT's delayed-scaling product; the experts
 stay in the compute dtype, as in the reference (``moe_gpt.py:56-63``).
 
-Not ported yet (ROADMAP Queue 1): expert parallelism over a mesh
-(``param_specs``, ``place_params``; step K2) and ``mp``/``sp``/``pp`` > 1
-(item 10).
+Over a mesh (``make_train_step(config, opt, mesh)``) the step trains
+the reference's global function with one process a rank: the batch over
+dp, the experts over ep, heads and each expert's FFN width over mp
+(GPT's Megatron pair; the vocab replicated, as GPT's mesh step keeps
+it), routing global over dp (``parallel/moe.py`` ``moe_ffn_mesh``). The
+reference's own refusals stand: sp > 1 (its step has no ``shard_map``
+region, so its ring attention meets an unbound 'sp' axis) raises; pp > 1,
+which its step ignores (the layers stay replicated), trains as pp = 1 on
+every pp rank.
 """
 import dataclasses
 import warnings
@@ -37,19 +43,24 @@ import torch
 
 from . import gpt as _gpt
 from .decode_cache import DecodeFnCache, tensor_key
-from .gpt import (_attention, _block_qkv, _layer_norm, _mm, cached_attention,
-                  check_param_shapes, fp8_layers, init_kv_cache, layer_views,
-                  params_from_numpy, torch_dtype, validate_gqa)
+from .gpt import (_block_qkv, _layer_norm, attention_residual,
+                  cached_attention, check_param_shapes, fp8_layers,
+                  init_kv_cache, layer_views, params_from_numpy, torch_dtype,
+                  validate_gqa)
 from ..ops.flash_attention import per_layer_seeds
 from ..ops.weight_only import quantize_weight, wo_lm_head, wo_take
 from ..ops.xent import softmax_xent_blockwise
-from ..parallel.moe import moe_ffn
+from ..parallel import moe as _moe
+from ..parallel.moe import moe_ffn, moe_ffn_mesh
 
 __all__ = ['MoEConfig', 'init_params', 'params_from_numpy',
            'check_param_shapes', 'forward', 'forward_hidden', 'loss_fn',
            'make_train_step', 'init_fp8_state', 'FP8_MATMULS',
+           'LOGICAL_AXES', 'param_specs', 'train_specs', 'place_params',
+           'gather_params',
            'quantize_decode_params', 'serving_params',
-           'init_kv_cache', 'forward_with_cache', 'make_decode_fns',
+           'init_kv_cache', 'forward_with_cache', 'mesh_cached_block',
+           'make_decode_fns',
            'generate']
 
 
@@ -144,21 +155,21 @@ def _ffn(bp, y, config, cdt):
                    capacity_factor=config.capacity_factor)
 
 
-def block_fn(bp, x, config, drop_seed=None, fp8_meta=None):
+def block_fn(bp, x, config, drop_seed=None, fp8_meta=None, mesh=None):
     """One block of the plain forward (``moe_gpt.py:140``). bp: this
     layer's params; x [B, S, H]; ``drop_seed``: this layer's u32 dropout
     seed, or None; ``fp8_meta``: this layer's qkv and proj metas, or None.
-    -> (x, this layer's aux loss)."""
+    ``mesh`` (the mesh train step's): attention is GPT's Megatron half
+    over mp, the FFN ``moe_ffn_mesh``. -> (x, this layer's aux loss; over
+    a mesh, this rank's share of it)."""
     cdt = torch_dtype(config.dtype)
-    B, S, h = x.shape
-    fm = fp8_meta or {}
-    y = _layer_norm(x, bp['ln1_g'], bp['ln1_b']).to(cdt)
-    q, k, v = _block_qkv(bp, y, config.num_heads, config.head_dim, cdt,
-                         config.kv_heads, fm.get('qkv'))
-    a = _attention(q, k, v, config, drop_seed).reshape(B, S, h)
-    x = x + _mm(a, bp['proj_w'], cdt, fm.get('proj')) + bp['proj_b'].to(cdt)
+    x = attention_residual(bp, x, config, drop_seed, fp8_meta, mesh)
     y = _layer_norm(x, bp['ln2_g'], bp['ln2_b']).to(cdt)
-    ff, aux = _ffn(bp, y, config, cdt)
+    if mesh is None:
+        ff, aux = _ffn(bp, y, config, cdt)
+    else:
+        ff, aux = moe_ffn_mesh(y, bp['gate_w'].to(cdt), bp['w_in'],
+                               bp['w_out'], config.capacity_factor, mesh)
     return x + ff, aux
 
 
@@ -233,32 +244,188 @@ def loss_fn(params, tokens, targets, config, dropout_seed=None,
     return -ll.mean() + aux_scale * aux
 
 
-def _check_trainable(config, mesh):
-    """Raise on the train-step options that are not ported, naming their
-    ROADMAP items."""
-    later = []
-    if mesh is not None:
-        later.append('a device mesh (item 10, distributed training; '
-                     'the MoE mesh and expert parallelism: step K2)')
-    for name in ('mp', 'sp', 'pp'):
-        if getattr(config, name) > 1:
-            later.append(f'{name} > 1 (item 10, distributed training: '
-                         'step K2)')
-    if later:
-        raise NotImplementedError('not ported yet: ' + '; '.join(later)
-                                  + ' (ROADMAP Queue 1)')
+# ---------------------------------------------------------------------------
+# The mesh train step (dp, ep, mp)
+# ---------------------------------------------------------------------------
+
+# Logical axis names per parameter (``moe_gpt.py:109-125``): experts over
+# 'expert' -> 'ep', attention and each expert's FFN width 'heads'/'mlp'
+# -> 'mp', the tied embedding 'vocab'; 'router' (the gate's expert dim)
+# unmapped: every rank routes with the whole gate.
+LOGICAL_AXES = {
+    'wte': ('vocab', 'embed'),
+    'wpe': ('positions', 'embed'),
+    'blocks': {
+        'ln1_g': ('layers', 'embed'), 'ln1_b': ('layers', 'embed'),
+        'qkv_w': ('layers', 'embed', 'heads'),
+        'qkv_b': ('layers', 'heads'),
+        'proj_w': ('layers', 'heads', 'embed'),
+        'proj_b': ('layers', 'embed'),
+        'ln2_g': ('layers', 'embed'), 'ln2_b': ('layers', 'embed'),
+        'gate_w': ('layers', 'embed', 'router'),
+        'w_in': ('layers', 'expert', 'embed', 'mlp'),
+        'w_out': ('layers', 'expert', 'mlp', 'embed'),
+    },
+    'lnf_g': ('embed',), 'lnf_b': ('embed',),
+}
+
+
+def param_specs(config):
+    """The reference's PartitionSpecs (``moe_gpt.py:128-137``): experts
+    over 'ep', heads, FFN width and vocab over 'mp', from LOGICAL_AXES
+    through the rules table."""
+    from ..parallel.partitioner import Partitioner, model_rules
+    return Partitioner(rules=model_rules(mp=config.mp)).tree_specs(
+        LOGICAL_AXES)
+
+
+def train_specs(config):
+    """The specs of the blocks the port's mesh step takes: as
+    ``param_specs`` with the vocab replicated and 'mp' only where > 1
+    (GPT's explicit route, ``gpt.train_specs``)."""
+    from ..parallel.partitioner import Partitioner, model_rules
+    return Partitioner(rules=model_rules(
+        mp=config.mp, explicit=True)).tree_specs(LOGICAL_AXES)
+
+
+def place_params(params, config, mesh):
+    """This rank's blocks of the global parameter dict, by
+    ``train_specs`` (copies, which the step updates in place)."""
+    from ..optimizer.optimizer import tree_map
+    from ..parallel.partitioner import shard
+    mesh = getattr(mesh, 'mesh', mesh)
+    return tree_map(lambda x, s: shard(x, s, mesh).clone(), params,
+                    train_specs(config))
+
+
+def gather_params(params, config, mesh):
+    """The global parameter dict from every rank's blocks (as
+    ``gpt.gather_params``)."""
+    from ..parallel.partitioner import unshard_tree
+    return unshard_tree(params, train_specs(config),
+                        getattr(mesh, 'mesh', mesh))
+
+
+def _check_mesh(config, mesh):
+    """The reference's refusals, and the config's degrees against the
+    mesh's. MoE's sp > 1 raises where the reference's step does (its
+    attention calls the ring over 'sp' outside any ``shard_map`` region:
+    ``NameError: unbound axis name: sp``); pp > 1 is ignored there (the
+    layers stay replicated), so it is here."""
+    if config.sp > 1:
+        raise NotImplementedError(
+            "MoE GPT with sp > 1: the reference's step has no shard_map "
+            "region over 'sp' (its ring attention raises NameError: unbound "
+            "axis name: sp), so there is no function to train here either")
+    for ax in ('mp', 'sp'):
+        if mesh.axis_size(ax) != getattr(config, ax):
+            raise ValueError(
+                f'config.{ax}={getattr(config, ax)} but the mesh has '
+                f'{ax}={mesh.axis_size(ax)} ({mesh})')
+    if config.n_experts % mesh.axis_size('ep'):
+        raise ValueError(f'{config.n_experts} experts do not divide over '
+                         f"ep={mesh.axis_size('ep')}")
+
+
+def _mesh_train_step(config, optimizer, mesh):
+    """The MoE step over ``mesh``'s dp, ep and mp axes (``moe_gpt.py:
+    425-452`` under GSPMD), one process a rank: this rank's dp block of
+    the global batch, the embedding and head whole (vocab replicated), each
+    block GPT's Megatron attention half then ``moe_ffn_mesh`` (remat per
+    block as the reference's ``jax.checkpoint``). Each rank differentiates
+    its share of the global objective: its tokens' cross-entropy and its
+    aux share over dp, the aux share once more over the (ep, mp) ranks
+    that compute it alike (their f's backward sums it); then the router's
+    gradient is summed over (ep, mp) and every gradient over dp. The
+    returned loss is the global one on every rank. fp8 (qkv and proj) as
+    GPT's mesh step: amaxes over the operands' ranks, the state
+    replicated and updated in place. The dropout seeds
+    (``gpt.mesh_layer_seeds``), the batch split and the step's wrapper
+    (``gpt.mesh_step``) are GPT's.
+
+    The step takes the mesh's (ep, mp) group (and, with fp8 and mp > 1,
+    its (dp, mp) group), built here if the mesh has not built it: every
+    rank of the world must build a mesh's groups together, so a mesh over
+    some of the ranks needs ``mesh.group(('ep', 'mp'))`` (and
+    ``(('dp', 'mp'))``) called on every rank first."""
+    from ..distributed import collective as coll
+    from ..optimizer.optimizer import tree_map
+    from ..parallel.partitioner import PartitionSpec
+    from .gpt import _leaves, _rebuild
+    _check_mesh(config, mesh)
+    dp, ep, mp = (mesh.axis_size(a) for a in ('dp', 'ep', 'mp'))
+    dp_grp = mesh.group('dp')
+    router_grp = mesh.group(('ep', 'mp')) if ep * mp > 1 else None
+    if config.matmul_precision == 'fp8' and mp > 1:
+        mesh.group(('dp', 'mp'))             # every rank builds it, here
+    cdt = torch_dtype(config.dtype)
+    aux_scale = config.aux_weight / config.num_layers
+    fp8 = config.matmul_precision == 'fp8'
+
+    def spmd_loss(params, tok, tgt, seed, fp8_state):
+        s = tok.shape[1]
+        pos = torch.arange(s, device=tok.device)
+        x = (params['wte'][tok.long()] + params['wpe'][pos]).to(cdt)
+        body = (_gpt._remat(block_fn, config) if config.remat else block_fn)
+        seeds = _gpt.mesh_layer_seeds(config, mesh, seed)
+        metas = fp8_layers(fp8_state, config.num_layers)
+        aux = torch.zeros((), dtype=torch.float32, device=tok.device)
+        for layer, bp in enumerate(layer_views(params['blocks'])):
+            x, a = body(bp, x, config, seeds[layer], metas[layer], mesh)
+            aux = aux + a
+        x = _layer_norm(x, params['lnf_g'], params['lnf_b']).to(cdt)
+        logits = x @ params['wte'].t().to(cdt)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ce = -logp.gather(-1, tgt.long()[..., None])[..., 0].mean()
+        return ce, aux
+
+    def valgrad(params, fp8_state, tok, tgt, seed):
+        leaves = _leaves(params)
+        metas = [] if fp8_state is None else _leaves(fp8_state)
+        with torch.enable_grad():
+            live = [p.detach().requires_grad_() for p in leaves]
+            live_m = [m.detach().requires_grad_() for m in metas]
+            ce, aux = spmd_loss(_rebuild(params, live), tok, tgt, seed,
+                                None if fp8_state is None
+                                else _rebuild(fp8_state, live_m))
+            objective = (ce + aux_scale * aux / (ep * mp)) / dp
+            got = torch.autograd.grad(objective, live + live_m)
+        with torch.no_grad():
+            for m, new in zip(metas, got[len(live):]):
+                m.copy_(new)
+        grads = _rebuild(params, list(got[:len(live)]))
+        loss = (ce + aux_scale * aux).detach()
+        if router_grp is not None:
+            grads['blocks']['gate_w'] = coll.psum(grads['blocks']['gate_w'],
+                                                  router_grp)
+        if dp > 1:
+            loss = coll.pmean(loss, dp_grp)
+            grads = tree_map(lambda g: coll.psum(g, dp_grp), grads)
+        return loss, grads
+
+    return _gpt.mesh_step(optimizer, mesh, PartitionSpec('dp', None),
+                          valgrad, fp8)
 
 
 def make_train_step(config, optimizer, mesh=None):
-    """The single-device train step (``moe_gpt.py:425-452``):
-    ``step(params, opt_state, seed, lr, tokens, targets) -> (loss, params,
-    opt_state)``, with ``matmul_precision='fp8'`` ``step(params,
-    opt_state, fp8_state, seed, lr, tokens, targets) -> (loss, params,
-    opt_state, fp8_state)``, as ``gpt.make_train_step``: ``seed`` is the
-    u32 dropout seed, params and states are updated in place. A mesh and
-    mp/sp/pp > 1 raise."""
-    _check_trainable(config, mesh)
-    return _gpt.autograd_step(loss_fn, config, optimizer)
+    """The train step (``moe_gpt.py:425-452``): ``step(params, opt_state,
+    seed, lr, tokens, targets) -> (loss, params, opt_state)``, with
+    ``matmul_precision='fp8'`` ``step(params, opt_state, fp8_state, seed,
+    lr, tokens, targets) -> (loss, params, opt_state, fp8_state)``, as
+    ``gpt.make_train_step``: ``seed`` is the u32 dropout seed, params and
+    states are updated in place.
+
+    With a ``mesh`` (a ``distributed.topology.Mesh`` or
+    ``HybridTopology``), or mp/sp/pp > 1 (then the process topology's),
+    the mesh step (``_mesh_train_step``): ``params`` and ``opt_state``
+    are this rank's blocks (``place_params``), every rank passes the
+    global batch, the loss is the global one."""
+    if mesh is None and (config.mp > 1 or config.sp > 1 or config.pp > 1):
+        from ..distributed.topology import get_mesh
+        mesh = get_mesh()
+    if mesh is None:
+        return _gpt.autograd_step(loss_fn, config, optimizer)
+    return _mesh_train_step(config, optimizer, getattr(mesh, 'mesh', mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +476,31 @@ def _cached_block(bp, x, k_cache, v_cache, pos, config, page_table=None,
     y = _layer_norm(x, bp['ln2_g'], bp['ln2_b']).to(cdt)
     ff, _ = _ffn(bp, y, config, cdt)
     return x + ff, k_cache, v_cache
+
+
+def mesh_cached_block(bps, x, kcs, vcs, pos, config, page_table, valid,
+                      flat_idx, ctx):
+    """``_cached_block`` over a serving mesh (``gpt.
+    mesh_forward_with_cache``): GPT's attention half, then the MoE FFN
+    routed once a device (the router is replicated) and each owning
+    shard's experts over its FFN columns and rows, their combines summed
+    in f32 and rounded once."""
+    cdt = torch_dtype(config.dtype)
+    x = _gpt.mesh_attention_residual(bps, x, kcs, vcs, pos, config,
+                                     page_table, valid, flat_idx, ctx)
+    firsts = _gpt._firsts(ctx)
+    routed = {}
+    for d, i in firsts.items():
+        y = _layer_norm(x[d], bps[i]['ln2_g'], bps[i]['ln2_b']).to(cdt)
+        routed[d] = _moe.dispatch(y, bps[i]['gate_w'].to(cdt),
+                                  config.capacity_factor)
+    parts = []
+    for i in _gpt._owners(ctx, 'mlp'):
+        expert_in, route = routed[ctx.devices[i]]
+        out = _moe._experts(expert_in, bps[i]['w_in'], bps[i]['w_out'], cdt)
+        parts.append(_moe.combine(out, route, cdt))
+    f = ctx.psum(parts)
+    return {d: x[d] + f[d].to(cdt).reshape(x[d].shape) for d in firsts}
 
 
 def forward_with_cache(params, tokens, cache, pos, config, last_only=False):

@@ -1089,12 +1089,39 @@ def _register_flop_formulas():
 _register_flop_formulas()
 
 
+def kernel_takes(q, k=None, v=None):
+    """True when a kernel instance exists for this attention call: a head
+    dim in ``HEAD_DIMS`` and f32/bf16 q, with k and v (tensors, or int8
+    banks for the decode kernels) of q's head dim and, raw, of q's dtype.
+    The reference's gate (``flash_attention_available``,
+    ``paged_attention_available``, ``flash_decode_available``) less its
+    TPU limits on S_k and page sizes. Callers choose their route by it
+    before any launch; a CPU tensor routes by the same rule."""
+    if q.dim() != 4 or int(q.shape[-1]) not in HEAD_DIMS:
+        return False
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        return False
+    for t in (k, v):
+        if t is None:
+            continue
+        if is_weight_only(t):
+            t = t['int8']
+        elif t.dtype != q.dtype:
+            return False
+        if int(t.shape[-1]) != int(q.shape[-1]):
+            return False
+    return True
+
+
 def decode_attention(q, k_cache, v_cache, pos):
     """Attention of q rows at positions pos.. against a dense cache (raw
     [B,S_max,H_kv,D], or int8 banks): kernel 4 or 5 for a CUDA tensor,
-    its twin for a CPU tensor."""
+    its twin for a CPU tensor or a shape no instance takes
+    (``kernel_takes``: the reference's gate sends those to its plain
+    path)."""
     int8 = is_weight_only(k_cache)
-    if _on(q, 'decode_attention') == 'cpu':
+    if (_on(q, 'decode_attention') == 'cpu'
+            or not kernel_takes(q, k_cache, v_cache)):
         return (flash_decode_int8_reference if int8
                 else flash_decode_reference)(q, k_cache, v_cache, pos)
     return (flash_decode_int8 if int8 else flash_decode)(
@@ -1120,9 +1147,10 @@ def flash_attention(q, k, v, causal=False, mask=None, dropout_rate=0.0,
     before the first key), and a per-head or dense mask. (The third such
     case, ``use_flash=False``, never calls this function: the model's
     ``_attention`` runs the reference's own einsum path.) The reference's
-    TPU limits (S_k >= 128, head dim 64/128/256 on its platform) are not
-    carried over: the twin takes any shape, and on the card a head dim
-    without a kernel instance raises."""
+    gate on shapes (``flash_attention_available``) is the callers':
+    the models choose their route by ``kernel_takes`` before calling
+    this; called directly, the twin takes any shape and on the card a
+    head dim without a kernel instance raises."""
     drop = _check_dropout(dropout_rate, dropout_seed)
     seed = int(_u32(dropout_seed)) if drop else None
     # sizes stay as torch gives them (no int()): under torch.export a

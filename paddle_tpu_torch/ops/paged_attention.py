@@ -58,7 +58,8 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import _EPS, _NEG_INF, INSTANCE, _count, repeat_kv
+from .flash_attention import (_EPS, _NEG_INF, INSTANCE, _count, kernel_takes,
+                              repeat_kv)
 from .paged_kv import gather_virtual
 from .weight_only import dequantize_kv, is_weight_only
 
@@ -458,12 +459,19 @@ def paged_attention(q, k_pages, v_pages, page_table, pos, valid=None):
     q: [B, T, H, D]; pools: [N, page_size, H_kv, D] tensors (kernel 6) or
     int8 banks (kernel 7); page_table: [B, P_max] int32; pos: [B] int32
     (first q row's absolute position per slot); valid: [B] int32 real rows
-    per slot (rows t >= valid[b] come out zero), or None -> [B, T, H, D]."""
+    per slot (rows t >= valid[b] come out zero), or None -> [B, T, H, D].
+    On the card a shape or dtype no instance takes
+    (``flash_attention.kernel_takes``) runs the reference's own gather
+    path (``paged_attention_fallback``, as its gate sends it there; no
+    host read, so it captures), rows past ``valid`` zeroed."""
     int8 = is_weight_only(k_pages)
     if q.device.type == 'cpu':
         return (paged_decode_int8_reference if int8
                 else paged_decode_reference)(q, k_pages, v_pages, page_table,
                                              pos, valid=valid)
+    if q.device.type == 'cuda' and not kernel_takes(q, k_pages, v_pages):
+        return _zero_past(paged_attention_fallback(
+            q, k_pages, v_pages, page_table, pos, q.dtype), valid)
     if q.device.type == 'cuda':
         return (paged_flash_decode_int8 if int8 else paged_flash_decode)(
             q, k_pages, v_pages, page_table, pos, valid)

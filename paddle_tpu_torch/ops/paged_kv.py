@@ -35,6 +35,13 @@ from .weight_only import init_kv_bank, is_weight_only, kv_plane, quantize_kv
 
 TRASH_PAGE = 0   # reserved; see module docstring
 
+# Logical axes of one pool plane for the partitioner rules table
+# (parallel/mesh_engine.py splits 'kv_heads' over mp; 'kv_pages' is
+# replicated by rule: the +1 trash page makes the page count indivisible
+# by any mesh degree, so a logical page spans every head shard and the
+# host-side allocator and tables below never see the mesh).
+POOL_LOGICAL_AXES = ('layers', 'kv_pages', None, 'kv_heads', None)
+
 
 def pages_for(n_tokens, page_size):
     """Pages needed to hold ``n_tokens`` rows."""

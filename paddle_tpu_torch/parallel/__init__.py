@@ -1,9 +1,9 @@
 """Parallelism of the port: the rules-table partitioner, Megatron's f/g
 pair, ring (flash) attention over the sp axis, the GPipe and 1F1B
-pipelines, ZeRO 1-3 (step K1) and the single-device Mixture-of-Experts
-layer (``moe``). Mesh-sharded serving (``mesh_engine``) and
-``parallelize``'s sharded train step raise citing ROADMAP Queue 1 steps
-K3 and K4."""
+pipelines, ZeRO 1-3 (step K1), the Mixture-of-Experts layer on one device
+and over dp / ep / mp (``moe``, step K2) and mesh-sharded serving
+(``mesh_engine``, step K3). ``parallelize``'s sharded train step raises
+citing ROADMAP Queue 1 step K4."""
 from .. import _deferred
 from . import moe  # noqa: F401
 from .moe import moe_ffn, top2_gating  # noqa: F401
@@ -19,8 +19,7 @@ from .partitioner import (  # noqa: F401
     model_rules)
 from . import tp_ad  # noqa: F401
 
-_deferred.install(globals(), 'is not ported yet (ROADMAP Queue 1 step K3)',
-                  functions=('build_mesh', 'serving_rules'),
-                  classes=('MeshContext',))
+from . import mesh_engine  # noqa: F401
+from .mesh_engine import MeshContext, build_mesh, serving_rules  # noqa: F401
 _deferred.install(globals(), 'is not ported yet (ROADMAP Queue 1 step K4)',
                   functions=('make_sharded_train_step', 'shard_params'))

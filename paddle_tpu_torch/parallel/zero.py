@@ -86,9 +86,14 @@ def replicate(tree, specs, mesh=None):
 
 
 def hybrid_zero3_specs(tree, base_specs, mesh=None, dp_axis='dp'):
-    raise NotImplementedError(
-        'parallel.zero.hybrid_zero3_specs (ZeRO-3 inside an mp/pp layout) '
-        'is not ported yet (ROADMAP Queue 1 step K2)')
+    """ZeRO-3's dp sharding merged into an existing mp/pp spec tree
+    (``zero.py:97-107``): each leaf keeps its Megatron / pipeline axes and
+    also shards its largest still-unsharded divisible dim over
+    ``dp_axis``. Cut a global tree with ``partitioner.shard_tree(tree,
+    specs, mesh)``; ``replicate(blocks, specs, mesh)`` gathers it back."""
+    deg = _mesh(mesh).shape.get(dp_axis, 1)
+    return tree_map(lambda x, spec: shard_spec(x, deg, (dp_axis,),
+                                               base=spec), tree, base_specs)
 
 
 def _scatter_mean(g, spec, mesh, grp):

@@ -33,6 +33,14 @@ Two routes, chosen by the operands' device before the call:
    ``torch._scaled_mm``; a selective-checkpoint recompute that the cache
    serves requests one and launches nothing.
 
+Over a mesh (the dp/mp train step) an operand is a block of the
+reference's global tensor, whose amax is over the whole of it: each
+amax is reduced (MAX) over the group of the axes that shard that operand
+(``fp8_matmul(..., groups=(gx, gw, gg))``) before it enters the history,
+so every rank's new scales and histories are the reference's. The
+quantize itself needs no collective: it applies the (replicated) delayed
+scale to the rank's block.
+
 The reference computes this product with XLA outside any Pallas kernel;
 the amax, the scale and the casts here are plain torch ops.
 """
@@ -74,8 +82,13 @@ def available():
         return False
 
 
-def _amax(x):
-    return torch.amax(torch.abs(x)).to(torch.float32)
+def _amax(x, group=None):
+    """``max |x|`` in f32; with a ``Group``, over every rank's block."""
+    a = torch.amax(torch.abs(x)).to(torch.float32)
+    if group is not None and group.nranks > 1:
+        from ..distributed.collective import pmax
+        a = pmax(a, group)
+    return a
 
 
 def _scale_of(amax, q_dtype):
@@ -94,9 +107,11 @@ def compute_scale(amax_history, q_dtype):
     return _scale_of(torch.amax(amax_history), q_dtype).to(torch.float32)
 
 
-def update_history(amax_history, x):
-    """Ring-push ``amax(|x|)`` into slot 0 (the oldest entry falls off)."""
-    return torch.cat([_amax(x)[None], amax_history[:-1]])
+def update_history(amax_history, x, group=None):
+    """Ring-push ``amax(|x|)`` into slot 0 (the oldest entry falls off);
+    ``group``: the amax of the global tensor whose blocks the group's
+    ranks hold."""
+    return torch.cat([_amax(x, group)[None], amax_history[:-1]])
 
 
 def _quantize(x, q_dtype, scale):
@@ -125,45 +140,47 @@ def qdq_dynamic(x, q_dtype=E4M3):
 
 class _InQdq(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q_dtype, x, scale, amax_history):
-        new_hist = update_history(amax_history, x)
+    def forward(ctx, q_dtype, x, scale, amax_history, group=None):
+        new_hist = update_history(amax_history, x, group)
         ctx.save_for_backward(compute_scale(new_hist, q_dtype), new_hist)
         return quantize_dequantize(x, q_dtype, scale)
 
     @staticmethod
     def backward(ctx, g):
         new_scale, new_hist = ctx.saved_tensors
-        return None, g, new_scale, new_hist
+        return None, g, new_scale, new_hist, None
 
 
 class _OutQdq(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q_dtype, out, scale, amax_history):
+    def forward(ctx, q_dtype, out, scale, amax_history, group=None):
         ctx.q_dtype = q_dtype
+        ctx.group = group
         ctx.save_for_backward(scale, amax_history)
         return out.view_as(out)
 
     @staticmethod
     def backward(ctx, g):
         scale, amax_history = ctx.saved_tensors
-        new_hist = update_history(amax_history, g)
+        new_hist = update_history(amax_history, g, ctx.group)
         return (None, quantize_dequantize(g, ctx.q_dtype, scale),
-                compute_scale(new_hist, ctx.q_dtype), new_hist)
+                compute_scale(new_hist, ctx.q_dtype), new_hist, None)
 
 
-def in_qdq(q_dtype, x, scale, amax_history):
+def in_qdq(q_dtype, x, scale, amax_history, group=None):
     """Quantize-dequantize a forward operand (x or w) in ``q_dtype`` with
     the delayed scale. Backward: the operand's gradient passes through;
-    the scale's and history's "gradients" are their updated values."""
-    return _InQdq.apply(q_dtype, x, scale, amax_history)
+    the scale's and history's "gradients" are their updated values (the
+    amax over ``group``'s blocks, when given)."""
+    return _InQdq.apply(q_dtype, x, scale, amax_history, group)
 
 
-def out_qdq(q_dtype, out, scale, amax_history):
+def out_qdq(q_dtype, out, scale, amax_history, group=None):
     """Identity forward; the backward quantize-dequantizes the output
     gradient in ``q_dtype`` (e5m2) with the delayed scale, and the scale's
     and history's "gradients" carry the state observed from that
-    gradient."""
-    return _OutQdq.apply(q_dtype, out, scale, amax_history)
+    gradient (over ``group``'s blocks, when given)."""
+    return _OutQdq.apply(q_dtype, out, scale, amax_history, group)
 
 
 # ---------------------------------------------------------------------------
@@ -192,15 +209,16 @@ def _pad16(t):
 
 class _ScaledMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, sx, hx, sw, hw, sg, hg):
+    def forward(ctx, x, w, sx, hx, sw, hw, sg, hg, groups=(None,) * 3):
         k, n = w.shape
         lead = x.shape[:-1]
         x2 = x.reshape(-1, k)
         qx = _quantize(_pad16(x2), E4M3, sx)          # [M, K] row-major
         qw = _quantize(_pad16(w), E4M3, sw)           # [K, N] row-major
         out = _scaled_mm(qx, qw.t().contiguous().t(), sx, sw, x.dtype)
-        new_hx = update_history(hx, x)
-        new_hw = update_history(hw, w)
+        new_hx = update_history(hx, x, groups[0])
+        new_hw = update_history(hw, w, groups[1])
+        ctx.group_g = groups[2]
         ctx.save_for_backward(qx, qw, sx, sw, sg, hg,
                               compute_scale(new_hx, E4M3), new_hx,
                               compute_scale(new_hw, E4M3), new_hw)
@@ -220,39 +238,44 @@ class _ScaledMatmul(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = _scaled_mm(qx.t().contiguous(), qg.t().contiguous().t(),
                             sx, sg, g.dtype)[:k, :n]
-        nhg = update_history(hg, g2)
-        return (dx, dw, nsx, nhx, nsw, nhw, compute_scale(nhg, E5M2), nhg)
+        nhg = update_history(hg, g2, ctx.group_g)
+        return (dx, dw, nsx, nhx, nsw, nhw, compute_scale(nhg, E5M2), nhg,
+                None)
 
 
 def _meta_leaves(meta):
     return [meta[r][k] for r in ('x', 'w', 'g') for k in ('scale', 'ahist')]
 
 
-def fp8_matmul_reference(x, w, meta):
+def fp8_matmul_reference(x, w, meta, groups=None):
     """The twin, on any device: the reference's ``fp8_matmul``
     (quantize-dequantize x and w, a product in their dtype, the output
     gradient quantize-dequantized in the backward)."""
+    gx, gw, gg = groups or (None,) * 3
     m = _meta_leaves(meta)
-    qx = in_qdq(E4M3, x, m[0], m[1])
-    qw = in_qdq(E4M3, w, m[2], m[3])
-    return out_qdq(E5M2, torch.matmul(qx, qw), m[4], m[5])
+    qx = in_qdq(E4M3, x, m[0], m[1], gx)
+    qw = in_qdq(E4M3, w, m[2], m[3], gw)
+    return out_qdq(E5M2, torch.matmul(qx, qw), m[4], m[5], gg)
 
 
-def fp8_matmul(x, w, meta):
+def fp8_matmul(x, w, meta, groups=None):
     """``x @ w`` ([..., K] @ [K, N]) with e4m3 forward operands and an
     e5m2 gradient, per-tensor delayed scaling from ``meta``
     (``init_matmul_meta``). Differentiating w.r.t. ``meta`` gives the
     updated state, not a gradient. CPU tensors run the twin
     (``fp8_matmul_reference``), CUDA tensors the fp8 tensor cores;
-    anything else raises."""
+    anything else raises. ``groups`` (a mesh step's): the ``Group`` (or
+    None) whose ranks hold blocks of x, of w and of the output gradient,
+    each amax reduced over it."""
     if x.device.type == 'cpu':
-        return fp8_matmul_reference(x, w, meta)
+        return fp8_matmul_reference(x, w, meta, groups)
     if x.device.type != 'cuda':
         raise ValueError(f'fp8_matmul runs on cuda or cpu, not {x.device}')
     if x.dtype != w.dtype or w.dim() != 2:
         raise ValueError(f'fp8_matmul takes x and a 2-D w of one dtype, got '
                          f'{x.dtype} and {w.dtype} {tuple(w.shape)}')
-    return _ScaledMatmul.apply(x, w, *_meta_leaves(meta))
+    return _ScaledMatmul.apply(x, w, *_meta_leaves(meta),
+                               groups or (None,) * 3)
 
 
 # ---------------------------------------------------------------------------

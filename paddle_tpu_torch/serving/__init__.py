@@ -44,10 +44,14 @@ tenant quotas, ``model@host`` targets)::
     router = serving.FleetRouter(rs)
     toks = router.submit(prompt_ids, max_new_tokens=32).result()
 
-Sharded serving is not ported yet: its names exist and raise citing
-ROADMAP Queue 1 step K3.
+Mesh-sharded serving (``sharded.py``): ``MeshReplica``,
+``sharded_generation_engine`` and ``sharded_inference_engine`` serve one
+model over an mp=N mesh of shards that one process drives
+(``parallel/mesh_engine.py``)::
+
+    eng = serving.sharded_generation_engine(
+        params, cfg, mp=2, devices=['cuda:0'] * 2, num_slots=8)
 """
-from .. import _deferred
 from .bucketing import (bucket_for, bucket_sizes, input_signature,  # noqa: F401
                         pad_rows)
 from .bucket_cache import BucketCompileCache  # noqa: F401
@@ -61,12 +65,8 @@ from .host import (HostedModel, ModelHost, get_host,  # noqa: F401
                    resolve_target)
 from .fleet import (Autoscaler, FleetRouter, Replica,  # noqa: F401
                     ReplicaSet)
-
-_deferred.install(
-    globals(), 'is not ported yet (ROADMAP Queue 1 step K3: mesh-sharded '
-    'serving)',
-    functions=('sharded_generation_engine', 'sharded_inference_engine'),
-    classes=('MeshReplica',))
+from .sharded import (MeshReplica, sharded_generation_engine,  # noqa: F401
+                      sharded_inference_engine)
 
 __all__ = [
     'InferenceEngine', 'ServingStats', 'BucketCompileCache',

@@ -43,10 +43,17 @@ counted) into ``perf.flops{fn=serving.bucketN}``; steady-state batches
 feed ``perf.note_step`` and run inside a ``record_function`` range named
 after the label (``perf.program_range``), which ``/debug/profile`` counts.
 
-Not ported, raising NotImplementedError citing its ROADMAP Queue 1 step:
-mesh sharding (``mesh=`` / ``mp>1``, step K3). ``PADDLE_TPU_COMPILE_CACHE``
-is not read: a CUDA graph cannot outlive its process (ROADMAP known
-differences).
+A mesh-sharded replica (``mesh=`` / ``mp=N``, ``parallel/mesh_engine.py``)
+places each parameter by its ``logical_axes`` annotation, as the
+reference does; a Layer's parameters carry none (the annotated layers are
+``meta_parallel``'s, ROADMAP Queue 1 step K4), so every one lands
+replicated and each bucket runs the Layer's forward on the mesh's first
+device, one graph a bucket (the other shards of a virtual mesh share its
+tensors). A parameter whose annotation would split it raises, naming step
+K4. The degree is published as ``serve.mesh_devices{engine=...,
+mesh="mpN"}``; ``stats()['mesh']`` describes the mesh.
+``PADDLE_TPU_COMPILE_CACHE`` is not read: a CUDA graph cannot outlive its
+process (ROADMAP known differences).
 
 Env knobs: ``PADDLE_TPU_SERVE_MAX_BATCH`` (default 16),
 ``PADDLE_TPU_SERVE_MAX_DELAY_MS`` (default 2.0).
@@ -83,10 +90,22 @@ _UNSET = object()
 _PRECISIONS = ('float32', 'bfloat16', 'float16', 'int8_wo')
 
 
-def _not_ported(what, step):
-    return NotImplementedError(
-        f'InferenceEngine: {what} is not ported to paddle_tpu_torch yet '
-        f'(ROADMAP Queue 1 step {step})')
+def _mesh_place(ctx, layer, params, device):
+    """The parameters a mesh engine computes with, on ``device``: each
+    placed by its Parameter's ``logical_axes`` (none: replicated). A split
+    would need the Layer's own sharded forward (``meta_parallel``'s
+    layers), which is not ported."""
+    annot = {n: getattr(p, 'logical_axes', None)
+             for n, p in layer.named_parameters()}
+    for k, v in params.items():
+        spec = ctx.spec(annot.get(k), tuple(v.shape), label=k)
+        if any(e is not None for e in spec):
+            raise NotImplementedError(
+                f'InferenceEngine over a mesh: parameter {k!r} splits as '
+                f'{tuple(spec)}; a Layer sharded over mp runs through '
+                "meta_parallel's layers, not ported yet (ROADMAP Queue 1 "
+                'step K4)')
+    return {k: v.to(device) for k, v in params.items()}
 
 
 def _wo_param_axes(layer):
@@ -227,8 +246,8 @@ class InferenceEngine:
                  queue_capacity=256, precision=None, default_deadline_ms=None,
                  breaker=None, autostart=True, clock=None, warmup=None,
                  input_spec=None, telemetry_port=None, mesh=None, mp=None):
-        if mesh is not None or (mp is not None and int(mp) != 1):
-            raise _not_ported('mesh sharding (mesh= / mp>1)', 'K')
+        from ..parallel import mesh_engine as _mesh
+        self._mesh_ctx = ctx = _mesh.resolve(mesh, mp=mp)
         layer, params, buffers, precision, example_spec = \
             _resolve_backend(net, precision)
         if precision not in _PRECISIONS:
@@ -237,7 +256,11 @@ class InferenceEngine:
         layer.eval()    # serving is per-sample: BN/dropout must be frozen
         self._layer = layer
         self._precision = precision
-        self.device = _device_of(layer, params, buffers)
+        self.device = (ctx.devices[0] if ctx is not None
+                       else _device_of(layer, params, buffers))
+        if ctx is not None:
+            params = _mesh_place(ctx, layer, params, self.device)
+            buffers = {k: v.to(self.device) for k, v in buffers.items()}
         low = _LOW_DTYPES.get(precision)
         self._low = low
         self._wo_dtypes = {}    # quantized param name -> original dtype
@@ -273,6 +296,12 @@ class InferenceEngine:
         self._cache = BucketCompileCache(self._build)
         self._trace_count = 0        # captures (the reference's traces)
         self._stats = ServingStats(clock=self._clock)
+        if ctx is not None and _obs.enabled():
+            # the degree rides a gauge of its own: the engine's label set
+            # stays {'engine': ...} at every mesh size
+            _obs.registry().gauge(
+                'serve.mesh_devices',
+                {**self._stats.labels, 'mesh': f'mp{ctx.mp}'}).set(ctx.size)
         self._queues = PendingQueues()
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
@@ -636,7 +665,8 @@ class InferenceEngine:
         out['precision'] = self._precision
         out['circuit_state'] = self._breaker.state
         out['warmed'] = self._warmed
-        out['mesh'] = None
+        out['mesh'] = (self._mesh_ctx.describe()
+                       if self._mesh_ctx is not None else None)
         return out
 
 

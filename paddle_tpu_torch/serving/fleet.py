@@ -1045,14 +1045,14 @@ class FleetRouter:
         with self._lock:
             inflight = len(self._inflight)
             parked = len(self._parked)
-        # every replica is one card: mesh-sharded replicas wait for
-        # ROADMAP Queue 1 step K3
+        from ..parallel import mesh_engine as _mesh
         return {'fleet': self.name, 'kind': self.set.kind,
                 'replicas': alive, 'replicas_ready': ready,
                 'inflight': inflight, 'parked': parked,
                 'replica_states': {r.name: r.state
                                    for r in self.set.snapshot()},
-                'replica_mesh': {r.name: 1 for r in self.set.snapshot()}}
+                'replica_mesh': {r.name: max(1, _mesh.mesh_size(r.engine))
+                                 for r in self.set.snapshot()}}
 
     def close(self, drain=True, timeout=None):
         with self._lock:

@@ -63,8 +63,18 @@ Telemetry: ``telemetry_port=N`` starts the HTTP plane
 (``observability.serve_telemetry``; 0 picks a free port, read back from
 ``engine.telemetry.port``), stopped at ``shutdown``.
 
-Not ported yet, raising with its ROADMAP item: mesh sharding (``mesh=`` /
-``mp>1``; for MoE, expert parallelism, step K3).
+A mesh-sharded replica (``mesh=`` / ``mp=N``, ``parallel/mesh_engine.py``)
+serves GPT or MoE over N shards driven by this one process: the
+parameters placed by the family's logical axes (heads, FFN width and
+vocab over mp), one pool a shard on its kv heads, the prefill and the
+step the family's mesh forward (kernels 6 / 7 once a shard a layer, the
+row-parallel partials summed), still two captures on one device (a mesh
+over several devices runs its two functions eagerly: a graph captures
+one device's work). The scheduler, the allocator, the page tables and
+the prefix cache are the mp=1 code; ``int8_wo`` over a mesh raises, as
+in the reference. The degree is published as its own gauge
+(``gen.mesh_devices{engine=..., mesh="mpN"}``); the engine's labels stay
+``{'engine': ...}``.
 
 Captured device calls (the reference's ``_build_fns``/``_fns_pair``): the
 prefill and the step are each one CUDA graph (``models.decode_cache.
@@ -82,6 +92,7 @@ Env knobs: ``PADDLE_TPU_GEN_SLOTS`` (default 8),
 ``PADDLE_TPU_GEN_PAGE_SIZE`` (default 128, clamped to max_seq_len),
 ``PADDLE_TPU_GEN_PREFIX`` (=1 enables the prefix cache by default).
 """
+import functools
 import itertools
 import os
 import sys
@@ -118,12 +129,6 @@ def _env_int(name, default):
         return int(os.environ.get(name, default))
     except ValueError:
         return default
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        f'GenerationEngine: {what} is not ported to paddle_tpu_torch yet '
-        f'(ROADMAP Queue 1: {item})')
 
 
 def _family(cfg):
@@ -300,6 +305,12 @@ class _Slot:
                                         # instead of running prefill
 
 
+def _device_key(device):
+    """(type, index) of a device, an unnumbered one as its index 0."""
+    d = torch.device(device)
+    return d.type, d.index or 0
+
+
 class GenerationEngine:
     """Continuous-batching generation over one GPT or MoE GPT model.
 
@@ -333,27 +344,46 @@ class GenerationEngine:
             raise ValueError(
                 f"GenerationEngine precision must be None/'float32'/"
                 f"'int8_wo', got {precision!r}")
-        if mesh is not None or (mp is not None and int(mp) != 1):
-            cfg = config if config is not None else getattr(net, 'config',
-                                                             None)
-            if _family(cfg) is _moe:
-                raise _not_ported('a MoE model over a mesh (mesh= / mp>1)',
-                                  'step K3, item 10: expert parallelism')
-            raise _not_ported('mesh sharding (mesh= / mp>1)',
-                              'item 1, deferred: mesh-sharded serving')
+        from ..parallel import mesh_engine as _mesh
+        # a mesh-sharded replica (mp=N: N distinct devices, as the
+        # reference; a virtual mesh is mesh=MeshContext.build(N,
+        # devices=[d] * N)): parallel/mesh_engine.py
+        self._mesh_ctx = ctx = _mesh.resolve(mesh, mp=mp)
+        if ctx is not None:
+            if device is not None and (_device_key(device)
+                                       != _device_key(ctx.devices[0])):
+                raise ValueError(
+                    f'a mesh-sharded engine runs on its mesh\'s devices '
+                    f'{list(ctx.devices)}, not device={device!r}')
+            if precision == 'int8_wo':
+                raise ValueError(
+                    'mesh-sharded engines do not support precision='
+                    "'int8_wo' yet: the quantized bank pytree has no "
+                    'logical-axis annotations to place')
+            if forward_fn is not None:
+                raise ValueError('a mesh-sharded engine runs its family\'s '
+                                 'mesh forward: forward_fn cannot be given')
+            device = ctx.devices[0]
         params, cfg, self._forward_fn = _resolve_generation_model(
             net, config, forward_fn)
         if device is None and config is None:
             device = net.device
         self.device = resolve_device(device)
-        params = _to_device(params, self.device)
         fam = _family(cfg)
+        if ctx is None:
+            params = _to_device(params, self.device)
         if precision == 'int8_wo' and not is_weight_only(params['wte']):
             # quantized once, here, on the engine's device, by the config's
             # family; a model already snapshot (enable_int8_decode) passes
             # through untouched
             params = fam.quantize_decode_params(params)
         self._params = fam.serving_params(params, cfg)
+        if ctx is not None:
+            # one parameter dict a shard, each on its device
+            self._params = ctx.shards(ctx.place_params(self._params, cfg))
+            self._forward_fn = functools.partial(
+                _gpt.mesh_forward_with_cache, ctx=ctx,
+                block=fam.mesh_cached_block)
         self.config = cfg
         self._precision = precision or 'float32'
 
@@ -387,8 +417,13 @@ class GenerationEngine:
         self._clock = clock or time.monotonic
         self._autostart = autostart
 
-        self._pool = _gpt.init_paged_kv_cache(cfg, self.num_pages, ps,
-                                              self.device)
+        if ctx is None:
+            self._pool = _gpt.init_paged_kv_cache(cfg, self.num_pages, ps,
+                                                  self.device)
+        else:
+            # one pool a shard, split on the kv heads: {'k', 'v': [plane]}
+            pools = ctx.pool(cfg, self.num_pages, ps)
+            self._pool = {k: [p[k] for p in pools] for k in ('k', 'v')}
         self._alloc = _pkv.PageAllocator(self.num_pages)
         # prefix cache: opt-in (constructor flag, giving it a residency
         # bound, or the env knob): page accounting changes when finished
@@ -408,7 +443,9 @@ class GenerationEngine:
         self._admit_seq = 0
         self._trace_count = 0
         self._fns = {}           # 'prefill' / 'step' -> CapturedFn
-        self._capture = True     # False: eager, for comparisons only
+        # False: eager, for comparisons only (and a mesh over several
+        # devices: a graph captures one device's work)
+        self._capture = ctx is None or len(ctx.mesh.distinct) == 1
         self._start_t = self._clock()
         self._n = {k: 0 for k in ('submitted', 'completed', 'rejected',
                                   'expired', 'failed', 'evictions',
@@ -453,6 +490,14 @@ class GenerationEngine:
             mk_h = lambda n: _obs.Histogram(n, labels,          # noqa: E731
                                             window=_HIST_WINDOW)
             mk_g = lambda n: _obs.Gauge(n, labels)              # noqa: E731
+        if self._mesh_ctx is not None and _obs.enabled():
+            # the degree rides a series of its own: the engine's label set
+            # stays {'engine': ...} at every mesh size, so the control
+            # planes' exact-label lookups treat mp=N as mp=1
+            _obs.registry().gauge(
+                'gen.mesh_devices',
+                {**labels, 'mesh': f'mp{self._mesh_ctx.mp}'}
+            ).set(self._mesh_ctx.size)
         self._c = {k: mk_c(f'gen.requests_{k}') for k in
                    ('submitted', 'completed', 'rejected', 'expired',
                     'failed')}
@@ -943,7 +988,8 @@ class GenerationEngine:
         if slot.cow is not None:
             src, dst = slot.cow
             slot.cow = None
-            _pkv.copy_page(self._pool, src, dst)
+            for pool in self._shard_pools():
+                _pkv.copy_page(pool, src, dst)
             self._alloc.free([src])
 
     def _skip_prefill_locked(self, idx):
@@ -1159,7 +1205,8 @@ class GenerationEngine:
                 # cached KV lives in the pool being zeroed: drop it all
                 self._prefix.clear()
             # the captured prefill and step hold the pool's addresses
-            _gpt.zero_kv(self._pool)
+            for pool in self._shard_pools():
+                _gpt.zero_kv(pool)
             self._update_gauges_locked()
             self._cv.notify_all()
         for r in failed:
@@ -1194,6 +1241,14 @@ class GenerationEngine:
             n = self._prefix.clear()
             self._update_gauges_locked()
             return n
+
+    def _shard_pools(self):
+        """The pool as ``{'k', 'v'}`` dicts, one a shard (one without a
+        mesh)."""
+        if self._mesh_ctx is None:
+            return [self._pool]
+        return [{'k': k, 'v': v}
+                for k, v in zip(self._pool['k'], self._pool['v'])]
 
     # ---- observability ---------------------------------------------------
     def stats(self):
@@ -1234,4 +1289,6 @@ class GenerationEngine:
         })
         out['prefix'] = (self._prefix.stats()
                          if self._prefix is not None else None)
+        out['mesh'] = (self._mesh_ctx.describe()
+                       if self._mesh_ctx is not None else None)
         return out

@@ -51,8 +51,13 @@ The fleet router targets hosted models as ``model@host``
 (``FleetRouter.submit(..., target='chat@host0')``) through the
 process-local registry (``get_host`` / ``resolve_target``).
 
-Not ported yet: ``deploy(mp=N)`` (mesh-sharded models, ROADMAP Queue 1
-step K3) raises.
+``deploy(mp=N)`` admits a mesh-sharded model (``parallel/
+mesh_engine.py``): the factory is called as ``factory(mp=N)`` on every
+(re)build, and admission holds the bytes of the device that holds the
+most against the watermark, a per-device budget. On a virtual mesh (the
+shards on one card) that is every shard's bytes: the reference divides a
+mesh's whole footprint by the mesh size, which on one card would admit
+N times what the card holds.
 """
 import itertools
 import threading
@@ -356,16 +361,25 @@ class ModelHost:
         engine: the distinct storages of its weights, buffers, KV pool and
         graphs' static inputs, and its graphs' private pools. On the card
         these are counted as the caching allocator hands them out (see the
-        module docstring); elsewhere as the storages' bytes."""
+        module docstring); elsewhere as the storages' bytes. A mesh
+        engine's footprint is that of the device holding the most (its
+        graphs' pools count on the engine's device): a per-device budget,
+        as the watermark is."""
         fns = _captured_fns(engine)
         held = _storages(getattr(engine, '_params', None),
                          getattr(engine, '_buffers', None),
                          getattr(engine, '_pool', None),
                          [f.buffers for f in fns])
-        if torch.device(getattr(engine, 'device', 'cpu')).type != 'cuda':
-            return sum(held.values())
-        return _decode_cache.held_bytes(
-            [ptr for dev, ptr in held if dev.type == 'cuda'], fns)
+        home = torch.device(getattr(engine, 'device', 'cpu'))
+        by_dev = {}
+        for (dev, ptr), n in held.items():
+            by_dev.setdefault(dev, {})[ptr] = n
+        if home.type != 'cuda':
+            return max((sum(v.values()) for v in by_dev.values()),
+                       default=0)
+        return max((_decode_cache.held_bytes(
+            list(v), fns if dev == home else [], dev)
+            for dev, v in by_dev.items() if dev.type == 'cuda'), default=0)
 
     # ---- admission / deploy ----------------------------------------------
     def deploy(self, name, factory, *, footprint_bytes=None, input_spec=None,
@@ -384,12 +398,14 @@ class ModelHost:
         :class:`HBMAdmissionError` when the model cannot fit even after
         evicting every cold model.
 
-        ``mp=N`` (a mesh-sharded model) is not ported yet: it raises
-        citing ROADMAP Queue 1 step K3."""
-        if mp is not None and int(mp) != 1:
-            raise NotImplementedError(
-                'ModelHost.deploy(mp=N): mesh-sharded models are not '
-                'ported to paddle_tpu_torch yet (ROADMAP Queue 1 step K3)')
+        ``mp=N`` deploys a mesh-sharded replica: the factory is called as
+        ``factory(mp=N)`` on every (re)build, so a swap-in after an
+        eviction rebuilds the same mesh shape; admission then holds the
+        footprint of the device that holds the most against the per-device
+        watermark (``_measure_footprint``)."""
+        if mp is not None:
+            base_factory, mp = factory, int(mp)
+            factory = lambda: base_factory(mp=mp)       # noqa: E731
         try:
             fault.inject('host.admit')
         except InjectedFault:

@@ -113,7 +113,7 @@ def test_spawn_one_process_runs_in_place():
     with pytest.raises(ValueError, match='nprocs'):
         tdist.spawn(seen.append, ('x',), nprocs=0)
     with pytest.raises(ValueError, match='backend'):
-        tdist.spawn(seen.append, ('x',), nprocs=2)
+        tdist.spawn(seen.append, ('x',), nprocs=2, backend='mpi')
 
 
 def test_topology_rejects_too_many_ranks():
@@ -389,3 +389,55 @@ def test_bytes_accounting_equals_the_reference(n_ranks):
     assert tqc.leaf_bytes(256, 4, 'int8', 8) == rqc.leaf_bytes(256, 4,
                                                                'int8', 8)
     assert tqc._ring_factor(n_ranks) == rqc._ring_factor(n_ranks)
+
+
+# ---------------------------------------------------------------------------
+# Q3.19: the collectives' fault point; Q3.21: spawn without a backend
+# ---------------------------------------------------------------------------
+
+def test_collectives_fire_the_collective_entry_fault_point(monkeypatch):
+    """With ``PADDLE_FAULT_INJECT=collective.entry:1``, the six collectives
+    at which the reference fires it (``paddle_tpu/distributed/
+    collective.py:54-180``) raise ``InjectedFault`` in both packages."""
+    import paddle_tpu.distributed as rdist
+    import paddle_tpu_torch as tpaddle
+    from paddle_tpu import fault as rfault
+    from paddle_tpu_torch import fault as tfault
+    tpaddle.set_device('cpu')
+    t = torch.arange(4.)
+    calls = {
+        'all_reduce': (lambda d, x: d.all_reduce(x)),
+        'all_gather': (lambda d, x: d.all_gather([], x)),
+        'broadcast': (lambda d, x: d.broadcast(x, src=0)),
+        'reduce_scatter': (lambda d, x: d.reduce_scatter(x, [x])),
+        'alltoall': (lambda d, x: d.alltoall([x])),
+        'barrier': (lambda d, x: d.barrier()),
+    }
+    for pkg, dist, x in ((tfault, tdist, t),
+                         (rfault, rdist, paddle.to_tensor(t.numpy()))):
+        monkeypatch.setenv('PADDLE_FAULT_INJECT', 'collective.entry:1')
+        pkg.reload()
+        try:
+            for name, call in calls.items():
+                with pytest.raises(pkg.InjectedFault):
+                    call(dist, x)
+        finally:
+            monkeypatch.delenv('PADDLE_FAULT_INJECT')
+            pkg.reload()
+        # disarmed, they return
+        calls['all_reduce'](dist, x)
+        calls['barrier'](dist, x)
+
+
+def test_spawn_picks_a_backend_and_passes_master_port(tmp_path):
+    """Without ``backend=`` two workers meet (gloo here: the ranks would
+    share a card, or there is none), as the reference's own test calls
+    ``spawn`` (tests/test_launch_elastic.py:190); ``master_port=`` reaches
+    them as ``MASTER_PORT``."""
+    assert tdist.default_backend(2) == (
+        'nccl' if torch.cuda.is_available()
+        and torch.cuda.device_count() >= 2 else 'gloo')
+    tdist.spawn(C.write_rank, (str(tmp_path),), nprocs=2, master_port=29512)
+    got = sorted((tmp_path / f'rank{r}.txt').read_text().split()
+                 for r in range(2))
+    assert got == [['0', '2', 'gloo', '29512'], ['1', '2', 'gloo', '29512']]

@@ -188,7 +188,7 @@ def test_router_streams_equal_reference_and_spread_load(params, ref_fleet):
         assert all(n > 0 for n in per_replica), per_replica
         st = router.stats()
         assert st['kind'] == 'gen' and st['replicas'] == 2
-        # every replica is one card (mesh replicas: ROADMAP step K)
+        # every replica is one device: a mesh of one shard each
         assert set(st['replica_mesh'].values()) == {1}
     finally:
         router.close()

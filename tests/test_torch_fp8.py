@@ -328,10 +328,11 @@ def test_gpt_fp8_curve_tracks_full_width():
 
 @pytest.mark.parametrize('name', sorted(MODELS))
 def test_fp8_with_sequence_parallelism_raises_item_10(name):
-    """fp8 under sp: GPT raises the reference's own refusal (step K1
-    ported its mesh step), the MoE GPT still waits for item 10."""
+    """fp8 under sp raises the reference's own refusal: GPT's (step K1
+    ported its mesh step), and the MoE GPT's (step K2: its step has no
+    shard_map region, so its ring meets an unbound 'sp' axis)."""
     _, tcfg = _configs(name, sp=2)
-    msg = 'shard_map' if name == 'gpt' else 'item 10'
+    msg = 'shard_map' if name == 'gpt' else 'unbound axis name: sp'
     with pytest.raises(NotImplementedError, match=msg):
         MODELS[name][1].make_train_step(tcfg, topt.AdamW())
 

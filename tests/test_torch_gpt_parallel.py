@@ -211,8 +211,9 @@ def test_ring_flash_dropout_matches_the_reference(run):
 
 
 def test_mesh_step_refusals_are_the_references():
-    """The reference's own refusals, and the port's deferral of fp8 over
-    a dp/mp mesh (step K2), in one process (a 1-rank mesh)."""
+    """The reference's own refusals in one process (a 1-rank mesh); fp8
+    over a dp/mp mesh is ported (step K2): on a 1-rank mesh it is the
+    single-device fp8 step, loss and state."""
     mesh = HybridTopology().mesh
     base = tgpt.GPTConfig(**C.GPT)
     opt = topt.AdamW()
@@ -231,9 +232,20 @@ def test_mesh_step_refusals_are_the_references():
             jgpt.make_train_step(rcfg, paddle.optimizer.AdamW(),
                                  rtopo.HybridTopology(
                                      devices=jax.devices()[:1]).mesh)
-    with pytest.raises(NotImplementedError, match='step K2'):
-        tgpt.make_train_step(dataclasses.replace(
-            base, matmul_precision='fp8'), opt, mesh)
+    import torch
+    fcfg = dataclasses.replace(base, num_layers=2, matmul_precision='fp8')
+    inp = _inputs()
+    toks = torch.from_numpy(inp['tokens'])
+    runs = []
+    for m in (None, mesh):
+        p = tgpt.init_params(fcfg, torch.Generator().manual_seed(0), 'cpu')
+        o = topt.AdamW(**C.OPT)
+        s, f8 = o.functional_init(p), tgpt.init_fp8_state(fcfg, 'cpu')
+        loss, p, s, f8 = tgpt.make_train_step(fcfg, o, m)(
+            p, s, f8, 0, C.LR, toks, toks)
+        runs.append((loss.item(), f8['blocks']['qkv']['g']['ahist']))
+    assert runs[1][0] == runs[0][0]
+    assert torch.equal(runs[1][1], runs[0][1])
     with pytest.raises(ValueError, match='mp=2'):
         tgpt.make_train_step(dataclasses.replace(base, mp=2), opt, mesh)
 

@@ -247,9 +247,9 @@ def test_engine_forward_fn_and_what_it_refuses(model):
     class MoEGPTConfig:                 # a MoE family's config
         pass
 
-    # a MoE config is served since the MoE port; over a mesh it still
-    # raises, citing expert parallelism
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1: step K'):
+    # a MoE config is served since the MoE port, over a mesh since step
+    # K3 (tests/test_torch_mesh_engine.py); a mesh= that is no mesh raises
+    with pytest.raises(TypeError, match='mesh='):
         GenerationEngine(tp, MoEGPTConfig(), device='cpu', mesh=object())
 
 
@@ -384,11 +384,23 @@ def test_injected_fault_fails_the_request_and_the_engine_recovers(model):
 
 def test_unported_options_raise_naming_the_roadmap(model):
     _, _, tp, tcfg = model
-    # int8_wo over a mesh keeps raising, as in the reference
-    for kw in (dict(mp=2), dict(mesh=object()),
-               dict(precision='int8_wo', mesh=object())):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            GenerationEngine(tp, tcfg, device='cpu', **_kw(**kw))
+    # mesh-sharded serving is ported (step K3): a virtual mesh of two
+    # shards on the one device serves; mp=2 asks for two distinct devices
+    # (as the reference), and device= must be the mesh's; int8_wo over a
+    # mesh raises as in the reference; a mesh= that is no mesh raises
+    from paddle_tpu_torch.parallel import MeshContext
+    ctx = MeshContext.build(2, devices=['cpu'] * 2)
+    eng = GenerationEngine(tp, tcfg, device='cpu', autostart=False,
+                           **_kw(mesh=ctx))
+    assert eng.stats()['mesh']['mp'] == 2
+    eng.shutdown()
+    with pytest.raises(ValueError, match='devices'):
+        GenerationEngine(tp, tcfg, device='cpu', **_kw(mp=2))
+    with pytest.raises(ValueError, match='int8_wo'):
+        GenerationEngine(tp, tcfg, device='cpu',
+                         **_kw(precision='int8_wo', mesh=ctx))
+    with pytest.raises(TypeError, match='mesh='):
+        GenerationEngine(tp, tcfg, device='cpu', **_kw(mesh=object()))
     # the telemetry plane is ported: telemetry_port=0 serves the plane on
     # a free port until shutdown
     eng = GenerationEngine(tp, tcfg, device='cpu', autostart=False,

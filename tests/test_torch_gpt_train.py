@@ -209,3 +209,34 @@ def test_unported_train_options_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match='shard_map'):
         tgpt.make_train_step(
             dataclasses.replace(tcfg, matmul_precision='fp8', sp=2), opt)
+
+@pytest.mark.parametrize('heads,dtype', [(4, 'float32'), (2, 'float32'),
+                                         (4, 'bfloat16')])
+def test_attention_route_is_chosen_by_the_kernel_gate(heads, dtype,
+                                                      monkeypatch):
+    """``use_flash`` takes kernel 1 (its twin here) only where an instance
+    exists, chosen from the shape before the call as the reference's
+    ``flash_attention_available`` gate chooses (head dim 64/128/256,
+    f32/bf16); head dim 32 runs the reference's einsum path, and both
+    routes give the reference's logits."""
+    calls = []
+    real = tgpt.flash_attention
+    monkeypatch.setattr(tgpt, 'flash_attention',
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    over = dict(vocab_size=64, hidden_size=128, num_layers=1,
+                num_heads=heads, max_seq_len=32, dtype=dtype)
+    jcfg = jgpt.GPTConfig(**over)
+    jp = jgpt.init_params(jcfg, jax.random.PRNGKey(0))
+    tcfg = tgpt.GPTConfig(**over)
+    tp = tgpt.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                tcfg, 'cpu')
+    toks = np.arange(32, dtype=np.int32).reshape(1, 32) % 64
+    got = tgpt.forward(tp, torch.from_numpy(toks), tcfg).float().numpy()
+    want = np.asarray(jgpt.forward(jp, jnp.asarray(toks), jcfg), np.float32)
+    assert (len(calls) > 0) == (tcfg.head_dim == 64)
+    tol = 3e-2 if dtype == 'bfloat16' else 1e-4
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+    q = torch.zeros((1, 4, heads, tcfg.head_dim),
+                    dtype=tgpt.torch_dtype(dtype))
+    assert tfa.kernel_takes(q, q, q) == (tcfg.head_dim == 64)
+    assert not tfa.kernel_takes(q.half(), q.half(), q.half())

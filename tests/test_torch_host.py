@@ -186,9 +186,22 @@ def test_cpu_footprint_is_the_engines_tensor_bytes(params):
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match='CUDA'):
             ModelHost(name='nocard')
-    with ModelHost(hbm_watermark_bytes=MB, name='mp') as host:
-        with pytest.raises(NotImplementedError, match='step K'):
-            host.deploy('x', _infer_factory(), mp=2)
+    # deploy(mp=N) is ported (step K3): the factory is called with mp=N,
+    # and a virtual mesh's footprint is every shard's bytes on its device
+    from paddle_tpu_torch.parallel import MeshContext
+
+    def mesh_factory(mp):
+        return GenerationEngine(
+            params[1], params[2],
+            mesh=MeshContext.build(mp, devices=['cpu'] * mp), num_slots=2,
+            page_size=8, prefill_width=16, queue_capacity=16)
+    with ModelHost(hbm_watermark_bytes=256 * MB, name='mp') as host:
+        m = host.deploy('x', mesh_factory, mp=2)
+        eng = host._models['x'].engine
+        assert eng.stats()['mesh']['mp'] == 2
+        assert m.footprint_bytes == sum(host_mod._storages(
+            eng._params, eng._pool,
+            [f.buffers for f in host_mod._captured_fns(eng)]).values())
 
 
 def test_admission_refused_over_watermark_without_stripping(params):

@@ -392,7 +392,7 @@ def test_bf16_engine_lowers_inputs_and_returns_float32():
 
 
 def test_deferred_arguments_name_their_step():
-    """mesh= / mp> 1 and mesh replicas wait for step K; the fleet router,
+    """mesh= / mp > 1 and mesh replicas are ported (step K3); the fleet router,
     the model host, the federator and a fleet plane on the telemetry
     server (step F2) are ported: each constructs and serves;
     ``telemetry_port=`` is ported: the engine serves the plane until its
@@ -410,12 +410,22 @@ def test_deferred_arguments_name_their_step():
     finally:
         eng.shutdown()
     assert eng.telemetry not in obs.servers()
-    with pytest.raises(NotImplementedError, match='step K'):
-        InferenceEngine(net, mp=2)
-    with pytest.raises(NotImplementedError, match='step K'):
+    # mesh replicas are ported (step K3): a virtual mesh of two shards on
+    # the CPU serves the Layer as one device does; mp=2 alone asks for two
+    # cards; a mesh= that is no mesh raises
+    import torch
+    from paddle_tpu_torch.parallel import MeshContext
+    with serving.MeshReplica(net, kind='inference', mp=2,
+                             devices=['cpu'] * 2, max_batch_size=4) as rep:
+        np.testing.assert_allclose(rep.submit(_x(3)).result(timeout=60),
+                                   _fwd(port, net, _x(3)), rtol=1e-6)
+        assert rep.stats()['mesh']['mp'] == 2
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match='devices requested'):
+            InferenceEngine(net, mp=2)
+    with pytest.raises(TypeError, match='mesh='):
         InferenceEngine(net, mesh=object())
-    with pytest.raises(NotImplementedError, match='step K'):
-        serving.MeshReplica()
+    assert isinstance(MeshContext.build(2, devices=['cpu'] * 2), MeshContext)
     # step F2: a router over one replica answers, a host serves the same
     # model, the federator collects both, and the plane serves /debug/fleet
     rs = serving.ReplicaSet(replicas=[InferenceEngine(

@@ -1082,7 +1082,7 @@ def test_fp8_train_step_launches_and_pushes_once(cuda, remat, per_layer):
     assert losses[1] < losses[0] and all(np.isfinite(losses))
 
 
-def _counts(fa):
+def _attention_counts(fa):
     return {k: (getattr(fa, k).launches, getattr(fa, k).tc_launches)
             for k in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')}
 
@@ -1118,10 +1118,10 @@ def test_multi_head_attention_runs_kernels_1_to_3(cuda, dtype, mask, drop):
                 mha.to(dtype='bfloat16')
             xt = paddle.to_tensor(x, stop_gradient=False).astype(dtype)
             xt.retain_grads()
-            before = _counts(fa)
+            before = _attention_counts(fa)
             out = mha(xt, attn_mask=paddle.to_tensor(m) if mask else None)
             (out.astype('float32') ** 2).sum().backward()
-            after = _counts(fa)
+            after = _attention_counts(fa)
             res[dev] = (out.astype('float32').numpy(),
                         xt.grad.astype('float32').numpy())
         tc = int(dtype == torch.bfloat16)
@@ -1166,3 +1166,40 @@ def test_an_eager_nn_step_does_not_sync_the_host(cuda):
             torch.cuda.set_sync_debug_mode('default')
     finally:
         port_device._current = prev
+
+
+@pytest.mark.gpu
+def test_head_dim_32_trains_and_serves_on_the_plain_route(cuda):
+    """A GPT whose head dim (32) no kernel instance takes trains, serves
+    and generates on the card through the reference's plain routes (the
+    route chosen from the shape before any launch), launching no attention
+    kernel; kernel 1 still refuses the shape when called directly."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.ops import flash_attention as fa
+    cfg = gpt.GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                        num_heads=4, max_seq_len=128, dtype='bfloat16')
+    assert cfg.head_dim == 32
+    params = gpt.init_params(cfg, torch.Generator(device='cuda')
+                             .manual_seed(0), 'cuda')
+    kernels = [fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+               fa.flash_decode, pa.paged_flash_decode]
+    before = [k.launches for k in kernels]
+    opt = topt.AdamW(learning_rate=1e-3)
+    state = opt.functional_init(params)
+    step = gpt.make_train_step(cfg, opt)
+    toks = torch.randint(0, 256, (2, 128), device='cuda')
+    losses = [step(params, state, 0, 1e-3, toks, toks)[0].item()
+              for _ in range(2)]
+    assert all(np.isfinite(losses))
+    with GenerationEngine(params, cfg, num_slots=2, page_size=64,
+                          prefill_width=64) as eng:
+        out = eng.submit([1, 2, 3], max_new_tokens=4).result(timeout=120)
+    assert len(out) == 4
+    model = gpt.GPTForCausalLM(cfg, params=params, device='cuda')
+    assert model.generate(toks[:, :8], max_new_tokens=4,
+                          temperature=0.0).shape == (2, 12)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == before
+    q = torch.randn((1, 128, 4, 32), device='cuda', dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='head_dim'):
+        fa.flash_fwd(q, q, q, True)

@@ -183,12 +183,19 @@ def test_padding_rows_take_capacity_from_real_rows():
 
 
 def test_what_still_raises():
+    """A MoE engine over a mesh is ported (step K3): a virtual mesh of
+    two shards on the one device serves; a mesh= that is no mesh raises,
+    and fp8 under sp raises the reference's own refusal (its step meets
+    an unbound 'sp' axis)."""
+    from paddle_tpu_torch.parallel import MeshContext
     cfg, jp, tcfg, tp = _model()
-    with pytest.raises(NotImplementedError, match='step K'):
+    with pytest.raises(TypeError, match='mesh='):
         GenerationEngine(tp, tcfg, device='cpu', mesh=object())
-    with pytest.raises(NotImplementedError, match='step K'):
-        GenerationEngine(tp, tcfg, device='cpu', mp=2)
-    with pytest.raises(NotImplementedError, match='item 10'):
+    eng = GenerationEngine(tp, tcfg, autostart=False,
+                           mesh=MeshContext.build(2, devices=['cpu'] * 2))
+    assert eng.stats()['mesh']['mp'] == 2
+    eng.shutdown()
+    with pytest.raises(NotImplementedError, match='unbound axis name'):
         tmoe.make_train_step(dataclasses.replace(tcfg, sp=2,
                                                  matmul_precision='fp8'),
                              None)

@@ -1123,25 +1123,32 @@ def mlm_two_steps(P, model, arrays, value=_np, peak=1e-2, warmup=0):
 
 def adamw_steps(start, grads, lrs, beta1=0.9, beta2=0.999, eps=1e-8,
                 coeff=0.01, clip_norm=1.0):
-    """``mlm_optimizer``'s steps in float64 numpy: per step the global-norm
-    clip (none when ``clip_norm`` is None), the decoupled decay (none at
-    ``coeff`` 0: plain Adam), then Adam's update -> parameters by name
-    (``start``'s entries without a gradient as they were)."""
-    p = {n: np.asarray(v, np.float64) for n, v in start.items()}
+    """``mlm_optimizer``'s steps in float64 (torch on the CPU, its threads:
+    numpy's single thread took ~10 s at ERNIE-base width): per step the
+    global-norm clip (none when ``clip_norm`` is None), the decoupled decay
+    (none at ``coeff`` 0: plain Adam), then Adam's update -> parameters by
+    name as numpy arrays (``start``'s entries without a gradient as they
+    were)."""
+    import torch
+
+    def f64(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64)
+    p = {n: f64(v) for n, v in start.items()}
     m = {n: 0.0 for n in grads[0]}
     v = dict(m)
     for t, (gs, lr) in enumerate(zip(grads, lrs), 1):
-        norm = np.sqrt(sum(np.square(np.asarray(g, np.float64)).sum()
-                           for g in gs.values()))
+        gs, lr = {n: f64(g) for n, g in gs.items()}, float(lr)
+        norm = float(torch.sqrt(sum(torch.square(g).sum()
+                                    for g in gs.values())))
         scale = 1.0 if clip_norm is None else clip_norm / max(norm,
                                                                 clip_norm)
         for n, g in gs.items():
-            g = np.asarray(g, np.float64) * scale
+            g = g * scale
             m[n] = beta1 * m[n] + (1 - beta1) * g
             v[n] = beta2 * v[n] + (1 - beta2) * g * g
             p[n] = p[n] * (1 - lr * coeff) - lr * (m[n] / (1 - beta1 ** t)) / (
-                np.sqrt(v[n] / (1 - beta2 ** t)) + eps)
-    return p
+                torch.sqrt(v[n] / (1 - beta2 ** t)) + eps)
+    return {n: x.numpy() for n, x in p.items()}
 
 
 def mlm_agreement(got, want, start, **adamw):

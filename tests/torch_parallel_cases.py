@@ -143,6 +143,17 @@ def collectives(outdir):
     _save(outdir, 'collectives', r, out)
 
 
+def write_rank(outdir):
+    """``spawn``'s worker without a backend of the caller's: this rank,
+    the world's size and backend, and ``MASTER_PORT``."""
+    dist = _start()
+    import torch.distributed as tdist
+    r = dist.get_rank()
+    with open(os.path.join(outdir, f'rank{r}.txt'), 'w') as f:
+        f.write(f'{r} {dist.get_world_size()} {tdist.get_backend()} '
+                f"{os.environ.get('MASTER_PORT')}")
+
+
 def _partitioner_cases():
     """The mesh-bound cases of tests/test_partitioner.py on 4 ranks:
     (result or the error's type and message) each."""
@@ -308,3 +319,113 @@ def _ring(inp):
                      for k, t in zip(('out', 'dq', 'dk', 'dv'),
                                      (o, *grads))}
     return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_moe_parallel.py: the MoE GPT's mesh step, fp8 over a
+# dp/mp mesh, hybrid_zero3_specs
+# ---------------------------------------------------------------------------
+
+# the tiny MoE every layout trains (the reference tests' widths)
+MOE = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+           n_experts=4, max_seq_len=32, dtype='float32', use_flash=True,
+           remat=True)
+# the fp8 GPT: C.GPT at 2 layers
+GPT_FP8 = dict(GPT, num_layers=2, matmul_precision='fp8')
+
+# rounds over 4 ranks: (degrees, ranks, case) laid out on ranks [0, 1] and
+# [2, 3] side by side, or (degrees, None, case) over all four. A case:
+# (name, model, config overrides, batch key); 'skew' puts one token id in
+# every row of the first dp block, so its first choices fill one expert
+# past the global capacity and the second block's are dropped there
+MOE_ROUNDS = [
+    [(dict(dp=2), [0, 1], ('dp2', 'moe', {}, 'batch')),
+     (dict(ep=2), [2, 3], ('ep2', 'moe', {}, 'batch'))],
+    [(dict(mp=2), [0, 1], ('mp2', 'moe', dict(mp=2), 'batch')),
+     (dict(dp=2), [2, 3], ('dp2_skew', 'moe', {}, 'skew'))],
+    [(dict(dp=2, ep=2), None, ('dp2_ep2', 'moe', {}, 'batch'))],
+    [(dict(dp=2, ep=2), None, ('dp2_ep2_skew', 'moe', {}, 'skew'))],
+    [(dict(dp=2), [0, 1], ('gpt_fp8_dp2', 'gpt', {}, 'batch')),
+     (dict(mp=2), [2, 3], ('gpt_fp8_mp2', 'gpt', dict(mp=2), 'batch'))],
+    [(dict(dp=2), [0, 1], ('moe_fp8_dp2', 'moe',
+                           dict(matmul_precision='fp8'), 'batch')),
+     (dict(mp=2), [2, 3], ('moe_fp8_mp2', 'moe',
+                           dict(mp=2, matmul_precision='fp8'), 'batch'))],
+]
+
+
+def _paths(tree, prefix=''):
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _paths(tree[k], f'{prefix}/{k}')]
+    return [(prefix, tree)]
+
+
+def _moe_case(inp, mesh, case):
+    """One case on this rank's mesh: C.STEPS AdamW steps of the mesh step;
+    the losses, the gathered parameters and (fp8) the state."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import gpt, moe_gpt
+    name, model, over, bkey = case
+    mod = moe_gpt if model == 'moe' else gpt
+    base = MOE if model == 'moe' else GPT_FP8
+    cfg = (moe_gpt.MoEConfig if model == 'moe' else gpt.GPTConfig)(
+        **dict(base, **over))
+    full = gpt.params_from_numpy(inp['params'][model], cfg, 'cpu')
+    params = mod.place_params(full, cfg, mesh)
+    opt = topt.AdamW(**OPT)
+    state = opt.functional_init(params)
+    step = mod.make_train_step(cfg, opt, mesh)
+    toks, tgts = (torch.from_numpy(a) for a in inp[bkey])
+    f8 = (mod.init_fp8_state(cfg, 'cpu')
+          if cfg.matmul_precision == 'fp8' else None)
+    losses, states = [], []
+    for i in range(STEPS):
+        if f8 is None:
+            loss, params, state = step(params, state, 0, LR, toks, tgts)
+        else:
+            loss, params, state, f8 = step(params, state, f8, 0, LR, toks,
+                                           tgts)
+            states.append(_tree_np(f8))
+        losses.append(loss.item())
+    return {'losses': losses, 'states': states,
+            'params': _tree_np(mod.gather_params(params, cfg, mesh))}
+
+
+def moe_layouts(outdir):
+    """Every round of MOE_ROUNDS, then ZeRO-3 inside a dp2 x mp2 layout
+    (``hybrid_zero3_specs``: each rank's blocks, and ``replicate`` back);
+    each rank writes its cases' results."""
+    dist = _start()
+    from paddle_tpu_torch.distributed.topology import HybridTopology
+    from paddle_tpu_torch.models import gpt, moe_gpt
+    from paddle_tpu_torch.parallel import partitioner, zero
+    r = dist.get_rank()
+    inp = _inputs(outdir)
+    out = {}
+    for rnd in MOE_ROUNDS:
+        # every rank builds every mesh of the round and the groups over
+        # two axes the steps take, in one order (new_group is collective
+        # over the world)
+        meshes = [(HybridTopology(**deg, ranks=ranks).mesh, ranks, case)
+                  for deg, ranks, case in rnd]
+        for mesh, _, _ in meshes:
+            mesh.group(('ep', 'mp'))
+            mesh.group(('dp', 'mp'))
+        for mesh, ranks, case in meshes:
+            if ranks is None or r in ranks:
+                out[case[0]] = _moe_case(inp, mesh, case)
+    mesh = HybridTopology(dp=2, mp=2).mesh
+    hybrid = {}
+    for model, mod in (('gpt', gpt), ('moe', moe_gpt)):
+        cfg = (gpt.GPTConfig(**dict(GPT_FP8, mp=2)) if model == 'gpt'
+               else moe_gpt.MoEConfig(**dict(MOE, mp=2)))
+        full = gpt.params_from_numpy(inp['params'][model], cfg, 'cpu')
+        specs = zero.hybrid_zero3_specs(full, mod.train_specs(cfg), mesh)
+        mine = partitioner.shard_tree(full, specs, mesh)
+        back = zero.replicate(mine, specs, mesh)
+        hybrid[model] = {'shapes': {k: tuple(v.shape)
+                                    for k, v in _paths(mine)},
+                         'back': _tree_np(back)}
+    out['hybrid'] = hybrid
+    _save(outdir, 'moe', r, out)
