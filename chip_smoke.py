@@ -446,18 +446,41 @@ driven as before and its launch checks are computed from the cut depth:
     and step ms beside phases 4 and 9's mp=1 numbers;
     sharded_inference_engine(mp=2) of an MLP equal to the mp=1 engine's
     outputs; ModelHost.deploy(mp=2) of a 2-layer GPT admitted and
-    serving, its footprint the bytes on its device.
+    serving, its footprint the bytes on its device;
+41. fleet's data- and tensor-parallel Layer path (step K4a) in phase 38's
+    2 ranks, after phase 39: phase 25's ERNIE-width MLM program
+    (tests/torch_nn_cases.py ernie_mlm / ernie_mlm_mp: 12 layers, hidden
+    768, 12 heads of 64, FFN 3072, vocabulary 30522) on a global batch
+    [8, 512] (phase 25's lengths, 48 positions masked in every row),
+    dropout 0, AdamW(2e-4, 0.01) with ClipGradByGlobalNorm(1.0); each
+    layout 2 steps in bf16 (auto_cast) at full depth and 2 in f32 at 2
+    layers (epsilon 1e-6): (a) dp2 through fleet.distributed_model +
+    distributed_optimizer, loss.backward(); opt.step(); (b) the same with
+    ZeRO-2 (strategy.sharding); (c) mp2, ernie_mlm_mp's weights sliced
+    from the same full state dict; (d) hapi Model.prepare(strategy=dp2)
+    and fit over the global batch twice; per layout and rank the step ms,
+    the collectives and staged bytes a step, kernels 1-3 exactly 12 / 12 /
+    12 a step, all tensor-core; step 1's bf16 loss (dp: the ranks' mean)
+    within MESH_BF16_TOL of one rank's, the f32 parameters after 2 steps
+    (gathered) within MESH_F32_TOL of one rank's; (e) SyncBatchNorm2D(64)
+    over dp2 on [16, 64, 56, 56] f32: output, input gradient and running
+    statistics against one rank's BatchNorm2D over the whole batch; (f)
+    in this process, InferenceEngine(mesh=2 shards on the card) over the
+    ernie_mlm_mp program in bf16, a 64-row bucket at S 128: its logits
+    within MESH_SERVE_TOL of the mp=1 engine's, kernel 1 12 layers x 2
+    shards a forward.
 Phase 3 also holds every kernel at the MoE paths' shapes (12 heads of 64),
 at the shard shapes of phases 39 and 40 (kernels 1-3 at 6 and 8 heads
 for mp2 and at B=4 for dp2; kernels 6 and 7 over both pools at 8 heads,
 the mp2 shard of the bench GPT, and 6, of the MoE GPT),
 kernels 1-3 at phase 25's (B=8, S=512, 12 heads of 64, its key-padding
-mask, dropout 0 and 0.1), and kernel 1 at phase 31's serving shapes (B 64
+mask, dropout 0 and 0.1; and phase 41's ranks' B=4 and 6 heads), and
+kernel 1 at phase 31's serving shapes (B 64
 and 1, S 128, 12 heads of 64, key lengths 32-128). Every launch counter is
 set to 0 just before each main-path run (phases 4, 6, 7, 9, 11, 13, 14,
 15, 17, 18, 22, 23, 31, 32, 34, 35; in 25, 27, 29 and 32 before each step,
-in 38 and 39 before each step on each rank, in 40 before each engine's
-traffic,
+in 38, 39 and 41 before each step on each rank, in 40 before each
+engine's traffic, in 41 (f) before the mp=2 engine's batch,
 in 27 also before evaluate and each predict, in 31 before the engine's
 traffic, the Predictor's and each layer-free call, in 33 before the
 TranslatedLayer step, in 34 before the engine's traffic and before the
@@ -1069,6 +1092,10 @@ FWD_CASES = [
     # bidirectional, its key-padding mask (lengths 256-512)
     ('ernie_fwd_S512', dict(ERNIE_ATTN), True),
     ('ernie_fwd_S512_drop0.1', dict(ERNIE_ATTN, drop=0.1), True),
+    # a rank's shapes of that program in phase 41: dp2 (rows 0-3, their
+    # key lengths) and mp2 (6 of the 12 heads)
+    ('ernie_fwd_S512_dp2', dict(ERNIE_ATTN, b=4), False),
+    ('ernie_fwd_S512_mp2', dict(ERNIE_ATTN, h=6, h_kv=6), False),
     # ERNIE-base served (phase 31): the engine's buckets 64 and 1 at S=128,
     # bidirectional, a key-padding mask of row lengths 32-128
     ('ernie_serve_B64_S128', dict(ERNIE_SERVE_ATTN, b=64,
@@ -1105,6 +1132,8 @@ BWD_CASES = [
 ] + [
     ('ernie_bwd_S512', dict(ERNIE_ATTN), True),
     ('ernie_bwd_S512_drop0.1', dict(ERNIE_ATTN, drop=0.1), True),
+    ('ernie_bwd_S512_dp2', dict(ERNIE_ATTN, b=4), False),
+    ('ernie_bwd_S512_mp2', dict(ERNIE_ATTN, h=6, h_kv=6), False),
 ]
 LSE_TOL = 1e-4     # lse is f32 from the same scores: order of sums only
 
@@ -1222,7 +1251,7 @@ def fwd_case(b, s, h, h_kv, d, dtype, causal=True, masked=False, layers=1,
            for _ in range(layers)]
     kmask = None
     if lens == 'ernie':
-        lens = ernie_lens()
+        lens = ernie_lens()[:b]
     if masked and lens is None:
         lens = [s, s - 77][:b]
     if lens is not None:
@@ -7534,11 +7563,13 @@ def mesh_rank(tmp):
         del full
         torch.cuda.empty_cache()
     write_file(os.path.join(tmp, f'rank{rank}.json'), json.dumps(out))
-    # the same two ranks take phase 39 once the parent has its yardstick
-    # (a process of its own a phase paid ~20 s: the start and gloo's first
-    # all-reduce of CUDA tensors)
+    # the same two ranks take phases 39 and 41 once the parent has its
+    # yardsticks (a process of its own a phase paid ~20 s: the start and
+    # gloo's first all-reduce of CUDA tensors)
     if wait_file(os.path.join(tmp, 'next')) == 'go':
         moe_mesh_rank(tmp)
+        if wait_file(os.path.join(tmp, 'next41')) == 'go':
+            fleet_rank(tmp)
 
 
 def write_file(path, text):
@@ -7620,13 +7651,14 @@ def phase_mesh_train(kernels, card):
 
 
 def stop_ranks(ctx, tmp):
-    """Tell the kept ranks there is no phase 39 (unless it was given
+    """Tell the kept ranks there is no phase 39 or 41 (unless it was given
     them), end them, drop their directory."""
     import shutil
-    nxt = os.path.join(tmp, 'next')
     if ctx is not None:
-        if not os.path.exists(nxt):
-            write_file(nxt, 'stop')
+        for name in ('next', 'next41'):
+            nxt = os.path.join(tmp, name)
+            if os.path.isdir(tmp) and not os.path.exists(nxt):
+                write_file(nxt, 'stop')
         for p in ctx.processes:
             p.join(30)
             if p.is_alive():
@@ -7813,7 +7845,8 @@ def phase_moe_mesh(kernels, card, ranks38):
     bf16 and f32 and GPT's fp8 steps, then phase 38's 2 ranks on the one
     card over gloo (``ranks38``: their context and directory): the MoE
     step over dp2, ep2 and mp2 and GPT fp8 over dp2 and mp2, each against
-    the single rank."""
+    the single rank. The ranks stay for phase 41 (on a failure here they
+    are stopped)."""
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.models import moe_gpt as moe
@@ -7865,14 +7898,12 @@ def phase_moe_mesh(kernels, card, ranks38):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         write_file(os.path.join(tmp, 'next'), 'go')
-        ctx.join()
+        ranks = [json.loads(wait_file(os.path.join(tmp, f'moe_rank{r}.json'),
+                                      ctx.processes)) for r in range(2)]
         ranks_s = time.perf_counter() - t0
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(tmp, f'moe_rank{r}.json')) as f:
-                ranks.append(json.load(f))
-    finally:
+    except BaseException:
         stop_ranks(ctx, tmp)
+        raise
     res = {'single': single, 'ranks_s': ranks_s, 'layouts': {},
            'launches': {n: 0 for n in TC_KERNELS}}
     print(f'  phase 38\'s 2 ranks on {card!r} (gloo): {ranks_s:.1f} s for '
@@ -8132,6 +8163,381 @@ def phase_mesh_serving(gpt, GenerationEngine, kernels, card, mp1):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 41: fleet's data- and tensor-parallel Layer path (step K4a), phase
+# 38's 2 ranks on the one card
+# ---------------------------------------------------------------------------
+
+FLEET_F32_LAYERS = 2       # the f32 runs held to one rank's parameters
+# masked positions in every row of the global batch: each dp rank averages
+# its own block's loss (Paddle's DataParallel), and with equal counts the
+# mean of the blocks' means is the batch's (ROADMAP Known differences)
+FLEET_MASKED = 48
+FLEET_LAYOUTS = ('dp2', 'dp2_zero2', 'mp2', 'hapi_dp2')
+FLEET_BN = (16, 64, 56, 56)
+# SyncBatchNorm over dp2 against one rank's BatchNorm2D on the whole
+# batch, f32 (TF32 off): the merged moments sum the same values in
+# another order
+FLEET_BN_TOL = 1e-4
+FLEET_SERVE = dict(rows=64, s=128, len_lo=32, len_hi=128, seed=41)
+
+
+def fleet_dims(layers):
+    return dict(nn_cases().ERNIE_BASE, layers=layers, dropout=0.0)
+
+
+def fleet_batch():
+    """Phase 25's [8, 512] batch (its lengths) with FLEET_MASKED masked
+    positions a row: (tokens, types, mask, labels) as numpy."""
+    C = nn_cases()
+    return C.mlm_batch(C.ERNIE_BASE['vocab'], **ERNIE_BATCH,
+                       per_row=FLEET_MASKED)[:4]
+
+
+def fleet_net(paddle, dims, mp):
+    """The program on the card from paddle.seed(0): every process draws
+    the same full weights; ``mp``: ernie_mlm_mp loaded from that state
+    dict (under an mp topology each rank keeps its blocks)."""
+    C = nn_cases()
+    paddle.seed(0)
+    full = C.ernie_mlm(paddle, **dims)
+    if not mp:
+        return full
+    state = {k: v.numpy() for k, v in full.state_dict().items()}
+    del full
+    torch.cuda.empty_cache()
+    net = C.ernie_mlm_mp(paddle, **dims)
+    net.set_state_dict(C.mlm_mp_state(state, dims['heads']))
+    return net
+
+
+def fleet_opt(paddle, net, key):
+    return paddle.optimizer.AdamW(
+        learning_rate=MESH_LR, weight_decay=0.01,
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0),
+        parameters=net.parameters(),
+        **({'epsilon': MESH_F32_EPS} if key == 'f32' else {}))
+
+
+def fleet_record(kernels, mesh, t0, loss):
+    torch.cuda.synchronize()
+    return {'loss': loss, 'ms': (time.perf_counter() - t0) * 1e3,
+            'launches': {n: kernels[n].launches for n in TC_KERNELS},
+            'tc': {n: kernels[n].tc_launches for n in TC_KERNELS},
+            'staged': (mesh.staged() if mesh is not None
+                       else {'calls': 0, 'bytes': 0, 'collectives': 0})}
+
+
+def fleet_start(kernels, mesh):
+    zero_launches(kernels)
+    if mesh is not None:
+        mesh.reset_staged()
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def fleet_eager(paddle, net, opt, batch, bf16, kernels, mesh):
+    """MESH_STEPS of loss.backward(); opt.step(); opt.clear_grad() (under
+    auto_cast(bfloat16) when ``bf16``) -> each step's record."""
+    recs = []
+    for _ in range(MESH_STEPS):
+        t0 = fleet_start(kernels, mesh)
+        with paddle.amp.auto_cast(enable=bf16, dtype='bfloat16'):
+            loss = net.loss(*batch)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        recs.append(fleet_record(kernels, mesh, t0, float(loss)))
+    return recs
+
+
+def fleet_hapi(paddle, net, st, key, kernels, mesh):
+    """hapi Model.prepare(strategy=) and fit over the global batch twice
+    (batch 8) -> each step's record."""
+    C = nn_cases()
+    model = paddle.Model(net)
+    model.prepare(fleet_opt(paddle, net, key),
+                  C.mlm_loss(paddle, C.ERNIE_BASE['vocab']), strategy=st)
+    rows = C.mlm_rows(paddle, [np.concatenate([a] * MESH_STEPS)
+                               for a in fleet_batch()])
+    loader = paddle.io.DataLoader(rows, batch_size=ERNIE_BATCH['b'],
+                                  shuffle=False)
+    recs, t0 = [], []
+
+    class Rec(paddle.callbacks.Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            t0.append(fleet_start(kernels, mesh))
+
+        def on_train_batch_end(self, step, logs=None):
+            recs.append(fleet_record(kernels, mesh, t0[-1],
+                                     float(logs['loss'])))
+    with paddle.amp.auto_cast(enable=key == 'bf16', dtype='bfloat16'):
+        model.fit(loader, epochs=1, log_freq=1, verbose=0,
+                  callbacks=[Rec()])
+    return recs
+
+
+def fleet_bn_input():
+    g = torch.Generator().manual_seed(41)
+    x = torch.randn(FLEET_BN, generator=g) * 2 + 1
+    cot = torch.randn(FLEET_BN, generator=g)
+    return x.cuda(), cot.cuda()
+
+
+def fleet_bn(paddle, x, cot, sync):
+    """One forward and backward of (Sync)BatchNorm2D(64) with the loss
+    sum(out * cot) -> (out, x's gradient, running mean, running var)."""
+    bn = (paddle.nn.SyncBatchNorm(FLEET_BN[1]) if sync
+          else paddle.nn.BatchNorm2D(FLEET_BN[1]))
+    xt = paddle.to_tensor(x, stop_gradient=False)
+    out = bn(xt)
+    (out * paddle.to_tensor(cot)).sum().backward()
+    return (out._value.detach(), xt.grad._value, bn._mean._value,
+            bn._variance._value)
+
+
+def fleet_rank(tmp):
+    """One rank's phase 41, in phase 38's ranks (``mesh_rank``): layouts
+    (a)-(d) in bf16 at full depth and in f32 at FLEET_F32_LAYERS (the
+    gathered parameters after the steps against one rank's that the
+    parent saved), then (e) SyncBatchNorm. Writes fleet_rank<r>.json."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import flash_attention as fa
+    C = nn_cases()
+    paddle.set_device('gpu')
+    kernels = {n: getattr(fa, n) for n in TC_KERNELS}
+    rank = paddle.distributed.get_rank()
+    out = {'rank': rank, 'bf16': {}, 'f32': {}}
+    yard = torch.load(os.path.join(tmp, 'fleet_single_f32.pt'))
+    arrays = fleet_batch()
+    for key, layers in (('bf16', C.ERNIE_BASE['layers']),
+                        ('f32', FLEET_F32_LAYERS)):
+        dims = fleet_dims(layers)
+        for name in FLEET_LAYOUTS:
+            st = fleet.DistributedStrategy()
+            mp = name == 'mp2'
+            st.hybrid_configs = ({'mp_degree': 2} if mp
+                                 else {'dp_degree': 2})
+            if name == 'dp2_zero2':
+                st.sharding = True
+                st.sharding_configs = {'stage': 2}
+            topo = fleet.init(is_collective=True, strategy=st)
+            net = fleet_net(paddle, dims, mp)
+            if name == 'hapi_dp2':
+                recs = fleet_hapi(paddle, net, st, key, kernels, topo.mesh)
+            else:
+                net = fleet.distributed_model(net)
+                opt = fleet.distributed_optimizer(
+                    fleet_opt(paddle, net, key), st)
+                rows = arrays if mp else [a[4 * rank:4 * rank + 4]
+                                          for a in arrays]
+                recs = fleet_eager(paddle, net, opt,
+                                   [paddle.to_tensor(a) for a in rows],
+                                   key == 'bf16', kernels, topo.mesh)
+            rec = {'steps': recs}
+            if key == 'f32':
+                state = {k: v.numpy() for k, v in net.state_dict().items()}
+                if mp:
+                    state = C.mlm_state_from_mp(state, dims['heads'])
+                rec['param_err'] = max(
+                    float(np.abs(state[k] - yard[k].numpy()).max())
+                    for k in yard)
+            out[key][name] = rec
+            del net
+            torch.cuda.empty_cache()
+    fleet.init(is_collective=True, strategy=_dp2_strategy(fleet))
+    x, cot = fleet_bn_input()
+    want = torch.load(os.path.join(tmp, 'fleet_bn.pt'), map_location='cuda')
+    rows = slice(8 * rank, 8 * rank + 8)
+    t0 = time.perf_counter()
+    got = fleet_bn(paddle, x[rows], cot[rows], True)
+    torch.cuda.synchronize()
+    out['syncbn'] = {
+        'ms': (time.perf_counter() - t0) * 1e3,
+        'out': rel_err(got[0], want[0][rows]),
+        'x_grad': rel_err(got[1], want[1][rows]),
+        'mean': rel_err(got[2], want[2]), 'var': rel_err(got[3], want[3])}
+    write_file(os.path.join(tmp, f'fleet_rank{rank}.json'), json.dumps(out))
+
+
+def _dp2_strategy(fleet):
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs = {'dp_degree': 2}
+    return st
+
+
+def fleet_serving(paddle, kernels, card):
+    """(f): InferenceEngine over ernie_mlm_mp at full width in bf16, mp=1
+    and on a virtual mesh of 2 shards of the card, one 64-row bucket at S
+    128; -> the record."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.parallel import mesh_engine
+    dims = fleet_dims(nn_cases().ERNIE_BASE['layers'])
+    net = fleet_net(paddle, dims, True)
+    net.eval()
+    fs = FLEET_SERVE
+    rs = np.random.RandomState(fs['seed'])
+    lens = rs.randint(fs['len_lo'], fs['len_hi'] + 1, fs['rows'])
+    ids = rs.randint(5, dims['vocab'], (fs['rows'], fs['s'])).astype('int32')
+    real = np.arange(fs['s'])[None] < lens[:, None]
+    x = (np.where(real, ids, 0).astype('int32'),
+         np.zeros_like(ids), real[:, None, None, :])
+    outs, rec = [], {}
+    for mp in (1, 2):
+        mesh = (mesh_engine.MeshContext.build(2, devices=['cuda:0'] * 2)
+                if mp > 1 else None)
+        eng = serving.InferenceEngine(net, max_batch_size=fs['rows'],
+                                      precision='bfloat16', mesh=mesh)
+        try:
+            eng.submit(*x).result(timeout=600)      # captures the bucket
+            zero_launches(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = eng.submit(*x).result(timeout=600)
+            ms = (time.perf_counter() - t0) * 1e3
+            rec[f'mp{mp}'] = {'ms': ms, 'launches': launch_counts(kernels),
+                              'mesh': eng.stats()['mesh']}
+            outs.append(torch.from_numpy(np.asarray(y)).cuda())
+        finally:
+            eng.shutdown()
+        del y
+    gap = rel_err(outs[1], outs[0])
+    agree = float((outs[1].argmax(-1) == outs[0].argmax(-1)).float().mean())
+    rec.update(logits_gap=gap, argmax_agreement=agree)
+    L = dims['layers']
+    expect_launches(f'the mp=2 engine\'s forward ({fs["rows"]} rows, 2 '
+                    'shards)', rec['mp2']['launches'], {'flash_fwd': 2 * L})
+    print(f'  (f) InferenceEngine(mesh=2 shards) over ernie_mlm_mp, bf16, '
+          f'bucket {fs["rows"]} at S {fs["s"]}: {rec["mp2"]["ms"]:.1f} ms a '
+          f'forward against mp=1\'s {rec["mp1"]["ms"]:.1f}; logits '
+          f'{gap:.2e} of max |logits| from mp=1\'s (tol '
+          f'{MESH_SERVE_TOL:g}), argmax agreeing {agree:.4f}; fallbacks '
+          f'{rec["mp2"]["mesh"]["fallbacks"]}', flush=True)
+    if not (gap <= MESH_SERVE_TOL and not rec['mp2']['mesh']['fallbacks']):
+        raise AssertionError(f'phase 41 (f): logits gap {gap} '
+                             f'(tol {MESH_SERVE_TOL}), {rec["mp2"]}')
+    return rec
+
+
+def phase_fleet(kernels, card, ranks38):
+    """Phase 41 (see the module docstring): one rank's yardsticks here
+    (bf16 step 1 at full depth, the f32 parameters after 2 steps,
+    BatchNorm2D over the whole batch), then phase 38's 2 ranks run (a)-(e)
+    against them; then (f) in this process."""
+    import paddle_tpu_torch as paddle
+    ctx, tmp = ranks38
+    C = nn_cases()
+    L = C.ERNIE_BASE['layers']
+    want = {'flash_fwd': L, 'flash_bwd_dq': L, 'flash_bwd_dkv': L}
+    prev = paddle.device._current
+    single = {}
+    try:
+        paddle.set_device('gpu')
+        torch.cuda.empty_cache()
+        batch = [paddle.to_tensor(a) for a in fleet_batch()]
+        for key, layers in (('bf16', L), ('f32', FLEET_F32_LAYERS)):
+            net = fleet_net(paddle, fleet_dims(layers), False)
+            opt = fleet_opt(paddle, net, key)
+            recs = fleet_eager(paddle, net, opt, batch, key == 'bf16',
+                               kernels, None)
+            single[key] = recs
+            if key == 'bf16':
+                expect_launches('one rank, a step', recs[-1]['launches'],
+                                want)
+            else:
+                torch.save({k: v._value.detach().cpu()
+                            for k, v in net.state_dict().items()},
+                           os.path.join(tmp, 'fleet_single_f32.pt'))
+            print(f'  one rank {key} ({layers} layers): losses '
+                  f'{[round(r["loss"], 6) for r in recs]}, step ms '
+                  f'{[round(r["ms"], 1) for r in recs]}', flush=True)
+            del net, opt
+            torch.cuda.empty_cache()
+        x, cot = fleet_bn_input()
+        torch.save([t.cpu() for t in fleet_bn(paddle, x, cot, False)],
+                   os.path.join(tmp, 'fleet_bn.pt'))
+        del x, cot
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        write_file(os.path.join(tmp, 'next41'), 'go')
+        ranks = [json.loads(wait_file(os.path.join(tmp, f'fleet_rank{r}.json'),
+                                      ctx.processes)) for r in range(2)]
+        ranks_s = time.perf_counter() - t0
+    finally:
+        stop_ranks(ctx, tmp)
+        paddle.device._current = prev
+    res = {'single': single, 'ranks_s': ranks_s, 'layouts': {},
+           'launches': {n: 0 for n in TC_KERNELS}}
+    print(f'  phase 38\'s 2 ranks on {card!r} (gloo): {ranks_s:.1f} s for '
+          f'(a)-(e)', flush=True)
+    base, base32 = single['bf16'][0]['loss'], single['f32'][0]['loss']
+    for name in FLEET_LAYOUTS:
+        data_mean = name in ('dp2', 'dp2_zero2')
+        l1 = [out['bf16'][name]['steps'][0]['loss'] for out in ranks]
+        l32 = [out['f32'][name]['steps'][0]['loss'] for out in ranks]
+        if data_mean:
+            # each rank's loss is its block's: the ranks' mean is the batch's
+            l1 = [sum(l1) / 2] * 2
+            l32 = [sum(l32) / 2] * 2
+        lay = {}
+        for r, out in enumerate(ranks):
+            recs = out['bf16'][name]['steps']
+            for i, rec in enumerate(recs):
+                expect_launches(f'{name} rank {r} step {i + 1}',
+                                rec['launches'], want)
+                if rec['tc'] != rec['launches']:
+                    raise AssertionError(f'{name} rank {r}: CUDA-core '
+                                         f'launches {rec}')
+                for n in TC_KERNELS:
+                    res['launches'][n] += rec['launches'][n]
+            gap = abs(l1[r] - base) / abs(base)
+            err = out['f32'][name]['param_err']
+            if not gap <= MESH_BF16_TOL:
+                raise AssertionError(f'{name} rank {r}: bf16 step-1 loss '
+                                     f'{l1[r]} vs one rank\'s {base} '
+                                     f'({gap:.3e} > {MESH_BF16_TOL:g})')
+            if not (abs(l32[r] - base32) <= MESH_F32_TOL
+                    and err <= MESH_F32_TOL):
+                raise AssertionError(f'{name} rank {r}: f32 step-1 loss '
+                                     f'{l32[r]} vs {base32}, parameters '
+                                     f'off by {err:.3e}')
+            st = recs[-1]['staged']
+            lay[r] = {'loss': [s['loss'] for s in recs],
+                      'ms': [s['ms'] for s in recs], 'staged': st,
+                      'launches': want, 'bf16_loss_gap': gap,
+                      'f32_param_err': err,
+                      'f32_ms': [s['ms'] for s in out['f32'][name]['steps']]}
+            print(f'  ({"abcd"[FLEET_LAYOUTS.index(name)]}) {name} rank {r}:'
+                  f' step ms {[round(s["ms"], 1) for s in recs]} (f32, '
+                  f'{FLEET_F32_LAYERS} layers: '
+                  f'{[round(m, 1) for m in lay[r]["f32_ms"]]}), '
+                  f'{st["collectives"]} collectives a step, staged '
+                  f'{st["bytes"]} B in {st["calls"]} calls; kernels 1-3 a '
+                  f'step {want} (tensor-core); bf16 step-1 loss '
+                  f'{l1[r]:.6f} (one rank {base:.6f}, gap {gap:.2e} <= '
+                  f'{MESH_BF16_TOL:g}); f32 params off by {err:.2e} (tol '
+                  f'{MESH_F32_TOL:g})', flush=True)
+        res['layouts'][name] = lay
+    bn = [out['syncbn'] for out in ranks]
+    worst = max(v for b in bn for k, v in b.items() if k != 'ms')
+    print(f'  (e) SyncBatchNorm2D({FLEET_BN[1]}) over dp2, {list(FLEET_BN)} '
+          f'f32: {[round(b["ms"], 1) for b in bn]} ms; output, input gradient '
+          f'and running statistics off one rank\'s BatchNorm2D by at most '
+          f'{worst:.2e} (tol {FLEET_BN_TOL:g})', flush=True)
+    if not worst <= FLEET_BN_TOL:
+        raise AssertionError(f'phase 41 (e): SyncBatchNorm {bn}')
+    res['syncbn'] = bn
+    try:
+        paddle.set_device('gpu')
+        res['serving'] = fleet_serving(paddle, kernels, card)
+    finally:
+        paddle.device._current = prev
+    res['launches']['flash_fwd'] += res['serving']['mp2']['launches'][
+        'flash_fwd']
+    return res
+
+
 class PhaseClock:
     """``with phase(n, title):`` prints the phase's title as it starts and
     its wall seconds on a line of their own as it ends, and keeps them in
@@ -8343,17 +8749,27 @@ def main(argv=None):
                    'against one rank'):
         report['mesh_train'], ranks38 = phase_mesh_train(counters, card)
         mt38 = report['mesh_train']
-    with phase(39, 'the MoE GPT\'s mesh step (dp2, ep2, mp2) and GPT fp8 '
-                   'over dp2 and mp2: phase 38\'s 2 ranks on the card '
-                   'against one'):
-        report['moe_mesh'] = mt39 = phase_moe_mesh(counters, card, ranks38)
-    with phase(40, f'mesh-sharded serving: GenerationEngine(mp='
-                   f'{MESH_SERVE_MP}) on a virtual mesh of the card, '
-                   f'sharded_inference_engine, ModelHost.deploy(mp='
-                   f'{MESH_SERVE_MP})'):
-        report['mesh_serving'] = ms40 = phase_mesh_serving(
-            gpt, GenerationEngine, counters, card,
-            {'bf16': report['engine'], 'int8': report['engine_int8']})
+    try:
+        with phase(39, 'the MoE GPT\'s mesh step (dp2, ep2, mp2) and GPT '
+                       'fp8 over dp2 and mp2: phase 38\'s 2 ranks on the '
+                       'card against one'):
+            report['moe_mesh'] = mt39 = phase_moe_mesh(counters, card,
+                                                       ranks38)
+        with phase(40, f'mesh-sharded serving: GenerationEngine(mp='
+                       f'{MESH_SERVE_MP}) on a virtual mesh of the card, '
+                       f'sharded_inference_engine, ModelHost.deploy(mp='
+                       f'{MESH_SERVE_MP})'):
+            report['mesh_serving'] = ms40 = phase_mesh_serving(
+                gpt, GenerationEngine, counters, card,
+                {'bf16': report['engine'], 'int8': report['engine_int8']})
+        with phase(41, 'fleet\'s data- and tensor-parallel Layer path: the '
+                       'ERNIE-width MLM over dp2, dp2 ZeRO-2, mp2 and hapi '
+                       'fit in phase 38\'s 2 ranks, SyncBatchNorm over '
+                       'dp2, InferenceEngine(mesh=2) over meta_parallel '
+                       'layers'):
+            report['fleet'] = fl41 = phase_fleet(counters, card, ranks38)
+    finally:
+        stop_ranks(*ranks38)
 
     gen, fwd = report['generate'], report['forward']
     train = report['train']['launches']
@@ -8400,15 +8816,19 @@ def main(argv=None):
         + fwd['launches']['flash_fwd'] + train['flash_fwd']
         + gwo['window']['launches']['flash_fwd'] + mt['flash_fwd']
         + sum(r['flash_fwd'] for r in f8t)
-        # phases 38-39: both ranks' steps of every bf16 layout
-        + mt38['launches']['flash_fwd'] + mt39['launches']['flash_fwd'],
+        # phases 38-39 and 41: both ranks' steps of every bf16 layout
+        # (41: and the mp=2 engine's forward)
+        + mt38['launches']['flash_fwd'] + mt39['launches']['flash_fwd']
+        + fl41['launches']['flash_fwd'],
         'flash_bwd_dq': train['flash_bwd_dq'] + mt['flash_bwd_dq']
         + sum(r.get('flash_bwd_dq', 0) for r in f8t)
-        + mt38['launches']['flash_bwd_dq'] + mt39['launches']['flash_bwd_dq'],
+        + mt38['launches']['flash_bwd_dq'] + mt39['launches']['flash_bwd_dq']
+        + fl41['launches']['flash_bwd_dq'],
         'flash_bwd_dkv': train['flash_bwd_dkv'] + mt['flash_bwd_dkv']
         + sum(r.get('flash_bwd_dkv', 0) for r in f8t)
         + mt38['launches']['flash_bwd_dkv']
-        + mt39['launches']['flash_bwd_dkv'],
+        + mt39['launches']['flash_bwd_dkv']
+        + fl41['launches']['flash_bwd_dkv'],
     }
     timed_shape = {'paged_decode': 'decode_T1',
                    'paged_decode_int8': 'decode_T1',

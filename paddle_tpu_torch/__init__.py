@@ -115,7 +115,11 @@ _LAZY = ('vision', 'inference', 'models', 'serving', 'warmup',
 def __getattr__(name):
     """``paddle.vision``, ``paddle.inference``, ``paddle.models``,
     ``paddle.serving``, ``paddle.warmup`` and ``paddle.distributed`` on
-    first use, as the reference imports them."""
+    first use, as the reference imports them (and ``paddle.DataParallel``,
+    the reference's top-level name for ``distributed.DataParallel``)."""
+    if name == 'DataParallel':
+        from .distributed.parallel import DataParallel
+        return DataParallel
     if name in _LAZY:
         import importlib
         return importlib.import_module(f'.{name}', __name__)

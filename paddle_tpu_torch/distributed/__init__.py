@@ -11,9 +11,10 @@ collectives the identity.
 Ported (step K1): the topology, the collectives (``collective.py``, with
 the one-card host staging for gloo on CUDA tensors), ``spawn`` /
 ``init_parallel_env``, ``fleet.init`` and ``DistributedStrategy``, the
-quantized gradient all-reduce (``quant_collectives.py``). ``DataParallel``,
-``auto_parallel``, ``launch`` and the rest raise citing ROADMAP Queue 1
-step K4.
+quantized gradient all-reduce (``quant_collectives.py``). Step K4a:
+``DataParallel`` (``parallel.py``) and the rest of ``fleet``. The
+launcher, ``auto_parallel``'s annotations, the ``gloo_*`` functions, the
+PS datasets and the entry filters raise citing ROADMAP Queue 1 step K4b.
 """
 import torch.distributed as _dist
 
@@ -24,7 +25,8 @@ from .collective import (  # noqa: F401
 from .topology import (  # noqa: F401
     HybridTopology, get_mesh, get_topology, set_topology)
 from .parallel import (  # noqa: F401
-    MultiprocessContext, default_backend, init_parallel_env, spawn)
+    DataParallel, MultiprocessContext, default_backend, init_parallel_env,
+    spawn)
 from . import fleet  # noqa: F401
 from . import quant_collectives  # noqa: F401
 
@@ -75,10 +77,9 @@ def init_process_group(*args, **kwargs):
 
 
 _deferred.install(
-    globals(), 'is not ported yet (ROADMAP Queue 1 step K4)',
+    globals(), 'is not ported yet (ROADMAP Queue 1 step K4b)',
     functions=('launch', 'gloo_init_parallel_env', 'gloo_barrier',
                'gloo_release', 'shard_tensor', 'shard_op', 'set_shard_mask',
                'set_offload_device', 'set_pipeline_stage', 'split'),
-    classes=('DataParallel', 'ProcessMesh', 'CountFilterEntry',
-             'ProbabilityEntry', 'BoxPSDataset', 'InMemoryDataset',
-             'QueueDataset'))
+    classes=('ProcessMesh', 'CountFilterEntry', 'ProbabilityEntry',
+             'BoxPSDataset', 'InMemoryDataset', 'QueueDataset'))

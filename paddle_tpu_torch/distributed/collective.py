@@ -61,8 +61,9 @@ GLOO_CUDA_OPS = frozenset({'all_reduce', 'broadcast'})
 class Group:
     """The ranks of one collective: ``ranks`` (global, in axis order),
     ``nranks``, ``index`` (this rank's position), the torch process group
-    (None for one rank) and its backend; ``staged_calls`` /
-    ``staged_bytes`` count the host staging of the one-card transport."""
+    (None for one rank) and its backend; ``calls`` counts the collectives
+    it ran, ``staged_calls`` / ``staged_bytes`` the host staging of the
+    one-card transport."""
 
     def __init__(self, ranks, pg, rank):
         self.ranks = list(ranks)
@@ -72,6 +73,7 @@ class Group:
         self.backend = (dist.get_backend(pg) if pg is not None else None)
         self.staged_calls = 0
         self.staged_bytes = 0
+        self.calls = 0
 
     def __repr__(self):
         return f'Group(ranks={self.ranks}, backend={self.backend})'
@@ -82,6 +84,7 @@ def _staged(grp, op, device):
     then runs on host copies (counted as one staged call)."""
     staged = (device.type == 'cuda' and grp.backend == 'gloo'
               and op not in GLOO_CUDA_OPS)
+    grp.calls += 1
     grp.staged_calls += int(staged)
     return staged
 

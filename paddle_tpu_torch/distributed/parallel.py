@@ -1,6 +1,6 @@
-"""The process world: ``init_parallel_env`` and ``spawn``.
+"""The process world: ``init_parallel_env``, ``spawn`` and ``DataParallel``.
 
-Port of ``paddle_tpu/distributed/parallel.py:18-35`` and
+Port of ``paddle_tpu/distributed/parallel.py:18-58`` and
 ``distributed/__init__.py:70-162``. The reference is one controller a
 host, so ``spawn`` with ``nprocs`` > 1 is its multi-host emulation on the
 CPU. The port is one process per rank: ``spawn`` starts ``nprocs``
@@ -15,13 +15,34 @@ caller's ``'gloo'`` or ``'nccl'``; without one, ``spawn`` picks it before
 any worker starts (``default_backend``): NCCL when each rank has a card
 of its own, else gloo (NCCL refuses two ranks of a communicator on one
 card).
+
+``DataParallel`` (reference ``parallel.py:38-58``). The reference's is an
+identity wrapper: its one controller runs the global batch, so the
+gradient is the global batch's. Here each rank runs its block of the
+batch, and the gradients are averaged over the data axes (dp x sharding,
+``data_group``) at the end of every backward through the layer's call,
+in buckets of ``comm_buffer_size`` MB, one all-reduce a bucket
+(``average_grads``; ``GradSync``, as torch's DDP: the call's outputs
+carry a gradient hook that queues the averaging at the end of the
+backward). A gradient is averaged once: the first ``GradSync`` of a
+Parameter owns it (``_grad_owner``, set when it is attached), and
+``fleet.distributed_optimizer``'s step averages only the Parameters no
+``GradSync`` owns, as a ZeRO optimizer's owned ones are left to it
+(``_zero_owner``). Averaging the
+ranks' gradients is Paddle's DataParallel: a loss normalized by a count
+that differs between the ranks' blocks (cross entropy with
+``ignore_index``) weighs each block by its own count, where the
+reference's one controller takes the global count (ROADMAP Known
+differences).
 """
+import contextlib
 import datetime
 import os
 import shutil
 import tempfile
 import time
 import traceback
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -193,3 +214,184 @@ def spawn(func, args=(), nprocs=-1, join=True, daemon=False, backend=None,
         context.join()
         return None
     return context
+
+
+# ---------------------------------------------------------------------------
+# gradient averaging over the data axes
+# ---------------------------------------------------------------------------
+
+_LOW = (torch.bfloat16, torch.float16)
+
+
+def data_group(mesh=None):
+    """The group of the data axes (dp x sharding) of ``mesh`` (default:
+    the process topology's); None when they span one rank."""
+    from ..parallel.partitioner import Partitioner
+    from .topology import get_mesh
+    mesh = mesh or get_mesh()
+    axes = Partitioner(mesh=mesh).data_axes()
+    grp = mesh.group(axes)
+    return grp if grp is not None and grp.nranks > 1 else None
+
+
+def buckets(tensors, buffer_mb):
+    """``tensors`` grouped in order into lists of at most ``buffer_mb``
+    MB (a larger tensor alone), one dtype a list."""
+    limit = max(1, int(buffer_mb * (1 << 20)))
+    out, cur, size, dt = [], [], 0, None
+    for t in tensors:
+        nb = t.numel() * t.element_size()
+        if cur and (t.dtype != dt or size + nb > limit):
+            out.append(cur)
+            cur, size = [], 0
+        cur.append(t)
+        size += nb
+        dt = t.dtype
+    if cur:
+        out.append(cur)
+    return out
+
+
+def average_grads(grads, grp, buffer_mb=25):
+    """Replace each torch tensor of ``grads`` by its mean over ``grp``, in
+    place: one all-reduce a bucket of ``buffer_mb`` MB (bf16 / fp16 are
+    summed in f32: gloo sums them in their own type). -> the buckets
+    reduced."""
+    from .collective import reduce_tensor
+    if grp is None or grp.nranks == 1:
+        return 0
+    todo = [g for g in grads if g is not None]
+    n = 0
+    for bucket in buckets(todo, buffer_mb):
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        if flat.dtype in _LOW:
+            flat = flat.float()
+        red = reduce_tensor(flat, grp, 'avg')
+        off = 0
+        with torch.no_grad():
+            for g in bucket:
+                k = g.numel()
+                g.copy_(red[off:off + k].view_as(g))
+                off += k
+        n += 1
+    return n
+
+
+def _out_tensors(out):
+    """The torch tensors of a layer's output (nested lists, tuples and
+    dicts of Tensors)."""
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (list, tuple)):
+        for o in out:
+            yield from _out_tensors(o)
+        return
+    t = getattr(out, '_value', out)
+    if isinstance(t, torch.Tensor):
+        yield t
+
+
+class GradSync:
+    """A Layer's gradient averaging at the end of every backward through
+    its call: the call's outputs get a gradient hook that queues
+    ``sync`` on the autograd engine for the end of that backward.
+    ``enabled`` (off under ``no_sync``) is read at the call. It averages
+    the Parameters it owns (those of the layer no other GradSync owned
+    when it was attached), apart from those an eager ZeRO optimizer owns
+    (stage >= 1: it reduces their gradients itself)."""
+
+    def __init__(self, layer, group=None, buffer_mb=25):
+        self._layer = weakref.ref(layer)
+        self.group = group if group is not None else data_group()
+        self.buffer_mb = buffer_mb
+        self.enabled = True
+        self._queued = False
+        for p in layer.parameters():
+            if getattr(p, '_grad_owner', None) is None:
+                p._grad_owner = self
+        layer.register_forward_post_hook(self._on_call)
+
+    def sync(self):
+        layer = self._layer()
+        if layer is None:
+            return 0
+        return average_grads(
+            [p._value.grad for p in layer.parameters()
+             if getattr(p, '_grad_owner', None) is self
+             and getattr(p, '_zero_owner', None) is None],
+            self.group, self.buffer_mb)
+
+    def _on_call(self, layer, inputs, out):
+        if self.enabled and torch.is_grad_enabled():
+            for t in _out_tensors(out):
+                if t.requires_grad:
+                    t.register_hook(self._on_grad)
+        return None
+
+    def _on_grad(self, grad):
+        if not self._queued:
+            self._queued = True
+            torch.autograd.Variable._execution_engine.queue_callback(
+                self._end_of_backward)
+
+    def _end_of_backward(self):
+        self._queued = False
+        self.sync()
+
+
+def attach_grad_sync(layer, group=None, buffer_mb=25):
+    """``layer``'s ``GradSync`` (made once, kept on the layer)."""
+    gs = getattr(layer, '_grad_sync', None)
+    if gs is None:
+        gs = GradSync(layer, group, buffer_mb)
+        object.__setattr__(layer, '_grad_sync', gs)
+    return gs
+
+
+def _layer_base():
+    from ..nn.layer_base import Layer
+    return Layer
+
+
+class DataParallel(_layer_base()):
+    """Reference ``paddle.DataParallel``: the wrapped layer's forward,
+    with its gradients averaged over the data axes after each backward
+    through it (``comm_buffer_size`` MB buckets). ``state_dict`` /
+    ``set_state_dict`` are the layer's (no ``_layers.`` prefix);
+    ``scale_loss`` is the identity and ``apply_collective_grads``
+    averages the gradients now (after backwards under ``no_sync``);
+    ``no_sync()`` skips the averaging of the calls made inside it and
+    their backwards (gradient accumulation)."""
+
+    def __init__(self, layers, strategy=None, comm_buffer_size=25,
+                 last_comm_buffer_size=1, find_unused_parameters=False,
+                 group=None):
+        super().__init__()
+        self._layers = layers
+        object.__setattr__(self, '_sync', attach_grad_sync(
+            layers, group, comm_buffer_size))
+
+    def forward(self, *inputs, **kwargs):
+        return self._layers(*inputs, **kwargs)
+
+    def state_dict(self, *args, **kwargs):
+        return self._layers.state_dict(*args, **kwargs)
+
+    def set_state_dict(self, state_dict, *args, **kwargs):
+        return self._layers.set_state_dict(state_dict, *args, **kwargs)
+
+    load_dict = set_state_dict
+
+    def scale_loss(self, loss):
+        return loss
+
+    def apply_collective_grads(self):
+        self._sync.sync()
+
+    @contextlib.contextmanager
+    def no_sync(self):
+        prev, self._sync.enabled = self._sync.enabled, False
+        try:
+            yield
+        finally:
+            self._sync.enabled = prev

@@ -40,7 +40,8 @@ class Mesh:
     ``axis_index(name)``, ``axis_size(name)``, ``group(name)`` (or a tuple
     of names: the ranks that differ along any of them). ``staged()``: the
     calls and bytes the one-card transport staged through the host over
-    this mesh's groups (``collective.Group``)."""
+    this mesh's groups (``collective.Group``), and every collective they
+    ran ('collectives')."""
 
     axis_names = _AXIS_ORDER
 
@@ -98,15 +99,17 @@ class Mesh:
         return self._groups[key]
 
     def staged(self):
-        """{'calls', 'bytes'} the host staging moved over these groups."""
+        """{'calls', 'bytes'} the host staging moved over these groups,
+        and 'collectives': every collective call over them."""
         seen = {id(g): g for g in self._groups.values() if g is not None}
         return {'calls': sum(g.staged_calls for g in seen.values()),
-                'bytes': sum(g.staged_bytes for g in seen.values())}
+                'bytes': sum(g.staged_bytes for g in seen.values()),
+                'collectives': sum(g.calls for g in seen.values())}
 
     def reset_staged(self):
         for g in self._groups.values():
             if g is not None:
-                g.staged_calls = g.staged_bytes = 0
+                g.staged_calls = g.staged_bytes = g.calls = 0
 
     def __repr__(self):
         return (f'Mesh({ {a: s for a, s in self.shape.items() if s > 1} }, '

@@ -37,10 +37,27 @@ each step kind is counted by ``perf.measure`` (``hapi.train_step``,
 that already runs, never an extra one, since a step updates the
 Parameters in place.
 
-Not ported, raising NotImplementedError citing its ROADMAP Queue 1 step:
-``prepare(strategy=)`` (step K4); ASP sparsity masks are step M's.
+``prepare(strategy=)`` (a ``fleet.DistributedStrategy``; reference
+``model.py:104-127, 195-216, 475-515``): ``strategy.to_partition_rules()``
+gives the partitioner; the network's annotated Parameters are cut to this
+rank's blocks by their ``logical_axes`` (``parallel.shard_params``;
+``meta_parallel``'s layers built under the topology already hold theirs),
+the update goes through ``fleet.distributed_optimizer`` (the gradients
+averaged over the data axes once a step in buckets, the global-norm clip
+over every rank's blocks, ZeRO over the data axes when
+``strategy.sharding``; stage 3 keeps the Layer's parameters whole, as
+stage 2), and ``train_batch`` / ``eval_batch`` take the GLOBAL batch:
+each rank runs its data-axes block (``_maybe_place_batch``), the loss is
+the mean over the data ranks, and the eval outputs are gathered whole, so
+one script gives the reference's losses. A loader whose batch sampler is
+a ``DistributedBatchSampler`` over more than one data rank gives this
+rank's block already: ``fit`` / ``evaluate`` / ``predict`` over it split
+nothing again (``_batches_of``), and ``evaluate`` gathers the labels with
+the outputs. Train-time metrics see the rank's block. ASP sparsity masks
+are ROADMAP step M's.
 """
 import collections
+import contextlib
 import os
 import sys
 import time
@@ -52,15 +69,10 @@ from .. import observability as _obs
 from ..core.nest import map_nested
 from ..core.tensor import Tensor, wrap
 from ..device import current_device
-from ..io import DataLoader, Dataset
+from ..io import DataLoader, Dataset, DistributedBatchSampler
 from ..nn.layer_base import functional_call
 
 HEARTBEAT_ENV = 'PADDLE_HEARTBEAT_FILE'
-
-
-def _deferred(what, step):
-    return NotImplementedError(
-        f'{what} is not ported yet (ROADMAP Queue 1 step {step})')
 
 
 def _touch_heartbeat():
@@ -137,19 +149,42 @@ class Model:
         self._engine_kwargs = None
         self._step_timer = None     # attach a profiler.StepTimer before fit
         self.telemetry = _obs.NULL_SERVER
+        self._strategy = None
+        self._partitioner = None
+        self._dist_opt = None
+        self._data_grp = None
+        self._local_batches = False
 
     # ---- setup -----------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, warmup=None, strategy=None):
         """The optimizer, the loss (a callable of the outputs then the
         labels) and the metrics of ``fit`` / ``evaluate``. Under amp, wrap
-        the calls in ``paddle.amp.auto_cast``."""
-        if strategy is not None:
-            raise _deferred('Model.prepare(strategy=)', 'K4')
+        the calls in ``paddle.amp.auto_cast``. ``strategy``: a
+        ``fleet.DistributedStrategy`` (see the module docstring); set it
+        before the first ``train_batch``."""
         self._optimizer = optimizer
         self._loss = loss
         self._metrics = _to_list(metrics)
         self._opt_init_pending = True
+        if strategy is not None:
+            from ..distributed.parallel import data_group
+            from ..parallel.parallelize import shard_params
+            self._partitioner = pt = strategy.to_partition_rules()
+            self._strategy = strategy
+            shard_params(self.network, pt.mesh, pt)
+            self._data_grp = data_group(pt.mesh)
+        self._dist_opt = None
+        if self._strategy is not None and optimizer is not None:
+            # a later prepare keeps the strategy, as the reference's does
+            from ..distributed import fleet
+            from ..parallel.parallelize import shard_info
+            self._dist_opt = fleet.distributed_optimizer(optimizer,
+                                                         self._strategy)
+            self._dist_opt.set_shard_axes(
+                {n: shard_info(p).axes
+                 for n, p in self.network.named_parameters()
+                 if shard_info(p) is not None})
         if warmup is not None:
             self.prebuild_warmup(warmup)
 
@@ -210,10 +245,60 @@ class Model:
             else out.detach()
         return loss.detach(), out, grads
 
+    def _update_opt(self):
+        """The optimizer the step applies: the strategy's distributed
+        optimizer, else the caller's."""
+        return self._dist_opt if self._dist_opt is not None \
+            else self._optimizer
+
     def _apply(self, grads):
         params = {n: p._value for n, p in self.network.named_parameters()}
-        self._optimizer.functional_apply(params, grads, self._opt_state,
-                                         self._optimizer.get_lr())
+        self._update_opt().functional_apply(params, grads, self._opt_state,
+                                            self._optimizer.get_lr())
+
+    def _maybe_place_batch(self, arr):
+        """This rank's block of a global batch tensor over the
+        partitioner's 'batch' rule (as it is without a strategy, for a
+        scalar, or for a batch that is this rank's block already)."""
+        pt = self._partitioner
+        if pt is None or self._local_batches or getattr(arr, 'ndim', 0) == 0:
+            return arr
+        return pt.place_batch(arr)
+
+    @contextlib.contextmanager
+    def _batches_of(self, loader):
+        """While a loop over ``loader`` runs: a ``DistributedBatchSampler``
+        over more than one data rank has split its batches already, and
+        they are taken as this rank's blocks."""
+        prev = self._local_batches
+        bs = getattr(loader, 'batch_sampler', None)
+        self._local_batches = (self._data_grp is not None and isinstance(
+            bs, DistributedBatchSampler) and bs.nranks > 1)
+        try:
+            yield
+        finally:
+            self._local_batches = prev
+
+    def _data_mean(self, loss):
+        """The mean of a per-rank loss over the data ranks."""
+        if self._data_grp is None or loss is None:
+            return loss
+        from ..distributed.collective import pmean
+        return pmean(loss, self._data_grp)
+
+    def _data_gather(self, out):
+        """Outputs of this rank's block -> the global batch's (gathered
+        over the data ranks along dim 0)."""
+        if self._data_grp is None:
+            return out
+        from ..distributed.collective import all_gather_axis
+
+        def one(o):
+            if isinstance(o, torch.Tensor) and o.dim() > 0:
+                return all_gather_axis(o, self._data_grp, dim=0)
+            return o
+        return [one(o) for o in out] if isinstance(out, (list, tuple)) \
+            else one(out)
 
     def _finish_step(self, loss):
         if not self._async:
@@ -277,11 +362,13 @@ class Model:
                                        and not self._opt_restored):
             # a restored opt_state (Model.load / AutoResume) survives the
             # first step instead of being initialized again
-            self._opt_state = self._optimizer.functional_init(
+            self._opt_state = self._update_opt().functional_init(
                 {n: p._value for n, p in self.network.named_parameters()})
         self._opt_init_pending = False
-        inputs = [self._as_device(t) for t in _to_list(inputs)]
-        labels = [self._as_device(t) for t in _to_list(labels)]
+        inputs = [self._maybe_place_batch(self._as_device(t))
+                  for t in _to_list(inputs)]
+        labels = [self._maybe_place_batch(self._as_device(t))
+                  for t in _to_list(labels)]
         if not update or self._grad_acc is not None:
             # gradient merge: accumulate, and on the last micro step apply
             # the average
@@ -308,7 +395,7 @@ class Model:
                 self._apply(grads)
                 m.set_outputs((loss, out))
             self._last_outputs = out
-        return self._finish_step(loss)
+        return self._finish_step(self._data_mean(loss))
 
     def _flush_grad_acc(self):
         """Apply any pending accumulated gradients (their average over the
@@ -331,10 +418,12 @@ class Model:
         """-> ([loss as a host array] or None, the outputs on the device)."""
         self._enter_mode(False)
         _obs.counter('train.eval_batches').inc()
-        inputs = [self._as_device(t) for t in _to_list(inputs)]
+        inputs = [self._maybe_place_batch(self._as_device(t))
+                  for t in _to_list(inputs)]
         labels = [self._as_device(t) for t in _to_list(labels)]
         with torch.no_grad(), _obs.perf.measure('hapi.eval_step') as m:
             out, _ = functional_call(self.network, None, None, *inputs)
+            out = self._data_gather(out)
             loss = None
             if self._loss is not None and labels:
                 loss = self._compute_loss(out, labels)
@@ -410,7 +499,8 @@ class Model:
         step_counter = _obs.counter('train.steps')
         loss_gauge = _obs.gauge('train.loss')
         from ..optimizer.lr import LRScheduler, ReduceOnPlateau
-        with _obs.span('train.fit', epochs=epochs, start_epoch=start_epoch):
+        with _obs.span('train.fit', epochs=epochs, start_epoch=start_epoch), \
+                self._batches_of(loader):
             # always-on goodput accounting: the run window opens here;
             # steps, data stalls and compile steps are classified below,
             # checkpoint / preemption / requeue badput arrives from the
@@ -527,8 +617,9 @@ class Model:
             return
         out = self._last_outputs
         first = out[0] if isinstance(out, (list, tuple)) else out
+        lab = self._maybe_place_batch(self._as_device(labels[0]))
         for m in self._metrics:
-            res = m.compute(wrap(first), wrap(labels[0]))
+            res = m.compute(wrap(first), wrap(lab))
             # a tuple-returning compute() is unpacked into update(*results)
             acc = m.update(*(res if isinstance(res, (list, tuple))
                              else (res,)))
@@ -547,17 +638,21 @@ class Model:
         for m in self._metrics:
             m.reset()
         losses = []
-        for batch in loader:
-            inputs, labels = self._split_batch(batch)
-            loss, out = self.eval_batch(inputs, labels)
-            if loss is not None:
-                losses.append(loss[0])
-            if self._metrics and labels:
-                outs = out if isinstance(out, (list, tuple)) else [out]
-                for m in self._metrics:
-                    res = m.compute(wrap(outs[0]), wrap(labels[0]))
-                    m.update(*(res if isinstance(res, (list, tuple))
-                               else (res,)))
+        with self._batches_of(loader):
+            for batch in loader:
+                inputs, labels = self._split_batch(batch)
+                if self._local_batches:
+                    # the outputs are gathered whole: so are the labels
+                    labels = self._data_gather(labels)
+                loss, out = self.eval_batch(inputs, labels)
+                if loss is not None:
+                    losses.append(loss[0])
+                if self._metrics and labels:
+                    outs = out if isinstance(out, (list, tuple)) else [out]
+                    for m in self._metrics:
+                        res = m.compute(wrap(outs[0]), wrap(labels[0]))
+                        m.update(*(res if isinstance(res, (list, tuple))
+                                   else (res,)))
         logs = {}
         if losses:
             logs['loss'] = float(np.mean([np.asarray(x) for x in losses]))
@@ -587,26 +682,30 @@ class Model:
         loader = self._as_loader(test_data, batch_size, False)
         device_outs = []
         nominal = None
-        for batch in loader:
-            inputs, _ = self._split_batch(batch)
-            first = inputs[0] if inputs else None
-            n = first.shape[0] if getattr(first, 'ndim', 0) >= 1 else None
-            if nominal is None:
-                nominal = n
-            padded = (bucket_pad and n is not None and nominal is not None
-                      and n < nominal)
-            if padded:
-                pad = nominal - n
-                inputs = [torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
-                          if getattr(x, 'ndim', 0) >= 1 and x.shape[0] == n
-                          else x for x in inputs]
-            _, out = self.eval_batch(inputs, [])
-            outs = out if isinstance(out, (list, tuple)) else [out]
-            if padded:
-                outs = [o[:n] if (getattr(o, 'ndim', 0) >= 1
-                                  and o.shape[0] == nominal) else o
-                        for o in outs]
-            device_outs.append(outs)
+        with self._batches_of(loader):
+            for batch in loader:
+                inputs, _ = self._split_batch(batch)
+                first = inputs[0] if inputs else None
+                n = first.shape[0] if getattr(first, 'ndim', 0) >= 1 else None
+                if nominal is None:
+                    nominal = n
+                # a rank's block is gathered whole: no padding (every
+                # rank's tail block is as long)
+                padded = (bucket_pad and not self._local_batches
+                          and n is not None and nominal is not None
+                          and n < nominal)
+                if padded:
+                    pad = nominal - n
+                    inputs = [torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+                              if getattr(x, 'ndim', 0) >= 1 and x.shape[0] == n
+                              else x for x in inputs]
+                _, out = self.eval_batch(inputs, [])
+                outs = out if isinstance(out, (list, tuple)) else [out]
+                if padded:
+                    outs = [o[:n] if (getattr(o, 'ndim', 0) >= 1
+                                      and o.shape[0] == nominal) else o
+                            for o in outs]
+                device_outs.append(outs)
         # one host read at the end: every batch was queued above
         outputs = [[_host(o) for o in outs] for outs in device_outs]
         n_out = len(outputs[0])

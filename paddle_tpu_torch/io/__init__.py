@@ -196,8 +196,26 @@ def _world():
     return 1, 0
 
 
+def _data_world():
+    """(replicas, rank) of the data axes (dp x sharding: the partitioner's
+    ``data_axes``) of the installed process topology: the ranks of one mp
+    group read the same samples, as the reference's one process a host
+    does. Without a topology, the world's."""
+    from ..distributed import topology
+    topo = topology._current
+    if topo is None:
+        return _world()
+    from ..parallel.partitioner import Partitioner
+    mesh = topo.mesh
+    if mesh.coords is None:
+        return _world()
+    grp = mesh.group(Partitioner(mesh=mesh).data_axes())
+    return (1, 0) if grp is None else (grp.nranks, grp.index)
+
+
 class DistributedBatchSampler(BatchSampler):
-    """Shards the dataset across data-parallel ranks."""
+    """Shards the dataset across the data-parallel ranks (the installed
+    topology's data axes, else the world)."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
@@ -205,7 +223,7 @@ class DistributedBatchSampler(BatchSampler):
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
-        world, own = _world()
+        world, own = _data_world()
         self.nranks = world if num_replicas is None else num_replicas
         self.local_rank = own if rank is None else rank
         self.epoch = 0

@@ -4,10 +4,18 @@
 ``batch_norm`` keeps the reference's running statistics: ``running =
 running * momentum + batch * (1 - momentum)`` with the biased two-pass
 batch variance (torch's ``F.batch_norm`` weighs momentum the other way
-round and keeps the unbiased variance, so it is not used). Its
-``mesh_axis`` (SyncBatchNorm) takes the single-process statistics, as the
-reference's eager fallback does; across processes it raises (ROADMAP
-Queue 1 step K4).
+round and keeps the unbiased variance, so it is not used).
+
+Its ``mesh_axis`` (SyncBatchNorm, reference ``norm.py:75-140``): when the
+process topology's group along that axis spans more than one rank, each
+rank's channel mean and two-pass variance are merged as the reference
+merges them: the means of ``var + mean^2`` and of ``mean`` over the
+group (one all-reduce of the two [C] rows, summed in f32), then ``var =
+max(E[x^2] - mean^2, 0)``. The merge's backward all-reduces the two
+channel rows' cotangents the same way, so each rank's input gradient is
+that of the ranks' summed losses (DataParallel then averages the
+parameters' gradients). The running statistics take the global moments.
+In one process it is BatchNorm.
 """
 import torch
 
@@ -97,10 +105,32 @@ def instance_norm(x, running_mean=None, running_var=None, weight=None,
     return instance_norm_fn(x, weight, bias, eps, data_format)
 
 
-def _cross_process():
+def _sync_group(mesh_axis):
+    """The process topology's group along ``mesh_axis`` when it spans more
+    than one rank (an unknown axis raises), else None."""
     dist = torch.distributed
-    return (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1)
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return None
+    from ...distributed.topology import get_mesh
+    grp = get_mesh().group(mesh_axis)
+    return grp if grp is not None and grp.nranks > 1 else None
+
+
+class _GroupMean(torch.autograd.Function):
+    """The mean over a group, forward and backward (the cotangents of the
+    ranks' summed losses meet the same way), summed in f32."""
+
+    @staticmethod
+    def forward(ctx, x, grp):
+        from ...distributed.collective import pmean
+        ctx.grp = grp
+        return pmean(x.float(), grp).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ...distributed.collective import pmean
+        return pmean(g.float(), ctx.grp).to(g.dtype), None
 
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
@@ -109,10 +139,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                name=None):
     """Returns the output; when training with batch statistics, replaces
     the running statistics' values (detached) as the reference does."""
-    if mesh_axis is not None and _cross_process():
-        raise NotImplementedError(
-            'SyncBatchNorm across processes is not ported yet (ROADMAP '
-            'Queue 1 step K4); in one process it is BatchNorm')
+    grp = _sync_group(mesh_axis) if mesh_axis is not None else None
     chan_axis = 1 if data_format.startswith('NC') else -1
     use_batch_stats = training and not use_global_stats
     # the running statistics are constants of the graph, as in the
@@ -133,6 +160,13 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
             mean = torch.mean(v, dim=axes)
             # two-pass variance (E[x^2] - mean^2 cancels below zero)
             var = torch.mean(torch.square(v - mean.reshape(shape)), dim=axes)
+            if grp is not None:
+                # E[x^2] from the LOCAL mean (the global one would drop
+                # the between-rank variance), then the merge, clamped
+                moments = _GroupMean.apply(
+                    torch.stack([var + torch.square(mean), mean]), grp)
+                mean = moments[1]
+                var = torch.clamp_min(moments[0] - torch.square(mean), 0.0)
         else:
             mean, var = rm, rv
         out = (v - mean.reshape(shape)) * torch.rsqrt(

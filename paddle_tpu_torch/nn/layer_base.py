@@ -252,15 +252,27 @@ class Layer:
         return self.to(dtype=dtype)
 
     # -- state dict -------------------------------------------------------
-    def state_dict(self, destination=None, include_sublayers=True,
-                   structured_name_prefix=''):
-        out = (destination if destination is not None
-               else collections.OrderedDict())
-        for n, p in self.named_parameters(prefix=structured_name_prefix):
+    def _state_entries(self, prefix=''):
+        out = collections.OrderedDict()
+        for n, p in self.named_parameters(prefix=prefix):
             out[n] = p
-        for n, b in self.named_buffers(prefix=structured_name_prefix):
+        for n, b in self.named_buffers(prefix=prefix):
             if n.rsplit('.', 1)[-1] not in self._non_persistable_buffer_names:
                 out[n] = b
+        return out
+
+    def state_dict(self, destination=None, include_sublayers=True,
+                   structured_name_prefix=''):
+        """Parameters and persistable buffers by structured name. A
+        Parameter that holds this rank's block of a tensor split over
+        ranks (``meta_parallel``'s layers, ``parallel.shard_params``) is
+        given whole: its blocks all-gathered into a new Tensor."""
+        out = (destination if destination is not None
+               else collections.OrderedDict())
+        for n, t in self._state_entries(structured_name_prefix).items():
+            info = getattr(t, '_dist', None)
+            out[n] = (t if info is None
+                      else Tensor(info.gather(t._value.detach())))
         return out
 
     def set_state_dict(self, state_dict, use_structured_name=True):
@@ -268,9 +280,10 @@ class Layer:
         numpy arrays, cast to each entry's dtype, on its device). Every
         entry gets storage of its own (the eager optimizer writes it in
         place, so two models loaded from one state dict stay apart), and
-        every parameter stays a leaf that keeps its trainability. ->
-        (missing, unexpected) names."""
-        own = self.state_dict()
+        every parameter stays a leaf that keeps its trainability; a split
+        Parameter given the whole tensor keeps its block. -> (missing,
+        unexpected) names."""
+        own = self._state_entries()
         unexpected = []
         for k, v in state_dict.items():
             if k not in own:
@@ -284,6 +297,11 @@ class Layer:
                                     copy=True)
             else:
                 new = _host_to_torch(v, dtype=t.dtype, device=t.device)
+            info = getattr(own[k], '_dist', None)
+            if info is not None and tuple(new.shape) == info.full_shape:
+                # a whole tensor for a split Parameter: keep this rank's
+                # block of it
+                new = info.slice(new)
             own[k]._replace_value(new)
         missing = [k for k in own if k not in state_dict]
         return missing, unexpected

@@ -1,8 +1,8 @@
 """Norm layers. Port of ``paddle_tpu/nn/layer_norm_layers.py``.
 
-``SyncBatchNorm`` is ``BatchNorm`` in a single process, as the
-reference's eager fallback is (``functional/norm.py``); its
-cross-process statistics wait for ROADMAP Queue 1 step K4.
+``SyncBatchNorm`` merges its batch statistics over the process
+topology's ``mesh_axis`` group (``functional/norm.py``); in a single
+process it is ``BatchNorm``, as the reference's eager fallback is.
 """
 import torch
 
@@ -80,9 +80,9 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """BatchNorm whose statistics would be reduced across processes; in
-    one process it is BatchNorm (across processes ``batch_norm`` raises,
-    ROADMAP Queue 1 step K4)."""
+    """BatchNorm whose batch statistics are merged over the ranks of the
+    topology's ``mesh_axis`` (default 'dp'); in one process it is
+    BatchNorm."""
 
     def __init__(self, num_features, momentum=0.9, epsilon=1e-05,
                  weight_attr=None, bias_attr=None, data_format='NCHW',

@@ -65,6 +65,14 @@ def _f32_scalar(lr, device):
     return torch.full((), float(lr), dtype=torch.float32, device=device)
 
 
+def _clip(clip, grads, shard_axes, mesh):
+    """``clip`` over ``grads``; with ``shard_axes``, over the global
+    gradient that they are blocks of."""
+    if shard_axes is None:
+        return clip.clip_arrays(grads)
+    return clip.clip_arrays(grads, shard_axes, mesh)
+
+
 class Optimizer:
     _decoupled = False       # AdamW-style weight decay (set by subclasses)
 
@@ -133,12 +141,15 @@ class Optimizer:
             return g + wd._coeff * torch.sign(p)
         return g
 
-    def _apply(self, grads, vals, states, lr, clip, wd):
+    def _apply(self, grads, vals, states, lr, clip, wd, shard_axes=None,
+               mesh=None):
         """One group's update, in place on ``vals`` and ``states``:
         ``clip`` over the gradients, then per parameter the decay and the
-        update (the reference's fused apply, op for op)."""
+        update (the reference's fused apply, op for op). ``shard_axes``
+        (each gradient's mesh axes of ``mesh`` it is a block over) makes
+        the clip's norm the global gradient's (``nn.clip``)."""
         if clip is not None:
-            grads = clip.clip_arrays(grads)
+            grads = _clip(clip, grads, shard_axes, mesh)
         for g, p, s in zip(grads, vals, states):
             if g is None:
                 continue
@@ -158,8 +169,10 @@ class Optimizer:
         else:
             yield self._parameters, None
 
-    @torch.no_grad()
-    def step(self):
+    def _step_groups(self):
+        """Each parameter group the eager step updates: (its trainable
+        Parameters that have a gradient, the f32 learning rate, the clip,
+        the weight decay)."""
         from ..nn.layer_base import Parameter
         for plist, group in self._iter_groups():
             params = [p for p in plist
@@ -167,9 +180,6 @@ class Optimizer:
                       and p.trainable]
             if not params:
                 continue
-            for p in params:
-                if id(p) not in self._states:
-                    self._states[id(p)] = self.init_state(p._value)
 
             def _of(key, default):
                 return group[key] if group and key in group else default
@@ -179,11 +189,22 @@ class Optimizer:
             lr = _f32_scalar(self.get_lr() * (1.0 if scale is None
                                               else float(scale)),
                              params[0]._value.device)
+            yield (params, lr, _of('grad_clip', self._grad_clip),
+                   _of('weight_decay', _MISSING))
+
+    def _states_of(self, params):
+        """The eager state of each Parameter, made at its first step."""
+        for p in params:
+            if id(p) not in self._states:
+                self._states[id(p)] = self.init_state(p._value)
+        return [self._states[id(p)] for p in params]
+
+    @torch.no_grad()
+    def step(self):
+        for params, lr, clip, wd in self._step_groups():
             self._apply([p.grad._value for p in params],
-                        [p._value for p in params],
-                        [self._states[id(p)] for p in params], lr,
-                        _of('grad_clip', self._grad_clip),
-                        _of('weight_decay', _MISSING))
+                        [p._value for p in params], self._states_of(params),
+                        lr, clip, wd)
 
     def clear_grad(self, set_to_zero=True):
         for p in self._parameters:
@@ -237,18 +258,21 @@ class Optimizer:
         return tree_map(self.init_state, params)
 
     @torch.no_grad()
-    def functional_apply(self, params, grads, opt_state, lr=None):
+    def functional_apply(self, params, grads, opt_state, lr=None,
+                         shard_axes=None, mesh=None):
         """One update of every parameter with a gradient (a None gradient
         leaves its parameter and state alone), in place: ``grad_clip``
         over all the gradients first, then each gradient cast to its
         parameter's dtype, decoupled decay ``p * (1 - lr * coeff)`` before
         the update or the regularizer folded into the gradient. ``lr``: a
-        number or a 0-d tensor (default ``get_lr()``), used as f32. ->
-        (params, opt_state), the same dicts."""
+        number or a 0-d tensor (default ``get_lr()``), used as f32.
+        ``shard_axes``: each leaf's mesh axes of ``mesh`` it is a block
+        over, in leaf order (see ``_apply``). -> (params, opt_state), the
+        same dicts."""
         lr = self.get_lr() if lr is None else lr
         ps, gs, ss = zip(*_zip_leaves(params, grads, opt_state))
         if self._grad_clip is not None:
-            gs = self._grad_clip.clip_arrays(gs)
+            gs = _clip(self._grad_clip, gs, shard_axes, mesh)
         lr_on = {}
         for p, g, s in zip(ps, gs, ss):
             if g is None:

@@ -2,9 +2,9 @@
 pair, ring (flash) attention over the sp axis, the GPipe and 1F1B
 pipelines, ZeRO 1-3 (step K1), the Mixture-of-Experts layer on one device
 and over dp / ep / mp (``moe``, step K2) and mesh-sharded serving
-(``mesh_engine``, step K3). ``parallelize``'s sharded train step raises
-citing ROADMAP Queue 1 step K4."""
-from .. import _deferred
+(``mesh_engine``, step K3), and the Layer path's sharded train step
+(``parallelize``: ``shard_params``, ``make_sharded_train_step``) and
+LocalSGD (``localsgd``, step K4a)."""
 from . import moe  # noqa: F401
 from .moe import moe_ffn, top2_gating  # noqa: F401
 from .ring_attention import (  # noqa: F401
@@ -21,5 +21,7 @@ from . import tp_ad  # noqa: F401
 
 from . import mesh_engine  # noqa: F401
 from .mesh_engine import MeshContext, build_mesh, serving_rules  # noqa: F401
-_deferred.install(globals(), 'is not ported yet (ROADMAP Queue 1 step K4)',
-                  functions=('make_sharded_train_step', 'shard_params'))
+from . import localsgd  # noqa: F401
+from . import parallelize  # noqa: F401
+from .parallelize import (  # noqa: F401
+    make_sharded_train_step, param_spec, shard_params)

@@ -42,7 +42,8 @@ from ..ops.paged_kv import POOL_LOGICAL_AXES  # noqa: F401  (re-export)
 from .partitioner import (PartitionSpec, Partitioner, ShardingRuleError,
                           model_rules)
 
-__all__ = ['DeviceMesh', 'MeshContext', 'Sharded', 'build_mesh',
+__all__ = ['DeviceMesh', 'MeshContext', 'Sharded', 'ShardTensor',
+           'build_mesh',
            'serving_rules', 'model_logical_axes', 'resolve', 'mesh_of',
            'mesh_size', 'sharded_structs', 'POOL_LOGICAL_AXES']
 
@@ -121,6 +122,63 @@ class Sharded:
     def __repr__(self):
         return (f'Sharded(shape={self.shape}, spec={tuple(self.spec)}, '
                 f'shards={len(self.blocks)})')
+
+
+class ShardTensor(torch.Tensor):
+    """A tensor split over a serving mesh's shards, seen by a forward as
+    one shard's block: its metadata is block 0's, and every torch op on
+    it runs block by block (a plain tensor beside it is every shard's
+    operand, moved to the block's device), giving a ShardTensor of the
+    results. ``meta_parallel``'s layers meet it where the reference's
+    GSPMD meets a split weight: their collectives turn it back into one
+    tensor (the partials summed by ``MeshContext.psum``, or the blocks
+    concatenated). ``ctx``: the MeshContext."""
+
+    @staticmethod
+    def __new__(cls, blocks, ctx):
+        b0 = blocks[0]
+        t = torch.Tensor._make_wrapper_subclass(
+            cls, b0.shape, strides=b0.stride(), dtype=b0.dtype,
+            device=b0.device, requires_grad=False)
+        t.blocks = list(blocks)
+        t.ctx = ctx
+        return t
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    def __repr__(self):
+        return (f'ShardTensor(shards={len(self.blocks)}, '
+                f'shape={tuple(self.blocks[0].shape)})')
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        from torch.utils._pytree import tree_flatten, tree_map
+        kwargs = kwargs or {}
+        lead = next(a for a in tree_flatten((args, kwargs))[0]
+                    if isinstance(a, ShardTensor))
+        outs = []
+        for i, blk in enumerate(lead.blocks):
+            dev = blk.device
+
+            def pick(a, i=i, dev=dev):
+                if isinstance(a, ShardTensor):
+                    return a.blocks[i]
+                if isinstance(a, torch.Tensor) and a.device != dev \
+                        and a.dim() > 0:
+                    return a.to(dev)
+                return a
+            outs.append(func(*tree_map(pick, args),
+                             **tree_map(pick, kwargs)))
+
+        def rewrap(items):
+            first = items[0]
+            if isinstance(first, torch.Tensor):
+                return ShardTensor(items, lead.ctx)
+            if isinstance(first, (tuple, list)):
+                return type(first)(rewrap([it[j] for it in items])
+                                   for j in range(len(first)))
+            return first
+        return rewrap(outs)
 
 
 def _block(x, spec, i, n):

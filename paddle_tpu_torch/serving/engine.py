@@ -45,12 +45,13 @@ after the label (``perf.program_range``), which ``/debug/profile`` counts.
 
 A mesh-sharded replica (``mesh=`` / ``mp=N``, ``parallel/mesh_engine.py``)
 places each parameter by its ``logical_axes`` annotation, as the
-reference does; a Layer's parameters carry none (the annotated layers are
-``meta_parallel``'s, ROADMAP Queue 1 step K4), so every one lands
-replicated and each bucket runs the Layer's forward on the mesh's first
-device, one graph a bucket (the other shards of a virtual mesh share its
-tensors). A parameter whose annotation would split it raises, naming step
-K4. The degree is published as ``serve.mesh_devices{engine=...,
+reference does: a ``meta_parallel`` layer's split parameters become
+``ShardTensor``s of their blocks, and its forward runs each shard's blocks
+and meets the others through ``MeshContext.psum`` (``meta_parallel``'s
+``MeshComm``); every other parameter lands replicated (an annotation that
+would split a plain layer's is a recorded fallback). Each bucket runs on
+the mesh's first device, one graph a bucket holding every shard's work
+(the other shards of a virtual mesh share its device). The degree is published as ``serve.mesh_devices{engine=...,
 mesh="mpN"}``; ``stats()['mesh']`` describes the mesh.
 ``PADDLE_TPU_COMPILE_CACHE`` is not read: a CUDA graph cannot outlive its
 process (ROADMAP known differences).
@@ -92,20 +93,30 @@ _PRECISIONS = ('float32', 'bfloat16', 'float16', 'int8_wo')
 
 def _mesh_place(ctx, layer, params, device):
     """The parameters a mesh engine computes with, on ``device``: each
-    placed by its Parameter's ``logical_axes`` (none: replicated). A split
-    would need the Layer's own sharded forward (``meta_parallel``'s
-    layers), which is not ported."""
+    placed by its Parameter's ``logical_axes`` (none: replicated). A
+    parameter of a ``meta_parallel`` layer that splits becomes a
+    ``ShardTensor`` of its blocks, one a shard, and the layer's forward
+    runs them shard by shard; any other split annotation falls back to
+    replicated (recorded in ``ctx.fallbacks``), the layer computing the
+    whole tensor on one shard."""
+    from ..distributed.fleet.meta_parallel import mesh_split
+    from ..parallel.mesh_engine import ShardTensor
     annot = {n: getattr(p, 'logical_axes', None)
              for n, p in layer.named_parameters()}
+    owned = mesh_split(layer)
+    out = {}
     for k, v in params.items():
         spec = ctx.spec(annot.get(k), tuple(v.shape), label=k)
-        if any(e is not None for e in spec):
-            raise NotImplementedError(
-                f'InferenceEngine over a mesh: parameter {k!r} splits as '
-                f'{tuple(spec)}; a Layer sharded over mp runs through '
-                "meta_parallel's layers, not ported yet (ROADMAP Queue 1 "
-                'step K4)')
-    return {k: v.to(device) for k, v in params.items()}
+        if not any(e is not None for e in spec):
+            out[k] = v.to(device)
+        elif k in owned:
+            out[k] = ShardTensor(ctx.place_leaf(v, annot[k], k).blocks, ctx)
+        else:
+            ctx.fallbacks.append({'tensor': k, 'reason': (
+                f'splits as {tuple(spec)} but its layer has no sharded '
+                'forward (meta_parallel\'s layers do): replicated')})
+            out[k] = v.to(device)
+    return out
 
 
 def _wo_param_axes(layer):

@@ -544,18 +544,26 @@ def test_the_sync_executor_reads_every_loss(monkeypatch):
 
 
 def test_every_deferral_names_its_step():
-    """strategy= waits for step K and sparsity for step M; step F's
+    """Sparsity waits for step M; step K4a's ``prepare(strategy=)`` is
+    ported: a ``DistributedStrategy`` prepares (one process: a topology of
+    one rank), and an object that is not one is refused as the
+    reference refuses it (it has no ``to_partition_rules``). Step F's
     ``fit(telemetry_port=)`` is ported: the run serves the telemetry plane
     (``model.telemetry``)."""
     import urllib.request
     net = _mlp(port)
     model = port.Model(net)
-    calls = [('K', lambda: model.prepare(strategy=object())),
-             ('M', lambda: port.sparsity.prune_model(net)),
+    calls = [('M', lambda: port.sparsity.prune_model(net)),
              ('M', lambda: port.sparsity.decorate(None))]
     for step, call in calls:
         with pytest.raises(NotImplementedError, match=f'step {step}'):
             call()
+    for P, m in ((ref, ref.Model(_mlp(ref))), (port, model)):
+        with pytest.raises(AttributeError, match='to_partition_rules'):
+            m.prepare(strategy=object())
+    model.prepare(_optimizer(port, 'sgd', net), port.nn.CrossEntropyLoss(),
+                  strategy=port.distributed.fleet.DistributedStrategy())
+    assert model._partitioner.data_axes() == ('dp',)
     xs, ys = _data(8, seed=5)
     model.prepare(_optimizer(port, 'sgd', net), port.nn.CrossEntropyLoss())
     model.fit(_dataset(port, xs, ys), epochs=1, batch_size=8, verbose=0,

@@ -330,10 +330,19 @@ def test_inference_engine_parity_mp2(model):
     finally:
         e2.shutdown()
     np.testing.assert_allclose(got, want, atol=1e-6)
-    # a parameter annotated to split needs meta_parallel's layers
+    # a split annotation on a plain layer's parameter now serves: the
+    # layer has no sharded forward (meta_parallel's layers do), so the
+    # parameter is placed whole, recorded as a fallback, held to mp = 1
     net[0].weight.logical_axes = ('embed', 'mlp')
-    with pytest.raises(NotImplementedError, match='step K4'):
-        sharded_inference_engine(net, mp=2, devices=cpus(2))
+    e3 = sharded_inference_engine(net, mp=2, devices=cpus(2),
+                                  max_batch_size=4, max_delay_ms=1)
+    try:
+        split = np.asarray(e3.submit(x).result(timeout=120))
+        fb = e3.stats()['mesh']['fallbacks']
+    finally:
+        e3.shutdown()
+    np.testing.assert_allclose(split, got, atol=1e-6)
+    assert [f['tensor'] for f in fb] == ['0.weight']
 
 
 def test_mesh_replica_wrapper(model):

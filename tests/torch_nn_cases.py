@@ -997,18 +997,156 @@ def ernie_mlm(P, vocab, hidden, layers, heads, ffn, max_seq_len=512,
     return ErnieMLM()
 
 
-def mlm_batch(vocab, b, s, lo, hi, seed=0, mask_share=0.15):
+def ernie_mlm_mp(P, vocab, hidden, layers, heads, ffn, max_seq_len=512,
+                 type_vocab=2, dropout=0.1):
+    """``ernie_mlm`` written with ``fleet.meta_parallel``'s layers, one
+    source for any mp degree: a Column qkv of 3 x hidden laid out head by
+    head ([q_h, k_h, v_h] for each head h, so a column block holds whole
+    heads) and a Row out-projection; a Column fc1 and a Row fc2
+    (``input_is_parallel``); a ``VocabParallelEmbedding`` word table; a
+    Column LM head with ``gather_output``; attention through
+    ``F.scaled_dot_product_attention`` on the rank's heads (reshaped to
+    [b, s, -1, head_dim], never a fixed head count). At mp = 1 it is
+    ``ernie_mlm``'s function, weight for weight (``mlm_mp_state``)."""
+    nn, F = P.nn, P.nn.functional
+    fleet = P.distributed.fleet
+    hd = hidden // heads
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.qkv = fleet.ColumnParallelLinear(hidden, 3 * hidden,
+                                                  gather_output=False)
+            self.out = fleet.RowParallelLinear(hidden, hidden,
+                                               input_is_parallel=True)
+            self.fc1 = fleet.ColumnParallelLinear(hidden, ffn,
+                                                  gather_output=False)
+            self.fc2 = fleet.RowParallelLinear(ffn, hidden,
+                                               input_is_parallel=True)
+            self.norm1 = nn.LayerNorm(hidden)
+            self.norm2 = nn.LayerNorm(hidden)
+            self.drop1 = nn.Dropout(dropout)
+            self.drop2 = nn.Dropout(dropout)
+            self.drop_act = nn.Dropout(dropout)
+
+        def forward(self, x, mask):
+            b, s = x.shape[0], x.shape[1]
+            qkv = self.qkv(x).reshape([b, s, -1, 3 * hd])
+            q, k, v = qkv[:, :, :, :hd], qkv[:, :, :, hd:2 * hd], \
+                qkv[:, :, :, 2 * hd:]
+            a = F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask,
+                dropout_p=dropout if self.training else 0.0,
+                training=self.training)
+            x = self.norm1(x + self.drop1(self.out(a.reshape([b, s, -1]))))
+            h = self.fc2(self.drop_act(F.gelu(self.fc1(x))))
+            return self.norm2(x + self.drop2(h))
+
+    class ErnieMLMmp(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.word = fleet.VocabParallelEmbedding(vocab, hidden)
+            self.pos = nn.Embedding(max_seq_len, hidden)
+            self.type = nn.Embedding(type_vocab, hidden)
+            self.norm = nn.LayerNorm(hidden)
+            self.drop = nn.Dropout(dropout)
+            self.layers = nn.LayerList([Block() for _ in range(layers)])
+            self.head = fleet.ColumnParallelLinear(hidden, vocab,
+                                                   gather_output=True)
+
+        def forward(self, tokens, types, mask):
+            s = tokens.shape[1]
+            x = (self.word(tokens) + self.pos(P.arange(s))
+                 + self.type(types))
+            x = self.drop(self.norm(x))
+            for blk in self.layers:
+                x = blk(x, mask)
+            return self.head(x)
+
+        def loss(self, tokens, types, mask, labels):
+            logits = self(tokens, types, mask).astype('float32')
+            return F.cross_entropy(logits.reshape([-1, vocab]),
+                                   labels.reshape([-1]), ignore_index=-100)
+
+    return ErnieMLMmp()
+
+
+_MP_NAMES = (('self_attn.out_proj', 'out'), ('linear1', 'fc1'),
+             ('linear2', 'fc2'), ('norm1', 'norm1'), ('norm2', 'norm2'))
+
+
+def mlm_mp_state(state, heads):
+    """``ernie_mlm``'s state dict (numpy, by name) -> ``ernie_mlm_mp``'s:
+    q / k / v projections interleaved head by head into ``qkv``, the rest
+    renamed."""
+    out = {}
+    for k, v in state.items():
+        if not k.startswith('encoder.layers.'):
+            out[k] = v
+            continue
+        i, rest = k[len('encoder.layers.'):].split('.', 1)
+        for a, b in _MP_NAMES:
+            if rest.startswith(a + '.'):
+                out[f'layers.{i}.{b}{rest[len(a):]}'] = v
+    n_layers = len({k.split('.')[2] for k in state
+                    if k.startswith('encoder.layers.')})
+    for i in range(n_layers):
+        pre = f'encoder.layers.{i}.self_attn.'
+        for kind in ('weight', 'bias'):
+            parts = [np.asarray(state[f'{pre}{n}_proj.{kind}'])
+                     for n in 'qkv']
+            lead = parts[0].shape[:-1]
+            h = parts[0].shape[-1]
+            st = np.stack([p.reshape(lead + (heads, h // heads))
+                           for p in parts], axis=-2)
+            out[f'layers.{i}.qkv.{kind}'] = st.reshape(lead + (3 * h,))
+    return out
+
+
+def mlm_state_from_mp(state, heads):
+    """``mlm_mp_state``'s inverse: ``ernie_mlm_mp``'s state -> the names
+    and layout of ``ernie_mlm``'s."""
+    out = {}
+    for k, v in state.items():
+        if not k.startswith('layers.'):
+            out[k] = v
+            continue
+        i, rest = k[len('layers.'):].split('.', 1)
+        for a, b in _MP_NAMES:
+            if rest.startswith(b + '.'):
+                out[f'encoder.layers.{i}.{a}{rest[len(b):]}'] = v
+        if rest.startswith('qkv.'):
+            kind = rest[len('qkv.'):]
+            v = np.asarray(v)
+            lead = v.shape[:-1]
+            h = v.shape[-1] // 3
+            st = v.reshape(lead + (heads, 3, h // heads))
+            for j, n in enumerate('qkv'):
+                out[f'encoder.layers.{i}.self_attn.{n}_proj.{kind}'] = \
+                    st[..., j, :].reshape(lead + (h,))
+    return out
+
+
+def mlm_batch(vocab, b, s, lo, hi, seed=0, mask_share=0.15, per_row=None):
     """(tokens int32 [B, S], types int32 [B, S], key-padding mask bool
     [B, 1, 1, S], labels int32 [B, S], lengths): lengths from numpy
     ``seed`` in [lo, hi]; ``mask_share`` of the real positions masked
-    (their labels the tokens, the inputs MASK_ID), -100 elsewhere."""
+    (their labels the tokens, the inputs MASK_ID), -100 elsewhere; with
+    ``per_row``, exactly that many real positions of each row (so every
+    block of rows holds its share of the masked tokens: the mean of the
+    blocks' mean losses is the batch's)."""
     rng = np.random.RandomState(seed)
     lens = rng.randint(lo, hi + 1, b)
     pos = np.arange(s)[None, :]
     real = pos < lens[:, None]
     toks = np.where(real, rng.randint(5, vocab, (b, s)), 0).astype('int32')
     types = (real & (pos >= lens[:, None] // 2)).astype('int32')
-    picked = real & (rng.rand(b, s) < mask_share)
+    if per_row is None:
+        picked = real & (rng.rand(b, s) < mask_share)
+    else:
+        picked = np.zeros((b, s), bool)
+        for r in range(b):
+            picked[r, rng.choice(lens[r], per_row, replace=False)] = True
     labels = np.where(picked, toks, -100).astype('int32')
     toks = np.where(picked, MASK_ID, toks).astype('int32')
     return toks, types, real[:, None, None, :], labels, lens

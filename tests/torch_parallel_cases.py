@@ -429,3 +429,363 @@ def moe_layouts(outdir):
                          'back': _tree_np(back)}
     out['hybrid'] = hybrid
     _save(outdir, 'moe', r, out)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_fleet_parallel.py: fleet's data- and tensor-parallel
+# Layer path over 2 ranks
+# ---------------------------------------------------------------------------
+
+# the ERNIE-width MLM program (tests/torch_nn_cases.py) cut to a CPU test
+FLEET = dict(vocab=128, hidden=64, layers=2, heads=4, ffn=128,
+             max_seq_len=32, dropout=0.0)
+FLEET_BATCH = (4, 32)
+FLEET_STEPS = 2
+FLEET_OPT = dict(learning_rate=1e-3, weight_decay=0.01, epsilon=1e-6)
+FLEET_CLIP = 1.0
+# the eager data-parallel forms: (name, how the program is wrapped)
+DP_FORMS = ('dataparallel', 'model', 'optimizer', 'both', 'buckets',
+            'zero2')
+BUCKET_MB = 0.05         # 'buckets': DataParallel(comm_buffer_size=)
+# hapi fit with a strategy: the global batch in (dp2, mp2), or a loader
+# over a DistributedBatchSampler giving each rank its block (dp2_sampler)
+HAPI_LAYOUTS = ('dp2', 'mp2', 'dp2_sampler')
+MLP_LR = 1e-2
+MLP_CLIP = 0.05          # small enough that the clip acts
+LSGD_LR = 0.2
+
+
+def _fleet(paddle, strategy_kw=None, **degrees):
+    from paddle_tpu_torch.distributed import fleet
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs = {f'{k}_degree': v for k, v in degrees.items()}
+    for k, v in (strategy_kw or {}).items():
+        setattr(st, k, v)
+    return fleet, st, fleet.init(is_collective=True, strategy=st)
+
+
+def _mlm_net(paddle, inp, mp):
+    import torch_nn_cases as N
+    paddle.seed(0)
+    if mp:
+        net = N.ernie_mlm_mp(paddle, **FLEET)
+        net.set_state_dict(N.mlm_mp_state(inp['mlm_state'], FLEET['heads']))
+    else:
+        net = N.ernie_mlm(paddle, **FLEET)
+        net.set_state_dict(inp['mlm_state'])
+    return net
+
+
+def _adamw(paddle, params):
+    return paddle.optimizer.AdamW(
+        parameters=params, grad_clip=paddle.nn.ClipGradByGlobalNorm(
+            FLEET_CLIP), **FLEET_OPT)
+
+
+def _state_np(net):
+    return {k: _np(v._value) for k, v in net.state_dict().items()}
+
+
+def _block(arrays, rank, n=2):
+    b = arrays[0].shape[0] // n
+    return [a[rank * b:(rank + 1) * b] for a in arrays]
+
+
+def _mlm_loss(paddle, logits, labels):
+    F = paddle.nn.functional
+    return F.cross_entropy(logits.astype('float32').reshape(
+        [-1, FLEET['vocab']]), labels.reshape([-1]), ignore_index=-100)
+
+
+def _dp_form(paddle, inp, rank, form):
+    """One eager data-parallel program form over dp2: the rank's block of
+    the batch, ``FLEET_STEPS`` AdamW steps; each step's local loss and
+    collective calls."""
+    from paddle_tpu_torch.distributed import DataParallel
+    kw = ({'sharding': True, 'sharding_configs': {'stage': 2}}
+          if form == 'zero2' else None)
+    fleet, st, topo = _fleet(paddle, kw, dp=2)
+    net = _mlm_net(paddle, inp, mp=False)
+    if form == 'dataparallel':
+        model = paddle.DataParallel(net)
+    elif form == 'buckets':
+        model = DataParallel(net, comm_buffer_size=BUCKET_MB)
+    elif form in ('model', 'both', 'zero2'):
+        model = fleet.distributed_model(net)
+    else:
+        model = net
+    opt = _adamw(paddle, net.parameters())
+    if form in ('optimizer', 'both', 'zero2'):
+        opt = fleet.distributed_optimizer(opt, st)
+    toks, types, mask, labels = [paddle.to_tensor(a) for a in
+                                 _block(inp['batch'], rank)]
+    losses, calls = [], []
+    for _ in range(FLEET_STEPS):
+        topo.mesh.reset_staged()
+        loss = _mlm_loss(paddle, model(toks, types, mask), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        calls.append(topo.mesh.staged()['collectives'])
+        losses.append(float(loss))
+    grads = [p._value for p in net.parameters()]
+    return {'losses': losses, 'calls': calls, 'state': _state_np(net),
+            'n_param_bytes': [g.numel() * 4 for g in grads]}
+
+
+def _mp_eager(paddle, inp, outdir, rank):
+    """mp2: the ernie_mlm_mp program, its weights sliced from the full
+    state, distributed_model + distributed_optimizer, the whole batch on
+    both ranks."""
+    fleet, st, topo = _fleet(paddle, mp=2)
+    net = fleet.distributed_model(_mlm_net(paddle, inp, mp=True))
+    opt = fleet.distributed_optimizer(_adamw(paddle, net.parameters()), st)
+    toks, types, mask, labels = [paddle.to_tensor(a) for a in inp['batch']]
+    losses, calls = [], []
+    for _ in range(FLEET_STEPS):
+        topo.mesh.reset_staged()
+        loss = net.loss(toks, types, mask, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        calls.append(topo.mesh.staged()['collectives'])
+        losses.append(float(loss))
+    state = _state_np(net)
+    # the whole state, gathered on every rank, written once by rank 0
+    full = net.state_dict()
+    if rank == 0:
+        paddle.save(full, os.path.join(outdir, 'mp2.pdparams'))
+    local = {n: tuple(p._value.shape) for n, p in net.named_parameters()}
+    return {'losses': losses, 'calls': calls, 'state': state,
+            'local_shapes': local}
+
+
+def _sharded_step(paddle, inp, rank, layout):
+    import torch_nn_cases as N
+    from paddle_tpu_torch.parallel import make_sharded_train_step
+    mp = layout == 'mp2'
+    fleet, st, topo = _fleet(paddle, **({'mp': 2} if mp else {'dp': 2}))
+    net = _mlm_net(paddle, inp, mp)
+    opt = _adamw(paddle, net.parameters())
+    step, init = make_sharded_train_step(
+        net, N.mlm_loss(paddle, FLEET['vocab']), opt, mesh=topo.mesh,
+        batch_axes=('dp',))
+    params, bufs, state = init()
+    toks, types, mask, labels = inp['batch']
+    losses = []
+    for _ in range(FLEET_STEPS):
+        loss, params, bufs, state = step(params, bufs, state, None,
+                                         FLEET_OPT['learning_rate'],
+                                         (toks, types, mask), (labels,))
+        losses.append(float(loss))
+    return {'losses': losses, 'state': _state_np(net)}
+
+
+def _hapi_fit(paddle, inp, rank, layout):
+    import torch_nn_cases as N
+    mp = layout == 'mp2'
+    fleet, st, topo = _fleet(paddle, **({'mp': 2} if mp else {'dp': 2}))
+    net = _mlm_net(paddle, inp, mp)
+    model = paddle.Model(net)
+    model.prepare(_adamw(paddle, net.parameters()),
+                  N.mlm_loss(paddle, FLEET['vocab']), strategy=st)
+    rows = N.mlm_rows(paddle, [np.concatenate([a] * FLEET_STEPS)
+                               for a in inp['batch']])
+    if layout == 'dp2_sampler':
+        # upstream Paddle's pattern: the sampler splits the dataset over
+        # the data ranks (rank r reads rows r, r + 2, ...), so each step's
+        # two blocks are the global batch's rows
+        loader = paddle.io.DataLoader(
+            rows, batch_sampler=paddle.io.DistributedBatchSampler(
+                rows, batch_size=FLEET_BATCH[0] // 2))
+    else:
+        loader = paddle.io.DataLoader(rows, batch_size=FLEET_BATCH[0],
+                                      shuffle=False)
+    losses = []
+
+    class Losses(paddle.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            losses.append(float(logs['loss']))
+    model.fit(loader, epochs=1, log_freq=1, verbose=0, callbacks=[Losses()])
+    ev = model.evaluate(loader, verbose=0)
+    return {'losses': losses, 'state': _state_np(net), 'eval': ev}
+
+
+def _mlp_loss(params, x, y):
+    h = torch.relu(x @ params['w1'] + params['b1'])
+    return torch.mean(torch.square(h @ params['w2'] - y))
+
+
+def _zero_stage(paddle, inp, rank, stage):
+    """ZeRO stage 1-3 through fleet.distributed_optimizer's
+    functional_apply on the MLP: each rank's block of the batch; stage 3
+    passes the parameters as blocks."""
+    from paddle_tpu_torch.parallel import zero
+    fleet, st, topo = _fleet(
+        paddle, {'sharding': True, 'sharding_configs': {'stage': stage}},
+        dp=2)
+    mesh = topo.mesh
+    params = {k: torch.tensor(v) for k, v in inp['mlp'].items()}
+    opt = paddle.optimizer.AdamW(
+        learning_rate=MLP_LR, weight_decay=0.01, epsilon=1e-6,
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(MLP_CLIP))
+    dopt = fleet.distributed_optimizer(opt, st)
+    state = dopt.functional_init(params)
+    specs = zero.zero_specs(params, mesh, ('dp',))
+    cur = zero.place(params, mesh, ('dp',)) if stage >= 3 else params
+    x, y = (torch.tensor(a) for a in _block(inp['mlp_xy'], rank))
+    for _ in range(FLEET_STEPS):
+        full = zero.replicate(cur, specs, mesh) if stage >= 3 else cur
+        live = {k: v.detach().requires_grad_() for k, v in full.items()}
+        loss = _mlp_loss(live, x, y)
+        grads = dict(zip(live, torch.autograd.grad(loss, list(
+            live.values()))))
+        cur, state = dopt.functional_apply(cur, grads, state, MLP_LR)
+    out = zero.replicate(cur, specs, mesh) if stage >= 3 else cur
+    return {k: _np(v) for k, v in out.items()}
+
+
+def _lars(paddle, inp, rank):
+    fleet, st, topo = _fleet(paddle, {'lars': True}, dp=2)
+    opt = fleet.distributed_optimizer(
+        paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9), st)
+    params = {k: torch.tensor(v) for k, v in inp['mlp'].items()}
+    state = opt.functional_init(params)
+    x, y = (torch.tensor(a) for a in _block(inp['mlp_xy'], rank))
+    for _ in range(FLEET_STEPS):
+        live = {k: v.detach().requires_grad_() for k, v in params.items()}
+        grads = dict(zip(live, torch.autograd.grad(
+            _mlp_loss(live, x, y), list(live.values()))))
+        params, state = opt.functional_apply(params, grads, state, 0.1)
+    return {'inner': type(opt._inner).__name__,
+            'params': {k: _np(v) for k, v in params.items()}}
+
+
+def _quad(params, x):
+    return torch.mean(torch.square(x @ params['w'] - 1.0))
+
+
+def _localsgd(paddle, inp, rank):
+    from paddle_tpu_torch.parallel.localsgd import (
+        collapse_replicas, make_localsgd_train_step, replicate_for_localsgd)
+    fleet, st, topo = _fleet(paddle, dp=2)
+    out = {}
+    for k, steps in ((1, 1), (4, 4)):
+        opt = paddle.optimizer.SGD(learning_rate=LSGD_LR)
+        params = {'w': torch.tensor(inp['lsgd_w'])}
+        step = make_localsgd_train_step(_quad, opt, topo.mesh, k_steps=k)
+        p = replicate_for_localsgd(params)
+        s = replicate_for_localsgd(opt.functional_init(params))
+        ws, losses = [], []
+        for i in range(steps):
+            loss, p, s = step(p, s, torch.tensor(inp['lsgd_x']), i, LSGD_LR)
+            ws.append(_np(p['w']))
+            losses.append(float(loss))
+        out[k] = {'w': ws, 'losses': losses,
+                  'collapsed': _np(collapse_replicas(p)['w'])}
+    return out
+
+
+def _syncbn(paddle, inp, rank):
+    fleet, st, topo = _fleet(paddle, dp=2)
+    paddle.seed(0)
+    bn = paddle.nn.SyncBatchNorm(inp['bn_x'].shape[1])
+    bn.set_state_dict({'weight': inp['bn_w'], 'bias': inp['bn_b']})
+    x = paddle.to_tensor(_block([inp['bn_x']], rank)[0], stop_gradient=False)
+    cot = paddle.to_tensor(_block([inp['bn_cot']], rank)[0])
+    out = bn(x)
+    (out * cot).sum().backward()
+    return {'out': _np(out._value), 'x_grad': _np(x.grad._value),
+            'w_grad': _np(bn.weight.grad._value),
+            'b_grad': _np(bn.bias.grad._value),
+            'mean': _np(bn._mean._value), 'var': _np(bn._variance._value)}
+
+
+def _mp_layers(paddle, inp, rank):
+    """The three meta_parallel layers at mp2 from full weights: outputs,
+    the input's gradient and the gathered parameter gradients of
+    sum(out * cot)."""
+    fleet, st, topo = _fleet(paddle, mp=2)
+    out = {}
+    L = inp['layers']
+    for name, make, x, cot in (
+            ('col_gather', lambda: fleet.ColumnParallelLinear(
+                16, 8, gather_output=True), L['x16'], L['cot8']),
+            ('col_split', lambda: fleet.ColumnParallelLinear(
+                16, 8, gather_output=False), L['x16'],
+             _block([L['cot8'].transpose(2, 0, 1)], rank)[0]
+             .transpose(1, 2, 0)),
+            ('row_full', lambda: fleet.RowParallelLinear(
+                8, 16, input_is_parallel=False), L['x8'], L['cot16']),
+            ('row_parallel', lambda: fleet.RowParallelLinear(
+                8, 16, input_is_parallel=True),
+             _block([L['x8'].transpose(2, 0, 1)], rank)[0]
+             .transpose(1, 2, 0), L['cot16']),
+            ('vocab', lambda: fleet.VocabParallelEmbedding(32, 8),
+             L['ids'], L['cot_emb'])):
+        paddle.seed(0)
+        layer = make()
+        layer.set_state_dict(L[name.split('_')[0]])
+        xt = paddle.to_tensor(np.ascontiguousarray(x),
+                              stop_gradient=(name == 'vocab'))
+        y = layer(xt)
+        (y * paddle.to_tensor(np.ascontiguousarray(cot))).sum().backward()
+        grads = {}
+        for n, p in layer.named_parameters():
+            g = p.grad._value
+            info = getattr(p, '_dist', None)
+            grads[n] = _np(info.gather(g) if info is not None else g)
+        out[name] = {'out': _np(y._value), 'grads': grads,
+                     'x_grad': (None if name == 'vocab'
+                                else _np(xt.grad._value)),
+                     'shapes': {n: tuple(p._value.shape)
+                                for n, p in layer.named_parameters()},
+                     'state': _state_np(layer)}
+    return out
+
+
+def _metrics(paddle, rank):
+    from paddle_tpu_torch.distributed.fleet import metrics as M
+    pos = np.array([1, 2, 3, 4], 'float64') * (rank + 1)
+    neg = np.array([4, 3, 2, 1], 'float64') + rank
+    return {'sum': M.sum(np.array([rank + 1.0, 2.0 ** 30 + rank])),
+            'max': M.max(np.array([rank, -rank])),
+            'min': M.min(np.array([rank, -rank])),
+            'auc': M.auc(pos, neg), 'mae': M.mae(1.5 + rank, 3 + rank),
+            'mse': M.mse(2.0 * (rank + 1), 4), 'rmse': M.rmse(2.0, 4),
+            'acc': M.acc(rank + 3, 10)}
+
+
+def _sampler(paddle):
+    from paddle_tpu_torch.io import DistributedBatchSampler
+    out = {}
+    for name, deg in (('mp2', {'mp': 2}), ('dp2', {'dp': 2})):
+        _fleet(paddle, **deg)
+        s = DistributedBatchSampler(list(range(10)), batch_size=2)
+        out[name] = [list(b) for b in s]
+    return out
+
+
+def fleet_cases(outdir):
+    """Every case of tests/test_torch_fleet_parallel.py on one of 2
+    ranks; writes fleet.rank<r>.pkl."""
+    dist = _start()
+    import paddle_tpu_torch as paddle
+    paddle.set_device('cpu')
+    rank = dist.get_rank()
+    inp = _inputs(outdir)
+    res = {'rank': rank}
+    res['sampler'] = _sampler(paddle)
+    res['dp'] = {f: _dp_form(paddle, inp, rank, f) for f in DP_FORMS}
+    res['mp_eager'] = _mp_eager(paddle, inp, outdir, rank)
+    res['sharded'] = {lay: _sharded_step(paddle, inp, rank, lay)
+                      for lay in ('dp2', 'mp2')}
+    res['hapi'] = {lay: _hapi_fit(paddle, inp, rank, lay)
+                   for lay in HAPI_LAYOUTS}
+    res['zero'] = {s: _zero_stage(paddle, inp, rank, s) for s in (1, 2, 3)}
+    res['lars'] = _lars(paddle, inp, rank)
+    res['localsgd'] = _localsgd(paddle, inp, rank)
+    res['syncbn'] = _syncbn(paddle, inp, rank)
+    res['layers'] = _mp_layers(paddle, inp, rank)
+    res['metrics'] = _metrics(paddle, rank)
+    _save(outdir, 'fleet', rank, res)
